@@ -1,0 +1,180 @@
+"""The inference engine: graph -> optimization passes -> an eager walk of
+the lowered ops.
+
+Counterpart of ``feathercnn_tpu/engine.py``.  Init runs the reference's
+steps in the reference's order (baked overrides -> ``optimize`` ->
+``quantize_graph`` -> ``infer_shapes``); the weights move to the device
+once; a forward walks the node list, lowering each node to PyTorch ops
+(and, on the "cuda" backend, to the hand-written kernels).  There is no
+trace or compile step: PyTorch runs eagerly.
+
+The engine runs on the first CUDA device unless the caller passes
+``device="cpu"``; it never falls back to the CPU on its own.  Float32
+convolutions on the card follow ``torch.backends.cudnn.allow_tf32``, which
+is True by default: a caller holding float32 results to tight tolerances
+sets it (and ``torch.backends.cuda.matmul.allow_tf32``) to False.
+"""
+
+from __future__ import annotations
+
+import copy
+from typing import Any, Dict, List, Optional, Sequence, Union
+
+import numpy as np
+import torch
+
+from .config import EngineConfig, apply_baked_overrides
+from .ir import Graph, infer_shapes
+from .ops.lowering import LoweringCtx, lower_node
+from .passes import optimize
+
+__all__ = ["Engine", "resolve_device"]
+
+
+def resolve_device(device=None) -> torch.device:
+    """``None`` means the first CUDA device; raises when there is none."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device is available: the port runs on the GPU by "
+                "default; pass device='cpu' to run it on the CPU")
+        return torch.device("cuda", torch.cuda.current_device())
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {device!r} requested but no CUDA device "
+                           "is available")
+    return dev
+
+
+class Engine:
+    def __init__(self, graph: Graph, config: Optional[EngineConfig] = None,
+                 optimize_graph: bool = True, device=None):
+        self.config = config or EngineConfig()
+        self.device = resolve_device(device)
+        self.graph = copy.deepcopy(graph)
+        # Auto-tuned per-layer algo choices baked into the model artifact
+        # apply unless the config overrides them.
+        baked = self.graph.meta.get("algo_overrides")
+        if baked and not self.config.algo_overrides:
+            self.config = self.config.replace(
+                algo_overrides=tuple(baked.items()))
+        # Per-model measured config defaults.
+        self.config = apply_baked_overrides(self.config, self.graph.meta)
+        self.config.check_supported()
+        if self.config.interpret and self.device.type != "cpu":
+            raise ValueError("interpret=True means the CPU in the port (CPU "
+                             "tensors take the kernels' plain versions): "
+                             "pass device='cpu'")
+        if optimize_graph:
+            optimize(self.graph,
+                     merge_siblings=self.config.merge_siblings,
+                     merge_concats=self.config.merge_concats,
+                     fold_scale_chains=self.config.fold_scale_chains,
+                     nested_pools=self.config.nested_pools)
+        if self.config.quant:
+            from .quant.rewrite import quantize_graph
+            quantize_graph(self.graph, self.config.quant,
+                           int8_grouped=self.config.int8_grouped,
+                           requant_ops=self.config.int8_requant_ops,
+                           int8_axpy=self.config.int8_axpy,
+                           fp_act_layers=self.config.fp_act_layers,
+                           quant_overrides=dict(
+                               self.config.quant_overrides))
+        infer_shapes(self.graph)
+        self.graph.validate()
+        self._device_params: Optional[Dict[str, torch.Tensor]] = None
+        self._ctx = LoweringCtx(self.graph, self.config, self.device)
+
+    # ------------------------------------------------------------------
+    @property
+    def input_names(self) -> List[str]:
+        return list(self.graph.inputs)
+
+    @property
+    def output_names(self) -> List[str]:
+        return list(self.graph.outputs)
+
+    def blob_shape(self, name: str):
+        return self.graph.specs[name].shape
+
+    # ------------------------------------------------------------------
+    def _prepare_params(self) -> Dict[str, torch.Tensor]:
+        """Move weights to the device once, pre-cast to the compute dtype:
+        float conv/FC weights go to the compute dtype, int8 weights stay
+        int8, biases and scales stay f32 for the epilogue."""
+        if self._device_params is not None:
+            return self._device_params
+        cdtype = getattr(torch, self.config.compute_dtype)
+        weight_names = set()
+        for n in self.graph.nodes:
+            if n.op in ("Convolution", "InnerProduct") and n.params:
+                weight_names.add(n.params[0])
+        out: Dict[str, torch.Tensor] = {}
+        for k, v in self.graph.params.items():
+            t = torch.from_numpy(np.ascontiguousarray(v))
+            if (k in weight_names and t.dtype == torch.float32
+                    and cdtype != torch.float32):
+                t = t.to(cdtype)
+            out[k] = t.to(self.device)
+        self._device_params = out
+        return out
+
+    # ------------------------------------------------------------------
+    def _forward(self, params: Dict[str, torch.Tensor],
+                 inputs: Dict[str, torch.Tensor],
+                 wanted: Sequence[str]) -> Dict[str, torch.Tensor]:
+        cdtype = getattr(torch, self.config.compute_dtype)
+        env: Dict[str, torch.Tensor] = {}
+        for name in self.graph.inputs:
+            x = inputs[name]
+            # Only rank-4 feature maps take the compute dtype; metadata
+            # inputs (im_info's [h, w, scale]) keep full precision — bf16
+            # rounds 599 to 600 and corrupts clip bounds.
+            env[name] = x.to(cdtype) if (
+                x.dtype.is_floating_point and x.dim() == 4) else x
+        for node in self.graph.nodes:
+            ins = [env[i] for i in node.inputs]
+            ps = [params[p] for p in node.params]
+            outs = lower_node(node, ins, ps, self._ctx)
+            for name, val in zip(node.outputs, outs):
+                env[name] = val
+        return {w: env[w] for w in wanted}
+
+    @torch.inference_mode()
+    def run(self, inputs: Union[np.ndarray, torch.Tensor, Dict[str, Any]],
+            extract: Sequence[str] = ()) -> Dict[str, torch.Tensor]:
+        """Forward pass.  ``inputs`` is an array (single-input nets) or a
+        name->array dict.  Returns name->tensor (on the engine's device)
+        for every graph output plus anything in ``extract``."""
+        if not isinstance(inputs, dict):
+            (name,) = self.graph.inputs
+            inputs = {name: inputs}
+        wanted = list(dict.fromkeys(list(self.graph.outputs) + list(extract)))
+        for w in wanted:
+            if w not in self.graph.specs:
+                raise KeyError(f"unknown blob {w!r}")
+        tensors = {}
+        for name, x in inputs.items():
+            spec = self.graph.inputs.get(name)
+            if spec is None:
+                raise KeyError(f"unknown graph input {name!r}")
+            x = torch.as_tensor(x)
+            # Batch and spatial dims may differ from the declared spec;
+            # rank and channel count must match.
+            if x.dim() != len(spec.shape) or (
+                    x.dim() == 4 and x.shape[-1] != spec.shape[-1]):
+                raise ValueError(
+                    f"input {name!r} has shape {tuple(x.shape)}, expected "
+                    f"{spec.shape} (batch/spatial may vary, channels/rank "
+                    f"may not)")
+            tensors[name] = x.to(self.device)
+        return self._forward(self._prepare_params(), tensors, wanted)
+
+    def __call__(self, x) -> torch.Tensor:
+        """Forward returning the primary output."""
+        return self.run(x)[self.graph.outputs[0]]
+
+    def extract(self, x, names: Sequence[str]) -> Dict[str, torch.Tensor]:
+        """Fetch named intermediate values.  Values consumed by fusion
+        (folded BN outputs etc.) no longer exist."""
+        return self.run(x, extract=names)

@@ -1,0 +1,334 @@
+"""Typed intermediate representation — a copy of ``feathercnn_tpu/ir.py``
+(``TensorSpec``, ``Node``, ``Graph``, ``infer_shapes``, ``conv_out_dim``)
+with the shape functions of the ops the port lowers.
+
+A model is a flat, topologically ordered list of Caffe-shaped nodes
+(Convolution, Pooling, InnerProduct, BatchNorm, Scale, Eltwise, ...) wired
+by value name, with weights in ``Graph.params``.  Passes rewrite the graph
+before the engine walks it.  The IR is NHWC end to end, with HWIO conv
+weights and (in, out) FC weights, exactly as in the reference, so both
+engines read one graph the same way.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Dict, List, Tuple
+
+import numpy as np
+
+__all__ = [
+    "TensorSpec",
+    "Node",
+    "Graph",
+    "register_shape_fn",
+    "infer_shapes",
+    "topo_sort",
+]
+
+
+@dataclasses.dataclass(frozen=True)
+class TensorSpec:
+    """Shape/dtype of one IR value.  NHWC for rank-4 feature maps.
+
+    The analog of ``feather::Blob``'s (num, channels, height, width) header
+    ([pub] src/blob.h) — but data lives in ``Graph.params`` / tensors,
+    never inside the spec.
+    """
+
+    shape: Tuple[int, ...]
+    dtype: str = "float32"
+
+    @property
+    def rank(self) -> int:
+        return len(self.shape)
+
+    @property
+    def size(self) -> int:
+        return int(np.prod(self.shape)) if self.shape else 1
+
+    def with_dtype(self, dtype: str) -> "TensorSpec":
+        return TensorSpec(self.shape, dtype)
+
+
+@dataclasses.dataclass
+class Node:
+    """One operator instance.
+
+    The analog of a constructed ``feather::Layer`` ([pub] src/layer.h):
+    ``op`` is the Caffe type string, ``inputs``/``outputs`` are the
+    bottom/top blob names, ``attrs`` is the parsed <op>_param table, and
+    ``params`` names weight entries in ``Graph.params`` (the layer's
+    ``weight_blobs_``).
+    """
+
+    name: str
+    op: str
+    inputs: List[str]
+    outputs: List[str]
+    attrs: Dict[str, Any] = dataclasses.field(default_factory=dict)
+    params: List[str] = dataclasses.field(default_factory=list)
+
+    def attr(self, key: str, default: Any = None) -> Any:
+        return self.attrs.get(key, default)
+
+
+@dataclasses.dataclass
+class Graph:
+    """A whole model: the analog of ``feather::Net``'s parsed state.
+
+    - ``inputs``: name -> TensorSpec for graph inputs (InputLayer analog).
+    - ``outputs``: names of the values returned by a forward pass.
+    - ``nodes``: topologically ordered operator list.
+    - ``params``: name -> ndarray weight store (host side; the engine
+      moves it to the device once).
+    - ``specs``: name -> TensorSpec for every value, filled by
+      ``infer_shapes`` (the analog of GenerateTopBlobs).
+    """
+
+    name: str
+    inputs: Dict[str, TensorSpec]
+    outputs: List[str]
+    nodes: List[Node]
+    params: Dict[str, np.ndarray] = dataclasses.field(default_factory=dict)
+    specs: Dict[str, TensorSpec] = dataclasses.field(default_factory=dict)
+    # Free-form metadata (quantization scales live under "quant").
+    meta: Dict[str, Any] = dataclasses.field(default_factory=dict)
+
+    # ------------------------------------------------------------------
+    def node_map(self) -> Dict[str, Node]:
+        return {n.name: n for n in self.nodes}
+
+    def producers(self) -> Dict[str, Node]:
+        """Map value-name -> producing node."""
+        out: Dict[str, Node] = {}
+        for n in self.nodes:
+            for o in n.outputs:
+                out[o] = n
+        return out
+
+    def consumers(self) -> Dict[str, List[Node]]:
+        """Map value-name -> consuming nodes."""
+        out: Dict[str, List[Node]] = {}
+        for n in self.nodes:
+            for i in n.inputs:
+                out.setdefault(i, []).append(n)
+        return out
+
+    def validate(self) -> None:
+        """Structural checks: SSA, defined-before-use, outputs exist."""
+        defined = set(self.inputs)
+        names = set()
+        for n in self.nodes:
+            if n.name in names:
+                raise ValueError(f"duplicate node name {n.name!r}")
+            names.add(n.name)
+            for i in n.inputs:
+                if i not in defined:
+                    raise ValueError(
+                        f"node {n.name!r} reads undefined value {i!r}"
+                    )
+            for o in n.outputs:
+                if o in defined:
+                    raise ValueError(
+                        f"node {n.name!r} redefines value {o!r} (IR is SSA)"
+                    )
+                defined.add(o)
+            for p in n.params:
+                if p not in self.params:
+                    raise ValueError(
+                        f"node {n.name!r} references missing param {p!r}"
+                    )
+        for o in self.outputs:
+            if o not in defined:
+                raise ValueError(f"graph output {o!r} is never defined")
+
+    def param_arrays(self, node: Node) -> List[np.ndarray]:
+        return [self.params[p] for p in node.params]
+
+
+# ----------------------------------------------------------------------
+# Topological sort (converter emits Caffe order which is already topo, but
+# passes may append/remove nodes; keep a canonicalizer).
+# ----------------------------------------------------------------------
+
+def topo_sort(graph: Graph) -> None:
+    ready = set(graph.inputs)
+    remaining = list(graph.nodes)
+    ordered: List[Node] = []
+    while remaining:
+        progressed = False
+        still: List[Node] = []
+        for n in remaining:
+            if all(i in ready for i in n.inputs):
+                ordered.append(n)
+                ready.update(n.outputs)
+                progressed = True
+            else:
+                still.append(n)
+        if not progressed:
+            stuck = [n.name for n in still]
+            raise ValueError(f"graph has a cycle or undefined inputs: {stuck}")
+        remaining = still
+    graph.nodes = ordered
+
+
+# ----------------------------------------------------------------------
+# Shape inference — per-op registry, the analog of Layer::GenerateTopBlobs
+# ([pub] src/layer.cpp).  All rank-4 shapes are NHWC.
+# ----------------------------------------------------------------------
+
+ShapeFn = Callable[[Node, List[TensorSpec], Graph], List[TensorSpec]]
+_SHAPE_FNS: Dict[str, ShapeFn] = {}
+
+
+def register_shape_fn(op: str):
+    def deco(fn: ShapeFn) -> ShapeFn:
+        _SHAPE_FNS[op] = fn
+        return fn
+
+    return deco
+
+
+def infer_shapes(graph: Graph) -> None:
+    graph.specs = dict(graph.inputs)
+    for n in graph.nodes:
+        in_specs = [graph.specs[i] for i in n.inputs]
+        fn = _SHAPE_FNS.get(n.op)
+        if fn is None:
+            raise NotImplementedError(f"no shape fn for op {n.op!r}")
+        out_specs = fn(n, in_specs, graph)
+        if len(out_specs) != len(n.outputs):
+            raise ValueError(
+                f"{n.name}: shape fn returned {len(out_specs)} specs for "
+                f"{len(n.outputs)} outputs"
+            )
+        for name, spec in zip(n.outputs, out_specs):
+            graph.specs[name] = spec
+
+
+# -- helpers -----------------------------------------------------------
+
+def conv_out_dim(size: int, kernel: int, stride: int, pad: int,
+                 dilation: int = 1, ceil_mode: bool = False) -> int:
+    """Caffe's output-size arithmetic.
+
+    Convolution uses floor; Pooling uses ceil (Caffe's historical quirk,
+    which the reference inherits via its Caffe-converted models).
+    """
+    eff = dilation * (kernel - 1) + 1
+    num = size + 2 * pad - eff
+    if ceil_mode:
+        out = -(-num // stride) + 1
+        # Caffe clips the last pooling window to start inside the padded
+        # region ([pub] behavior of PoolingLayer::Reshape).
+        if pad > 0 and (out - 1) * stride >= size + pad:
+            out -= 1
+    else:
+        out = num // stride + 1
+    return int(out)
+
+
+def _conv_attrs(node: Node):
+    a = node.attrs
+    kh = a.get("kernel_h", a.get("kernel_size", 1))
+    kw = a.get("kernel_w", a.get("kernel_size", 1))
+    sh = a.get("stride_h", a.get("stride", 1))
+    sw = a.get("stride_w", a.get("stride", 1))
+    ph = a.get("pad_h", a.get("pad", 0))
+    pw = a.get("pad_w", a.get("pad", 0))
+    dil = a.get("dilation", 1)
+    return kh, kw, sh, sw, ph, pw, dil
+
+
+@register_shape_fn("Input")
+def _input_shape(node, in_specs, graph):
+    return [TensorSpec(tuple(node.attrs["shape"]))]
+
+
+@register_shape_fn("Convolution")
+def _conv_shape(node, in_specs, graph):
+    (n, h, w, c) = in_specs[0].shape
+    kh, kw, sh, sw, ph, pw, dil = _conv_attrs(node)
+    co = node.attrs["num_output"]
+    oh = conv_out_dim(h, kh, sh, ph, dil)
+    ow = conv_out_dim(w, kw, sw, pw, dil)
+    return [TensorSpec((n, oh, ow, co), in_specs[0].dtype)]
+
+
+@register_shape_fn("Pooling")
+def _pool_shape(node, in_specs, graph):
+    (n, h, w, c) = in_specs[0].shape
+    if node.attrs.get("global_pooling", False):
+        return [TensorSpec((n, 1, 1, c), in_specs[0].dtype)]
+    kh, kw, sh, sw, ph, pw, _ = _conv_attrs(node)
+    ceil = node.attrs.get("ceil_mode", True)  # Caffe pooling default
+    oh = conv_out_dim(h, kh, sh, ph, 1, ceil_mode=ceil)
+    ow = conv_out_dim(w, kw, sw, pw, 1, ceil_mode=ceil)
+    return [TensorSpec((n, oh, ow, c), in_specs[0].dtype)]
+
+
+@register_shape_fn("InnerProduct")
+def _fc_shape(node, in_specs, graph):
+    n = in_specs[0].shape[0]
+    return [TensorSpec((n, node.attrs["num_output"]), in_specs[0].dtype)]
+
+
+def _elementwise_shape(node, in_specs, graph):
+    return [in_specs[0]]
+
+
+for _op in ["ReLU", "ReLU6", "BatchNorm", "Scale", "Dropout", "Softmax",
+            "Split"]:
+    register_shape_fn(_op)(_elementwise_shape)
+
+
+@register_shape_fn("Eltwise")
+def _eltwise_shape(node, in_specs, graph):
+    base = in_specs[0]
+    for s in in_specs[1:]:
+        if s.shape != base.shape:
+            raise ValueError(
+                f"{node.name}: Eltwise shape mismatch {s.shape} vs {base.shape}"
+            )
+    return [base]
+
+
+@register_shape_fn("Slice")
+def _slice_shape(node, in_specs, graph):
+    axis = node.attrs.get("axis", -1) % in_specs[0].rank
+    points = list(node.attrs.get("slice_points", []))
+    total = in_specs[0].shape[axis]
+    if not points:
+        k = len(node.outputs)
+        if total % k:
+            raise ValueError(f"{node.name}: cannot evenly slice {total} into {k}")
+        points = [total // k * i for i in range(1, k)]
+    bounds = [0] + points + [total]
+    out = []
+    for lo, hi in zip(bounds[:-1], bounds[1:]):
+        shape = list(in_specs[0].shape)
+        shape[axis] = hi - lo
+        out.append(TensorSpec(tuple(shape), in_specs[0].dtype))
+    return out
+
+
+@register_shape_fn("Flatten")
+def _flatten_shape(node, in_specs, graph):
+    n = in_specs[0].shape[0]
+    return [TensorSpec((n, in_specs[0].size // n), in_specs[0].dtype)]
+
+
+@register_shape_fn("Reshape")
+def _reshape_shape(node, in_specs, graph):
+    shape = list(node.attrs["shape"])
+    # Caffe ReshapeLayer: dim 0 copies the input dim at the same index
+    for i, d in enumerate(shape):
+        if d == 0:
+            shape[i] = in_specs[0].shape[i]
+    size = in_specs[0].size
+    if -1 in shape:
+        idx = shape.index(-1)
+        known = int(np.prod([d for d in shape if d != -1])) or 1
+        shape[idx] = size // known
+    return [TensorSpec(tuple(shape), in_specs[0].dtype)]

@@ -1,0 +1,219 @@
+"""Per-layer kernel selection — counterpart of
+``feathercnn_tpu/kernels/dispatch.py`` with the same branches in the same
+order:
+
+  depthwise      group == C_in           -> kernels/depthwise (not ported)
+  gemm1x1        1x1 kernel              -> kernels/matmul.py
+  implicit       kxk, stride 1-2, g=1    -> kernels/conv.py
+  winograd       3x3 s1 (override only)  -> not ported
+  xla            everything else: the fp convs (PyTorch's conv, as the
+                 reference leaves them to XLA's), and the int8 convs the
+                 reference runs through XLA's int8 conv — here the merged
+                 sibling convs (per-channel act_segments), which go through
+                 the same two kernels with the scales folded as that
+                 branch folds them.
+
+EngineConfig.algo_overrides forces a choice per layer name.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from ..ops.lowering import (act_segment_bounds, apply_act_segments,
+                            apply_activation, conv_hparams, nchw_conv,
+                            quantize, scalar)
+from .conv import conv2d_implicit_gemm
+from .matmul import matmul_epilogue
+
+__all__ = ["select_algo", "conv_forward", "fc_forward"]
+
+
+def select_algo(node, cin: int, quant: bool) -> str:
+    kh, kw, sh, sw, ph, pw, dil, group = conv_hparams(node)
+    if group == cin and group > 1:
+        return "depthwise"
+    if group != 1 or dil != 1 or sh != sw:
+        return "xla"
+    if kh == 1 and kw == 1:
+        return "gemm1x1" if quant else "xla"
+    if quant and sh in (1, 2) and cin >= 16:
+        return "implicit"
+    return "xla"
+
+
+def _dequant_weight(w, q, dtype, node, ctx):
+    if w.dtype == torch.int8 and q is not None:
+        return (w.float() * ctx.const(node, "w_scale", lambda: q["w_scale"])
+                ).to(dtype)
+    return w.to(dtype)
+
+
+def _quantize_act(x, x_scale: float):
+    if x.dtype == torch.int8:   # int8 edge: producer already requantized
+        return x
+    return quantize(x, x_scale)
+
+
+def _dequant_int8_edge(x, q, ctx):
+    """A float conv path handed an int8 tensor dequantizes it: either a
+    serving-transferred int8 input into an fp-act stem (input_scale) or a
+    stray int8 edge (x_scale)."""
+    if x.dtype != torch.int8:
+        return x
+    xs_scale = (q.get("x_scale") or q.get("input_scale", 1.0)) if q else 1.0
+    return (x.float() * scalar(xs_scale, x.device)).to(
+        getattr(torch, ctx.config.compute_dtype))
+
+
+def _out_spec(x, q):
+    """(out_dtype, out_scale) for the epilogue: int8 when the int8-edge
+    pass marked this node, else the float compute dtype."""
+    if q is not None and q.get("emit_int8"):
+        return torch.int8, 1.0 / q["y_scale"]
+    return (torch.bfloat16 if x.dtype == torch.int8 else x.dtype), 1.0
+
+
+def _pointwise_input(x, sh, sw, ph, pw):
+    """The (N*OH*OW, C) matrix a 1x1 conv multiplies: pad, then take every
+    stride-th pixel (conv semantics), contiguous for the kernel."""
+    if ph or pw:
+        x = F.pad(x, (0, 0, pw, pw, ph, ph))
+    if sh > 1 or sw > 1:
+        x = x[:, ::sh, ::sw, :]
+    n, oh, ow, c = x.shape
+    return x.contiguous().reshape(n * oh * ow, c), (n, oh, ow)
+
+
+def conv_forward(node, x, w, bias, ctx):
+    kh, kw, sh, sw, ph, pw, dil, group = conv_hparams(node)
+    act = node.attrs.get("activation")
+    segs = node.attrs.get("act_segments")
+    q = ctx.qinfo(node)
+    cin = x.shape[-1]
+    algo = ctx.config.algo_for(node.name) or select_algo(
+        node, cin * group if group > 1 else cin, q is not None)
+    if segs is not None and algo != "dot1x1":
+        # per-channel activation segments (merged sibling convs) take the
+        # "xla" branch, as in the reference
+        algo = "xla"
+
+    if x.dtype == torch.int8 and (q is None or q.get("x_scale") is None):
+        # int8-transferred input into an fp-act layer (input_scale) or a
+        # stray int8 edge: dequantize once so every branch sees float
+        x = _dequant_int8_edge(x, q, ctx)
+
+    if algo == "depthwise":
+        if group == x.shape[-1] and node.attrs["num_output"] == group \
+                and dil == 1 and sh == sw and sh in (1, 2):
+            raise NotImplementedError(
+                f"{node.name}: the depthwise kernel (kernels/depthwise.py) "
+                "is not ported yet")
+        algo = "xla"
+
+    if algo == "gemm1x1" and kh == 1 and kw == 1:
+        x2, (n, oh, ow) = _pointwise_input(x, sh, sw, ph, pw)
+        kwargs = {}
+        if q is not None and w.dtype == torch.int8:
+            kwargs["w_scale"] = ctx.const(node, "w_scale",
+                                          lambda: q["w_scale"])
+            if q.get("x_scale") is not None:
+                x2 = _quantize_act(x2, q["x_scale"])
+                kwargs["x_scale"] = float(q["x_scale"])
+        else:
+            w = w.to(x2.dtype)
+        out_dtype, out_scale = _out_spec(x, q)
+        y = matmul_epilogue(x2, w.reshape(w.shape[-2], -1), bias,
+                            activation=act, out_dtype=out_dtype,
+                            out_scale=out_scale, **kwargs)
+        return y.reshape(n, oh, ow, -1)
+
+    if algo in ("dot1x1", "winograd"):
+        raise NotImplementedError(
+            f"{node.name}: algo {algo!r} is not ported yet")
+
+    if algo == "implicit":
+        kwargs = {}
+        xs = x
+        if q is not None and w.dtype == torch.int8:
+            kwargs["w_scale"] = ctx.const(node, "w_scale",
+                                          lambda: q["w_scale"])
+            if q.get("x_scale") is not None:
+                xs = _quantize_act(x, q["x_scale"])
+                kwargs["x_scale"] = float(q["x_scale"])
+            wk = w
+        else:
+            wk = w.to(x.dtype)
+        out_dtype, out_scale = _out_spec(x, q)
+        return conv2d_implicit_gemm(xs.contiguous(), wk, bias, stride=sh,
+                                    pad_h=ph, pad_w=pw, activation=act,
+                                    out_dtype=out_dtype, out_scale=out_scale,
+                                    **kwargs)
+
+    # "xla" branch.
+    if (q is not None and w.dtype == torch.int8
+            and q.get("x_scale") is not None
+            and (group == 1 or (ctx.config.int8_grouped and dil == 1))):
+        # The reference runs XLA's int8 conv here: acc * (w_scale*x_scale)
+        # + bias, act or act_segments, requant.  PyTorch has no int8 conv
+        # on CUDA, so the same two kernels run it: the folded scale as
+        # w_scale with x_scale 1.0 (one multiply, as the branch does), and
+        # the segments as the kernels' per-channel lo/hi clamp.
+        if group != 1 or dil != 1 or sh != sw:
+            raise NotImplementedError(
+                f"{node.name}: int8 conv with group={group}, dilation={dil}, "
+                f"stride=({sh},{sw}) is not ported yet")
+        xq = _quantize_act(x, q["x_scale"])
+        ws = ctx.const(node, "w_scale_x_scale",
+                       lambda: np.asarray(q["w_scale"], np.float32)
+                       * np.float32(q["x_scale"]))
+        lo = hi = None
+        if segs is not None:
+            lo = ctx.const(node, "seg_lo", lambda: act_segment_bounds(segs)[0])
+            hi = ctx.const(node, "seg_hi", lambda: act_segment_bounds(segs)[1])
+            act = None
+        out_dtype, out_scale = _out_spec(x, q)
+        kw_ = dict(activation=act, out_dtype=out_dtype, out_scale=out_scale,
+                   lo=lo, hi=hi)
+        if kh == 1 and kw == 1:
+            x2, (n, oh, ow) = _pointwise_input(xq, sh, sw, ph, pw)
+            y = matmul_epilogue(x2, w.reshape(w.shape[-2], -1), bias, ws,
+                                **kw_)
+            return y.reshape(n, oh, ow, -1)
+        return conv2d_implicit_gemm(xq.contiguous(), w, bias, ws, stride=sh,
+                                    pad_h=ph, pad_w=pw, **kw_)
+
+    # float conv (PyTorch's, as the reference leaves it to XLA's):
+    # f32 accumulation of compute-dtype operands, + bias, act, requant
+    x = _dequant_int8_edge(x, q, ctx)
+    wd = _dequant_weight(w, q, x.dtype, node, ctx)
+    y = nchw_conv(x.float(), wd.float(), (sh, sw), (ph, pw), dil, group)
+    if bias is not None:
+        y = y + bias
+    y = apply_act_segments(y, segs) if segs is not None \
+        else apply_activation(y, act)
+    out_dtype, out_scale = _out_spec(x, q)
+    if out_dtype == torch.int8:
+        return torch.clamp(torch.round(y * scalar(out_scale, y.device)),
+                           -127, 127).to(torch.int8)
+    return y.to(out_dtype)
+
+
+def fc_forward(node, x, w, bias, ctx):
+    act = node.attrs.get("activation")
+    q = ctx.qinfo(node)
+    if x.dtype == torch.int8 and (q is None or q.get("x_scale") is None):
+        x = _dequant_int8_edge(x, q, ctx)
+    kwargs = {}
+    if q is not None and w.dtype == torch.int8:
+        kwargs["w_scale"] = ctx.const(node, "w_scale", lambda: q["w_scale"])
+        if q.get("x_scale") is not None:
+            x = _quantize_act(x, q["x_scale"])
+            kwargs["x_scale"] = float(q["x_scale"])
+    else:
+        w = w.to(x.dtype)
+    out_dtype = x.dtype if x.dtype != torch.int8 else torch.bfloat16
+    return matmul_epilogue(x.contiguous(), w, bias, activation=act,
+                           out_dtype=out_dtype, **kwargs)

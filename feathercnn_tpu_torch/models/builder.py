@@ -1,0 +1,185 @@
+"""GraphBuilder — a copy of ``feathercnn_tpu/models/builder.py`` with the
+layer methods of the ops the port lowers.  Same seeded draws in the same
+order, so a model built here has the reference zoo's weights.
+
+
+The model zoo (SqueezeNet/MobileNet/VGG/ResNet/GoogLeNet) is defined with
+this builder using the exact layer sequences of the public Caffe deploy
+prototxts that FeatherCNN's converter consumes
+([pub] tools/feather_convert_caffe.cpp).  Weights are He-initialized unless
+loaded from a converted model — so every model runs (and is benchmarked)
+without needing the original .caffemodel files, while the converter drops
+real weights into the identical graph structure.
+
+Builders emit *unfused* graphs (separate BatchNorm/Scale/ReLU nodes, as a
+Caffe prototxt would) so the optimization passes are exercised on real
+structure.
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional, Sequence, Tuple
+
+import numpy as np
+
+from ..ir import Graph, Node, TensorSpec, infer_shapes
+
+
+class GraphBuilder:
+    def __init__(self, name: str, seed: int = 0, init_weights: bool = True):
+        self.graph = Graph(name=name, inputs={}, outputs=[], nodes=[])
+        self.rng = np.random.default_rng(seed)
+        self.init_weights = init_weights
+        self._counter = 0
+        # track channel count of every value for weight sizing
+        self._channels = {}
+
+    # ------------------------------------------------------------------
+    def _param(self, name: str, shape: Tuple[int, ...], kind: str) -> str:
+        if self.init_weights:
+            if kind == "weight":
+                fan_in = int(np.prod(shape[:-1])) or 1
+                arr = self.rng.normal(
+                    0.0, np.sqrt(2.0 / fan_in), size=shape).astype(np.float32)
+            elif kind == "zeros":
+                arr = np.zeros(shape, np.float32)
+            elif kind == "ones":
+                arr = np.ones(shape, np.float32)
+            elif kind == "mean":
+                arr = self.rng.normal(0, 0.1, size=shape).astype(np.float32)
+            elif kind == "var":
+                arr = np.abs(self.rng.normal(
+                    1.0, 0.1, size=shape)).astype(np.float32)
+            else:
+                raise ValueError(kind)
+        else:
+            arr = np.zeros(shape, np.float32)
+        self.graph.params[name] = arr
+        return name
+
+    def _add(self, node: Node) -> List[str]:
+        self.graph.nodes.append(node)
+        return node.outputs
+
+    # ------------------------------------------------------------------
+    def input(self, name: str, shape: Sequence[int]) -> str:
+        self.graph.inputs[name] = TensorSpec(tuple(shape))
+        self._channels[name] = shape[-1]
+        return name
+
+    def conv(self, name: str, x: str, num_output: int, kernel: int = 1,
+             stride: int = 1, pad: int = 0, group: int = 1, bias: bool = True,
+             dilation: int = 1, relu: bool = False,
+             kernel_h: Optional[int] = None, kernel_w: Optional[int] = None,
+             pad_h: Optional[int] = None, pad_w: Optional[int] = None) -> str:
+        cin = self._channels[x]
+        kh = kernel_h if kernel_h is not None else kernel
+        kw = kernel_w if kernel_w is not None else kernel
+        w = self._param(name + "/w", (kh, kw, cin // group, num_output),
+                        "weight")
+        params = [w]
+        if bias:
+            params.append(self._param(name + "/b", (num_output,), "zeros"))
+        attrs = {"num_output": num_output, "kernel_h": kh, "kernel_w": kw,
+                 "stride": stride, "group": group, "bias_term": bias,
+                 "dilation": dilation,
+                 "pad_h": pad_h if pad_h is not None else pad,
+                 "pad_w": pad_w if pad_w is not None else pad}
+        out = self._add(Node(name, "Convolution", [x], [name], attrs,
+                             params))[0]
+        self._channels[out] = num_output
+        if relu:
+            out = self.relu(name + "/relu", out)
+        return out
+
+    def fc(self, name: str, x: str, num_output: int, bias: bool = True,
+           relu: bool = False) -> str:
+        cin = self._channels[x]
+        spec = self.graph.inputs.get(x)
+        # weight rows = flattened input features; builder models always
+        # apply FC after a known-channel value; spatial dims resolved by
+        # infer_shapes — we size from the current spec when needed.
+        infer_shapes(self.graph)
+        in_features = self.graph.specs[x].size // self.graph.specs[x].shape[0]
+        w = self._param(name + "/w", (in_features, num_output), "weight")
+        params = [w]
+        if bias:
+            params.append(self._param(name + "/b", (num_output,), "zeros"))
+        attrs = {"num_output": num_output, "bias_term": bias}
+        out = self._add(Node(name, "InnerProduct", [x], [name], attrs,
+                             params))[0]
+        self._channels[out] = num_output
+        if relu:
+            out = self.relu(name + "/relu", out)
+        return out
+
+    def pool(self, name: str, x: str, kernel: int, stride: int = 1,
+             pad: int = 0, mode: str = "MAX",
+             global_pooling: bool = False) -> str:
+        attrs = {"pool": mode, "global_pooling": global_pooling}
+        if not global_pooling:
+            attrs.update(kernel_size=kernel, stride=stride, pad=pad)
+        out = self._add(Node(name, "Pooling", [x], [name], attrs))[0]
+        self._channels[out] = self._channels[x]
+        return out
+
+    def relu(self, name: str, x: str, negative_slope: float = 0.0) -> str:
+        attrs = {"negative_slope": negative_slope} if negative_slope else {}
+        out = self._add(Node(name, "ReLU", [x], [name], attrs))[0]
+        self._channels[out] = self._channels[x]
+        return out
+
+    def batchnorm(self, name: str, x: str, eps: float = 1e-5) -> str:
+        c = self._channels[x]
+        params = [self._param(name + "/mean", (c,), "mean"),
+                  self._param(name + "/var", (c,), "var")]
+        out = self._add(Node(name, "BatchNorm", [x], [name], {"eps": eps},
+                             params))[0]
+        self._channels[out] = c
+        return out
+
+    def scale(self, name: str, x: str, bias: bool = True) -> str:
+        c = self._channels[x]
+        params = [self._param(name + "/gamma", (c,), "var")]
+        if bias:
+            params.append(self._param(name + "/beta", (c,), "mean"))
+        out = self._add(Node(name, "Scale", [x], [name],
+                             {"bias_term": bias}, params))[0]
+        self._channels[out] = c
+        return out
+
+    def bn_scale(self, name: str, x: str) -> str:
+        """Caffe's BatchNorm+Scale pair (BN has no learned affine)."""
+        x = self.batchnorm(name + "/bn", x)
+        return self.scale(name + "/scale", x)
+
+    def eltwise(self, name: str, xs: Sequence[str],
+                operation: str = "SUM") -> str:
+        out = self._add(Node(name, "Eltwise", list(xs), [name],
+                             {"operation": operation}))[0]
+        self._channels[out] = self._channels[xs[0]]
+        return out
+
+    def dropout(self, name: str, x: str, ratio: float = 0.5) -> str:
+        out = self._add(Node(name, "Dropout", [x], [name],
+                             {"ratio": ratio}))[0]
+        self._channels[out] = self._channels[x]
+        return out
+
+    def softmax(self, name: str, x: str, axis: int = None) -> str:
+        attrs = {} if axis is None else {"axis": axis}
+        out = self._add(Node(name, "Softmax", [x], [name], attrs))[0]
+        self._channels[out] = self._channels[x]
+        return out
+
+    def flatten(self, name: str, x: str) -> str:
+        out = self._add(Node(name, "Flatten", [x], [name]))[0]
+        self._channels[out] = self._channels[x]
+        return out
+
+    # ------------------------------------------------------------------
+    def finish(self, outputs: Sequence[str]) -> Graph:
+        self.graph.outputs = list(outputs)
+        infer_shapes(self.graph)
+        self.graph.validate()
+        return self.graph

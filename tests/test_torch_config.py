@@ -1,0 +1,57 @@
+"""The PyTorch port's EngineConfig and Engine refuse what the port does not
+have: an unported config field or op raises ``NotImplementedError`` naming
+it, a wrong input shape raises as in the reference.  Few test items per
+file (see tests/test_torch_kernels.py for why)."""
+
+import numpy as np
+import pytest
+
+from feathercnn_tpu_torch.config import EngineConfig
+from feathercnn_tpu_torch.engine import Engine
+from feathercnn_tpu_torch.models.builder import GraphBuilder
+
+
+def _graph():
+    b = GraphBuilder("cfg", seed=1)
+    x = b.input("data", (1, 9, 9, 3))
+    x = b.conv("c1", x, 8, 3, pad=1, relu=True)
+    x = b.pool("pool", x, 3, 2)
+    return b.finish([b.softmax("prob", b.fc("fc", x, 4))])
+
+
+def test_engine_checks_input_shapes():
+    eng = Engine(_graph(), device="cpu")
+    assert eng(np.zeros((2, 9, 9, 3), np.float32)).shape == (2, 4)
+    with pytest.raises(ValueError):
+        eng(np.zeros((1, 9, 9, 4), np.float32))     # channels may not vary
+    with pytest.raises(ValueError):
+        eng(np.zeros((9, 9, 3), np.float32))        # nor the rank
+    with pytest.raises(KeyError):
+        eng.run({"nope": np.zeros((1, 9, 9, 3), np.float32)})
+    with pytest.raises(KeyError):
+        eng.extract(np.zeros((1, 9, 9, 3), np.float32), ["nope"])
+
+
+def test_unported_config_fields_raise_naming_them():
+    for field, value in [("fuse_blocks", True), ("fuse_chains", True),
+                         ("s2d_stem", True), ("concat_dus", True),
+                         ("psroi_fuse_ave", True), ("sharding", object()),
+                         ("compilation_cache_dir", "cache")]:
+        with pytest.raises(NotImplementedError, match=field):
+            Engine(_graph(), EngineConfig(**{field: value}), device="cpu")
+
+
+def test_unported_op_raises_naming_it():
+    g = _graph()
+    g.nodes[-1].op = "LRN"
+    with pytest.raises(NotImplementedError, match="LRN"):
+        Engine(g, device="cpu", optimize_graph=False)
+
+
+def test_config_json_round_trip_and_backends():
+    cfg = EngineConfig(backend="cuda", quant="w8a8", compute_dtype="bfloat16",
+                       algo_overrides=(("*", "xla"),),
+                       fp_act_layers=("conv1",))
+    assert EngineConfig.from_json(cfg.to_json()) == cfg
+    with pytest.raises(ValueError, match="backend"):
+        EngineConfig(backend="pallas").check_supported()

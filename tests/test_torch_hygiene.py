@@ -1,0 +1,80 @@
+"""The PyTorch port stands alone: it imports neither JAX nor the JAX
+package, and its engine runs on the GPU unless the caller asks for the
+CPU.  Few test items per file (see tests/test_torch_kernels.py for
+why)."""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parent.parent
+PORT = ROOT / "feathercnn_tpu_torch"
+FORBIDDEN = ("jax", "jaxlib", "feathercnn_tpu")
+
+
+def _port_modules():
+    mods = []
+    for p in sorted(PORT.rglob("*.py")):
+        parts = p.relative_to(ROOT).with_suffix("").parts
+        mods.append(".".join(parts[:-1] if parts[-1] == "__init__"
+                             else parts))
+    return mods
+
+
+def _sources():
+    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def test_importing_the_port_loads_no_jax():
+    code = ("import sys\n"
+            + "".join(f"import {m}\n" for m in _port_modules())
+            + "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            + repr(FORBIDDEN) + ")\n"
+            + "print(len(sys.modules)); assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+
+
+def test_no_source_imports_jax():
+    for path in _sources():
+        tree = ast.parse(path.read_text(), str(path))
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""] if node.level == 0 else []
+            else:
+                continue
+            for name in names:
+                assert name.split(".")[0] not in FORBIDDEN, \
+                    f"{path.relative_to(ROOT)}:{node.lineno} imports {name}"
+
+
+def test_engine_without_device_raises_on_a_host_without_gpu():
+    import torch
+
+    from feathercnn_tpu_torch.engine import Engine
+    from feathercnn_tpu_torch.models import resnet50
+
+    if torch.cuda.is_available():
+        pytest.skip("this host has a GPU: the default device is valid")
+    g = resnet50()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Engine(g)
+    with pytest.raises(RuntimeError):
+        Engine(g, device="cuda")
+    assert Engine(g, device="cpu").device.type == "cpu"
+
+
+def test_cuda_tensor_wrappers_never_take_the_plain_version():
+    """The wrappers pick the plain version by the tensor's device alone:
+    the source holds no ``try`` around a launch."""
+    for name in ("matmul.py", "conv.py"):
+        tree = ast.parse((PORT / "kernels" / name).read_text())
+        assert not any(isinstance(n, ast.Try) for n in ast.walk(tree)), name
