@@ -23,7 +23,8 @@ __all__ = ["load_library", "build_log", "nvcc_path"]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _BUILD_ROOT = Path(__file__).resolve().parent.parent / "_build"
-_SOURCES = ("matmul_epilogue.cu", "conv_implicit_gemm.cu")
+_SOURCES = ("matmul_epilogue.cu", "conv_implicit_gemm.cu",
+            "depthwise_conv.cu")
 _HEADERS = ("gemm_common.cuh",)
 _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
           "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -43,6 +44,16 @@ _SIGNATURES = {
                                 _I, _I, _I, _I,               # sh sw ph pw
                                 _I, _I, _I, _I,               # xt wt ot act
                                 _F, _F, _P],
+    "fcnn_depthwise_conv2d": [_P, _P, _P, _P,                # x w out b
+                              _I, _I, _I, _I, _I, _I,        # N H W C KH KW
+                              _I, _I, _I, _I,                # sh sw ph pw
+                              _I, _I, _I,                    # xt ot act
+                              _F, _P],                       # x_scale stream
+    "fcnn_depthwise_conv2d_int8": [_P, _P, _P, _P, _P,       # x w out b ws
+                                   _I, _I, _I, _I, _I, _I,
+                                   _I, _I, _I, _I,
+                                   _I, _I,                   # ot act
+                                   _F, _P],                  # out_scale stream
 }
 
 

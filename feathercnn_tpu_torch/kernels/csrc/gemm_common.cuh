@@ -1,7 +1,9 @@
 // Shared pieces of the two GEMM-shaped kernels (matmul_epilogue.cu and
 // conv_implicit_gemm.cu): the fused epilogue, the A-operand row fetchers
 // (a plain matrix, or an NHWC image gathered as an implicit im2col), the
-// int8 tensor-core main loop and the float SIMT main loop.
+// int8 tensor-core main loop and the float SIMT main loop.  The depthwise
+// kernels (depthwise_conv.cu) use the epilogue (epilogue_value and
+// requant_i8) too.
 //
 // Layouts: A is (M, K) with K contiguous, B is the weight (K, N) with N
 // contiguous, the output is (M, N) row-major.  For the conv, M runs over
@@ -63,15 +65,19 @@ __device__ __forceinline__ float epilogue_value(float acc, int n,
   return y;
 }
 
+// The int8 store: round half to even (rintf, never roundf) of
+// y * out_scale, saturated to +-127.
+__device__ __forceinline__ int8_t requant_i8(float y, float out_scale) {
+  const float q = fminf(fmaxf(rintf(__fmul_rn(y, out_scale)), -127.0f), 127.0f);
+  return static_cast<int8_t>(static_cast<int>(q));
+}
+
 __device__ __forceinline__ void epilogue_store(float acc, long long m, int n,
                                                int N, const Epilogue& e) {
   const float y = epilogue_value(acc, n, e);
   const long long idx = m * N + n;
   if (e.out_type == DT_I8) {
-    // round half to even (rintf, never roundf), saturate to +-127
-    float q = rintf(__fmul_rn(y, e.out_scale));
-    q = fminf(fmaxf(q, -127.0f), 127.0f);
-    static_cast<int8_t*>(e.out)[idx] = static_cast<int8_t>(static_cast<int>(q));
+    static_cast<int8_t*>(e.out)[idx] = requant_i8(y, e.out_scale);
   } else if (e.out_type == DT_BF16) {
     static_cast<__nv_bfloat16*>(e.out)[idx] = __float2bfloat16_rn(y);
   } else {
@@ -89,10 +95,8 @@ __device__ __forceinline__ void epilogue_store2(float acc0, float acc1,
     const float y1 = epilogue_value(acc1, c + 1, e);
     const long long idx = m * N + c;
     if (e.out_type == DT_I8) {
-      const float q0 = fminf(fmaxf(rintf(__fmul_rn(y0, e.out_scale)), -127.0f), 127.0f);
-      const float q1 = fminf(fmaxf(rintf(__fmul_rn(y1, e.out_scale)), -127.0f), 127.0f);
-      const uint16_t lo = static_cast<uint8_t>(static_cast<int8_t>(static_cast<int>(q0)));
-      const uint16_t hi = static_cast<uint8_t>(static_cast<int8_t>(static_cast<int>(q1)));
+      const uint16_t lo = static_cast<uint8_t>(requant_i8(y0, e.out_scale));
+      const uint16_t hi = static_cast<uint8_t>(requant_i8(y1, e.out_scale));
       *reinterpret_cast<uint16_t*>(static_cast<int8_t*>(e.out) + idx) =
           static_cast<uint16_t>(lo | (hi << 8));
     } else {

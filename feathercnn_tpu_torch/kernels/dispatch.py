@@ -2,16 +2,22 @@
 ``feathercnn_tpu/kernels/dispatch.py`` with the same branches in the same
 order:
 
-  depthwise      group == C_in           -> kernels/depthwise (not ported)
+  depthwise      group == C_in           -> kernels/depthwise.py
+                                            (depthwise_conv2d)
   gemm1x1        1x1 kernel              -> kernels/matmul.py
   implicit       kxk, stride 1-2, g=1    -> kernels/conv.py
   winograd       3x3 s1 (override only)  -> not ported
   xla            everything else: the fp convs (PyTorch's conv, as the
                  reference leaves them to XLA's), and the int8 convs the
-                 reference runs through XLA's int8 conv — here the merged
+                 reference runs through XLA's int8 conv — the merged
                  sibling convs (per-channel act_segments), which go through
-                 the same two kernels with the scales folded as that
-                 branch folds them.
+                 the two GEMM kernels, and the int8 depthwise convs, which
+                 go to kernels/depthwise.py (depthwise_conv2d_int8), with
+                 the scales folded as that branch folds them.
+
+Like the reference, the dispatcher passes ``cin * group`` to select_algo
+for a grouped conv, so the "depthwise" branch is reached only through
+algo_overrides (ROADMAP.md, queue C).
 
 EngineConfig.algo_overrides forces a choice per layer name.
 """
@@ -26,6 +32,7 @@ from ..ops.lowering import (act_segment_bounds, apply_act_segments,
                             apply_activation, conv_hparams, nchw_conv,
                             quantize, scalar)
 from .conv import conv2d_implicit_gemm
+from .depthwise import depthwise_conv2d, depthwise_conv2d_int8
 from .matmul import matmul_epilogue
 
 __all__ = ["select_algo", "conv_forward", "fc_forward"]
@@ -76,6 +83,13 @@ def _out_spec(x, q):
     return (torch.bfloat16 if x.dtype == torch.int8 else x.dtype), 1.0
 
 
+def _is_depthwise(node, x, group, dil, sh, sw) -> bool:
+    """The case both depthwise kernels take: group == C_in == num_output
+    (channel multiplier 1), no dilation, a square stride of 1 or 2."""
+    return (group == x.shape[-1] and node.attrs["num_output"] == group
+            and dil == 1 and sh == sw and sh in (1, 2))
+
+
 def _pointwise_input(x, sh, sw, ph, pw):
     """The (N*OH*OW, C) matrix a 1x1 conv multiplies: pad, then take every
     stride-th pixel (conv semantics), contiguous for the kernel."""
@@ -93,6 +107,11 @@ def conv_forward(node, x, w, bias, ctx):
     segs = node.attrs.get("act_segments")
     q = ctx.qinfo(node)
     cin = x.shape[-1]
+    # ``cin * group`` for a grouped conv, as the reference's dispatcher
+    # passes it (feathercnn_tpu/kernels/dispatch.py:99-100): it defeats
+    # select_algo's ``group == cin`` test, so a depthwise conv takes the
+    # "xla" branch unless algo_overrides names it "depthwise".  Kept so that
+    # both engines route every layer alike.
     algo = ctx.config.algo_for(node.name) or select_algo(
         node, cin * group if group > 1 else cin, q is not None)
     if segs is not None and algo != "dot1x1":
@@ -106,11 +125,21 @@ def conv_forward(node, x, w, bias, ctx):
         x = _dequant_int8_edge(x, q, ctx)
 
     if algo == "depthwise":
-        if group == x.shape[-1] and node.attrs["num_output"] == group \
-                and dil == 1 and sh == sw and sh in (1, 2):
-            raise NotImplementedError(
-                f"{node.name}: the depthwise kernel (kernels/depthwise.py) "
-                "is not ported yet")
+        if _is_depthwise(node, x, group, dil, sh, sw):
+            # As the reference: an int8 edge is dequantized to the compute
+            # dtype (here by the kernel as it loads it), the weight to f32,
+            # and the result stays in the compute dtype even where the node
+            # is marked emit_int8 (its consumer quantizes it again).
+            wd = ctx.const(node, "w_f32", lambda: _dequant_weight(
+                w, q, torch.float32, node, ctx).reshape(kh, kw, -1).cpu())
+            kwargs = {}
+            if x.dtype == torch.int8:
+                kwargs = dict(x_scale=float(q["x_scale"]),
+                              out_dtype=getattr(torch,
+                                                ctx.config.compute_dtype))
+            return depthwise_conv2d(x.contiguous(), wd, bias, stride=sh,
+                                    pad_h=ph, pad_w=pw, activation=act,
+                                    **kwargs)
         algo = "xla"
 
     if algo == "gemm1x1" and kh == 1 and kw == 1:
@@ -158,10 +187,12 @@ def conv_forward(node, x, w, bias, ctx):
             and (group == 1 or (ctx.config.int8_grouped and dil == 1))):
         # The reference runs XLA's int8 conv here: acc * (w_scale*x_scale)
         # + bias, act or act_segments, requant.  PyTorch has no int8 conv
-        # on CUDA, so the same two kernels run it: the folded scale as
+        # on CUDA, so the port's kernels run it: the folded scale as
         # w_scale with x_scale 1.0 (one multiply, as the branch does), and
-        # the segments as the kernels' per-channel lo/hi clamp.
-        if group != 1 or dil != 1 or sh != sw:
+        # the segments as the GEMM kernels' per-channel lo/hi clamp.
+        depthwise = group != 1 and segs is None and _is_depthwise(
+            node, x, group, dil, sh, sw)
+        if not depthwise and (group != 1 or dil != 1 or sh != sw):
             raise NotImplementedError(
                 f"{node.name}: int8 conv with group={group}, dilation={dil}, "
                 f"stride=({sh},{sw}) is not ported yet")
@@ -169,12 +200,17 @@ def conv_forward(node, x, w, bias, ctx):
         ws = ctx.const(node, "w_scale_x_scale",
                        lambda: np.asarray(q["w_scale"], np.float32)
                        * np.float32(q["x_scale"]))
+        out_dtype, out_scale = _out_spec(x, q)
+        if depthwise:
+            return depthwise_conv2d_int8(
+                xq.contiguous(), w.reshape(kh, kw, -1), bias, ws, stride=sh,
+                pad_h=ph, pad_w=pw, activation=act, out_dtype=out_dtype,
+                out_scale=out_scale)
         lo = hi = None
         if segs is not None:
             lo = ctx.const(node, "seg_lo", lambda: act_segment_bounds(segs)[0])
             hi = ctx.const(node, "seg_hi", lambda: act_segment_bounds(segs)[1])
             act = None
-        out_dtype, out_scale = _out_spec(x, q)
         kw_ = dict(activation=act, out_dtype=out_dtype, out_scale=out_scale,
                    lo=lo, hi=hi)
         if kh == 1 and kw == 1:

@@ -14,22 +14,34 @@ Variants (one kernel, chosen by the operand types):
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
 
-__all__ = ["matmul_epilogue", "matmul_epilogue_plain", "epilogue_plain"]
+__all__ = ["matmul_epilogue", "matmul_epilogue_plain", "epilogue_plain",
+           "fma_f32"]
 
 _ACT_CODES = {None: 0, "relu": 1, "relu6": 2}
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
 
-def _fma(a: torch.Tensor, b, c: torch.Tensor) -> torch.Tensor:
-    """f32 ``a*b + c`` with one rounding: the product of two f32 values is
-    exact in f64, so only the sum rounds (to f64, then to f32 — the double
-    rounding differs from a true FMA about once in 2^29 results)."""
+def fma_f32(a: torch.Tensor, b, c: torch.Tensor) -> torch.Tensor:
+    """f32 ``a*b + c`` rounded once, bit for bit a hardware FMA.  The
+    product of two f32 values is exact in f64.  The f64 sum is then
+    rounded to odd (TwoSum gives its exact error; an inexact sum with an
+    even last bit steps one ulp toward the error), and an f64 value
+    rounded to odd, with 29 more bits than f32, rounds to the f32 value of
+    the exact sum."""
     b64 = b.double() if torch.is_tensor(b) else float(b)
-    return (a.double() * b64 + c.double()).float()
+    c64 = c.double()
+    p = a.double() * b64
+    s = p + c64
+    bv = s - p
+    err = (p - (s - bv)) + (c64 - bv)
+    step = (err != 0) & ((s.view(torch.int64) & 1) == 0)
+    toward = torch.where(err > 0, math.inf, -math.inf).to(s.dtype)
+    return torch.where(step, torch.nextafter(s, toward), s).float()
 
 
 def epilogue_plain(acc: torch.Tensor, w_scale=None, x_scale: float = 1.0,
@@ -50,7 +62,7 @@ def epilogue_plain(acc: torch.Tensor, w_scale=None, x_scale: float = 1.0,
             y = y * last
         last = torch.tensor(x_scale, dtype=torch.float32, device=acc.device)
     if bias is not None:
-        y = _fma(y, last, bias) if last is not None else y + bias
+        y = fma_f32(y, last, bias) if last is not None else y + bias
     elif last is not None:
         y = y * last
     if activation == "relu":
@@ -103,10 +115,17 @@ def check_operands(x, w, vecs, n: int, out_dtype, activation, lo, hi):
     if out_dtype not in _DTYPE_CODES:
         raise TypeError(f"out_dtype must be float32, bfloat16 or int8, "
                         f"got {out_dtype}")
-    if activation not in _ACT_CODES:
-        raise ValueError(f"unknown activation {activation!r}")
     if (lo is None) != (hi is None):
         raise ValueError("lo and hi go together")
+    check_epilogue(x, w, vecs, n, activation)
+
+
+def check_epilogue(x, w, vecs, n: int, activation):
+    """Raise on an unknown activation, on an epilogue vector that is not
+    float32 of shape (n,), or on a vector or ``w`` on another device than
+    ``x``."""
+    if activation not in _ACT_CODES:
+        raise ValueError(f"unknown activation {activation!r}")
     for name, v in vecs.items():
         if v is None:
             continue
@@ -119,12 +138,18 @@ def check_operands(x, w, vecs, n: int, out_dtype, activation, lo, hi):
         raise ValueError(f"w is on {w.device}, x on {x.device}")
 
 
+def check_contiguous(tensors):
+    """Raise unless every tensor of the name -> tensor (or None) mapping
+    is contiguous: the kernels compute offsets from the shapes alone."""
+    for name, t in tensors.items():
+        if t is not None and not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
 def launch_args(x, w, out, vecs, activation, out_dtype):
     """The pointer/type arguments shared by both kernels' C interfaces.
     Raises unless every tensor is contiguous on one CUDA device."""
-    for name, t in [("x", x), ("w", w)] + list(vecs.items()):
-        if t is not None and not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+    check_contiguous({"x": x, "w": w, **vecs})
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     stream = torch.cuda.current_stream(x.device).cuda_stream
     return ([ptr(x), ptr(w), ptr(out), ptr(vecs["bias"]),

@@ -129,6 +129,12 @@ class GraphBuilder:
         self._channels[out] = self._channels[x]
         return out
 
+    def relu6(self, name: str, x: str) -> str:
+        """ReLU6 (MobileNet-v2's clipped activation)."""
+        out = self._add(Node(name, "ReLU6", [x], [name]))[0]
+        self._channels[out] = self._channels[x]
+        return out
+
     def batchnorm(self, name: str, x: str, eps: float = 1e-5) -> str:
         c = self._channels[x]
         params = [self._param(name + "/mean", (c,), "mean"),

@@ -1,5 +1,5 @@
-"""Model zoo — the ResNet family of ``feathercnn_tpu/models/zoo.py``
-(ResNet-50/101/152, Caffe deploy structure and naming).
+"""Model zoo — the ResNet family (ResNet-50/101/152) and MobileNet-v1/v2
+of ``feathercnn_tpu/models/zoo.py``, Caffe deploy structure and naming.
 
 Layer sequences and seeded weights are the reference's, so
 ``resnet50(seed=s)`` here and there build the same graph with the same
@@ -11,8 +11,109 @@ from __future__ import annotations
 from ..ir import Graph
 from .builder import GraphBuilder
 
-__all__ = ["resnet50", "resnet101", "resnet152", "MODEL_BUILDERS",
-           "build_model"]
+__all__ = ["resnet50", "resnet101", "resnet152", "mobilenet_v1",
+           "mobilenet_v2", "MODEL_BUILDERS", "build_model"]
+
+
+def mobilenet_v1(batch: int = 1, seed: int = 0, width_mult: float = 1.0,
+                 with_softmax: bool = True) -> Graph:
+    """MobileNet-v1 (224x224): 13 depthwise-separable blocks, Caffe-style
+    BatchNorm+Scale after every conv (the depthwise config of
+    BASELINE.json:8)."""
+    b = GraphBuilder("mobilenet_v1", seed)
+
+    def c(ch):
+        return max(8, int(ch * width_mult))
+
+    def conv_block(name, x, ch, kernel=1, stride=1, pad=0, group=1):
+        x = b.conv(name, x, ch, kernel, stride, pad, group=group, bias=False)
+        x = b.bn_scale(name + "_bnsc", x)
+        return b.relu(name + "/relu", x)
+
+    def dw_sep(idx, x, ch, stride):
+        cin = b._channels[x]
+        x = b.conv(f"conv{idx}/dw", x, cin, 3, stride, 1, group=cin,
+                   bias=False)
+        x = b.bn_scale(f"conv{idx}/dw_bnsc", x)
+        x = b.relu(f"conv{idx}/dw/relu", x)
+        x = b.conv(f"conv{idx}/sep", x, ch, 1, 1, 0, bias=False)
+        x = b.bn_scale(f"conv{idx}/sep_bnsc", x)
+        return b.relu(f"conv{idx}/sep/relu", x)
+
+    x = b.input("data", (batch, 224, 224, 3))
+    x = conv_block("conv1", x, c(32), 3, 2, 1)
+    x = dw_sep(2, x, c(64), 1)
+    x = dw_sep(3, x, c(128), 2)
+    x = dw_sep(4, x, c(128), 1)
+    x = dw_sep(5, x, c(256), 2)
+    x = dw_sep(6, x, c(256), 1)
+    x = dw_sep(7, x, c(512), 2)
+    for i in range(8, 13):
+        x = dw_sep(i, x, c(512), 1)
+    x = dw_sep(13, x, c(1024), 2)
+    x = dw_sep(14, x, c(1024), 1)
+    x = b.pool("pool6", x, 0, mode="AVE", global_pooling=True)
+    x = b.fc("fc7", x, 1000)
+    if with_softmax:
+        x = b.softmax("prob", x)
+    return b.finish([x])
+
+
+def mobilenet_v2(batch: int = 1, seed: int = 0, width_mult: float = 1.0,
+                 with_softmax: bool = True) -> Graph:
+    """MobileNet-v2 (224x224), the public caffe deploy structure
+    (shicai/MobileNet-Caffe mobilenet_v2_deploy.prototxt): inverted
+    residual blocks — 1x1 expand + ReLU6, 3x3 depthwise + ReLU6, 1x1
+    linear project — with Eltwise-SUM shortcuts on the stride-1
+    equal-channel blocks and BatchNorm+Scale after every conv."""
+    b = GraphBuilder("mobilenet_v2", seed)
+
+    def c(ch):
+        return max(8, int(ch * width_mult))
+
+    def conv_bn(name, x, ch, kernel=1, stride=1, pad=0, group=1,
+                relu6=True):
+        x = b.conv(name, x, ch, kernel, stride, pad, group=group,
+                   bias=False)
+        x = b.bn_scale(name + "_bnsc", x)
+        if relu6:
+            x = b.relu6(name + "/relu6", x)
+        return x
+
+    def inverted_residual(name, x, ch, stride, expand):
+        cin = b._channels[x]
+        y = x
+        if expand != 1:
+            y = conv_bn(name + "/expand", y, cin * expand, 1)
+        y = conv_bn(name + "/dwise", y, b._channels[y], 3, stride, 1,
+                    group=b._channels[y])
+        y = conv_bn(name + "/linear", y, ch, 1, relu6=False)
+        if stride == 1 and cin == ch:
+            return b.eltwise(name + "/add", [x, y])
+        return y
+
+    x = b.input("data", (batch, 224, 224, 3))
+    x = conv_bn("conv1", x, c(32), 3, 2, 1)
+    # (expand_ratio, out_ch, repeats, first_stride): the 16/24/32/64/96/
+    # 160/320 stages of the v2 paper and deploy prototxt
+    cfg = [(1, 16, 1, 1), (6, 24, 2, 2), (6, 32, 3, 2), (6, 64, 4, 2),
+           (6, 96, 3, 1), (6, 160, 3, 2), (6, 320, 1, 1)]
+    blk = 0
+    for t, ch, n, s in cfg:
+        for i in range(n):
+            blk += 1
+            x = inverted_residual(f"block{blk}", x, c(ch),
+                                  s if i == 0 else 1, t)
+    x = conv_bn("conv9", x, max(c(1280), 1280), 1)
+    x = b.pool("pool10", x, 0, mode="AVE", global_pooling=True)
+    x = b.fc("fc11", x, 1000)
+    if with_softmax:
+        x = b.softmax("prob", x)
+    g = b.finish([x])
+    # The reference's measured per-model default: its depthwise convs take
+    # float inputs (no int8 edge into a grouped conv).
+    g.meta["config_overrides"] = {"int8_grouped": False}
+    return g
 
 
 def _resnet(depth: int, batch: int, seed: int,
@@ -86,6 +187,8 @@ MODEL_BUILDERS = {
     "resnet50": resnet50,
     "resnet101": resnet101,
     "resnet152": resnet152,
+    "mobilenet_v1": mobilenet_v1,
+    "mobilenet_v2": mobilenet_v2,
 }
 
 
