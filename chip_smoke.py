@@ -14,7 +14,11 @@ weights calibrated by the port (``method="max"``), full int8
 - MobileNet-v2 at batch 128 with its 17 ``*/dwise`` layers overridden to
   "depthwise" (bf16 in).  Its default route sends them to PyTorch's float
   grouped conv, as the reference leaves them to XLA's; the CPU tests cover
-  it.
+  it;
+- ResNet-50 at batch 128 with ``fuse_chains=True`` and the wildcard region
+  table ``meta["chain_regions"] = {"*": True}`` that ``bench.py
+  --fuse-chains`` sets: its 12 identity blocks run as 4 chains (nb 2, 3, 5,
+  2) through the fused-chain kernel, one launch per block.
 
 Phases, each printing its own lines:
 
@@ -31,16 +35,21 @@ Phases, each printing its own lines:
    beside its bound and a library yardstick: ``torch._int_mm`` at a GEMM's
    (M, K, N), and for the depthwise kernels ``F.conv2d(groups=C)`` on
    channels-last bf16 (PyTorch has no int8 grouped conv, so the int8
-   kernel's yardstick is that bf16 conv too).
+   kernel's yardstick is that bf16 conv too).  No single PyTorch call
+   computes a bottleneck: the chain kernel has no yardstick.  Instead each
+   chain call is printed beside the device time that the same blocks'
+   nodes take in the profiled forward of the unchained ResNet-50 path
+   (phase 4).
 4. per path, agreement and speed: images 0-1 through the port on the CPU
    (the plain versions) hold top-1 equal and the prob cosine >= 0.999
    against the card (bf16 rounds at other places on the two devices, so a
    float edge may differ in its last bit and move an int8 value by one
    step); median ms per batch and images/s over 10 forwards; one profiled
-   forward's device time by kernel.
+   forward's device time by kernel, and by graph node (the engine names a
+   profiler range after each node).
 5. ragged cases: stride 2, C not a multiple of a kernel's vector, odd
-   sizes, the lo/hi clamp and the float variants, against the plain
-   versions.
+   sizes, the lo/hi clamp, the float variants and the chain's ragged
+   shapes and output types, against the plain versions.
 6. server (ResNet-50): ``InferenceServer(batch_size=128, batch_slots=[8,
    128])`` with int8 transfer; 8 client threads send 32 requests; every
    answer equals the engine's direct output, with no fault.
@@ -85,6 +94,9 @@ KERNELS = {
         "source": "feathercnn_tpu_torch/kernels/csrc/depthwise_conv.cu",
         "replaces": "feathercnn_tpu/kernels/dispatch.py:221 (XLA's int8 "
                     "depthwise conv; no Pallas kernel)"},
+    "fused_chain": {
+        "source": "feathercnn_tpu_torch/kernels/csrc/fused_chain.cu",
+        "replaces": "feathercnn_tpu/kernels/fused_chain.py:264"},
 }
 _ZERO = dict.fromkeys(KERNELS, 0)
 # path -> launches of one forward.  A kernel's entry in the kernels line
@@ -98,6 +110,10 @@ EXPECTED = {
                                       "depthwise_conv2d": 13},
     "mobilenet_v2 b128 dw override": {**_ZERO, "matmul_epilogue": 35,
                                       "depthwise_conv2d": 17},
+    # one launch per block: 4 calls over 2 + 3 + 5 + 2 identity blocks
+    "resnet50 b128 fuse_chains": {**_ZERO, "matmul_epilogue": 9,
+                                  "conv2d_implicit_gemm": 4,
+                                  "fused_chain": 12},
 }
 # Cycles of the spin kernel queued before each timed launch: more than
 # the host needs to issue the launch.
@@ -211,7 +227,7 @@ def dw_override(g):
 
 class LaunchRecorder:
     """Wraps the dispatcher's kernel entry points for one forward and
-    keeps the arguments of every launch, in order."""
+    keeps the arguments of every wrapper call, in order."""
 
     def __init__(self):
         from feathercnn_tpu_torch.kernels import dispatch
@@ -242,7 +258,8 @@ class LaunchRecorder:
 
 def _kernel_fns():
     """name -> (wrapper, plain version)."""
-    from feathercnn_tpu_torch.kernels import conv, depthwise, matmul
+    from feathercnn_tpu_torch.kernels import (conv, depthwise, fused_chain,
+                                              matmul)
     return {"matmul_epilogue": (matmul.matmul_epilogue,
                                 matmul.matmul_epilogue_plain),
             "conv2d_implicit_gemm": (conv.conv2d_implicit_gemm,
@@ -250,7 +267,9 @@ def _kernel_fns():
             "depthwise_conv2d": (depthwise.depthwise_conv2d,
                                  depthwise.depthwise_conv2d_plain),
             "depthwise_conv2d_int8": (depthwise.depthwise_conv2d_int8,
-                                      depthwise.depthwise_conv2d_int8_plain)}
+                                      depthwise.depthwise_conv2d_int8_plain),
+            "fused_chain": (fused_chain.fused_chain,
+                            fused_chain.fused_chain_plain)}
 
 
 def reset_counts():
@@ -276,15 +295,31 @@ def drive(label, eng, x):
           f"{label}: launches {counts}, expected {EXPECTED[label]}")
     check(tuple(out.shape) == (len(x), 1000), f"output {tuple(out.shape)}")
     check(bool(torch.isfinite(out.float()).all()), "non-finite output")
-    recorded = {name: sum(1 for r in recorder.launches
+    recorded = {name: sum(launches_of(r) for r in recorder.launches
                           if r["kernel"] == name) for name in KERNELS}
     check(recorded == counts, f"recorded {recorded} vs counted {counts}")
-    return out, recorder.launches, counts
+    return out, recorder.launches
+
+
+def launches_of(record):
+    """CUDA launches of one recorded wrapper call: ``fused_chain`` launches
+    its kernel once per block of the chain, the others once."""
+    if record["kernel"] == "fused_chain":
+        return record["args"]["w1"].shape[0]
+    return 1
 
 
 # ----------------------------------------------------------------------
 # phase 3
 # ----------------------------------------------------------------------
+def chain_ops(a):
+    """Operations of one ``fused_chain`` call: per block and pixel 2 x
+    (C*Cm + 9*Cm^2 + Cm*C) multiply-adds."""
+    n, h, w, c = a["x"].shape
+    nb, _, cm = a["w1"].shape
+    return 2.0 * n * h * w * (2 * c * cm + 9 * cm * cm) * nb
+
+
 def dims(kernel, a):
     """(M, K, N) of a GEMM-shaped launch, or (N, OH, OW, C, KH, KW) of a
     depthwise one."""
@@ -311,10 +346,11 @@ def bound_ms(kernel, a, out):
     import torch
     nbytes = out.numel() * out.element_size()
     for t in a.values():
-        if isinstance(t, torch.Tensor):
-            nbytes += t.numel() * t.element_size()
-    d = dims(kernel, a)
-    ops = 2.0 * math.prod(d)
+        for u in (t if isinstance(t, (tuple, list)) else (t,)):
+            if isinstance(u, torch.Tensor):
+                nbytes += u.numel() * u.element_size()
+    ops = (chain_ops(a) if kernel == "fused_chain"
+           else 2.0 * math.prod(dims(kernel, a)))
     peak = PEAK_F32_OPS if kernel == "depthwise_conv2d" else PEAK_INT8_OPS
     t_bytes = nbytes / PEAK_BYTES * 1e3
     t_ops = ops / peak * 1e3
@@ -351,6 +387,8 @@ def library_ms(kernel, a):
     ``torch._int_mm`` (int8 x int8 -> int32, no epilogue) at a GEMM's
     (M, K, N); ``F.conv2d(groups=C)`` with its bias on channels-last bf16
     at a depthwise launch's shape."""
+    if kernel == "fused_chain":     # no single PyTorch call computes it
+        return None
     d = dims(kernel, a)
     key = (kernel == "depthwise_conv2d" or kernel == "depthwise_conv2d_int8",
            d, a.get("stride"), a.get("pad_h"), a.get("pad_w"))
@@ -396,8 +434,11 @@ def _time_dw_conv(d, stride, pad_h, pad_w):
 
 
 def describe(kernel, a, out):
-    d = dims(kernel, a)
     dt = str(out.dtype).replace("torch.", "")
+    if kernel == "fused_chain":
+        return (f"fused_chain x{tuple(a['x'].shape)} nb={a['w1'].shape[0]} "
+                f"Cm={a['w1'].shape[2]} out={dt}")
+    d = dims(kernel, a)
     if kernel in ("matmul_epilogue", "conv2d_implicit_gemm"):
         return (f"{kernel} M={d[0]} K={d[1]} N={d[2]} x{tuple(a['x'].shape)} "
                 f"out={dt}" + (f" stride={a['stride']}" if "stride" in a
@@ -409,8 +450,10 @@ def describe(kernel, a, out):
 
 
 def kernels_vs_plain(label, launches):
-    """Every recorded launch of a path's forward, repeated on its own
-    tensors, against the plain version, and timed; one row per launch."""
+    """Every recorded wrapper call of a path's forward, repeated on its own
+    tensors, against the plain version, and timed; one row per call.  A
+    row's ``ms`` is one whole call: for ``fused_chain`` that is its
+    ``launches`` (one per block of the chain)."""
     fns = _kernel_fns()
     rows = []
     for i, launch in enumerate(launches):
@@ -425,6 +468,9 @@ def kernels_vs_plain(label, launches):
               f"max err {max_err}")
         b_ms, b_by = bound_ms(name, a, out)
         rows.append({"path": label, "kernel": name, "shape": desc,
+                     "x_shape": tuple(a["x"].shape if "x" in a
+                                      else a["xq"].shape),
+                     "launches": launches_of(launch),
                      "max_abs_err": max_err,
                      "ms": median_ms(lambda: kernel(**a)),
                      "plain_ms": median_ms(lambda: plain(**a), reps=3,
@@ -434,14 +480,21 @@ def kernels_vs_plain(label, launches):
     for desc in dict.fromkeys(r["shape"] for r in rows):
         same = [r for r in rows if r["shape"] == desc]
         lib = same[0]["library_ms"]
-        say("kernels", f"{desc} x{len(same)}: every launch equal to plain "
-            f"(max err {max(r['max_abs_err'] for r in same)}); median "
-            f"{statistics.median(r['ms'] for r in same):.4f} ms, bound "
-            f"{same[0]['bound_ms']:.4f} ms ({same[0]['bound_by']}), plain "
+        say("kernels", f"{desc}: {len(same)} calls, "
+            f"{sum(r['launches'] for r in same)} launches, every one equal "
+            f"to plain (max err {max(r['max_abs_err'] for r in same)}); "
+            f"median {statistics.median(r['ms'] for r in same):.4f} ms per "
+            f"call, bound {same[0]['bound_ms']:.4f} ms "
+            f"({same[0]['bound_by']}), plain "
             f"{statistics.median(r['plain_ms'] for r in same):.3f} ms, "
-            + ("bf16 F.conv2d(groups=C)" if "depthwise" in desc
-               else "_int_mm") + f" {lib if lib is None else round(lib, 4)}")
+            + _library_name(desc) + f" {lib if lib is None else round(lib, 4)}")
     return rows
+
+
+def _library_name(desc):
+    if desc.startswith("fused_chain"):
+        return "library: none"
+    return "bf16 F.conv2d(groups=C)" if "depthwise" in desc else "_int_mm"
 
 
 # ----------------------------------------------------------------------
@@ -449,9 +502,16 @@ def kernels_vs_plain(label, launches):
 # ----------------------------------------------------------------------
 def ops_per_batch(graph):
     """2 x the multiply-adds of every conv and FC of the optimized graph
-    at its declared batch (the fp stem included)."""
+    at its declared batch (the fp stem included), and of every fused
+    bottleneck (as feathercnn_tpu/utils/summary.py counts them)."""
     total = 0
     for n in graph.nodes:
+        if n.op in ("FusedBottleneck", "FusedChain"):
+            bn, oh, ow, c = graph.specs[n.outputs[0]].shape
+            cm = graph.params[n.params[0]].shape[-1]
+            total += (2 * bn * oh * ow * (2 * c * cm + 9 * cm * cm)
+                      * n.attrs.get("nb", 1))
+            continue
         if n.op not in ("Convolution", "InnerProduct"):
             continue
         out = graph.specs[n.outputs[0]].shape
@@ -480,6 +540,8 @@ def agreement(label, g, cfg, x, out):
 
 
 def _kernel_group(key):
+    if "fused_block_kernel" in key:
+        return "fused_chain"
     if "dw_kernel" in key:      # dw_kernel<TX, INT_ACC>, mangled or not
         return ("depthwise_conv2d_int8"
                 if "Lb1E" in key or ", true>" in key else "depthwise_conv2d")
@@ -493,7 +555,9 @@ def _kernel_group(key):
 
 def speed_and_profile(label, eng, x, smi):
     """Median ms per batch over 10 synchronized forwards (input on the
-    card), images/s, and one profiled forward's device time by kernel."""
+    card), images/s, and one profiled forward's device time by kernel.
+    Returns the median ms and the profiled forward's device ms by graph
+    node (the engine's per-node profiler ranges; {} where not measured)."""
     import torch
     xd = torch.from_numpy(x).cuda()
     times = []
@@ -519,19 +583,27 @@ def speed_and_profile(label, eng, x, smi):
         torch.cuda.synchronize()
     del xd
     rows = []
+    nodes = {n.name for n in eng.graph.nodes}
+    node_ms = {}
     for ev in prof.key_averages():
         dev_us = getattr(ev, "device_time_total", None)
         if dev_us is None:
             dev_us = getattr(ev, "cuda_time_total", 0)
-        if dev_us and getattr(ev, "device_type", None) is not None \
-                and "CUDA" in str(ev.device_type):
+        on_card = "CUDA" in str(getattr(ev, "device_type", ""))
+        if getattr(ev, "is_user_annotation", False):
+            # a node's range as the card ran it: from the start of its
+            # first kernel to the end of its last (the host-side range
+            # links only PyTorch's own kernels, not the hand kernels)
+            if on_card and ev.key in nodes:
+                node_ms[ev.key] = dev_us / 1e3
+        elif dev_us and on_card:
             rows.append((dev_us, ev.count, ev.key))
     rows.sort(reverse=True)
     total = sum(r[0] for r in rows)
     if not total:
         say("profile", f"{label}: device time not measured (the profiler "
             "saw no CUDA kernels)")
-        return ms
+        return ms, {}
     groups = {}
     for us, cnt, key in rows:
         grp = _kernel_group(key)
@@ -543,16 +615,71 @@ def speed_and_profile(label, eng, x, smi):
         + ", ".join(f"{k} {v / 1e3:.3f} ms x{c} ({100 * v / total:.1f}%)"
                     for k, (v, c) in sorted(groups.items(),
                                             key=lambda kv: -kv[1][0])))
-    for us, cnt, key in rows[:8]:
+    for us, cnt, key in rows[:12]:
         say("profile", f"{us / 1e3:8.3f} ms {100 * us / total:5.1f}% "
             f"x{cnt} {key[:90]}")
-    return ms
+    if node_ms:
+        say("profile", f"{label}: the card's ranges of {len(node_ms)} of "
+            f"{len(nodes)} graph nodes span {sum(node_ms.values()):.3f} ms "
+            f"in all, against {total / 1e3:.3f} ms of kernel time")
+    else:
+        say("profile", f"{label}: device time by node not measured (no "
+            "node range carried device time)")
+    return ms, node_ms
+
+
+def region_nodes(graph, x_val, out_val):
+    """Names of the nodes of ``graph`` that compute ``out_val`` from
+    ``x_val`` (a fused chain's region on the unchained graph)."""
+    producer = {v: n for n in graph.nodes for v in n.outputs}
+    names, todo = set(), [out_val]
+    while todo:
+        v = todo.pop()
+        n = producer.get(v)
+        if v == x_val or n is None or n.name in names:
+            continue
+        names.add(n.name)
+        todo += n.inputs
+    return names
+
+
+def chains_beside_unchained(rows, chained, unchained, node_ms):
+    """Each chain call of the fuse_chains path beside the device time that
+    the same blocks' nodes took in the unchained path's profiled forward,
+    and the design's own traffic between blocks (computed, not measured:
+    each block but the last writes its int8 output, the next reads it)."""
+    chains = [n for n in chained.nodes if n.op == "FusedChain"]
+    calls = [r for r in rows if r["kernel"] == "fused_chain"]
+    check(len(chains) == len(calls),
+          f"{len(chains)} chain nodes, {len(calls)} chain calls")
+    op_of = {n.name: n.op for n in unchained.nodes}
+    for node, r in zip(chains, calls):
+        region = region_nodes(unchained, node.inputs[0], node.outputs[0])
+        by_op = {}          # op -> (nodes, ms, or None where not measured)
+        for name in region:
+            k, ms = by_op.get(op_of[name], (0, 0.0))
+            got = node_ms.get(name)
+            by_op[op_of[name]] = (k + 1, None if None in (ms, got)
+                                  else ms + got)
+        parts = [f"{k} {op} {'not measured' if ms is None else f'{ms:.4f} ms'}"
+                 for op, (k, ms) in sorted(by_op.items())]
+        times = [ms for _, ms in by_op.values()]
+        if None not in times:
+            parts.append(f"in all {sum(times):.4f} ms")
+        nb, xs = node.attrs["nb"], r["x_shape"]
+        say("chains", f"{node.name} x{xs} nb={nb}: {r['ms']:.4f} ms per call "
+            f"({r['launches']} launches), bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']}); the same blocks unchained: "
+            + ", ".join(parts)
+            + f"; {2 * (nb - 1) * math.prod(xs) / 1e6:.1f} MB between "
+            f"blocks (computed)")
 
 
 def run_path(label, g, cfg, eng, x, smi, check_launch=None):
-    """Phases 2-4 of one path; returns its kernel rows."""
+    """Phases 2-4 of one path; returns its kernel rows, its median ms per
+    batch and its profiled forward's device ms by graph node."""
     import torch
-    out, launches, _ = drive(label, eng, x)
+    out, launches = drive(label, eng, x)
     if check_launch is not None:
         for launch in launches:
             check_launch(launch)
@@ -561,8 +688,8 @@ def run_path(label, g, cfg, eng, x, smi, check_launch=None):
     agreement(label, g, cfg, x, out)
     del out
     torch.cuda.empty_cache()
-    ms = speed_and_profile(label, eng, x, smi)
-    return rows, ms
+    ms, node_ms = speed_and_profile(label, eng, x, smi)
+    return rows, ms, node_ms
 
 
 # ----------------------------------------------------------------------
@@ -573,6 +700,7 @@ def ragged_cases():
     the float variants: off the main paths' shapes, each against the
     plain version."""
     import torch
+    from feathercnn_tpu_torch.kernels.fused_chain import kernel_layout
 
     fns = _kernel_fns()
     gen = torch.Generator(device="cuda").manual_seed(2)
@@ -656,8 +784,62 @@ def ragged_cases():
             held("depthwise_conv2d", a,
                  f"depthwise {x.dtype} {(nb, h, w, c, s, p)} {extra}")
             n += 1
-    say("kernels", f"{n} stride-2 / ragged / clamp / float cases equal to "
-        f"plain (int8 0 LSB, bf16 1 ulp, f32 1e-5 of the largest value)")
+    # the fused chain: odd H and W, nb = 1..3, Cm <= 128 and > 128, C not a
+    # multiple of 16, every output type (f32 shows both shortcut forms),
+    # and a saturated conv2 sum (Cm = 257) whose f32 output pins the
+    # per-tap f32 sum; each equal to plain, with no tolerance
+    srng = np.random.default_rng(3)
+
+    def chain(n_, h, w, c, cm, nb, out):
+        def ws(k, cols):
+            return f32(nb, cols, lo=0.5e-3 / k ** 0.5, hi=1.5e-3 / k ** 0.5)
+        sc = [tuple(float(v) for v in srng.uniform(lo, hi, nb))
+              for lo, hi in ((0.02, 0.05), (5e-4, 2e-3), (5e-4, 2e-3))]
+        return dict(x=i8(n_, h, w, c), w1=i8(nb, c, cm),
+                    b1=f32(nb, cm, lo=-1.0, hi=1.0), w2=i8(nb, 9 * cm, cm),
+                    b2=f32(nb, cm, lo=-1.0, hi=1.0), w3=i8(nb, cm, c),
+                    b3=f32(nb, c, lo=-1.0, hi=1.0),
+                    w_scales=(ws(c, cm), ws(9 * cm, cm), ws(cm, c)),
+                    scales=(*sc, 0.05 if out == torch.int8 else None),
+                    out_dtype=out)
+
+    v = torch.randint(100, 128, (257,), device="cuda", generator=gen)
+    saturated = dict(
+        x=i8(1, 5, 6, 24), w1=i8(1, 24, 257),
+        b1=torch.full((1, 257), 1e4, device="cuda"),
+        w2=v.to(torch.int8).expand(1, 9 * 257, 257).contiguous(),
+        b2=(60.0 - 127.0 * v.double() * 9 * 257).float()[None].contiguous(),
+        w3=i8(1, 257, 24), b3=f32(1, 24, lo=-1.0, hi=1.0),
+        w_scales=(torch.full((1, 257), 1e-3, device="cuda"),
+                  torch.ones(1, 257, device="cuda"),
+                  torch.full((1, 24), 1e-6, device="cuda")),
+        scales=((0.03,), (1.0,), (1.0,), None), out_dtype=torch.float32)
+    for case in [(2, 9, 11, 64, 32, 2, torch.int8),
+                 (2, 9, 11, 64, 32, 2, torch.float32),
+                 (1, 13, 9, 72, 144, 3, torch.bfloat16),
+                 (3, 7, 7, 48, 144, 1, torch.float32),
+                 (2, 8, 8, 40, 16, 3, torch.int8),
+                 (2, 6, 5, 24, 8, 2, torch.int8),
+                 (2, 15, 15, 256, 64, 2, torch.int8),
+                 (1, 28, 28, 512, 128, 1, torch.bfloat16),
+                 (1, 7, 9, 2048, 512, 1, torch.bfloat16),
+                 "saturated conv2 sum, Cm=257"]:
+        a = saturated if isinstance(case, str) else chain(*case)
+        row_major = a["w1"]
+        for k in ("w1", "w2", "w3"):
+            a[k] = kernel_layout(a[k])
+        kernel, plain = fns["fused_chain"]
+        err, _ = compare(kernel(**a), plain(**a))
+        check(err == 0.0, f"fused_chain {case}: max err {err}")
+        n += 1
+        try:        # the kernel takes its own weight layout and no other
+            kernel(**{**a, "w1": row_major})
+            check(False, f"fused_chain {case}: a row-major w1 was taken")
+        except ValueError:
+            pass
+    say("kernels", f"{n} stride-2 / ragged / clamp / float / chain cases "
+        f"equal to plain (int8 0 LSB, bf16 1 ulp, f32 1e-5 of the largest "
+        f"value; the chain cases exactly)")
 
 
 # ----------------------------------------------------------------------
@@ -740,10 +922,11 @@ def kernel_summary(name, rows, counts):
     """One kernel's entry of the ``{"kernels": ...}`` line.  Its numbers
     come from the first path of ``EXPECTED`` that launches it (``path``):
     ``launches`` is that forward's count, and ms, plain_ms, bound_ms and
-    library_ms sum every launch of that forward.  ``paths`` gives the same
-    per path that launches the kernel, and ``shapes``, per distinct launch
-    shape of ``path``, the launches and the median per launch (the
-    ``[kernels]`` lines print them for every path).
+    library_ms sum every wrapper call of that forward.  ``paths`` gives the
+    same per path that launches the kernel, and ``shapes``, per distinct
+    call shape of ``path``, the wrapper calls, their CUDA launches (a
+    ``fused_chain`` call launches once per block) and the median per call
+    (the ``[kernels]`` lines print them for every path).
     ``launches_per_forward`` and ``max_err_vs_plain`` repeat ``launches``
     and ``max_abs_err`` under the names the port's issue tracker asks
     for."""
@@ -759,7 +942,8 @@ def kernel_summary(name, rows, counts):
     for desc in dict.fromkeys(r["shape"] for r in main_rows):
         same = [r for r in main_rows if r["shape"] == desc]
         shapes.append({
-            "shape": desc, "launches": len(same),
+            "shape": desc, "calls": len(same),
+            "launches": sum(r["launches"] for r in same),
             "bound_by": same[0]["bound_by"],
             "max_abs_err": max(r["max_abs_err"] for r in same),
             **{k: (None if any(r[k] is None for r in same)
@@ -769,6 +953,8 @@ def kernel_summary(name, rows, counts):
                + ("; PyTorch has no int8 grouped conv" if name.endswith(
                    "_int8") else "")
                if name.startswith("depthwise") else "torch._int_mm")
+    if name == "fused_chain":
+        library = "none: no single PyTorch call computes a bottleneck"
     return {
         "name": name, "route": "cuda", **KERNELS[name],
         "path": main, "launches": counts[main][name],
@@ -807,10 +993,24 @@ def main() -> int:
     cfg, eng = make_engine(label, g)
     x = rng.normal(size=(BATCH, 224, 224, 3)).astype(np.float32)
     counts[label] = EXPECTED[label]
-    r, speed[label] = run_path(label, g, cfg, eng, x, smi)
+    r, speed[label], node_ms = run_path(label, g, cfg, eng, x, smi)
     rows += r
     ragged_cases()
     serve(eng, x)
+    unchained = eng.graph
+    del eng
+    torch.cuda.empty_cache()
+
+    # ResNet-50 b128 with fuse_chains: the same calibrated graph with the
+    # wildcard region table that bench.py --fuse-chains sets
+    label = "resnet50 b128 fuse_chains"
+    g.meta["chain_regions"] = {"*": True}
+    cfg, eng = make_engine(label, g, fuse_chains=True)
+    counts[label] = EXPECTED[label]
+    r, speed[label], _ = run_path(label, g, cfg, eng, x, smi,
+                                  _chain_launch_check(label))
+    rows += r
+    chains_beside_unchained(r, eng.graph, unchained, node_ms)
     del eng, x
     torch.cuda.empty_cache()
 
@@ -824,8 +1024,8 @@ def main() -> int:
              (torch.int8, "relu", torch.bfloat16))]:
         cfg, eng = make_engine(label, g, **config)
         counts[label] = EXPECTED[label]
-        r, speed[label] = run_path(label, g, cfg, eng, x, smi,
-                                   _dw_launch_check(label, want))
+        r, speed[label], _ = run_path(label, g, cfg, eng, x, smi,
+                                      _dw_launch_check(label, want))
         rows += r
         del eng
         torch.cuda.empty_cache()
@@ -837,8 +1037,10 @@ def main() -> int:
     x = rng.normal(size=(128, 224, 224, 3)).astype(np.float32)
     cfg, eng = make_engine(label, g, algo_overrides=dw_override(g))
     counts[label] = EXPECTED[label]
-    r, speed[label] = run_path(label, g, cfg, eng, x, smi, _dw_launch_check(
-        label, (torch.bfloat16, "relu6", torch.bfloat16)))
+    r, speed[label], _ = run_path(label, g, cfg, eng, x, smi,
+                                  _dw_launch_check(label, (
+                                      torch.bfloat16, "relu6",
+                                      torch.bfloat16)))
     rows += r
     del eng, x
 
@@ -852,6 +1054,28 @@ def main() -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
+
+
+def _chain_launch_check(label):
+    """A check of the fuse_chains path's chain calls: int8 x (the lowering
+    quantizes the bf16 edge into stage 5 with a divide, as the reference
+    does), nb 2, 3, 5, 2 in order, int8 out but on the last chain (bf16 for
+    the global AVE pool)."""
+    import torch
+    seen = []
+
+    def check_launch(launch):
+        if launch["kernel"] != "fused_chain":
+            return
+        a = launch["args"]
+        check(a["x"].dtype == torch.int8,
+              f"{label}: chain input {a['x'].dtype}, expected int8")
+        seen.append((a["w1"].shape[0], a["scales"][3] is not None))
+        if len(seen) == 4:
+            check(seen == [(2, True), (3, True), (5, True), (2, False)],
+                  f"{label}: chain calls (nb, int8 out) {seen}")
+            say(label, f"4 chain calls, (nb, int8 out) {seen}, every x int8")
+    return check_launch
 
 
 def _dw_launch_check(label, want):

@@ -6,8 +6,11 @@ same thing to both engines.  What differs:
 - ``backend`` is ``"torch"`` (the plain float oracle, the role of the
   reference's ``"xla"``) or ``"cuda"`` (the hand-written kernels through
   ``kernels/dispatch.py``, the role of ``"pallas"``).
-- Fields whose pass or lowering is not ported yet raise
-  ``NotImplementedError`` when set (``check_supported``).
+- The fields whose pass or lowering is not ported yet (``s2d_stem``,
+  ``concat_dus``, ``sharding``, ``psroi_fuse_ave``,
+  ``compilation_cache_dir``) raise ``NotImplementedError`` when set
+  (``check_supported``).  ``fuse_blocks`` and ``fuse_chains`` run the
+  region-fusion passes, as in the reference.
 - The TPU formulation flags (``lrn_band``, ``shuffle_matmul``,
   ``avepool_*``, ``maxpool_shift``, ``topk_radix``, ``det_*``,
   ``roipool_*``, ``proposal_sort_payload``, ``nms_blocked``) pick among
@@ -24,8 +27,6 @@ __all__ = ["EngineConfig", "apply_baked_overrides"]
 
 # Fields whose pass or lowering is not in the port yet -> what is missing.
 _NOT_PORTED = {
-    "fuse_blocks": "the fused-bottleneck pass and kernel",
-    "fuse_chains": "the fused-chain pass and kernel",
     "s2d_stem": "the space-to-depth stem pass",
     "concat_dus": "the concat-ladder pass",
     "sharding": "parallel/ (sharded engines)",
@@ -105,9 +106,12 @@ class EngineConfig:
     shuffle_matmul: bool = False
     concat_dus: bool = False            # not ported
     compilation_cache_dir: Optional[str] = None   # not ported
-    fuse_blocks: bool = False           # not ported
+    # Region fusion (passes_fusion.py): identity bottlenecks as
+    # FusedBottleneck nodes; fuse_chains also merges same-shape runs into
+    # FusedChain nodes, and implies fuse_blocks.
+    fuse_blocks: bool = False
     s2d_stem: bool = False              # not ported
-    fuse_chains: bool = False           # not ported
+    fuse_chains: bool = False
 
     def check_supported(self) -> None:
         """Raise ``NotImplementedError`` for a field set to a value whose

@@ -3,10 +3,13 @@ the lowered ops.
 
 Counterpart of ``feathercnn_tpu/engine.py``.  Init runs the reference's
 steps in the reference's order (baked overrides -> ``optimize`` ->
-``quantize_graph`` -> ``infer_shapes``); the weights move to the device
+``quantize_graph`` -> the region-fusion passes under ``fuse_blocks`` /
+``fuse_chains`` -> ``infer_shapes``); the weights move to the device
 once; a forward walks the node list, lowering each node to PyTorch ops
 (and, on the "cuda" backend, to the hand-written kernels).  There is no
-trace or compile step: PyTorch runs eagerly.
+trace or compile step: PyTorch runs eagerly.  Under ``torch.profiler``
+each node's ops run inside a ``record_function`` range named after the
+node, so a profile gives device time per graph node.
 
 The engine runs on the first CUDA device unless the caller passes
 ``device="cpu"``; it never falls back to the CPU on its own.  Float32
@@ -17,6 +20,7 @@ sets it (and ``torch.backends.cuda.matmul.allow_tf32``) to False.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 from typing import Any, Dict, List, Optional, Sequence, Union
 
@@ -29,6 +33,10 @@ from .ops.lowering import LoweringCtx, lower_node
 from .passes import optimize
 
 __all__ = ["Engine", "resolve_device"]
+
+
+def _no_scope(name: str):
+    return contextlib.nullcontext()
 
 
 def resolve_device(device=None) -> torch.device:
@@ -80,6 +88,15 @@ class Engine:
                            fp_act_layers=self.config.fp_act_layers,
                            quant_overrides=dict(
                                self.config.quant_overrides))
+        if self.config.fuse_blocks or self.config.fuse_chains:
+            from .passes_fusion import fuse_bottlenecks, fuse_chains
+            infer_shapes(self.graph)  # fresh specs for the region gate
+            act_item = torch.empty(
+                (), dtype=getattr(torch, self.config.compute_dtype)
+            ).element_size()
+            fuse_bottlenecks(self.graph, act_itemsize=act_item)
+            if self.config.fuse_chains:
+                fuse_chains(self.graph, act_itemsize=act_item)
         infer_shapes(self.graph)
         self.graph.validate()
         self._device_params: Optional[Dict[str, torch.Tensor]] = None
@@ -132,10 +149,14 @@ class Engine:
             # rounds 599 to 600 and corrupts clip bounds.
             env[name] = x.to(cdtype) if (
                 x.dtype.is_floating_point and x.dim() == 4) else x
+        # under a profiler, each node's ops are one range named after it
+        scope = (torch.profiler.record_function
+                 if torch.autograd._profiler_enabled() else _no_scope)
         for node in self.graph.nodes:
             ins = [env[i] for i in node.inputs]
             ps = [params[p] for p in node.params]
-            outs = lower_node(node, ins, ps, self._ctx)
+            with scope(node.name):
+                outs = lower_node(node, ins, ps, self._ctx)
             for name, val in zip(node.outputs, outs):
                 env[name] = val
         return {w: env[w] for w in wanted}

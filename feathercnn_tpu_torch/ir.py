@@ -279,7 +279,7 @@ def _elementwise_shape(node, in_specs, graph):
 
 
 for _op in ["ReLU", "ReLU6", "BatchNorm", "Scale", "Dropout", "Softmax",
-            "Split"]:
+            "Split", "FusedBottleneck", "FusedChain"]:
     register_shape_fn(_op)(_elementwise_shape)
 
 

@@ -24,7 +24,7 @@ __all__ = ["load_library", "build_log", "nvcc_path"]
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _BUILD_ROOT = Path(__file__).resolve().parent.parent / "_build"
 _SOURCES = ("matmul_epilogue.cu", "conv_implicit_gemm.cu",
-            "depthwise_conv.cu")
+            "depthwise_conv.cu", "fused_chain.cu")
 _HEADERS = ("gemm_common.cuh",)
 _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
           "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -54,6 +54,12 @@ _SIGNATURES = {
                                    _I, _I, _I, _I,
                                    _I, _I,                   # ot act
                                    _F, _P],                  # out_scale stream
+    "fcnn_fused_block": [_P, _P,                             # x out
+                         _P, _P, _P, _P, _P, _P,             # w1 b1 w1s w2 b2 w2s
+                         _P, _P, _P,                         # w3 b3 w3s
+                         _I, _I, _I, _I, _I, _I, _I,         # N H W C Cm TH TW
+                         _F, _F, _F, _F, _F, _F,             # sx sy1 sy2, 1/sy1 1/sy2 out_scale
+                         _I, _I, _P],                        # shortcut_fma ot stream
 }
 
 

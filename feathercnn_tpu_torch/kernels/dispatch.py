@@ -20,6 +20,10 @@ for a grouped conv, so the "depthwise" branch is reached only through
 algo_overrides (ROADMAP.md, queue C).
 
 EngineConfig.algo_overrides forces a choice per layer name.
+
+The FusedBottleneck and FusedChain lowerings call ``fused_chain``
+(kernels/fused_chain.py) from here, so that every kernel entry point of
+the "cuda" backend is an attribute of this module.
 """
 
 from __future__ import annotations
@@ -33,9 +37,10 @@ from ..ops.lowering import (act_segment_bounds, apply_act_segments,
                             quantize, scalar)
 from .conv import conv2d_implicit_gemm
 from .depthwise import depthwise_conv2d, depthwise_conv2d_int8
+from .fused_chain import fused_chain
 from .matmul import matmul_epilogue
 
-__all__ = ["select_algo", "conv_forward", "fc_forward"]
+__all__ = ["select_algo", "conv_forward", "fc_forward", "fused_chain"]
 
 
 def select_algo(node, cin: int, quant: bool) -> str:

@@ -1,0 +1,288 @@
+"""``fused_chain``: ``nb`` identity bottlenecks in a row, the ResNet stage
+under ``fuse_chains``.
+
+Counterpart of the Pallas kernel ``feathercnn_tpu/kernels/fused_chain.py``
+(``fused_chain``, :264).  On a CUDA tensor the int8 mode launches the
+hand-written kernel in ``csrc/fused_chain.cu`` once per block (its header
+note says what bounds it on an H100 and what its design does about that);
+on a CPU tensor both modes compute the same function with
+:func:`fused_chain_plain`.  The float mode has no CUDA kernel yet (ROADMAP
+B4-float): on a CUDA tensor it raises.
+
+Block j of the int8 mode, over NHWC int8 ``x`` with per-tensor activation
+scales ``sx``, ``sy1``, ``sy2`` and per-channel weight scales::
+
+    y1  = q8(relu(acc(x·w1) * f32(w1s·sx) + b1) * f32(1/sy1))
+    y2  = q8(relu(acc(conv3x3(y1, pad 1)) * f32(w2s·sy1) + b2) * f32(1/sy2))
+    out = relu(acc(y2·w3) * f32(w3s·sy2) + b3 + f32(x)·sx) -> q8(· * r)
+
+with ``r = f32(1/sx[j+1])``, or ``f32(1/s_out)`` on the last block, whose
+output is bf16 instead where ``s_out`` is None.  ``q8`` rounds half to
+even and clips to +-127; every reciprocal is a double rounded once to f32.
+Each ``* s + b`` rounds once (an FMA), as the reference's compiled kernel
+contracts it.  The shortcut's ``+ f32(x)·sx`` is a second FMA on the
+chain's first block; on a later block it is a rounded product and an add,
+because there the reference's compiled code recomputes the previous
+block's requant inside the add and the clamp it emits keeps the product
+apart.  Conv2's sum is one exact int32 sum where ``Cm <= 128``; above, the
+reference sums nine per-tap int32 dots in f32 (kh outer, kw inner), and so
+do both versions here.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence
+
+import torch
+import torch.nn.functional as F
+
+from .matmul import _DTYPE_CODES, check_contiguous, fma_f32
+
+__all__ = ["fused_chain", "fused_chain_plain", "kernel_layout"]
+
+_FLOAT = (torch.float32, torch.bfloat16)
+
+
+def _f32(v) -> float:
+    """``v`` rounded once to f32, as a Python float."""
+    return float(torch.tensor(float(v), dtype=torch.float32))
+
+
+def _scale_args(nb, scales):
+    """(sx, sy1, sy2, r, out_int8) of the int8 mode: ``r[j] = 1/sx[j+1]``
+    in double, and ``1/s_out`` (or 1.0: bf16 out) on the last block."""
+    sx, sy1, sy2, s_out = scales
+    if not (len(sx) == len(sy1) == len(sy2) == nb):
+        raise ValueError(f"scales need {nb} entries each, got "
+                         f"{len(sx)}/{len(sy1)}/{len(sy2)}")
+    out_int8 = s_out is not None
+    r = [1.0 / sx[j + 1] for j in range(nb - 1)]
+    r.append(1.0 / s_out if out_int8 else 1.0)
+    return ([float(v) for v in sx], [float(v) for v in sy1],
+            [float(v) for v in sy2], r, out_int8)
+
+
+def _q8(v: torch.Tensor, inv_scale: float) -> torch.Tensor:
+    q = torch.round(v * torch.tensor(_f32(inv_scale), device=v.device))
+    return torch.clamp(q, -127, 127).to(torch.int8)
+
+
+def _exact_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The int32 product of two int8 grids (as float64: exact, |acc| <=
+    127^2 * K is far inside 53 bits), rounded once to f32."""
+    return (a.double() @ b.double()).float()
+
+
+def _taps(y: torch.Tensor):
+    """The nine 3x3 windows of the zero-padded NHWC ``y`` as (M, Cm)
+    matrices, kh outer and kw inner."""
+    n, h, w, c = y.shape
+    yp = F.pad(y, (0, 0, 1, 1, 1, 1))
+    for kh in range(3):
+        for kw in range(3):
+            yield yp[:, kh:kh + h, kw:kw + w, :].reshape(-1, c)
+
+
+def fused_chain_plain(x, w1, b1, w2, b2, w3, b3, w_scales=None,
+                      scales: Optional[Sequence] = None, out_dtype=None):
+    """Plain PyTorch version of both modes, step for step as the reference
+    kernel rounds: int8 sums exact in float64, the FMAs of the module note
+    emulated exactly (``fma_f32``); the float mode sums in f32."""
+    n, h, w, c = x.shape
+    nb, _, cm = w1.shape
+    int8 = x.dtype == torch.int8
+    out_dtype = _out_dtype(x, out_dtype, scales)
+    if int8:
+        sx, sy1, sy2, r, out_int8 = _scale_args(nb, scales)
+    act = x
+    for j in range(nb):
+        last = j == nb - 1
+        xm = act.reshape(-1, c)
+        if int8:
+            w1s, w2s, w3s = (s[j] for s in w_scales)
+            s1 = w1s * torch.tensor(_f32(sx[j]), device=x.device)
+            y1 = torch.clamp_min(fma_f32(_exact_mm(xm, w1[j]), s1, b1[j]), 0)
+            y1 = _q8(y1, 1.0 / sy1[j]).reshape(n, h, w, cm)
+            if cm <= 128:
+                a2 = _exact_mm(torch.cat(list(_taps(y1)), dim=1), w2[j])
+            else:
+                a2 = torch.zeros(n * h * w, cm, device=x.device)
+                for t, ys in enumerate(_taps(y1)):
+                    a2 = a2 + _exact_mm(ys, w2[j, t * cm:(t + 1) * cm])
+            s2 = w2s * torch.tensor(_f32(sy1[j]), device=x.device)
+            y2 = _q8(torch.clamp_min(fma_f32(a2, s2, b2[j]), 0), 1.0 / sy2[j])
+            s3 = w3s * torch.tensor(_f32(sy2[j]), device=x.device)
+            t3 = fma_f32(_exact_mm(y2, w3[j]), s3, b3[j])
+            if j == 0:
+                out = fma_f32(xm.float(), _f32(sx[j]), t3)
+            else:
+                out = t3 + xm.float() * torch.tensor(_f32(sx[j]),
+                                                     device=x.device)
+            out = torch.clamp_min(out, 0)
+            if not last or out_int8:
+                act = _q8(out, r[j])
+            else:
+                act = out.to(out_dtype)
+        else:
+            dt = x.dtype
+            y1 = torch.clamp_min(xm.float() @ w1[j].float() + b1[j], 0)
+            y1 = y1.to(dt).reshape(n, h, w, cm)
+            if cm <= 128:
+                a2 = torch.cat(list(_taps(y1)), dim=1).float() @ w2[j].float()
+            else:
+                a2 = torch.zeros(n * h * w, cm, device=x.device)
+                for t, ys in enumerate(_taps(y1)):
+                    a2 = a2 + ys.float() @ w2[j, t * cm:(t + 1) * cm].float()
+            y2 = torch.clamp_min(a2 + b2[j], 0).to(dt)
+            out = torch.clamp_min(y2.float() @ w3[j].float() + b3[j]
+                                  + xm.float(), 0)
+            act = out.to(out_dtype if last else dt)
+        act = act.reshape(n, h, w, c)
+    return act
+
+
+def _out_dtype(x, out_dtype, scales):
+    if x.dtype == torch.int8:
+        if scales is not None and scales[3] is not None:
+            return torch.int8
+        return torch.bfloat16 if out_dtype is None else out_dtype
+    return x.dtype if out_dtype is None else out_dtype
+
+
+def kernel_layout(w: torch.Tensor) -> torch.Tensor:
+    """``w`` (nb, K, N) with the same values, stored as the CUDA kernel
+    reads a weight: (nb, N, K) with K contiguous, so that a 16-byte copy
+    lands where the mma's B fragment reads it.  The lowering makes it once
+    per node; on a CUDA tensor the wrapper takes no other layout."""
+    return w.transpose(1, 2).contiguous().transpose(1, 2)
+
+
+def tile_plan(h: int, w: int):
+    """(TH, TW) of the CUDA kernel's output tile: 8x8 or 7x7, whichever
+    makes the fewer conv1 halo pixels over the image ((t + 2)^2 per tile);
+    the kernel's shared memory holds a (TH + 2) x (TW + 2) halo of y1."""
+    def cost(t):
+        return -(-h // t) * -(-w // t) * (t + 2) ** 2
+    t = min((8, 7), key=lambda t: (cost(t), -t))
+    return t, t
+
+
+def _check(x, w1, b1, w2, b2, w3, b3, w_scales, scales, out_dtype):
+    """Raise on shapes, types or devices the function does not take."""
+    if x.dim() != 4 or w1.dim() != 3:
+        raise ValueError(f"x must be NHWC and w1 (nb, C, Cm), got "
+                         f"{tuple(x.shape)} and {tuple(w1.shape)}")
+    n, h, w, c = x.shape
+    nb, c1, cm = w1.shape
+    want = {"w1": (w1, (nb, c, cm)), "w2": (w2, (nb, 9 * cm, cm)),
+            "w3": (w3, (nb, cm, c)), "b1": (b1, (nb, cm)),
+            "b2": (b2, (nb, cm)), "b3": (b3, (nb, c))}
+    for name, (t, shape) in want.items():
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
+                             f"{shape}")
+        if t.device != x.device:
+            raise ValueError(f"{name} is on {t.device}, x on {x.device}")
+    for name, t in (("b1", b1), ("b2", b2), ("b3", b3)):
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {t.dtype}")
+    if x.dtype == torch.int8:
+        if w_scales is None or scales is None:
+            raise ValueError("the int8 mode needs w_scales and scales")
+        for name, wt in (("w1", w1), ("w2", w2), ("w3", w3)):
+            if wt.dtype != torch.int8:
+                raise TypeError(f"int8 x needs int8 {name}, got {wt.dtype}")
+        for name, t, shape in zip(("w1s", "w2s", "w3s"), w_scales,
+                                  ((nb, cm), (nb, cm), (nb, c))):
+            if (t.dtype != torch.float32 or tuple(t.shape) != shape
+                    or t.device != x.device):
+                raise ValueError(f"{name} must be float32 {shape} on "
+                                 f"{x.device}, got {t.dtype} "
+                                 f"{tuple(t.shape)} on {t.device}")
+        _scale_args(nb, scales)
+        if _out_dtype(x, out_dtype, scales) not in _DTYPE_CODES:
+            raise TypeError(f"bad out_dtype {out_dtype}")
+        return
+    if x.dtype not in _FLOAT:
+        raise TypeError(f"x must be int8, float32 or bfloat16, got {x.dtype}")
+    if w_scales is not None or scales is not None:
+        raise ValueError("w_scales and scales go with an int8 x only")
+
+
+def fused_chain(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
+                w2: torch.Tensor, b2: torch.Tensor, w3: torch.Tensor,
+                b3: torch.Tensor, w_scales=None,
+                scales: Optional[Sequence] = None,
+                out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """Run ``nb`` chained identity bottlenecks over ``x``.
+
+    x: (N, H, W, C) int8 (the int8 mode) or float32/bfloat16 (the float
+    mode).  w1: (nb, C, Cm); w2: (nb, 9*Cm, Cm), rows tap-major (kh, kw,
+    c_in); w3: (nb, Cm, C); b1, b2, b3: (nb, Cm), (nb, Cm), (nb, C)
+    float32.  The int8 mode takes int8 weights, ``w_scales = (w1s, w2s,
+    w3s)`` of shapes (nb, Cm), (nb, Cm), (nb, C) float32, and ``scales =
+    (sx, sy1, sy2, s_out)``: three sequences of nb floats and the output's
+    int8 scale, or None for a bf16 output.  The float mode takes weights of
+    x's type.
+
+    A CPU ``x`` takes :func:`fused_chain_plain`.  A CUDA ``x`` launches the
+    kernel once per block (int8 mode), its weights stored as
+    :func:`kernel_layout` gives them, or raises: the float mode has no
+    kernel yet."""
+    _check(x, w1, b1, w2, b2, w3, b3, w_scales, scales, out_dtype)
+    out_dtype = _out_dtype(x, out_dtype, scales)
+    if x.device.type == "cpu":
+        return fused_chain_plain(x, w1, b1, w2, b2, w3, b3, w_scales, scales,
+                                 out_dtype)
+    if x.dtype != torch.int8:
+        raise NotImplementedError(
+            "fused_chain: the float mode has no CUDA kernel yet (ROADMAP "
+            "B4-float); only the int8 mode runs on the GPU")
+    for name, wt in (("w1", w1), ("w2", w2), ("w3", w3)):
+        if not wt.transpose(1, 2).is_contiguous():
+            raise ValueError(f"{name} must be stored as kernel_layout() "
+                             f"gives it: (nb, N, K) with K contiguous")
+    if x.device.type != "cuda":
+        raise ValueError(f"no kernel for device {x.device}")
+    w1s, w2s, w3s = w_scales
+    check_contiguous({"x": x, "b1": b1, "b2": b2, "b3": b3, "w1s": w1s,
+                      "w2s": w2s, "w3s": w3s})
+    n, h, w, c = x.shape
+    nb, _, cm = w1.shape
+    sx, sy1, sy2, r, out_int8 = _scale_args(nb, scales)
+    th, tw = tile_plan(h, w)
+    if x.numel() == 0:
+        return torch.empty_like(x, dtype=out_dtype)
+    from .build import load_library
+    lib = load_library()
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    act = x
+    spare = None
+    for j in range(nb):
+        last = j == nb - 1
+        odt = out_dtype if last else torch.int8
+        if odt == torch.int8 and spare is not None and not last:
+            out = spare
+        else:
+            out = torch.empty((n, h, w, c), dtype=odt, device=x.device)
+        rc = lib.fcnn_fused_block(
+            act.data_ptr(), out.data_ptr(),
+            w1[j].data_ptr(), b1[j].data_ptr(), w1s[j].data_ptr(),
+            w2[j].data_ptr(), b2[j].data_ptr(), w2s[j].data_ptr(),
+            w3[j].data_ptr(), b3[j].data_ptr(), w3s[j].data_ptr(),
+            n, h, w, c, cm, th, tw,
+            _f32(sx[j]), _f32(sy1[j]), _f32(sy2[j]),
+            _f32(1.0 / sy1[j]), _f32(1.0 / sy2[j]), _f32(r[j]),
+            int(j == 0), _DTYPE_CODES[odt], stream)
+        if rc != 0:
+            raise RuntimeError(
+                f"fused_chain launch failed: CUDA error {rc} (block {j} of "
+                f"{nb}, x={tuple(x.shape)} Cm={cm} tile {th}x{tw})")
+        fused_chain.launches += 1
+        # the int8 buffer this block read is free for block j + 2's output
+        spare = act if act is not x else None
+        act = out
+    return act
+
+
+fused_chain.launches = 0

@@ -5,11 +5,14 @@ module, as there:
 
   - "torch": every op is plain PyTorch (the float oracle; int8 weights and
     int8 edges are dequantized first, as the reference's "xla" does).
-  - "cuda":  Convolution and InnerProduct go through kernels/dispatch.py to
-    the hand-written kernels (their plain versions on CPU tensors); the
-    rest stays plain PyTorch.
+  - "cuda":  Convolution, InnerProduct, FusedBottleneck and FusedChain go
+    through kernels/dispatch.py to the hand-written kernels (their plain
+    versions on CPU tensors); the rest stays plain PyTorch.
 
-Ops the port does not lower yet raise ``NotImplementedError`` naming the op.
+An op with no lowering here raises ``NotImplementedError`` naming it
+(``lower_node``): among the reference's, for example LRN, Concat,
+Deconvolution, the detection ops, SpaceToDepth and the ladder ops of
+``concat_dus``.
 """
 
 from __future__ import annotations
@@ -48,12 +51,17 @@ class LoweringCtx:
               ) -> torch.Tensor:
         """Device float32 tensor for ``make()`` (an array or a number),
         built on first use for (node, key)."""
+        return self.kept(node, key, lambda: torch.as_tensor(
+            np.asarray(make(), np.float32), device=self.device))
+
+    def kept(self, node: Node, key: str,
+             make: Callable[[], torch.Tensor]) -> torch.Tensor:
+        """The tensor ``make()`` returns, made on first use for (node, key)
+        and kept."""
         k = (node.name, key)
         t = self._consts.get(k)
         if t is None:
-            t = torch.as_tensor(np.asarray(make(), np.float32),
-                                device=self.device)
-            self._consts[k] = t
+            t = self._consts[k] = make()
         return t
 
 
@@ -370,6 +378,72 @@ def _sum_terms(terms):
     for x, s in rest:
         acc = torch.addcmul(acc, x, s) if s is not None else acc + x
     return acc
+
+
+# ----------------------------------------------------------------------
+# Region fusion (passes_fusion.py): identity bottlenecks
+# ----------------------------------------------------------------------
+
+def _run_chain(node, ctx, x, w1, b1, w2, b2, w3, b3, w_scales=None,
+               scales=None):
+    """``fused_chain`` as the reference's lowerings call it: the int8 mode
+    where ``scales`` are given (a float ``x`` quantized first, with a
+    divide by ``sx[0]``), else the float mode with the weights cast to x's
+    type.  The weights go in the kernel's layout, made once per node.
+    Through the dispatcher on the "cuda" backend (the kernel, or its plain
+    version on CPU tensors); the plain version on "torch"."""
+    from ..kernels.fused_chain import fused_chain_plain, kernel_layout
+    if scales is not None:
+        if x.dtype != torch.int8:
+            x = quantize(x, scales[0][0])
+        kwargs = dict(w_scales=w_scales, scales=scales)
+    else:
+        kwargs = {}
+    wdt = torch.int8 if scales is not None else x.dtype
+    w1, w2, w3 = (ctx.kept(node, f"{k}/{wdt}",
+                           lambda w=w: kernel_layout(w.to(wdt)))
+                  for k, w in (("w1", w1), ("w2", w2), ("w3", w3)))
+    args = (x.contiguous(), w1, b1, w2, b2, w3, b3)
+    if ctx.backend == "cuda":
+        from ..kernels import dispatch as kdispatch
+        return kdispatch.fused_chain(*args, **kwargs)
+    return fused_chain_plain(*args, **kwargs)
+
+
+@register_lowering("FusedBottleneck")
+def _lower_fused_block(node, inputs, params, ctx):
+    """One identity bottleneck: a 1-block chain (kernels/fused_chain)."""
+    w1, b1, w2, b2, w3, b3 = params
+    # Graph weights are HWIO; the chain function wants stacked matrices.
+    c, cm = w1.shape[-2], w1.shape[-1]
+    weights = (w1.reshape(1, c, cm), b1.reshape(1, -1),
+               w2.reshape(1, 9 * cm, cm), b2.reshape(1, -1),
+               w3.reshape(1, cm, c), b3.reshape(1, -1))
+    q = ctx.qinfo(node)
+    if not (node.attrs.get("quant") and q is not None):
+        return [_run_chain(node, ctx, inputs[0], *weights)]
+    ws = tuple(ctx.const(node, f"w{i + 1}s",
+                         lambda s=s: np.asarray(s).reshape(1, -1))
+               for i, s in enumerate(q["w_scales"]))
+    a = node.attrs
+    scales = ((a["s_x"],), (a["s_y1"],), (a["s_y2"],), a.get("s_out"))
+    return [_run_chain(node, ctx, inputs[0], *weights, w_scales=ws,
+                       scales=scales)]
+
+
+@register_lowering("FusedChain")
+def _lower_fused_chain(node, inputs, params, ctx):
+    """Chained identity bottlenecks (passes_fusion.fuse_chains ->
+    kernels/fused_chain)."""
+    q = ctx.qinfo(node)
+    if not (node.attrs.get("quant") and q is not None):
+        return [_run_chain(node, ctx, inputs[0], *params)]
+    ws = tuple(ctx.const(node, k, lambda k=k: q[k])
+               for k in ("w1s", "w2s", "w3s"))
+    a = node.attrs
+    scales = (a["sx"], a["sy1"], a["sy2"], a.get("s_out"))
+    return [_run_chain(node, ctx, inputs[0], *params, w_scales=ws,
+                       scales=scales)]
 
 
 @register_lowering("Slice")

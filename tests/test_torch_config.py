@@ -33,8 +33,7 @@ def test_engine_checks_input_shapes():
 
 
 def test_unported_config_fields_raise_naming_them():
-    for field, value in [("fuse_blocks", True), ("fuse_chains", True),
-                         ("s2d_stem", True), ("concat_dus", True),
+    for field, value in [("s2d_stem", True), ("concat_dus", True),
                          ("psroi_fuse_ave", True), ("sharding", object()),
                          ("compilation_cache_dir", "cache")]:
         with pytest.raises(NotImplementedError, match=field):
