@@ -3,9 +3,10 @@
 
     python3 chip_smoke.py
 
-Drives the port's main paths at full width and 224x224, with seeded random
-weights calibrated by the port (``method="max"``), full int8
-(``quant="w8a8"``) with bf16 float activations, on the "cuda" backend:
+Drives the port's main paths at full width and 224x224 on the "cuda"
+backend, with seeded random weights.  The int8 paths are calibrated by the
+port (``method="max"``) and run full int8 (``quant="w8a8"``) with bf16
+float activations; the bf16 paths run ``quant=None`` in bf16:
 
 - ResNet-50 at batch 128, then behind an ``InferenceServer``;
 - MobileNet-v1 at batch 256 on its default route, where its 13 depthwise
@@ -18,7 +19,18 @@ weights calibrated by the port (``method="max"``), full int8
 - ResNet-50 at batch 128 with ``fuse_chains=True`` and the wildcard region
   table ``meta["chain_regions"] = {"*": True}`` that ``bench.py
   --fuse-chains`` sets: its 12 identity blocks run as 4 chains (nb 2, 3, 5,
-  2) through the fused-chain kernel, one launch per block.
+  2) through the fused-chain kernel, one launch per block;
+- ResNet-50 at batch 128 in bf16 (``quant=None``, no calibration),
+  unchained: its convs run in PyTorch's (cuDNN's) float conv, as the
+  reference leaves float convs to XLA's, and its FC in the float variant of
+  ``matmul_epilogue``.  It is the yardstick of the next path;
+- the same in bf16 with ``fuse_chains`` and the wildcard region table: the
+  12 identity blocks run as 3 chains (nb 2, 3, 5) and 2 single blocks at
+  stage 5 through the float fused-chain kernel, one launch per block;
+- the boundary probe (``kernels/ident.py``, the ``idctx`` mode of
+  ``bench/chain_micro.py``) at ResNet-50's stages 2-5, b128: a producer and
+  a consumer int8 1x1 conv with and without the ``ident`` copy between
+  them.
 
 Phases, each printing its own lines:
 
@@ -36,10 +48,19 @@ Phases, each printing its own lines:
    (M, K, N), and for the depthwise kernels ``F.conv2d(groups=C)`` on
    channels-last bf16 (PyTorch has no int8 grouped conv, so the int8
    kernel's yardstick is that bf16 conv too).  No single PyTorch call
-   computes a bottleneck: the chain kernel has no yardstick.  Instead each
-   chain call is printed beside the device time that the same blocks'
-   nodes take in the profiled forward of the unchained ResNet-50 path
-   (phase 4).
+   computes a bottleneck: the chain kernels have no yardstick.  Instead
+   each chain call is printed beside the device time that the same blocks'
+   nodes take in the profiled forward of the unchained ResNet-50 path of
+   its precision (phase 4).  The float chain is held to its plain version
+   launch by launch (block by block, on the kernel's own input of each
+   block): bf16 out, every element within 2 bf16 ulp of the plain value or
+   within 1e-2 of the largest, and at most 0.1% more than 1 ulp apart
+   (the plain version rounds each sum once from f64, the kernel adds in
+   f32 in its own order, and a bf16 store of y1, y2 or the output may
+   round the other way); f32 out, within 1e-4 of the largest value.  A GEMM
+   launch on float x (its sums f32 of float products) takes the same bf16
+   gate.  ``ident`` is bit-equal, its yardstick ``x.clone()``.
+   A float GEMM's yardstick is ``torch.matmul`` in x's type.
 4. per path, agreement and speed: images 0-1 through the port on the CPU
    (the plain versions) hold top-1 equal and the prob cosine >= 0.999
    against the card (bf16 rounds at other places on the two devices, so a
@@ -49,15 +70,23 @@ Phases, each printing its own lines:
    profiler range after each node).
 5. ragged cases: stride 2, C not a multiple of a kernel's vector, odd
    sizes, the lo/hi clamp, the float variants and the chain's ragged
-   shapes and output types, against the plain versions.
+   shapes and output types (int8 and float modes), and ``ident`` on int8,
+   bf16 and f32 at odd sizes, against the plain versions.
 6. server (ResNet-50): ``InferenceServer(batch_size=128, batch_slots=[8,
    128])`` with int8 transfer; 8 client threads send 32 requests; every
    answer equals the engine's direct output, with no fault.
+7. boundary: the probe's launches counted and held against their plain
+   versions, then each stage's median ms without and with ``ident``, the
+   difference, and ``ident``'s own time beside its byte bound and
+   ``x.clone()``.
 
-Then the card's name and power limit, one JSON line of kernel numbers,
-and, last, ``{"ok": true, "device": {...}}``.  Any failed check exits
-nonzero before those lines.  Without a GPU, or without the repository
-beside it, the script exits nonzero and prints no result.
+The order: ResNet-50 (phases 2-4), the ragged cases (5), the server (6),
+ResNet-50 with ``fuse_chains``, the two bf16 ResNet-50 paths, the
+MobileNets, the boundary probe (7).  Then the card's name and power
+limit, one JSON line of kernel numbers, and, last, ``{"ok": true,
+"device": {...}}``.  Any failed check exits nonzero before those lines.
+Without a GPU, or without the repository beside it, the script exits
+nonzero and prints no result.
 """
 
 from __future__ import annotations
@@ -78,6 +107,7 @@ BATCH = 128          # ResNet-50
 SEED = 0
 # Published dense peaks of one H100 SXM (NVIDIA's data sheet), at 700 W.
 PEAK_INT8_OPS = 1979e12
+PEAK_BF16_OPS = 989e12
 PEAK_F32_OPS = 67e12       # float32 outside the tensor cores (FMA)
 PEAK_BYTES = 3.35e12
 KERNELS = {
@@ -97,6 +127,13 @@ KERNELS = {
     "fused_chain": {
         "source": "feathercnn_tpu_torch/kernels/csrc/fused_chain.cu",
         "replaces": "feathercnn_tpu/kernels/fused_chain.py:264"},
+    "fused_chain_float": {
+        "source": "feathercnn_tpu_torch/kernels/csrc/fused_chain_float.cu",
+        "replaces": "feathercnn_tpu/kernels/fused_chain.py:264 (float "
+                    "mode)"},
+    "ident": {
+        "source": "feathercnn_tpu_torch/kernels/csrc/ident.cu",
+        "replaces": "bench/chain_micro.py:187"},
 }
 _ZERO = dict.fromkeys(KERNELS, 0)
 # path -> launches of one forward.  A kernel's entry in the kernels line
@@ -114,7 +151,15 @@ EXPECTED = {
     "resnet50 b128 fuse_chains": {**_ZERO, "matmul_epilogue": 9,
                                   "conv2d_implicit_gemm": 4,
                                   "fused_chain": 12},
+    # bf16: the convs in PyTorch's float conv, the FC in matmul_epilogue
+    "resnet50 b128 bf16": {**_ZERO, "matmul_epilogue": 1},
+    # 5 calls over 2 + 3 + 5 + 1 + 1 identity blocks
+    "resnet50 b128 bf16 fuse_chains": {**_ZERO, "matmul_epilogue": 1,
+                                       "fused_chain_float": 12},
+    # per stage 2-5: producer and consumer twice (without and with ident)
+    "boundary b128": {**_ZERO, "matmul_epilogue": 16, "ident": 4},
 }
+CHAINS = ("fused_chain", "fused_chain_float")
 # Cycles of the spin kernel queued before each timed launch: more than
 # the host needs to issue the launch.
 SPIN_CYCLES = 2_000_000
@@ -207,14 +252,15 @@ def calibrated(builder, batch, rng):
     return g
 
 
-def make_engine(label, g, **config):
+def make_engine(label, g, quant="w8a8", **config):
     from feathercnn_tpu_torch import Engine, EngineConfig
     t0 = time.perf_counter()
     cfg = EngineConfig(backend="cuda", compute_dtype="bfloat16",
-                       quant="w8a8", **config)
+                       quant=quant, **config)
     eng = Engine(g, cfg)
     check(eng.device.type == "cuda", f"engine on {eng.device}")
-    say(label, f"w8a8 bf16, calibrated on 3x8 seeded images, loaded in "
+    say(label, ("w8a8 bf16, calibrated on 3x8 seeded images" if quant
+                else "bf16, no quantization") + ", loaded in "
         f"{time.perf_counter() - t0:.1f} s")
     return cfg, eng
 
@@ -259,7 +305,7 @@ class LaunchRecorder:
 def _kernel_fns():
     """name -> (wrapper, plain version)."""
     from feathercnn_tpu_torch.kernels import (conv, depthwise, fused_chain,
-                                              matmul)
+                                              ident, matmul)
     return {"matmul_epilogue": (matmul.matmul_epilogue,
                                 matmul.matmul_epilogue_plain),
             "conv2d_implicit_gemm": (conv.conv2d_implicit_gemm,
@@ -269,7 +315,10 @@ def _kernel_fns():
             "depthwise_conv2d_int8": (depthwise.depthwise_conv2d_int8,
                                       depthwise.depthwise_conv2d_int8_plain),
             "fused_chain": (fused_chain.fused_chain,
-                            fused_chain.fused_chain_plain)}
+                            fused_chain.fused_chain_plain),
+            "fused_chain_float": (fused_chain.fused_chain_float,
+                                  fused_chain.fused_chain_plain),
+            "ident": (ident.ident, ident.ident_plain)}
 
 
 def reset_counts():
@@ -302,9 +351,9 @@ def drive(label, eng, x):
 
 
 def launches_of(record):
-    """CUDA launches of one recorded wrapper call: ``fused_chain`` launches
-    its kernel once per block of the chain, the others once."""
-    if record["kernel"] == "fused_chain":
+    """CUDA launches of one recorded wrapper call: the chain kernels
+    launch once per block of the chain, the others once."""
+    if record["kernel"] in CHAINS:
         return record["args"]["w1"].shape[0]
     return 1
 
@@ -340,43 +389,93 @@ def dims(kernel, a):
 def bound_ms(kernel, a, out):
     """Least time on an H100 SXM: the larger of the bytes the function
     must move (each input read once, the output written once) over the
-    memory rate and its operations over the peak for their type (int8 on
-    the tensor cores for the int8 kernels; float32 FMA for the float
-    depthwise variant)."""
+    memory rate and its operations over the peak for their type (int8 or
+    bf16 on the tensor cores by x's type, float32 FMA for f32 x and for the
+    float depthwise variant, which computes in f32; ``ident`` does none)."""
     import torch
     nbytes = out.numel() * out.element_size()
     for t in a.values():
         for u in (t if isinstance(t, (tuple, list)) else (t,)):
             if isinstance(u, torch.Tensor):
                 nbytes += u.numel() * u.element_size()
-    ops = (chain_ops(a) if kernel == "fused_chain"
-           else 2.0 * math.prod(dims(kernel, a)))
-    peak = PEAK_F32_OPS if kernel == "depthwise_conv2d" else PEAK_INT8_OPS
+    if kernel == "ident":
+        ops = 0.0
+    elif kernel in CHAINS:
+        ops = chain_ops(a)
+    else:
+        ops = 2.0 * math.prod(dims(kernel, a))
+    x = a["x"] if "x" in a else a["xq"]
+    peak = {torch.int8: PEAK_INT8_OPS, torch.bfloat16: PEAK_BF16_OPS}.get(
+        x.dtype, PEAK_F32_OPS)
+    if kernel == "depthwise_conv2d":
+        peak = PEAK_F32_OPS
     t_bytes = nbytes / PEAK_BYTES * 1e3
     t_ops = ops / peak * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                  else "operations")
 
 
-def compare(kernel_out, plain_out):
-    """Max |kernel - plain| and whether it is within the tolerance: int8
-    equal, bf16 within 1 ulp of the plain value, f32 within 1e-5 of the
-    output's magnitude."""
+def compare(kernel_out, plain_out, gate="exact"):
+    """(max |kernel - plain|, within the gate, elements more than 1 bf16 ulp
+    apart).  ``gate="bits"``: bit-equal.  ``gate="float"``, for a kernel
+    that sums products of float inputs in f32 in another order than the
+    plain version (the float chain, a GEMM of float x): bf16 out, every
+    element within 2 ulp of the plain value or within 1e-2 of the largest
+    |plain|, and at most 0.1% of them more than 1 ulp apart; f32 out,
+    within 1e-4 of the largest |plain|.  ``gate="exact"``: int8 equal, bf16
+    within 1 ulp of the plain value, f32 within 1e-5 of the output's
+    magnitude."""
     import torch
     check(kernel_out.dtype == plain_out.dtype
           and kernel_out.shape == plain_out.shape,
           f"kernel gave {kernel_out.dtype}{tuple(kernel_out.shape)}, plain "
           f"{plain_out.dtype}{tuple(plain_out.shape)}")
+    if gate == "bits":
+        return 0.0, bool(torch.equal(kernel_out, plain_out)), 0
     k, p = kernel_out.double(), plain_out.double()
     err = (k - p).abs()
     max_err = float(err.max()) if err.numel() else 0.0
+    top = float(p.abs().max()) if p.numel() else 0.0
     if kernel_out.dtype == torch.int8:
-        return max_err, max_err == 0.0
+        return max_err, max_err == 0.0, 0
     if kernel_out.dtype == torch.bfloat16:
         ulp = torch.exp2(torch.floor(torch.log2(
             p.abs().clamp_min(torch.finfo(torch.float32).tiny))) - 7)
-        return max_err, bool((err <= ulp).all())
-    return max_err, max_err <= 1e-5 * float(p.abs().max())
+        over = int((err > ulp).sum())
+        if gate == "float":
+            ok = (bool(((err <= 2 * ulp) | (err <= 1e-2 * top)).all())
+                  and over <= 1e-3 * err.numel())
+            return max_err, ok, over
+        return max_err, over == 0, over
+    tol = 1e-4 if gate == "float" else 1e-5
+    return max_err, max_err <= tol * top, 0
+
+
+def per_launch(a, out):
+    """A float chain call held against the plain version one launch (one
+    block) at a time: each block's kernel output against the plain version
+    of that block on the same input, the kernel's output feeding the next
+    block, whose last output must equal the whole call's ``out``.  Two
+    correct f32 sum orders of a bf16 chain drift apart from block to block
+    (a bf16 store that rounds the other way feeds every later block), so
+    the gate holds per launch, where both versions start from one input.
+    Returns (max err, every launch within the gate, elements more than 1
+    ulp apart, elements compared)."""
+    import torch
+    kernel, plain = _kernel_fns()["fused_chain_float"]
+    nb = a["w1"].shape[0]
+    act, worst, ok, over, elements = a["x"], 0.0, True, 0, 0
+    for j in range(nb):
+        blk = {k: a[k][j:j + 1] for k in ("w1", "b1", "w2", "b2", "w3", "b3")}
+        blk.update(x=act, out_dtype=a["out_dtype"] if j == nb - 1 else None)
+        got = kernel(**blk)
+        e, o, v = compare(got, plain(**blk), "float")
+        worst, ok, over = max(worst, e), ok and o, over + v
+        elements += got.numel()
+        act = got
+    check(torch.equal(act, out), "a float chain run block by block differs "
+          "from the same chain in one call")
+    return worst, ok, over, elements
 
 
 _LIBRARY_MS = {}
@@ -384,21 +483,40 @@ _LIBRARY_MS = {}
 
 def library_ms(kernel, a):
     """The yardstick, timed once per shape and never called by the port:
-    ``torch._int_mm`` (int8 x int8 -> int32, no epilogue) at a GEMM's
-    (M, K, N); ``F.conv2d(groups=C)`` with its bias on channels-last bf16
-    at a depthwise launch's shape."""
-    if kernel == "fused_chain":     # no single PyTorch call computes it
+    ``torch._int_mm`` (int8 x int8 -> int32, no epilogue) at an int8
+    GEMM's (M, K, N), ``torch.matmul`` in x's type at a float one;
+    ``F.conv2d(groups=C)`` with its bias on channels-last bf16 at a
+    depthwise launch's shape; ``x.clone()`` for ``ident``."""
+    import torch
+    if kernel in CHAINS:            # no single PyTorch call computes it
         return None
+    if kernel == "ident":
+        x = a["x"]
+        key = ("clone", tuple(x.shape), x.dtype)
+        if key not in _LIBRARY_MS:
+            _LIBRARY_MS[key] = median_ms(x.clone)
+        return _LIBRARY_MS[key]
     d = dims(kernel, a)
+    x = a["x"] if "x" in a else a["xq"]
     key = (kernel == "depthwise_conv2d" or kernel == "depthwise_conv2d_int8",
-           d, a.get("stride"), a.get("pad_h"), a.get("pad_w"))
+           d, a.get("stride"), a.get("pad_h"), a.get("pad_w"), x.dtype)
     if key not in _LIBRARY_MS:
         if key[0]:
             _LIBRARY_MS[key] = _time_dw_conv(d, a["stride"], a["pad_h"],
                                              a["pad_w"])
-        else:
+        elif x.dtype == torch.int8:
             _LIBRARY_MS[key] = _time_int_mm(*d)
+        else:
+            _LIBRARY_MS[key] = _time_matmul(*d, x.dtype)
     return _LIBRARY_MS[key]
+
+
+def _time_matmul(m, k, n, dtype):
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    a = torch.randn(m, k, device="cuda", generator=gen).to(dtype)
+    b = torch.randn(k, n, device="cuda", generator=gen).to(dtype)
+    return median_ms(lambda: a @ b)
 
 
 def _time_int_mm(m, k, n):
@@ -435,14 +553,19 @@ def _time_dw_conv(d, stride, pad_h, pad_w):
 
 def describe(kernel, a, out):
     dt = str(out.dtype).replace("torch.", "")
-    if kernel == "fused_chain":
-        return (f"fused_chain x{tuple(a['x'].shape)} nb={a['w1'].shape[0]} "
+    if kernel == "ident":
+        return (f"ident x{tuple(a['x'].shape)} "
+                f"{str(a['x'].dtype).replace('torch.', '')} "
+                f"chunk={a['chunk']}")
+    if kernel in CHAINS:
+        return (f"{kernel} x{tuple(a['x'].shape)} nb={a['w1'].shape[0]} "
                 f"Cm={a['w1'].shape[2]} out={dt}")
     d = dims(kernel, a)
     if kernel in ("matmul_epilogue", "conv2d_implicit_gemm"):
+        xdt = str(a["x"].dtype).replace("torch.", "")
         return (f"{kernel} M={d[0]} K={d[1]} N={d[2]} x{tuple(a['x'].shape)} "
-                f"out={dt}" + (f" stride={a['stride']}" if "stride" in a
-                               else "")
+                f"{xdt} out={dt}" + (f" stride={a['stride']}" if "stride" in a
+                                     else "")
                 + (" lo/hi" if a.get("lo") is not None else ""))
     x = a["x"] if "x" in a else a["xq"]
     return (f"{kernel} x{tuple(x.shape)} {str(x.dtype).replace('torch.', '')}"
@@ -454,22 +577,36 @@ def kernels_vs_plain(label, launches):
     tensors, against the plain version, and timed; one row per call.  A
     row's ``ms`` is one whole call: for ``fused_chain`` that is its
     ``launches`` (one per block of the chain)."""
+    import torch
     fns = _kernel_fns()
     rows = []
     for i, launch in enumerate(launches):
         name, a = launch["kernel"], launch["args"]
+        float_sums = name == "fused_chain_float" or (
+            name in ("matmul_epilogue", "conv2d_implicit_gemm")
+            and a["x"].dtype != torch.int8)
+        gate = ("bits" if name == "ident" else "float" if float_sums
+                else "exact")
         kernel, plain = fns[name]
         out = kernel(**a)
-        ref = plain(**a)
-        max_err, ok = compare(out, ref)
-        del ref
+        if name == "fused_chain_float":
+            max_err, ok, over, elements = per_launch(a, out)
+        else:
+            ref = plain(**a)
+            max_err, ok, over = compare(out, ref, gate)
+            elements = out.numel()
+            del ref
         desc = describe(name, a, out)
         check(ok, f"{label}: launch {i}, {desc}: kernel differs from plain, "
-              f"max err {max_err}")
+              f"max err {max_err}, {over} elements over 1 ulp")
         b_ms, b_by = bound_ms(name, a, out)
         rows.append({"path": label, "kernel": name, "shape": desc,
                      "x_shape": tuple(a["x"].shape if "x" in a
                                       else a["xq"].shape),
+                     "x_bytes": (a["x"].numel() * a["x"].element_size()
+                                 if "x" in a else a["xq"].numel()),
+                     "over_1ulp": over, "elements": elements,
+                     "float_sums": float_sums,
                      "launches": launches_of(launch),
                      "max_abs_err": max_err,
                      "ms": median_ms(lambda: kernel(**a)),
@@ -480,9 +617,13 @@ def kernels_vs_plain(label, launches):
     for desc in dict.fromkeys(r["shape"] for r in rows):
         same = [r for r in rows if r["shape"] == desc]
         lib = same[0]["library_ms"]
+        over = sum(r["over_1ulp"] for r in same)
+        within = ("within the float-sum gates" if same[0]["float_sums"]
+                  else "equal to plain")
         say("kernels", f"{desc}: {len(same)} calls, "
-            f"{sum(r['launches'] for r in same)} launches, every one equal "
-            f"to plain (max err {max(r['max_abs_err'] for r in same)}); "
+            f"{sum(r['launches'] for r in same)} launches, every one {within} "
+            f"(max err {max(r['max_abs_err'] for r in same)}, {over} of "
+            f"{sum(r['elements'] for r in same)} elements over 1 bf16 ulp); "
             f"median {statistics.median(r['ms'] for r in same):.4f} ms per "
             f"call, bound {same[0]['bound_ms']:.4f} ms "
             f"({same[0]['bound_by']}), plain "
@@ -494,7 +635,11 @@ def kernels_vs_plain(label, launches):
 def _library_name(desc):
     if desc.startswith("fused_chain"):
         return "library: none"
-    return "bf16 F.conv2d(groups=C)" if "depthwise" in desc else "_int_mm"
+    if desc.startswith("ident"):
+        return "x.clone()"
+    if "depthwise" in desc:
+        return "bf16 F.conv2d(groups=C)"
+    return "_int_mm" if " int8 " in desc else "torch.matmul"
 
 
 # ----------------------------------------------------------------------
@@ -540,8 +685,12 @@ def agreement(label, g, cfg, x, out):
 
 
 def _kernel_group(key):
+    if "fused_float_block_kernel" in key:
+        return "fused_chain_float"
     if "fused_block_kernel" in key:
         return "fused_chain"
+    if "ident_kernel" in key:
+        return "ident"
     if "dw_kernel" in key:      # dw_kernel<TX, INT_ACC>, mangled or not
         return ("depthwise_conv2d_int8"
                 if "Lb1E" in key or ", true>" in key else "depthwise_conv2d")
@@ -550,7 +699,7 @@ def _kernel_group(key):
                 else "matmul_epilogue")
     if "at::native" in key:
         return "PyTorch's own ops"
-    return "other libraries (the cuDNN stem)"
+    return "cuDNN (the stem; every conv of the bf16 paths)"
 
 
 def speed_and_profile(label, eng, x, smi):
@@ -570,10 +719,13 @@ def speed_and_profile(label, eng, x, smi):
     ms = statistics.median(times[2:])
     ops = ops_per_batch(eng.graph)
     batch = len(x)
-    say("speed", f"{label} w8a8 bf16: median {ms:.2f} ms per batch, "
+    what, kind, peak = (("w8a8 bf16", "int8", PEAK_INT8_OPS)
+                        if eng.config.quant
+                        else ("no quantization", "bf16", PEAK_BF16_OPS))
+    say("speed", f"{label} {what}: median {ms:.2f} ms per batch, "
         f"{batch / ms * 1e3:.1f} images/s, {ops / batch / 1e9:.3f} GOP per "
         f"image, {ops / ms / 1e9:.1f} TOP/s = "
-        f"{100 * ops / ms * 1e3 / PEAK_INT8_OPS:.2f}% of the dense int8 "
+        f"{100 * ops / ms * 1e3 / peak:.2f}% of the dense {kind} "
         f"peak (input on the card; {smi})")
 
     with torch.profiler.profile(activities=[
@@ -644,12 +796,14 @@ def region_nodes(graph, x_val, out_val):
 
 
 def chains_beside_unchained(rows, chained, unchained, node_ms):
-    """Each chain call of the fuse_chains path beside the device time that
-    the same blocks' nodes took in the unchained path's profiled forward,
-    and the design's own traffic between blocks (computed, not measured:
-    each block but the last writes its int8 output, the next reads it)."""
-    chains = [n for n in chained.nodes if n.op == "FusedChain"]
-    calls = [r for r in rows if r["kernel"] == "fused_chain"]
+    """Each chain call of a fuse_chains path (a FusedChain or a single
+    FusedBottleneck) beside the device time that the same blocks' nodes
+    took in the unchained path's profiled forward, and the design's own
+    traffic between blocks (computed, not measured: each block but the
+    last writes its output, the next reads it)."""
+    chains = [n for n in chained.nodes
+              if n.op in ("FusedChain", "FusedBottleneck")]
+    calls = [r for r in rows if r["kernel"] in CHAINS]
     check(len(chains) == len(calls),
           f"{len(chains)} chain nodes, {len(calls)} chain calls")
     op_of = {n.name: n.op for n in unchained.nodes}
@@ -666,12 +820,12 @@ def chains_beside_unchained(rows, chained, unchained, node_ms):
         times = [ms for _, ms in by_op.values()]
         if None not in times:
             parts.append(f"in all {sum(times):.4f} ms")
-        nb, xs = node.attrs["nb"], r["x_shape"]
+        nb, xs = node.attrs.get("nb", 1), r["x_shape"]
         say("chains", f"{node.name} x{xs} nb={nb}: {r['ms']:.4f} ms per call "
             f"({r['launches']} launches), bound {r['bound_ms']:.4f} ms "
             f"({r['bound_by']}); the same blocks unchained: "
             + ", ".join(parts)
-            + f"; {2 * (nb - 1) * math.prod(xs) / 1e6:.1f} MB between "
+            + f"; {2 * (nb - 1) * r['x_bytes'] / 1e6:.1f} MB between "
             f"blocks (computed)")
 
 
@@ -714,7 +868,7 @@ def ragged_cases():
 
     def held(name, a, what):
         kernel, plain = fns[name]
-        err, ok = compare(kernel(**a), plain(**a))
+        err, ok, _ = compare(kernel(**a), plain(**a))
         check(ok, f"{what}: {err}")
 
     n = 0
@@ -829,7 +983,7 @@ def ragged_cases():
         for k in ("w1", "w2", "w3"):
             a[k] = kernel_layout(a[k])
         kernel, plain = fns["fused_chain"]
-        err, _ = compare(kernel(**a), plain(**a))
+        err, _, _ = compare(kernel(**a), plain(**a))
         check(err == 0.0, f"fused_chain {case}: max err {err}")
         n += 1
         try:        # the kernel takes its own weight layout and no other
@@ -840,6 +994,82 @@ def ragged_cases():
     say("kernels", f"{n} stride-2 / ragged / clamp / float / chain cases "
         f"equal to plain (int8 0 LSB, bf16 1 ulp, f32 1e-5 of the largest "
         f"value; the chain cases exactly)")
+    n = ragged_float_chain(gen) + ragged_ident(gen)
+    say("kernels", f"{n} float-chain and ident cases within their gates")
+
+
+def ragged_float_chain(gen):
+    """The float chain off the main path: bf16 and f32 x, C and Cm not
+    multiples of a 16-byte vector (C odd once), odd H and W, Cm > 128,
+    nb 1-3, an f32 output on the last block, stage 2 and 5 shapes, an f32
+    block at stage 4; and the refusal of an f32 block whose tile does not
+    fit shared memory."""
+    import torch
+    from feathercnn_tpu_torch.kernels.fused_chain import kernel_layout
+
+    kernel = _kernel_fns()["fused_chain_float"][0]
+
+    def args(n_, h, w, c, cm, nb, xdt, out):
+        def rnd(*shape, scale=1.0):
+            return torch.randn(*shape, device="cuda", generator=gen) * scale
+        return dict(
+            x=rnd(n_, h, w, c).to(xdt),
+            w1=kernel_layout(rnd(nb, c, cm, scale=c ** -0.5).to(xdt)),
+            b1=rnd(nb, cm, scale=0.1),
+            w2=kernel_layout(rnd(nb, 9 * cm, cm, scale=(9 * cm) ** -0.5)
+                             .to(xdt)),
+            b2=rnd(nb, cm, scale=0.1),
+            w3=kernel_layout(rnd(nb, cm, c, scale=cm ** -0.5).to(xdt)),
+            b3=rnd(nb, c, scale=0.1), out_dtype=out)
+
+    bf, f4 = torch.bfloat16, torch.float32
+    n = 0
+    for case in [(2, 9, 11, 64, 32, 2, bf, bf),
+                 (2, 9, 11, 64, 32, 2, bf, f4),
+                 (1, 13, 9, 72, 144, 3, bf, bf),
+                 (2, 6, 5, 20, 12, 2, bf, bf),
+                 (1, 5, 7, 21, 10, 2, bf, f4),
+                 (3, 7, 7, 48, 144, 1, f4, f4),
+                 (2, 9, 11, 64, 32, 2, f4, f4),
+                 (2, 6, 5, 18, 6, 3, f4, bf),
+                 (2, 56, 56, 256, 64, 2, bf, bf),
+                 (2, 7, 7, 2048, 512, 1, bf, bf),
+                 (2, 14, 14, 1024, 256, 2, f4, f4)]:
+        a = args(*case)
+        err, ok, over, _ = per_launch(a, kernel(**a))
+        check(ok, f"fused_chain_float {case}: max err {err}, {over} "
+              f"elements over 1 ulp")
+        n += 1
+    try:
+        kernel(**args(1, 7, 7, 2048, 512, 1, f4, f4))
+        check(False, "fused_chain_float: an f32 block with Cm=512 was taken")
+    except ValueError:
+        pass
+    return n
+
+
+def ragged_ident(gen):
+    """``ident`` on int8, bf16 and f32 at odd sizes, chunk 1 and 2, an
+    unaligned view (the byte path), bit-equal to ``x.clone()``; and the
+    refusal of a batch that is not a multiple of the chunk."""
+    import torch
+    kernel, plain = _kernel_fns()["ident"]
+    n = 0
+    for dt in (torch.int8, torch.bfloat16, torch.float32):
+        base = torch.randn(5, 7, 9, 13, device="cuda", generator=gen) * 50
+        base = base.to(dt)
+        for x, chunk in ((base, 1), (base[1:], 2), (base[:2, :1, :1, :1]
+                                                    .contiguous(), 2),
+                         (base[:3], 3)):
+            _, ok, _ = compare(kernel(x, chunk), plain(x, chunk), "bits")
+            check(ok, f"ident {dt} {tuple(x.shape)} chunk {chunk}: differs")
+            n += 1
+    try:
+        kernel(base, 2)
+        check(False, "ident: a batch of 5 was taken with chunk 2")
+    except ValueError:
+        pass
+    return n
 
 
 # ----------------------------------------------------------------------
@@ -906,6 +1136,44 @@ def serve(eng, x):
 
 
 # ----------------------------------------------------------------------
+# phase 7
+# ----------------------------------------------------------------------
+def boundary(label, smi):
+    """The boundary probe at ResNet-50's stages 2-5, b128, chunk 2: one
+    untimed run of both variants per stage with the counts set to 0 before
+    and read after, every launch held against its plain version; then the
+    timed runs.  Returns the kernel rows."""
+    import torch
+    from feathercnn_tpu_torch.kernels.ident import STAGES, boundary_probe
+    recorder = LaunchRecorder()
+    reset_counts()
+    sums = recorder.run(lambda: [boundary_probe(st, BATCH, 2, reps=0)
+                                 for st in STAGES])
+    torch.cuda.synchronize()
+    counts = read_counts()
+    say(label, f"one untimed run of both variants at stages 2-5: launches "
+        f"{counts}")
+    check(counts == EXPECTED[label],
+          f"{label}: launches {counts}, expected {EXPECTED[label]}")
+    for r in sums:
+        check(r["sum_none"] == r["sum_ident"],
+              f"{label} stage {r['stage']}: sums {r['sum_none']} without "
+              f"ident, {r['sum_ident']} with")
+    rows = kernels_vs_plain(label, recorder.launches)
+    del recorder
+    idents = [r for r in rows if r["kernel"] == "ident"]
+    for st, row in zip(STAGES, idents):
+        p = boundary_probe(st, BATCH, 2)
+        say("boundary", f"stage {st} x{p['x_shape']} int8, chunk 2: "
+            f"{p['ms_none']:.4f} ms without ident, {p['ms_ident']:.4f} ms "
+            f"with, boundary {p['ms_ident'] - p['ms_none']:+.4f} ms; ident "
+            f"alone {row['ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+            f"({row['bound_by']}), x.clone() {row['library_ms']:.4f} ms; "
+            f"sums equal ({p['sum_none']}) ({smi})")
+    return rows
+
+
+# ----------------------------------------------------------------------
 # the kernels line
 # ----------------------------------------------------------------------
 def _sums(rows):
@@ -953,8 +1221,10 @@ def kernel_summary(name, rows, counts):
                + ("; PyTorch has no int8 grouped conv" if name.endswith(
                    "_int8") else "")
                if name.startswith("depthwise") else "torch._int_mm")
-    if name == "fused_chain":
+    if name in CHAINS:
         library = "none: no single PyTorch call computes a bottleneck"
+    elif name == "ident":
+        library = "x.clone()"
     return {
         "name": name, "route": "cuda", **KERNELS[name],
         "path": main, "launches": counts[main][name],
@@ -1011,7 +1281,29 @@ def main() -> int:
                                   _chain_launch_check(label))
     rows += r
     chains_beside_unchained(r, eng.graph, unchained, node_ms)
-    del eng, x
+    del eng
+    torch.cuda.empty_cache()
+
+    # ResNet-50 b128 in bf16 (no quantization): unchained, the yardstick of
+    # the float chains, then with fuse_chains and the wildcard region table
+    g = resnet50(batch=BATCH, seed=SEED)
+    label = "resnet50 b128 bf16"
+    cfg, eng = make_engine(label, g, quant=None)
+    counts[label] = EXPECTED[label]
+    r, speed[label], node_ms = run_path(label, g, cfg, eng, x, smi)
+    rows += r
+    unchained = eng.graph
+    del eng
+    torch.cuda.empty_cache()
+    label = "resnet50 b128 bf16 fuse_chains"
+    g.meta["chain_regions"] = {"*": True}
+    cfg, eng = make_engine(label, g, quant=None, fuse_chains=True)
+    counts[label] = EXPECTED[label]
+    r, speed[label], _ = run_path(label, g, cfg, eng, x, smi,
+                                  _float_chain_launch_check(label))
+    rows += r
+    chains_beside_unchained(r, eng.graph, unchained, node_ms)
+    del eng, x, unchained
     torch.cuda.empty_cache()
 
     # MobileNet-v1 b256 on its default route and with the dw override
@@ -1043,6 +1335,11 @@ def main() -> int:
                                       torch.bfloat16)))
     rows += r
     del eng, x
+    torch.cuda.empty_cache()
+
+    label = "boundary b128"
+    counts[label] = EXPECTED[label]
+    rows += boundary(label, smi)
 
     say("done", f"every phase passed in "
         f"{time.perf_counter() - t_start:.1f} s; ms per batch: "
@@ -1075,6 +1372,27 @@ def _chain_launch_check(label):
             check(seen == [(2, True), (3, True), (5, True), (2, False)],
                   f"{label}: chain calls (nb, int8 out) {seen}")
             say(label, f"4 chain calls, (nb, int8 out) {seen}, every x int8")
+    return check_launch
+
+
+def _float_chain_launch_check(label):
+    """A check of the bf16 fuse_chains path's chain calls: bf16 x and
+    output, nb 2, 3, 5 (the chains) then 1, 1 (stage 5's single blocks)."""
+    import torch
+    seen = []
+
+    def check_launch(launch):
+        if launch["kernel"] != "fused_chain_float":
+            return
+        a = launch["args"]
+        out = a["out_dtype"] or a["x"].dtype
+        check(a["x"].dtype == torch.bfloat16 and out == torch.bfloat16,
+              f"{label}: chain call with x {a['x'].dtype}, out {out}; "
+              f"expected bfloat16 both")
+        seen.append(a["w1"].shape[0])
+        if len(seen) == 5:
+            check(seen == [2, 3, 5, 1, 1], f"{label}: chain calls nb {seen}")
+            say(label, f"5 chain calls, nb {seen}, x and output bf16")
     return check_launch
 
 

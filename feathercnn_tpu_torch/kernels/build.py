@@ -24,7 +24,8 @@ __all__ = ["load_library", "build_log", "nvcc_path"]
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _BUILD_ROOT = Path(__file__).resolve().parent.parent / "_build"
 _SOURCES = ("matmul_epilogue.cu", "conv_implicit_gemm.cu",
-            "depthwise_conv.cu", "fused_chain.cu")
+            "depthwise_conv.cu", "fused_chain.cu", "fused_chain_float.cu",
+            "ident.cu")
 _HEADERS = ("gemm_common.cuh",)
 _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
           "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -33,6 +34,7 @@ _LIB_NAME = "libfcnn_kernels.so"
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 # (name, argtypes): pointers and the stream as c_void_p, or ctypes would
 # pass a Python int as a 32-bit int and cut the pointer.
 _SIGNATURES = {
@@ -60,6 +62,11 @@ _SIGNATURES = {
                          _I, _I, _I, _I, _I, _I, _I,         # N H W C Cm TH TW
                          _F, _F, _F, _F, _F, _F,             # sx sy1 sy2, 1/sy1 1/sy2 out_scale
                          _I, _I, _P],                        # shortcut_fma ot stream
+    "fcnn_fused_block_float": [_P, _P,                       # x out
+                               _P, _P, _P, _P, _P, _P,       # w1 b1 w2 b2 w3 b3
+                               _I, _I, _I, _I, _I, _I, _I,   # N H W C Cm TH TW
+                               _I, _I, _P],                  # xt ot stream
+    "fcnn_ident": [_P, _P, _L, _I, _P],                      # x out chunk_bytes chunks stream
 }
 
 

@@ -128,21 +128,6 @@ struct GemmArgs {
   int vec;
 };
 
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool valid) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(d), "l"(src), "r"(valid ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
-}
-
 template <int MT, int NT, int AK, bool TAPS>
 __device__ __forceinline__ void block_gemm(const GemmArgs& g, int8_t* As,
                                            int8_t* Bs,
@@ -324,27 +309,6 @@ __device__ __forceinline__ void block_gemm(const GemmArgs& g, int8_t* As,
   }
 }
 
-// Calls fn(r, n, value, j) for every f32 result of a GEMM the thread holds:
-// fragment (mt, nt, q) is local row r = warp_m*MT*16 + mt*16 + gid +
-// 8*(q/2) and column n = n0 + warp_n*NT*8 + nt*8 + tig*2 + q%2, the
-// thread's column slot j = nt*2 + q%2 (see col_consts).
-template <int MT, int NT, class Fn>
-__device__ __forceinline__ void for_each_out(int n0,
-                                             const float (&f)[MT][NT][4],
-                                             Fn&& fn) {
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-      for (int q = 0; q < 4; ++q)
-        fn((warp >> 2) * MT * 16 + mt * 16 + (lane >> 2) + 8 * (q >> 1),
-           n0 + (warp & 3) * NT * 8 + nt * 8 + (lane & 3) * 2 + (q & 1),
-           f[mt][nt][q], nt * 2 + (q & 1));
-}
-
 // The epilogue's per-column constants of the thread's 2*NT columns, loaded
 // once ahead of its values: s[j] = w_s[n] * scale (one f32 product) and
 // b[j] = bias[n]; 0 past N.
@@ -437,31 +401,8 @@ fused_block_kernel(BlockArgs p) {
     const int n16 = (p.halo_bytes + FB_MAX_PIX * p.ld) / 16;
     for (int i = tid; i < n16; i += FB_THREADS) z[i] = make_uint4(0u, 0u, 0u, 0u);
   }
-  // conv1's rows: the halo pixels inside the image, compacted by warp 0
-  if (tid < 32) {
-    int cnt = 0;
-    for (int base = 0; base < npos; base += 32) {
-      const int pi = base + tid;
-      const int hh = pi / pitch;
-      const int hw = pi - hh * pitch;
-      const int ih = oh0 - 1 + hh;
-      const int iw = ow0 - 1 + hw;
-      const bool ok = pi < npos && hh < tile_h + 2 && hw < tile_w + 2 &&
-                      ih >= 0 && ih < p.H && iw >= 0 && iw < p.W;
-      const unsigned m = __ballot_sync(0xffffffffu, ok);
-      if (ok) {
-        const int slot = cnt + __popc(m & ((1u << tid) - 1u));
-        hpos[slot] = pi;
-        hoff[slot] = ((static_cast<long long>(img) * p.H + ih) * p.W + iw) *
-                     static_cast<long long>(p.C);
-      }
-      cnt += __popc(m);
-    }
-    if (tid == 0) s_mv = cnt;
-  }
-  // conv2's rows: the halo position of each output pixel's 3x3 window
-  for (int r = tid; r < FB_MAX_PIX; r += FB_THREADS)
-    ppos[r] = r < m2 ? (r / tile_w) * pitch + r % tile_w : 0;
+  chain_tile_rows(img, oh0, ow0, tile_h, tile_w, pitch, npos, p.H, p.W, p.C,
+                  FB_MAX_PIX, hoff, hpos, ppos, &s_mv);
   __syncthreads();
   const int mv = s_mv;
 
@@ -597,10 +538,6 @@ int launch(const BlockArgs& p, int grid, int smem, cudaStream_t s) {
   if (err != cudaSuccess) return static_cast<int>(err);
   kern<<<grid, FB_THREADS, smem, s>>>(p);
   return static_cast<int>(cudaGetLastError());
-}
-
-bool aligned(const void* p, int bytes) {
-  return reinterpret_cast<uintptr_t>(p) % bytes == 0;
 }
 
 }  // namespace

@@ -3,7 +3,9 @@
 // (a plain matrix, or an NHWC image gathered as an implicit im2col), the
 // int8 tensor-core main loop and the float SIMT main loop.  The depthwise
 // kernels (depthwise_conv.cu) use the epilogue (epilogue_value and
-// requant_i8) too.
+// requant_i8) too, and the two fused-chain kernels (fused_chain.cu,
+// fused_chain_float.cu) the cp.async helpers, the fragment walk
+// (for_each_out) and the tile's row tables (chain_tile_rows).
 //
 // Layouts: A is (M, K) with K contiguous, B is the weight (K, N) with N
 // contiguous, the output is (M, N) row-major.  For the conv, M runs over
@@ -107,6 +109,88 @@ __device__ __forceinline__ void epilogue_store2(float acc0, float acc1,
   }
   if (c < N) epilogue_store(acc0, m, c, N, e);
   if (c + 1 < N) epilogue_store(acc1, m, c + 1, N, e);
+}
+
+// 16 bytes global -> shared memory without a register stop (cp.async);
+// valid false writes 16 zero bytes.  Used by the fused-chain kernels'
+// weight rings.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(d), "l"(src), "r"(valid ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
+}
+
+// The fused-chain kernels' GEMMs run 8 warps as 2 (M) x 4 (N), each warp
+// MT x NT tiles of 16 x 8 in the mma accumulator layout.  Calls
+// fn(r, n, value, j) for every f32 result the thread holds: fragment
+// (mt, nt, q) is local row r = warp_m*MT*16 + mt*16 + gid + 8*(q/2) and
+// column n = n0 + warp_n*NT*8 + nt*8 + tig*2 + q%2, the thread's column
+// slot j = nt*2 + q%2.
+template <int MT, int NT, class Fn>
+__device__ __forceinline__ void for_each_out(int n0,
+                                             const float (&f)[MT][NT][4],
+                                             Fn&& fn) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        fn((warp >> 2) * MT * 16 + mt * 16 + (lane >> 2) + 8 * (q >> 1),
+           n0 + (warp & 3) * NT * 8 + nt * 8 + (lane & 3) * 2 + (q & 1),
+           f[mt][nt][q], nt * 2 + (q & 1));
+}
+
+// A fused-chain thread block's row tables for its output tile at (oh0,
+// ow0) of image img, the tile clipped to tile_h x tile_w inside the image
+// (pitch = TW + 2, npos = (TH + 2) * pitch).  conv1's rows: the tile's
+// halo pixels inside the image, compacted by warp 0 into hpos (halo
+// position) and hoff (element offset of the pixel in x), their count into
+// *mv.  conv2's rows: the halo position of each output pixel's 3x3 window,
+// into ppos[0, max_pix).  The caller syncs before reading them.
+__device__ __forceinline__ void chain_tile_rows(
+    int img, int oh0, int ow0, int tile_h, int tile_w, int pitch, int npos,
+    int H, int W, int C, int max_pix, long long* hoff, int* hpos, int* ppos,
+    int* mv) {
+  const int tid = threadIdx.x;
+  if (tid < 32) {
+    int cnt = 0;
+    for (int base = 0; base < npos; base += 32) {
+      const int pi = base + tid;
+      const int hh = pi / pitch;
+      const int hw = pi - hh * pitch;
+      const int ih = oh0 - 1 + hh;
+      const int iw = ow0 - 1 + hw;
+      const bool ok = pi < npos && hh < tile_h + 2 && hw < tile_w + 2 &&
+                      ih >= 0 && ih < H && iw >= 0 && iw < W;
+      const unsigned m = __ballot_sync(0xffffffffu, ok);
+      if (ok) {
+        const int slot = cnt + __popc(m & ((1u << tid) - 1u));
+        hpos[slot] = pi;
+        hoff[slot] = ((static_cast<long long>(img) * H + ih) * W + iw) *
+                     static_cast<long long>(C);
+      }
+      cnt += __popc(m);
+    }
+    if (tid == 0) *mv = cnt;
+  }
+  const int m2 = tile_h * tile_w;
+  for (int r = tid; r < max_pix; r += blockDim.x)
+    ppos[r] = r < m2 ? (r / tile_w) * pitch + r % tile_w : 0;
+}
+
+inline bool aligned(const void* p, int bytes) {
+  return reinterpret_cast<uintptr_t>(p) % bytes == 0;
 }
 
 // ---------------------------------------------------------------------

@@ -21,9 +21,10 @@ algo_overrides (ROADMAP.md, queue C).
 
 EngineConfig.algo_overrides forces a choice per layer name.
 
-The FusedBottleneck and FusedChain lowerings call ``fused_chain``
-(kernels/fused_chain.py) from here, so that every kernel entry point of
-the "cuda" backend is an attribute of this module.
+The FusedBottleneck and FusedChain lowerings call ``fused_chain`` (the
+int8 mode) and ``fused_chain_float`` (kernels/fused_chain.py) from here,
+and the boundary probe calls ``ident`` (kernels/ident.py), so that every
+kernel entry point of the "cuda" backend is an attribute of this module.
 """
 
 from __future__ import annotations
@@ -37,10 +38,12 @@ from ..ops.lowering import (act_segment_bounds, apply_act_segments,
                             quantize, scalar)
 from .conv import conv2d_implicit_gemm
 from .depthwise import depthwise_conv2d, depthwise_conv2d_int8
-from .fused_chain import fused_chain
+from .fused_chain import fused_chain, fused_chain_float
+from .ident import ident
 from .matmul import matmul_epilogue
 
-__all__ = ["select_algo", "conv_forward", "fc_forward", "fused_chain"]
+__all__ = ["select_algo", "conv_forward", "fc_forward", "fused_chain",
+           "fused_chain_float", "ident"]
 
 
 def select_algo(node, cin: int, quant: bool) -> str:

@@ -2,12 +2,13 @@
 under ``fuse_chains``.
 
 Counterpart of the Pallas kernel ``feathercnn_tpu/kernels/fused_chain.py``
-(``fused_chain``, :264).  On a CUDA tensor the int8 mode launches the
-hand-written kernel in ``csrc/fused_chain.cu`` once per block (its header
-note says what bounds it on an H100 and what its design does about that);
-on a CPU tensor both modes compute the same function with
-:func:`fused_chain_plain`.  The float mode has no CUDA kernel yet (ROADMAP
-B4-float): on a CUDA tensor it raises.
+(``fused_chain``, :264).  On a CUDA tensor each mode launches its
+hand-written kernel once per block: the int8 mode ``csrc/fused_chain.cu``,
+the float mode (bf16 or f32) ``csrc/fused_chain_float.cu`` (their header
+notes say what bounds them on an H100 and what their designs do about
+that).  On a CPU tensor both modes compute the same function with
+:func:`fused_chain_plain`.  The float mode's launches are counted apart,
+on :func:`fused_chain_float`, which the float lowering calls.
 
 Block j of the int8 mode, over NHWC int8 ``x`` with per-tensor activation
 scales ``sx``, ``sy1``, ``sy2`` and per-channel weight scales::
@@ -27,6 +28,13 @@ block's requant inside the add and the clamp it emits keeps the product
 apart.  Conv2's sum is one exact int32 sum where ``Cm <= 128``; above, the
 reference sums nine per-tap int32 dots in f32 (kh outer, kw inner), and so
 do both versions here.
+
+Block j of the float mode, over NHWC ``x`` of type T (bf16 or f32) with
+weights of type T and f32 biases, every sum in f32::
+
+    y1  = T(relu(x·w1 + b1))
+    y2  = T(relu(conv3x3(y1, pad 1) + b2))
+    out = relu((y2·w3 + b3) + f32(x)) -> T, or out_dtype on the last block
 """
 
 from __future__ import annotations
@@ -38,7 +46,8 @@ import torch.nn.functional as F
 
 from .matmul import _DTYPE_CODES, check_contiguous, fma_f32
 
-__all__ = ["fused_chain", "fused_chain_plain", "kernel_layout"]
+__all__ = ["fused_chain", "fused_chain_float", "fused_chain_plain",
+           "kernel_layout", "tile_plan"]
 
 _FLOAT = (torch.float32, torch.bfloat16)
 
@@ -68,8 +77,9 @@ def _q8(v: torch.Tensor, inv_scale: float) -> torch.Tensor:
 
 
 def _exact_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """The int32 product of two int8 grids (as float64: exact, |acc| <=
-    127^2 * K is far inside 53 bits), rounded once to f32."""
+    """``a @ b`` summed in float64 and rounded once to f32.  Exact for two
+    int8 grids (|acc| <= 127^2 * K is far inside 53 bits); for bf16 or f32
+    operands the products are exact and the sum carries 53 bits."""
     return (a.double() @ b.double()).float()
 
 
@@ -85,9 +95,12 @@ def _taps(y: torch.Tensor):
 
 def fused_chain_plain(x, w1, b1, w2, b2, w3, b3, w_scales=None,
                       scales: Optional[Sequence] = None, out_dtype=None):
-    """Plain PyTorch version of both modes, step for step as the reference
-    kernel rounds: int8 sums exact in float64, the FMAs of the module note
-    emulated exactly (``fma_f32``); the float mode sums in f32."""
+    """Plain PyTorch version of both modes.  The int8 mode rounds step for
+    step as the reference kernel: int8 sums exact in float64, the FMAs of
+    the module note emulated exactly (``fma_f32``).  The float mode takes
+    each sum in float64 (the products of bf16 or f32 values are exact
+    there) and rounds it once to f32: the f32 sum that every order of f32
+    adds approximates, the reference's and the kernel's included."""
     n, h, w, c = x.shape
     nb, _, cm = w1.shape
     int8 = x.dtype == torch.int8
@@ -125,17 +138,12 @@ def fused_chain_plain(x, w1, b1, w2, b2, w3, b3, w_scales=None,
                 act = out.to(out_dtype)
         else:
             dt = x.dtype
-            y1 = torch.clamp_min(xm.float() @ w1[j].float() + b1[j], 0)
+            y1 = torch.clamp_min(_exact_mm(xm, w1[j]) + b1[j], 0)
             y1 = y1.to(dt).reshape(n, h, w, cm)
-            if cm <= 128:
-                a2 = torch.cat(list(_taps(y1)), dim=1).float() @ w2[j].float()
-            else:
-                a2 = torch.zeros(n * h * w, cm, device=x.device)
-                for t, ys in enumerate(_taps(y1)):
-                    a2 = a2 + ys.float() @ w2[j, t * cm:(t + 1) * cm].float()
+            a2 = _exact_mm(torch.cat(list(_taps(y1)), dim=1), w2[j])
             y2 = torch.clamp_min(a2 + b2[j], 0).to(dt)
-            out = torch.clamp_min(y2.float() @ w3[j].float() + b3[j]
-                                  + xm.float(), 0)
+            out = torch.clamp_min(_exact_mm(y2, w3[j]) + b3[j] + xm.float(),
+                                  0)
             act = out.to(out_dtype if last else dt)
         act = act.reshape(n, h, w, c)
     return act
@@ -157,13 +165,35 @@ def kernel_layout(w: torch.Tensor) -> torch.Tensor:
     return w.transpose(1, 2).contiguous().transpose(1, 2)
 
 
-def tile_plan(h: int, w: int):
+# Shared memory a CUDA kernel's thread block can use on an H100, and what
+# the two kernels' layouts take besides y1 and y2: the 3-stage ring of A
+# and B tiles (128 rows of 80 bytes each) and the row indices.
+_SMEM_LIMIT = 227 * 1024
+_SMEM_FIXED = 3 * (128 + 128) * 80 + 128 * (8 + 4) + 64 * 4
+
+
+def smem_bytes(th: int, tw: int, cm: int, itemsize: int) -> int:
+    """Shared memory of one thread block of either kernel at a TH x TW
+    tile: y1 over the (TH + 2) x (TW + 2) halo and y2 over 64 pixels, each
+    row ``Cm`` elements padded to a 64-byte K step plus 16 bytes."""
+    pitch = -(-cm * itemsize // 64) * 64 + 16
+    return ((th + 2) * (tw + 2) + 64) * pitch + _SMEM_FIXED
+
+
+def tile_plan(h: int, w: int, cm: int, itemsize: int):
     """(TH, TW) of the CUDA kernel's output tile: 8x8 or 7x7, whichever
-    makes the fewer conv1 halo pixels over the image ((t + 2)^2 per tile);
-    the kernel's shared memory holds a (TH + 2) x (TW + 2) halo of y1."""
+    makes the fewer conv1 halo pixels over the image ((t + 2)^2 per tile)
+    among those whose shared memory fits (:func:`smem_bytes`).  Raises
+    ``ValueError`` where neither fits."""
     def cost(t):
         return -(-h // t) * -(-w // t) * (t + 2) ** 2
-    t = min((8, 7), key=lambda t: (cost(t), -t))
+    fits = [t for t in (8, 7) if smem_bytes(t, t, cm, itemsize) <= _SMEM_LIMIT]
+    if not fits:
+        raise ValueError(
+            f"fused_chain: no tile of H={h} W={w} Cm={cm} with "
+            f"{itemsize}-byte elements fits {_SMEM_LIMIT} bytes of shared "
+            f"memory (7x7 needs {smem_bytes(7, 7, cm, itemsize)})")
+    t = min(fits, key=lambda t: (cost(t), -t))
     return t, t
 
 
@@ -207,6 +237,13 @@ def _check(x, w1, b1, w2, b2, w3, b3, w_scales, scales, out_dtype):
         raise TypeError(f"x must be int8, float32 or bfloat16, got {x.dtype}")
     if w_scales is not None or scales is not None:
         raise ValueError("w_scales and scales go with an int8 x only")
+    for name, wt in (("w1", w1), ("w2", w2), ("w3", w3)):
+        if wt.dtype != x.dtype:
+            raise TypeError(f"{x.dtype} x needs {x.dtype} {name}, got "
+                            f"{wt.dtype}")
+    if _out_dtype(x, out_dtype, scales) not in _FLOAT:
+        raise TypeError(f"the float mode's out_dtype must be float32 or "
+                        f"bfloat16, got {out_dtype}")
 
 
 def fused_chain(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
@@ -223,66 +260,91 @@ def fused_chain(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
     w3s)`` of shapes (nb, Cm), (nb, Cm), (nb, C) float32, and ``scales =
     (sx, sy1, sy2, s_out)``: three sequences of nb floats and the output's
     int8 scale, or None for a bf16 output.  The float mode takes weights of
-    x's type.
+    x's type and an ``out_dtype`` (bf16 or f32) for the last block.
 
-    A CPU ``x`` takes :func:`fused_chain_plain`.  A CUDA ``x`` launches the
-    kernel once per block (int8 mode), its weights stored as
-    :func:`kernel_layout` gives them, or raises: the float mode has no
-    kernel yet."""
+    A CPU ``x`` takes :func:`fused_chain_plain`.  A CUDA ``x`` launches its
+    mode's kernel once per block, its weights stored as
+    :func:`kernel_layout` gives them, or raises."""
     _check(x, w1, b1, w2, b2, w3, b3, w_scales, scales, out_dtype)
     out_dtype = _out_dtype(x, out_dtype, scales)
     if x.device.type == "cpu":
         return fused_chain_plain(x, w1, b1, w2, b2, w3, b3, w_scales, scales,
                                  out_dtype)
-    if x.dtype != torch.int8:
-        raise NotImplementedError(
-            "fused_chain: the float mode has no CUDA kernel yet (ROADMAP "
-            "B4-float); only the int8 mode runs on the GPU")
     for name, wt in (("w1", w1), ("w2", w2), ("w3", w3)):
         if not wt.transpose(1, 2).is_contiguous():
             raise ValueError(f"{name} must be stored as kernel_layout() "
                              f"gives it: (nb, N, K) with K contiguous")
     if x.device.type != "cuda":
         raise ValueError(f"no kernel for device {x.device}")
-    w1s, w2s, w3s = w_scales
-    check_contiguous({"x": x, "b1": b1, "b2": b2, "b3": b3, "w1s": w1s,
-                      "w2s": w2s, "w3s": w3s})
+    check_contiguous({"x": x, "b1": b1, "b2": b2, "b3": b3,
+                      **({} if w_scales is None else dict(
+                          zip(("w1s", "w2s", "w3s"), w_scales)))})
     n, h, w, c = x.shape
     nb, _, cm = w1.shape
-    sx, sy1, sy2, r, out_int8 = _scale_args(nb, scales)
-    th, tw = tile_plan(h, w)
+    th, tw = tile_plan(h, w, cm, x.element_size())
     if x.numel() == 0:
         return torch.empty_like(x, dtype=out_dtype)
     from .build import load_library
     lib = load_library()
     stream = torch.cuda.current_stream(x.device).cuda_stream
+    int8 = x.dtype == torch.int8
+    if int8:
+        sx, sy1, sy2, r, out_int8 = _scale_args(nb, scales)
+        w1s, w2s, w3s = w_scales
     act = x
     spare = None
     for j in range(nb):
         last = j == nb - 1
-        odt = out_dtype if last else torch.int8
-        if odt == torch.int8 and spare is not None and not last:
+        odt = out_dtype if last else x.dtype
+        if spare is not None and not last:
             out = spare
         else:
             out = torch.empty((n, h, w, c), dtype=odt, device=x.device)
-        rc = lib.fcnn_fused_block(
-            act.data_ptr(), out.data_ptr(),
-            w1[j].data_ptr(), b1[j].data_ptr(), w1s[j].data_ptr(),
-            w2[j].data_ptr(), b2[j].data_ptr(), w2s[j].data_ptr(),
-            w3[j].data_ptr(), b3[j].data_ptr(), w3s[j].data_ptr(),
-            n, h, w, c, cm, th, tw,
-            _f32(sx[j]), _f32(sy1[j]), _f32(sy2[j]),
-            _f32(1.0 / sy1[j]), _f32(1.0 / sy2[j]), _f32(r[j]),
-            int(j == 0), _DTYPE_CODES[odt], stream)
+        if int8:
+            rc = lib.fcnn_fused_block(
+                act.data_ptr(), out.data_ptr(),
+                w1[j].data_ptr(), b1[j].data_ptr(), w1s[j].data_ptr(),
+                w2[j].data_ptr(), b2[j].data_ptr(), w2s[j].data_ptr(),
+                w3[j].data_ptr(), b3[j].data_ptr(), w3s[j].data_ptr(),
+                n, h, w, c, cm, th, tw,
+                _f32(sx[j]), _f32(sy1[j]), _f32(sy2[j]),
+                _f32(1.0 / sy1[j]), _f32(1.0 / sy2[j]), _f32(r[j]),
+                int(j == 0), _DTYPE_CODES[odt], stream)
+        else:
+            rc = lib.fcnn_fused_block_float(
+                act.data_ptr(), out.data_ptr(),
+                w1[j].data_ptr(), b1[j].data_ptr(), w2[j].data_ptr(),
+                b2[j].data_ptr(), w3[j].data_ptr(), b3[j].data_ptr(),
+                n, h, w, c, cm, th, tw, _DTYPE_CODES[x.dtype],
+                _DTYPE_CODES[odt], stream)
         if rc != 0:
             raise RuntimeError(
                 f"fused_chain launch failed: CUDA error {rc} (block {j} of "
-                f"{nb}, x={tuple(x.shape)} Cm={cm} tile {th}x{tw})")
-        fused_chain.launches += 1
-        # the int8 buffer this block read is free for block j + 2's output
+                f"{nb}, x={tuple(x.shape)} {x.dtype} Cm={cm} tile {th}x{tw})")
+        if int8:
+            fused_chain.launches += 1
+        else:
+            fused_chain_float.launches += 1
+        # the buffer this block read is free for block j + 2's output
         spare = act if act is not x else None
         act = out
     return act
 
 
+def fused_chain_float(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
+                      w2: torch.Tensor, b2: torch.Tensor, w3: torch.Tensor,
+                      b3: torch.Tensor,
+                      out_dtype: Optional[torch.dtype] = None
+                      ) -> torch.Tensor:
+    """:func:`fused_chain` in the float mode alone: ``x`` float32 or
+    bfloat16, weights of its type.  Its ``launches`` count the float
+    kernel's launches, wherever they come from (``fused_chain.launches``
+    counts the int8 kernel's)."""
+    if x.dtype not in _FLOAT:
+        raise TypeError(f"fused_chain_float takes float32 or bfloat16 x, got "
+                        f"{x.dtype}")
+    return fused_chain(x, w1, b1, w2, b2, w3, b3, out_dtype=out_dtype)
+
+
 fused_chain.launches = 0
+fused_chain_float.launches = 0

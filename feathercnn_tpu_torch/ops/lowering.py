@@ -390,8 +390,9 @@ def _run_chain(node, ctx, x, w1, b1, w2, b2, w3, b3, w_scales=None,
     where ``scales`` are given (a float ``x`` quantized first, with a
     divide by ``sx[0]``), else the float mode with the weights cast to x's
     type.  The weights go in the kernel's layout, made once per node.
-    Through the dispatcher on the "cuda" backend (the kernel, or its plain
-    version on CPU tensors); the plain version on "torch"."""
+    Through the dispatcher on the "cuda" backend (``fused_chain`` for the
+    int8 mode, ``fused_chain_float`` for the float mode: the kernel, or its
+    plain version on CPU tensors); the plain version on "torch"."""
     from ..kernels.fused_chain import fused_chain_plain, kernel_layout
     if scales is not None:
         if x.dtype != torch.int8:
@@ -406,6 +407,8 @@ def _run_chain(node, ctx, x, w1, b1, w2, b2, w3, b3, w_scales=None,
     args = (x.contiguous(), w1, b1, w2, b2, w3, b3)
     if ctx.backend == "cuda":
         from ..kernels import dispatch as kdispatch
+        if scales is None:
+            return kdispatch.fused_chain_float(*args)
         return kdispatch.fused_chain(*args, **kwargs)
     return fused_chain_plain(*args, **kwargs)
 

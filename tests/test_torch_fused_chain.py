@@ -43,7 +43,9 @@ from feathercnn_tpu.quant import calibrate as jcalibrate
 from feathercnn_tpu_torch.config import EngineConfig
 from feathercnn_tpu_torch.engine import Engine
 from feathercnn_tpu_torch.kernels import dispatch as kdispatch
-from feathercnn_tpu_torch.kernels.fused_chain import fused_chain, kernel_layout
+from feathercnn_tpu_torch.kernels.fused_chain import (fused_chain,
+                                                      fused_chain_float,
+                                                      kernel_layout)
 from feathercnn_tpu_torch.weights import graph_from_reference
 
 _TDT = {"float32": torch.float32, "bfloat16": torch.bfloat16,
@@ -135,9 +137,12 @@ def test_fused_chain_matches_pallas_interpret():
         assert diff == 0, f"{case}: {diff} of {want.size} outputs differ"
         assert np.count_nonzero(want) > want.size // 4, (case, "degenerate")
 
-    # the float mode: bf16 and f32 x, weights of x's type
+    # the float mode: bf16 and f32 x, weights of x's type; nb 1-3, Cm <= and
+    # > 128, C not a multiple of 16, odd H and W
     for case in [(2, 9, 11, 64, 32, 2, "float32"),
-                 (1, 7, 7, 48, 144, 1, "bfloat16")]:
+                 (1, 7, 7, 48, 144, 1, "bfloat16"),
+                 (1, 13, 9, 72, 144, 3, "bfloat16"),
+                 (3, 5, 7, 24, 16, 3, "float32")]:
         n, h, w, c, cm, nb, dt = case
         rng = np.random.default_rng(n + h + cm)
         x = rng.normal(size=(n, h, w, c)).astype(np.float32)
@@ -156,17 +161,21 @@ def test_fused_chain_matches_pallas_interpret():
         np.testing.assert_allclose(got.float().numpy(), want, rtol=2e-3,
                                    atol=2e-3, err_msg=str(case))
 
-    # no fallback: a float chain off the CPU raises, it never takes the
-    # plain version
+    # no fallback: a chain off the CPU, float or int8, takes its weights in
+    # the kernel's layout only, and then launches its kernel or raises; it
+    # never takes the plain version
     xm = torch.empty((1, 4, 4, 8), dtype=torch.bfloat16, device="meta")
     wm = [torch.empty(s, device="meta", dtype=d) for s, d in
           (((1, 8, 4), torch.bfloat16), ((1, 4), torch.float32),
            ((1, 36, 4), torch.bfloat16), ((1, 4), torch.float32),
            ((1, 4, 8), torch.bfloat16), ((1, 8), torch.float32))]
-    with pytest.raises(NotImplementedError, match="B4-float"):
-        fused_chain(xm, *wm)
-    # an int8 chain off the CPU takes its weights in the kernel's layout
-    # only, and then launches the kernel or raises
+    for chain in (fused_chain, fused_chain_float):
+        with pytest.raises(ValueError, match="kernel_layout"):
+            chain(xm, *wm)
+        laid = [kernel_layout(w) if k % 2 == 0 else w
+                for k, w in enumerate(wm)]
+        with pytest.raises(ValueError, match="no kernel for device meta"):
+            chain(xm, *laid)
     xm = torch.empty((1, 4, 4, 8), dtype=torch.int8, device="meta")
     wm = [w.to(torch.int8) if k % 2 == 0 else w for k, w in enumerate(wm)]
     q = dict(w_scales=tuple(torch.empty(s, device="meta")

@@ -75,6 +75,7 @@ def test_engine_without_device_raises_on_a_host_without_gpu():
 def test_cuda_tensor_wrappers_never_take_the_plain_version():
     """The wrappers pick the plain version by the tensor's device alone:
     the source holds no ``try`` around a launch."""
-    for name in ("matmul.py", "conv.py", "depthwise.py", "fused_chain.py"):
+    for name in ("matmul.py", "conv.py", "depthwise.py", "fused_chain.py",
+                 "ident.py"):
         tree = ast.parse((PORT / "kernels" / name).read_text())
         assert not any(isinstance(n, ast.Try) for n in ast.walk(tree)), name
