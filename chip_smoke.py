@@ -39,12 +39,17 @@ Phases, each printing its own lines:
 2. per path: the model is built, calibrated and loaded; one forward runs
    with every kernel's launch count set to 0 just before and read just
    after, against the path's expected counts (``EXPECTED``); the output is
-   finite.  The arguments of every launch are recorded on the way.
+   finite.  The arguments of every launch are recorded on the way, and
+   for the two GEMM kernels the variant (main loop) it took: every int8
+   GEMM launch must take "wgmma" but where the plan gives a reason on a
+   path of ``FALLBACK_OK`` (MobileNet-v2's K = 24 convs, printed), and a
+   bf16 one "mma_bf16".
 3. per path, kernels: each launch of that forward is repeated on its own
    tensors and held against the kernel's plain PyTorch version (int8 out:
    equal; bf16 out: within 1 bf16 ulp; f32: within 1e-5 of the largest
    value), and timed (CUDA events, median of 20 behind a spin kernel)
-   beside its bound and a library yardstick: ``torch._int_mm`` at a GEMM's
+   beside its bound (and the share of it reached) and a library
+   yardstick (and the kernel's multiple of it): ``torch._int_mm`` at a GEMM's
    (M, K, N), and for the depthwise kernels ``F.conv2d(groups=C)`` on
    channels-last bf16 (PyTorch has no int8 grouped conv, so the int8
    kernel's yardstick is that bf16 conv too).  No single PyTorch call
@@ -69,9 +74,13 @@ Phases, each printing its own lines:
    forward's device time by kernel, and by graph node (the engine names a
    profiler range after each node).
 5. ragged cases: stride 2, C not a multiple of a kernel's vector, odd
-   sizes, the lo/hi clamp, the float variants and the chain's ragged
-   shapes and output types (int8 and float modes), and ``ident`` on int8,
-   bf16 and f32 at odd sizes, against the plain versions.
+   sizes, the lo/hi clamp, the float variants, the GEMM kernels at the
+   edges of their variants (M not a multiple of the tile, N = 24 and 1000,
+   K = 16, 24, 32, 2048, every output type, misaligned x, each on its
+   planned variant, and the refusal of a weight not in ``gemm_layout``),
+   the chain's ragged shapes and output types (int8 and float modes), and
+   ``ident`` on int8, bf16 and f32 at odd sizes, against the plain
+   versions.
 6. server (ResNet-50): ``InferenceServer(batch_size=128, batch_slots=[8,
    128])`` with int8 transfer; 8 client threads send 32 requests; every
    answer equals the engine's direct output, with no fault.
@@ -160,6 +169,10 @@ EXPECTED = {
     "boundary b128": {**_ZERO, "matmul_epilogue": 16, "ident": 4},
 }
 CHAINS = ("fused_chain", "fused_chain_float")
+GEMMS = ("matmul_epilogue", "conv2d_implicit_gemm")
+# The paths whose int8 GEMM launches may leave "wgmma" where the plan gives
+# a reason (MobileNet-v2's K = 24 1x1 convs: a 24-byte row pitch).
+FALLBACK_OK = ("mobilenet_v2 b128 dw override",)
 # Cycles of the spin kernel queued before each timed launch: more than
 # the host needs to issue the launch.
 SPIN_CYCLES = 2_000_000
@@ -273,7 +286,8 @@ def dw_override(g):
 
 class LaunchRecorder:
     """Wraps the dispatcher's kernel entry points for one forward and
-    keeps the arguments of every wrapper call, in order."""
+    keeps the arguments of every wrapper call, in order, and for the GEMM
+    kernels the variant (main loop) the call took."""
 
     def __init__(self):
         from feathercnn_tpu_torch.kernels import dispatch
@@ -286,9 +300,15 @@ class LaunchRecorder:
         def rec(*a, **kw):
             bound = sig.bind(*a, **kw)
             bound.apply_defaults()
-            self.launches.append({"kernel": name,
-                                  "args": dict(bound.arguments)})
-            return fn(*a, **kw)
+            record = {"kernel": name, "args": dict(bound.arguments)}
+            self.launches.append(record)
+            if name not in GEMMS:
+                return fn(*a, **kw)
+            before = dict(fn.variants)
+            out = fn(*a, **kw)
+            record["variant"] = next(v for v, n in fn.variants.items()
+                                     if n != before[v])
+            return out
         return rec
 
     def run(self, forward, *args):
@@ -324,6 +344,44 @@ def _kernel_fns():
 def reset_counts():
     for fn, _ in _kernel_fns().values():
         fn.launches = 0
+        if hasattr(fn, "variants"):
+            fn.variants = dict.fromkeys(fn.variants, 0)
+
+
+def gemm_plan_of(kernel, a):
+    """The plan the wrapper makes for a recorded GEMM call."""
+    from feathercnn_tpu_torch.kernels.matmul import (_default_out_dtype,
+                                                     plan_for)
+    m, k, n = dims(kernel, a)
+    out_dtype = _default_out_dtype(a["x"], a["out_dtype"])
+    return plan_for(m, k, n, a["x"], a["w"], out_dtype,
+                    conv_c=a["x"].shape[3] if kernel == GEMMS[1] else None)
+
+
+def check_variants(label, launches):
+    """Every int8 GEMM launch of the forward took "wgmma", but on the
+    paths of FALLBACK_OK where the plan gives its reason (printed); every
+    bf16 one "mma_bf16"."""
+    import torch
+    taken, exceptions = {}, []
+    for i, r in enumerate(launches):
+        if r["kernel"] not in GEMMS:
+            continue
+        a, v = r["args"], r["variant"]
+        taken[v] = taken.get(v, 0) + 1
+        want = {torch.int8: "wgmma", torch.bfloat16: "mma_bf16"}.get(
+            a["x"].dtype, "simt")
+        if v == want:
+            continue
+        plan = gemm_plan_of(r["kernel"], a)
+        m, k, n = dims(r["kernel"], a)
+        what = f"launch {i} {r['kernel']} M={m} K={k} N={n}: {v} ({plan.reason})"
+        check(v == plan.variant and plan.reason and label in FALLBACK_OK,
+              f"{label}: {what}, expected {want}")
+        exceptions.append(what)
+    say(label, f"GEMM variants {taken}" + ("; not wgmma, as planned: "
+                                           + "; ".join(exceptions)
+                                           if exceptions else ""))
 
 
 def read_counts():
@@ -608,6 +666,7 @@ def kernels_vs_plain(label, launches):
                      "over_1ulp": over, "elements": elements,
                      "float_sums": float_sums,
                      "launches": launches_of(launch),
+                     "variant": launch.get("variant"),
                      "max_abs_err": max_err,
                      "ms": median_ms(lambda: kernel(**a)),
                      "plain_ms": median_ms(lambda: plain(**a), reps=3,
@@ -617,6 +676,7 @@ def kernels_vs_plain(label, launches):
     for desc in dict.fromkeys(r["shape"] for r in rows):
         same = [r for r in rows if r["shape"] == desc]
         lib = same[0]["library_ms"]
+        med = statistics.median(r["ms"] for r in same)
         over = sum(r["over_1ulp"] for r in same)
         within = ("within the float-sum gates" if same[0]["float_sums"]
                   else "equal to plain")
@@ -624,11 +684,14 @@ def kernels_vs_plain(label, launches):
             f"{sum(r['launches'] for r in same)} launches, every one {within} "
             f"(max err {max(r['max_abs_err'] for r in same)}, {over} of "
             f"{sum(r['elements'] for r in same)} elements over 1 bf16 ulp); "
-            f"median {statistics.median(r['ms'] for r in same):.4f} ms per "
-            f"call, bound {same[0]['bound_ms']:.4f} ms "
-            f"({same[0]['bound_by']}), plain "
+            f"median {med:.4f} ms per call, bound "
+            f"{same[0]['bound_ms']:.4f} ms ({same[0]['bound_by']}, "
+            f"{100 * same[0]['bound_ms'] / med:.1f}% of it), plain "
             f"{statistics.median(r['plain_ms'] for r in same):.3f} ms, "
-            + _library_name(desc) + f" {lib if lib is None else round(lib, 4)}")
+            + _library_name(desc) + f" {lib if lib is None else round(lib, 4)}"
+            + ("" if lib is None else f" ({med / lib:.2f}x library)")
+            + (f", variant {same[0]['variant']}" if same[0]["variant"]
+               else ""))
     return rows
 
 
@@ -694,9 +757,12 @@ def _kernel_group(key):
     if "dw_kernel" in key:      # dw_kernel<TX, INT_ACC>, mangled or not
         return ("depthwise_conv2d_int8"
                 if "Lb1E" in key or ", true>" in key else "depthwise_conv2d")
-    if "igemm_kernel" in key or "fgemm_kernel" in key:
+    if any(k in key for k in ("wgemm_kernel", "igemm_kernel",
+                              "fgemm_kernel")):
         return ("conv2d_implicit_gemm" if "ConvA" in key
                 else "matmul_epilogue")
+    if "bgemm_kernel" in key:
+        return "matmul_epilogue"
     if "at::native" in key:
         return "PyTorch's own ops"
     return "cuDNN (the stem; every conv of the bf16 paths)"
@@ -837,6 +903,7 @@ def run_path(label, g, cfg, eng, x, smi, check_launch=None):
     if check_launch is not None:
         for launch in launches:
             check_launch(launch)
+    check_variants(label, launches)
     rows = kernels_vs_plain(label, launches)
     del launches
     agreement(label, g, cfg, x, out)
@@ -855,6 +922,7 @@ def ragged_cases():
     plain version."""
     import torch
     from feathercnn_tpu_torch.kernels.fused_chain import kernel_layout
+    from feathercnn_tpu_torch.kernels.matmul import gemm_layout
 
     fns = _kernel_fns()
     gen = torch.Generator(device="cuda").manual_seed(2)
@@ -877,7 +945,8 @@ def ragged_cases():
                                        (2, 9, 9, 3, 24, 7, 2, 3),
                                        (1, 8, 10, 136, 130, 3, 1, 1)]:
         for out_dtype in (torch.int8, torch.bfloat16):
-            a = dict(x=i8(nb, h, w, c), w=i8(k, k, c, co), bias=f32(co),
+            a = dict(x=i8(nb, h, w, c), w=gemm_layout(i8(k, k, c, co)),
+                     bias=f32(co),
                      w_scale=f32(co) * 1e-3, stride=s, pad_h=p, pad_w=p,
                      activation="relu", out_dtype=out_dtype, x_scale=0.02,
                      out_scale=0.5)
@@ -890,7 +959,7 @@ def ragged_cases():
         lo[: nn // 2] = 0.0
         hi[nn // 4: nn // 2] = 6.0
         for extra in ({}, {"lo": lo, "hi": hi, "x_scale": 1.0}):
-            a = dict(x=i8(m, k), w=i8(k, nn), bias=f32(nn),
+            a = dict(x=i8(m, k), w=gemm_layout(i8(k, nn)), bias=f32(nn),
                      w_scale=f32(nn) * 1e-3, activation=None,
                      out_dtype=torch.int8, x_scale=0.02, out_scale=0.6)
             a.update(extra)
@@ -906,13 +975,20 @@ def ragged_cases():
             ws = f32(24, lo=1e-3, hi=2e-3) if wt == torch.int8 else None
             for name, a in [
                     ("matmul_epilogue",
-                     dict(x=f32(77, 130, lo=-1.0).to(dt), w=weights(130, 24),
+                     dict(x=f32(77, 130, lo=-1.0).to(dt),
+                          w=gemm_layout(weights(130, 24)),
                           bias=f32(24), w_scale=ws, activation="relu")),
                     ("conv2d_implicit_gemm",
                      dict(x=f32(2, 9, 9, 20, lo=-1.0).to(dt),
-                          w=weights(3, 3, 20, 24), bias=f32(24), w_scale=ws,
+                          w=gemm_layout(weights(3, 3, 20, 24)),
+                          bias=f32(24), w_scale=ws,
                           stride=2, pad_h=1, pad_w=1, activation="relu6"))]:
-                held(name, a, f"{name} {dt} x {wt}")
+                kernel, plain = fns[name]
+                # bf16 x bf16 sums its products on the tensor cores
+                err, ok, _ = compare(kernel(**a), plain(**a),
+                                     "float" if wt == torch.bfloat16
+                                     else "exact")
+                check(ok, f"{name} {dt} x {wt}: {err}")
                 n += 1
     # the depthwise kernels: C = 8, 24, 40 (not multiples of 16), odd
     # sizes, stride 1 and 2, pad 0 and 1, C = 1024; every x and out type
@@ -994,8 +1070,110 @@ def ragged_cases():
     say("kernels", f"{n} stride-2 / ragged / clamp / float / chain cases "
         f"equal to plain (int8 0 LSB, bf16 1 ulp, f32 1e-5 of the largest "
         f"value; the chain cases exactly)")
+    n = ragged_gemm(gen)
+    say("kernels", f"{n} GEMM cases at the edges of the wgmma design equal "
+        f"to plain, each on its planned variant")
     n = ragged_float_chain(gen) + ragged_ident(gen)
     say("kernels", f"{n} float-chain and ident cases within their gates")
+
+
+def ragged_gemm(gen):
+    """The GEMM kernels at the edges of their variants, each against the
+    plain version and on the variant its plan names: M not a multiple of
+    the 128-row tile, N = 24 and 1000, K = 16, 24, 32, 2048, every output
+    type, the lo/hi clamp, a persistent grid with several tiles per block,
+    stride-2 convs with C = 16, 24, 64, misaligned x (the "mma_sync"
+    variant), bf16 x with an even and an odd K; and the refusal of a weight
+    not in gemm_layout."""
+    import torch
+    from feathercnn_tpu_torch.kernels.matmul import gemm_layout
+    fns = _kernel_fns()
+
+    def i8(*s):
+        return torch.randint(-127, 128, s, dtype=torch.int8, device="cuda",
+                             generator=gen)
+
+    def f32(*s, lo=0.5, hi=1.5):
+        return torch.rand(*s, device="cuda", generator=gen) * (hi - lo) + lo
+
+    def run(name, a, want, what):
+        kernel, plain = fns[name]
+        before = dict(kernel.variants)
+        got = kernel(**a)
+        v = next(k for k, c in kernel.variants.items() if c != before[k])
+        check(v == want, f"{what}: took {v}, planned {want}")
+        gate = "exact" if a["x"].dtype == torch.int8 else "float"
+        err, ok, _ = compare(got, plain(**a), gate)
+        check(ok, f"{what} ({v}): max err {err}")
+
+    def misaligned(*s):
+        flat = i8(math.prod(s) + 1)
+        return flat[1:].view(*s)
+
+    n = 0
+    for (m, k, nn) in [(1001, 16, 24), (130, 24, 1000), (77, 32, 1000),
+                       (129, 2048, 1000), (300, 64, 320), (40000, 128, 256),
+                       (257, 96, 144)]:
+        for out_dtype in (torch.int8, torch.bfloat16, torch.float32):
+            for clamp in (False, True):
+                lo = hi = None
+                if clamp:
+                    lo = torch.full((nn,), -math.inf, device="cuda")
+                    hi = torch.full((nn,), math.inf, device="cuda")
+                    lo[: nn // 2] = 0.0
+                    hi[nn // 4: nn // 2] = 6.0
+                a = dict(x=i8(m, k), w=gemm_layout(i8(k, nn)), bias=f32(nn),
+                         w_scale=f32(nn) * 1e-3, activation=None if clamp
+                         else "relu", out_dtype=out_dtype, x_scale=0.02,
+                         out_scale=0.6, lo=lo, hi=hi)
+                run("matmul_epilogue", a, "mma_sync" if k % 16 else "wgmma",
+                    f"matmul {(m, k, nn)} {out_dtype} clamp={clamp}")
+                n += 1
+    a = dict(x=misaligned(515, 64), w=gemm_layout(i8(64, 200)),
+             bias=f32(200), w_scale=f32(200) * 1e-3, activation="relu",
+             out_dtype=torch.int8, x_scale=0.02, out_scale=0.6)
+    run("matmul_epilogue", a, "mma_sync", "matmul with misaligned x")
+    n += 1
+    for (nb, h, w, c, co, k, s, p) in [(3, 17, 15, 64, 96, 3, 2, 1),
+                                       (2, 19, 13, 16, 40, 3, 2, 1),
+                                       (2, 12, 10, 24, 32, 3, 1, 1),
+                                       (2, 9, 11, 8, 64, 3, 2, 1),
+                                       (4, 30, 30, 128, 256, 3, 1, 1)]:
+        for out_dtype in (torch.int8, torch.bfloat16, torch.float32):
+            a = dict(x=i8(nb, h, w, c), w=gemm_layout(i8(k, k, c, co)),
+                     bias=f32(co), w_scale=f32(co) * 1e-3, stride=s, pad_h=p,
+                     pad_w=p, activation="relu6", out_dtype=out_dtype,
+                     x_scale=0.02, out_scale=0.5)
+            run("conv2d_implicit_gemm", a,
+                "mma_sync" if c % 16 else "wgmma",
+                f"conv {(nb, h, w, c, co, k, s)} {out_dtype}")
+            n += 1
+    a = dict(x=misaligned(2, 9, 9, 32), w=gemm_layout(i8(3, 3, 32, 48)),
+             bias=f32(48), w_scale=f32(48) * 1e-3, stride=2, pad_h=1,
+             pad_w=1, activation="relu", out_dtype=torch.int8, x_scale=0.02,
+             out_scale=0.5)
+    run("conv2d_implicit_gemm", a, "mma_sync", "conv with misaligned x")
+    n += 1
+    for (m, k, nn, want) in [(128, 2048, 1000, "mma_bf16"),
+                             (77, 136, 24, "mma_bf16"),
+                             (300, 130, 72, "simt")]:
+        a = dict(x=torch.randn(m, k, device="cuda", generator=gen).to(
+                     torch.bfloat16),
+                 w=gemm_layout((torch.randn(k, nn, device="cuda", generator=gen)
+                                * k ** -0.5).to(torch.bfloat16)),
+                 bias=f32(nn), activation="relu")
+        run("matmul_epilogue", a, want, f"bf16 matmul {(m, k, nn)}")
+        n += 1
+    for name, a in [("matmul_epilogue", dict(x=i8(64, 64), w=i8(64, 32))),
+                    ("conv2d_implicit_gemm",
+                     dict(x=i8(1, 8, 8, 16), w=i8(3, 3, 16, 32), pad_h=1,
+                          pad_w=1))]:
+        try:        # the kernels take gemm_layout and no other layout
+            fns[name][0](**a)
+            check(False, f"{name}: a weight not in gemm_layout was taken")
+        except ValueError:
+            pass
+    return n
 
 
 def ragged_float_chain(gen):
@@ -1159,6 +1337,7 @@ def boundary(label, smi):
         check(r["sum_none"] == r["sum_ident"],
               f"{label} stage {r['stage']}: sums {r['sum_none']} without "
               f"ident, {r['sum_ident']} with")
+    check_variants(label, recorder.launches)
     rows = kernels_vs_plain(label, recorder.launches)
     del recorder
     idents = [r for r in rows if r["kernel"] == "ident"]
@@ -1211,6 +1390,7 @@ def kernel_summary(name, rows, counts):
         same = [r for r in main_rows if r["shape"] == desc]
         shapes.append({
             "shape": desc, "calls": len(same),
+            "variant": same[0]["variant"],
             "launches": sum(r["launches"] for r in same),
             "bound_by": same[0]["bound_by"],
             "max_abs_err": max(r["max_abs_err"] for r in same),

@@ -26,9 +26,11 @@ _BUILD_ROOT = Path(__file__).resolve().parent.parent / "_build"
 _SOURCES = ("matmul_epilogue.cu", "conv_implicit_gemm.cu",
             "depthwise_conv.cu", "fused_chain.cu", "fused_chain_float.cu",
             "ident.cu")
-_HEADERS = ("gemm_common.cuh",)
+_HEADERS = ("gemm_common.cuh", "wgmma_ops.cuh")
+# -split-compile 0: each source's kernels go through the device compiler
+# in parallel (the int8 GEMM's wgmma instantiations take ~10-25 s each).
 _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
-          "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+          "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-split-compile", "0")
 _LIB_NAME = "libfcnn_kernels.so"
 
 _P = ctypes.c_void_p
@@ -40,12 +42,14 @@ _L = ctypes.c_longlong
 _SIGNATURES = {
     "fcnn_matmul_epilogue": [_P, _P, _P, _P, _P, _P, _P,      # x w out b ws lo hi
                              _I, _I, _I, _I, _I, _I, _I,      # M K N xt wt ot act
-                             _F, _F, _P],                     # x_scale out_scale stream
+                             _F, _F,                          # x_scale out_scale
+                             _I, _I, _I, _I, _I, _I, _I,      # plan: variant bn bk stages
+                             _P],                             #   bres grid smem; stream
     "fcnn_conv_implicit_gemm": [_P, _P, _P, _P, _P, _P, _P,
                                 _I, _I, _I, _I, _I, _I, _I,   # N H W C KH KW Co
                                 _I, _I, _I, _I,               # sh sw ph pw
                                 _I, _I, _I, _I,               # xt wt ot act
-                                _F, _F, _P],
+                                _F, _F, _I, _I, _I, _I, _I, _I, _I, _P],
     "fcnn_depthwise_conv2d": [_P, _P, _P, _P,                # x w out b
                               _I, _I, _I, _I, _I, _I,        # N H W C KH KW
                               _I, _I, _I, _I,                # sh sw ph pw

@@ -7,7 +7,9 @@ says what bounds it on an H100 and what its design does about that); on a
 CPU tensor it computes the same function with
 :func:`conv2d_implicit_gemm_plain`.  Stride 1 or 2 (any stride works),
 zero padding, f32 / bf16 / weight-only int8 / full int8, the epilogue of
-``matmul_epilogue``.
+``matmul_epilogue``.  :func:`~.matmul.gemm_plan` picks the main loop of
+each launch; on the GPU the weight must be stored as
+:func:`~.matmul.gemm_layout` gives it.
 """
 
 from __future__ import annotations
@@ -17,8 +19,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from .matmul import (_default_out_dtype, check_operands, epilogue_plain,
-                     launch_args)
+from .matmul import (VARIANTS, _default_out_dtype, check_operands,
+                     epilogue_plain, launch_args, plan_for)
 
 __all__ = ["conv2d_implicit_gemm", "conv2d_implicit_gemm_plain"]
 
@@ -51,8 +53,10 @@ def conv2d_implicit_gemm(x: torch.Tensor, w: torch.Tensor,
                          lo: Optional[torch.Tensor] = None,
                          hi: Optional[torch.Tensor] = None) -> torch.Tensor:
     """NHWC conv.  x: (N, H, W, C) float32/bfloat16/int8; w: (KH, KW, C, Co)
-    same type or int8; bias, w_scale, lo, hi: (Co,) float32.  A CPU ``x``
-    takes the plain version; a CUDA ``x`` launches the kernel or raises."""
+    same type or int8, on the GPU stored as ``gemm_layout`` gives it; bias,
+    w_scale, lo, hi: (Co,) float32.  A CPU ``x`` takes the plain version; a
+    CUDA ``x`` launches the variant ``gemm_plan`` picks, counted in
+    ``conv2d_implicit_gemm.variants``, or raises."""
     if x.dim() != 4 or w.dim() != 4 or x.shape[3] != w.shape[2]:
         raise ValueError(f"conv shapes {tuple(x.shape)} (NHWC) and "
                          f"{tuple(w.shape)} (HWIO) do not match")
@@ -78,16 +82,19 @@ def conv2d_implicit_gemm(x: torch.Tensor, w: torch.Tensor,
     if out.numel() == 0:
         return out
     ptrs, codes, stream = launch_args(x, w, out, vecs, activation, out_dtype)
+    plan = plan_for(N * OH * OW, KH * KW * C, Co, x, w, out_dtype, conv_c=C)
     from .build import load_library
     rc = load_library().fcnn_conv_implicit_gemm(
         *ptrs, N, H, W, C, KH, KW, Co, stride, stride, pad_h, pad_w, *codes,
-        float(x_scale), float(out_scale), stream)
+        float(x_scale), float(out_scale), *plan.args(), stream)
     if rc != 0:
         raise RuntimeError(
             f"conv2d_implicit_gemm launch failed: CUDA error {rc} "
-            f"(x={tuple(x.shape)} w={tuple(w.shape)} stride={stride})")
+            f"(x={tuple(x.shape)} w={tuple(w.shape)} stride={stride} {plan})")
     conv2d_implicit_gemm.launches += 1
+    conv2d_implicit_gemm.variants[plan.variant] += 1
     return out
 
 
 conv2d_implicit_gemm.launches = 0
+conv2d_implicit_gemm.variants = dict.fromkeys(VARIANTS, 0)

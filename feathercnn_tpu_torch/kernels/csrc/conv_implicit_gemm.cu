@@ -15,16 +15,22 @@
 // point (~590 operations per byte) and the 128..512-channel stages are
 // bound by the tensor cores.
 //
-// What the simple design does about it: no im2col is written to memory.
-// Each block owns 128 output pixels x 64 output channels; every K step
-// gathers its rows straight from the unpadded input, a 16-byte vector of
-// channels at a time when C % 16 == 0 (a tap never splits such a vector),
-// with a bounds check standing in for the zero padding; any other C moves
-// single bytes (a slower path, off the main path).  Products run on the tensor
-// cores with int32 accumulation over the whole K.  The Pallas kernel's
-// staging (row slabs, batch chunks, stride-2 parity planes, shifted
-// products, lax.map over chunks) exists for the TPU's VMEM and (8, 128)
-// tiling and is not carried over.
+// What the design does about it (gemm_common.cuh has the details): no
+// im2col is written to memory.  The weight is kept (Co, KH*KW*C) with K
+// contiguous in (kh, kw, c) order (gemm_layout, made once per node) and
+// arrives by TMA, once per block where its panel fits shared memory.  A persistent block per SM walks 128 x BN output tiles;
+// its producer warpgroup gathers the tile's A rows straight from the
+// unpadded input with 16-byte cp.async into the swizzled stage (each of
+// its threads resolves 128 pixels once per tile and advances its tap by
+// counters, so the K loop has no division; a bounds check stands in for
+// the zero padding), ahead of two consumer warpgroups running wgmma
+// m64nBNk32 with int32 accumulation over the whole K.  The epilogue is
+// staged through shared memory and leaves as 16-byte row pieces.  C not a
+// multiple of 16 (or C < 16) or a misaligned pointer takes the mma.sync
+// variant; float x the SIMT loop.  The Pallas kernel's staging (row slabs,
+// batch chunks, stride-2 parity planes, shifted products, lax.map over
+// chunks) exists for the TPU's VMEM and (8, 128) tiling and is not carried
+// over.
 //
 // The reference converts each tap's int32 product to f32 and sums the taps
 // in f32; this kernel keeps the whole K in int32.  The two agree exactly
@@ -36,7 +42,8 @@ extern "C" int fcnn_conv_implicit_gemm(
     const float* w_scale, const float* lo, const float* hi, int N, int H,
     int W, int C, int KH, int KW, int Co, int sh, int sw, int ph, int pw,
     int x_type, int w_type, int out_type, int act, float x_scale,
-    float out_scale, void* stream) {
+    float out_scale, int variant, int bn, int bk, int stages, int bres,
+    int grid, int smem, void* stream) {
   fcnn::ConvA a;
   a.x = static_cast<const char*>(x);
   a.H = H;
@@ -52,10 +59,10 @@ extern "C" int fcnn_conv_implicit_gemm(
   if (a.OH <= 0 || a.OW <= 0) return 0;
   a.M = N * a.OH * a.OW;
   a.K = KH * KW * C;
-  const int va = (C % 16 == 0 &&
-                  reinterpret_cast<uintptr_t>(x) % 16 == 0) ? 16 : 1;
   const fcnn::Epilogue e = fcnn::make_epilogue(
       out, bias, w_scale, lo, hi, act, x_scale, out_scale, out_type);
-  return fcnn::launch_gemm(a, w, Co, x_type, w_type, va, e,
-                           static_cast<cudaStream_t>(stream));
+  return fcnn::launch_gemm(
+      a, w, Co, x_type, w_type, C % 16 == 0 && C >= 16,
+      fcnn::make_plan(variant, bn, bk, stages, bres, grid, smem), e,
+      static_cast<cudaStream_t>(stream));
 }

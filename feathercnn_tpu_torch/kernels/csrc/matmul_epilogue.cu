@@ -10,22 +10,29 @@
 // (act_segments) that the reference leaves to XLA.
 //
 // What bounds it on an H100 SXM: at the main path's shapes (int8 x int8,
-// M = N*H*W up to 401,408, K 64..2048, N 64..2560) the work is
-// 2*M*N*K int8 operations against 1,979 TOP/s, and the bytes are
-// M*K + K*N + M*N*out_size against 3.35 TB/s.  With int8 in and out and
-// M >> K, N that is about 2*K*N / (K + N) operations per byte: ~100 at
-// K = 64, N = 256, far below the ~590 that the card needs to be compute
-// bound, so most of these layers are bound by memory; only the widest
-// merged convs and stage 5 tip toward the tensor cores.
+// M = N*H*W up to 3,211,264, K 16..2048, N 16..2560) the bytes are
+// M*K + K*N + M*N*out_size against 3.35 TB/s and the work 2*M*N*K int8
+// operations against 1,979 TOP/s.  At K <= 256 (stages 2-4 of ResNet-50,
+// every MobileNet 1x1 conv) the bytes bound it, most of them the output's;
+// only the widest merged convs and stage 5 tip toward the tensor cores.
 //
-// What the simple design does about it: 128 x 64 output tiles; it reads A
-// with 16-byte loads where K % 16 == 0 (single bytes otherwise), runs the
-// products on the tensor cores (mma.sync, int32 accumulation over the whole
-// K), and
-// applies the epilogue in registers so the output is written once, as
-// int8 where the next layer takes int8.  The ragged M, N and K edges are
-// masked in the kernel, so nothing is padded in memory.  Not yet done:
-// wgmma, TMA, and a staged (coalesced) output store.
+// What the design does about it (gemm_common.cuh has the details): the
+// weight is kept (N, K) with K contiguous (gemm_layout, made once per
+// node), as wgmma's K-major B wants it.  A persistent block per SM walks
+// 128 x BN tiles (BN 32 to 256, weighing padded columns against the
+// traffic of the main loop); A and B
+// arrive by TMA into a ring of 64- or 128-byte-swizzled stages (B once
+// per block where its weight panel fits shared memory), with
+// out-of-bounds zero fill taking the ragged M and K edges; two consumer
+// warpgroups run wgmma m64nBNk32 with int32 accumulation over the whole K;
+// the epilogue stages the tile through shared memory and writes 16-byte
+// row pieces, while the producer already loads the next tile.  A K of 16
+// to 64 takes a 64-byte step (the bytes past K arrive as zeros).
+// A row pitch that is not a multiple of 16 bytes (K = 24: MobileNet-v2) or
+// a misaligned pointer takes the mma.sync variant; bf16 x bf16 (the bf16
+// FC) the mma.sync m16n8k16 variant, 8 warps over slices of K; f32 x and
+// weight-only int8 a SIMT loop.  The host's plan (gemm_plan in
+// kernels/matmul.py) picks the variant, tile, K step and stages.
 //
 // The reference converts the int32 product of each K block to f32 and sums
 // the blocks in f32 (matmul.py:63-64); this kernel keeps the whole K in
@@ -36,15 +43,16 @@ extern "C" int fcnn_matmul_epilogue(
     const void* x, const void* w, void* out, const float* bias,
     const float* w_scale, const float* lo, const float* hi, int M, int K,
     int N, int x_type, int w_type, int out_type, int act, float x_scale,
-    float out_scale, void* stream) {
+    float out_scale, int variant, int bn, int bk, int stages, int bres,
+    int grid, int smem, void* stream) {
   fcnn::MatrixA a;
   a.x = static_cast<const char*>(x);
   a.M = M;
   a.K = K;
-  const int va = (K % 16 == 0 &&
-                  reinterpret_cast<uintptr_t>(x) % 16 == 0) ? 16 : 1;
   const fcnn::Epilogue e = fcnn::make_epilogue(
       out, bias, w_scale, lo, hi, act, x_scale, out_scale, out_type);
-  return fcnn::launch_gemm(a, w, N, x_type, w_type, va, e,
-                           static_cast<cudaStream_t>(stream));
+  return fcnn::launch_gemm(
+      a, w, N, x_type, w_type, K % 16 == 0 && K >= 16,
+      fcnn::make_plan(variant, bn, bk, stages, bres, grid, smem), e,
+      static_cast<cudaStream_t>(stream));
 }

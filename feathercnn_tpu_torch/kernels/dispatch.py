@@ -40,7 +40,7 @@ from .conv import conv2d_implicit_gemm
 from .depthwise import depthwise_conv2d, depthwise_conv2d_int8
 from .fused_chain import fused_chain, fused_chain_float
 from .ident import ident
-from .matmul import matmul_epilogue
+from .matmul import gemm_layout, matmul_epilogue
 
 __all__ = ["select_algo", "conv_forward", "fc_forward", "fused_chain",
            "fused_chain_float", "ident"]
@@ -64,6 +64,16 @@ def _dequant_weight(w, q, dtype, node, ctx):
         return (w.float() * ctx.const(node, "w_scale", lambda: q["w_scale"])
                 ).to(dtype)
     return w.to(dtype)
+
+
+def _gemm_weight(node, w, dtype, ctx, matrix: bool):
+    """The node's weight as ``dtype`` in the GEMM kernels' layout
+    (``gemm_layout``): a 1x1 or FC weight as its (K, N) matrix, a kxk one
+    HWIO; made once per node."""
+    return ctx.kept(node, f"gemm_w/{dtype}/{'matrix' if matrix else 'hwio'}",
+                    lambda: gemm_layout(
+                        (w.reshape(w.shape[-2], -1) if matrix else w)
+                        .to(dtype)))
 
 
 def _quantize_act(x, x_scale: float):
@@ -153,16 +163,16 @@ def conv_forward(node, x, w, bias, ctx):
     if algo == "gemm1x1" and kh == 1 and kw == 1:
         x2, (n, oh, ow) = _pointwise_input(x, sh, sw, ph, pw)
         kwargs = {}
+        wdt = x2.dtype
         if q is not None and w.dtype == torch.int8:
             kwargs["w_scale"] = ctx.const(node, "w_scale",
                                           lambda: q["w_scale"])
             if q.get("x_scale") is not None:
                 x2 = _quantize_act(x2, q["x_scale"])
                 kwargs["x_scale"] = float(q["x_scale"])
-        else:
-            w = w.to(x2.dtype)
+            wdt = torch.int8
         out_dtype, out_scale = _out_spec(x, q)
-        y = matmul_epilogue(x2, w.reshape(w.shape[-2], -1), bias,
+        y = matmul_epilogue(x2, _gemm_weight(node, w, wdt, ctx, True), bias,
                             activation=act, out_dtype=out_dtype,
                             out_scale=out_scale, **kwargs)
         return y.reshape(n, oh, ow, -1)
@@ -180,9 +190,9 @@ def conv_forward(node, x, w, bias, ctx):
             if q.get("x_scale") is not None:
                 xs = _quantize_act(x, q["x_scale"])
                 kwargs["x_scale"] = float(q["x_scale"])
-            wk = w
+            wk = _gemm_weight(node, w, torch.int8, ctx, False)
         else:
-            wk = w.to(x.dtype)
+            wk = _gemm_weight(node, w, x.dtype, ctx, False)
         out_dtype, out_scale = _out_spec(x, q)
         return conv2d_implicit_gemm(xs.contiguous(), wk, bias, stride=sh,
                                     pad_h=ph, pad_w=pw, activation=act,
@@ -223,10 +233,12 @@ def conv_forward(node, x, w, bias, ctx):
                    lo=lo, hi=hi)
         if kh == 1 and kw == 1:
             x2, (n, oh, ow) = _pointwise_input(xq, sh, sw, ph, pw)
-            y = matmul_epilogue(x2, w.reshape(w.shape[-2], -1), bias, ws,
-                                **kw_)
+            y = matmul_epilogue(x2, _gemm_weight(node, w, torch.int8, ctx,
+                                                 True), bias, ws, **kw_)
             return y.reshape(n, oh, ow, -1)
-        return conv2d_implicit_gemm(xq.contiguous(), w, bias, ws, stride=sh,
+        return conv2d_implicit_gemm(xq.contiguous(),
+                                    _gemm_weight(node, w, torch.int8, ctx,
+                                                 False), bias, ws, stride=sh,
                                     pad_h=ph, pad_w=pw, **kw_)
 
     # float conv (PyTorch's, as the reference leaves it to XLA's):
@@ -251,13 +263,14 @@ def fc_forward(node, x, w, bias, ctx):
     if x.dtype == torch.int8 and (q is None or q.get("x_scale") is None):
         x = _dequant_int8_edge(x, q, ctx)
     kwargs = {}
+    wdt = x.dtype
     if q is not None and w.dtype == torch.int8:
         kwargs["w_scale"] = ctx.const(node, "w_scale", lambda: q["w_scale"])
         if q.get("x_scale") is not None:
             x = _quantize_act(x, q["x_scale"])
             kwargs["x_scale"] = float(q["x_scale"])
-    else:
-        w = w.to(x.dtype)
+        wdt = torch.int8
     out_dtype = x.dtype if x.dtype != torch.int8 else torch.bfloat16
-    return matmul_epilogue(x.contiguous(), w, bias, activation=act,
-                           out_dtype=out_dtype, **kwargs)
+    return matmul_epilogue(x.contiguous(), _gemm_weight(node, w, wdt, ctx,
+                                                        True), bias,
+                           activation=act, out_dtype=out_dtype, **kwargs)

@@ -20,6 +20,8 @@ import statistics
 import numpy as np
 import torch
 
+from .matmul import gemm_layout
+
 __all__ = ["ident", "ident_plain", "boundary_probe", "STAGES"]
 
 # ResNet-50's identity-block signatures, as bench/chain_micro.py:19-20:
@@ -120,6 +122,7 @@ def boundary_probe(stage: int, batch: int = 128, chunk: int = 2,
     win = rng.integers(-127, 128, size=(c, c), dtype=np.int8)
     wout = rng.integers(-127, 128, size=(c, c // 2), dtype=np.int8)
     x8, win, wout = (torch.from_numpy(a).to(device) for a in (x8, win, wout))
+    win, wout = gemm_layout(win), gemm_layout(wout)
     w_scale = torch.full((c,), float(np.float32(1e-3 * _S)), device=device)
 
     def prod(a):
