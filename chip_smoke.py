@@ -40,10 +40,11 @@ Phases, each printing its own lines:
    with every kernel's launch count set to 0 just before and read just
    after, against the path's expected counts (``EXPECTED``); the output is
    finite.  The arguments of every launch are recorded on the way, and
-   for the two GEMM kernels the variant (main loop) it took: every int8
-   GEMM launch must take "wgmma" but where the plan gives a reason on a
-   path of ``FALLBACK_OK`` (MobileNet-v2's K = 24 convs, printed), and a
-   bf16 one "mma_bf16".
+   for every kernel whose wrapper counts variants the variant (main loop)
+   it took: every int8 GEMM launch must take "wgmma" but where the plan
+   gives a reason on a path of ``FALLBACK_OK`` (MobileNet-v2's K = 24
+   convs, printed), a bf16 one "mma_bf16"; every depthwise launch "k3s1"
+   or "k3s2" by its stride and every float-chain launch "wgmma".
 3. per path, kernels: each launch of that forward is repeated on its own
    tensors and held against the kernel's plain PyTorch version (int8 out:
    equal; bf16 out: within 1 bf16 ulp; f32: within 1e-5 of the largest
@@ -74,11 +75,16 @@ Phases, each printing its own lines:
    forward's device time by kernel, and by graph node (the engine names a
    profiler range after each node).
 5. ragged cases: stride 2, C not a multiple of a kernel's vector, odd
-   sizes, the lo/hi clamp, the float variants, the GEMM kernels at the
+   sizes, the lo/hi clamp, the float variants, the depthwise kernels'
+   tiles (H/W not multiples of the tile, stride 2 on odd inputs, C below
+   and not a multiple of the vector, a 5x5 kernel, batch 1) each on its
+   planned variant, the GEMM kernels at the
    edges of their variants (M not a multiple of the tile, N = 24 and 1000,
    K = 16, 24, 32, 2048, every output type, misaligned x, each on its
    planned variant, and the refusal of a weight not in ``gemm_layout``),
-   the chain's ragged shapes and output types (int8 and float modes), and
+   the chain's ragged shapes and output types (int8 and float modes; the
+   float chain's tile counts that are not a multiple of the tiles a block
+   takes, each on its planned variant), and
    ``ident`` on int8, bf16 and f32 at odd sizes, against the plain
    versions.
 6. server (ResNet-50): ``InferenceServer(batch_size=128, batch_slots=[8,
@@ -170,6 +176,11 @@ EXPECTED = {
 }
 CHAINS = ("fused_chain", "fused_chain_float")
 GEMMS = ("matmul_epilogue", "conv2d_implicit_gemm")
+# Kernels whose every counted launch must take its main variant: "k3s1"
+# or "k3s2" by the stride for the depthwise kernels, "wgmma" for the float
+# chain.
+MAIN_VARIANT = ("depthwise_conv2d", "depthwise_conv2d_int8",
+                "fused_chain_float")
 # The paths whose int8 GEMM launches may leave "wgmma" where the plan gives
 # a reason (MobileNet-v2's K = 24 1x1 convs: a 24-byte row pitch).
 FALLBACK_OK = ("mobilenet_v2 b128 dw override",)
@@ -302,12 +313,12 @@ class LaunchRecorder:
             bound.apply_defaults()
             record = {"kernel": name, "args": dict(bound.arguments)}
             self.launches.append(record)
-            if name not in GEMMS:
+            if not hasattr(fn, "variants"):
                 return fn(*a, **kw)
             before = dict(fn.variants)
             out = fn(*a, **kw)
-            record["variant"] = next(v for v, n in fn.variants.items()
-                                     if n != before[v])
+            record["variant"] = "+".join(v for v, n in fn.variants.items()
+                                         if n != before[v])
             return out
         return rec
 
@@ -361,10 +372,20 @@ def gemm_plan_of(kernel, a):
 def check_variants(label, launches):
     """Every int8 GEMM launch of the forward took "wgmma", but on the
     paths of FALLBACK_OK where the plan gives its reason (printed); every
-    bf16 one "mma_bf16"."""
+    bf16 one "mma_bf16"; every depthwise launch (all 3x3) "k3s1" or "k3s2"
+    by its stride, and every float-chain launch "wgmma"."""
     import torch
     taken, exceptions = {}, []
     for i, r in enumerate(launches):
+        if r["kernel"] in MAIN_VARIANT:
+            v, a = r["variant"], r["args"]
+            want = ("wgmma" if r["kernel"] in CHAINS
+                    else f"k3s{a['stride']}")
+            check(v == want, f"{label}: launch {i} {r['kernel']} took "
+                  f"{v}, expected {want}")
+            key = f"{r['kernel']} {v}"
+            taken[key] = taken.get(key, 0) + 1
+            continue
         if r["kernel"] not in GEMMS:
             continue
         a, v = r["args"], r["variant"]
@@ -379,7 +400,7 @@ def check_variants(label, launches):
         check(v == plan.variant and plan.reason and label in FALLBACK_OK,
               f"{label}: {what}, expected {want}")
         exceptions.append(what)
-    say(label, f"GEMM variants {taken}" + ("; not wgmma, as planned: "
+    say(label, f"variants {taken}" + ("; not wgmma, as planned: "
                                            + "; ".join(exceptions)
                                            if exceptions else ""))
 
@@ -754,9 +775,9 @@ def _kernel_group(key):
         return "fused_chain"
     if "ident_kernel" in key:
         return "ident"
-    if "dw_kernel" in key:      # dw_kernel<TX, INT_ACC>, mangled or not
+    if "dw_kernel" in key:      # dw_kernel<TX, S, INT_W, ...>, mangled or not
         return ("depthwise_conv2d_int8"
-                if "Lb1E" in key or ", true>" in key else "depthwise_conv2d")
+                if "Lb1E" in key or ", true," in key else "depthwise_conv2d")
     if any(k in key for k in ("wgemm_kernel", "igemm_kernel",
                               "fgemm_kernel")):
         return ("conv2d_implicit_gemm" if "ConvA" in key
@@ -927,12 +948,12 @@ def ragged_cases():
     fns = _kernel_fns()
     gen = torch.Generator(device="cuda").manual_seed(2)
 
-    def i8(*s):
+    def i8(*s, g=gen):
         return torch.randint(-127, 128, s, dtype=torch.int8, device="cuda",
-                             generator=gen)
+                             generator=g)
 
-    def f32(*s, lo=0.5, hi=1.5):
-        return torch.rand(*s, device="cuda", generator=gen) * (hi - lo) + lo
+    def f32(*s, lo=0.5, hi=1.5, g=gen):
+        return torch.rand(*s, device="cuda", generator=g) * (hi - lo) + lo
 
     def held(name, a, what):
         kernel, plain = fns[name]
@@ -990,29 +1011,50 @@ def ragged_cases():
                                      else "exact")
                 check(ok, f"{name} {dt} x {wt}: {err}")
                 n += 1
-    # the depthwise kernels: C = 8, 24, 40 (not multiples of 16), odd
-    # sizes, stride 1 and 2, pad 0 and 1, C = 1024; every x and out type
-    for (nb, h, w, c, s, p) in [(4, 15, 13, 24, 2, 1), (2, 9, 9, 8, 1, 1),
-                                (3, 11, 7, 40, 2, 0), (2, 9, 7, 1024, 2, 1),
-                                (2, 10, 12, 64, 1, 0)]:
-        xq, wq = i8(nb, h, w, c), i8(3, 3, c)
+    # the depthwise kernels: C = 3, 8, 24, 30, 36, 40 (not multiples of
+    # 16; 3 and 30 not of the 4-channel vector), odd sizes that are not
+    # multiples of the tile, stride 1 and 2 (on odd inputs too), pad 0-2,
+    # C = 1024, a 5x5 kernel (variant "tiled"), batch 1; every x and out
+    # type, each launch on the variant its plan names
+    # (the last five cases draw from their own generator, so the first
+    # five keep the inputs they were checked with)
+    gen_dw = torch.Generator(device="cuda").manual_seed(6)
+    for i, (nb, h, w, c, k, s, p) in enumerate([
+            (4, 15, 13, 24, 3, 2, 1), (2, 9, 9, 8, 3, 1, 1),
+            (3, 11, 7, 40, 3, 2, 0), (2, 9, 7, 1024, 3, 2, 1),
+            (2, 10, 12, 64, 3, 1, 0), (1, 37, 29, 36, 3, 1, 1),
+            (1, 33, 35, 48, 3, 2, 1), (2, 7, 7, 3, 3, 1, 1),
+            (1, 23, 21, 48, 5, 1, 2), (2, 12, 9, 30, 5, 2, 2)]):
+        g = gen if i < 5 else gen_dw
+        xq, wq = i8(nb, h, w, c, g=g), i8(k, k, c, g=g)
+        want = f"k3s{s}" if k == 3 else "tiled"
+
+        def dw_held(name, a, what):
+            kernel = fns[name][0]
+            before = dict(kernel.variants)
+            held(name, a, what)
+            took = [v for v, m in kernel.variants.items() if m != before[v]]
+            check(took == [want], f"{what}: took {took}, planned {want}")
+
         for out_dtype in (torch.int8, torch.bfloat16, torch.float32):
-            a = dict(xq=xq, wq=wq, bias=f32(c), w_scale=f32(c) * 1e-3,
-                     stride=s, pad_h=p, pad_w=p, activation="relu6",
+            a = dict(xq=xq, wq=wq, bias=f32(c, g=g),
+                     w_scale=f32(c, g=g) * 1e-3, stride=s, pad_h=p,
+                     pad_w=p, activation="relu6",
                      out_dtype=out_dtype, out_scale=20.0)
-            held("depthwise_conv2d_int8", a,
-                 f"depthwise int8 {(nb, h, w, c, s, p)} {out_dtype}")
+            dw_held("depthwise_conv2d_int8", a,
+                    f"depthwise int8 {(nb, h, w, c, k, s, p)} {out_dtype}")
             n += 1
-        wf = f32(3, 3, c, lo=-1.0, hi=1.0)
-        for x, extra in [(f32(nb, h, w, c, lo=-1.0), {}),
-                         (f32(nb, h, w, c, lo=-1.0).to(torch.bfloat16), {}),
+        wf = f32(k, k, c, lo=-1.0, hi=1.0, g=g)
+        for x, extra in [(f32(nb, h, w, c, lo=-1.0, g=g), {}),
+                         (f32(nb, h, w, c, lo=-1.0, g=g).to(torch.bfloat16),
+                          {}),
                          (xq, {"x_scale": 0.013}),
                          (xq, {"x_scale": 0.013,
                                "out_dtype": torch.float32})]:
-            a = dict(x=x, w=wf, bias=f32(c), stride=s, pad_h=p, pad_w=p,
+            a = dict(x=x, w=wf, bias=f32(c, g=g), stride=s, pad_h=p, pad_w=p,
                      activation="relu", **extra)
-            held("depthwise_conv2d", a,
-                 f"depthwise {x.dtype} {(nb, h, w, c, s, p)} {extra}")
+            dw_held("depthwise_conv2d", a,
+                    f"depthwise {x.dtype} {(nb, h, w, c, k, s, p)} {extra}")
             n += 1
     # the fused chain: odd H and W, nb = 1..3, Cm <= 128 and > 128, C not a
     # multiple of 16, every output type (f32 shows both shortcut forms),
@@ -1187,9 +1229,9 @@ def ragged_float_chain(gen):
 
     kernel = _kernel_fns()["fused_chain_float"][0]
 
-    def args(n_, h, w, c, cm, nb, xdt, out):
+    def args(n_, h, w, c, cm, nb, xdt, out, g=gen):
         def rnd(*shape, scale=1.0):
-            return torch.randn(*shape, device="cuda", generator=gen) * scale
+            return torch.randn(*shape, device="cuda", generator=g) * scale
         return dict(
             x=rnd(n_, h, w, c).to(xdt),
             w1=kernel_layout(rnd(nb, c, cm, scale=c ** -0.5).to(xdt)),
@@ -1202,19 +1244,41 @@ def ragged_float_chain(gen):
 
     bf, f4 = torch.bfloat16, torch.float32
     n = 0
-    for case in [(2, 9, 11, 64, 32, 2, bf, bf),
-                 (2, 9, 11, 64, 32, 2, bf, f4),
-                 (1, 13, 9, 72, 144, 3, bf, bf),
-                 (2, 6, 5, 20, 12, 2, bf, bf),
-                 (1, 5, 7, 21, 10, 2, bf, f4),
-                 (3, 7, 7, 48, 144, 1, f4, f4),
-                 (2, 9, 11, 64, 32, 2, f4, f4),
-                 (2, 6, 5, 18, 6, 3, f4, bf),
-                 (2, 56, 56, 256, 64, 2, bf, bf),
-                 (2, 7, 7, 2048, 512, 1, bf, bf),
-                 (2, 14, 14, 1024, 256, 2, f4, f4)]:
-        a = args(*case)
-        err, ok, over, _ = per_launch(a, kernel(**a))
+    # the first eleven cases, then (from their own generator, so those
+    # keep their inputs) the "wgmma" variant's edges: tile counts that are
+    # not a multiple of the two tiles a block takes (3, 5 and 15 tiles),
+    # more pairs of tiles than the persistent grid's blocks (147 over 132),
+    # H and W not multiples of the tile, Cm = 8 and 24 (a K step across
+    # taps), C and Cm not multiples of 64 or 128, and both output types.
+    # Each launch takes the variant its plan names: "wgmma" for bf16 with C
+    # and Cm multiples of 8, "mma_sync" for other bf16, "fma_f32" for f32.
+    gen_fc = torch.Generator(device="cuda").manual_seed(7)
+    cases = [(2, 9, 11, 64, 32, 2, bf, bf),
+             (2, 9, 11, 64, 32, 2, bf, f4),
+             (1, 13, 9, 72, 144, 3, bf, bf),
+             (2, 6, 5, 20, 12, 2, bf, bf),
+             (1, 5, 7, 21, 10, 2, bf, f4),
+             (3, 7, 7, 48, 144, 1, f4, f4),
+             (2, 9, 11, 64, 32, 2, f4, f4),
+             (2, 6, 5, 18, 6, 3, f4, bf),
+             (2, 56, 56, 256, 64, 2, bf, bf),
+             (2, 7, 7, 2048, 512, 1, bf, bf),
+             (2, 14, 14, 1024, 256, 2, f4, f4),
+             (1, 21, 7, 40, 24, 2, bf, bf),
+             (1, 7, 33, 16, 8, 1, bf, f4),
+             (1, 17, 20, 136, 56, 2, bf, bf),
+             (6, 56, 56, 64, 32, 1, bf, bf)]
+    for i, case in enumerate(cases):
+        a = args(*case, g=gen if i < 11 else gen_fc)
+        c, cm, xdt = case[3], case[4], case[6]
+        want = ("fma_f32" if xdt == f4 else
+                "mma_sync" if c % 8 or cm % 8 else "wgmma")
+        before = dict(kernel.variants)
+        out = kernel(**a)
+        took = [v for v, m in kernel.variants.items() if m != before[v]]
+        check(took == [want], f"fused_chain_float {case}: took {took}, "
+              f"planned {want}")
+        err, ok, over, _ = per_launch(a, out)
         check(ok, f"fused_chain_float {case}: max err {err}, {over} "
               f"elements over 1 ulp")
         n += 1

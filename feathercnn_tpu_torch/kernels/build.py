@@ -54,12 +54,16 @@ _SIGNATURES = {
                               _I, _I, _I, _I, _I, _I,        # N H W C KH KW
                               _I, _I, _I, _I,                # sh sw ph pw
                               _I, _I, _I,                    # xt ot act
-                              _F, _P],                       # x_scale stream
+                              _F,                            # x_scale
+                              _I, _I, _I, _I, _I, _I, _I,    # plan (DwPlan)
+                              _P],                           # stream
     "fcnn_depthwise_conv2d_int8": [_P, _P, _P, _P, _P,       # x w out b ws
                                    _I, _I, _I, _I, _I, _I,
                                    _I, _I, _I, _I,
                                    _I, _I,                   # ot act
-                                   _F, _P],                  # out_scale stream
+                                   _F,                       # out_scale
+                                   _I, _I, _I, _I, _I, _I, _I,  # plan
+                                   _P],                      # stream
     "fcnn_fused_block": [_P, _P,                             # x out
                          _P, _P, _P, _P, _P, _P,             # w1 b1 w1s w2 b2 w2s
                          _P, _P, _P,                         # w3 b3 w3s
@@ -69,7 +73,9 @@ _SIGNATURES = {
     "fcnn_fused_block_float": [_P, _P,                       # x out
                                _P, _P, _P, _P, _P, _P,       # w1 b1 w2 b2 w3 b3
                                _I, _I, _I, _I, _I, _I, _I,   # N H W C Cm TH TW
-                               _I, _I, _P],                  # xt ot stream
+                               _I, _I,                       # xt ot
+                               _I, _I, _I, _I, _I, _I,       # plan (ChainPlan)
+                               _P],                          # stream
     "fcnn_ident": [_P, _P, _L, _I, _P],                      # x out chunk_bytes chunks stream
 }
 

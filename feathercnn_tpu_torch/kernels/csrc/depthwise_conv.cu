@@ -9,35 +9,54 @@
 //    per tap (the reference's compiled body contracts the product and the
 //    add), then adds the bias, applies ReLU/ReLU6 and stores in x's type.
 //    It also takes int8 x with x_scale and turns each element into
-//    bf16(float(q) * x_scale) (or f32) as it loads it: bit for bit the
-//    separate dequantize of the reference's dispatcher (dispatch.py:74-82),
-//    without its full pass over the edge.
+//    bf16(float(q) * x_scale) (or f32): bit for bit the separate dequantize
+//    of the reference's dispatcher (dispatch.py:74-82), without its full
+//    pass over the edge.
 //  - XLA's int8 depthwise conv of the reference's "xla" branch
 //    (feathercnn_tpu/kernels/dispatch.py:221-253), which has no Pallas
 //    kernel, with the int8 variant, fcnn_depthwise_conv2d_int8.  x and w are
-//    int8; the accumulator is an exact int32.  The epilogue is the GEMM
-//    kernels' (epilogue_value and requant_i8 in gemm_common.cuh): the folded
-//    w_scale * x_scale as w_scale, + bias, act, then an int8 store (round
-//    half to even, saturated to +-127) or a float one.
+//    int8 and the sum is exact.  The epilogue is the GEMM kernels': the
+//    folded w_scale * x_scale as w_scale, + bias, act, then an int8 store
+//    (round half to even, saturated to +-127) or a float one.
 //
-// What bounds it on an H100 SXM: memory.  A 3x3 depthwise layer does 9
-// multiply-adds per output element and moves about 2 bytes per output
-// element at stride 1 (int8 in, int8 out): ~9 operations per byte, far
-// below the ~590 int8 (or ~20 f32 FMA, 67 TFLOP/s) operations per byte at
-// which the card turns compute bound.
+// What bounds it on an H100 SXM: memory.  A 3x3 layer does 9 multiply-adds
+// per output element and must move about 2-3 bytes per output element at
+// stride 1 (x read once, the output written once): ~4 operations per byte,
+// far below the ~20 f32 FMA operations per byte (67 TFLOP/s over 3.35 TB/s)
+// at which the card turns compute bound.  So the design aims at reading x
+// once from device memory and keeping the FMA and shared-memory pipes
+// below the memory time.
 //
-// What the simple design does about it: one thread per output pixel and
-// 16-byte vector of channels (16 int8, 8 bf16 or 4 f32), loaded and stored
-// 16 bytes at a time along the contiguous C; neighbouring threads take
-// neighbouring vectors of one pixel, then of the next pixel, so a warp reads
-// and writes contiguous runs.  Each block keeps the KH*KW weights of its
-// channels in shared memory.  A bounds check stands in for the zero padding
-// (a padded tap adds +-0 to an accumulator that is never -0, so skipping it
-// changes no bit); a C that is not a multiple of the vector, or an unaligned
-// pointer, takes single-element loads and stores with the ragged channels
-// masked.  The nine reads of each input pixel at stride 1 are left to L1
-// and L2.  Not yet done: staging input rows in shared memory, and more
-// pixels per thread to reuse a loaded column across neighbouring outputs.
+// The design (the host's plan, dw_plan in kernels/depthwise.py, picks the
+// tile, the channel slice, the shared-memory row pitch and the variant;
+// the kernel refuses a plan whose numbers it does not reproduce):
+//  - A thread block takes a TH x TW tile of output pixels of one image and
+//    a slice of CS channels.  It first copies the input window the tile
+//    needs, (TH-1)*s+KH rows by (TW-1)*s+KW columns of CS channels, into
+//    shared memory, once: 16-byte cp.async for a bf16 or f32 x (zero fill
+//    outside the image and past C), or, for an int8 x, 16-byte loads
+//    dequantized once per element as they are stored (the same
+//    __fmul_rn and __float2bfloat16_rn as the reference's dequantize).  The
+//    padding is stored as +0: a padded tap then adds +0*w to a sum that is
+//    never -0, which changes no bit, so the taps need no bounds checks.
+//  - The int8 variant stages its int8 x as bf16 (exact: |q| <= 127) and
+//    sums float(q) * float(w) with FMAs: every product and partial sum is
+//    an integer below 2^24 (KH*KW <= 1040 taps of at most 127^2), so each
+//    step is exact and the f32 sum equals the int32 one.  One loop body
+//    thus serves both variants, on the full-rate FMA pipe.
+//  - Each thread owns 4 channels and RW neighbouring output pixels of one
+//    row (variant "k3s1": 3x3, stride 1, RW = 8; "k3s2": 3x3, stride 2,
+//    RW = 4).  It slides along the window row: each value it reads from
+//    shared memory serves up to KW outputs, and its 4 channels' weights of
+//    the row (KW taps) and epilogue constants stay in registers.  Each output still
+//    sums its taps kh outer, kw inner, from 0, one FMA each, so the plain
+//    versions remain bit-equal targets.  Variant "tiled" (any other kernel
+//    size or stride) keeps one output per thread and reads its weights
+//    from shared memory, with the same staging.
+//  - Neighbouring threads take neighbouring channel quads, then
+//    neighbouring output rows: each store is a run of whole channel
+//    vectors of one pixel.  The window's pixel pitch carries a pad the plan
+//    picks so that a warp's shared-memory reads fall in distinct banks.
 // The TPU kernel's row slabs and its padding of W and OW to multiples of 8
 // exist for VMEM and the (8, 128) tiling, and are not carried over.
 #include <type_traits>
@@ -47,166 +66,308 @@
 namespace fcnn {
 namespace {
 
-constexpr int DW_THREADS = 256;
-constexpr int DW_MAX_VECS = 32;            // channel vectors per block
-constexpr int DW_MAX_SMEM = 48 * 1024;     // static limit, no opt-in needed
+// The variants, in the order of their codes (DW_VARIANTS in
+// kernels/depthwise.py).
+enum DwVariant { DW_TILED = 0, DW_K3S1 = 1, DW_K3S2 = 2 };
+constexpr int DW_V = 4;   // channels per thread
 
 struct DwShape {
-  int H, W, C, KH, KW, sh, sw, ph, pw, OH, OW;
-  long long P;  // output pixels, N * OH * OW
-  int vecs;     // channel vectors per block
-  int vec_io;   // 1: 16-byte loads and vector stores (C % V == 0, aligned)
+  int H, W, C, KH, KW, s, ph, pw, OH, OW;
+  int TH, TW, CS, RW;   // the plan's tile, channel slice, outputs per thread
+  int WH, WW;           // the staged window
+  int pitch;            // bytes per staged pixel
+  int tiles_w, tiles;   // tiles per image row, per image
+  int vec_x;            // 16-byte staging loads (C * sizeof(x) % 16 == 0, aligned)
+  int vec_out;          // whole 4-channel stores (C % 4 == 0, aligned)
 };
 
-// The float that one loaded element of x contributes to the product.
-__device__ __forceinline__ float load_f32(float v, float, int) { return v; }
-__device__ __forceinline__ float load_f32(__nv_bfloat16 v, float, int) {
-  return __bfloat162float(v);
+// 4 staged values of type S as floats.
+__device__ __forceinline__ void load4(const unsigned char* p, float (&v)[4],
+                                      float) {
+  const float4 f = *reinterpret_cast<const float4*>(p);
+  v[0] = f.x;
+  v[1] = f.y;
+  v[2] = f.z;
+  v[3] = f.w;
 }
-// int8 x in the float variant: dequantized to the compute type.
-__device__ __forceinline__ float load_f32(int8_t v, float x_scale,
-                                          int deq_bf16) {
-  const float y = __fmul_rn(static_cast<float>(v), x_scale);
-  return deq_bf16 ? __bfloat162float(__float2bfloat16_rn(y)) : y;
-}
-
-template <typename T, int V>
-union Vec {
-  uint4 u[(V * sizeof(T) + 15) / 16];
-  T v[V];
-};
-
-// V elements of type T to out (V * sizeof(T) bytes, aligned to that size
-// or to 16): 16-, 8- or 4-byte stores.
-template <typename T, int V>
-__device__ __forceinline__ void store_vec(T* out, const T (&v)[V]) {
-  constexpr int BYTES = V * static_cast<int>(sizeof(T));
-  if constexpr (BYTES % 16 == 0) {
-    Vec<T, V> p;
-#pragma unroll
-    for (int j = 0; j < V; ++j) p.v[j] = v[j];
-#pragma unroll
-    for (int k = 0; k < BYTES / 16; ++k)
-      reinterpret_cast<uint4*>(out)[k] = p.u[k];
-  } else if constexpr (BYTES == 8) {
-    union { uint2 u; T t[V]; } p;
-#pragma unroll
-    for (int j = 0; j < V; ++j) p.t[j] = v[j];
-    *reinterpret_cast<uint2*>(out) = p.u;
-  } else {
-#pragma unroll
-    for (int j = 0; j < V; ++j) out[j] = v[j];
-  }
+__device__ __forceinline__ void load4(const unsigned char* p, float (&v)[4],
+                                      __nv_bfloat16) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  v[0] = __uint_as_float(u.x << 16);
+  v[1] = __uint_as_float(u.x & 0xFFFF0000u);
+  v[2] = __uint_as_float(u.y << 16);
+  v[3] = __uint_as_float(u.y & 0xFFFF0000u);
 }
 
-template <typename T, int V>
-__device__ __forceinline__ void put(T* out, const T (&v)[V], int n_valid,
-                                    int vec) {
-  if (vec) {
-    store_vec<T, V>(out, v);
-  } else {
-#pragma unroll
-    for (int j = 0; j < V; ++j)
-      if (j < n_valid) out[j] = v[j];
-  }
+// One int8 element as the staged type: the dequantize, rounded once to S.
+__device__ __forceinline__ float dequant(int8_t q, float xs, float) {
+  return __fmul_rn(static_cast<float>(q), xs);
+}
+__device__ __forceinline__ __nv_bfloat16 dequant(int8_t q, float xs,
+                                                 __nv_bfloat16) {
+  return __float2bfloat16_rn(__fmul_rn(static_cast<float>(q), xs));
 }
 
-// INT_ACC: the int8 variant (x and w int8, int32 accumulator).  Otherwise
-// the float variant (f32 weights, f32 accumulator).
-template <typename TX, bool INT_ACC>
-__global__ void __launch_bounds__(DW_THREADS)
-dw_kernel(const TX* __restrict__ x, const void* __restrict__ w_any,
-          DwShape s, float x_scale, int deq_bf16, Epilogue e) {
-  using TW = typename std::conditional<INT_ACC, int8_t, float>::type;
-  using TA = typename std::conditional<INT_ACC, int, float>::type;
-  constexpr int V = 16 / static_cast<int>(sizeof(TX));
-  extern __shared__ __align__(16) unsigned char dw_smem[];
-  TW* ws = reinterpret_cast<TW*>(dw_smem);
-  const TW* w = static_cast<const TW*>(w_any);
+template <typename S>
+__device__ __forceinline__ S zero_of() {
+  if constexpr (std::is_same<S, float>::value) return 0.0f;
+  else return __float2bfloat16_rn(0.0f);
+}
 
-  // this block's channels [cb0, cb0 + CB): their weights, tap-major
-  const int CB = s.vecs * V;
-  const int cb0 = blockIdx.y * CB;
-  const int taps = s.KH * s.KW;
-  for (int i = threadIdx.x; i < taps * CB; i += DW_THREADS) {
-    const int t = i / CB;
-    const int c = cb0 + (i - t * CB);
-    ws[i] = c < s.C ? w[static_cast<long long>(t) * s.C + c] : TW(0);
-  }
-  __syncthreads();
-
-  const int ppb = DW_THREADS / s.vecs;   // output pixels per block
-  const int lp = threadIdx.x / s.vecs;
-  const int pv = threadIdx.x - lp * s.vecs;
-  const long long pix = static_cast<long long>(blockIdx.x) * ppb + lp;
-  const int c0 = cb0 + pv * V;
-  if (lp >= ppb || pix >= s.P || c0 >= s.C) return;
-  const int n_valid = s.C - c0 < V ? s.C - c0 : V;
-  const int ow = static_cast<int>(pix % s.OW);
-  const long long t = pix / s.OW;
-  const int oh = static_cast<int>(t % s.OH);
-  const long long img = t / s.OH;
-
-  TA acc[V];
-#pragma unroll
-  for (int j = 0; j < V; ++j) acc[j] = TA(0);
-
-  const int ih0 = oh * s.sh - s.ph;
-  const int iw0 = ow * s.sw - s.pw;
-  for (int kh = 0; kh < s.KH; ++kh) {
-    const int ih = ih0 + kh;
-    if (ih < 0 || ih >= s.H) continue;
-    const TX* row = x + ((img * s.H + ih) * s.W) * s.C + c0;
-    for (int kw = 0; kw < s.KW; ++kw) {
-      const int iw = iw0 + kw;
-      if (iw < 0 || iw >= s.W) continue;
-      const TX* px = row + static_cast<long long>(iw) * s.C;
-      Vec<TX, V> xv;
-      if (s.vec_io) {
-        xv.u[0] = __ldg(reinterpret_cast<const uint4*>(px));
+// The window of input pixels the block's tile needs, and its channels'
+// weights as f32 [tap][CS], into shared memory.  TX: x's type; S: the
+// staged type.
+template <typename TX, typename S, bool INT_W>
+__device__ __forceinline__ void stage(const TX* __restrict__ x,
+                                      const void* __restrict__ w_any,
+                                      const DwShape& s, int img, int ih0,
+                                      int iw0, int cs0, float x_scale,
+                                      unsigned char* win, float* ws) {
+  using TW = typename std::conditional<INT_W, int8_t, float>::type;
+  constexpr int CH = 16 / static_cast<int>(sizeof(TX));   // channels per chunk
+  const int nthr = blockDim.x;
+  const int cpp = s.CS / CH;                               // chunks per pixel
+  const int total = s.WH * s.WW * cpp;
+  const long long img_off = static_cast<long long>(img) * s.H * s.W * s.C;
+  // chunk i of the window: its source (null outside the image or past C,
+  // where it stays zero) and its place in shared memory
+  auto locate = [&](int i, const TX*& src, S*& dst, int& c) {
+    const int pix = i / cpp;
+    const int ch = i - pix * cpp;
+    const int wy = pix / s.WW;
+    const int wx = pix - wy * s.WW;
+    const int ih = ih0 + wy;
+    const int iw = iw0 + wx;
+    c = cs0 + ch * CH;
+    const bool in = static_cast<unsigned>(ih) < static_cast<unsigned>(s.H) &&
+                    static_cast<unsigned>(iw) < static_cast<unsigned>(s.W);
+    src = (in && c < s.C)
+        ? x + img_off + (static_cast<long long>(ih) * s.W + iw) * s.C + c
+        : nullptr;
+    dst = reinterpret_cast<S*>(win + pix * s.pitch) + ch * CH;
+  };
+  if constexpr (std::is_same<TX, S>::value) {
+    for (int i = threadIdx.x; i < total; i += nthr) {
+      const TX* src;
+      S* dst;
+      int c;
+      locate(i, src, dst, c);
+      if (s.vec_x) {
+        cp_async16(dst, src ? static_cast<const void*>(src)
+                            : static_cast<const void*>(x), src != nullptr);
       } else {
-        xv.u[0] = make_uint4(0u, 0u, 0u, 0u);
 #pragma unroll
-        for (int j = 0; j < V; ++j)
-          if (j < n_valid) xv.v[j] = px[j];
+        for (int j = 0; j < CH; ++j)
+          dst[j] = (src && c + j < s.C) ? src[j] : zero_of<S>();
       }
-      Vec<TW, V> wv;
-      const uint4* wt = reinterpret_cast<const uint4*>(
-          ws + (kh * s.KW + kw) * CB + pv * V);
+    }
+  } else {
+    // int8 x, dequantized once, here: four chunks' loads in flight at once
+    constexpr int U = 4;
+    for (int i0 = threadIdx.x; i0 < total; i0 += U * nthr) {
+      union { uint4 u; int8_t q[16]; } v[U];
+      S* dst[U];
+      int c[U];
+      bool ok[U];
 #pragma unroll
-      for (int k = 0; k < static_cast<int>(sizeof(wv.u) / 16); ++k)
-        wv.u[k] = wt[k];
+      for (int u = 0; u < U; ++u) {
+        const TX* src = nullptr;
+        dst[u] = nullptr;
+        c[u] = 0;
+        v[u].u = make_uint4(0u, 0u, 0u, 0u);
+        ok[u] = i0 + u * nthr < total;
+        if (ok[u]) locate(i0 + u * nthr, src, dst[u], c[u]);
+        if (src && s.vec_x) {
+          v[u].u = __ldg(reinterpret_cast<const uint4*>(src));
+        } else if (src) {
 #pragma unroll
-      for (int j = 0; j < V; ++j) {
-        if constexpr (INT_ACC) {
-          acc[j] += static_cast<int>(xv.v[j]) * static_cast<int>(wv.v[j]);
-        } else {
-          acc[j] = __fmaf_rn(load_f32(xv.v[j], x_scale, deq_bf16), wv.v[j],
-                             acc[j]);
+          for (int j = 0; j < 16; ++j)
+            if (c[u] + j < s.C) v[u].q[j] = src[j];
+        }
+        ok[u] = ok[u] && src != nullptr;
+      }
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        if (!dst[u]) continue;
+        union { uint4 u[16 * sizeof(S) / 16]; S e[16]; } o;
+#pragma unroll
+        for (int j = 0; j < 16; ++j)
+          o.e[j] = (ok[u] && c[u] + j < s.C) ? dequant(v[u].q[j], x_scale, S())
+                                             : zero_of<S>();
+#pragma unroll
+        for (int k = 0; k < static_cast<int>(16 * sizeof(S) / 16); ++k)
+          reinterpret_cast<uint4*>(dst[u])[k] = o.u[k];
+      }
+    }
+  }
+  const TW* w = static_cast<const TW*>(w_any);
+  const int taps = s.KH * s.KW;
+  for (int i = threadIdx.x; i < taps * s.CS; i += nthr) {
+    const int t = i / s.CS;
+    const int c = cs0 + (i - t * s.CS);
+    ws[i] = c < s.C ? static_cast<float>(w[static_cast<long long>(t) * s.C + c])
+                    : 0.0f;
+  }
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+}
+
+// The epilogue of one output pixel's 4 channels and its store.  ``last``
+// and ``bias`` hold epilogue_value's steps as one FMA (see column_pair in
+// gemm_common.cuh): y = fma(acc, last, bias), bias -0.0 where there is none.
+__device__ __forceinline__ void finish(const float (&acc)[4],
+                                       const float (&last)[4],
+                                       const float (&bias)[4], float lo,
+                                       float hi, long long o, int n_valid,
+                                       const DwShape& s, const Epilogue& e) {
+  float y[4];
+#pragma unroll
+  for (int q = 0; q < 4; ++q)
+    y[q] = fminf(fmaxf(__fmaf_rn(acc[q], last[q], bias[q]), lo), hi);
+  if (e.out_type == DT_I8) {
+    int8_t* out = static_cast<int8_t*>(e.out) + o;
+    if (s.vec_out) {
+      // requant_i8's bytes, on the full-rate pipes (requant_byte)
+      uint32_t u = 0;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) u |= requant_byte(y[q], e.out_scale) << (8 * q);
+      *reinterpret_cast<uint32_t*>(out) = u;
+    } else {
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        if (q < n_valid) out[q] = requant_i8(y[q], e.out_scale);
+    }
+  } else if (e.out_type == DT_BF16) {
+    __nv_bfloat16* out = static_cast<__nv_bfloat16*>(e.out) + o;
+    if (s.vec_out) {
+      const __nv_bfloat162 a = __floats2bfloat162_rn(y[0], y[1]);
+      const __nv_bfloat162 b = __floats2bfloat162_rn(y[2], y[3]);
+      *reinterpret_cast<uint2*>(out) =
+          make_uint2(*reinterpret_cast<const uint32_t*>(&a),
+                     *reinterpret_cast<const uint32_t*>(&b));
+    } else {
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        if (q < n_valid) out[q] = __float2bfloat16_rn(y[q]);
+    }
+  } else {
+    float* out = static_cast<float*>(e.out) + o;
+    if (s.vec_out) {
+      *reinterpret_cast<float4*>(out) = make_float4(y[0], y[1], y[2], y[3]);
+    } else {
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        if (q < n_valid) out[q] = y[q];
+    }
+  }
+}
+
+// KH_ == 0: variant "tiled" (runtime KH, KW and stride, one output per
+// thread); else the 3x3 variants with compile-time stride SS and RW outputs
+// per thread.  INT_W: the int8 variant (int8 weights).
+template <typename TX, typename S, bool INT_W, int KH_, int KW_, int SS, int RW>
+__global__ void __launch_bounds__(512)
+dw_kernel(const TX* __restrict__ x, const void* __restrict__ w_any,
+          DwShape s, float x_scale, Epilogue e) {
+  extern __shared__ __align__(16) unsigned char dw_smem[];
+  unsigned char* win = dw_smem;
+  float* ws = reinterpret_cast<float*>(dw_smem + s.WH * s.WW * s.pitch);
+
+  const int img = blockIdx.x / s.tiles;
+  const int t = blockIdx.x - img * s.tiles;
+  const int ty = t / s.tiles_w;
+  const int oh0 = ty * s.TH;
+  const int ow0 = (t - ty * s.tiles_w) * s.TW;
+  const int cs0 = blockIdx.y * s.CS;
+  stage<TX, S, INT_W>(x, w_any, s, img, oh0 * s.s - s.ph, ow0 * s.s - s.pw,
+                      cs0, x_scale, win, ws);
+
+  // this thread: channel quad cv, output row py, columns px*RW ..
+  const int CV = s.CS / DW_V;
+  const int cv = threadIdx.x % CV;
+  const int r = threadIdx.x / CV;
+  const int py = r % s.TH;
+  const int px = r / s.TH;
+  const int c0 = cs0 + cv * DW_V;
+  if (c0 >= s.C) return;
+  const int n_valid = min(DW_V, s.C - c0);
+
+  float acc[RW][4];
+#pragma unroll
+  for (int o = 0; o < RW; ++o)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) acc[o][q] = 0.0f;
+
+  const float* wq = ws + cv * DW_V;   // tap t's 4 weights at wq + t * CS
+  if constexpr (KH_ == 0) {
+    const unsigned char* base =
+        win + (py * s.s * s.WW + px * s.s) * s.pitch + cv * DW_V * sizeof(S);
+    for (int kh = 0; kh < s.KH; ++kh)
+      for (int kw = 0; kw < s.KW; ++kw) {
+        float xv[4];
+        load4(base + (kh * s.WW + kw) * s.pitch, xv, S());
+        const float4 wv =
+            *reinterpret_cast<const float4*>(wq + (kh * s.KW + kw) * s.CS);
+        acc[0][0] = __fmaf_rn(xv[0], wv.x, acc[0][0]);
+        acc[0][1] = __fmaf_rn(xv[1], wv.y, acc[0][1]);
+        acc[0][2] = __fmaf_rn(xv[2], wv.z, acc[0][2]);
+        acc[0][3] = __fmaf_rn(xv[3], wv.w, acc[0][3]);
+      }
+  } else {
+    const unsigned char* base = win + (py * SS * s.WW + px * RW * SS) * s.pitch +
+                                cv * DW_V * sizeof(S);
+#pragma unroll
+    for (int kh = 0; kh < KH_; ++kh) {
+      // this row's KW taps of the thread's 4 channels, in registers for
+      // its RW outputs
+      float wr[KW_][4];
+#pragma unroll
+      for (int kw = 0; kw < KW_; ++kw) {
+        const float4 wv =
+            *reinterpret_cast<const float4*>(wq + (kh * KW_ + kw) * s.CS);
+        wr[kw][0] = wv.x;
+        wr[kw][1] = wv.y;
+        wr[kw][2] = wv.z;
+        wr[kw][3] = wv.w;
+      }
+      const unsigned char* row = base + kh * s.WW * s.pitch;
+#pragma unroll
+      for (int j = 0; j < (RW - 1) * SS + KW_; ++j) {
+        float xv[4];
+        load4(row + j * s.pitch, xv, S());
+        // column j is tap kw = j - o*SS of output o: ascending kw per output
+#pragma unroll
+        for (int o = 0; o < RW; ++o) {
+          const int kw = j - o * SS;
+          if (kw >= 0 && kw < KW_) {
+#pragma unroll
+            for (int q = 0; q < 4; ++q)
+              acc[o][q] = __fmaf_rn(xv[q], wr[kw][q], acc[o][q]);
+          }
         }
       }
     }
   }
 
-  float y[V];
+  float last[4], bias[4];
 #pragma unroll
-  for (int j = 0; j < V; ++j)
-    y[j] = j < n_valid ? epilogue_value(static_cast<float>(acc[j]), c0 + j, e)
-                       : 0.0f;
-  const long long o = pix * s.C + c0;
-  if (e.out_type == DT_I8) {
-    int8_t q[V];
+  for (int q = 0; q < 4; ++q) {
+    const int c = c0 + (q < n_valid ? q : 0);
+    last[q] = e.w_scale ? e.w_scale[c] : 1.0f;
+    bias[q] = e.bias ? e.bias[c] : -0.0f;
+  }
+  const float lo = e.act == ACT_NONE ? -INFINITY : 0.0f;
+  const float hi = e.act == ACT_RELU6 ? 6.0f : INFINITY;
+  const int oh = oh0 + py;
+  if (oh >= s.OH) return;
 #pragma unroll
-    for (int j = 0; j < V; ++j) q[j] = requant_i8(y[j], e.out_scale);
-    put<int8_t, V>(static_cast<int8_t*>(e.out) + o, q, n_valid, s.vec_io);
-  } else if (e.out_type == DT_BF16) {
-    __nv_bfloat16 b[V];
-#pragma unroll
-    for (int j = 0; j < V; ++j) b[j] = __float2bfloat16_rn(y[j]);
-    put<__nv_bfloat16, V>(static_cast<__nv_bfloat16*>(e.out) + o, b,
-                          n_valid, s.vec_io);
-  } else {
-    put<float, V>(static_cast<float*>(e.out) + o, y, n_valid, s.vec_io);
+  for (int o = 0; o < RW; ++o) {
+    const int ow = ow0 + px * RW + o;
+    if (ow < s.OW)
+      finish(acc[o], last, bias, lo, hi,
+             ((static_cast<long long>(img) * s.OH + oh) * s.OW + ow) * s.C + c0,
+             n_valid, s, e);
   }
 }
 
@@ -214,91 +375,142 @@ inline bool aligned16(const void* p) {
   return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
-template <typename TX, bool INT_ACC>
+// Shared memory of a plan: the window, then the weights as f32 [tap][CS]
+// (dw_smem in kernels/depthwise.py computes the same).
+inline long long dw_smem_bytes(const DwShape& s) {
+  return static_cast<long long>(s.WH) * s.WW * s.pitch +
+         4LL * s.KH * s.KW * s.CS;
+}
+
+template <typename TX, typename S, bool INT_W, int KH_, int KW_, int SS, int RW>
+int launch_variant(const void* x, const void* w, const DwShape& s, dim3 grid,
+                   int threads, int smem, float x_scale, const Epilogue& e,
+                   cudaStream_t stream) {
+  auto kern = dw_kernel<TX, S, INT_W, KH_, KW_, SS, RW>;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kern<<<grid, threads, smem, stream>>>(static_cast<const TX*>(x), w, s,
+                                        x_scale, e);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The launch: the plan (variant, TH, TW, CS, pitch, threads, smem) checked
+// against what the kernel needs and refused (cudaErrorInvalidValue) where
+// it does not fit; never replaced by another plan.
+template <typename TX, typename S, bool INT_W>
 int launch_dw(const void* x, const void* w, int N, int H, int W, int C,
               int KH, int KW, int sh, int sw, int ph, int pw, float x_scale,
-              int deq_bf16, const Epilogue& e, cudaStream_t stream) {
-  using TW = typename std::conditional<INT_ACC, int8_t, float>::type;
-  constexpr int V = 16 / static_cast<int>(sizeof(TX));
+              const int* plan, const Epilogue& e, cudaStream_t stream) {
   const int bad = static_cast<int>(cudaErrorInvalidValue);
+  const int variant = plan[0], TH = plan[1], TW = plan[2], CS = plan[3];
+  const int pitch = plan[4], threads = plan[5], smem = plan[6];
   if (N < 0 || H <= 0 || W <= 0 || C <= 0 || KH <= 0 || KW <= 0 ||
-      sh <= 0 || sw <= 0 || ph < 0 || pw < 0 || e.act < ACT_NONE ||
+      sh <= 0 || sh != sw || ph < 0 || pw < 0 || e.act < ACT_NONE ||
       e.act > ACT_RELU6 || !x || !w || !e.out)
     return bad;
+  if (H + 2 * ph < KH || W + 2 * pw < KW) return bad;
+  if (INT_W && KH * KW > 1040) return bad;   // the f32 sum must stay exact
   DwShape s;
   s.H = H;
   s.W = W;
   s.C = C;
   s.KH = KH;
   s.KW = KW;
-  s.sh = sh;
-  s.sw = sw;
+  s.s = sh;
   s.ph = ph;
   s.pw = pw;
   s.OH = (H + 2 * ph - KH) / sh + 1;
   s.OW = (W + 2 * pw - KW) / sw + 1;
-  if (H + 2 * ph < KH || W + 2 * pw < KW) return bad;
-  s.P = static_cast<long long>(N) * s.OH * s.OW;
-  if (s.P == 0) return 0;
-  s.vec_io = (C % V == 0 && aligned16(x) && aligned16(e.out)) ? 1 : 0;
-  const int nvec = (C + V - 1) / V;
-  int vecs = nvec < DW_MAX_VECS ? nvec : DW_MAX_VECS;
-  const long long wbytes = static_cast<long long>(sizeof(TW)) * V * KH * KW;
-  while (vecs > 1 && wbytes * vecs > DW_MAX_SMEM) vecs /= 2;
-  if (wbytes * vecs > DW_MAX_SMEM) return bad;
-  s.vecs = vecs;
-  const long long ppb = DW_THREADS / vecs;
-  const long long gx = (s.P + ppb - 1) / ppb;
-  const long long gy = (nvec + vecs - 1) / vecs;
+  if (static_cast<long long>(N) * s.OH * s.OW == 0) return 0;
+  const int RW = variant == DW_K3S1 ? 8 : variant == DW_K3S2 ? 4 : 1;
+  constexpr int CH = 16 / static_cast<int>(sizeof(TX));
+  if (variant < DW_TILED || variant > DW_K3S2 || TH < 1 || TW < RW ||
+      TW % RW || CS < CH || CS % CH || CS % DW_V || pitch % 16 ||
+      pitch < CS * static_cast<int>(sizeof(S)))
+    return bad;
+  if (variant != DW_TILED &&
+      (KH != 3 || KW != 3 || sh != (variant == DW_K3S1 ? 1 : 2)))
+    return bad;
+  s.TH = TH;
+  s.TW = TW;
+  s.CS = CS;
+  s.RW = RW;
+  s.WH = (TH - 1) * sh + KH;
+  s.WW = (TW - 1) * sh + KW;
+  s.pitch = pitch;
+  s.tiles_w = (s.OW + TW - 1) / TW;
+  s.tiles = ((s.OH + TH - 1) / TH) * s.tiles_w;
+  s.vec_x = (C * static_cast<int>(sizeof(TX))) % 16 == 0 && aligned16(x);
+  const int osize = out_size(e.out_type);
+  s.vec_out = C % DW_V == 0 &&
+              reinterpret_cast<uintptr_t>(e.out) % (DW_V * osize) == 0;
+  if ((CS / DW_V) * TH * (TW / RW) != threads || threads > 512 ||
+      dw_smem_bytes(s) != smem || smem > 227 * 1024)
+    return bad;
+  const long long gx = static_cast<long long>(N) * s.tiles;
+  const long long gy = (C + CS - 1) / CS;
   if (gx > 0x7fffffffLL || gy > 65535) return bad;
-  dim3 grid(static_cast<unsigned>(gx), static_cast<unsigned>(gy));
-  dw_kernel<TX, INT_ACC><<<grid, DW_THREADS, static_cast<size_t>(wbytes * vecs),
-                           stream>>>(static_cast<const TX*>(x), w, s, x_scale,
-                                     deq_bf16, e);
-  return static_cast<int>(cudaGetLastError());
+  const dim3 grid(static_cast<unsigned>(gx), static_cast<unsigned>(gy));
+  if (variant == DW_K3S1)
+    return launch_variant<TX, S, INT_W, 3, 3, 1, 8>(x, w, s, grid, threads,
+                                                    smem, x_scale, e, stream);
+  if (variant == DW_K3S2)
+    return launch_variant<TX, S, INT_W, 3, 3, 2, 4>(x, w, s, grid, threads,
+                                                    smem, x_scale, e, stream);
+  return launch_variant<TX, S, INT_W, 0, 0, 1, 1>(x, w, s, grid, threads,
+                                                  smem, x_scale, e, stream);
 }
 
 }  // namespace
 }  // namespace fcnn
 
 // The float variant.  x_type: DT_F32 or DT_BF16 (out_type equal to it), or
-// DT_I8 with x_scale (dequantized to out_type, DT_F32 or DT_BF16).
+// DT_I8 with x_scale (dequantized to out_type, DT_F32 or DT_BF16).  plan:
+// variant, TH, TW, CS, pitch, threads, smem (dw_plan in
+// kernels/depthwise.py).
 extern "C" int fcnn_depthwise_conv2d(
     const void* x, const float* w, void* out, const float* bias, int N,
     int H, int W, int C, int KH, int KW, int sh, int sw, int ph, int pw,
-    int x_type, int out_type, int act, float x_scale, void* stream) {
+    int x_type, int out_type, int act, float x_scale, int variant, int TH,
+    int TW, int CS, int pitch, int threads, int smem, void* stream) {
   using namespace fcnn;
   const int bad = static_cast<int>(cudaErrorInvalidValue);
   if (out_type != DT_F32 && out_type != DT_BF16) return bad;
   if (x_type != DT_I8 && x_type != out_type) return bad;
   const Epilogue e = make_epilogue(out, bias, nullptr, nullptr, nullptr, act,
                                    1.0f, 1.0f, out_type);
+  const int plan[7] = {variant, TH, TW, CS, pitch, threads, smem};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (x_type == DT_F32)
-    return launch_dw<float, false>(x, w, N, H, W, C, KH, KW, sh, sw, ph, pw,
-                                   1.0f, 0, e, s);
+    return launch_dw<float, float, false>(x, w, N, H, W, C, KH, KW, sh, sw,
+                                          ph, pw, 1.0f, plan, e, s);
   if (x_type == DT_BF16)
-    return launch_dw<__nv_bfloat16, false>(x, w, N, H, W, C, KH, KW, sh, sw,
-                                           ph, pw, 1.0f, 0, e, s);
-  if (x_type == DT_I8)
-    return launch_dw<int8_t, false>(x, w, N, H, W, C, KH, KW, sh, sw, ph, pw,
-                                    x_scale, out_type == DT_BF16 ? 1 : 0, e,
-                                    s);
-  return bad;
+    return launch_dw<__nv_bfloat16, __nv_bfloat16, false>(
+        x, w, N, H, W, C, KH, KW, sh, sw, ph, pw, 1.0f, plan, e, s);
+  if (out_type == DT_BF16)
+    return launch_dw<int8_t, __nv_bfloat16, false>(
+        x, w, N, H, W, C, KH, KW, sh, sw, ph, pw, x_scale, plan, e, s);
+  return launch_dw<int8_t, float, false>(x, w, N, H, W, C, KH, KW, sh, sw,
+                                         ph, pw, x_scale, plan, e, s);
 }
 
 // The int8 variant: int8 x and w, w_scale the folded per-channel scale;
-// out_type DT_I8 (q = rint(y * out_scale)), DT_BF16 or DT_F32.
+// out_type DT_I8 (q = rint(y * out_scale)), DT_BF16 or DT_F32.  x is staged
+// as bf16 (float(q), exact) and summed exactly in f32.
 extern "C" int fcnn_depthwise_conv2d_int8(
     const void* x, const void* w, void* out, const float* bias,
     const float* w_scale, int N, int H, int W, int C, int KH, int KW, int sh,
     int sw, int ph, int pw, int out_type, int act, float out_scale,
+    int variant, int TH, int TW, int CS, int pitch, int threads, int smem,
     void* stream) {
   using namespace fcnn;
   if (out_type < DT_F32 || out_type > DT_I8 || !w_scale)
     return static_cast<int>(cudaErrorInvalidValue);
   const Epilogue e = make_epilogue(out, bias, w_scale, nullptr, nullptr, act,
                                    1.0f, out_scale, out_type);
-  return launch_dw<int8_t, true>(x, w, N, H, W, C, KH, KW, sh, sw, ph, pw,
-                                 1.0f, 0, e, static_cast<cudaStream_t>(stream));
+  const int plan[7] = {variant, TH, TW, CS, pitch, threads, smem};
+  return launch_dw<int8_t, __nv_bfloat16, true>(
+      x, w, N, H, W, C, KH, KW, sh, sw, ph, pw, 1.0f, plan, e,
+      static_cast<cudaStream_t>(stream));
 }

@@ -31,38 +31,53 @@
 // on the FMA units (67 TFLOP/s): it is not on the headline path, and a
 // simple correct variant is enough there (TF32 would round the inputs).
 //
-// The design is the int8 kernel's (fused_chain.cu): one thread block per
-// (image, TH x TW output tile), 8 x 8 or 7 x 7 (the wrapper's tile_plan,
-// which also checks that the type's shared memory fits).  y1 and y2 never
-// leave shared memory:
-//  1. conv1 runs over the tile's (TH+2) x (TW+2) halo, only at pixels inside
-//     the image, and writes y1 in T into shared memory; the halo's pixels
-//     outside the image stay 0, conv2's zero padding.
-//  2. conv2 reads y1 from shared memory as an implicit im2col (K = 9 taps x
-//     Cm, each tap's channels padded to a K step) and writes y2 into shared
-//     memory.
-//  3. conv3 reads y2 from shared memory, adds the shortcut read from x in
-//     device memory (an L2 hit after conv1's read of the same pixels) and
-//     stores the output, two neighbouring channels per access.
-// Each GEMM runs 8 warps as 2 (M) x 4 (N) over 64-byte K steps.  bf16:
-// mma.sync m16n8k16 with f32 accumulation, A fragments by ldmatrix.x4;
-// each K step's 32 products go into a fresh tensor-core sum that one
-// rounded f32 add takes into the running sum.  Accumulating all of K in
-// the tensor cores instead, whose internal adds do not round to nearest,
-// put several times more bf16 outputs a step off the plain version than
-// an f32 sum in PyTorch's order puts there (measured on an H100 at
-// ResNet-50's stage shapes); with the per-step add the two shares match
-// (tools/float_chain_probe.py prints both).
-// f32: plain FMAs in the same fragment layout, 16-byte shared loads.  The
-// weights stream through a 3-stage cp.async ring from L2, where every
-// thread block finds them, stored (N, K) with K contiguous (kernel_layout in
-// fused_chain.py), so a 16-byte copy lands where the B fragment reads it.
-// Shared memory is the limit: a bf16 y1 halo at stage 5 is 9*9*520*2 =
-// 84 KB and y2 66 KB, which with the 60 KB ring fits a 7 x 7 tile (8 x 8
-// does not); f32 doubles both, so an f32 block with Cm = 512 does not fit
-// and the wrapper refuses it.  C and Cm that are multiples of 16 bytes' worth
-// of elements take 16-byte copies; others take a masked element path.
-// Not yet done: wgmma, TMA, a persistent grid, staged output rows.
+// The design, variant "wgmma" (bf16 x, every launch of the bf16 ResNet-50
+// path; the host's plan, chain_plan in kernels/fused_chain.py, gives the
+// tile, the tiles per thread block, the stages and the rounded-add step,
+// and the kernel refuses a plan whose numbers it does not reproduce):
+//  - A thread block takes two TH x TW output tiles (8x8 or 7x7) where
+//    their y1 and y2 fit shared memory (stages 2-4), else one (stage 5,
+//    Cm = 512).  A producer warp streams every operand through a ring of
+//    stages by TMA with a 128-byte swizzle and mbarriers: the weights as
+//    (N, K) K-contiguous 64-element K steps (kernel_layout), and for conv1
+//    each tile's (TH+2) x (TW+2) halo of x as one 4-D box per K step (the
+//    box's pixels outside the image arrive as zeros).  Each tile has its
+//    own consumer warpgroup; the two share every weight tile, so the L2
+//    weight bytes per output pixel are half those of the one-tile block
+//    (PERF.md reckons them per launch).
+//  - Every GEMM runs wgmma.m64nNk16.f32.bf16.bf16 with A in registers,
+//    loaded by ldmatrix.x4 from a per-lane row address: conv1's A rows
+//    are the halo pixels in the swizzled stage (two m64 tiles cover up to
+//    100 of them), conv2's the 3x3 windows of y1 (a window shifted by one
+//    column breaks the 8-row alignment a shared-memory descriptor needs),
+//    conv3's the rows of y2; a lane past the K or the rows reads a zero
+//    chunk.  B is read by descriptor from the ring.
+//  - y1 (over the halo; 0 at pixels outside the image, conv2's padding)
+//    and y2 stay in shared memory in T, rows of Cm plus 16 bytes, so the
+//    ldmatrix rows fall in distinct banks.  conv3's epilogue adds b3 and
+//    the shortcut read from x (an L2 hit after the halo's) and stores two
+//    channels per access.
+//  - Numerics: each slice of FLOAT_ADD_STEP products goes into a fresh
+//    tensor-core sum, which one rounded f32 add takes into the running
+//    sum; accumulating all of K in the tensor cores, whose internal adds
+//    do not round to nearest, puts more bf16 outputs a step off the plain
+//    version (tools/float_chain_probe.py prints the shares per step, and
+//    PERF.md the ones that chose it).  Every stage ends with its products
+//    done, so the slot is freed at once and the block's other consumer
+//    keeps the tensor cores busy meanwhile.
+// The structure carries over to the int8 mode (fused_chain.cu) as it is:
+// its GEMMs take the s8 wgmma form with A in shared memory or registers.
+// Not yet done: a persistent grid, a cluster sharing the weight tiles by
+// TMA multicast, staged 16-byte output stores, overlap of a consumer's
+// consecutive K steps.
+//
+// Variants "mma_sync" (bf16 x with C or Cm not a multiple of 8, or a
+// pointer that is not 16-byte aligned: no TMA) and "fma_f32" (f32 x, on no
+// counted path) keep the earlier body: one thread block per tile, the
+// GEMMs on 8 warps as 2 (M) x 4 (N), bf16 on mma.sync m16n8k16 with one
+// rounded add per 32 products, f32 on FMAs, the weights through a 3-stage
+// cp.async ring from L2 (an f32 block with Cm = 512 does not fit and is
+// refused).
 #include "gemm_common.cuh"
 
 namespace fcnn {
@@ -566,7 +581,7 @@ template <typename T>
 int run_block(const void* x, void* out, const void* w1, const float* b1,
               const void* w2, const float* b2, const void* w3,
               const float* b3, int N, int H, int W, int C, int Cm, int TH,
-              int TW, int out_type, cudaStream_t s) {
+              int TW, int out_type, int plan_smem, cudaStream_t s) {
   constexpr int E = sizeof(T);
   constexpr int V = 16 / E;
   constexpr int BK = FF_KB / E;
@@ -603,7 +618,7 @@ int run_block(const void* x, void* out, const void* w1, const float* b1,
       FF_STAGES * (FF_MAX_BM + FF_MAX_BN) * FF_LDS +
       FF_MAX_HALO * (8 + 4) + FF_MAX_PIX * 4;
   const long long grid = static_cast<long long>(N) * p.tiles_per_img;
-  if (smem > 227 * 1024 || grid >= (1LL << 31))
+  if (smem != plan_smem || smem > 227 * 1024 || grid >= (1LL << 31))
     return static_cast<int>(cudaErrorInvalidValue);
   const bool wide2 = p.cmp >= 128;
   const bool wide3 = C >= 128;
@@ -615,30 +630,570 @@ int run_block(const void* x, void* out, const void* w1, const float* b1,
   return launch<T, 2, 2>(p, gr, sm, s);
 }
 
+// ---------------------------------------------------------------------
+// Variant "wgmma": bf16 x, the counted path (see the note at the top).
+// ---------------------------------------------------------------------
+constexpr int FW_BK = 64;                // K elements per ring stage (128 B)
+constexpr int FW_BN1 = 64;               // conv1's columns per pass
+constexpr int FW_BN2 = 128;              // conv2's and conv3's
+constexpr int FW_B_BYTES = 128 * 128;    // a stage's weight tile, <= 128 rows
+constexpr int FW_THREADS = 384;          // producer + up to 2 consumers
+
+struct FloatWgArgs {
+  const __nv_bfloat16* x;
+  void* out;
+  const float* b1;
+  const float* b2;
+  const float* b3;
+  int N, H, W, C, Cm, TH, TW, tiles_w, tiles_per_img, tiles;
+  int T;            // tiles per pair = consumer warpgroups
+  int pairs;        // groups of T tiles; a persistent block walks over them
+  int stages;
+  int npos;         // (TH + 2) * (TW + 2): a tile's halo pixels
+  int ld;           // y1 / y2 row pitch in bytes: Cm * 2 + 16
+  int a_bytes;      // a tile's x halo in a stage, 1024-aligned
+  int stage_bytes;  // T * a_bytes + FW_B_BYTES
+  int out_type;
+};
+
+// Dynamic shared memory of the "wgmma" variant (chain_plan in
+// kernels/fused_chain.py computes the same): 1024 bytes of alignment
+// slack; the ring; each consumer's y1 over its halo and y2 over its tile;
+// the full and empty barriers; a 16-byte zero chunk.
+__host__ __device__ constexpr int fw_a_bytes(int npos) {
+  return (npos * 128 + 1023) / 1024 * 1024;
+}
+__host__ __device__ constexpr int fw_smem(int T, int stages, int npos,
+                                          int thw, int ld) {
+  return 1024 + stages * (T * fw_a_bytes(npos) + FW_B_BYTES) +
+         T * (npos + thw) * ld + 16 * stages + 16;
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t a) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a));
+}
+
+template <int R>
+__device__ __forceinline__ void fence_f32(float (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
+}
+
+struct FwRing {
+  uint8_t* ring;
+  uint64_t* full;
+  uint64_t* empty;
+  int stage_bytes;
+  int b_off;        // the weight tile's offset in a stage
+  int stages;
+};
+
+// One GEMM pass of a consumer warpgroup over k_steps ring stages: MT m64
+// row tiles, BN columns, A from registers (ldmatrix.x4 at the smem address
+// a_addr(stage, ks, jj, mt) gives for this lane's row and k half), B the
+// stage's swizzled weight tile.  KADD: products per rounded f32 add (each
+// KADD-deep slice of K goes into a fresh tensor-core sum that one
+// __fadd_rn takes into acc); 0 sums all of K in the tensor cores.  Every
+// stage ends with its products done (wait 0), so its slot is freed at once;
+// the block's other consumer keeps the tensor cores busy meanwhile.
+template <int MT, int BN, int KADD, class AddrFn>
+__device__ __forceinline__ void gemm_rs(float (&acc)[MT][BN / 2], int k_steps,
+                                        const FwRing& rg, int& s,
+                                        uint32_t& ph, AddrFn&& a_addr) {
+  constexpr bool SPLIT = KADD != 0;
+  constexpr int GROUP = SPLIT ? KADD / 16 : 1;   // k16 slices per add
+  static_assert(!SPLIT || GROUP == 2 || GROUP == 4 || GROUP == 8, "KADD");
+  float part[MT][SPLIT ? BN / 2 : 1];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) acc[mt][i] = 0.0f;
+  auto add = [&]() {
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i)
+        acc[mt][i] = __fadd_rn(acc[mt][i], part[mt][SPLIT ? i : 0]);
+  };
+  // one ring stage: its A fragments, its 4 x MT products into acc or, with
+  // SPLIT, into part (``fresh``: the stage opens a rounded add's slice; at
+  // 32 products a slice the stage's first half is added in the middle),
+  // then the stage's slot is freed
+  auto stage = [&](int ks, bool fresh) {
+    mbar_wait(&rg.full[s], ph);
+    uint8_t* st = rg.ring + s * rg.stage_bytes;
+    const uint32_t st_u = smem_u32(st);
+    uint32_t af[4][MT][4];
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj)
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) ldsm_x4(af[jj][mt], a_addr(st_u, ks, jj, mt));
+    const uint64_t db = wg_desc<128>(st + rg.b_off);
+    wgmma_fence();
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj) {
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        if constexpr (SPLIT) {
+          const bool open = GROUP == 2 ? (jj & 1) == 0 : (fresh && jj == 0);
+          wgmma_bf16_rs<BN>(part[mt], af[jj][mt], db + 2 * jj, open ? 0 : 1);
+        } else {
+          wgmma_bf16_rs<BN>(acc[mt], af[jj][mt], db + 2 * jj,
+                            (ks > 0 || jj > 0) ? 1 : 0);
+        }
+      }
+      if constexpr (SPLIT && GROUP == 2) {
+        if (jj == 1) {   // the first 32 products of the stage are summed
+          wgmma_commit();
+          wgmma_wait<0>();
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt) fence_f32(part[mt]);
+          add();
+          wgmma_fence();
+        }
+      }
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+      fence_f32(acc[mt]);
+      if constexpr (SPLIT) fence_f32(part[mt]);
+    }
+    mbar_arrive(&rg.empty[s]);
+    if (++s == rg.stages) { s = 0; ph ^= 1; }
+  };
+  if constexpr (GROUP == 8) {
+    // a rounded add's 128 products span two stages
+    for (int ks = 0; ks < k_steps; ks += 2) {
+      stage(ks, true);
+      if (ks + 1 < k_steps) stage(ks + 1, false);
+      add();
+    }
+  } else {
+    for (int ks = 0; ks < k_steps; ++ks) {
+      stage(ks, true);
+      if constexpr (SPLIT) add();
+    }
+  }
+}
+
+template <int KADD>
+__global__ void __launch_bounds__(FW_THREADS, 1)
+fused_float_block_kernel_wg(const __grid_constant__ CUtensorMap map_x,
+                            const __grid_constant__ CUtensorMap map_w1,
+                            const __grid_constant__ CUtensorMap map_w2,
+                            const __grid_constant__ CUtensorMap map_w3,
+                            FloatWgArgs p) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* ring = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  const int thw = p.TH * p.TW;
+  uint8_t* y1s = ring + p.stages * p.stage_bytes;
+  uint8_t* y2s = y1s + p.T * p.npos * p.ld;
+  uint64_t* full = reinterpret_cast<uint64_t*>(y2s + p.T * thw * p.ld);
+  uint64_t* empty = full + p.stages;
+  uint8_t* zero = reinterpret_cast<uint8_t*>(empty + p.stages);
+  const FwRing rg{ring, full, empty, p.stage_bytes, p.T * p.a_bytes, p.stages};
+
+  const int tid = threadIdx.x;
+  const int wg = tid >> 7;
+  const int t = tid & 127;
+  const int k1 = (p.C + FW_BK - 1) / FW_BK;
+  const int n1 = (p.Cm + FW_BN1 - 1) / FW_BN1;
+  const int k2 = (9 * p.Cm + FW_BK - 1) / FW_BK;
+  const int n2 = (p.Cm + FW_BN2 - 1) / FW_BN2;
+  const int k3 = (p.Cm + FW_BK - 1) / FW_BK;
+  const int n3 = (p.C + FW_BN2 - 1) / FW_BN2;
+
+  if (tid == 0) {
+    for (int i = 0; i < p.stages; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], 128 * p.T);
+    }
+    *reinterpret_cast<uint4*>(zero) = make_uint4(0u, 0u, 0u, 0u);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    // ---------------- producer: one thread issues every TMA load --------
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (t != 0) return;
+    int s = 0;
+    uint32_t ph = 0;
+    auto slot = [&](uint32_t bytes) {
+      mbar_wait(&empty[s], ph ^ 1);
+      mbar_expect_tx(&full[s], bytes);
+      return ring + s * p.stage_bytes;
+    };
+    auto advance = [&]() { if (++s == p.stages) { s = 0; ph ^= 1; } };
+    for (int pair = blockIdx.x; pair < p.pairs; pair += gridDim.x) {
+    for (int np = 0; np < n1; ++np)
+      for (int ks = 0; ks < k1; ++ks) {
+        uint8_t* st = slot(FW_BN1 * 128 + p.T * p.npos * 128);
+        tma_load_2d(st + p.T * p.a_bytes, &map_w1, ks * FW_BK, np * FW_BN1,
+                    &full[s]);
+        for (int cw = 0; cw < p.T; ++cw) {
+          // a consumer past the last tile computes on the last one's halo
+          const int tile = min(pair * p.T + cw, p.tiles - 1);
+          const int img = tile / p.tiles_per_img;
+          const int r = tile - img * p.tiles_per_img;
+          const int th = r / p.tiles_w;
+          tma_load_4d(st + cw * p.a_bytes, &map_x, ks * FW_BK,
+                      (r - th * p.tiles_w) * p.TW - 1, th * p.TH - 1, img,
+                      &full[s]);
+        }
+        advance();
+      }
+    for (int np = 0; np < n2; ++np)
+      for (int ks = 0; ks < k2; ++ks) {
+        uint8_t* st = slot(FW_B_BYTES);
+        tma_load_2d(st + p.T * p.a_bytes, &map_w2, ks * FW_BK, np * FW_BN2,
+                    &full[s]);
+        advance();
+      }
+    for (int np = 0; np < n3; ++np)
+      for (int ks = 0; ks < k3; ++ks) {
+        uint8_t* st = slot(FW_B_BYTES);
+        tma_load_2d(st + p.T * p.a_bytes, &map_w3, ks * FW_BK, np * FW_BN2,
+                    &full[s]);
+        advance();
+      }
+    }
+    return;
+  }
+
+  // ---------------- consumers: warpgroup cw owns tile pair*T + cw ----------
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+  const int cw = wg - 1;
+  int s = 0;
+  uint32_t ph = 0;
+  for (int pair = blockIdx.x; pair < p.pairs; pair += gridDim.x) {
+  const int tile = pair * p.T + cw;
+  const bool valid = tile < p.tiles;
+  const int tl = valid ? tile : p.tiles - 1;
+  const int img = tl / p.tiles_per_img;
+  const int tr = tl - img * p.tiles_per_img;
+  const int tth = tr / p.tiles_w;
+  const int oh0 = tth * p.TH;
+  const int ow0 = (tr - tth * p.tiles_w) * p.TW;
+  const int pitch = p.TW + 2;
+  const int warp = t >> 5;
+  const int lane = t & 31;
+  const int gid = lane >> 2;
+  const int tig = lane & 3;
+  const int half = lane >> 4;      // the ldmatrix k half this lane addresses
+  uint8_t* y1 = y1s + cw * p.npos * p.ld;
+  uint8_t* y2 = y2s + cw * thw * p.ld;
+  const uint32_t y1u = smem_u32(y1);
+  const uint32_t y2u = smem_u32(y2);
+  const uint32_t zu = smem_u32(zero);
+  const uint32_t a_off = cw * p.a_bytes;
+
+  // ---- conv1: x halo . w1 -> y1 (0 at halo pixels outside the image) ----
+  {
+    int rowoff[2], rx[2];
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt) {
+      int r = mt * 64 + warp * 16 + (lane & 15);
+      r = r < p.npos ? r : 0;
+      rowoff[mt] = r * 128;
+      rx[mt] = r & 7;
+    }
+    // this thread's four epilogue rows: inside the halo and the image?
+    int inside = 0, hrows = 0;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = (i >> 1) * 64 + warp * 16 + gid + 8 * (i & 1);
+      const int hh = r / pitch;
+      const int ih = oh0 - 1 + hh;
+      const int iw = ow0 - 1 + (r - hh * pitch);
+      if (r < p.npos) hrows |= 1 << i;
+      if (valid && r < p.npos && ih >= 0 && ih < p.H && iw >= 0 && iw < p.W)
+        inside |= 1 << i;
+    }
+    for (int np = 0; np < n1; ++np) {
+      float acc[2][FW_BN1 / 2];
+      gemm_rs<2, FW_BN1, KADD>(acc, k1, rg, s, ph,
+          [&](uint32_t st, int, int jj, int mt) {
+            return st + a_off + rowoff[mt] +
+                   (((2 * jj + half) ^ rx[mt]) << 4);
+          });
+      float2 bv[FW_BN1 / 8];   // the biases first: sts32 orders memory
+#pragma unroll
+      for (int j = 0; j < FW_BN1 / 8; ++j) {
+        const int n = np * FW_BN1 + j * 8 + tig * 2;
+        bv[j] = n < p.Cm ? __ldg(reinterpret_cast<const float2*>(p.b1 + n))
+                         : make_float2(0.0f, 0.0f);
+      }
+#pragma unroll
+      for (int j = 0; j < FW_BN1 / 8; ++j) {
+        const int n = np * FW_BN1 + j * 8 + tig * 2;
+        if (n >= p.Cm) continue;
+        const float bb0 = bv[j].x, bb1 = bv[j].y;
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          if (!(hrows >> i & 1)) continue;
+          const int r = (i >> 1) * 64 + warp * 16 + gid + 8 * (i & 1);
+          const float a0 = acc[i >> 1][j * 4 + 2 * (i & 1)];
+          const float a1 = acc[i >> 1][j * 4 + 2 * (i & 1) + 1];
+          const bool in = inside >> i & 1;
+          const float v0 = in ? fmaxf(__fadd_rn(a0, bb0), 0.0f) : 0.0f;
+          const float v1 = in ? fmaxf(__fadd_rn(a1, bb1), 0.0f) : 0.0f;
+          const __nv_bfloat162 b = __floats2bfloat162_rn(v0, v1);
+          sts32(y1u + r * p.ld + n * 2, *reinterpret_cast<const uint32_t*>(&b));
+        }
+      }
+    }
+  }
+  named_sync(1 + cw, 128);
+
+  const int ar = warp * 16 + (lane & 15);   // this lane's A row (output pixel)
+  const bool ar_ok = ar < thw;
+  // ---- conv2: 3x3 over y1 (implicit im2col, A by ldmatrix) -> y2 --------
+  {
+    const int hp = (ar / p.TW) * pitch + ar % p.TW;   // window's top-left
+    for (int np = 0; np < n2; ++np) {
+      // this lane's K position: channel c of tap (kh, kw)
+      int c = half * 8, kh = 0, kw = 0;
+      while (c >= p.Cm) { c -= p.Cm; if (++kw == 3) { kw = 0; ++kh; } }
+      float acc[1][FW_BN2 / 2];
+      gemm_rs<1, FW_BN2, KADD>(acc, k2, rg, s, ph,
+          [&](uint32_t, int, int, int) {
+            const uint32_t a = (ar_ok && kh < 3)
+                ? y1u + (hp + kh * pitch + kw) * p.ld + c * 2 : zu;
+            c += 16;
+            while (c >= p.Cm) { c -= p.Cm; if (++kw == 3) { kw = 0; ++kh; } }
+            return a;
+          });
+      float2 bv[FW_BN2 / 8];
+#pragma unroll
+      for (int j = 0; j < FW_BN2 / 8; ++j) {
+        const int n = np * FW_BN2 + j * 8 + tig * 2;
+        bv[j] = n < p.Cm ? __ldg(reinterpret_cast<const float2*>(p.b2 + n))
+                         : make_float2(0.0f, 0.0f);
+      }
+#pragma unroll
+      for (int j = 0; j < FW_BN2 / 8; ++j) {
+        const int n = np * FW_BN2 + j * 8 + tig * 2;
+        if (n >= p.Cm) continue;
+        const float bb0 = bv[j].x, bb1 = bv[j].y;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = warp * 16 + gid + 8 * h;
+          if (r >= thw) continue;
+          const __nv_bfloat162 b = __floats2bfloat162_rn(
+              fmaxf(__fadd_rn(acc[0][j * 4 + 2 * h], bb0), 0.0f),
+              fmaxf(__fadd_rn(acc[0][j * 4 + 2 * h + 1], bb1), 0.0f));
+          sts32(y2u + r * p.ld + n * 2, *reinterpret_cast<const uint32_t*>(&b));
+        }
+      }
+    }
+  }
+  named_sync(1 + cw, 128);
+
+  // ---- conv3: y2 . w3 + b3 + shortcut -> out ----------------------------
+  long long orow[2];   // element offset of this thread's two output rows
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = warp * 16 + gid + 8 * h;
+    const int oh = oh0 + r / p.TW;
+    const int ow = ow0 + r % p.TW;
+    orow[h] = (valid && r < thw && oh < p.H && ow < p.W)
+        ? ((static_cast<long long>(img) * p.H + oh) * p.W + ow) * p.C : -1;
+  }
+  for (int np = 0; np < n3; ++np) {
+    float acc[1][FW_BN2 / 2];
+    gemm_rs<1, FW_BN2, KADD>(acc, k3, rg, s, ph,
+        [&](uint32_t, int ks, int jj, int) {
+          const int c = ks * FW_BK + jj * 16 + half * 8;
+          return (ar_ok && c < p.Cm) ? y2u + ar * p.ld + c * 2 : zu;
+        });
+    // every load of the pass first (the shortcut pairs and the biases),
+    // so they are in flight together: a store to out may alias x as far
+    // as the compiler knows, and would order each load behind the last
+    // store
+    uint32_t xr[FW_BN2 / 8][2];
+    float2 bb[FW_BN2 / 8];
+#pragma unroll
+    for (int j = 0; j < FW_BN2 / 8; ++j) {
+      const int n = np * FW_BN2 + j * 8 + tig * 2;
+      const bool nok = n < p.C;
+      bb[j] = nok ? __ldg(reinterpret_cast<const float2*>(p.b3 + n))
+                  : make_float2(0.0f, 0.0f);
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        xr[j][h] = (nok && orow[h] >= 0)
+            ? __ldg(reinterpret_cast<const unsigned int*>(p.x + orow[h] + n))
+            : 0u;
+    }
+#pragma unroll
+    for (int j = 0; j < FW_BN2 / 8; ++j) {
+      const int n = np * FW_BN2 + j * 8 + tig * 2;
+      if (n >= p.C) continue;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        if (orow[h] < 0) continue;
+        const long long idx = orow[h] + n;
+        const float2 xv = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(&xr[j][h]));
+        const float y0 = fmaxf(
+            __fadd_rn(__fadd_rn(acc[0][j * 4 + 2 * h], bb[j].x), xv.x), 0.0f);
+        const float y1v = fmaxf(
+            __fadd_rn(__fadd_rn(acc[0][j * 4 + 2 * h + 1], bb[j].y), xv.y),
+            0.0f);
+        if (p.out_type == DT_BF16)
+          *reinterpret_cast<__nv_bfloat162*>(
+              static_cast<__nv_bfloat16*>(p.out) + idx) =
+              __floats2bfloat162_rn(y0, y1v);
+        else
+          *reinterpret_cast<float2*>(static_cast<float*>(p.out) + idx) =
+              make_float2(y0, y1v);
+      }
+    }
+  }
+  }
+}
+
+// A TMA map over bf16 data: rank 2 (a weight (rows, K), K innermost) or 4
+// (x as (C, W, H, N)), 128-byte swizzle, zero fill outside.
+inline bool make_map_bf16(CUtensorMap* map, const void* base, int rank,
+                          const cuuint64_t* dims, const cuuint32_t* box) {
+  const EncodeTiledFn enc = encode_tiled();
+  if (!enc) return false;
+  cuuint64_t strides[3];
+  cuuint64_t st = 2;
+  for (int i = 0; i + 1 < rank; ++i) {
+    st *= dims[i];
+    strides[i] = st;
+  }
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank,
+             const_cast<void*>(base), dims, strides, box, unit,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int KADD>
+int launch_wg(const FloatWgArgs& p, const CUtensorMap* maps, int grid,
+              int smem, cudaStream_t s) {
+  auto kern = fused_float_block_kernel_wg<KADD>;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kern<<<grid, 128 * (1 + p.T), smem, s>>>(maps[0], maps[1], maps[2],
+                                           maps[3], p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The "wgmma" launch of one block: the plan (tile, tiles per block,
+// stages, rounded-add step, shared memory, grid) checked against the
+// operands and refused (cudaErrorInvalidValue) where it does not fit.
+int run_block_wg(const void* x, void* out, const void* w1, const float* b1,
+                 const void* w2, const float* b2, const void* w3,
+                 const float* b3, int N, int H, int W, int C, int Cm, int TH,
+                 int TW, int out_type, int T, int stages, int kadd, int smem,
+                 int grid, cudaStream_t s) {
+  const int bad = static_cast<int>(cudaErrorInvalidValue);
+  if (C % 8 || Cm % 8 || T < 1 || T > 2 || stages < 2 || TW + 2 > 256 ||
+      TH + 2 > 256 || !aligned(x, 16) || !aligned(out, 16) ||
+      !aligned(w1, 16) || !aligned(w2, 16) || !aligned(w3, 16))
+    return bad;
+  FloatWgArgs p;
+  p.x = static_cast<const __nv_bfloat16*>(x);
+  p.out = out;
+  p.b1 = b1;
+  p.b2 = b2;
+  p.b3 = b3;
+  p.N = N;
+  p.H = H;
+  p.W = W;
+  p.C = C;
+  p.Cm = Cm;
+  p.TH = TH;
+  p.TW = TW;
+  p.tiles_w = (W + TW - 1) / TW;
+  p.tiles_per_img = ((H + TH - 1) / TH) * p.tiles_w;
+  const long long tiles = static_cast<long long>(N) * p.tiles_per_img;
+  p.T = T;
+  p.stages = stages;
+  p.npos = (TH + 2) * (TW + 2);
+  p.ld = Cm * 2 + 16;
+  p.a_bytes = fw_a_bytes(p.npos);
+  p.stage_bytes = T * p.a_bytes + FW_B_BYTES;
+  p.out_type = out_type;
+  p.pairs = static_cast<int>((tiles + T - 1) / T);
+  if (TH * TW > 64 || p.npos > 128 || tiles >= (1LL << 31) || grid < 1 ||
+      grid > p.pairs ||
+      fw_smem(T, stages, p.npos, TH * TW, p.ld) != smem || smem > 227 * 1024)
+    return bad;
+  p.tiles = static_cast<int>(tiles);
+  CUtensorMap maps[4];
+  const cuuint64_t dx[4] = {static_cast<cuuint64_t>(C),
+                            static_cast<cuuint64_t>(W),
+                            static_cast<cuuint64_t>(H),
+                            static_cast<cuuint64_t>(N)};
+  const cuuint32_t bx[4] = {FW_BK, static_cast<cuuint32_t>(TW + 2),
+                            static_cast<cuuint32_t>(TH + 2), 1};
+  const cuuint64_t d1[2] = {static_cast<cuuint64_t>(C),
+                            static_cast<cuuint64_t>(Cm)};
+  const cuuint64_t d2[2] = {static_cast<cuuint64_t>(9 * Cm),
+                            static_cast<cuuint64_t>(Cm)};
+  const cuuint64_t d3[2] = {static_cast<cuuint64_t>(Cm),
+                            static_cast<cuuint64_t>(C)};
+  const cuuint32_t b1x[2] = {FW_BK, FW_BN1};
+  const cuuint32_t b23[2] = {FW_BK, FW_BN2};
+  if (!make_map_bf16(&maps[0], x, 4, dx, bx) ||
+      !make_map_bf16(&maps[1], w1, 2, d1, b1x) ||
+      !make_map_bf16(&maps[2], w2, 2, d2, b23) ||
+      !make_map_bf16(&maps[3], w3, 2, d3, b23))
+    return bad;
+  switch (kadd) {
+    case 32: return launch_wg<32>(p, maps, grid, smem, s);
+    case 64: return launch_wg<64>(p, maps, grid, smem, s);
+    case 128: return launch_wg<128>(p, maps, grid, smem, s);
+    case 0: return launch_wg<0>(p, maps, grid, smem, s);
+    default: return bad;
+  }
+}
+
 }  // namespace
 }  // namespace fcnn
 
 // One block of a float chain.  x is (N, H, W, C) of x_type (DT_BF16 or
 // DT_F32); w1, w2, w3 are the block's weights of the same type, transposed:
 // (Cm, C), (Cm, 9*Cm) with k = (kh*3 + kw)*Cm + c_in, and (C, Cm); b1, b2,
-// b3 f32.  out is (N, H, W, C) of out_type (DT_BF16 or DT_F32).  Returns the
-// launch's cudaError_t (0 on success).
+// b3 f32.  out is (N, H, W, C) of out_type (DT_BF16 or DT_F32).  The plan
+// (chain_plan in kernels/fused_chain.py): variant (0 "wgmma", 1
+// "mma_sync", 2 "fma_f32"), tiles per block, stages, products per rounded
+// add, shared memory and grid.  Returns the launch's cudaError_t (0 on
+// success).
 extern "C" int fcnn_fused_block_float(
     const void* x, void* out, const void* w1, const float* b1,
     const void* w2, const float* b2, const void* w3, const float* b3, int N,
     int H, int W, int C, int Cm, int TH, int TW, int x_type, int out_type,
+    int variant, int T, int stages, int kadd, int smem, int grid,
     void* stream) {
   using namespace fcnn;
+  const int bad = static_cast<int>(cudaErrorInvalidValue);
   if (N <= 0 || H <= 0 || W <= 0 || C <= 0 || Cm <= 0) return 0;
-  if (TH < 1 || TW < 1 || (TH + 2) * (TW + 2) > FF_MAX_HALO ||
-      TH * TW > FF_MAX_PIX || (out_type != DT_BF16 && out_type != DT_F32))
-    return static_cast<int>(cudaErrorInvalidValue);
+  if (TH < 1 || TW < 1 || (out_type != DT_BF16 && out_type != DT_F32))
+    return bad;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (x_type == DT_BF16)
+  if (variant == 0 && x_type == DT_BF16)
+    return run_block_wg(x, out, w1, b1, w2, b2, w3, b3, N, H, W, C, Cm, TH,
+                        TW, out_type, T, stages, kadd, smem, grid, s);
+  if ((TH + 2) * (TW + 2) > FF_MAX_HALO || TH * TW > FF_MAX_PIX) return bad;
+  if (variant == 1 && x_type == DT_BF16)
     return run_block<__nv_bfloat16>(x, out, w1, b1, w2, b2, w3, b3, N, H, W,
-                                    C, Cm, TH, TW, out_type, s);
-  if (x_type == DT_F32)
+                                    C, Cm, TH, TW, out_type, smem, s);
+  if (variant == 2 && x_type == DT_F32)
     return run_block<float>(x, out, w1, b1, w2, b2, w3, b3, N, H, W, C, Cm,
-                            TH, TW, out_type, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+                            TH, TW, out_type, smem, s);
+  return bad;
 }

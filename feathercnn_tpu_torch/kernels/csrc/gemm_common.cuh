@@ -398,6 +398,19 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// A 4-D box (c0 innermost); coordinates may be negative or past the end,
+// where the box fills with zeros.
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
+                                            int c0, int c1, int c2, int c3,
+                                            uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0),
+         "r"(c1), "r"(c2), "r"(c3), "r"(smem_u32(bar))
+      : "memory");
+}
+
 // The byte offset ``off`` of a row-major tile with BK-byte rows, as the
 // BK-byte swizzle (TMA's CU_TENSOR_MAP_SWIZZLE_{128,64}B, wgmma's layout
 // types 1 and 2) stores it: bits [4, 4+B) XOR bits [7, 7+B), B = log2(BK/16).

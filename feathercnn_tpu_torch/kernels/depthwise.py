@@ -11,24 +11,182 @@ says what bounds it on an H100 and what its design does about that):
   dispatch.py:221-253``): exact int32 accumulation and the GEMM kernels'
   epilogue, int8 or float out.
 
-On a CUDA tensor each wrapper launches its kernel or raises; on a CPU
-tensor it computes the same function with its plain version.
+On a CUDA tensor each wrapper launches its kernel with the plan that
+:func:`dw_plan` makes on the host (counted per variant in the wrapper's
+``variants``), or raises; on a CPU tensor it computes the same function
+with its plain version.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import functools
+import math
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
 
-from .matmul import (_ACT_CODES, _DTYPE_CODES, check_contiguous,
-                     check_epilogue, epilogue_plain, fma_f32)
+from .matmul import (_ACT_CODES, _DTYPE_CODES, H100_SMS, SMEM_LIMIT,
+                     check_contiguous, check_epilogue, epilogue_plain,
+                     fma_f32)
 
 __all__ = ["depthwise_conv2d", "depthwise_conv2d_plain",
-           "depthwise_conv2d_int8", "depthwise_conv2d_int8_plain"]
+           "depthwise_conv2d_int8", "depthwise_conv2d_int8_plain",
+           "dw_plan", "DwPlan", "DW_VARIANTS"]
 
 _FLOAT = (torch.float32, torch.bfloat16)
+
+# The kernel's variants, in the order of their codes in the C interface:
+# "tiled" (any kernel size and stride, one output per thread), "k3s1" (3x3,
+# stride 1, 8 outputs per thread), "k3s2" (3x3, stride 2, 4 per thread).
+DW_VARIANTS = ("tiled", "k3s1", "k3s2")
+_RW = {"tiled": 1, "k3s1": 8, "k3s2": 4}
+DW_V = 4                  # channels per thread
+DW_MAX_THREADS = 512
+# The int8 variant sums in f32, exactly while KH*KW*127^2 < 2^24.
+DW_INT_MAX_TAPS = 1040
+# Per-SM rates on an H100 SXM, per clock (1.755 GHz): device-memory bytes
+# (3.35 TB/s over 132 SMs), FMA-pipe instructions issued for the loop
+# (half the 128 lanes: loads and address math share the issue slots) and
+# shared-memory wavefronts.
+_MEM_BYTES_PER_CLK = 14.5
+_FMA_PER_CLK = 64.0
+
+
+class DwPlan(NamedTuple):
+    """One depthwise launch's plan: the variant; a thread block's TH x TW
+    tile of output pixels and CS channels; the byte pitch of a staged pixel
+    (CS channels of the staged type plus a pad that spreads a warp's reads
+    over the banks); threads per block; dynamic shared memory (the window,
+    then the weights as f32); and the grid (tiles, channel slices)."""
+    variant: str
+    th: int
+    tw: int
+    cs: int
+    pitch: int
+    threads: int
+    smem: int
+    grid: tuple
+
+    def args(self):
+        """The plan's integers as the C entry points take them."""
+        return (DW_VARIANTS.index(self.variant), self.th, self.tw, self.cs,
+                self.pitch, self.threads, self.smem)
+
+
+def _wavefronts(addrs, width: int) -> int:
+    """Shared-memory wavefronts of one warp's load of ``width`` bytes per
+    lane at byte addresses ``addrs`` (lane order): the warp is served in
+    phases of 128 bytes' worth of lanes; a phase takes as many wavefronts
+    as the most distinct 4-byte words it needs from one bank."""
+    per = 128 // width
+    total = 0
+    for p in range(0, len(addrs), per):
+        banks = {}
+        for a in addrs[p:p + per]:
+            for wd in range(a // 4, (a + width) // 4):
+                banks.setdefault(wd % 32, set()).add(wd)
+        total += max(len(v) for v in banks.values())
+    return total
+
+
+@functools.lru_cache(maxsize=None)
+def dw_plan(n: int, h: int, w: int, c: int, kh: int, kw: int, stride: int,
+            pad_h: int, pad_w: int, x_itemsize: int, staged_itemsize: int,
+            int_variant: bool = False) -> DwPlan:
+    """The plan of one depthwise launch, made on the host from the shapes
+    and the item sizes of x and of the staged type (bf16 for the int8
+    variant and for int8 x dequantized to bf16; else x's or the output's
+    type).  Raises ``ValueError`` for a shape no plan fits.
+
+    The variant follows from the kernel size and stride.  The tile, the
+    channel slice and the pitch pad are those with the least estimated
+    time: the waves of blocks over the SMs times a block's cost, the
+    largest of its window's bytes over the device-memory rate, its FMAs
+    over the FMA pipe and its shared-memory wavefronts (each warp's reads
+    simulated over the 32 banks).  A block has 64-512 threads (fewer only
+    where the whole launch is smaller) and fits shared memory; ties go to
+    the larger block."""
+    oh = (h + 2 * pad_h - kh) // stride + 1
+    ow = (w + 2 * pad_w - kw) // stride + 1
+    if oh < 1 or ow < 1:
+        raise ValueError(f"kernel {kh}x{kw} larger than padded input {h}x{w}")
+    if int_variant and kh * kw > DW_INT_MAX_TAPS:
+        raise ValueError(f"int8 depthwise: {kh}x{kw} taps exceed the "
+                         f"{DW_INT_MAX_TAPS} whose f32 sum stays exact")
+    variant = ("k3s1" if (kh, kw, stride) == (3, 3, 1) else
+               "k3s2" if (kh, kw, stride) == (3, 3, 2) else "tiled")
+    rw = _RW[variant]
+    ch = 16 // x_itemsize                     # channels per staged chunk
+    cmax = -(-c // ch) * ch
+    cs_list = sorted({min(ch << k, cmax) for k in range(8)
+                      if (ch << k) <= max(256, ch)})
+    tw_all = [rw * m for m in ((1, 2, 4) if rw > 1 else (4, 8, 16))]
+    tw_list = tw_all[:1] + [t for t in tw_all[1:] if t - rw < ow]
+    # a block reads at least 64 contiguous bytes of a pixel (two 32-byte
+    # sectors), where C allows
+    cs_list = [cs for cs in cs_list
+               if cs * x_itemsize >= min(64, cmax * x_itemsize)]
+    width = DW_V * staged_itemsize            # bytes of one compute read
+    best = None
+    for relaxed in (False, True):
+        for cs in cs_list:
+            cv = cs // DW_V
+            for tw in tw_list:
+                px_n = tw // rw
+                for th in range(1, min(16, oh) + 1):
+                    threads = cv * th * px_n
+                    if threads > DW_MAX_THREADS or (
+                            threads < 64 and not relaxed):
+                        continue
+                    wh = (th - 1) * stride + kh
+                    ww = (tw - 1) * stride + kw
+                    blocks = (n * -(-oh // th) * -(-ow // tw) * -(-c // cs))
+                    for pad in (16, 32, 48, 64):
+                        pitch = cs * staged_itemsize + pad
+                        smem = wh * ww * pitch + 4 * kh * kw * cs
+                        if smem > SMEM_LIMIT:
+                            continue
+                        lanes = range(min(32, threads))
+                        addrs = [((l // cv) % th * stride * ww
+                                  + (l // cv) // th * rw * stride) * pitch
+                                 + (l % cv) * width for l in lanes]
+                        waves_per_load = _wavefronts(addrs, width)
+                        loads = kh * (((rw - 1) * stride + kw) if rw > 1
+                                      else kw)
+                        warps = -(-threads // 32)
+                        cost = max(wh * ww * cs * x_itemsize
+                                   / _MEM_BYTES_PER_CLK,
+                                   th * tw * cs * kh * kw / _FMA_PER_CLK,
+                                   warps * loads * waves_per_load)
+                        regs = 96 if rw > 1 else 48
+                        per_sm = min(2048 // threads, 32,
+                                     SMEM_LIMIT // max(smem, 1),
+                                     65536 // (threads * regs))
+                        time = (math.ceil(blocks / (H100_SMS * per_sm))
+                                * per_sm * cost)
+                        key = (time, -threads, pad)
+                        if best is None or key < best[0]:
+                            best = (key, DwPlan(
+                                variant, th, tw, cs, pitch, threads, smem,
+                                (blocks // -(-c // cs), -(-c // cs))))
+        if best is not None:
+            break
+    if best is None:
+        raise ValueError(f"depthwise: no tile of {kh}x{kw} stride {stride} "
+                         f"with C={c} fits {SMEM_LIMIT} bytes of shared "
+                         f"memory")
+    plan = best[1]
+    if plan.grid[0] > 0x7fffffff or plan.grid[1] > 65535:
+        raise ValueError(f"depthwise: grid {plan.grid} exceeds the limits")
+    return plan
+
+
+def _plan_for(x, kh, kw, stride, pad_h, pad_w, staged, int_variant):
+    n, h, w, c = x.shape
+    return dw_plan(n, h, w, c, kh, kw, stride, pad_h, pad_w,
+                   x.element_size(), torch.empty((), dtype=staged)
+                   .element_size(), int_variant)
 
 
 def _taps(x, kh_, kw_, stride, pad_h, pad_w, oh, ow):
@@ -140,22 +298,27 @@ def depthwise_conv2d(x: torch.Tensor, w: torch.Tensor,
     out = torch.empty((n, oh, ow, c), dtype=out_dtype, device=x.device)
     if out.numel() == 0:
         return out
+    staged = out_dtype if x.dtype == torch.int8 else x.dtype
+    plan = _plan_for(x, w.shape[0], w.shape[1], stride, pad_h, pad_w, staged,
+                     False)
     from .build import load_library
     rc = load_library().fcnn_depthwise_conv2d(
         _ptr(x), _ptr(w), _ptr(out), _ptr(bias), n, h, wd, c, w.shape[0],
         w.shape[1], stride, stride, pad_h, pad_w, _DTYPE_CODES[x.dtype],
         _DTYPE_CODES[out_dtype], _ACT_CODES[activation],
-        float(x_scale if x_scale is not None else 1.0),
+        float(x_scale if x_scale is not None else 1.0), *plan.args(),
         torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"depthwise_conv2d launch failed: CUDA error {rc} "
                            f"(x={tuple(x.shape)} {x.dtype} "
-                           f"w={tuple(w.shape)} stride={stride})")
+                           f"w={tuple(w.shape)} stride={stride} {plan})")
     depthwise_conv2d.launches += 1
+    depthwise_conv2d.variants[plan.variant] += 1
     return out
 
 
 depthwise_conv2d.launches = 0
+depthwise_conv2d.variants = dict.fromkeys(DW_VARIANTS, 0)
 
 
 # ----------------------------------------------------------------------
@@ -216,18 +379,22 @@ def depthwise_conv2d_int8(xq: torch.Tensor, wq: torch.Tensor,
     out = torch.empty((n, oh, ow, c), dtype=out_dtype, device=xq.device)
     if out.numel() == 0:
         return out
+    plan = _plan_for(xq, wq.shape[0], wq.shape[1], stride, pad_h, pad_w,
+                     torch.bfloat16, True)
     from .build import load_library
     rc = load_library().fcnn_depthwise_conv2d_int8(
         _ptr(xq), _ptr(wq), _ptr(out), _ptr(bias), _ptr(w_scale), n, h, wd,
         c, wq.shape[0], wq.shape[1], stride, stride, pad_h, pad_w,
         _DTYPE_CODES[out_dtype], _ACT_CODES[activation], float(out_scale),
-        torch.cuda.current_stream(xq.device).cuda_stream)
+        *plan.args(), torch.cuda.current_stream(xq.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"depthwise_conv2d_int8 launch failed: CUDA error "
                            f"{rc} (x={tuple(xq.shape)} w={tuple(wq.shape)} "
-                           f"stride={stride})")
+                           f"stride={stride} {plan})")
     depthwise_conv2d_int8.launches += 1
+    depthwise_conv2d_int8.variants[plan.variant] += 1
     return out
 
 
 depthwise_conv2d_int8.launches = 0
+depthwise_conv2d_int8.variants = dict.fromkeys(DW_VARIANTS, 0)

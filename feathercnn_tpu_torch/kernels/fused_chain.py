@@ -39,15 +39,17 @@ weights of type T and f32 biases, every sum in f32::
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+import functools
+from typing import NamedTuple, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
 
-from .matmul import _DTYPE_CODES, check_contiguous, fma_f32
+from .matmul import _DTYPE_CODES, H100_SMS, check_contiguous, fma_f32
 
 __all__ = ["fused_chain", "fused_chain_float", "fused_chain_plain",
-           "kernel_layout", "tile_plan"]
+           "kernel_layout", "tile_plan", "chain_plan", "ChainPlan",
+           "FLOAT_VARIANTS"]
 
 _FLOAT = (torch.float32, torch.bfloat16)
 
@@ -197,6 +199,102 @@ def tile_plan(h: int, w: int, cm: int, itemsize: int):
     return t, t
 
 
+# The float kernel's variants, in the order of their codes in the C
+# interface: "wgmma" (bf16 x: wgmma with a TMA ring, up to two tiles per
+# thread block), "mma_sync" (bf16 x whose C or Cm is not a multiple of 8,
+# or a pointer not 16-byte aligned: the mma.sync body) and "fma_f32" (f32
+# x: the same body on FMAs).
+FLOAT_VARIANTS = ("wgmma", "mma_sync", "fma_f32")
+# Products of bf16 x bf16 per rounded f32 add in the "wgmma" variant: each
+# such slice of K is summed in a fresh tensor-core sum, then added into the
+# f32 running sum with one __fadd_rn (0: all of K in the tensor cores).
+# tools/float_chain_probe.py measures the choices against the float gate.
+FLOAT_ADD_STEP = 128
+_FW_B_BYTES = 128 * 128          # a ring stage's weight tile
+_FW_MAX_STAGES = 4
+
+
+class ChainPlan(NamedTuple):
+    """One float-chain launch's plan: the variant; the TH x TW output tile;
+    the tiles a thread block takes at a time (one consumer warpgroup
+    each, "wgmma"; else 1); the ring's stages; the products per rounded
+    add; the dynamic shared memory; the grid; and why a bf16 launch does
+    not take "wgmma" ("" where it does)."""
+    variant: str
+    th: int
+    tw: int
+    tiles_per_cta: int
+    stages: int
+    kadd: int
+    smem: int
+    grid: int
+    reason: str = ""
+
+    def args(self):
+        """The plan's integers as the C entry point takes them."""
+        return (FLOAT_VARIANTS.index(self.variant), self.tiles_per_cta,
+                self.stages, self.kadd, self.smem, self.grid)
+
+
+def wgmma_chain_smem(tiles: int, stages: int, th: int, tw: int,
+                     cm: int) -> int:
+    """Dynamic shared memory of the "wgmma" variant (fw_smem in
+    csrc/fused_chain_float.cu, which refuses a plan whose count differs):
+    1024 bytes of alignment slack; the ring, each stage the tiles' x halos
+    (1024-aligned) and a 128 x 128-byte weight tile; per tile y1 over the
+    (TH+2) x (TW+2) halo and y2 over TH x TW pixels, rows of Cm bf16 plus
+    16 bytes; two barriers per stage; a 16-byte zero chunk."""
+    npos = (th + 2) * (tw + 2)
+    ld = cm * 2 + 16
+    a_bytes = -(-npos * 128 // 1024) * 1024
+    return (1024 + stages * (tiles * a_bytes + _FW_B_BYTES)
+            + tiles * (npos + th * tw) * ld + 16 * stages + 16)
+
+
+@functools.lru_cache(maxsize=None)
+def chain_plan(n: int, h: int, w: int, c: int, cm: int, itemsize: int,
+               aligned: bool = True, add_step: Optional[int] = None
+               ) -> ChainPlan:
+    """The plan of one float-chain launch (one block), made on the host.
+
+    f32 x (``itemsize`` 4) takes "fma_f32" at :func:`tile_plan`'s tile
+    (and its ``ValueError`` where none fits).  bf16 x takes "wgmma" unless
+    C or Cm is not a multiple of 8 (TMA's 16-byte rows) or a pointer is not
+    16-byte aligned (``aligned``): then "mma_sync" at :func:`tile_plan`'s
+    tile.  "wgmma" takes two tiles per thread block where both tiles'
+    y1 and y2 and two ring stages fit shared memory, else one; among those,
+    the 8x8 or 7x7 tile with the fewer conv1 halo pixels over the image;
+    then as many stages as fit (at most 4).  Its grid is persistent: one
+    block per SM (shared memory holds one), each walking over pairs of
+    tiles, so the ring runs on from one pair into the next.  ``add_step``
+    overrides :data:`FLOAT_ADD_STEP`."""
+    def tiles(t):
+        return n * -(-h // t) * -(-w // t)
+    if itemsize == 4:
+        th, tw = tile_plan(h, w, cm, 4)
+        return ChainPlan("fma_f32", th, tw, 1, 3, 0,
+                         smem_bytes(th, tw, cm, 4), tiles(th), "f32 x")
+    reason = ("C or Cm not a multiple of 8" if c % 8 or cm % 8 else
+              "" if aligned else "a pointer not 16-byte aligned")
+    if reason:
+        th, tw = tile_plan(h, w, cm, 2)
+        return ChainPlan("mma_sync", th, tw, 1, 3, 0,
+                         smem_bytes(th, tw, cm, 2), tiles(th), reason)
+    fits = [(t, k) for k in (2, 1) for t in (8, 7)
+            if wgmma_chain_smem(k, 2, t, t, cm) <= _SMEM_LIMIT]
+    if not fits:
+        raise ValueError(f"fused_chain: no tile of H={h} W={w} Cm={cm} "
+                         f"fits {_SMEM_LIMIT} bytes of shared memory")
+    t, k = min(fits, key=lambda f: (-f[1], -(-h // f[0]) * -(-w // f[0])
+                                    * (f[0] + 2) ** 2, -f[0]))
+    stages = max(st for st in range(2, _FW_MAX_STAGES + 1)
+                 if wgmma_chain_smem(k, st, t, t, cm) <= _SMEM_LIMIT)
+    step = FLOAT_ADD_STEP if add_step is None else add_step
+    return ChainPlan("wgmma", t, t, k, stages, step,
+                     wgmma_chain_smem(k, stages, t, t, cm),
+                     min(-(-tiles(t) // k), H100_SMS))
+
+
 def _check(x, w1, b1, w2, b2, w3, b3, w_scales, scales, out_dtype):
     """Raise on shapes, types or devices the function does not take."""
     if x.dim() != 4 or w1.dim() != 3:
@@ -281,13 +379,17 @@ def fused_chain(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
                           zip(("w1s", "w2s", "w3s"), w_scales)))})
     n, h, w, c = x.shape
     nb, _, cm = w1.shape
-    th, tw = tile_plan(h, w, cm, x.element_size())
+    int8 = x.dtype == torch.int8
+    if int8:
+        th, tw = tile_plan(h, w, cm, 1)
+    else:
+        plan = chain_plan(n, h, w, c, cm, x.element_size(),
+                          add_step=FLOAT_ADD_STEP)
     if x.numel() == 0:
         return torch.empty_like(x, dtype=out_dtype)
     from .build import load_library
     lib = load_library()
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    int8 = x.dtype == torch.int8
     if int8:
         sx, sy1, sy2, r, out_int8 = _scale_args(nb, scales)
         w1s, w2s, w3s = w_scales
@@ -311,20 +413,27 @@ def fused_chain(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
                 _f32(1.0 / sy1[j]), _f32(1.0 / sy2[j]), _f32(r[j]),
                 int(j == 0), _DTYPE_CODES[odt], stream)
         else:
+            ptrs = (act, out, w1[j], w2[j], w3[j])
+            plan = chain_plan(n, h, w, c, cm, x.element_size(),
+                              all(t.data_ptr() % 16 == 0 for t in ptrs),
+                              FLOAT_ADD_STEP)
+            th, tw = plan.th, plan.tw
             rc = lib.fcnn_fused_block_float(
                 act.data_ptr(), out.data_ptr(),
                 w1[j].data_ptr(), b1[j].data_ptr(), w2[j].data_ptr(),
                 b2[j].data_ptr(), w3[j].data_ptr(), b3[j].data_ptr(),
                 n, h, w, c, cm, th, tw, _DTYPE_CODES[x.dtype],
-                _DTYPE_CODES[odt], stream)
+                _DTYPE_CODES[odt], *plan.args(), stream)
         if rc != 0:
             raise RuntimeError(
                 f"fused_chain launch failed: CUDA error {rc} (block {j} of "
-                f"{nb}, x={tuple(x.shape)} {x.dtype} Cm={cm} tile {th}x{tw})")
+                f"{nb}, x={tuple(x.shape)} {x.dtype} Cm={cm} tile {th}x{tw}"
+                + ("" if int8 else f" {plan}") + ")")
         if int8:
             fused_chain.launches += 1
         else:
             fused_chain_float.launches += 1
+            fused_chain_float.variants[plan.variant] += 1
         # the buffer this block read is free for block j + 2's output
         spare = act if act is not x else None
         act = out
@@ -348,3 +457,4 @@ def fused_chain_float(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
 
 fused_chain.launches = 0
 fused_chain_float.launches = 0
+fused_chain_float.variants = dict.fromkeys(FLOAT_VARIANTS, 0)

@@ -4,14 +4,18 @@
 
     python3 tools/float_chain_probe.py
 
-Per block (one kernel launch) and per whole chain, on seeded random
-chains and on the bf16 ResNet-50 b128 path's own chain calls, it prints
-the share of bf16 outputs more than 1 ulp from the plain version (which
-rounds each sum once from f64), beside the same share for an f32 version
-that sums in PyTorch's order (``x.float() @ w.float()``: another correct
-order, the floor that two f32 orders set).  Then the median time of one
-call at ResNet-50's four b128 chain shapes.  Imports neither JAX nor the
-JAX package; needs a CUDA device.
+The "wgmma" variant sums each slice of ``FLOAT_ADD_STEP`` bf16 products in
+a fresh tensor-core sum and adds it into the f32 running sum with one
+rounded add (0: all of K in the tensor cores).  For each step of 32, 64,
+128 and all of K, on seeded random blocks at ResNet-50's four stage shapes
+and on the bf16 ResNet-50 b128 path's own chain calls, it prints per block
+(one launch, on the kernel's own input) the share of bf16 outputs more than
+1 ulp from the plain version (which rounds each sum once from f64), beside
+the same share for an f32 version that sums in PyTorch's order
+(``x.float() @ w.float()``: another correct order, the floor that two f32
+orders set); then the median time of each path chain call per step, and per
+step the worst share of any launch against the float gate's 0.1%.
+Imports neither JAX nor the JAX package; needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -28,12 +32,15 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
 
 import chip_smoke as cs  # noqa: E402
 from feathercnn_tpu_torch import Engine, EngineConfig  # noqa: E402
+from feathercnn_tpu_torch.kernels import fused_chain as fc  # noqa: E402
 from feathercnn_tpu_torch.kernels.fused_chain import (  # noqa: E402
     fused_chain_float, fused_chain_plain, kernel_layout)
 from feathercnn_tpu_torch.models import resnet50  # noqa: E402
 
 BF = torch.bfloat16
 _W = ("w1", "b1", "w2", "b2", "w3", "b3")
+STEPS = (32, 64, 128, 0)     # products per rounded add; 0: all of K
+GATE = 0.1                   # per cent of a launch's elements over 1 ulp
 
 
 def plain_f32(x, w1, b1, w2, b2, w3, b3, out_dtype=None):
@@ -62,20 +69,30 @@ def share(a, b):
     return 100.0 * over / a.numel()
 
 
-def report(label, a):
-    """Whole chain, then block by block on the kernel's own inputs."""
-    ref = fused_chain_plain(**a)
-    print(f"{label}: whole chain, kernel "
-          f"{share(fused_chain_float(**a), ref):.4f}% f32 order "
-          f"{share(plain_f32(**a), ref):.4f}%", flush=True)
-    act, nb = a["x"], a["w1"].shape[0]
+def block_shares(label, a, worst, stage, default):
+    """Block by block on the kernel's own inputs (made at the default
+    step), at every step: the kernel's share beside the f32 order's."""
+    inputs = [a["x"]]
+    nb = a["w1"].shape[0]
+    fc.FLOAT_ADD_STEP = default
+    for j in range(nb - 1):             # the inputs the kernel feeds itself
+        blk = {k: a[k][j:j + 1] for k in _W}
+        inputs.append(fused_chain_float(x=inputs[-1], **blk))
     for j in range(nb):
         blk = {k: a[k][j:j + 1] for k in _W}
-        blk.update(x=act, out_dtype=a["out_dtype"] if j == nb - 1 else None)
-        got, ref = fused_chain_float(**blk), fused_chain_plain(**blk)
-        print(f"  block {j}: kernel {share(got, ref):.4f}% f32 order "
-              f"{share(plain_f32(**blk), ref):.4f}%", flush=True)
-        act = got
+        blk.update(x=inputs[j],
+                   out_dtype=a["out_dtype"] if j == nb - 1 else None)
+        ref = fused_chain_plain(**blk)
+        parts = []
+        for step in STEPS:
+            fc.FLOAT_ADD_STEP = step
+            sh = share(fused_chain_float(**blk), ref)
+            worst[step][stage] = max(worst[step].get(stage, 0.0), sh)
+            parts.append(f"{step or 'all K'}: {sh:.4f}%")
+        fc.FLOAT_ADD_STEP = default
+        print(f"{label} block {j}: kernel " + ", ".join(parts)
+              + f"; f32 order {share(plain_f32(**blk), ref):.4f}%",
+              flush=True)
 
 
 def random_chain(gen, n, h, w, c, cm, nb, dt=BF):
@@ -96,10 +113,13 @@ def main() -> int:
         print("float_chain_probe: no CUDA device", file=sys.stderr)
         return 1
     smi = cs.toolchain()
+    default = fc.FLOAT_ADD_STEP
+    worst = {step: {} for step in STEPS}
     gen = torch.Generator(device="cuda").manual_seed(2)
     for case in [(2, 56, 56, 256, 64, 2), (8, 28, 28, 512, 128, 3),
                  (8, 14, 14, 1024, 256, 5), (2, 7, 7, 2048, 512, 1)]:
-        report(f"random {case}", random_chain(gen, *case))
+        block_shares(f"random {case}", random_chain(gen, *case), worst,
+                     case[1], default)
 
     g = resnet50(batch=cs.BATCH, seed=cs.SEED)
     g.meta["chain_regions"] = {"*": True}
@@ -108,14 +128,30 @@ def main() -> int:
     x = np.random.default_rng(cs.SEED).normal(
         size=(cs.BATCH, 224, 224, 3)).astype(np.float32)
     rec = cs.LaunchRecorder()
+    fc.FLOAT_ADD_STEP = default
     rec.run(eng, x)
     for r in rec.launches:
-        if r["kernel"] == "fused_chain_float":
-            a = r["args"]
-            report(f"resnet50 b{cs.BATCH} bf16 x{tuple(a['x'].shape)} "
-                   f"nb={a['w1'].shape[0]}", a)
-            ms = cs.median_ms(lambda: fused_chain_float(**a))
-            print(f"  one call: {ms:.4f} ms ({smi})", flush=True)
+        if r["kernel"] != "fused_chain_float":
+            continue
+        a = r["args"]
+        label = (f"resnet50 b{cs.BATCH} bf16 x{tuple(a['x'].shape)} "
+                 f"nb={a['w1'].shape[0]}")
+        block_shares(label, a, worst, a["x"].shape[1], default)
+        times = []
+        for step in STEPS:
+            fc.FLOAT_ADD_STEP = step
+            times.append(f"{step or 'all K'} "
+                         f"{cs.median_ms(lambda: fused_chain_float(**a)):.4f}")
+        print(f"{label}: one call, ms by step: " + ", ".join(times)
+              + f" ({smi})", flush=True)
+    for step in STEPS:
+        print(f"step {step or 'all K'}: worst launch per stage (H: %) "
+              + ", ".join(f"{h}: {v:.4f}" for h, v in
+                          sorted(worst[step].items(), reverse=True))
+              + f"; gate {GATE}%: "
+              + ("within" if max(worst[step].values()) <= GATE else "OVER"),
+              flush=True)
+    fc.FLOAT_ADD_STEP = default
     return 0
 
 
