@@ -630,6 +630,71 @@ def _time_dw_conv(d, stride, pad_h, pad_w):
                                       padding=(pad_h, pad_w), groups=c))
 
 
+# Tiles at which each depthwise launch shape of a counted path is timed,
+# beside the one dw_plan gives it (64 channels by 16 threads along a row
+# by 16 rows for "k3s1"; for "k3s2" 64 by 32 by 8 or 64 by 16 by 16, by
+# which leaves fewer outputs past the edge): (channels, threads along a
+# row, rows) per variant.
+DW_OTHER_TILES = {"k3s1": ((32, 16, 16), (64, 32, 8)),
+                  "k3s2": ((64, 32, 8), (64, 16, 16), (128, 32, 8)),
+                  "tiled": ()}
+_DW_TILE_MS = {}
+
+
+def dw_tile_ms(kernel, a, want):
+    """{tile: median ms} of a depthwise launch at its variant's other
+    tiles, launched through the C entry point on the same tensors, each
+    held bit-equal to ``want`` (the plain version); timed once per shape.
+    Not counted: the wrapper is not called."""
+    import torch
+    from feathercnn_tpu_torch.kernels import depthwise as dw
+    from feathercnn_tpu_torch.kernels.build import load_library
+    from feathercnn_tpu_torch.kernels.matmul import _ACT_CODES, _DTYPE_CODES
+    int8 = kernel == "depthwise_conv2d_int8"
+    x = a["xq"] if int8 else a["x"]
+    s, ph, pw = a["stride"], a["pad_h"], a["pad_w"]
+    w, oh, ow = dw._geometry(x, a["wq"] if int8 else a["w"], s, ph, pw)
+    n, h, wd, c = x.shape
+    kh, kw = w.shape[0], w.shape[1]
+    odt = want.dtype
+    key = (kernel, tuple(x.shape), x.dtype, odt, kh, kw, s, ph, pw)
+    if key in _DW_TILE_MS:
+        return _DW_TILE_MS[key]
+    ss = 1 if int8 else (odt if x.dtype == torch.int8 else x.dtype).itemsize
+    variant = dw.dw_plan(n, h, wd, c, kh, kw, s, ph, pw, x.element_size(),
+                         ss, int8).variant
+    lib = load_library()
+    bias = a["bias"].data_ptr() if a["bias"] is not None else None
+    res = {}
+    for tile in DW_OTHER_TILES[variant]:
+        plan = dw._tile_plan(variant, *tile, n, oh, ow, c, kh, kw, s,
+                             x.element_size(), ss)
+        out = torch.empty_like(want)
+
+        def run():
+            st = torch.cuda.current_stream().cuda_stream
+            if int8:
+                rc = lib.fcnn_depthwise_conv2d_int8(
+                    x.data_ptr(), w.data_ptr(), out.data_ptr(), bias,
+                    a["w_scale"].data_ptr(), n, h, wd, c, kh, kw, s, s, ph,
+                    pw, _DTYPE_CODES[odt], _ACT_CODES[a["activation"]],
+                    float(a["out_scale"]), *plan.args(), st)
+            else:
+                xs = a["x_scale"]
+                rc = lib.fcnn_depthwise_conv2d(
+                    x.data_ptr(), w.data_ptr(), out.data_ptr(), bias, n, h,
+                    wd, c, kh, kw, s, s, ph, pw, _DTYPE_CODES[x.dtype],
+                    _DTYPE_CODES[odt], _ACT_CODES[a["activation"]],
+                    float(xs if xs is not None else 1.0), *plan.args(), st)
+            check(rc == 0, f"{kernel} at tile {tile}: CUDA error {rc}")
+        run()
+        check(torch.equal(out, want), f"{kernel} x{tuple(x.shape)} at tile "
+              f"{tile} ({plan}) differs from plain")
+        res[tile] = median_ms(run)
+    _DW_TILE_MS[key] = res
+    return res
+
+
 def describe(kernel, a, out):
     dt = str(out.dtype).replace("torch.", "")
     if kernel == "ident":
@@ -668,12 +733,15 @@ def kernels_vs_plain(label, launches):
                 else "exact")
         kernel, plain = fns[name]
         out = kernel(**a)
+        tiles = None
         if name == "fused_chain_float":
             max_err, ok, over, elements = per_launch(a, out)
         else:
             ref = plain(**a)
             max_err, ok, over = compare(out, ref, gate)
             elements = out.numel()
+            if name in ("depthwise_conv2d", "depthwise_conv2d_int8"):
+                tiles = dw_tile_ms(name, a, ref)
             del ref
         desc = describe(name, a, out)
         check(ok, f"{label}: launch {i}, {desc}: kernel differs from plain, "
@@ -693,7 +761,7 @@ def kernels_vs_plain(label, launches):
                      "plain_ms": median_ms(lambda: plain(**a), reps=3,
                                            warmup=1),
                      "bound_ms": b_ms, "bound_by": b_by,
-                     "library_ms": library_ms(name, a)})
+                     "library_ms": library_ms(name, a), "tiles": tiles})
     for desc in dict.fromkeys(r["shape"] for r in rows):
         same = [r for r in rows if r["shape"] == desc]
         lib = same[0]["library_ms"]
@@ -712,7 +780,20 @@ def kernels_vs_plain(label, launches):
             + _library_name(desc) + f" {lib if lib is None else round(lib, 4)}"
             + ("" if lib is None else f" ({med / lib:.2f}x library)")
             + (f", variant {same[0]['variant']}" if same[0]["variant"]
-               else ""))
+               else "")
+            + ("" if not same[0]["tiles"] else ", other tiles " + ", ".join(
+                f"{t} {ms:.4f}" for t, ms in same[0]["tiles"].items())))
+    for var in ("k3s1", "k3s2"):
+        mine = [r for r in rows if r["tiles"] and r["variant"] == var]
+        if not mine:
+            continue
+        other = {}
+        for r in mine:
+            for t, ms in r["tiles"].items():
+                other[t] = other.get(t, 0.0) + ms
+        say(label, f"depthwise {var} launches of one forward: "
+            f"{sum(r['ms'] for r in mine):.4f} ms at the plan's tiles, "
+            + ", ".join(f"{v:.4f} at {t}" for t, v in other.items()))
     return rows
 
 
@@ -1221,9 +1302,9 @@ def ragged_gemm(gen):
 def ragged_float_chain(gen):
     """The float chain off the main path: bf16 and f32 x, C and Cm not
     multiples of a 16-byte vector (C odd once), odd H and W, Cm > 128,
-    nb 1-3, an f32 output on the last block, stage 2 and 5 shapes, an f32
-    block at stage 4; and the refusal of an f32 block whose tile does not
-    fit shared memory."""
+    nb 1-3, an f32 output on the last block, stage 2 and 5 shapes (stage
+    5 on three seeds), an f32 block at stage 4; and the refusal of an f32
+    block whose tile does not fit shared memory."""
     import torch
     from feathercnn_tpu_torch.kernels.fused_chain import kernel_layout
 
@@ -1268,8 +1349,17 @@ def ragged_float_chain(gen):
              (1, 7, 33, 16, 8, 1, bf, f4),
              (1, 17, 20, 136, 56, 2, bf, bf),
              (6, 56, 56, 64, 32, 1, bf, bf)]
-    for i, case in enumerate(cases):
-        a = args(*case, g=gen if i < 11 else gen_fc)
+    # and the stage-5 block at three tiles (one per thread block, H and W
+    # under the 8x8 tile), from generators seeded 5, 6 and 7: the inputs
+    # that tools/float_chain_probe.py draws for it, where the gate is
+    # tightest (K = 4608)
+    runs = [(case, gen if i < 11 else gen_fc, None)
+            for i, case in enumerate(cases)]
+    runs += [((3, 7, 7, 2048, 512, 2, bf, bf),
+              torch.Generator(device="cuda").manual_seed(seed), seed)
+             for seed in (5, 6, 7)]
+    for case, g, seed in runs:
+        a = args(*case, g=g)
         c, cm, xdt = case[3], case[4], case[6]
         want = ("fma_f32" if xdt == f4 else
                 "mma_sync" if c % 8 or cm % 8 else "wgmma")
@@ -1278,9 +1368,14 @@ def ragged_float_chain(gen):
         took = [v for v, m in kernel.variants.items() if m != before[v]]
         check(took == [want], f"fused_chain_float {case}: took {took}, "
               f"planned {want}")
-        err, ok, over, _ = per_launch(a, out)
+        err, ok, over, elements = per_launch(a, out)
         check(ok, f"fused_chain_float {case}: max err {err}, {over} "
               f"elements over 1 ulp")
+        if seed is not None:
+            say("kernels", f"fused_chain_float {case[:6]} seed {seed}: "
+                f"{over} of {elements} elements of its two launches over 1 "
+                f"ulp ({100.0 * over / elements:.4f}%; gate 0.1% per "
+                f"launch)")
         n += 1
     try:
         kernel(**args(1, 7, 7, 2048, 512, 1, f4, f4))

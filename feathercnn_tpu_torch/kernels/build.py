@@ -74,7 +74,7 @@ _SIGNATURES = {
                                _P, _P, _P, _P, _P, _P,       # w1 b1 w2 b2 w3 b3
                                _I, _I, _I, _I, _I, _I, _I,   # N H W C Cm TH TW
                                _I, _I,                       # xt ot
-                               _I, _I, _I, _I, _I, _I,       # plan (ChainPlan)
+                               _I, _I, _I, _I, _I, _I, _I,   # plan (ChainPlan)
                                _P],                          # stream
     "fcnn_ident": [_P, _P, _L, _I, _P],                      # x out chunk_bytes chunks stream
 }
@@ -99,16 +99,20 @@ def nvcc_path() -> str:
         "or put nvcc on PATH)")
 
 
-def _source_hash() -> str:
+def _flags(defines) -> tuple:
+    return _FLAGS + tuple(f"-D{d}" for d in defines)
+
+
+def _source_hash(defines=()) -> str:
     h = hashlib.sha256()
     for name in _SOURCES + _HEADERS:
         h.update(name.encode())
         h.update((_CSRC / name).read_bytes())
-    h.update(" ".join(_FLAGS).encode())
+    h.update(" ".join(_flags(defines)).encode())
     return h.hexdigest()[:16]
 
 
-def _build(out_dir: Path) -> None:
+def _build(out_dir: Path, defines=()) -> None:
     nvcc = nvcc_path()
     out_dir.parent.mkdir(parents=True, exist_ok=True)
     tmp = Path(tempfile.mkdtemp(prefix="build-", dir=out_dir.parent))
@@ -116,7 +120,8 @@ def _build(out_dir: Path) -> None:
         procs = []
         for src in _SOURCES:
             obj = tmp / (Path(src).stem + ".o")
-            cmd = [nvcc, *_FLAGS, "-c", str(_CSRC / src), "-o", str(obj)]
+            cmd = [nvcc, *_flags(defines), "-c", str(_CSRC / src), "-o",
+                   str(obj)]
             procs.append((src, obj, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                 text=True)))
@@ -149,11 +154,14 @@ def _build(out_dir: Path) -> None:
 
 
 @functools.lru_cache(maxsize=None)
-def load_library() -> ctypes.CDLL:
-    """Build (once per source hash) and load the kernels' shared library."""
-    out_dir = _BUILD_ROOT / _source_hash()
+def load_library(defines: tuple = ()) -> ctypes.CDLL:
+    """Build (once per source hash) and load the kernels' shared library.
+    ``defines`` (``"NAME"`` or ``"NAME=value"``) build a library of their
+    own beside it, as ``tools/float_chain_probe.py`` asks for one with
+    ``FCNN_FLOAT_PROBE``."""
+    out_dir = _BUILD_ROOT / _source_hash(defines)
     if not (out_dir / _LIB_NAME).exists():
-        _build(out_dir)
+        _build(out_dir, defines)
     lib = ctypes.CDLL(str(out_dir / _LIB_NAME))
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)

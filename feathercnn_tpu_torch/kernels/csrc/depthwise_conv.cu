@@ -27,36 +27,42 @@
 // once from device memory and keeping the FMA and shared-memory pipes
 // below the memory time.
 //
-// The design (the host's plan, dw_plan in kernels/depthwise.py, picks the
-// tile, the channel slice, the shared-memory row pitch and the variant;
-// the kernel refuses a plan whose numbers it does not reproduce):
+// The design (the host's plan, dw_plan in kernels/depthwise.py, gives the
+// variant and its fixed tile of at most 64 channels and 256 threads, C and
+// the output cut into even tiles; the kernel refuses a plan whose numbers
+// it does not reproduce):
 //  - A thread block takes a TH x TW tile of output pixels of one image and
 //    a slice of CS channels.  It first copies the input window the tile
 //    needs, (TH-1)*s+KH rows by (TW-1)*s+KW columns of CS channels, into
 //    shared memory, once: 16-byte cp.async for a bf16 or f32 x (zero fill
 //    outside the image and past C), or, for an int8 x, 16-byte loads
-//    dequantized once per element as they are stored (the same
-//    __fmul_rn and __float2bfloat16_rn as the reference's dequantize).  The
+//    dequantized once per element as they are stored (the same __fmul_rn
+//    and round to bf16 as the reference's dequantize; float(q) comes from
+//    a byte permute and an exact subtraction, not from the conversion
+//    unit, which would take an eighth of the FMA pipe's rate).  The
 //    padding is stored as +0: a padded tap then adds +0*w to a sum that is
 //    never -0, which changes no bit, so the taps need no bounds checks.
-//  - The int8 variant stages its int8 x as bf16 (exact: |q| <= 127) and
-//    sums float(q) * float(w) with FMAs: every product and partial sum is
-//    an integer below 2^24 (KH*KW <= 1040 taps of at most 127^2), so each
-//    step is exact and the f32 sum equals the int32 one.  One loop body
-//    thus serves both variants, on the full-rate FMA pipe.
+//  - The int8 variant stages its int8 x as it is, by cp.async like a bf16
+//    x (half the bytes of a bf16 window, so more blocks fit an SM), reads
+//    each 4 channels as float(q) (a byte permute and an exact subtraction
+//    each) and sums float(q) * float(w) with FMAs: every product and
+//    partial sum is an integer below 2^24 (KH*KW <= 1040 taps of at most
+//    127^2), so each step is exact and the f32 sum equals the int32 one.
+//    One loop body thus serves both variants, on the full-rate FMA pipe.
 //  - Each thread owns 4 channels and RW neighbouring output pixels of one
 //    row (variant "k3s1": 3x3, stride 1, RW = 8; "k3s2": 3x3, stride 2,
 //    RW = 4).  It slides along the window row: each value it reads from
 //    shared memory serves up to KW outputs, and its 4 channels' weights of
-//    the row (KW taps) and epilogue constants stay in registers.  Each output still
-//    sums its taps kh outer, kw inner, from 0, one FMA each, so the plain
+//    the row (KW taps) and epilogue constants stay in registers.  Each
+//    output still sums its taps kh outer, kw inner, from 0, one FMA each, so the plain
 //    versions remain bit-equal targets.  Variant "tiled" (any other kernel
 //    size or stride) keeps one output per thread and reads its weights
 //    from shared memory, with the same staging.
 //  - Neighbouring threads take neighbouring channel quads, then
 //    neighbouring output rows: each store is a run of whole channel
-//    vectors of one pixel.  The window's pixel pitch carries a pad the plan
-//    picks so that a warp's shared-memory reads fall in distinct banks.
+//    vectors of one pixel.  The window's pixel pitch carries a 16-byte pad
+//    so that a warp's shared-memory reads of neighbouring rows spread over
+//    the banks.
 // The TPU kernel's row slabs and its padding of W and OW to multiples of 8
 // exist for VMEM and the (8, 128) tiling, and are not carried over.
 #include <type_traits>
@@ -99,19 +105,29 @@ __device__ __forceinline__ void load4(const unsigned char* p, float (&v)[4],
   v[3] = __uint_as_float(u.y & 0xFFFF0000u);
 }
 
-// One int8 element as the staged type: the dequantize, rounded once to S.
-__device__ __forceinline__ float dequant(int8_t q, float xs, float) {
-  return __fmul_rn(static_cast<float>(q), xs);
+// float(q) of byte b of four int8 values, without the conversion unit (16
+// results a clock per SM on an H100, against 128 for an add): the byte
+// with its sign bit flipped, q + 128, under the exponent of 2^23 is the
+// float 2^23 + 128 + q, exactly, and one exact subtraction leaves q.
+__device__ __forceinline__ float int8_as_float(uint32_t four, int b) {
+  const uint32_t u = __byte_perm(four ^ 0x80808080u, 0x4B000000u, 0x7440u + b);
+  return __fsub_rn(__uint_as_float(u), 8388736.0f);
 }
-__device__ __forceinline__ __nv_bfloat16 dequant(int8_t q, float xs,
-                                                 __nv_bfloat16) {
-  return __float2bfloat16_rn(__fmul_rn(static_cast<float>(q), xs));
+
+// 4 staged int8 values as floats (the int8 variant).
+__device__ __forceinline__ void load4(const unsigned char* p, float (&v)[4],
+                                      int8_t) {
+  const uint32_t u = *reinterpret_cast<const uint32_t*>(p);
+#pragma unroll
+  for (int b = 0; b < 4; ++b) v[b] = int8_as_float(u, b);
 }
 
 template <typename S>
 __device__ __forceinline__ S zero_of() {
-  if constexpr (std::is_same<S, float>::value) return 0.0f;
-  else return __float2bfloat16_rn(0.0f);
+  if constexpr (std::is_same<S, __nv_bfloat16>::value)
+    return __float2bfloat16_rn(0.0f);
+  else
+    return S(0);
 }
 
 // The window of input pixels the block's tile needs, and its channels'
@@ -165,7 +181,7 @@ __device__ __forceinline__ void stage(const TX* __restrict__ x,
     // int8 x, dequantized once, here: four chunks' loads in flight at once
     constexpr int U = 4;
     for (int i0 = threadIdx.x; i0 < total; i0 += U * nthr) {
-      union { uint4 u; int8_t q[16]; } v[U];
+      union { uint4 u; uint32_t w[4]; int8_t q[16]; } v[U];
       S* dst[U];
       int c[U];
       bool ok[U];
@@ -189,11 +205,29 @@ __device__ __forceinline__ void stage(const TX* __restrict__ x,
 #pragma unroll
       for (int u = 0; u < U; ++u) {
         if (!dst[u]) continue;
-        union { uint4 u[16 * sizeof(S) / 16]; S e[16]; } o;
+        float f[16];
 #pragma unroll
-        for (int j = 0; j < 16; ++j)
-          o.e[j] = (ok[u] && c[u] + j < s.C) ? dequant(v[u].q[j], x_scale, S())
-                                             : zero_of<S>();
+        for (int j = 0; j < 16; ++j) {
+          const float q = int8_as_float(v[u].w[j / 4], j % 4);
+          f[j] = (ok[u] && c[u] + j < s.C)
+              ? (INT_W ? q : __fmul_rn(q, x_scale)) : 0.0f;
+        }
+        union { uint4 u[16 * sizeof(S) / 16]; uint32_t p[16 * sizeof(S) / 4];
+                float e[16]; } o;
+#pragma unroll
+        for (int j = 0; j < 16; j += 2) {
+          if constexpr (std::is_same<S, float>::value) {
+            o.e[j] = f[j];
+            o.e[j + 1] = f[j + 1];
+          } else if constexpr (INT_W) {
+            // an integer of at most 8 bits: its bf16 is its top half
+            o.p[j / 2] = __byte_perm(__float_as_uint(f[j]),
+                                     __float_as_uint(f[j + 1]), 0x7632);
+          } else {
+            const __nv_bfloat162 b = __floats2bfloat162_rn(f[j], f[j + 1]);
+            o.p[j / 2] = *reinterpret_cast<const uint32_t*>(&b);
+          }
+        }
 #pragma unroll
         for (int k = 0; k < static_cast<int>(16 * sizeof(S) / 16); ++k)
           reinterpret_cast<uint4*>(dst[u])[k] = o.u[k];
@@ -266,8 +300,11 @@ __device__ __forceinline__ void finish(const float (&acc)[4],
 // KH_ == 0: variant "tiled" (runtime KH, KW and stride, one output per
 // thread); else the 3x3 variants with compile-time stride SS and RW outputs
 // per thread.  INT_W: the int8 variant (int8 weights).
+// At most 256 threads, and 64 registers a thread, so that four blocks fit
+// an SM (PERF.md: faster on the counted routes than 80-odd registers and
+// three blocks, the few spilled bytes included).
 template <typename TX, typename S, bool INT_W, int KH_, int KW_, int SS, int RW>
-__global__ void __launch_bounds__(512)
+__global__ void __launch_bounds__(256, 4)
 dw_kernel(const TX* __restrict__ x, const void* __restrict__ w_any,
           DwShape s, float x_scale, Epilogue e) {
   extern __shared__ __align__(16) unsigned char dw_smem[];
@@ -445,7 +482,7 @@ int launch_dw(const void* x, const void* w, int N, int H, int W, int C,
   const int osize = out_size(e.out_type);
   s.vec_out = C % DW_V == 0 &&
               reinterpret_cast<uintptr_t>(e.out) % (DW_V * osize) == 0;
-  if ((CS / DW_V) * TH * (TW / RW) != threads || threads > 512 ||
+  if ((CS / DW_V) * TH * (TW / RW) != threads || threads > 256 ||
       dw_smem_bytes(s) != smem || smem > 227 * 1024)
     return bad;
   const long long gx = static_cast<long long>(N) * s.tiles;
@@ -497,7 +534,7 @@ extern "C" int fcnn_depthwise_conv2d(
 
 // The int8 variant: int8 x and w, w_scale the folded per-channel scale;
 // out_type DT_I8 (q = rint(y * out_scale)), DT_BF16 or DT_F32.  x is staged
-// as bf16 (float(q), exact) and summed exactly in f32.
+// as it is, int8, read as float(q) and summed exactly in f32.
 extern "C" int fcnn_depthwise_conv2d_int8(
     const void* x, const void* w, void* out, const float* bias,
     const float* w_scale, int N, int H, int W, int C, int KH, int KW, int sh,
@@ -510,7 +547,7 @@ extern "C" int fcnn_depthwise_conv2d_int8(
   const Epilogue e = make_epilogue(out, bias, w_scale, nullptr, nullptr, act,
                                    1.0f, out_scale, out_type);
   const int plan[7] = {variant, TH, TW, CS, pitch, threads, smem};
-  return launch_dw<int8_t, __nv_bfloat16, true>(
+  return launch_dw<int8_t, int8_t, true>(
       x, w, N, H, W, C, KH, KW, sh, sw, ph, pw, 1.0f, plan, e,
       static_cast<cudaStream_t>(stream));
 }

@@ -57,19 +57,26 @@
 //    ldmatrix rows fall in distinct banks.  conv3's epilogue adds b3 and
 //    the shortcut read from x (an L2 hit after the halo's) and stores two
 //    channels per access.
-//  - Numerics: each slice of FLOAT_ADD_STEP products goes into a fresh
-//    tensor-core sum, which one rounded f32 add takes into the running
-//    sum; accumulating all of K in the tensor cores, whose internal adds
-//    do not round to nearest, puts more bf16 outputs a step off the plain
-//    version (tools/float_chain_probe.py prints the shares per step, and
-//    PERF.md the ones that chose it).  Every stage ends with its products
-//    done, so the slot is freed at once and the block's other consumer
-//    keeps the tensor cores busy meanwhile.
+//  - The grid is persistent: one thread block per SM walks over pairs of
+//    tiles, so the producer runs on into the next pair's operands while
+//    the consumers finish the last pair's epilogue.
+//  - Numerics: each slice of 128 products goes into a tensor-core sum of
+//    its own, which one rounded f32 add takes into the running sum.  The
+//    tensor cores' internal adds truncate; summing all of K in them puts
+//    several times more bf16 outputs a step off the plain version.  Where
+//    conv2's K is 9 * 512 (ResNet-50's stage 5) even 128-product slices
+//    leave some launches over the float gate, so there the slices are 32
+//    products and each add's rounding error is where the next slice's
+//    tensor-core sum starts (a carried Fast2Sum): the running sum keeps
+//    what its rounding drops (tools/float_chain_probe.py prints the
+//    shares of each step, carried or not; PERF.md the ones that chose
+//    these two).  Every stage ends
+//    with its products done, so the slot is freed at once and the block's
+//    other consumer keeps the tensor cores busy meanwhile.
 // The structure carries over to the int8 mode (fused_chain.cu) as it is:
 // its GEMMs take the s8 wgmma form with A in shared memory or registers.
-// Not yet done: a persistent grid, a cluster sharing the weight tiles by
-// TMA multicast, staged 16-byte output stores, overlap of a consumer's
-// consecutive K steps.
+// Not yet done: a cluster sharing the weight tiles by TMA multicast, staged
+// 16-byte output stores, overlap of a consumer's consecutive K steps.
 //
 // Variants "mma_sync" (bf16 x with C or Cm not a multiple of 8, or a
 // pointer that is not 16-byte aligned: no TMA) and "fma_f32" (f32 x, on no
@@ -638,6 +645,12 @@ constexpr int FW_BN1 = 64;               // conv1's columns per pass
 constexpr int FW_BN2 = 128;              // conv2's and conv3's
 constexpr int FW_B_BYTES = 128 * 128;    // a stage's weight tile, <= 128 rows
 constexpr int FW_THREADS = 384;          // producer + up to 2 consumers
+// The rounded-add steps the library builds (gemm_rs): 128 products a
+// slice, uncarried, and 32, carried.  chain_plan in kernels/fused_chain.py
+// gives each launch one of them by Cm (FLOAT_ADD_STEPS there, which a CPU
+// test holds equal to the instantiations below).  A build with
+// FCNN_FLOAT_PROBE defined (tools/float_chain_probe.py) takes 32, 64 and
+// 128, carried or not, and 0 (all of K in the tensor cores).
 
 struct FloatWgArgs {
   const __nv_bfloat16* x;
@@ -695,11 +708,15 @@ struct FwRing {
 // row tiles, BN columns, A from registers (ldmatrix.x4 at the smem address
 // a_addr(stage, ks, jj, mt) gives for this lane's row and k half), B the
 // stage's swizzled weight tile.  KADD: products per rounded f32 add (each
-// KADD-deep slice of K goes into a fresh tensor-core sum that one
-// __fadd_rn takes into acc); 0 sums all of K in the tensor cores.  Every
-// stage ends with its products done (wait 0), so its slot is freed at once;
-// the block's other consumer keeps the tensor cores busy meanwhile.
-template <int MT, int BN, int KADD, class AddrFn>
+// KADD-deep slice of K goes into a tensor-core sum of its own that one
+// __fadd_rn takes into acc); 0 sums all of K in the tensor cores.  CARRY:
+// each add's rounding error (Fast2Sum: exact where |acc| >= |part|, which
+// holds but for the first slices) is where the next slice's tensor-core
+// sum starts, and the last one is added at the end, so the running sum
+// loses almost nothing to its KADD-wise rounding.  Every stage ends with
+// its products done (wait 0), so its slot is freed at once; the block's
+// other consumer keeps the tensor cores busy meanwhile.
+template <int MT, int BN, int KADD, bool CARRY, class AddrFn>
 __device__ __forceinline__ void gemm_rs(float (&acc)[MT][BN / 2], int k_steps,
                                         const FwRing& rg, int& s,
                                         uint32_t& ph, AddrFn&& a_addr) {
@@ -710,18 +727,27 @@ __device__ __forceinline__ void gemm_rs(float (&acc)[MT][BN / 2], int k_steps,
 #pragma unroll
   for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-    for (int i = 0; i < BN / 2; ++i) acc[mt][i] = 0.0f;
+    for (int i = 0; i < BN / 2; ++i) {
+      acc[mt][i] = 0.0f;
+      if constexpr (SPLIT) part[mt][i] = 0.0f;
+    }
   auto add = [&]() {
 #pragma unroll
     for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-      for (int i = 0; i < BN / 2; ++i)
-        acc[mt][i] = __fadd_rn(acc[mt][i], part[mt][SPLIT ? i : 0]);
+      for (int i = 0; i < BN / 2; ++i) {
+        const float p = part[mt][SPLIT ? i : 0];
+        const float sum = __fadd_rn(acc[mt][i], p);
+        if constexpr (CARRY)
+          part[mt][SPLIT ? i : 0] = __fsub_rn(p, __fsub_rn(sum, acc[mt][i]));
+        acc[mt][i] = sum;
+      }
   };
   // one ring stage: its A fragments, its 4 x MT products into acc or, with
   // SPLIT, into part (``fresh``: the stage opens a rounded add's slice; at
-  // 32 products a slice the stage's first half is added in the middle),
-  // then the stage's slot is freed
+  // 32 products a slice the stage's first half is added in the middle;
+  // with CARRY no slice starts from zero: part holds the last add's
+  // error), then the stage's slot is freed
   auto stage = [&](int ks, bool fresh) {
     mbar_wait(&rg.full[s], ph);
     uint8_t* st = rg.ring + s * rg.stage_bytes;
@@ -738,7 +764,8 @@ __device__ __forceinline__ void gemm_rs(float (&acc)[MT][BN / 2], int k_steps,
 #pragma unroll
       for (int mt = 0; mt < MT; ++mt) {
         if constexpr (SPLIT) {
-          const bool open = GROUP == 2 ? (jj & 1) == 0 : (fresh && jj == 0);
+          const bool open = !CARRY && (GROUP == 2 ? (jj & 1) == 0
+                                                  : (fresh && jj == 0));
           wgmma_bf16_rs<BN>(part[mt], af[jj][mt], db + 2 * jj, open ? 0 : 1);
         } else {
           wgmma_bf16_rs<BN>(acc[mt], af[jj][mt], db + 2 * jj,
@@ -779,9 +806,16 @@ __device__ __forceinline__ void gemm_rs(float (&acc)[MT][BN / 2], int k_steps,
       if constexpr (SPLIT) add();
     }
   }
+  if constexpr (SPLIT && CARRY) {
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i)
+        acc[mt][i] = __fadd_rn(acc[mt][i], part[mt][i]);
+  }
 }
 
-template <int KADD>
+template <int KADD, bool CARRY>
 __global__ void __launch_bounds__(FW_THREADS, 1)
 fused_float_block_kernel_wg(const __grid_constant__ CUtensorMap map_x,
                             const __grid_constant__ CUtensorMap map_w1,
@@ -918,7 +952,7 @@ fused_float_block_kernel_wg(const __grid_constant__ CUtensorMap map_x,
     }
     for (int np = 0; np < n1; ++np) {
       float acc[2][FW_BN1 / 2];
-      gemm_rs<2, FW_BN1, KADD>(acc, k1, rg, s, ph,
+      gemm_rs<2, FW_BN1, KADD, CARRY>(acc, k1, rg, s, ph,
           [&](uint32_t st, int, int jj, int mt) {
             return st + a_off + rowoff[mt] +
                    (((2 * jj + half) ^ rx[mt]) << 4);
@@ -962,7 +996,7 @@ fused_float_block_kernel_wg(const __grid_constant__ CUtensorMap map_x,
       int c = half * 8, kh = 0, kw = 0;
       while (c >= p.Cm) { c -= p.Cm; if (++kw == 3) { kw = 0; ++kh; } }
       float acc[1][FW_BN2 / 2];
-      gemm_rs<1, FW_BN2, KADD>(acc, k2, rg, s, ph,
+      gemm_rs<1, FW_BN2, KADD, CARRY>(acc, k2, rg, s, ph,
           [&](uint32_t, int, int, int) {
             const uint32_t a = (ar_ok && kh < 3)
                 ? y1u + (hp + kh * pitch + kw) * p.ld + c * 2 : zu;
@@ -1008,7 +1042,7 @@ fused_float_block_kernel_wg(const __grid_constant__ CUtensorMap map_x,
   }
   for (int np = 0; np < n3; ++np) {
     float acc[1][FW_BN2 / 2];
-    gemm_rs<1, FW_BN2, KADD>(acc, k3, rg, s, ph,
+    gemm_rs<1, FW_BN2, KADD, CARRY>(acc, k3, rg, s, ph,
         [&](uint32_t, int ks, int jj, int) {
           const int c = ks * FW_BK + jj * 16 + half * 8;
           return (ar_ok && c < p.Cm) ? y2u + ar * p.ld + c * 2 : zu;
@@ -1079,10 +1113,10 @@ inline bool make_map_bf16(CUtensorMap* map, const void* base, int rank,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int KADD>
+template <int KADD, bool CARRY>
 int launch_wg(const FloatWgArgs& p, const CUtensorMap* maps, int grid,
               int smem, cudaStream_t s) {
-  auto kern = fused_float_block_kernel_wg<KADD>;
+  auto kern = fused_float_block_kernel_wg<KADD, CARRY>;
   const cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -1092,13 +1126,14 @@ int launch_wg(const FloatWgArgs& p, const CUtensorMap* maps, int grid,
 }
 
 // The "wgmma" launch of one block: the plan (tile, tiles per block,
-// stages, rounded-add step, shared memory, grid) checked against the
-// operands and refused (cudaErrorInvalidValue) where it does not fit.
+// stages, rounded-add step and its carry, shared memory, grid) checked
+// against the operands and refused (cudaErrorInvalidValue) where it does
+// not fit or names a step the library does not build.
 int run_block_wg(const void* x, void* out, const void* w1, const float* b1,
                  const void* w2, const float* b2, const void* w3,
                  const float* b3, int N, int H, int W, int C, int Cm, int TH,
-                 int TW, int out_type, int T, int stages, int kadd, int smem,
-                 int grid, cudaStream_t s) {
+                 int TW, int out_type, int T, int stages, int kadd, int carry,
+                 int smem, int grid, cudaStream_t s) {
   const int bad = static_cast<int>(cudaErrorInvalidValue);
   if (C % 8 || Cm % 8 || T < 1 || T > 2 || stages < 2 || TW + 2 > 256 ||
       TH + 2 > 256 || !aligned(x, 16) || !aligned(out, 16) ||
@@ -1153,13 +1188,23 @@ int run_block_wg(const void* x, void* out, const void* w1, const float* b1,
       !make_map_bf16(&maps[2], w2, 2, d2, b23) ||
       !make_map_bf16(&maps[3], w3, 2, d3, b23))
     return bad;
-  switch (kadd) {
-    case 32: return launch_wg<32>(p, maps, grid, smem, s);
-    case 64: return launch_wg<64>(p, maps, grid, smem, s);
-    case 128: return launch_wg<128>(p, maps, grid, smem, s);
-    case 0: return launch_wg<0>(p, maps, grid, smem, s);
-    default: return bad;
+#ifdef FCNN_FLOAT_PROBE
+  if (kadd == 0) return launch_wg<0, false>(p, maps, grid, smem, s);
+  if (carry) {
+    if (kadd == 32) return launch_wg<32, true>(p, maps, grid, smem, s);
+    if (kadd == 64) return launch_wg<64, true>(p, maps, grid, smem, s);
+    if (kadd == 128) return launch_wg<128, true>(p, maps, grid, smem, s);
+  } else {
+    if (kadd == 32) return launch_wg<32, false>(p, maps, grid, smem, s);
+    if (kadd == 64) return launch_wg<64, false>(p, maps, grid, smem, s);
+    if (kadd == 128) return launch_wg<128, false>(p, maps, grid, smem, s);
   }
+#else
+  if (kadd == 128 && !carry)
+    return launch_wg<128, false>(p, maps, grid, smem, s);
+  if (kadd == 32 && carry) return launch_wg<32, true>(p, maps, grid, smem, s);
+#endif
+  return bad;
 }
 
 }  // namespace
@@ -1171,13 +1216,13 @@ int run_block_wg(const void* x, void* out, const void* w1, const float* b1,
 // b3 f32.  out is (N, H, W, C) of out_type (DT_BF16 or DT_F32).  The plan
 // (chain_plan in kernels/fused_chain.py): variant (0 "wgmma", 1
 // "mma_sync", 2 "fma_f32"), tiles per block, stages, products per rounded
-// add, shared memory and grid.  Returns the launch's cudaError_t (0 on
+// add and whether its error is carried, shared memory and grid.  Returns the launch's cudaError_t (0 on
 // success).
 extern "C" int fcnn_fused_block_float(
     const void* x, void* out, const void* w1, const float* b1,
     const void* w2, const float* b2, const void* w3, const float* b3, int N,
     int H, int W, int C, int Cm, int TH, int TW, int x_type, int out_type,
-    int variant, int T, int stages, int kadd, int smem, int grid,
+    int variant, int T, int stages, int kadd, int carry, int smem, int grid,
     void* stream) {
   using namespace fcnn;
   const int bad = static_cast<int>(cudaErrorInvalidValue);
@@ -1187,7 +1232,8 @@ extern "C" int fcnn_fused_block_float(
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (variant == 0 && x_type == DT_BF16)
     return run_block_wg(x, out, w1, b1, w2, b2, w3, b3, N, H, W, C, Cm, TH,
-                        TW, out_type, T, stages, kadd, smem, grid, s);
+                        TW, out_type, T, stages, kadd, carry, smem, grid,
+                        s);
   if ((TH + 2) * (TW + 2) > FF_MAX_HALO || TH * TW > FF_MAX_PIX) return bad;
   if (variant == 1 && x_type == DT_BF16)
     return run_block<__nv_bfloat16>(x, out, w1, b1, w2, b2, w3, b3, N, H, W,

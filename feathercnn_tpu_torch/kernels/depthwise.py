@@ -20,13 +20,12 @@ with its plain version.
 from __future__ import annotations
 
 import functools
-import math
 from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
 
-from .matmul import (_ACT_CODES, _DTYPE_CODES, H100_SMS, SMEM_LIMIT,
+from .matmul import (_ACT_CODES, _DTYPE_CODES, SMEM_LIMIT,
                      check_contiguous, check_epilogue, epilogue_plain,
                      fma_f32)
 
@@ -42,15 +41,18 @@ _FLOAT = (torch.float32, torch.bfloat16)
 DW_VARIANTS = ("tiled", "k3s1", "k3s2")
 _RW = {"tiled": 1, "k3s1": 8, "k3s2": 4}
 DW_V = 4                  # channels per thread
-DW_MAX_THREADS = 512
+DW_MAX_THREADS = 256       # the kernel's launch bound (64 registers)
 # The int8 variant sums in f32, exactly while KH*KW*127^2 < 2^24.
 DW_INT_MAX_TAPS = 1040
-# Per-SM rates on an H100 SXM, per clock (1.755 GHz): device-memory bytes
-# (3.35 TB/s over 132 SMs), FMA-pipe instructions issued for the loop
-# (half the 128 lanes: loads and address math share the issue slots) and
-# shared-memory wavefronts.
-_MEM_BYTES_PER_CLK = 14.5
-_FMA_PER_CLK = 64.0
+# Per variant, the tiles of a thread block: at most CS channels, LANES
+# threads along an output row (CS / 4 channel quads, then groups of RW
+# outputs) and TH output rows.  Of two, the plan takes the one whose tiles
+# cover the output with fewer outputs past its edge, the first on a tie.
+_TILE = {"k3s1": ((64, 16, 16),), "k3s2": ((64, 32, 8), (64, 16, 16)),
+         "tiled": ((64, 16, 16),)}
+# The pad after a staged pixel's channels: a warp's 8-byte reads of
+# neighbouring rows then start 16 bytes apart in the banks.
+_PAD = 16
 
 
 class DwPlan(NamedTuple):
@@ -74,20 +76,38 @@ class DwPlan(NamedTuple):
                 self.pitch, self.threads, self.smem)
 
 
-def _wavefronts(addrs, width: int) -> int:
-    """Shared-memory wavefronts of one warp's load of ``width`` bytes per
-    lane at byte addresses ``addrs`` (lane order): the warp is served in
-    phases of 128 bytes' worth of lanes; a phase takes as many wavefronts
-    as the most distinct 4-byte words it needs from one bank."""
-    per = 128 // width
-    total = 0
-    for p in range(0, len(addrs), per):
-        banks = {}
-        for a in addrs[p:p + per]:
-            for wd in range(a // 4, (a + width) // 4):
-                banks.setdefault(wd % 32, set()).add(wd)
-        total += max(len(v) for v in banks.values())
-    return total
+def _tile_plan(variant, cs_max, lanes, th_max, n, oh, ow, c, kh, kw, stride,
+               x_itemsize, staged_itemsize) -> DwPlan:
+    """The plan of a tile of at most ``cs_max`` channels, ``lanes``
+    threads along a row and ``th_max`` rows, cut to the output and to
+    shared memory.  C, the output's rows and its columns are each cut into
+    even parts (channels rounded up to whole 16-byte chunks), so that no
+    tile is mostly past the edge."""
+    rw = _RW[variant]
+    ch = 16 // x_itemsize                     # channels per staged chunk
+    per = -(-c // -(-c // cs_max))            # C in even slices
+    cs = -(-per // ch) * ch
+    cv = cs // DW_V
+    groups = -(-ow // rw)                     # RW-wide output groups a row
+    px = max(1, min(lanes // cv, groups))
+    px = -(-groups // -(-groups // px))       # the row in even tiles
+    tw = rw * px
+    pitch = cs * staged_itemsize + _PAD
+    rows = min(th_max, DW_MAX_THREADS // (cv * px))
+    for top in range(rows, 0, -1):
+        th = -(-oh // -(-oh // top))          # the column in even tiles
+        smem = (((th - 1) * stride + kh) * ((tw - 1) * stride + kw) * pitch
+                + 4 * kh * kw * cs)
+        if smem <= SMEM_LIMIT:
+            break
+    else:
+        raise ValueError(f"depthwise: no tile of {kh}x{kw} stride {stride} "
+                         f"with C={c} fits {SMEM_LIMIT} bytes of shared "
+                         f"memory")
+    grid = (n * -(-oh // th) * -(-ow // tw), -(-c // cs))
+    if grid[0] > 0x7fffffff or grid[1] > 65535:
+        raise ValueError(f"depthwise: grid {grid} exceeds the limits")
+    return DwPlan(variant, th, tw, cs, pitch, cv * px * th, smem, grid)
 
 
 @functools.lru_cache(maxsize=None)
@@ -95,18 +115,17 @@ def dw_plan(n: int, h: int, w: int, c: int, kh: int, kw: int, stride: int,
             pad_h: int, pad_w: int, x_itemsize: int, staged_itemsize: int,
             int_variant: bool = False) -> DwPlan:
     """The plan of one depthwise launch, made on the host from the shapes
-    and the item sizes of x and of the staged type (bf16 for the int8
-    variant and for int8 x dequantized to bf16; else x's or the output's
+    and the item sizes of x and of the staged type (int8 for the int8
+    variant, the output's type for the float variant's int8 x, else x's
     type).  Raises ``ValueError`` for a shape no plan fits.
 
-    The variant follows from the kernel size and stride.  The tile, the
-    channel slice and the pitch pad are those with the least estimated
-    time: the waves of blocks over the SMs times a block's cost, the
-    largest of its window's bytes over the device-memory rate, its FMAs
-    over the FMA pipe and its shared-memory wavefronts (each warp's reads
-    simulated over the 32 banks).  A block has 64-512 threads (fewer only
-    where the whole launch is smaller) and fits shared memory; ties go to
-    the larger block."""
+    The variant follows from the kernel size and stride, the tile from the
+    variant (``_TILE``): up to 64 channels and 256 threads, as 16 threads
+    along an output row by 16 rows ("k3s1", "tiled"); for "k3s2" 32 by 8,
+    or 16 by 16 where that leaves fewer outputs past the edge (a 28-wide
+    output); fewer where the output has fewer or the window would not fit
+    shared memory.  ``chip_smoke.py`` times these tiles against others on
+    the card."""
     oh = (h + 2 * pad_h - kh) // stride + 1
     ow = (w + 2 * pad_w - kw) // stride + 1
     if oh < 1 or ow < 1:
@@ -116,70 +135,10 @@ def dw_plan(n: int, h: int, w: int, c: int, kh: int, kw: int, stride: int,
                          f"{DW_INT_MAX_TAPS} whose f32 sum stays exact")
     variant = ("k3s1" if (kh, kw, stride) == (3, 3, 1) else
                "k3s2" if (kh, kw, stride) == (3, 3, 2) else "tiled")
-    rw = _RW[variant]
-    ch = 16 // x_itemsize                     # channels per staged chunk
-    cmax = -(-c // ch) * ch
-    cs_list = sorted({min(ch << k, cmax) for k in range(8)
-                      if (ch << k) <= max(256, ch)})
-    tw_all = [rw * m for m in ((1, 2, 4) if rw > 1 else (4, 8, 16))]
-    tw_list = tw_all[:1] + [t for t in tw_all[1:] if t - rw < ow]
-    # a block reads at least 64 contiguous bytes of a pixel (two 32-byte
-    # sectors), where C allows
-    cs_list = [cs for cs in cs_list
-               if cs * x_itemsize >= min(64, cmax * x_itemsize)]
-    width = DW_V * staged_itemsize            # bytes of one compute read
-    best = None
-    for relaxed in (False, True):
-        for cs in cs_list:
-            cv = cs // DW_V
-            for tw in tw_list:
-                px_n = tw // rw
-                for th in range(1, min(16, oh) + 1):
-                    threads = cv * th * px_n
-                    if threads > DW_MAX_THREADS or (
-                            threads < 64 and not relaxed):
-                        continue
-                    wh = (th - 1) * stride + kh
-                    ww = (tw - 1) * stride + kw
-                    blocks = (n * -(-oh // th) * -(-ow // tw) * -(-c // cs))
-                    for pad in (16, 32, 48, 64):
-                        pitch = cs * staged_itemsize + pad
-                        smem = wh * ww * pitch + 4 * kh * kw * cs
-                        if smem > SMEM_LIMIT:
-                            continue
-                        lanes = range(min(32, threads))
-                        addrs = [((l // cv) % th * stride * ww
-                                  + (l // cv) // th * rw * stride) * pitch
-                                 + (l % cv) * width for l in lanes]
-                        waves_per_load = _wavefronts(addrs, width)
-                        loads = kh * (((rw - 1) * stride + kw) if rw > 1
-                                      else kw)
-                        warps = -(-threads // 32)
-                        cost = max(wh * ww * cs * x_itemsize
-                                   / _MEM_BYTES_PER_CLK,
-                                   th * tw * cs * kh * kw / _FMA_PER_CLK,
-                                   warps * loads * waves_per_load)
-                        regs = 96 if rw > 1 else 48
-                        per_sm = min(2048 // threads, 32,
-                                     SMEM_LIMIT // max(smem, 1),
-                                     65536 // (threads * regs))
-                        time = (math.ceil(blocks / (H100_SMS * per_sm))
-                                * per_sm * cost)
-                        key = (time, -threads, pad)
-                        if best is None or key < best[0]:
-                            best = (key, DwPlan(
-                                variant, th, tw, cs, pitch, threads, smem,
-                                (blocks // -(-c // cs), -(-c // cs))))
-        if best is not None:
-            break
-    if best is None:
-        raise ValueError(f"depthwise: no tile of {kh}x{kw} stride {stride} "
-                         f"with C={c} fits {SMEM_LIMIT} bytes of shared "
-                         f"memory")
-    plan = best[1]
-    if plan.grid[0] > 0x7fffffff or plan.grid[1] > 65535:
-        raise ValueError(f"depthwise: grid {plan.grid} exceeds the limits")
-    return plan
+    plans = [_tile_plan(variant, *t, n, oh, ow, c, kh, kw, stride,
+                        x_itemsize, staged_itemsize) for t in _TILE[variant]]
+    return min(plans, key=lambda p: -(-oh // p.th) * p.th
+               * -(-ow // p.tw) * p.tw)
 
 
 def _plan_for(x, kh, kw, stride, pad_h, pad_w, staged, int_variant):
@@ -380,7 +339,7 @@ def depthwise_conv2d_int8(xq: torch.Tensor, wq: torch.Tensor,
     if out.numel() == 0:
         return out
     plan = _plan_for(xq, wq.shape[0], wq.shape[1], stride, pad_h, pad_w,
-                     torch.bfloat16, True)
+                     torch.int8, True)
     from .build import load_library
     rc = load_library().fcnn_depthwise_conv2d_int8(
         _ptr(xq), _ptr(wq), _ptr(out), _ptr(bias), _ptr(w_scale), n, h, wd,

@@ -205,11 +205,14 @@ def tile_plan(h: int, w: int, cm: int, itemsize: int):
 # or a pointer not 16-byte aligned: the mma.sync body) and "fma_f32" (f32
 # x: the same body on FMAs).
 FLOAT_VARIANTS = ("wgmma", "mma_sync", "fma_f32")
-# Products of bf16 x bf16 per rounded f32 add in the "wgmma" variant: each
-# such slice of K is summed in a fresh tensor-core sum, then added into the
-# f32 running sum with one __fadd_rn (0: all of K in the tensor cores).
-# tools/float_chain_probe.py measures the choices against the float gate.
-FLOAT_ADD_STEP = 128
+# (products of bf16 x bf16 per rounded f32 add, the add's rounding error
+# carried into the next slice) of the "wgmma" variant: 128 uncarried where
+# conv2's K = 9 * Cm is at most 2304 (Cm <= 256), else 32 carried
+# (ResNet-50's stage 5, where 128-product slices leave launches over the
+# float gate).  The library builds these two (csrc/fused_chain_float.cu);
+# tools/float_chain_probe.py builds the others and measures them against
+# the float gate.
+FLOAT_ADD_STEPS = ((128, False), (32, True))
 _FW_B_BYTES = 128 * 128          # a ring stage's weight tile
 _FW_MAX_STAGES = 4
 
@@ -218,7 +221,7 @@ class ChainPlan(NamedTuple):
     """One float-chain launch's plan: the variant; the TH x TW output tile;
     the tiles a thread block takes at a time (one consumer warpgroup
     each, "wgmma"; else 1); the ring's stages; the products per rounded
-    add; the dynamic shared memory; the grid; and why a bf16 launch does
+    add and whether its error is carried; the dynamic shared memory; the grid; and why a bf16 launch does
     not take "wgmma" ("" where it does)."""
     variant: str
     th: int
@@ -226,6 +229,7 @@ class ChainPlan(NamedTuple):
     tiles_per_cta: int
     stages: int
     kadd: int
+    carry: bool
     smem: int
     grid: int
     reason: str = ""
@@ -233,7 +237,7 @@ class ChainPlan(NamedTuple):
     def args(self):
         """The plan's integers as the C entry point takes them."""
         return (FLOAT_VARIANTS.index(self.variant), self.tiles_per_cta,
-                self.stages, self.kadd, self.smem, self.grid)
+                self.stages, self.kadd, int(self.carry), self.smem, self.grid)
 
 
 def wgmma_chain_smem(tiles: int, stages: int, th: int, tw: int,
@@ -253,8 +257,7 @@ def wgmma_chain_smem(tiles: int, stages: int, th: int, tw: int,
 
 @functools.lru_cache(maxsize=None)
 def chain_plan(n: int, h: int, w: int, c: int, cm: int, itemsize: int,
-               aligned: bool = True, add_step: Optional[int] = None
-               ) -> ChainPlan:
+               aligned: bool = True) -> ChainPlan:
     """The plan of one float-chain launch (one block), made on the host.
 
     f32 x (``itemsize`` 4) takes "fma_f32" at :func:`tile_plan`'s tile
@@ -266,19 +269,19 @@ def chain_plan(n: int, h: int, w: int, c: int, cm: int, itemsize: int,
     the 8x8 or 7x7 tile with the fewer conv1 halo pixels over the image;
     then as many stages as fit (at most 4).  Its grid is persistent: one
     block per SM (shared memory holds one), each walking over pairs of
-    tiles, so the ring runs on from one pair into the next.  ``add_step``
-    overrides :data:`FLOAT_ADD_STEP`."""
+    tiles, so the ring runs on from one pair into the next.  Its
+    rounded-add step is one of :data:`FLOAT_ADD_STEPS`, by Cm."""
     def tiles(t):
         return n * -(-h // t) * -(-w // t)
     if itemsize == 4:
         th, tw = tile_plan(h, w, cm, 4)
-        return ChainPlan("fma_f32", th, tw, 1, 3, 0,
+        return ChainPlan("fma_f32", th, tw, 1, 3, 0, False,
                          smem_bytes(th, tw, cm, 4), tiles(th), "f32 x")
     reason = ("C or Cm not a multiple of 8" if c % 8 or cm % 8 else
               "" if aligned else "a pointer not 16-byte aligned")
     if reason:
         th, tw = tile_plan(h, w, cm, 2)
-        return ChainPlan("mma_sync", th, tw, 1, 3, 0,
+        return ChainPlan("mma_sync", th, tw, 1, 3, 0, False,
                          smem_bytes(th, tw, cm, 2), tiles(th), reason)
     fits = [(t, k) for k in (2, 1) for t in (8, 7)
             if wgmma_chain_smem(k, 2, t, t, cm) <= _SMEM_LIMIT]
@@ -289,8 +292,7 @@ def chain_plan(n: int, h: int, w: int, c: int, cm: int, itemsize: int,
                                     * (f[0] + 2) ** 2, -f[0]))
     stages = max(st for st in range(2, _FW_MAX_STAGES + 1)
                  if wgmma_chain_smem(k, st, t, t, cm) <= _SMEM_LIMIT)
-    step = FLOAT_ADD_STEP if add_step is None else add_step
-    return ChainPlan("wgmma", t, t, k, stages, step,
+    return ChainPlan("wgmma", t, t, k, stages, *FLOAT_ADD_STEPS[cm > 256],
                      wgmma_chain_smem(k, stages, t, t, cm),
                      min(-(-tiles(t) // k), H100_SMS))
 
@@ -383,8 +385,7 @@ def fused_chain(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
     if int8:
         th, tw = tile_plan(h, w, cm, 1)
     else:
-        plan = chain_plan(n, h, w, c, cm, x.element_size(),
-                          add_step=FLOAT_ADD_STEP)
+        plan = chain_plan(n, h, w, c, cm, x.element_size())
     if x.numel() == 0:
         return torch.empty_like(x, dtype=out_dtype)
     from .build import load_library
@@ -415,8 +416,7 @@ def fused_chain(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
         else:
             ptrs = (act, out, w1[j], w2[j], w3[j])
             plan = chain_plan(n, h, w, c, cm, x.element_size(),
-                              all(t.data_ptr() % 16 == 0 for t in ptrs),
-                              FLOAT_ADD_STEP)
+                              all(t.data_ptr() % 16 == 0 for t in ptrs))
             th, tw = plan.th, plan.tw
             rc = lib.fcnn_fused_block_float(
                 act.data_ptr(), out.data_ptr(),

@@ -16,13 +16,16 @@ rounds once to f32, as the plain version does, so only the cut into tiles
 differs, and the halo's zeros make that exact.
 """
 
+import re
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
 import torch.nn.functional as F
 
 from feathercnn_tpu_torch.kernels.fused_chain import (
-    FLOAT_ADD_STEP, _SMEM_LIMIT, chain_plan, fused_chain_plain, smem_bytes,
+    FLOAT_ADD_STEPS, _SMEM_LIMIT, chain_plan, fused_chain_plain, smem_bytes,
     wgmma_chain_smem)
 
 
@@ -33,14 +36,15 @@ def _check(p, n, h, w, c, cm, itemsize, case):
     assert p.grid == (min(pairs, 132) if p.variant == "wgmma" else pairs), \
         case
     assert p.smem <= _SMEM_LIMIT, case
-    assert len(p.args()) == 6, case
+    assert len(p.args()) == 7, case
     if p.variant == "wgmma":
         assert itemsize == 2 and c % 8 == 0 and cm % 8 == 0, case
         assert p.tiles_per_cta in (1, 2) and 2 <= p.stages <= 4, case
         assert (p.th + 2) * (p.tw + 2) <= 128 and p.th * p.tw <= 64, case
         assert p.smem == wgmma_chain_smem(p.tiles_per_cta, p.stages, p.th,
                                           p.tw, cm), case
-        assert p.kadd == FLOAT_ADD_STEP and not p.reason, case
+        assert (p.kadd, p.carry) == FLOAT_ADD_STEPS[cm > 256], case
+        assert not p.reason, case
         # two tiles only where no more fit, one only where two do not
         if p.tiles_per_cta == 1:
             assert all(wgmma_chain_smem(2, 2, t, t, cm) > _SMEM_LIMIT
@@ -57,7 +61,9 @@ def _check(p, n, h, w, c, cm, itemsize, case):
 def test_chain_plan_at_resnet50_stages_and_ragged_shapes():
     """b128 at stages 2-5: bf16 takes "wgmma", two tiles per block but at
     stage 5 (Cm = 512), where one tile's y1 and y2 leave no room for a
-    second; f32 takes "fma_f32" at stages 2-4 and is refused at stage 5.
+    second, and 128 products per rounded add but at stage 5, 32 with the
+    error carried; f32 takes "fma_f32" at stages 2-4 and is refused at
+    stage 5.
     The ragged shapes plan the variant chip_smoke.py expects of them; a
     misaligned pointer takes "mma_sync" with its reason."""
     stages = [(56, 256, 64, 2), (28, 512, 128, 2), (14, 1024, 256, 2),
@@ -87,7 +93,14 @@ def test_chain_plan_at_resnet50_stages_and_ragged_shapes():
     assert chain_plan(3, 7, 7, 2048, 512, 2).grid == 3
     p = chain_plan(2, 9, 11, 64, 32, 2, aligned=False)
     assert p.variant == "mma_sync" and "aligned" in p.reason
-    assert chain_plan(2, 9, 11, 64, 32, 2, add_step=0).kadd == 0
+    # the library builds the plan's two rounded-add steps, and only those
+    src = (Path(__file__).resolve().parent.parent / "feathercnn_tpu_torch"
+           / "kernels" / "csrc" / "fused_chain_float.cu").read_text()
+    shipped = src.split("#ifdef FCNN_FLOAT_PROBE")[1].split("#else")[1]
+    shipped = shipped.split("#endif")[0]
+    built = {(int(k), c == "true") for k, c in
+             re.findall(r"launch_wg<(\d+), (true|false)>", shipped)}
+    assert built == set(FLOAT_ADD_STEPS)
 
 
 def _mm(a, b):

@@ -117,9 +117,9 @@ def test_dw_plan_at_every_served_launch_and_ragged_shapes(monkeypatch):
         for (iv, xdt, odt, n, h, w, c, kh, kw, s, p) in shapes:
             case = (build.__name__, iv, xdt, n, h, w, c, s)
             assert (kh, kw, p) == (3, 3, 1) and s in (1, 2), case
-            # the staged type: bf16 for the int8 variant, the output's
+            # the staged type: int8 for the int8 variant, the output's
             # type for the float variant's int8 x, else x's
-            staged = (torch.bfloat16 if iv else
+            staged = (torch.int8 if iv else
                       odt if xdt == torch.int8 else xdt)
             plan = dw_plan(n, h, w, c, kh, kw, s, p, p, _SIZE[xdt],
                            _SIZE[staged], iv)
@@ -131,13 +131,13 @@ def test_dw_plan_at_every_served_launch_and_ragged_shapes(monkeypatch):
                  (1, 23, 21, 48, 5, 1, 2), (2, 12, 9, 30, 5, 2, 2),
                  (1, 5, 5, 1024, 3, 2, 1), (1, 1, 1, 16, 1, 1, 0)]:
         n, h, w, c, k, s, p = case
-        for xs, ss, iv in ((1, 2, True), (1, 2, False), (1, 4, False),
+        for xs, ss, iv in ((1, 1, True), (1, 2, False), (1, 4, False),
                            (2, 2, False), (4, 4, False)):
             plan = dw_plan(n, h, w, c, k, k, s, p, p, xs, ss, iv)
             _check_plan(plan, n, h, w, c, k, k, s, p, p, xs, ss,
                         (case, xs, ss, iv))
     with pytest.raises(ValueError):
-        dw_plan(1, 40, 40, 16, 33, 33, 1, 0, 0, 1, 2, True)
+        dw_plan(1, 40, 40, 16, 33, 33, 1, 0, 0, 1, 1, True)
     dw_plan(1, 40, 40, 16, 33, 33, 1, 0, 0, 1, 2, False)
     with pytest.raises(ValueError):
         dw_plan(1, 2, 2, 16, 3, 3, 1, 0, 0, 2, 2, False)
@@ -190,7 +190,7 @@ def test_dw_plan_tiling_stitches_to_the_plain_versions():
         bias = torch.from_numpy(rng.normal(size=c).astype(np.float32))
         ws = torch.from_numpy(rng.uniform(1e-3, 2e-3, c).astype(np.float32))
         for odt in (torch.int8, torch.bfloat16):
-            plan = dw_plan(n, h, w, c, k, k, s, p, p, 1, 2, True)
+            plan = dw_plan(n, h, w, c, k, k, s, p, p, 1, 1, True)
             want = depthwise_conv2d_int8_plain(xq, wq, bias, ws, s, p, p,
                                                "relu6", odt, 20.0)
             got = _stitched(plan, xq, k, k, s, p, p,
