@@ -44,7 +44,8 @@ Phases, each printing its own lines:
    it took: every int8 GEMM launch must take "wgmma" but where the plan
    gives a reason on a path of ``FALLBACK_OK`` (MobileNet-v2's K = 24
    convs, printed), a bf16 one "mma_bf16"; every depthwise launch "k3s1"
-   or "k3s2" by its stride and every float-chain launch "wgmma".
+   or "k3s2" by its stride and every chain launch, int8 or float,
+   "wgmma".
 3. per path, kernels: each launch of that forward is repeated on its own
    tensors and held against the kernel's plain PyTorch version (int8 out:
    equal; bf16 out: within 1 bf16 ulp; f32: within 1e-5 of the largest
@@ -57,7 +58,10 @@ Phases, each printing its own lines:
    computes a bottleneck: the chain kernels have no yardstick.  Instead
    each chain call is printed beside the device time that the same blocks'
    nodes take in the profiled forward of the unchained ResNet-50 path of
-   its precision (phase 4).  The float chain is held to its plain version
+   its precision (phase 4); each int8 chain call is also timed on the
+   plans it did not take ("mma_sync", the first body, and "wgmma" with the
+   other number of tiles per thread block), each equal to its output, and
+   the sums per forward printed.  The float chain is held to its plain version
    launch by launch (block by block, on the kernel's own input of each
    block): bf16 out, every element within 2 bf16 ulp of the plain value or
    within 1e-2 of the largest, and at most 0.1% more than 1 ulp apart
@@ -82,9 +86,11 @@ Phases, each printing its own lines:
    edges of their variants (M not a multiple of the tile, N = 24 and 1000,
    K = 16, 24, 32, 2048, every output type, misaligned x, each on its
    planned variant, and the refusal of a weight not in ``gemm_layout``),
-   the chain's ragged shapes and output types (int8 and float modes; the
-   float chain's tile counts that are not a multiple of the tiles a block
-   takes, each on its planned variant), and
+   the chain's ragged shapes and output types (int8 and float modes: tile
+   counts that are not a multiple of the tiles a block takes, a one-tile
+   int8 launch whose columns the two consumers split, saturated conv2 sums
+   on both int8 variants, a misaligned x, each on its planned variant),
+   and
    ``ident`` on int8, bf16 and f32 at odd sizes, against the plain
    versions.
 6. server (ResNet-50): ``InferenceServer(batch_size=128, batch_slots=[8,
@@ -177,10 +183,10 @@ EXPECTED = {
 CHAINS = ("fused_chain", "fused_chain_float")
 GEMMS = ("matmul_epilogue", "conv2d_implicit_gemm")
 # Kernels whose every counted launch must take its main variant: "k3s1"
-# or "k3s2" by the stride for the depthwise kernels, "wgmma" for the float
-# chain.
+# or "k3s2" by the stride for the depthwise kernels, "wgmma" for both
+# chains.
 MAIN_VARIANT = ("depthwise_conv2d", "depthwise_conv2d_int8",
-                "fused_chain_float")
+                "fused_chain", "fused_chain_float")
 # The paths whose int8 GEMM launches may leave "wgmma" where the plan gives
 # a reason (MobileNet-v2's K = 24 1x1 convs: a 24-byte row pitch).
 FALLBACK_OK = ("mobilenet_v2 b128 dw override",)
@@ -256,10 +262,22 @@ def toolchain():
     build.load_library()
     say("toolchain", f"kernels built and loaded in "
         f"{time.perf_counter() - t0:.1f} s")
-    for line in build.build_log().splitlines():
+    log = build.build_log().splitlines()
+    for line in log:
         if "registers" in line or ("spill" in line and " 0 bytes spill"
                                    not in line):
             say("toolchain", "ptxas: " + line.split(":", 1)[-1].strip())
+    # the int8 chain kernel's "wgmma" builds by name: <columns of conv2's
+    # passes, conv2 summed per tap in f32>
+    for i, line in enumerate(log):
+        if "Compiling entry function" in line and "fused_block_kernel_wg" in line:
+            inst = line.split("fused_block_kernel_wgILi")[1]
+            bnm, taps = inst.split("ELb")[0], inst.split("ELb")[1][0] == "1"
+            spill = next(l for l in log[i + 1:i + 4] if "spill" in l)
+            regs = next(l for l in log[i + 1:i + 4] if "registers" in l)
+            say("toolchain", f"ptxas fused_block_kernel_wg<{bnm}, "
+                f"{str(taps).lower()}>: {regs.split(':', 1)[-1].strip()}; "
+                f"{spill.strip()}")
     return smi
 
 
@@ -373,7 +391,7 @@ def check_variants(label, launches):
     """Every int8 GEMM launch of the forward took "wgmma", but on the
     paths of FALLBACK_OK where the plan gives its reason (printed); every
     bf16 one "mma_bf16"; every depthwise launch (all 3x3) "k3s1" or "k3s2"
-    by its stride, and every float-chain launch "wgmma"."""
+    by its stride, and every chain launch (int8 or float) "wgmma"."""
     import torch
     taken, exceptions = {}, []
     for i, r in enumerate(launches):
@@ -695,6 +713,55 @@ def dw_tile_ms(kernel, a, want):
     return res
 
 
+_CHAIN_ALT_MS = {}
+
+
+def chain_alt_ms(a, want):
+    """{plan: median ms} of an int8 chain call on the plans it did not
+    take, launched block by block through the C entry point on the same
+    tensors (uncounted), each held bit-equal to ``want`` (the call's own
+    output): "mma_sync" (the first body, at tile_plan's tile), and "wgmma"
+    with the other number of tiles per thread block (two for one, one for
+    two), where that fits."""
+    import torch
+    from feathercnn_tpu_torch.kernels import fused_chain as fc
+    x = a["x"]
+    n, h, w, c = x.shape
+    cm = a["w1"].shape[2]
+    out_dtype = fc._out_dtype(x, a["out_dtype"], a["scales"])
+    key = (tuple(x.shape), cm, a["w1"].shape[0], out_dtype)
+    if key in _CHAIN_ALT_MS:
+        return _CHAIN_ALT_MS[key]
+    plan = fc.chain_plan(n, h, w, c, cm, 1)
+    th, tw = fc.tile_plan(h, w, cm, 1)
+    plans = {"mma_sync": fc.ChainPlan(
+        "mma_sync", th, tw, 1, 3, 0, False, fc.smem_bytes(th, tw, cm, 1),
+        n * -(-h // th) * -(-w // tw), "timed beside wgmma")}
+    if plan.variant == "wgmma":
+        try:
+            plans["wgmma at the other tiles a block"] = fc.chain_plan(
+                n, h, w, c, cm, 1, per_cta=3 - plan.tiles_per_cta)
+        except ValueError as e:
+            say("kernels", f"fused_chain x{tuple(x.shape)}: {e}")
+    res = {}
+    for name, pl in plans.items():
+        def run(pl=pl):
+            return fc._launch_blocks(x, a["w1"], a["b1"], a["w2"], a["b2"],
+                                     a["w3"], a["b3"], a["w_scales"],
+                                     a["scales"], out_dtype,
+                                     lambda *_: pl, False)
+        check(torch.equal(run(), want), f"fused_chain x{tuple(x.shape)} on "
+              f"{pl} differs from its plan's output")
+        res[name] = median_ms(run)
+    say("kernels", f"fused_chain x{tuple(x.shape)} Cm={cm}: plan "
+        f"{plan.variant}, {plan.th}x{plan.tw} tiles, {plan.tiles_per_cta} a "
+        f"block, {plan.stages} stages, grid {plan.grid}; timed beside on "
+        + "; ".join(f"{name} ({pl.tiles_per_cta} a block, {pl.stages} "
+                    f"stages)" for name, pl in plans.items()))
+    _CHAIN_ALT_MS[key] = res
+    return res
+
+
 def describe(kernel, a, out):
     dt = str(out.dtype).replace("torch.", "")
     if kernel == "ident":
@@ -742,6 +809,8 @@ def kernels_vs_plain(label, launches):
             elements = out.numel()
             if name in ("depthwise_conv2d", "depthwise_conv2d_int8"):
                 tiles = dw_tile_ms(name, a, ref)
+            elif name == "fused_chain":
+                tiles = chain_alt_ms(a, out)
             del ref
         desc = describe(name, a, out)
         check(ok, f"{label}: launch {i}, {desc}: kernel differs from plain, "
@@ -781,8 +850,21 @@ def kernels_vs_plain(label, launches):
             + ("" if lib is None else f" ({med / lib:.2f}x library)")
             + (f", variant {same[0]['variant']}" if same[0]["variant"]
                else "")
-            + ("" if not same[0]["tiles"] else ", other tiles " + ", ".join(
+            + ("" if not same[0]["tiles"] else (
+                ", other plans " if same[0]["kernel"] == "fused_chain"
+                else ", other tiles ") + ", ".join(
                 f"{t} {ms:.4f}" for t, ms in same[0]["tiles"].items())))
+    chains = [r for r in rows if r["kernel"] == "fused_chain" and r["tiles"]]
+    if chains:
+        other = {}
+        for r in chains:
+            for t, ms in r["tiles"].items():
+                other[t] = other.get(t, 0.0) + ms
+        say(label, f"int8 chain calls of one forward: "
+            f"{sum(r['ms'] for r in chains):.4f} ms on the plan's "
+            f"{'+'.join(dict.fromkeys(r['variant'] for r in chains))}, "
+            + ", ".join(f"{v:.4f} on {t}" for t, v in other.items())
+            + " (each equal to the plan's output)")
     for var in ("k3s1", "k3s2"):
         mine = [r for r in rows if r["tiles"] and r["variant"] == var]
         if not mine:
@@ -1140,56 +1222,9 @@ def ragged_cases():
     # the fused chain: odd H and W, nb = 1..3, Cm <= 128 and > 128, C not a
     # multiple of 16, every output type (f32 shows both shortcut forms),
     # and a saturated conv2 sum (Cm = 257) whose f32 output pins the
-    # per-tap f32 sum; each equal to plain, with no tolerance
-    srng = np.random.default_rng(3)
-
-    def chain(n_, h, w, c, cm, nb, out):
-        def ws(k, cols):
-            return f32(nb, cols, lo=0.5e-3 / k ** 0.5, hi=1.5e-3 / k ** 0.5)
-        sc = [tuple(float(v) for v in srng.uniform(lo, hi, nb))
-              for lo, hi in ((0.02, 0.05), (5e-4, 2e-3), (5e-4, 2e-3))]
-        return dict(x=i8(n_, h, w, c), w1=i8(nb, c, cm),
-                    b1=f32(nb, cm, lo=-1.0, hi=1.0), w2=i8(nb, 9 * cm, cm),
-                    b2=f32(nb, cm, lo=-1.0, hi=1.0), w3=i8(nb, cm, c),
-                    b3=f32(nb, c, lo=-1.0, hi=1.0),
-                    w_scales=(ws(c, cm), ws(9 * cm, cm), ws(cm, c)),
-                    scales=(*sc, 0.05 if out == torch.int8 else None),
-                    out_dtype=out)
-
-    v = torch.randint(100, 128, (257,), device="cuda", generator=gen)
-    saturated = dict(
-        x=i8(1, 5, 6, 24), w1=i8(1, 24, 257),
-        b1=torch.full((1, 257), 1e4, device="cuda"),
-        w2=v.to(torch.int8).expand(1, 9 * 257, 257).contiguous(),
-        b2=(60.0 - 127.0 * v.double() * 9 * 257).float()[None].contiguous(),
-        w3=i8(1, 257, 24), b3=f32(1, 24, lo=-1.0, hi=1.0),
-        w_scales=(torch.full((1, 257), 1e-3, device="cuda"),
-                  torch.ones(1, 257, device="cuda"),
-                  torch.full((1, 24), 1e-6, device="cuda")),
-        scales=((0.03,), (1.0,), (1.0,), None), out_dtype=torch.float32)
-    for case in [(2, 9, 11, 64, 32, 2, torch.int8),
-                 (2, 9, 11, 64, 32, 2, torch.float32),
-                 (1, 13, 9, 72, 144, 3, torch.bfloat16),
-                 (3, 7, 7, 48, 144, 1, torch.float32),
-                 (2, 8, 8, 40, 16, 3, torch.int8),
-                 (2, 6, 5, 24, 8, 2, torch.int8),
-                 (2, 15, 15, 256, 64, 2, torch.int8),
-                 (1, 28, 28, 512, 128, 1, torch.bfloat16),
-                 (1, 7, 9, 2048, 512, 1, torch.bfloat16),
-                 "saturated conv2 sum, Cm=257"]:
-        a = saturated if isinstance(case, str) else chain(*case)
-        row_major = a["w1"]
-        for k in ("w1", "w2", "w3"):
-            a[k] = kernel_layout(a[k])
-        kernel, plain = fns["fused_chain"]
-        err, _, _ = compare(kernel(**a), plain(**a))
-        check(err == 0.0, f"fused_chain {case}: max err {err}")
-        n += 1
-        try:        # the kernel takes its own weight layout and no other
-            kernel(**{**a, "w1": row_major})
-            check(False, f"fused_chain {case}: a row-major w1 was taken")
-        except ValueError:
-            pass
+    # per-tap f32 sum; each equal to plain, with no tolerance, and each
+    # launch on the variant its plan names
+    n += ragged_int8_chain(gen)
     say("kernels", f"{n} stride-2 / ragged / clamp / float / chain cases "
         f"equal to plain (int8 0 LSB, bf16 1 ulp, f32 1e-5 of the largest "
         f"value; the chain cases exactly)")
@@ -1198,6 +1233,119 @@ def ragged_cases():
         f"to plain, each on its planned variant")
     n = ragged_float_chain(gen) + ragged_ident(gen)
     say("kernels", f"{n} float-chain and ident cases within their gates")
+
+
+def ragged_int8_chain(gen):
+    """The int8 chain off the main path, each call equal to the plain
+    version (0 LSB int8, bit-equal bf16 and f32) and each launch on the
+    variant its plan names: the first ten cases (C or Cm not a multiple of
+    16 take "mma_sync"), then from their own generator the "wgmma"
+    variant's edges: an odd tile count in pairs (1,127 tiles: the last
+    work item's second consumer runs past the last tile), one tile whose
+    columns the two consumers split (Cm = 160 > 128: conv2 per tap, each
+    tap's K padded to whole ring stages), tile counts that are not a
+    multiple of the grid, Cm = 48 (an odd number of conv1 passes), every
+    output type; the saturated conv2 sum at Cm = 257 (C = 24: "mma_sync")
+    and at Cm = 272 with C = 32 ("wgmma"), whose f32 outputs pin the
+    per-tap f32 sum; a misaligned x ("mma_sync", its reason given); and the
+    refusal of a weight not in kernel_layout."""
+    import torch
+    from feathercnn_tpu_torch.kernels.fused_chain import (chain_plan,
+                                                          kernel_layout)
+    kernel, plain = _kernel_fns()["fused_chain"]
+    srng = np.random.default_rng(3)
+
+    def i8(*s, g=gen):
+        return torch.randint(-127, 128, s, dtype=torch.int8, device="cuda",
+                             generator=g)
+
+    def f32(*s, lo=0.5, hi=1.5, g=gen):
+        return torch.rand(*s, device="cuda", generator=g) * (hi - lo) + lo
+
+    def chain(n_, h, w, c, cm, nb, out, g=gen):
+        def ws(k, cols):
+            return f32(nb, cols, lo=0.5e-3 / k ** 0.5, hi=1.5e-3 / k ** 0.5,
+                       g=g)
+        sc = [tuple(float(v) for v in srng.uniform(lo, hi, nb))
+              for lo, hi in ((0.02, 0.05), (5e-4, 2e-3), (5e-4, 2e-3))]
+        return dict(x=i8(n_, h, w, c, g=g), w1=i8(nb, c, cm, g=g),
+                    b1=f32(nb, cm, lo=-1.0, hi=1.0, g=g),
+                    w2=i8(nb, 9 * cm, cm, g=g),
+                    b2=f32(nb, cm, lo=-1.0, hi=1.0, g=g),
+                    w3=i8(nb, cm, c, g=g), b3=f32(nb, c, lo=-1.0, hi=1.0, g=g),
+                    w_scales=(ws(c, cm), ws(9 * cm, cm), ws(cm, c)),
+                    scales=(*sc, 0.05 if out == torch.int8 else None),
+                    out_dtype=out)
+
+    def saturated(c, cm, g=gen):
+        v = torch.randint(100, 128, (cm,), device="cuda", generator=g)
+        return dict(
+            x=i8(1, 5, 6, c, g=g), w1=i8(1, c, cm, g=g),
+            b1=torch.full((1, cm), 1e4, device="cuda"),
+            w2=v.to(torch.int8).expand(1, 9 * cm, cm).contiguous(),
+            b2=(60.0 - 127.0 * v.double() * 9 * cm).float()[None]
+            .contiguous(),
+            w3=i8(1, cm, c, g=g), b3=f32(1, c, lo=-1.0, hi=1.0, g=g),
+            w_scales=(torch.full((1, cm), 1e-3, device="cuda"),
+                      torch.ones(1, cm, device="cuda"),
+                      torch.full((1, c), 1e-6, device="cuda")),
+            scales=((0.03,), (1.0,), (1.0,), None), out_dtype=torch.float32)
+
+    sat = saturated(24, 257)
+    cases = [(2, 9, 11, 64, 32, 2, torch.int8),
+             (2, 9, 11, 64, 32, 2, torch.float32),
+             (1, 13, 9, 72, 144, 3, torch.bfloat16),
+             (3, 7, 7, 48, 144, 1, torch.float32),
+             (2, 8, 8, 40, 16, 3, torch.int8),
+             (2, 6, 5, 24, 8, 2, torch.int8),
+             (2, 15, 15, 256, 64, 2, torch.int8),
+             (1, 28, 28, 512, 128, 1, torch.bfloat16),
+             (1, 7, 9, 2048, 512, 1, torch.bfloat16)]
+    runs = [(f"{case}", lambda case=case: chain(*case)) for case in cases]
+    runs.append(("saturated conv2 sum, C=24 Cm=257", lambda: sat))
+    gen_c = torch.Generator(device="cuda").manual_seed(8)
+    for case in [(23, 56, 56, 64, 32, 2, torch.int8),
+                 (1, 7, 7, 256, 160, 2, torch.float32),
+                 (3, 17, 20, 32, 48, 3, torch.bfloat16),
+                 (2, 30, 30, 128, 64, 2, torch.int8),
+                 (1, 7, 9, 2048, 512, 2, torch.float32)]:
+        runs.append((f"{case}", lambda case=case: chain(*case, g=gen_c)))
+    runs.append(("saturated conv2 sum, C=32 Cm=272",
+                 lambda: saturated(32, 272, g=gen_c)))
+
+    def misaligned():      # one block: the next block's x is aligned
+        a = chain(2, 9, 9, 32, 48, 1, torch.int8, g=gen_c)
+        flat = i8(a["x"].numel() + 1, g=gen_c)
+        a["x"] = flat[1:].view(a["x"].shape)
+        return a
+    runs.append(("misaligned x (2, 9, 9, 32, 48, 1)", misaligned))
+    n = 0
+    for what, make in runs:
+        a = make()
+        row_major = a["w1"]
+        for k in ("w1", "w2", "w3"):
+            a[k] = kernel_layout(a[k])
+        nn_, h, w, c = a["x"].shape
+        cm = a["w1"].shape[2]
+        plan = chain_plan(nn_, h, w, c, cm, 1, a["x"].data_ptr() % 16 == 0)
+        before = dict(kernel.variants)
+        got = kernel(**a)
+        took = [v for v, m in kernel.variants.items() if m != before[v]]
+        check(took == [plan.variant], f"fused_chain {what}: took {took}, "
+              f"planned {plan.variant}")
+        err, _, _ = compare(got, plain(**a))
+        check(err == 0.0, f"fused_chain {what}: max err {err}")
+        say("kernels", f"fused_chain {what}: {plan.variant}"
+            + (f" ({plan.reason})" if plan.reason else
+               f", {plan.tiles_per_cta} tile(s) a block, grid {plan.grid}")
+            + ", equal to plain")
+        n += 1
+        try:        # the kernel takes its own weight layout and no other
+            kernel(**{**a, "w1": row_major})
+            check(False, f"fused_chain {what}: a row-major w1 was taken")
+        except ValueError:
+            pass
+    return n
 
 
 def ragged_gemm(gen):

@@ -69,7 +69,9 @@ _SIGNATURES = {
                          _P, _P, _P,                         # w3 b3 w3s
                          _I, _I, _I, _I, _I, _I, _I,         # N H W C Cm TH TW
                          _F, _F, _F, _F, _F, _F,             # sx sy1 sy2, 1/sy1 1/sy2 out_scale
-                         _I, _I, _P],                        # shortcut_fma ot stream
+                         _I, _I,                             # shortcut_fma ot
+                         _I, _I, _I, _I, _I,                 # plan: variant T stages smem grid
+                         _P],                                # stream
     "fcnn_fused_block_float": [_P, _P,                       # x out
                                _P, _P, _P, _P, _P, _P,       # w1 b1 w2 b2 w3 b3
                                _I, _I, _I, _I, _I, _I, _I,   # N H W C Cm TH TW

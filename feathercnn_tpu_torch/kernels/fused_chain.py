@@ -49,7 +49,7 @@ from .matmul import _DTYPE_CODES, H100_SMS, check_contiguous, fma_f32
 
 __all__ = ["fused_chain", "fused_chain_float", "fused_chain_plain",
            "kernel_layout", "tile_plan", "chain_plan", "ChainPlan",
-           "FLOAT_VARIANTS"]
+           "FLOAT_VARIANTS", "INT8_VARIANTS"]
 
 _FLOAT = (torch.float32, torch.bfloat16)
 
@@ -215,13 +215,27 @@ FLOAT_VARIANTS = ("wgmma", "mma_sync", "fma_f32")
 FLOAT_ADD_STEPS = ((128, False), (32, True))
 _FW_B_BYTES = 128 * 128          # a ring stage's weight tile
 _FW_MAX_STAGES = 4
+# The int8 kernel's variants, their codes shared with the float ones:
+# "wgmma" (C and Cm multiples of 16, 16-byte aligned pointers: s8 wgmma with
+# a TMA ring and a persistent grid) and "mma_sync" (the rest: the first,
+# mma.sync body).
+INT8_VARIANTS = FLOAT_VARIANTS[:2]
+# Tiles below which an int8 launch takes one tile per thread block, its
+# columns split between the two consumers, rather than two tiles (one per
+# consumer).  Under 2 x 132 tiles pairs leave SMs idle; at ResNet-50's
+# stage 4 (512 tiles, b128) the split ran 6-7% faster too, at stage 3
+# (2,048 tiles) pairs 25-26% faster (chip_smoke.py times both; PERF.md §6).
+_PAIR_MIN_TILES = 8 * H100_SMS
+_CW_SPITCH = 64 * 2 + 16         # a staged output row of the int8 kernel
 
 
 class ChainPlan(NamedTuple):
-    """One float-chain launch's plan: the variant; the TH x TW output tile;
-    the tiles a thread block takes at a time (one consumer warpgroup
-    each, "wgmma"; else 1); the ring's stages; the products per rounded
-    add and whether its error is carried; the dynamic shared memory; the grid; and why a bf16 launch does
+    """One chain launch's plan (one block): the variant; the TH x TW
+    output tile; the tiles a thread block takes at a time ("wgmma": 2, one
+    per consumer warpgroup, or 1, whose columns the int8 kernel's two
+    consumers split; else 1); the ring's stages; the float kernel's
+    products per rounded add and whether its error is carried (0 and False
+    for int8); the dynamic shared memory; the grid; and why a launch does
     not take "wgmma" ("" where it does)."""
     variant: str
     th: int
@@ -239,6 +253,11 @@ class ChainPlan(NamedTuple):
         return (FLOAT_VARIANTS.index(self.variant), self.tiles_per_cta,
                 self.stages, self.kadd, int(self.carry), self.smem, self.grid)
 
+    def int8_args(self):
+        """The int8 kernel's plan integers as its C entry point takes them."""
+        return (INT8_VARIANTS.index(self.variant), self.tiles_per_cta,
+                self.stages, self.smem, self.grid)
+
 
 def wgmma_chain_smem(tiles: int, stages: int, th: int, tw: int,
                      cm: int) -> int:
@@ -255,10 +274,75 @@ def wgmma_chain_smem(tiles: int, stages: int, th: int, tw: int,
             + tiles * (npos + th * tw) * ld + 16 * stages + 16)
 
 
+def int8_chain_smem(tiles: int, stages: int, th: int, tw: int,
+                    cm: int) -> int:
+    """Dynamic shared memory of the int8 "wgmma" variant (cw_smem in
+    csrc/fused_chain.cu, which refuses a plan whose count differs): 1024
+    bytes of alignment slack; the ring, each stage two tiles' x halos
+    (1024-aligned, 128 bytes a pixel) and a 128 x 128-byte weight tile
+    (``tiles`` 2) or one halo and two weight tiles (1: the consumers split
+    the columns); per tile y1 over the halo and y2 over the tile, rows of
+    Cm + 16 bytes; each consumer's staged output rows (64 columns of bf16
+    or int8 plus 16 bytes); two barriers per stage; a 16-byte zero
+    chunk."""
+    npos = (th + 2) * (tw + 2)
+    a_bytes = -(-npos * 128 // 1024) * 1024
+    return (1024 + stages * (tiles * a_bytes + (3 - tiles) * _FW_B_BYTES)
+            + tiles * (npos + th * tw) * (cm + 16)
+            + 2 * th * tw * _CW_SPITCH + 16 * stages + 16)
+
+
+def _int8_plan(n, h, w, c, cm, aligned, per_cta):
+    def tiles(t):
+        return n * -(-h // t) * -(-w // t)
+
+    def cost(t):
+        return -(-h // t) * -(-w // t) * (t + 2) ** 2
+    reason = ("C or Cm not a multiple of 16" if c % 16 or cm % 16 else
+              "" if aligned else "a pointer not 16-byte aligned")
+    if reason:
+        th, tw = tile_plan(h, w, cm, 1)
+        return ChainPlan("mma_sync", th, tw, 1, 3, 0, False,
+                         smem_bytes(th, tw, cm, 1), tiles(th), reason)
+
+    def pick(k):
+        fits = [t for t in (8, 7)
+                if int8_chain_smem(k, 2, t, t, cm) <= _SMEM_LIMIT]
+        return min(fits, key=lambda t: (cost(t), -t)) if fits else None
+    if per_cta:
+        k, t = per_cta, pick(per_cta)
+    else:
+        t = pick(2)
+        k = 2 if t is not None and tiles(t) >= _PAIR_MIN_TILES else 1
+        if k == 1:
+            t = pick(1)
+    if t is None:
+        raise ValueError(f"fused_chain: no int8 tile of H={h} W={w} Cm={cm} "
+                         f"with {k} tile(s) per block fits {_SMEM_LIMIT} "
+                         f"bytes of shared memory")
+    stages = max(st for st in range(2, _FW_MAX_STAGES + 1)
+                 if int8_chain_smem(k, st, t, t, cm) <= _SMEM_LIMIT)
+    return ChainPlan("wgmma", t, t, k, stages, 0, False,
+                     int8_chain_smem(k, stages, t, t, cm),
+                     min(-(-tiles(t) // k), H100_SMS))
+
+
 @functools.lru_cache(maxsize=None)
 def chain_plan(n: int, h: int, w: int, c: int, cm: int, itemsize: int,
-               aligned: bool = True) -> ChainPlan:
-    """The plan of one float-chain launch (one block), made on the host.
+               aligned: bool = True, per_cta: int = 0) -> ChainPlan:
+    """The plan of one chain launch (one block), made on the host.
+
+    int8 x (``itemsize`` 1) takes "wgmma" unless C or Cm is not a multiple
+    of 16 (TMA's 16-byte rows, whole 16-byte K chunks per tap) or a pointer
+    is not 16-byte aligned (``aligned``): then "mma_sync" at
+    :func:`tile_plan`'s tile.  "wgmma" takes two tiles per thread block
+    (one per consumer) where they fit shared memory and the launch has at
+    least 8 x 132 tiles, else one tile whose columns the two consumers
+    split (ResNet-50's stages 4 and 5 at b128; at stage 5's 128 tiles pairs
+    would leave 68 SMs idle); ``per_cta`` (1 or 2) asks for the other, to
+    time it.  Then the 8x8 or 7x7 tile with the fewer conv1 halo pixels
+    over the image, as many stages as fit (at most 4), and a persistent
+    grid.  The float modes take no ``per_cta``.
 
     f32 x (``itemsize`` 4) takes "fma_f32" at :func:`tile_plan`'s tile
     (and its ``ValueError`` where none fits).  bf16 x takes "wgmma" unless
@@ -271,6 +355,11 @@ def chain_plan(n: int, h: int, w: int, c: int, cm: int, itemsize: int,
     block per SM (shared memory holds one), each walking over pairs of
     tiles, so the ring runs on from one pair into the next.  Its
     rounded-add step is one of :data:`FLOAT_ADD_STEPS`, by Cm."""
+    if itemsize == 1:
+        return _int8_plan(n, h, w, c, cm, aligned, per_cta)
+    if per_cta:
+        raise ValueError("per_cta is an int8 plan's option")
+
     def tiles(t):
         return n * -(-h // t) * -(-w // t)
     if itemsize == 4:
@@ -379,13 +468,22 @@ def fused_chain(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
     check_contiguous({"x": x, "b1": b1, "b2": b2, "b3": b3,
                       **({} if w_scales is None else dict(
                           zip(("w1s", "w2s", "w3s"), w_scales)))})
+    return _launch_blocks(x, w1, b1, w2, b2, w3, b3, w_scales, scales,
+                          out_dtype, chain_plan, count=True)
+
+
+def _launch_blocks(x, w1, b1, w2, b2, w3, b3, w_scales, scales, out_dtype,
+                   plan_of, count):
+    """The CUDA side of :func:`fused_chain`: one launch per block, each on
+    the plan ``plan_of(n, h, w, c, cm, itemsize, aligned)`` gives it
+    (``aligned``: every pointer of the launch 16-byte aligned).  ``count``:
+    each launch adds one to its wrapper's count and variant (the wrapper's
+    own calls; ``chip_smoke.py`` times other plans on the same tensors
+    uncounted)."""
     n, h, w, c = x.shape
     nb, _, cm = w1.shape
     int8 = x.dtype == torch.int8
-    if int8:
-        th, tw = tile_plan(h, w, cm, 1)
-    else:
-        plan = chain_plan(n, h, w, c, cm, x.element_size())
+    plan = plan_of(n, h, w, c, cm, x.element_size(), True)
     if x.numel() == 0:
         return torch.empty_like(x, dtype=out_dtype)
     from .build import load_library
@@ -403,37 +501,34 @@ def fused_chain(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
             out = spare
         else:
             out = torch.empty((n, h, w, c), dtype=odt, device=x.device)
+        ptrs = (act, out, w1[j], w2[j], w3[j])
+        plan = plan_of(n, h, w, c, cm, x.element_size(),
+                       all(t.data_ptr() % 16 == 0 for t in ptrs))
         if int8:
             rc = lib.fcnn_fused_block(
                 act.data_ptr(), out.data_ptr(),
                 w1[j].data_ptr(), b1[j].data_ptr(), w1s[j].data_ptr(),
                 w2[j].data_ptr(), b2[j].data_ptr(), w2s[j].data_ptr(),
                 w3[j].data_ptr(), b3[j].data_ptr(), w3s[j].data_ptr(),
-                n, h, w, c, cm, th, tw,
+                n, h, w, c, cm, plan.th, plan.tw,
                 _f32(sx[j]), _f32(sy1[j]), _f32(sy2[j]),
                 _f32(1.0 / sy1[j]), _f32(1.0 / sy2[j]), _f32(r[j]),
-                int(j == 0), _DTYPE_CODES[odt], stream)
+                int(j == 0), _DTYPE_CODES[odt], *plan.int8_args(), stream)
         else:
-            ptrs = (act, out, w1[j], w2[j], w3[j])
-            plan = chain_plan(n, h, w, c, cm, x.element_size(),
-                              all(t.data_ptr() % 16 == 0 for t in ptrs))
-            th, tw = plan.th, plan.tw
             rc = lib.fcnn_fused_block_float(
                 act.data_ptr(), out.data_ptr(),
                 w1[j].data_ptr(), b1[j].data_ptr(), w2[j].data_ptr(),
                 b2[j].data_ptr(), w3[j].data_ptr(), b3[j].data_ptr(),
-                n, h, w, c, cm, th, tw, _DTYPE_CODES[x.dtype],
+                n, h, w, c, cm, plan.th, plan.tw, _DTYPE_CODES[x.dtype],
                 _DTYPE_CODES[odt], *plan.args(), stream)
         if rc != 0:
             raise RuntimeError(
                 f"fused_chain launch failed: CUDA error {rc} (block {j} of "
-                f"{nb}, x={tuple(x.shape)} {x.dtype} Cm={cm} tile {th}x{tw}"
-                + ("" if int8 else f" {plan}") + ")")
-        if int8:
-            fused_chain.launches += 1
-        else:
-            fused_chain_float.launches += 1
-            fused_chain_float.variants[plan.variant] += 1
+                f"{nb}, x={tuple(x.shape)} {x.dtype} Cm={cm} {plan})")
+        if count:
+            fn = fused_chain if int8 else fused_chain_float
+            fn.launches += 1
+            fn.variants[plan.variant] += 1
         # the buffer this block read is free for block j + 2's output
         spare = act if act is not x else None
         act = out
@@ -456,5 +551,6 @@ def fused_chain_float(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
 
 
 fused_chain.launches = 0
+fused_chain.variants = dict.fromkeys(INT8_VARIANTS, 0)
 fused_chain_float.launches = 0
 fused_chain_float.variants = dict.fromkeys(FLOAT_VARIANTS, 0)
