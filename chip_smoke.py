@@ -30,7 +30,22 @@ float activations; the bf16 paths run ``quant=None`` in bf16:
 - the boundary probe (``kernels/ident.py``, the ``idctx`` mode of
   ``bench/chain_micro.py``) at ResNet-50's stages 2-5, b128: a producer and
   a consumer int8 1x1 conv with and without the ``ident`` copy between
-  them.
+  them;
+- VGG-16 at batch 128 under weight-only int8 (``quant="w8"``, no
+  calibration): its 12 3x3 convs after the float stem through
+  ``conv2d_implicit_gemm`` and its 3 FCs through ``matmul_epilogue``, both
+  on their "simt" variant (bf16 x int8 weight); then with every ``conv*_*``
+  layer named "winograd" in ``algo_overrides`` (``BASELINE.json:9``): its
+  13 convs through ``kernels/winograd.py`` (PyTorch ops, as the
+  reference's is plain jnp), each held against ``F.conv2d``; then full
+  int8 (``"wgmma"``);
+- GoogLeNet at batch 256, full int8 (``BASELINE.json:10``): int8 Concat
+  and LRN edges, then behind an ``InferenceServer``;
+- AlexNet at batch 256, full int8: its 2-group convs in PyTorch's float
+  grouped conv (its baked ``int8_grouped=False``), norm2 on float edges;
+- SqueezeNet v1.1 at batch 1 in fp32 (``BASELINE.json:6``; cuDNN's f32
+  convs, TF32 off, no hand kernel), then at batch 128 full int8
+  (passthrough Concats).
 
 Phases, each printing its own lines:
 
@@ -43,13 +58,15 @@ Phases, each printing its own lines:
    for every kernel whose wrapper counts variants the variant (main loop)
    it took: every int8 GEMM launch must take "wgmma" but where the plan
    gives a reason on a path of ``FALLBACK_OK`` (MobileNet-v2's K = 24
-   convs, printed), a bf16 one "mma_bf16"; every depthwise launch "k3s1"
+   convs, printed), a bf16 x bf16 GEMM "mma_bf16", a bf16 or f32 x with an
+   int8 weight (weight-only) "simt"; every depthwise launch "k3s1"
    or "k3s2" by its stride and every chain launch, int8 or float,
    "wgmma".
 3. per path, kernels: each launch of that forward is repeated on its own
    tensors and held against the kernel's plain PyTorch version (int8 out:
    equal; bf16 out: within 1 bf16 ulp; f32: within 1e-5 of the largest
-   value), and timed (CUDA events, median of 20 behind a spin kernel)
+   value), and timed (CUDA events, median of 20 behind a spin kernel, or
+   of 5 for a launch over 50 ms)
    beside its bound (and the share of it reached) and a library
    yardstick (and the kernel's multiple of it): ``torch._int_mm`` at a GEMM's
    (M, K, N), and for the depthwise kernels ``F.conv2d(groups=C)`` on
@@ -70,14 +87,24 @@ Phases, each printing its own lines:
    round the other way); f32 out, within 1e-4 of the largest value.  A GEMM
    launch on float x (its sums f32 of float products) takes the same bf16
    gate.  ``ident`` is bit-equal, its yardstick ``x.clone()``.
-   A float GEMM's yardstick is ``torch.matmul`` in x's type.
-4. per path, agreement and speed: images 0-1 through the port on the CPU
-   (the plain versions) hold top-1 equal and the prob cosine >= 0.999
+   A float GEMM's yardstick is ``torch.matmul`` in x's type, a float
+   ``conv2d_implicit_gemm``'s ``F.conv2d`` on channels-last bf16 (the
+   weight dequantized once).
+4. per path, agreement and speed: images 0-1 (or 0) through the port on
+   the CPU (the plain versions) hold top-1 equal and the prob cosine >= 0.999
    against the card (bf16 rounds at other places on the two devices, so a
    float edge may differ in its last bit and move an int8 value by one
-   step); median ms per batch and images/s over 10 forwards; one profiled
-   forward's device time by kernel, and by graph node (the engine names a
-   profiler range after each node).
+   step; the classic zoo's paths hold the cosine of the logits,
+   ``LOGIT_AGREEMENT`` says why); median ms per batch and images/s over
+   10 forwards; one profiled forward's device time by kernel, by graph
+   node (the engine names a profiler range after each node) and by graph
+   op (the Winograd convs,
+   Concat and LRN are PyTorch ops: their time is read here).  The
+   Winograd path also holds each Winograd conv's output against
+   ``F.conv2d`` (f32, TF32 off) on the same input and dequantized weight:
+   RMS error within 6% of the pre-activation output's RMS and the largest
+   within 25% of its largest magnitude (F(6,3) on bf16-rounded
+   transformed operands; ``tests/test_torch_winograd.py``).
 5. ragged cases: stride 2, C not a multiple of a kernel's vector, odd
    sizes, the lo/hi clamp, the float variants, the depthwise kernels'
    tiles (H/W not multiples of the tile, stride 2 on odd inputs, C below
@@ -93,9 +120,10 @@ Phases, each printing its own lines:
    and
    ``ident`` on int8, bf16 and f32 at odd sizes, against the plain
    versions.
-6. server (ResNet-50): ``InferenceServer(batch_size=128, batch_slots=[8,
-   128])`` with int8 transfer; 8 client threads send 32 requests; every
-   answer equals the engine's direct output, with no fault.
+6. server (ResNet-50, then GoogLeNet): ``InferenceServer(batch_size=B,
+   batch_slots=[8, B])`` with int8 transfer; 8 client threads send 32
+   requests; every answer equals the engine's direct output, with no
+   fault.
 7. boundary: the probe's launches counted and held against their plain
    versions, then each stage's median ms without and with ``ident``, the
    difference, and ``ident``'s own time beside its byte bound and
@@ -103,11 +131,12 @@ Phases, each printing its own lines:
 
 The order: ResNet-50 (phases 2-4), the ragged cases (5), the server (6),
 ResNet-50 with ``fuse_chains``, the two bf16 ResNet-50 paths, the
-MobileNets, the boundary probe (7).  Then the card's name and power
-limit, one JSON line of kernel numbers, and, last, ``{"ok": true,
-"device": {...}}``.  Any failed check exits nonzero before those lines.
-Without a GPU, or without the repository beside it, the script exits
-nonzero and prints no result.
+MobileNets, the boundary probe (7), VGG-16 (w8, w8 Winograd, w8a8),
+GoogLeNet and its server, AlexNet, SqueezeNet (fp32, w8a8).  Then the
+card's name and power limit, one JSON line of kernel numbers, and, last,
+``{"ok": true, "device": {...}}``.  Any failed check exits nonzero
+before those lines.  Without a GPU, or without the repository beside it,
+the script exits nonzero and prints no result.
 """
 
 from __future__ import annotations
@@ -179,7 +208,44 @@ EXPECTED = {
                                        "fused_chain_float": 12},
     # per stage 2-5: producer and consumer twice (without and with ident)
     "boundary b128": {**_ZERO, "matmul_epilogue": 16, "ident": 4},
+    # weight-only int8: the 12 convs after the float stem and the 3 FCs on
+    # "simt" (bf16 x int8 weight)
+    "vgg16 b128 w8": {**_ZERO, "matmul_epilogue": 3,
+                      "conv2d_implicit_gemm": 12},
+    # the 13 convs through kernels/winograd.py (PyTorch ops), the FCs as
+    # above
+    "vgg16 b128 w8 winograd": {**_ZERO, "matmul_epilogue": 3},
+    "vgg16 b128 w8a8": {**_ZERO, "matmul_epilogue": 3,
+                        "conv2d_implicit_gemm": 12},
+    # 1 + 4 per inception (1x1, 3x3_reduce, 5x5_reduce, pool_proj) x 9 +
+    # the FC; 1 + 2 per inception (3x3, 5x5) x 9
+    "googlenet b256": {**_ZERO, "matmul_epilogue": 38,
+                       "conv2d_implicit_gemm": 19},
+    # conv3 and the FCs; conv2, 4 and 5 are 2-group float convs
+    "alexnet b256": {**_ZERO, "matmul_epilogue": 3,
+                     "conv2d_implicit_gemm": 1},
+    # every conv in cuDNN's f32 conv
+    "squeezenet_v11 b1 fp32": dict(_ZERO),
+    # squeeze and expand1x1 per fire x 8 + conv10; expand3x3 x 8
+    "squeezenet_v11 b128": {**_ZERO, "matmul_epilogue": 17,
+                            "conv2d_implicit_gemm": 8},
 }
+# the 13 Winograd convs of the Winograd path
+WINOGRAD_CONVS = 13
+# F(6,3)'s error on bf16-rounded transformed operands against F.conv2d:
+# RMS error / RMS of the pre-activation output, and largest error / its
+# largest magnitude (tests/test_torch_winograd.py)
+WINOGRAD_RMS, WINOGRAD_MAX = 0.06, 0.25
+# a launch whose one call takes longer is timed over 5 runs, not 20
+SLOW_MS = 50.0
+# The classic zoo's paths hold the card to the CPU on the logits (the
+# Softmax's input): AlexNet's bf16 logits (largest ~16, an ulp of 0.0625)
+# move a probability by ~6% at a 1-ulp difference, which the float convs'
+# sums in cuDNN's order and the CPU's give, so its prob cosine fell to
+# 0.9986 with every launch equal to its plain version.
+LOGIT_AGREEMENT = ("vgg16 b128 w8", "vgg16 b128 w8 winograd",
+                   "vgg16 b128 w8a8", "googlenet b256", "alexnet b256",
+                   "squeezenet_v11 b1 fp32", "squeezenet_v11 b128")
 CHAINS = ("fused_chain", "fused_chain_float")
 GEMMS = ("matmul_epilogue", "conv2d_implicit_gemm")
 # Kernels whose every counted launch must take its main variant: "k3s1"
@@ -188,8 +254,9 @@ GEMMS = ("matmul_epilogue", "conv2d_implicit_gemm")
 MAIN_VARIANT = ("depthwise_conv2d", "depthwise_conv2d_int8",
                 "fused_chain", "fused_chain_float")
 # The paths whose int8 GEMM launches may leave "wgmma" where the plan gives
-# a reason (MobileNet-v2's K = 24 1x1 convs: a 24-byte row pitch).
-FALLBACK_OK = ("mobilenet_v2 b128 dw override",)
+# a reason (a 24-byte row pitch: MobileNet-v2's K = 24 1x1 convs,
+# GoogLeNet's 5x5 convs on 24 channels).
+FALLBACK_OK = ("mobilenet_v2 b128 dw override", "googlenet b256")
 # Cycles of the spin kernel queued before each timed launch: more than
 # the host needs to issue the launch.
 SPIN_CYCLES = 2_000_000
@@ -284,26 +351,31 @@ def toolchain():
 # ----------------------------------------------------------------------
 # phase 2
 # ----------------------------------------------------------------------
+def images(g, batch, rng):
+    """``batch`` seeded images at the model's input size."""
+    return rng.normal(size=(batch,) + tuple(g.inputs["data"].shape[1:])
+                      ).astype(np.float32)
+
+
 def calibrated(builder, batch, rng):
     """The zoo model at ``batch``, calibrated on 3 seeded batches of 8."""
     from feathercnn_tpu_torch.quant import calibrate
     g = builder(batch=batch, seed=SEED)
-    cal = [rng.normal(size=(8, 224, 224, 3)).astype(np.float32)
-           for _ in range(3)]
-    calibrate(g, cal, method="max")
+    calibrate(g, [images(g, 8, rng) for _ in range(3)], method="max")
     return g
 
 
-def make_engine(label, g, quant="w8a8", **config):
+def make_engine(label, g, quant="w8a8", compute_dtype="bfloat16", **config):
     from feathercnn_tpu_torch import Engine, EngineConfig
     t0 = time.perf_counter()
-    cfg = EngineConfig(backend="cuda", compute_dtype="bfloat16",
+    cfg = EngineConfig(backend="cuda", compute_dtype=compute_dtype,
                        quant=quant, **config)
     eng = Engine(g, cfg)
     check(eng.device.type == "cuda", f"engine on {eng.device}")
-    say(label, ("w8a8 bf16, calibrated on 3x8 seeded images" if quant
-                else "bf16, no quantization") + ", loaded in "
-        f"{time.perf_counter() - t0:.1f} s")
+    what = {"w8a8": "w8a8 bf16, calibrated on 3x8 seeded images",
+            "w8": "w8 (weight-only int8) bf16, no calibration"}.get(
+                quant, f"{compute_dtype}, no quantization")
+    say(label, f"{what}, loaded in {time.perf_counter() - t0:.1f} s")
     return cfg, eng
 
 
@@ -387,12 +459,25 @@ def gemm_plan_of(kernel, a):
                     conv_c=a["x"].shape[3] if kernel == GEMMS[1] else None)
 
 
+def gemm_variant_wanted(kernel, a):
+    """The variant a GEMM launch must take: "wgmma" for int8 x (int8 w);
+    "simt" for a bf16 or f32 x with an int8 weight (weight-only) and for
+    every other float conv; "mma_bf16" for a bf16 x bf16 matrix."""
+    import torch
+    if a["x"].dtype == torch.int8:
+        return "wgmma"
+    if (a["x"].dtype == a["w"].dtype == torch.bfloat16
+            and kernel == "matmul_epilogue"):
+        return "mma_bf16"
+    return "simt"
+
+
 def check_variants(label, launches):
     """Every int8 GEMM launch of the forward took "wgmma", but on the
     paths of FALLBACK_OK where the plan gives its reason (printed); every
-    bf16 one "mma_bf16"; every depthwise launch (all 3x3) "k3s1" or "k3s2"
-    by its stride, and every chain launch (int8 or float) "wgmma"."""
-    import torch
+    bf16 x bf16 one "mma_bf16", every weight-only one (bf16 or f32 x, int8
+    w) "simt"; every depthwise launch (all 3x3) "k3s1" or "k3s2" by its
+    stride, and every chain launch (int8 or float) "wgmma"."""
     taken, exceptions = {}, []
     for i, r in enumerate(launches):
         if r["kernel"] in MAIN_VARIANT:
@@ -408,8 +493,7 @@ def check_variants(label, launches):
             continue
         a, v = r["args"], r["variant"]
         taken[v] = taken.get(v, 0) + 1
-        want = {torch.int8: "wgmma", torch.bfloat16: "mma_bf16"}.get(
-            a["x"].dtype, "simt")
+        want = gemm_variant_wanted(r["kernel"], a)
         if v == want:
             continue
         plan = gemm_plan_of(r["kernel"], a)
@@ -439,7 +523,7 @@ def drive(label, eng, x):
     say(label, f"one forward at b{len(x)}: launches {counts}")
     check(counts == EXPECTED[label],
           f"{label}: launches {counts}, expected {EXPECTED[label]}")
-    check(tuple(out.shape) == (len(x), 1000), f"output {tuple(out.shape)}")
+    check(out.numel() == len(x) * 1000, f"output {tuple(out.shape)}")
     check(bool(torch.isfinite(out.float()).all()), "non-finite output")
     recorded = {name: sum(launches_of(r) for r in recorder.launches
                           if r["kernel"] == name) for name in KERNELS}
@@ -598,7 +682,12 @@ def library_ms(kernel, a):
     key = (kernel == "depthwise_conv2d" or kernel == "depthwise_conv2d_int8",
            d, a.get("stride"), a.get("pad_h"), a.get("pad_w"), x.dtype)
     if key not in _LIBRARY_MS:
-        if key[0]:
+        if kernel == "conv2d_implicit_gemm" and x.dtype != torch.int8:
+            w = a["w"]
+            _LIBRARY_MS[key] = _time_conv(tuple(x.shape), w.shape[0],
+                                          w.shape[3], a["stride"],
+                                          a["pad_h"], a["pad_w"])
+        elif key[0]:
             _LIBRARY_MS[key] = _time_dw_conv(d, a["stride"], a["pad_h"],
                                              a["pad_w"])
         elif x.dtype == torch.int8:
@@ -630,6 +719,22 @@ def _time_int_mm(m, k, n):
     except RuntimeError as e:       # a yardstick: its absence fails nothing
         say("kernels", f"_int_mm at ({m}, {k}, {n}) refused: {e}")
         return None
+
+
+def _time_conv(x_shape, k, co, stride, pad_h, pad_w):
+    """F.conv2d with its bias on channels-last bf16 at a float implicit-GEMM
+    launch's shape (a weight-only int8 weight dequantized once to bf16)."""
+    import torch
+    import torch.nn.functional as F
+    nb, h, w, c = x_shape
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    x = torch.randn(nb, c, h, w, device="cuda", generator=gen).to(
+        torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    wt = torch.randn(co, c, k, k, device="cuda", generator=gen).to(
+        torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    b = torch.randn(co, device="cuda", generator=gen).to(torch.bfloat16)
+    return median_ms(lambda: F.conv2d(x, wt, b, stride=stride,
+                                      padding=(pad_h, pad_w)))
 
 
 def _time_dw_conv(d, stride, pad_h, pad_w):
@@ -826,7 +931,7 @@ def kernels_vs_plain(label, launches):
                      "launches": launches_of(launch),
                      "variant": launch.get("variant"),
                      "max_abs_err": max_err,
-                     "ms": median_ms(lambda: kernel(**a)),
+                     **kernel_ms(lambda: kernel(**a)),
                      "plain_ms": median_ms(lambda: plain(**a), reps=3,
                                            warmup=1),
                      "bound_ms": b_ms, "bound_by": b_by,
@@ -838,6 +943,7 @@ def kernels_vs_plain(label, launches):
         over = sum(r["over_1ulp"] for r in same)
         within = ("within the float-sum gates" if same[0]["float_sums"]
                   else "equal to plain")
+        slow = sum(r["reps"] < 20 for r in same)
         say("kernels", f"{desc}: {len(same)} calls, "
             f"{sum(r['launches'] for r in same)} launches, every one {within} "
             f"(max err {max(r['max_abs_err'] for r in same)}, {over} of "
@@ -850,6 +956,8 @@ def kernels_vs_plain(label, launches):
             + ("" if lib is None else f" ({med / lib:.2f}x library)")
             + (f", variant {same[0]['variant']}" if same[0]["variant"]
                else "")
+            + (f"; {slow} timed over 5 runs (over {SLOW_MS:.0f} ms)"
+               if slow else "")
             + ("" if not same[0]["tiles"] else (
                 ", other plans " if same[0]["kernel"] == "fused_chain"
                 else ", other tiles ") + ", ".join(
@@ -886,7 +994,20 @@ def _library_name(desc):
         return "x.clone()"
     if "depthwise" in desc:
         return "bf16 F.conv2d(groups=C)"
-    return "_int_mm" if " int8 " in desc else "torch.matmul"
+    if " int8 " in desc:
+        return "_int_mm"
+    return ("bf16 F.conv2d" if desc.startswith("conv2d_implicit_gemm")
+            else "torch.matmul")
+
+
+def kernel_ms(fn):
+    """{"ms": median device ms of ``fn``, "reps": runs}: 20 runs, or 5
+    where one warm call takes over ``SLOW_MS``."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    reps = 5 if median_ms(fn, reps=1, warmup=0) > SLOW_MS else 20
+    return {"ms": median_ms(fn, reps=reps), "reps": reps}
 
 
 # ----------------------------------------------------------------------
@@ -913,21 +1034,44 @@ def ops_per_batch(graph):
     return total
 
 
-def agreement(label, g, cfg, x, out):
-    """Images 0-1 through the port on the CPU against the card."""
+def _cosine(a, b):
+    return float(a @ b / (np.linalg.norm(a) * np.linalg.norm(b)))
+
+
+def agreement(label, g, cfg, eng, x, out):
+    """Images 0-1 (0 at batch 1) through the port on the CPU against the
+    card: top-1 equal, and the prob cosine >= 0.999 on the paths before the
+    classic zoo's; on those (``LOGIT_AGREEMENT``) the cosine of the logits,
+    the Softmax's input, >= 0.999, the prob cosine printed beside it."""
+    import torch
     from feathercnn_tpu_torch import Engine
     cpu = Engine(g, cfg, device="cpu")
-    ref = cpu(x[:2]).double().numpy().reshape(2, -1)
-    got = out[:2].double().cpu().numpy().reshape(2, -1)
-    for i in range(2):
-        cos = float(got[i] @ ref[i]
-                    / (np.linalg.norm(got[i]) * np.linalg.norm(ref[i])))
+    k = min(2, len(x))
+    ref = cpu(x[:k]).double().numpy().reshape(k, -1)
+    got = out[:k].double().cpu().numpy().reshape(k, -1)
+    on_logits = label in LOGIT_AGREEMENT
+    if on_logits:
+        (blob,) = (n.inputs[0] for n in eng.graph.nodes if n.op == "Softmax")
+        ref_l = cpu.run(x[:k], extract=[blob])[blob].double().numpy()
+        got_l = eng.run(torch.from_numpy(x[:k]).cuda(), extract=[blob])[
+            blob].double().cpu().numpy()
+        ref_l, got_l = ref_l.reshape(k, -1), got_l.reshape(k, -1)
+    for i in range(k):
+        cos = _cosine(got[i], ref[i])
         check(got[i].argmax() == ref[i].argmax(),
               f"{label} image {i}: top-1 {got[i].argmax()} on the card, "
               f"{ref[i].argmax()} on the CPU")
-        check(cos >= 0.999, f"{label} image {i}: prob cosine {cos}")
+        if on_logits:
+            cos_l = _cosine(got_l[i], ref_l[i])
+            check(cos_l >= 0.999, f"{label} image {i}: logit cosine {cos_l}")
+            held = (f"logit cosine {cos_l:.6f} (>= 0.999; max |diff| "
+                    f"{float(np.abs(got_l[i] - ref_l[i]).max()):.3e}), prob "
+                    f"cosine {cos:.6f}")
+        else:
+            check(cos >= 0.999, f"{label} image {i}: prob cosine {cos}")
+            held = f"prob cosine {cos:.6f} (>= 0.999)"
         say("agreement", f"{label} image {i}: top-1 {int(got[i].argmax())} "
-            f"on both, prob cosine {cos:.6f} (>= 0.999), max |diff| "
+            f"on both, {held}, max |prob diff| "
             f"{float(np.abs(got[i] - ref[i]).max()):.3e}")
 
 
@@ -949,7 +1093,8 @@ def _kernel_group(key):
         return "matmul_epilogue"
     if "at::native" in key:
         return "PyTorch's own ops"
-    return "cuDNN (the stem; every conv of the bf16 paths)"
+    return ("cuDNN/cuBLAS (the float convs; the Winograd path's transforms "
+            "and GEMMs)")
 
 
 def speed_and_profile(label, eng, x, smi):
@@ -969,9 +1114,13 @@ def speed_and_profile(label, eng, x, smi):
     ms = statistics.median(times[2:])
     ops = ops_per_batch(eng.graph)
     batch = len(x)
-    what, kind, peak = (("w8a8 bf16", "int8", PEAK_INT8_OPS)
-                        if eng.config.quant
-                        else ("no quantization", "bf16", PEAK_BF16_OPS))
+    what, kind, peak = {
+        "w8a8": ("w8a8 bf16", "int8", PEAK_INT8_OPS),
+        "w8": ("w8 bf16", "bf16", PEAK_BF16_OPS)}.get(
+            eng.config.quant,
+            ("fp32", "f32 (FMA)", PEAK_F32_OPS)
+            if eng.config.compute_dtype == "float32"
+            else ("no quantization", "bf16", PEAK_BF16_OPS))
     say("speed", f"{label} {what}: median {ms:.2f} ms per batch, "
         f"{batch / ms * 1e3:.1f} images/s, {ops / batch / 1e9:.3f} GOP per "
         f"image, {ops / ms / 1e9:.1f} TOP/s = "
@@ -1024,6 +1173,18 @@ def speed_and_profile(label, eng, x, smi):
         say("profile", f"{label}: the card's ranges of {len(node_ms)} of "
             f"{len(nodes)} graph nodes span {sum(node_ms.values()):.3f} ms "
             f"in all, against {total / 1e3:.3f} ms of kernel time")
+        by_op = {}
+        for n in eng.graph.nodes:
+            if n.name not in node_ms:
+                continue
+            op = n.op
+            if n.op == "Convolution" and eng.config.algo_for(n.name):
+                op += f" ({eng.config.algo_for(n.name)})"
+            t, c = by_op.get(op, (0.0, 0))
+            by_op[op] = (t + node_ms[n.name], c + 1)
+        say("profile", f"{label}: node ranges by op: " + ", ".join(
+            f"{op} {t:.3f} ms x{c}" for op, (t, c) in sorted(
+                by_op.items(), key=lambda kv: -kv[1][0])))
     else:
         say("profile", f"{label}: device time by node not measured (no "
             "node range carried device time)")
@@ -1090,11 +1251,80 @@ def run_path(label, g, cfg, eng, x, smi, check_launch=None):
     check_variants(label, launches)
     rows = kernels_vs_plain(label, launches)
     del launches
-    agreement(label, g, cfg, x, out)
+    for name in KERNELS:
+        mine = [r for r in rows if r["kernel"] == name]
+        if mine:
+            sums = _sums(mine)
+            say(label, f"{name} per forward: {len(mine)} calls, "
+                f"{sum(r['launches'] for r in mine)} launches, "
+                f"{sums['ms']:.4f} ms, bound {sums['bound_ms']:.4f} ms, "
+                f"plain {sums['plain_ms']:.3f} ms, library "
+                + ("none" if sums["library_ms"] is None
+                   else f"{sums['library_ms']:.4f} ms"))
+    agreement(label, g, cfg, eng, x, out)
     del out
     torch.cuda.empty_cache()
     ms, node_ms = speed_and_profile(label, eng, x, smi)
     return rows, ms, node_ms
+
+
+def winograd_check(label, eng, x):
+    """One forward with ``kernels/winograd.py``'s entry wrapped: each
+    Winograd conv's output against ``F.conv2d`` (f32, TF32 off) on the same
+    input and dequantized weight, plus bias and activation, within
+    F(6,3)'s error (``WINOGRAD_RMS``, ``WINOGRAD_MAX`` against the
+    pre-activation output)."""
+    import torch
+    import torch.nn.functional as F
+    from feathercnn_tpu_torch.kernels import dispatch
+    orig = dispatch.winograd_conv2d
+    sig = inspect.signature(orig)
+    worst = []
+
+    def held(*args, **kw):
+        out = orig(*args, **kw)
+        a = sig.bind(*args, **kw)
+        a.apply_defaults()
+        a = a.arguments
+        w = a["w"].float()
+        if a["w_scale"] is not None:
+            w = w * a["w_scale"]
+        pre = F.conv2d(a["x"].float().permute(0, 3, 1, 2),
+                       w.permute(3, 2, 0, 1),
+                       padding=(a["pad_h"], a["pad_w"])).permute(0, 2, 3, 1)
+        if a["bias"] is not None:
+            pre = pre + a["bias"]
+        act = a["activation"]
+        ref = (pre.clamp_min(0) if act == "relu" else
+               pre.clamp(0, 6) if act == "relu6" else pre)
+        err = (out.float() - ref).double()
+        rms = float(err.pow(2).mean().sqrt()
+                    / pre.double().pow(2).mean().sqrt())
+        top = float(err.abs().max() / pre.abs().max())
+        shape = tuple(a["x"].shape) + (w.shape[3],)
+        check(rms <= WINOGRAD_RMS and top <= WINOGRAD_MAX,
+              f"{label}: Winograd conv x{shape}: RMS error {rms:.4f} of the "
+              f"RMS, largest {top:.4f} of the largest (gates {WINOGRAD_RMS}, "
+              f"{WINOGRAD_MAX})")
+        worst.append((shape, rms, top))
+        return out
+
+    dispatch.winograd_conv2d = held
+    try:
+        eng(x)
+    finally:
+        dispatch.winograd_conv2d = orig
+    torch.cuda.synchronize()
+    check(len(worst) == WINOGRAD_CONVS,
+          f"{label}: {len(worst)} Winograd convs, expected {WINOGRAD_CONVS}")
+    for shape, rms, top in worst:
+        say(label, f"Winograd conv x{shape[:4]} Co={shape[4]} vs F.conv2d "
+            f"(f32): RMS error {rms:.4f} of the pre-activation RMS, largest "
+            f"{top:.4f} of its largest")
+    say(label, f"{len(worst)} Winograd convs within F(6,3)'s error (RMS <= "
+        f"{WINOGRAD_RMS}, largest <= {WINOGRAD_MAX}); largest relative error "
+        f"{max(t for _, _, t in worst):.4f}, largest RMS "
+        f"{max(r for _, r, _ in worst):.4f}")
 
 
 # ----------------------------------------------------------------------
@@ -1230,7 +1460,8 @@ def ragged_cases():
         f"value; the chain cases exactly)")
     n = ragged_gemm(gen)
     say("kernels", f"{n} GEMM cases at the edges of the wgmma design equal "
-        f"to plain, each on its planned variant")
+        f"to plain, each on its planned variant (2 of them dot1x1's int8 "
+        f"product, torch._int_mm)")
     n = ragged_float_chain(gen) + ragged_ident(gen)
     say("kernels", f"{n} float-chain and ident cases within their gates")
 
@@ -1435,6 +1666,29 @@ def ragged_gemm(gen):
                  bias=f32(nn), activation="relu")
         run("matmul_epilogue", a, want, f"bf16 matmul {(m, k, nn)}")
         n += 1
+    # the "dot1x1" algo's int8 product on the card (torch._int_mm, not a
+    # hand kernel): exact against the f64 product of the int8 grids; a shape
+    # outside _int_mm's rules raises (its own generator: the cases after
+    # this function keep their inputs)
+    from types import SimpleNamespace
+    from feathercnn_tpu_torch.kernels.dispatch import _int8_product
+    node = SimpleNamespace(name="dot1x1 case")
+    g9 = torch.Generator(device="cuda").manual_seed(9)
+    for (m, k, nn) in [(1000, 64, 96), (50176, 192, 64)]:
+        x = torch.randint(-127, 128, (m, k), dtype=torch.int8, device="cuda",
+                          generator=g9)
+        w = gemm_layout(torch.randint(-127, 128, (k, nn), dtype=torch.int8,
+                                      device="cuda", generator=g9))
+        want = (x.double() @ w.double()).float()
+        check(torch.equal(_int8_product(node, x, w), want),
+              f"dot1x1 int8 product {(m, k, nn)} differs from the f64 one")
+        n += 1
+    try:
+        _int8_product(node, x[:100, :20].contiguous(),
+                      gemm_layout(w[:20, :16].contiguous()))
+        check(False, "dot1x1: an int8 product with K=20 was taken")
+    except ValueError:
+        pass
     for name, a in [("matmul_epilogue", dict(x=i8(64, 64), w=i8(64, 32))),
                     ("conv2d_implicit_gemm",
                      dict(x=i8(1, 8, 8, 16), w=i8(3, 3, 16, 32), pad_h=1,
@@ -1560,11 +1814,11 @@ def ragged_ident(gen):
 # ----------------------------------------------------------------------
 # phase 6
 # ----------------------------------------------------------------------
-def serve(eng, x):
+def serve(eng, x, batch=BATCH, label="ResNet-50"):
     from feathercnn_tpu_torch.serve import InferenceServer
     from feathercnn_tpu_torch.serve.server import InferenceFailed
 
-    srv = InferenceServer(eng, batch_size=BATCH, batch_slots=[8, BATCH],
+    srv = InferenceServer(eng, batch_size=batch, batch_slots=[8, batch],
                           batch_timeout_us=2000)
     check(srv._transfer_scale is not None, "int8 transfer not engaged")
     imgs = x[:32]
@@ -1580,11 +1834,11 @@ def serve(eng, x):
         return np.concatenate([run(q[i:i + n])
                                for i in range(0, len(q), n)])
 
-    direct = {n: direct_at(n) for n in (8, 32, BATCH)}
-    diff = {n: float(np.abs(direct[n] - direct[BATCH]).max())
+    direct = {n: direct_at(n) for n in (8, 32, batch)}
+    diff = {n: float(np.abs(direct[n] - direct[batch]).max())
             for n in (8, 32)}
-    say("server", f"direct output of the 32 images at batch 8 / 32 vs "
-        f"{BATCH}: max |diff| {diff[8]} / {diff[32]}")
+    say("server", f"{label}: direct output of the 32 images at batch 8 / 32 "
+        f"vs {batch}: max |diff| {diff[8]} / {diff[32]}")
     results = [None] * len(imgs)
     errors = []
     srv.start()
@@ -1607,13 +1861,13 @@ def serve(eng, x):
         check(not errors, f"InferenceFailed: {errors}")
         check(all(r is not None for r in results), "a request timed out")
         for i, r in enumerate(results):
-            err = float(np.abs(r.ravel() - direct[BATCH][i]).max())
+            err = float(np.abs(r.ravel() - direct[batch][i]).max())
             check(err == 0.0, f"request {i}: server answer differs from "
                   f"the direct run by {err}")
         m = srv.gauges()
         check(m["faults"] == 0, f"faults {m['faults']}")
         check(srv.healthy(), "server unhealthy")
-        say("server", f"32 requests from 8 threads in {wall:.2f} s: "
+        say("server", f"{label}: 32 requests from 8 threads in {wall:.2f} s: "
             f"{m['batches']} batches, {m['pad_images']} pad images, "
             f"0 faults, every answer equal to the direct run")
     finally:
@@ -1728,6 +1982,75 @@ def kernel_summary(name, rows, counts):
     }
 
 
+def classic_paths(smi, rng, rows, counts, speed):
+    """The classic zoo's paths (phases 2-4 each, and GoogLeNet's server):
+    VGG-16 b128 w8, w8 on the Winograd route, w8a8; GoogLeNet and AlexNet
+    b256 w8a8; SqueezeNet v1.1 b1 fp32 and b128 w8a8.  Adds to ``rows``,
+    ``counts`` and ``speed``."""
+    import torch
+    from feathercnn_tpu_torch.models import (alexnet, googlenet,
+                                             squeezenet_v11, vgg16)
+
+    # VGG-16 b128: weight-only int8 on the default route and on the
+    # Winograd route (every conv*_* named "winograd"), then full int8
+    g = vgg16(batch=BATCH, seed=SEED)
+    x = images(g, BATCH, rng)
+    wino = tuple((n.name, "winograd") for n in g.nodes
+                 if n.op == "Convolution")
+    for label, quant, config in [
+            ("vgg16 b128 w8", "w8", {}),
+            ("vgg16 b128 w8 winograd", "w8", {"algo_overrides": wino})]:
+        cfg, eng = make_engine(label, g, quant=quant, **config)
+        counts[label] = EXPECTED[label]
+        r, speed[label], _ = run_path(label, g, cfg, eng, x, smi)
+        rows += r
+        if config:
+            winograd_check(label, eng, x)
+        del eng
+        torch.cuda.empty_cache()
+    label = "vgg16 b128 w8a8"
+    g = calibrated(vgg16, BATCH, rng)
+    cfg, eng = make_engine(label, g)
+    counts[label] = EXPECTED[label]
+    r, speed[label], _ = run_path(label, g, cfg, eng, x, smi)
+    rows += r
+    del eng, x, g
+    torch.cuda.empty_cache()
+
+    # GoogLeNet b256 full int8, then its server; AlexNet b256 full int8
+    for label, builder in [("googlenet b256", googlenet),
+                           ("alexnet b256", alexnet)]:
+        g = calibrated(builder, 256, rng)
+        x = images(g, 256, rng)
+        cfg, eng = make_engine(label, g)
+        counts[label] = EXPECTED[label]
+        r, speed[label], _ = run_path(label, g, cfg, eng, x, smi)
+        rows += r
+        if builder is googlenet:
+            serve(eng, x, 256, "GoogLeNet")
+        del eng, x
+        torch.cuda.empty_cache()
+
+    # SqueezeNet v1.1: fp32 at batch 1 (no quantization, no hand kernel),
+    # then full int8 at batch 128
+    label = "squeezenet_v11 b1 fp32"
+    g = squeezenet_v11(batch=1, seed=SEED)
+    cfg, eng = make_engine(label, g, quant=None, compute_dtype="float32")
+    counts[label] = EXPECTED[label]
+    r, speed[label], _ = run_path(label, g, cfg, eng, images(g, 1, rng), smi)
+    rows += r
+    del eng
+    label = "squeezenet_v11 b128"
+    g = calibrated(squeezenet_v11, BATCH, rng)
+    cfg, eng = make_engine(label, g)
+    counts[label] = EXPECTED[label]
+    r, speed[label], _ = run_path(label, g, cfg, eng, images(g, BATCH, rng),
+                                  smi)
+    rows += r
+    del eng
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1828,8 +2151,11 @@ def main() -> int:
     counts[label] = EXPECTED[label]
     rows += boundary(label, smi)
 
+    classic_paths(smi, rng, rows, counts, speed)
+
     say("done", f"every phase passed in "
-        f"{time.perf_counter() - t_start:.1f} s; ms per batch: "
+        f"{time.perf_counter() - t_start:.1f} s (from the start of the "
+        f"build); ms per batch: "
         + ", ".join(f"{k} {v:.2f}" for k, v in speed.items()))
     summary = [kernel_summary(name, rows, counts) for name in KERNELS]
     print(smi, flush=True)

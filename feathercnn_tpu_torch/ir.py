@@ -278,8 +278,8 @@ def _elementwise_shape(node, in_specs, graph):
     return [in_specs[0]]
 
 
-for _op in ["ReLU", "ReLU6", "BatchNorm", "Scale", "Dropout", "Softmax",
-            "Split", "FusedBottleneck", "FusedChain"]:
+for _op in ["ReLU", "ReLU6", "BatchNorm", "Scale", "Dropout", "LRN",
+            "Softmax", "Split", "FusedBottleneck", "FusedChain"]:
     register_shape_fn(_op)(_elementwise_shape)
 
 
@@ -292,6 +292,16 @@ def _eltwise_shape(node, in_specs, graph):
                 f"{node.name}: Eltwise shape mismatch {s.shape} vs {base.shape}"
             )
     return [base]
+
+
+@register_shape_fn("Concat")
+def _concat_shape(node, in_specs, graph):
+    axis = node.attrs.get("axis", -1)  # NHWC channel axis
+    axis = axis % in_specs[0].rank
+    dim = sum(s.shape[axis] for s in in_specs)
+    shape = list(in_specs[0].shape)
+    shape[axis] = dim
+    return [TensorSpec(tuple(shape), in_specs[0].dtype)]
 
 
 @register_shape_fn("Slice")

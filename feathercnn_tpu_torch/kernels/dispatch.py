@@ -6,7 +6,13 @@ order:
                                             (depthwise_conv2d)
   gemm1x1        1x1 kernel              -> kernels/matmul.py
   implicit       kxk, stride 1-2, g=1    -> kernels/conv.py
-  winograd       3x3 s1 (override only)  -> not ported
+  dot1x1         1x1, g=1 (override)     -> an explicit matrix product
+                                            (the reference's XLA dot:
+                                            torch._int_mm on the card for
+                                            int8, exact int32 sums)
+  winograd       3x3 s1 (override only)  -> kernels/winograd.py (plain
+                                            torch ops, as the reference's
+                                            is plain jnp)
   xla            everything else: the fp convs (PyTorch's conv, as the
                  reference leaves them to XLA's), and the int8 convs the
                  reference runs through XLA's int8 conv — the merged
@@ -41,6 +47,7 @@ from .depthwise import depthwise_conv2d, depthwise_conv2d_int8
 from .fused_chain import fused_chain, fused_chain_float
 from .ident import ident
 from .matmul import gemm_layout, matmul_epilogue
+from .winograd import transform_weights, winograd_conv2d
 
 __all__ = ["select_algo", "conv_forward", "fc_forward", "fused_chain",
            "fused_chain_float", "ident"]
@@ -74,6 +81,23 @@ def _gemm_weight(node, w, dtype, ctx, matrix: bool):
                     lambda: gemm_layout(
                         (w.reshape(w.shape[-2], -1) if matrix else w)
                         .to(dtype)))
+
+
+def _int8_product(node, x2, w2):
+    """The exact int32 product of the int8 (M, K) ``x2`` and (K, N) ``w2``,
+    as f32 (the reference's ``preferred_element_type=int32`` dot, then its
+    f32 cast): the int8 grids in float64 on the CPU (|acc| <= 127^2 K is
+    exact there), ``torch._int_mm`` on the card where its shape rules hold
+    (M > 16, K and N multiples of 8); any other shape raises."""
+    if x2.device.type == "cpu":
+        return (x2.double() @ w2.double()).float()
+    m, k = x2.shape
+    n = w2.shape[1]
+    if m <= 16 or k % 8 or n % 8:
+        raise ValueError(f"{node.name}: dot1x1's int8 product on the card "
+                         f"needs M > 16 and K, N multiples of 8 "
+                         f"(torch._int_mm), got M={m} K={k} N={n}")
+    return torch._int_mm(x2, w2).float()
 
 
 def _quantize_act(x, x_scale: float):
@@ -177,9 +201,51 @@ def conv_forward(node, x, w, bias, ctx):
                             out_scale=out_scale, **kwargs)
         return y.reshape(n, oh, ow, -1)
 
-    if algo in ("dot1x1", "winograd"):
-        raise NotImplementedError(
-            f"{node.name}: algo {algo!r} is not ported yet")
+    if algo == "dot1x1" and kh == 1 and kw == 1 and group == 1:
+        # a 1x1 conv as an explicit matrix product (the reference's XLA
+        # dot), with the segments or activation in its own epilogue
+        x2, (n, oh, ow) = _pointwise_input(x, sh, sw, ph, pw)
+        if (q is not None and w.dtype == torch.int8
+                and q.get("x_scale") is not None):
+            x2 = _quantize_act(x2, q["x_scale"])
+            acc = _int8_product(node, x2, _gemm_weight(node, w, torch.int8,
+                                                       ctx, True))
+            y = acc * ctx.const(node, "w_scale_x_scale",
+                                lambda: np.asarray(q["w_scale"], np.float32)
+                                * np.float32(q["x_scale"]))
+        else:
+            x2 = _dequant_int8_edge(x2, q, ctx)
+            wd = _dequant_weight(w, q, x2.dtype, node, ctx)
+            y = x2.float() @ wd.reshape(x2.shape[1], -1).float()
+        if bias is not None:
+            y = y + bias
+        y = apply_act_segments(y, segs) if segs is not None \
+            else apply_activation(y, act)
+        out_dtype, out_scale = _out_spec(x, q)
+        if out_dtype == torch.int8:
+            y = torch.clamp(torch.round(y * scalar(out_scale, y.device)),
+                            -127, 127)
+        return y.to(out_dtype).reshape(n, oh, ow, -1)
+
+    if algo == "winograd":
+        if kh == 3 and kw == 3 and sh == sw == 1 and dil == 1 and group == 1:
+            out_dtype, _ = _out_spec(x, q)
+            if out_dtype == torch.int8:   # the winograd path keeps float edges
+                out_dtype = (torch.bfloat16 if x.dtype != torch.float32
+                             else torch.float32)
+            if x.dtype == torch.int8:
+                x = (x.float() * scalar(q["x_scale"], x.device)).to(
+                    torch.bfloat16)
+            # the weight transform of the dequantized weight, once per node,
+            # on the CPU (the same f32 values on every device)
+            v = ctx.kept(node, "winograd_v", lambda: transform_weights(
+                _dequant_weight(w, q, torch.float32, node, ctx).cpu()
+            ).to(x.device))
+            ws = (ctx.const(node, "w_scale", lambda: q["w_scale"])
+                  if q is not None and w.dtype == torch.int8 else None)
+            return winograd_conv2d(x, w, bias, ws, pad_h=ph, pad_w=pw,
+                                   activation=act, out_dtype=out_dtype, v=v)
+        algo = "xla"
 
     if algo == "implicit":
         kwargs = {}

@@ -166,6 +166,12 @@ class GraphBuilder:
         self._channels[out] = self._channels[xs[0]]
         return out
 
+    def concat(self, name: str, xs: Sequence[str], axis: int = -1) -> str:
+        out = self._add(Node(name, "Concat", list(xs), [name],
+                             {"axis": axis}))[0]
+        self._channels[out] = sum(self._channels[x] for x in xs)
+        return out
+
     def dropout(self, name: str, x: str, ratio: float = 0.5) -> str:
         out = self._add(Node(name, "Dropout", [x], [name],
                              {"ratio": ratio}))[0]
@@ -175,6 +181,14 @@ class GraphBuilder:
     def softmax(self, name: str, x: str, axis: int = None) -> str:
         attrs = {} if axis is None else {"axis": axis}
         out = self._add(Node(name, "Softmax", [x], [name], attrs))[0]
+        self._channels[out] = self._channels[x]
+        return out
+
+    def lrn(self, name: str, x: str, local_size: int = 5,
+            alpha: float = 1e-4, beta: float = 0.75) -> str:
+        out = self._add(Node(name, "LRN", [x], [name],
+                             {"local_size": local_size, "alpha": alpha,
+                              "beta": beta}))[0]
         self._channels[out] = self._channels[x]
         return out
 

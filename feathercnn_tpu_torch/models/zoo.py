@@ -1,9 +1,11 @@
-"""Model zoo — the ResNet family (ResNet-50/101/152) and MobileNet-v1/v2
-of ``feathercnn_tpu/models/zoo.py``, Caffe deploy structure and naming.
+"""Model zoo — the ResNet family (ResNet-50/101/152), MobileNet-v1/v2,
+SqueezeNet v1.0/v1.1, VGG-16/19, GoogLeNet and AlexNet of
+``feathercnn_tpu/models/zoo.py``, Caffe deploy structure and naming.
 
-Layer sequences and seeded weights are the reference's, so
-``resnet50(seed=s)`` here and there build the same graph with the same
-weights.  The other families come with their lowerings.
+Layer sequences, seeded weights and baked config overrides
+(``meta["config_overrides"]``) are the reference's, so ``resnet50(seed=s)``
+here and there build the same graph with the same weights.  The other
+families come with their lowerings.
 """
 
 from __future__ import annotations
@@ -11,8 +13,185 @@ from __future__ import annotations
 from ..ir import Graph
 from .builder import GraphBuilder
 
-__all__ = ["resnet50", "resnet101", "resnet152", "mobilenet_v1",
-           "mobilenet_v2", "MODEL_BUILDERS", "build_model"]
+__all__ = ["squeezenet_v11", "squeezenet_v10", "vgg16", "vgg19",
+           "googlenet", "alexnet", "resnet50", "resnet101", "resnet152",
+           "mobilenet_v1", "mobilenet_v2", "MODEL_BUILDERS", "build_model"]
+
+
+def _fire(b, name, x, s1, e1, e3):
+    """SqueezeNet's fire module: a 1x1 squeeze, then 1x1 and 3x3 expands
+    concatenated on channels."""
+    s = b.conv(name + "/squeeze1x1", x, s1, 1, relu=True)
+    ex1 = b.conv(name + "/expand1x1", s, e1, 1, relu=True)
+    ex3 = b.conv(name + "/expand3x3", s, e3, 3, pad=1, relu=True)
+    return b.concat(name + "/concat", [ex1, ex3])
+
+
+def squeezenet_v11(batch: int = 1, seed: int = 0,
+                   with_softmax: bool = True) -> Graph:
+    """SqueezeNet v1.1 (227x227 input, fire modules with squeeze/expand)."""
+    b = GraphBuilder("squeezenet_v11", seed)
+    x = b.input("data", (batch, 227, 227, 3))
+    x = b.conv("conv1", x, 64, 3, stride=2, relu=True)
+    x = b.pool("pool1", x, 3, 2)
+    x = _fire(b, "fire2", x, 16, 64, 64)
+    x = _fire(b, "fire3", x, 16, 64, 64)
+    x = b.pool("pool3", x, 3, 2)
+    x = _fire(b, "fire4", x, 32, 128, 128)
+    x = _fire(b, "fire5", x, 32, 128, 128)
+    x = b.pool("pool5", x, 3, 2)
+    x = _fire(b, "fire6", x, 48, 192, 192)
+    x = _fire(b, "fire7", x, 48, 192, 192)
+    x = _fire(b, "fire8", x, 64, 256, 256)
+    x = _fire(b, "fire9", x, 64, 256, 256)
+    x = b.dropout("drop9", x)
+    x = b.conv("conv10", x, 1000, 1, relu=True)
+    x = b.pool("pool10", x, 0, mode="AVE", global_pooling=True)
+    if with_softmax:
+        x = b.softmax("prob", x)
+    g = b.finish([x])
+    # the reference's measured bake: single-scale passthrough Concats only
+    g.meta["config_overrides"] = {"int8_requant_ops": False}
+    return g
+
+
+def squeezenet_v10(batch: int = 1, seed: int = 0,
+                   with_softmax: bool = True) -> Graph:
+    """SqueezeNet v1.0 (224x224): 7x7/2 stem, pools after conv1 /
+    fire4 / fire8 (the original deploy; v1.1 moved to a 3x3 stem)."""
+    b = GraphBuilder("squeezenet_v10", seed)
+    x = b.input("data", (batch, 224, 224, 3))
+    x = b.conv("conv1", x, 96, 7, stride=2, relu=True)
+    x = b.pool("pool1", x, 3, 2)
+    x = _fire(b, "fire2", x, 16, 64, 64)
+    x = _fire(b, "fire3", x, 16, 64, 64)
+    x = _fire(b, "fire4", x, 32, 128, 128)
+    x = b.pool("pool4", x, 3, 2)
+    x = _fire(b, "fire5", x, 32, 128, 128)
+    x = _fire(b, "fire6", x, 48, 192, 192)
+    x = _fire(b, "fire7", x, 48, 192, 192)
+    x = _fire(b, "fire8", x, 64, 256, 256)
+    x = b.pool("pool8", x, 3, 2)
+    x = _fire(b, "fire9", x, 64, 256, 256)
+    x = b.dropout("drop9", x)
+    x = b.conv("conv10", x, 1000, 1, relu=True)
+    x = b.pool("pool10", x, 0, mode="AVE", global_pooling=True)
+    if with_softmax:
+        x = b.softmax("prob", x)
+    g = b.finish([x])
+    g.meta["config_overrides"] = {"int8_requant_ops": False}
+    return g
+
+
+def _vgg(depth: int, batch: int, seed: int, with_softmax: bool) -> Graph:
+    """VGG-16/19 (224x224) — the Winograd-path config (BASELINE.json:9):
+    all-3x3 stride-1 convs."""
+    b = GraphBuilder(f"vgg{depth}", seed)
+    x = b.input("data", (batch, 224, 224, 3))
+    n3 = 3 if depth == 16 else 4
+    cfg = [(1, 2, 64), (2, 2, 128), (3, n3, 256), (4, n3, 512),
+           (5, n3, 512)]
+    for stage, n, ch in cfg:
+        for i in range(1, n + 1):
+            x = b.conv(f"conv{stage}_{i}", x, ch, 3, pad=1, relu=True)
+        x = b.pool(f"pool{stage}", x, 2, 2)
+    x = b.fc("fc6", x, 4096, relu=True)
+    x = b.dropout("drop6", x)
+    x = b.fc("fc7", x, 4096, relu=True)
+    x = b.dropout("drop7", x)
+    x = b.fc("fc8", x, 1000)
+    if with_softmax:
+        x = b.softmax("prob", x)
+    return b.finish([x])
+
+
+def vgg16(batch: int = 1, seed: int = 0, with_softmax: bool = True) -> Graph:
+    """VGG-16 (BASELINE.json:9 config)."""
+    return _vgg(16, batch, seed, with_softmax)
+
+
+def vgg19(batch: int = 1, seed: int = 0, with_softmax: bool = True) -> Graph:
+    """VGG-19 (four-conv stages 3-5)."""
+    return _vgg(19, batch, seed, with_softmax)
+
+
+def googlenet(batch: int = 1, seed: int = 0,
+              with_softmax: bool = True) -> Graph:
+    """GoogLeNet / Inception-v1 (224x224): multi-branch inception modules
+    with channel Concat + LRN (BASELINE.json:10's serving config)."""
+    b = GraphBuilder("googlenet", seed)
+
+    def inception(name, x, c1, c3r, c3, c5r, c5, pp):
+        b1 = b.conv(f"inception_{name}/1x1", x, c1, 1, relu=True)
+        b3 = b.conv(f"inception_{name}/3x3_reduce", x, c3r, 1, relu=True)
+        b3 = b.conv(f"inception_{name}/3x3", b3, c3, 3, pad=1, relu=True)
+        b5 = b.conv(f"inception_{name}/5x5_reduce", x, c5r, 1, relu=True)
+        b5 = b.conv(f"inception_{name}/5x5", b5, c5, 5, pad=2, relu=True)
+        bp = b.pool(f"inception_{name}/pool", x, 3, 1, pad=1)
+        bp = b.conv(f"inception_{name}/pool_proj", bp, pp, 1, relu=True)
+        return b.concat(f"inception_{name}/output", [b1, b3, b5, bp])
+
+    x = b.input("data", (batch, 224, 224, 3))
+    x = b.conv("conv1/7x7_s2", x, 64, 7, stride=2, pad=3, relu=True)
+    x = b.pool("pool1/3x3_s2", x, 3, 2)
+    x = b.lrn("pool1/norm1", x)
+    x = b.conv("conv2/3x3_reduce", x, 64, 1, relu=True)
+    x = b.conv("conv2/3x3", x, 192, 3, pad=1, relu=True)
+    x = b.lrn("conv2/norm2", x)
+    x = b.pool("pool2/3x3_s2", x, 3, 2)
+    x = inception("3a", x, 64, 96, 128, 16, 32, 32)
+    x = inception("3b", x, 128, 128, 192, 32, 96, 64)
+    x = b.pool("pool3/3x3_s2", x, 3, 2)
+    x = inception("4a", x, 192, 96, 208, 16, 48, 64)
+    x = inception("4b", x, 160, 112, 224, 24, 64, 64)
+    x = inception("4c", x, 128, 128, 256, 24, 64, 64)
+    x = inception("4d", x, 112, 144, 288, 32, 64, 64)
+    x = inception("4e", x, 256, 160, 320, 32, 128, 128)
+    x = b.pool("pool4/3x3_s2", x, 3, 2)
+    x = inception("5a", x, 256, 160, 320, 32, 128, 128)
+    x = inception("5b", x, 384, 192, 384, 48, 128, 128)
+    x = b.pool("pool5/7x7_s1", x, 0, mode="AVE", global_pooling=True)
+    x = b.dropout("pool5/drop_7x7_s1", x)
+    x = b.fc("loss3/classifier", x, 1000)
+    if with_softmax:
+        x = b.softmax("prob", x)
+    g = b.finish([x])
+    # the reference's measured bake: sibling merge off
+    g.meta["config_overrides"] = {"merge_siblings": False}
+    return g
+
+
+def alexnet(batch: int = 1, seed: int = 0,
+            with_softmax: bool = True) -> Graph:
+    """AlexNet (227x227), BVLC Caffe deploy structure: LRN (int8 requant
+    edges) and 2-group convs together."""
+    b = GraphBuilder("alexnet", seed)
+    x = b.input("data", (batch, 227, 227, 3))
+    x = b.conv("conv1", x, 96, 11, stride=4, relu=True)
+    x = b.lrn("norm1", x)
+    x = b.pool("pool1", x, 3, 2)
+    x = b.conv("conv2", x, 256, 5, pad=2, group=2, relu=True)
+    x = b.lrn("norm2", x)
+    x = b.pool("pool2", x, 3, 2)
+    x = b.conv("conv3", x, 384, 3, pad=1, relu=True)
+    x = b.conv("conv4", x, 384, 3, pad=1, group=2, relu=True)
+    x = b.conv("conv5", x, 256, 3, pad=1, group=2, relu=True)
+    x = b.pool("pool5", x, 3, 2)
+    x = b.fc("fc6", x, 4096, relu=True)
+    x = b.dropout("drop6", x)
+    x = b.fc("fc7", x, 4096, relu=True)
+    x = b.dropout("drop7", x)
+    x = b.fc("fc8", x, 1000)
+    if with_softmax:
+        x = b.softmax("prob", x)
+    g = b.finish([x])
+    # the reference's measured bakes: norm2 on float edges, and the 2-group
+    # convs on float inputs (no int8 edge into a grouped conv)
+    g.meta["config_overrides"] = {
+        "quant_overrides": {"norm2": "fp"},
+        "int8_grouped": False,
+    }
+    return g
 
 
 def mobilenet_v1(batch: int = 1, seed: int = 0, width_mult: float = 1.0,
@@ -184,6 +363,12 @@ def resnet152(batch: int = 1, seed: int = 0,
 
 
 MODEL_BUILDERS = {
+    "squeezenet_v11": squeezenet_v11,
+    "squeezenet_v10": squeezenet_v10,
+    "vgg16": vgg16,
+    "vgg19": vgg19,
+    "googlenet": googlenet,
+    "alexnet": alexnet,
     "resnet50": resnet50,
     "resnet101": resnet101,
     "resnet152": resnet152,

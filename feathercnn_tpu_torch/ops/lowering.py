@@ -7,12 +7,13 @@ module, as there:
     int8 edges are dequantized first, as the reference's "xla" does).
   - "cuda":  Convolution, InnerProduct, FusedBottleneck and FusedChain go
     through kernels/dispatch.py to the hand-written kernels (their plain
-    versions on CPU tensors); the rest stays plain PyTorch.
+    versions on CPU tensors) or, for the "winograd" and "dot1x1" algos,
+    to plain PyTorch as the reference's are plain jnp; the rest stays
+    plain PyTorch.
 
 An op with no lowering here raises ``NotImplementedError`` naming it
-(``lower_node``): among the reference's, for example LRN, Concat,
-Deconvolution, the detection ops, SpaceToDepth and the ladder ops of
-``concat_dus``.
+(``lower_node``): among the reference's, for example Deconvolution, the
+detection ops, SpaceToDepth and the ladder ops of ``concat_dus``.
 """
 
 from __future__ import annotations
@@ -378,6 +379,78 @@ def _sum_terms(terms):
     for x, s in rest:
         acc = torch.addcmul(acc, x, s) if s is not None else acc + x
     return acc
+
+
+@register_lowering("Concat")
+def _lower_concat(node, inputs, params, ctx):
+    axis = node.attrs.get("axis", -1)
+    q = ctx.qinfo(node)
+    if q is not None and q.get("concat_int8"):
+        # requantizing concat (quant/rewrite.py): each operand arrives int8
+        # at its own calibrated scale (rescaled: round(x * (s / y))) or
+        # float (quantized: round(x / y)); the output carries one scale
+        y = q["y_scale"]
+        parts = []
+        for x, s in zip(inputs, q["in_scales"]):
+            if x.dtype == torch.int8:
+                if s is not None and s != y:
+                    x = torch.clamp(torch.round(
+                        x.float() * scalar(s / y, x.device)), -127, 127).to(
+                            torch.int8)
+                parts.append(x)
+            else:
+                parts.append(quantize(x, y))
+        return [torch.cat(parts, dim=axis)]
+    # float, or the single-scale int8 passthrough
+    return [torch.cat(inputs, dim=axis)]
+
+
+@register_lowering("LRN")
+def _lower_lrn(node, inputs, params, ctx):
+    """Local response normalization across channels (the last axis):
+    ``y = x / (k + alpha/n * sum_window x^2)^beta``.
+
+    int8-edge mode (quant/rewrite.py ``requant_int8``): dequantize, LRN in
+    f32, requantize with a divide (``round(y / y_scale)``).  The window sum
+    is one exact f32 form for every ``lrn_band`` value (a TPU formulation
+    flag): the terms added in channel order, as the reference's
+    ``reduce_window`` adds them (its ``C < local_size`` case included: the
+    window runs over zero padding).  ``k + (alpha/n)*sum`` rounds once, as
+    the reference's compiled form contracts it.  beta 0.75 is
+    ``r * sqrt(r)`` and 0.5 is ``r``, with ``r = 1 / sqrt(b)`` (two IEEE
+    roundings, the same on the CPU and the card); any other beta ``b **
+    -beta``."""
+    q = ctx.qinfo(node)
+    rq = q is not None and q.get("requant_int8")
+    x = inputs[0]
+    if rq and x.dtype == torch.int8:
+        xf = x.float() * scalar(q["x_scale"], x.device)
+    else:
+        xf = x.float()
+    n = node.attrs.get("local_size", 5)
+    alpha = node.attrs.get("alpha", 1e-4)
+    beta = node.attrs.get("beta", 0.75)
+    k = node.attrs.get("k", 1.0)
+    half = n // 2
+    c = xf.shape[-1]
+    sq = F.pad(xf * xf, (half, n - 1 - half))
+    ssum = sq[..., 0:c]
+    for j in range(1, n):
+        ssum = ssum + sq[..., j:j + c]
+    del sq
+    b = torch.addcmul(scalar(k, xf.device), ssum, scalar(alpha / n,
+                                                         xf.device))
+    if beta == 0.75:
+        r = 1.0 / torch.sqrt(b)
+        scl = r * torch.sqrt(r)
+    elif beta == 0.5:
+        scl = 1.0 / torch.sqrt(b)
+    else:
+        scl = torch.pow(b, -beta)
+    y = xf * scl
+    if rq:
+        return [quantize(y, q["y_scale"])]
+    return [y.to(x.dtype)]
 
 
 # ----------------------------------------------------------------------
