@@ -37,12 +37,13 @@ float activations; the bf16 paths run ``quant=None`` in bf16:
   on their "simt" variant (bf16 x int8 weight); then with every ``conv*_*``
   layer named "winograd" in ``algo_overrides`` (``BASELINE.json:9``): its
   13 convs through ``kernels/winograd.py`` (PyTorch ops, as the
-  reference's is plain jnp), each held against ``F.conv2d``; then full
-  int8 (``"wgmma"``);
+  reference's is plain jnp), each held against ``F.conv2d``, then the same
+  in f32, its agreement alone; then full int8 (``"wgmma"``);
 - GoogLeNet at batch 256, full int8 (``BASELINE.json:10``): int8 Concat
   and LRN edges, then behind an ``InferenceServer``;
 - AlexNet at batch 256, full int8: its 2-group convs in PyTorch's float
   grouped conv (its baked ``int8_grouped=False``), norm2 on float edges;
+  then the same with its float convs summed in f64, its agreement alone;
 - SqueezeNet v1.1 at batch 1 in fp32 (``BASELINE.json:6``; cuDNN's f32
   convs, TF32 off, no hand kernel), then at batch 128 full int8
   (passthrough Concats).
@@ -65,8 +66,7 @@ Phases, each printing its own lines:
 3. per path, kernels: each launch of that forward is repeated on its own
    tensors and held against the kernel's plain PyTorch version (int8 out:
    equal; bf16 out: within 1 bf16 ulp; f32: within 1e-5 of the largest
-   value), and timed (CUDA events, median of 20 behind a spin kernel, or
-   of 5 for a launch over 50 ms)
+   value), and timed (CUDA events, median of 20 behind a spin kernel)
    beside its bound (and the share of it reached) and a library
    yardstick (and the kernel's multiple of it): ``torch._int_mm`` at a GEMM's
    (M, K, N), and for the depthwise kernels ``F.conv2d(groups=C)`` on
@@ -94,12 +94,14 @@ Phases, each printing its own lines:
    the CPU (the plain versions) hold top-1 equal and the prob cosine >= 0.999
    against the card (bf16 rounds at other places on the two devices, so a
    float edge may differ in its last bit and move an int8 value by one
-   step; the classic zoo's paths hold the cosine of the logits,
-   ``LOGIT_AGREEMENT`` says why); median ms per batch and images/s over
-   10 forwards; one profiled forward's device time by kernel, by graph
-   node (the engine names a profiler range after each node) and by graph
-   op (the Winograd convs,
-   Concat and LRN are PyTorch ops: their time is read here).  The
+   step); the classic zoo's paths (``LOGIT_AGREEMENT``) hold the cosine of
+   the logits too, and AlexNet's and the Winograd route's that alone, each
+   with a witness (the path with every float conv summed in f64, or in
+   f32) that holds both (``PROB_WITNESS`` says why); median ms per batch
+   and images/s over 10 forwards; one profiled forward's device time by
+   kernel, by graph node (the engine names a profiler range after each
+   node) and by graph op (the Winograd convs, Concat and LRN are PyTorch
+   ops: their time is read here).  The
    Winograd path also holds each Winograd conv's output against
    ``F.conv2d`` (f32, TF32 off) on the same input and dequantized weight:
    RMS error within 6% of the pre-activation output's RMS and the largest
@@ -236,16 +238,32 @@ WINOGRAD_CONVS = 13
 # RMS error / RMS of the pre-activation output, and largest error / its
 # largest magnitude (tests/test_torch_winograd.py)
 WINOGRAD_RMS, WINOGRAD_MAX = 0.06, 0.25
-# a launch whose one call takes longer is timed over 5 runs, not 20
-SLOW_MS = 50.0
-# The classic zoo's paths hold the card to the CPU on the logits (the
-# Softmax's input): AlexNet's bf16 logits (largest ~16, an ulp of 0.0625)
-# move a probability by ~6% at a 1-ulp difference, which the float convs'
-# sums in cuDNN's order and the CPU's give, so its prob cosine fell to
-# 0.9986 with every launch equal to its plain version.
+# The classic zoo's paths hold the logits' cosine (the Softmax's input)
+# besides the probabilities'.
 LOGIT_AGREEMENT = ("vgg16 b128 w8", "vgg16 b128 w8 winograd",
-                   "vgg16 b128 w8a8", "googlenet b256", "alexnet b256",
+                   "vgg16 b128 w8 winograd f32", "vgg16 b128 w8a8",
+                   "googlenet b256", "alexnet b256", "alexnet b256 f64 convs",
                    "squeezenet_v11 b1 fp32", "squeezenet_v11 b128")
+# Paths held on the logits' cosine alone, each with its witness: the same
+# path with the one change named, held on the probabilities' cosine too.
+# (witness label, make_engine arguments, float convs summed in f64)
+PROB_WITNESS = {
+    # AlexNet's bf16 logits (largest ~16, an ulp of 0.0625) move a
+    # probability by ~6% per ulp, and its float convs (the stem and three
+    # grouped convs), summed in cuDNN's order and in the CPU's, round some
+    # values the other way: prob cosine 0.9986 with every launch equal to
+    # its plain version (in f32 too: 0.9987, its FCs keep bf16 outputs).
+    # Witness: every float conv summed in f64 and rounded once, one value
+    # for every order.
+    "alexnet b256": ("alexnet b256 f64 convs", {}, True),
+    # F(6,3) rounds transformed tiles (up to ~150|x|) to bf16 and carries
+    # each through A^T (entries up to 32); the card's and the CPU's f32
+    # sums round some the other way, and over 13 convs the prob cosine
+    # reads 0.998-0.99999 by image in every formulation, the logits'
+    # 0.9997 (tools/winograd_probe.py).  Witness: the same route in f32.
+    "vgg16 b128 w8 winograd": ("vgg16 b128 w8 winograd f32",
+                               {"compute_dtype": "float32"}, False),
+}
 CHAINS = ("fused_chain", "fused_chain_float")
 GEMMS = ("matmul_epilogue", "conv2d_implicit_gemm")
 # Kernels whose every counted launch must take its main variant: "k3s1"
@@ -372,9 +390,9 @@ def make_engine(label, g, quant="w8a8", compute_dtype="bfloat16", **config):
                        quant=quant, **config)
     eng = Engine(g, cfg)
     check(eng.device.type == "cuda", f"engine on {eng.device}")
-    what = {"w8a8": "w8a8 bf16, calibrated on 3x8 seeded images",
-            "w8": "w8 (weight-only int8) bf16, no calibration"}.get(
-                quant, f"{compute_dtype}, no quantization")
+    what = {"w8a8": f"w8a8 {compute_dtype}, calibrated on 3x8 seeded images",
+            "w8": f"w8 (weight-only int8) {compute_dtype}, no calibration"
+            }.get(quant, f"{compute_dtype}, no quantization")
     say(label, f"{what}, loaded in {time.perf_counter() - t0:.1f} s")
     return cfg, eng
 
@@ -523,7 +541,10 @@ def drive(label, eng, x):
     say(label, f"one forward at b{len(x)}: launches {counts}")
     check(counts == EXPECTED[label],
           f"{label}: launches {counts}, expected {EXPECTED[label]}")
-    check(out.numel() == len(x) * 1000, f"output {tuple(out.shape)}")
+    want = ((len(x), 1, 1, 1000) if label.startswith("squeezenet")
+            else (len(x), 1000))
+    check(tuple(out.shape) == want,
+          f"{label}: output {tuple(out.shape)}, expected {want}")
     check(bool(torch.isfinite(out.float()).all()), "non-finite output")
     recorded = {name: sum(launches_of(r) for r in recorder.launches
                           if r["kernel"] == name) for name in KERNELS}
@@ -931,7 +952,7 @@ def kernels_vs_plain(label, launches):
                      "launches": launches_of(launch),
                      "variant": launch.get("variant"),
                      "max_abs_err": max_err,
-                     **kernel_ms(lambda: kernel(**a)),
+                     "ms": median_ms(lambda: kernel(**a)),
                      "plain_ms": median_ms(lambda: plain(**a), reps=3,
                                            warmup=1),
                      "bound_ms": b_ms, "bound_by": b_by,
@@ -943,7 +964,6 @@ def kernels_vs_plain(label, launches):
         over = sum(r["over_1ulp"] for r in same)
         within = ("within the float-sum gates" if same[0]["float_sums"]
                   else "equal to plain")
-        slow = sum(r["reps"] < 20 for r in same)
         say("kernels", f"{desc}: {len(same)} calls, "
             f"{sum(r['launches'] for r in same)} launches, every one {within} "
             f"(max err {max(r['max_abs_err'] for r in same)}, {over} of "
@@ -956,8 +976,6 @@ def kernels_vs_plain(label, launches):
             + ("" if lib is None else f" ({med / lib:.2f}x library)")
             + (f", variant {same[0]['variant']}" if same[0]["variant"]
                else "")
-            + (f"; {slow} timed over 5 runs (over {SLOW_MS:.0f} ms)"
-               if slow else "")
             + ("" if not same[0]["tiles"] else (
                 ", other plans " if same[0]["kernel"] == "fused_chain"
                 else ", other tiles ") + ", ".join(
@@ -1000,16 +1018,6 @@ def _library_name(desc):
             else "torch.matmul")
 
 
-def kernel_ms(fn):
-    """{"ms": median device ms of ``fn``, "reps": runs}: 20 runs, or 5
-    where one warm call takes over ``SLOW_MS``."""
-    import torch
-    fn()
-    torch.cuda.synchronize()
-    reps = 5 if median_ms(fn, reps=1, warmup=0) > SLOW_MS else 20
-    return {"ms": median_ms(fn, reps=reps), "reps": reps}
-
-
 # ----------------------------------------------------------------------
 # phase 4
 # ----------------------------------------------------------------------
@@ -1040,9 +1048,9 @@ def _cosine(a, b):
 
 def agreement(label, g, cfg, eng, x, out):
     """Images 0-1 (0 at batch 1) through the port on the CPU against the
-    card: top-1 equal, and the prob cosine >= 0.999 on the paths before the
-    classic zoo's; on those (``LOGIT_AGREEMENT``) the cosine of the logits,
-    the Softmax's input, >= 0.999, the prob cosine printed beside it."""
+    card: top-1 equal and the prob cosine >= 0.999; on the classic zoo's
+    paths (``LOGIT_AGREEMENT``) the cosine of the logits too, and on a
+    path of ``PROB_WITNESS`` that alone, the prob cosine printed."""
     import torch
     from feathercnn_tpu_torch import Engine
     cpu = Engine(g, cfg, device="cpu")
@@ -1061,15 +1069,17 @@ def agreement(label, g, cfg, eng, x, out):
         check(got[i].argmax() == ref[i].argmax(),
               f"{label} image {i}: top-1 {got[i].argmax()} on the card, "
               f"{ref[i].argmax()} on the CPU")
-        if on_logits:
-            cos_l = _cosine(got_l[i], ref_l[i])
-            check(cos_l >= 0.999, f"{label} image {i}: logit cosine {cos_l}")
-            held = (f"logit cosine {cos_l:.6f} (>= 0.999; max |diff| "
-                    f"{float(np.abs(got_l[i] - ref_l[i]).max()):.3e}), prob "
-                    f"cosine {cos:.6f}")
+        if label in PROB_WITNESS:
+            held = (f"prob cosine {cos:.6f} (held on the logits; "
+                    f"{PROB_WITNESS[label][0]} holds it)")
         else:
             check(cos >= 0.999, f"{label} image {i}: prob cosine {cos}")
             held = f"prob cosine {cos:.6f} (>= 0.999)"
+        if on_logits:
+            cos_l = _cosine(got_l[i], ref_l[i])
+            check(cos_l >= 0.999, f"{label} image {i}: logit cosine {cos_l}")
+            held += (f", logit cosine {cos_l:.6f} (>= 0.999; max |diff| "
+                     f"{float(np.abs(got_l[i] - ref_l[i]).max()):.3e})")
         say("agreement", f"{label} image {i}: top-1 {int(got[i].argmax())} "
             f"on both, {held}, max |prob diff| "
             f"{float(np.abs(got[i] - ref[i]).max()):.3e}")
@@ -1269,39 +1279,39 @@ def run_path(label, g, cfg, eng, x, smi, check_launch=None):
 
 
 def winograd_check(label, eng, x):
-    """One forward with ``kernels/winograd.py``'s entry wrapped: each
-    Winograd conv's output against ``F.conv2d`` (f32, TF32 off) on the same
-    input and dequantized weight, plus bias and activation, within
-    F(6,3)'s error (``WINOGRAD_RMS``, ``WINOGRAD_MAX`` against the
-    pre-activation output)."""
+    """One forward with the dispatcher's conv entry wrapped: each Winograd
+    conv's output against ``F.conv2d`` (f32, TF32 off) on the same input
+    and dequantized weight, plus bias and activation, within F(6,3)'s
+    error (``WINOGRAD_RMS``, ``WINOGRAD_MAX`` against the pre-activation
+    output)."""
     import torch
     import torch.nn.functional as F
     from feathercnn_tpu_torch.kernels import dispatch
-    orig = dispatch.winograd_conv2d
-    sig = inspect.signature(orig)
+    from feathercnn_tpu_torch.ops.lowering import conv_hparams
+    orig = dispatch.conv_forward
     worst = []
 
-    def held(*args, **kw):
-        out = orig(*args, **kw)
-        a = sig.bind(*args, **kw)
-        a.apply_defaults()
-        a = a.arguments
-        w = a["w"].float()
-        if a["w_scale"] is not None:
-            w = w * a["w_scale"]
-        pre = F.conv2d(a["x"].float().permute(0, 3, 1, 2),
-                       w.permute(3, 2, 0, 1),
-                       padding=(a["pad_h"], a["pad_w"])).permute(0, 2, 3, 1)
-        if a["bias"] is not None:
-            pre = pre + a["bias"]
-        act = a["activation"]
+    def held(node, x, w, bias, ctx):
+        out = orig(node, x, w, bias, ctx)
+        if ctx.config.algo_for(node.name) != "winograd":
+            return out
+        _, _, _, _, ph, pw, _, _ = conv_hparams(node)
+        wd = w.float()
+        if w.dtype == torch.int8:
+            wd = wd * torch.as_tensor(np.asarray(ctx.qinfo(node)["w_scale"],
+                                                 np.float32), device=w.device)
+        pre = F.conv2d(x.float().permute(0, 3, 1, 2), wd.permute(3, 2, 0, 1),
+                       padding=(ph, pw)).permute(0, 2, 3, 1)
+        if bias is not None:
+            pre = pre + bias
+        act = node.attrs.get("activation")
         ref = (pre.clamp_min(0) if act == "relu" else
                pre.clamp(0, 6) if act == "relu6" else pre)
         err = (out.float() - ref).double()
         rms = float(err.pow(2).mean().sqrt()
                     / pre.double().pow(2).mean().sqrt())
         top = float(err.abs().max() / pre.abs().max())
-        shape = tuple(a["x"].shape) + (w.shape[3],)
+        shape = tuple(x.shape) + (w.shape[3],)
         check(rms <= WINOGRAD_RMS and top <= WINOGRAD_MAX,
               f"{label}: Winograd conv x{shape}: RMS error {rms:.4f} of the "
               f"RMS, largest {top:.4f} of the largest (gates {WINOGRAD_RMS}, "
@@ -1309,11 +1319,11 @@ def winograd_check(label, eng, x):
         worst.append((shape, rms, top))
         return out
 
-    dispatch.winograd_conv2d = held
+    dispatch.conv_forward = held
     try:
         eng(x)
     finally:
-        dispatch.winograd_conv2d = orig
+        dispatch.conv_forward = orig
     torch.cuda.synchronize()
     check(len(worst) == WINOGRAD_CONVS,
           f"{label}: {len(worst)} Winograd convs, expected {WINOGRAD_CONVS}")
@@ -1982,6 +1992,33 @@ def kernel_summary(name, rows, counts):
     }
 
 
+def witness(path, g, x, quant, config):
+    """The witness of ``path``, held on the logits alone
+    (``PROB_WITNESS``): the same graph and batch with the witness's change,
+    its images 0-1 held to the CPU on the probabilities too
+    (``agreement``)."""
+    import torch
+    import torch.nn.functional as F
+    label, change, f64_convs = PROB_WITNESS[path]
+    conv = F.conv2d
+
+    def conv_f64(inp, weight, bias=None, *args, **kw):
+        return conv(inp.double(), weight.double(),
+                    None if bias is None else bias.double(), *args,
+                    **kw).to(inp.dtype)
+
+    if f64_convs:
+        F.conv2d = conv_f64
+    try:
+        cfg, eng = make_engine(label, g, quant=quant, **{**config, **change})
+        out = eng(torch.from_numpy(x).cuda())
+        torch.cuda.synchronize()
+        agreement(label, g, cfg, eng, x, out)
+    finally:
+        F.conv2d = conv
+    del eng, out
+
+
 def classic_paths(smi, rng, rows, counts, speed):
     """The classic zoo's paths (phases 2-4 each, and GoogLeNet's server):
     VGG-16 b128 w8, w8 on the Winograd route, w8a8; GoogLeNet and AlexNet
@@ -2007,6 +2044,8 @@ def classic_paths(smi, rng, rows, counts, speed):
         if config:
             winograd_check(label, eng, x)
         del eng
+        if label in PROB_WITNESS:
+            witness(label, g, x, quant, config)
         torch.cuda.empty_cache()
     label = "vgg16 b128 w8a8"
     g = calibrated(vgg16, BATCH, rng)
@@ -2028,7 +2067,10 @@ def classic_paths(smi, rng, rows, counts, speed):
         rows += r
         if builder is googlenet:
             serve(eng, x, 256, "GoogLeNet")
-        del eng, x
+        del eng
+        if label in PROB_WITNESS:
+            witness(label, g, x, "w8a8", {})
+        del x
         torch.cuda.empty_cache()
 
     # SqueezeNet v1.1: fp32 at batch 1 (no quantization, no hand kernel),

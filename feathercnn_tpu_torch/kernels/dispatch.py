@@ -47,7 +47,7 @@ from .depthwise import depthwise_conv2d, depthwise_conv2d_int8
 from .fused_chain import fused_chain, fused_chain_float
 from .ident import ident
 from .matmul import gemm_layout, matmul_epilogue
-from .winograd import transform_weights, winograd_conv2d
+from .winograd import transform_weights, winograd_conv2d_transformed
 
 __all__ = ["select_algo", "conv_forward", "fc_forward", "fused_chain",
            "fused_chain_float", "ident"]
@@ -236,15 +236,12 @@ def conv_forward(node, x, w, bias, ctx):
             if x.dtype == torch.int8:
                 x = (x.float() * scalar(q["x_scale"], x.device)).to(
                     torch.bfloat16)
-            # the weight transform of the dequantized weight, once per node,
-            # on the CPU (the same f32 values on every device)
+            # the weight transform of the dequantized weight, once per node
             v = ctx.kept(node, "winograd_v", lambda: transform_weights(
-                _dequant_weight(w, q, torch.float32, node, ctx).cpu()
-            ).to(x.device))
-            ws = (ctx.const(node, "w_scale", lambda: q["w_scale"])
-                  if q is not None and w.dtype == torch.int8 else None)
-            return winograd_conv2d(x, w, bias, ws, pad_h=ph, pad_w=pw,
-                                   activation=act, out_dtype=out_dtype, v=v)
+                _dequant_weight(w, q, torch.float32, node, ctx)))
+            return winograd_conv2d_transformed(x, v, bias, pad_h=ph,
+                                               pad_w=pw, activation=act,
+                                               out_dtype=out_dtype)
         algo = "xla"
 
     if algo == "implicit":

@@ -2,12 +2,9 @@
 
 Counterpart of ``feathercnn_tpu/kernels/winograd.py``.  The reference
 computes it in plain jnp, outside any Pallas kernel, so the port computes
-it in plain PyTorch ops (no hand kernel):
+it in plain PyTorch ops (no hand kernel), in the reference's steps:
 
-  - 8x8 input tiles at stride 6, the input transform ``B^T d B`` to f32
-    (its sums taken in f64 and rounded once, so that the card and the CPU
-    give the same tiles: a bf16 rounding of a tile, which F(6,3) carries
-    into many outputs, then falls the same way on both);
+  - 8x8 input tiles at stride 6, the input transform ``B^T d B`` in f32;
   - 64 per-position GEMMs (one ``torch.bmm``, batch 64) over operands in
     the compute dtype, with f32 products, f32 sums and an f32 result: a
     bf16 operand is rounded to bf16 and held in f32, so the product of two
@@ -19,9 +16,15 @@ F(6,3)'s transform magnitudes force f32 transforms even for bf16
 activations.  A weight-only int8 weight is dequantized before the weight
 transform (exact: the transform is linear).  The weight transform
 ``G g G^T`` runs once per weight (``transform_weights``, in f32 as the
-reference's); the dispatcher makes it on the CPU, where it is bit-equal
-to the reference's, and keeps it on the device per graph node, so the
-card and the CPU round the same transformed weights to bf16.
+reference's); the dispatcher keeps it per graph node and calls
+``winograd_conv2d_transformed``.
+
+The card's and the CPU's f32 sums differ in order, so a bf16 rounding of
+a transformed tile or of an output may fall the other way on each, and
+F(6,3) carries such a step into many outputs: over VGG-16's 13 convs the
+card's probabilities drift from the CPU's (``tools/winograd_probe.py``
+measures it, with the input transform summed in f64 and the weight
+transform made on the CPU for comparison: neither removes the drift).
 
 On the GPU the matrix products run through cuBLAS on f32 operands.  They
 follow ``torch.backends.cuda.matmul.allow_tf32`` (off by default), as the
@@ -37,7 +40,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-__all__ = ["winograd_conv2d", "transform_weights", "BT", "G", "AT"]
+__all__ = ["winograd_conv2d", "winograd_conv2d_transformed",
+           "transform_weights", "BT", "G", "AT"]
 
 # F(6x6, 3x3) transform matrices, interpolation points {0, ±1, ±2, ±1/2, ∞}
 # (Lavin & Gray convention), the reference's.
@@ -76,8 +80,8 @@ _M = 6   # output tile
 _A = 8   # input tile (m + r - 1)
 
 
-def _mat(m, device, dtype=torch.float32) -> torch.Tensor:
-    return torch.as_tensor(m, dtype=dtype, device=device)
+def _mat(m, device) -> torch.Tensor:
+    return torch.as_tensor(m, dtype=torch.float32, device=device)
 
 
 def transform_weights(w: torch.Tensor) -> torch.Tensor:
@@ -90,22 +94,20 @@ def transform_weights(w: torch.Tensor) -> torch.Tensor:
 
 def _tiles(x: torch.Tensor, pad_h: int, pad_w: int):
     """The input transform: ``B^T d B`` of the 8x8 tiles at stride 6 of the
-    padded x, as f32 (64, tiles, C), and the output grid (OH, OW, tile
-    rows, tile columns).  The sums are taken in f64 and rounded once to
-    f32: for a bf16 or f32 x they are exact or nearly so in f64, so every
-    device and every summation order gives the same f32 tiles."""
+    padded x, in f32 (64, tiles, C), and the output grid (OH, OW, tile
+    rows, tile columns)."""
     n, h, wd, c = x.shape
     oh, ow = h + 2 * pad_h - 2, wd + 2 * pad_w - 2
     nth, ntw = -(-oh // _M), -(-ow // _M)
     hp, wp = nth * _M + 2, ntw * _M + 2
-    xp = F.pad(x.double(), (0, 0, pad_w, wp - wd - pad_w, pad_h,
-                            hp - h - pad_h))
-    bt = _mat(BT, x.device, torch.float64)
+    xp = F.pad(x.float(), (0, 0, pad_w, wp - wd - pad_w, pad_h,
+                           hp - h - pad_h))
+    bt = _mat(BT, x.device)
     # the 8x8 tiles at stride 6: d[n, th, tw, c, a, b] = xp[n, 6th+a, 6tw+b, c]
     d = xp.unfold(1, _A, _M).unfold(2, _A, _M)
     t = torch.einsum("ai,ntwcib->antwcb", bt, d)
     del xp, d
-    u = torch.einsum("bj,antwcj->abntwc", bt, t).float()
+    u = torch.einsum("bj,antwcj->abntwc", bt, t)
     return u.reshape(_A * _A, n * nth * ntw, c), (oh, ow, nth, ntw)
 
 
@@ -129,22 +131,29 @@ def winograd_conv2d(x: torch.Tensor, w: torch.Tensor,
                     w_scale: Optional[torch.Tensor] = None,
                     pad_h: int = 1, pad_w: int = 1,
                     activation: Optional[str] = None,
-                    out_dtype: Optional[torch.dtype] = None,
-                    v: Optional[torch.Tensor] = None) -> torch.Tensor:
+                    out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """3x3 stride-1 conv via F(6x6,3x3).  x: (N, H, W, C) f32/bf16;
     w: (3, 3, C, Co) float, or int8 with its per-channel ``w_scale``
-    (weight-only: dequantized before the transform); ``v``: the
-    transformed weight where the caller keeps it (``transform_weights`` of
-    the dequantized w), else it is made here.  Returns (N, OH, OW, Co) in
-    ``out_dtype`` (default x's type)."""
+    (weight-only: dequantized before the transform).  Returns (N, OH, OW,
+    Co) in ``out_dtype`` (default x's type)."""
     kh, kw = w.shape[0], w.shape[1]
     if (kh, kw) != (3, 3):
         raise ValueError(f"the winograd path is 3x3 only, got {kh}x{kw}")
+    if w.dtype == torch.int8:
+        w = w.float() * w_scale.reshape(1, 1, 1, -1)
+    return winograd_conv2d_transformed(x, transform_weights(w), bias,
+                                       pad_h, pad_w, activation, out_dtype)
+
+
+def winograd_conv2d_transformed(x: torch.Tensor, v: torch.Tensor,
+                                bias: Optional[torch.Tensor] = None,
+                                pad_h: int = 1, pad_w: int = 1,
+                                activation: Optional[str] = None,
+                                out_dtype: Optional[torch.dtype] = None
+                                ) -> torch.Tensor:
+    """``winograd_conv2d`` on the transformed weight ``v`` (64, C, Co) that
+    ``transform_weights`` gives, for a caller that keeps it."""
     out_dtype = out_dtype or x.dtype
-    if v is None:
-        if w.dtype == torch.int8:
-            w = w.float() * w_scale.reshape(1, 1, 1, -1)
-        v = transform_weights(w)
     u, grid = _tiles(x, pad_h, pad_w)
     if x.dtype == torch.bfloat16:
         # the compute dtype's operands, held in f32: their products are exact

@@ -189,7 +189,8 @@ def _hold_int8_edges(case, jeng, teng, x):
     """Every int8 edge of ``jeng``'s optimized graph against ``teng``, node
     by node (each port node run on the reference's own input edges) and
     end to end, as the module docstring says.  Returns the number of int8
-    edges and the LRN output elements that differ."""
+    edges, the LRN output elements that differ, and both engines' values
+    (the reference's every edge, the port's int8 edges and outputs)."""
     ref, mine = _reference_edges(jeng, teng, x)
     lrn_out = {n.outputs[0] for n in teng.graph.nodes if n.op == "LRN"}
     int8 = [k for k, v in ref.items() if v.dtype == np.int8]
@@ -225,7 +226,7 @@ def _hold_int8_edges(case, jeng, teng, x):
     print(f"{case}: {len(int8)} int8 edges ({total} elements); node by "
           f"node {lrn_off} LRN output elements off by 1 LSB, the rest "
           f"equal; end to end {e2e_off} differ")
-    return len(int8), lrn_off
+    return len(int8), lrn_off, ref, got
 
 
 def _ops_graph():
@@ -298,12 +299,12 @@ def test_ops_int8_edges_and_vgg_w8_match_reference():
     assert q["cat2"].get("passthrough_int8"), q.get("cat2")
     assert q["norm1"].get("requant_int8") and "norm2" not in q
     assert q["brp"].get("passthrough_int8")
-    n_int8, _ = _hold_int8_edges("ops w8a8", jeng, teng, x)
+    n_int8, _, ref, got = _hold_int8_edges("ops w8a8", jeng, teng, x)
     assert n_int8 >= 10
-    out = teng(x)
-    assert out.dtype == torch.bfloat16
-    np.testing.assert_allclose(out.float().numpy(),
-                               np.asarray(jeng(x), np.float32), rtol=0,
+    out = teng.graph.outputs[0]
+    assert got[out].dtype == torch.bfloat16
+    np.testing.assert_allclose(got[out].float().numpy(),
+                               ref[out].astype(np.float32), rtol=0,
                                atol=1e-2)
 
     g = _vgg_graph()
@@ -372,10 +373,12 @@ def test_full_width_squeezenet_googlenet_w8a8_int8_edges():
                                   lrn_band=False, **kw))
         teng = Engine(graph_from_reference(g),
                       EngineConfig(backend="cuda", **kw), device="cpu")
-        n_int8, _ = _hold_int8_edges(f"{name} w8a8", jeng, teng, x)
+        n_int8, _, ref, got = _hold_int8_edges(f"{name} w8a8", jeng, teng,
+                                               x)
         assert n_int8 >= 30, (name, n_int8)
-        jp = np.asarray(jeng(x), np.float64).ravel()
-        tp = teng(x).double().numpy().ravel()
+        out = teng.graph.outputs[0]
+        jp = ref[out].astype(np.float64).ravel()
+        tp = got[out].double().numpy().ravel()
         assert jp.argmax() == tp.argmax(), name
         cos = jp @ tp / (np.linalg.norm(jp) * np.linalg.norm(tp))
         assert cos >= 0.999, (name, cos)

@@ -211,8 +211,8 @@ def test_winograd_and_dot1x1_overrides_match_reference():
                     err = np.abs(t.float().numpy() - ref).max()
                     assert err <= 2e-2 * max(np.abs(ref).max(), 1e-30), \
                         (case, k, err)
-            np.testing.assert_allclose(teng(x).float().numpy(),
-                                       np.asarray(jeng(x), np.float32),
+            out = teng.graph.outputs[0]
+            np.testing.assert_allclose(got[out].float().numpy(), want[out],
                                        rtol=0, atol=1e-2, err_msg=case)
             if quant == "w8a8":
                 assert n_int8 >= 4, (case, n_int8)
