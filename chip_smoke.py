@@ -34,7 +34,7 @@ float activations; the bf16 paths run ``quant=None`` in bf16:
 - VGG-16 at batch 128 under weight-only int8 (``quant="w8"``, no
   calibration): its 12 3x3 convs after the float stem through
   ``conv2d_implicit_gemm`` and its 3 FCs through ``matmul_epilogue``, both
-  on their "simt" variant (bf16 x int8 weight); then with every ``conv*_*``
+  on their "wgmma_w8" variant (bf16 x int8 weight); then with every ``conv*_*``
   layer named "winograd" in ``algo_overrides`` (``BASELINE.json:9``): its
   13 convs through ``kernels/winograd.py`` (PyTorch ops, as the
   reference's is plain jnp), each held against ``F.conv2d``, then the same
@@ -59,8 +59,9 @@ Phases, each printing its own lines:
    for every kernel whose wrapper counts variants the variant (main loop)
    it took: every int8 GEMM launch must take "wgmma" but where the plan
    gives a reason on a path of ``FALLBACK_OK`` (MobileNet-v2's K = 24
-   convs, printed), a bf16 x bf16 GEMM "mma_bf16", a bf16 or f32 x with an
-   int8 weight (weight-only) "simt"; every depthwise launch "k3s1"
+   convs, printed), a bf16 x bf16 GEMM "mma_bf16", a bf16 x with an int8
+   weight (weight-only) "wgmma_w8", an f32 x "simt"; every depthwise
+   launch "k3s1"
    or "k3s2" by its stride and every chain launch, int8 or float,
    "wgmma".
 3. per path, kernels: each launch of that forward is repeated on its own
@@ -86,7 +87,11 @@ Phases, each printing its own lines:
    f32 in its own order, and a bf16 store of y1, y2 or the output may
    round the other way); f32 out, within 1e-4 of the largest value.  A GEMM
    launch on float x (its sums f32 of float products) takes the same bf16
-   gate.  ``ident`` is bit-equal, its yardstick ``x.clone()``.
+   gate.  Each "wgmma_w8" launch is also run and timed on the "simt"
+   body (its earlier variant) and, where its plan splits K, on the same
+   body unsplit (the plans forced through the C entry point, uncounted),
+   each held to the same gate, and each path prints the sums per
+   forward.  ``ident`` is bit-equal, its yardstick ``x.clone()``.
    A float GEMM's yardstick is ``torch.matmul`` in x's type, a float
    ``conv2d_implicit_gemm``'s ``F.conv2d`` on channels-last bf16 (the
    weight dequantized once).
@@ -119,7 +124,10 @@ Phases, each printing its own lines:
    counts that are not a multiple of the tiles a block takes, a one-tile
    int8 launch whose columns the two consumers split, saturated conv2 sums
    on both int8 variants, a misaligned x, each on its planned variant),
-   and
+   "wgmma_w8" at the edges of its design (``ragged_w8``: M 1 to 300, K 64
+   to 25088, N 24 to 4096, split K, bf16 and int8 out, stride 2, C of 8
+   and 72, batch 1; a K and a C not a multiple of 8 and a misaligned x
+   refused to "simt", their reasons printed), and
    ``ident`` on int8, bf16 and f32 at odd sizes, against the plain
    versions.
 6. server (ResNet-50, then GoogLeNet): ``InferenceServer(batch_size=B,
@@ -211,7 +219,7 @@ EXPECTED = {
     # per stage 2-5: producer and consumer twice (without and with ident)
     "boundary b128": {**_ZERO, "matmul_epilogue": 16, "ident": 4},
     # weight-only int8: the 12 convs after the float stem and the 3 FCs on
-    # "simt" (bf16 x int8 weight)
+    # "wgmma_w8" (bf16 x int8 weight)
     "vgg16 b128 w8": {**_ZERO, "matmul_epilogue": 3,
                       "conv2d_implicit_gemm": 12},
     # the 13 convs through kernels/winograd.py (PyTorch ops), the FCs as
@@ -473,17 +481,24 @@ def gemm_plan_of(kernel, a):
                                                      plan_for)
     m, k, n = dims(kernel, a)
     out_dtype = _default_out_dtype(a["x"], a["out_dtype"])
+    if kernel != GEMMS[1]:
+        return plan_for(m, k, n, a["x"], a["w"], out_dtype)
+    nb, oh, ow, _, _, _ = dims("depthwise", a)
     return plan_for(m, k, n, a["x"], a["w"], out_dtype,
-                    conv_c=a["x"].shape[3] if kernel == GEMMS[1] else None)
+                    conv_c=a["x"].shape[3], conv_out=(nb, oh, ow),
+                    stride=a["stride"])
 
 
 def gemm_variant_wanted(kernel, a):
     """The variant a GEMM launch must take: "wgmma" for int8 x (int8 w);
-    "simt" for a bf16 or f32 x with an int8 weight (weight-only) and for
-    every other float conv; "mma_bf16" for a bf16 x bf16 matrix."""
+    "wgmma_w8" for a bf16 x with an int8 weight (weight-only); "simt" for
+    an f32 x (f32 on the tensor cores would be TF32) and for every other
+    float conv; "mma_bf16" for a bf16 x bf16 matrix."""
     import torch
     if a["x"].dtype == torch.int8:
         return "wgmma"
+    if a["x"].dtype == torch.bfloat16 and a["w"].dtype == torch.int8:
+        return "wgmma_w8"
     if (a["x"].dtype == a["w"].dtype == torch.bfloat16
             and kernel == "matmul_epilogue"):
         return "mma_bf16"
@@ -493,9 +508,10 @@ def gemm_variant_wanted(kernel, a):
 def check_variants(label, launches):
     """Every int8 GEMM launch of the forward took "wgmma", but on the
     paths of FALLBACK_OK where the plan gives its reason (printed); every
-    bf16 x bf16 one "mma_bf16", every weight-only one (bf16 or f32 x, int8
-    w) "simt"; every depthwise launch (all 3x3) "k3s1" or "k3s2" by its
-    stride, and every chain launch (int8 or float) "wgmma"."""
+    bf16 x bf16 one "mma_bf16", every weight-only one (bf16 x, int8 w)
+    "wgmma_w8", every f32 x one "simt"; every depthwise launch (all 3x3)
+    "k3s1" or "k3s2" by its stride, and every chain launch (int8 or float)
+    "wgmma"."""
     taken, exceptions = {}, []
     for i, r in enumerate(launches):
         if r["kernel"] in MAIN_VARIANT:
@@ -839,6 +855,64 @@ def dw_tile_ms(kernel, a, want):
     return res
 
 
+_W8_ALT_MS = {}
+
+
+def w8_other_plans_ms(kernel, a, want):
+    """{plan: median ms} of a "wgmma_w8" GEMM launch on the plans it did
+    not take, launched through the C entry point on the same tensors with
+    the plan forced (uncounted: the wrapper is not called), each held
+    within the float gate of ``want`` (the plain version); timed once per
+    shape: "simt" (the body these launches took before; 5 runs, the
+    largest VGG-16 launch takes ~28 ms on it) and, for a matrix whose K the
+    plan splits, "unsplit" (the same body on its 128 x BN tiles alone, one
+    block each)."""
+    import torch
+    from feathercnn_tpu_torch.kernels.build import load_library
+    from feathercnn_tpu_torch.kernels.matmul import GemmPlan, launch_args
+    key = (kernel, tuple(a["x"].shape), tuple(a["w"].shape), a.get("stride"),
+           want.dtype)
+    if key in _W8_ALT_MS:
+        return _W8_ALT_MS[key]
+    vecs = {k: a[k] for k in ("bias", "w_scale", "lo", "hi")}
+    lib = load_library()
+    plans = {"simt": GemmPlan("simt")}
+    taken = gemm_plan_of(kernel, a)
+    if taken.split > 1:
+        m, _, n = dims(kernel, a)
+        plans["unsplit"] = taken._replace(
+            split=1, grid=-(-m // 128) * -(-n // taken.bn))
+    res = {}
+    for name, plan in plans.items():
+        out = torch.empty_like(want)
+        ptrs, codes, _ = launch_args(a["x"], a["w"], out, vecs,
+                                     a["activation"], want.dtype)
+
+        def run(plan=plan, ptrs=ptrs, codes=codes):
+            st = torch.cuda.current_stream().cuda_stream
+            if kernel == "matmul_epilogue":
+                m, k, n = dims(kernel, a)
+                rc = lib.fcnn_matmul_epilogue(
+                    *ptrs, m, k, n, *codes, float(a["x_scale"]),
+                    float(a["out_scale"]), *plan.args(), None, st)
+            else:
+                nb, h, w, c = a["x"].shape
+                kh, kw, _, co = a["w"].shape
+                rc = lib.fcnn_conv_implicit_gemm(
+                    *ptrs, nb, h, w, c, kh, kw, co, a["stride"],
+                    a["stride"], a["pad_h"], a["pad_w"], *codes,
+                    float(a["x_scale"]), float(a["out_scale"]),
+                    *plan.args(), None, st)
+            check(rc == 0, f"{kernel} on {name}: CUDA error {rc}")
+        run()
+        err, ok, _ = compare(out, want, "float")
+        check(ok, f"{kernel} x{tuple(a['x'].shape)} on {name}: max err {err}")
+        res[name] = (median_ms(run, reps=5, warmup=1) if name == "simt"
+                     else median_ms(run))
+    _W8_ALT_MS[key] = res
+    return res
+
+
 _CHAIN_ALT_MS = {}
 
 
@@ -937,6 +1011,8 @@ def kernels_vs_plain(label, launches):
                 tiles = dw_tile_ms(name, a, ref)
             elif name == "fused_chain":
                 tiles = chain_alt_ms(a, out)
+            elif launch.get("variant") == "wgmma_w8":
+                tiles = w8_other_plans_ms(name, a, ref)
             del ref
         desc = describe(name, a, out)
         check(ok, f"{label}: launch {i}, {desc}: kernel differs from plain, "
@@ -977,8 +1053,8 @@ def kernels_vs_plain(label, launches):
             + (f", variant {same[0]['variant']}" if same[0]["variant"]
                else "")
             + ("" if not same[0]["tiles"] else (
-                ", other plans " if same[0]["kernel"] == "fused_chain"
-                else ", other tiles ") + ", ".join(
+                ", other tiles " if same[0]["kernel"].startswith("depthwise")
+                else ", other plans ") + ", ".join(
                 f"{t} {ms:.4f}" for t, ms in same[0]["tiles"].items())))
     chains = [r for r in rows if r["kernel"] == "fused_chain" and r["tiles"]]
     if chains:
@@ -991,6 +1067,21 @@ def kernels_vs_plain(label, launches):
             f"{'+'.join(dict.fromkeys(r['variant'] for r in chains))}, "
             + ", ".join(f"{v:.4f} on {t}" for t, v in other.items())
             + " (each equal to the plan's output)")
+    w8 = [r for r in rows if r["variant"] == "wgmma_w8"]
+    for kern in GEMMS:
+        mine = [r for r in w8 if r["kernel"] == kern]
+        if mine:
+            unsplit = [r for r in mine if "unsplit" in r["tiles"]]
+            say(label, f"{kern} weight-only launches of one forward: "
+                f"{sum(r['ms'] for r in mine):.4f} ms on wgmma_w8, "
+                f"{sum(r['tiles']['simt'] for r in mine):.4f} on simt "
+                f"(the earlier body, each within the float gate), bound "
+                f"{sum(r['bound_ms'] for r in mine):.4f}, library "
+                f"{sum(r['library_ms'] for r in mine):.4f}"
+                + (f"; the {len(unsplit)} split-K launches "
+                   f"{sum(r['ms'] for r in unsplit):.4f} ms, unsplit "
+                   f"{sum(r['tiles']['unsplit'] for r in unsplit):.4f}"
+                   if unsplit else ""))
     for var in ("k3s1", "k3s2"):
         mine = [r for r in rows if r["tiles"] and r["variant"] == var]
         if not mine:
@@ -1096,10 +1187,10 @@ def _kernel_group(key):
         return ("depthwise_conv2d_int8"
                 if "Lb1E" in key or ", true," in key else "depthwise_conv2d")
     if any(k in key for k in ("wgemm_kernel", "igemm_kernel",
-                              "fgemm_kernel")):
+                              "fgemm_kernel", "w8gemm_kernel")):
         return ("conv2d_implicit_gemm" if "ConvA" in key
                 else "matmul_epilogue")
-    if "bgemm_kernel" in key:
+    if "bgemm_kernel" in key or "splitk_reduce_kernel" in key:
         return "matmul_epilogue"
     if "at::native" in key:
         return "PyTorch's own ops"
@@ -1469,8 +1560,9 @@ def ragged_cases():
         f"equal to plain (int8 0 LSB, bf16 1 ulp, f32 1e-5 of the largest "
         f"value; the chain cases exactly)")
     n = ragged_gemm(gen)
-    say("kernels", f"{n} GEMM cases at the edges of the wgmma design equal "
-        f"to plain, each on its planned variant (2 of them dot1x1's int8 "
+    say("kernels", f"{n} GEMM cases at the edges of the wgmma and wgmma_w8 "
+        f"designs, each on its planned variant and within its gate (int8 x "
+        f"equal to plain, float x the float gate; 2 of them dot1x1's int8 "
         f"product, torch._int_mm)")
     n = ragged_float_chain(gen) + ragged_ident(gen)
     say("kernels", f"{n} float-chain and ident cases within their gates")
@@ -1676,6 +1768,7 @@ def ragged_gemm(gen):
                  bias=f32(nn), activation="relu")
         run("matmul_epilogue", a, want, f"bf16 matmul {(m, k, nn)}")
         n += 1
+    n += ragged_w8(run)
     # the "dot1x1" algo's int8 product on the card (torch._int_mm, not a
     # hand kernel): exact against the f64 product of the int8 grids; a shape
     # outside _int_mm's rules raises (its own generator: the cases after
@@ -1708,6 +1801,100 @@ def ragged_gemm(gen):
             check(False, f"{name}: a weight not in gemm_layout was taken")
         except ValueError:
             pass
+    return n
+
+
+def ragged_w8(run):
+    """"wgmma_w8" (bf16 x int8 weight) at the edges of its design, each on
+    its planned variant and within its gate (``run``), on a generator of
+    its own (the cases after keep their inputs).  matmul_epilogue: every M
+    of 1, 77, 128, 300 by K of 64, 136 (8-byte weight pieces), 25088 by N
+    of 24, 1000, 4096 (split-K where the tiles leave SMs idle), bf16 out
+    on normal x (the float gate) and int8 out on integer-valued x (its f32
+    sums exact in any order: equal to the plain version), the lo/hi clamp
+    on every other pair.  conv2d_implicit_gemm: stride 1 and 2, C of 8, 64,
+    72, 128, odd H/W, batch 1: A gathered, A by TMA, 256-wide tiles with N
+    not a multiple of 256, bf16, int8 and f32 out (f32: within 1e-4 of the
+    largest value).  Then a K and a C not a multiple of 8 and a
+    misaligned x, each refused to "simt" with its reason printed."""
+    import itertools
+    import torch
+    from feathercnn_tpu_torch.kernels.matmul import gemm_layout
+    gen = torch.Generator(device="cuda").manual_seed(10)
+
+    def i8(*s):
+        return torch.randint(-127, 128, s, dtype=torch.int8, device="cuda",
+                             generator=gen)
+
+    def f32(*s):
+        return torch.rand(*s, device="cuda", generator=gen) + 0.5
+
+    def x_of(shape, int8_out):
+        if int8_out:   # small integers: exact products and sums
+            return torch.randint(-8, 9, shape, device="cuda",
+                                 generator=gen).to(torch.bfloat16)
+        return torch.randn(*shape, device="cuda", generator=gen).to(
+            torch.bfloat16)
+
+    def epilogue(nn, k, int8_out, clamp):
+        lo = hi = None
+        if clamp:
+            lo = torch.full((nn,), -math.inf, device="cuda")
+            hi = torch.full((nn,), math.inf, device="cuda")
+            lo[: nn // 2] = 0.0
+            hi[nn // 4: nn // 2] = 6.0
+        spread = (0.3 / (360 * math.sqrt(k)) if int8_out
+                  else 1e-2 / math.sqrt(k))
+        return dict(bias=f32(nn), w_scale=f32(nn) * spread,
+                    activation=None if clamp else "relu",
+                    out_dtype=torch.int8 if int8_out else torch.bfloat16,
+                    x_scale=0.5 if int8_out else 1.0, out_scale=100.0,
+                    lo=lo, hi=hi)
+
+    n = 0
+    for i, (m, k, nn) in enumerate(itertools.product(
+            (1, 77, 128, 300), (64, 136, 25088), (24, 1000, 4096))):
+        int8_out, clamp = i % 2 == 1, (i // 2) % 2 == 1
+        a = dict(x=x_of((m, k), int8_out), w=gemm_layout(i8(k, nn)),
+                 **epilogue(nn, k, int8_out, clamp))
+        run("matmul_epilogue", a, "wgmma_w8",
+            f"w8 matmul {(m, k, nn)} {a['out_dtype']} clamp={clamp}")
+        n += 1
+    # gathered A (stride 2, C of 8 or 72), A by TMA over rectangles of
+    # output pixels (stride 1, C of 64 or 128), 256-wide tiles (N > 128)
+    for (nb, h, w, c, co, s, out) in [
+            (1, 17, 15, 8, 64, 2, "bf16"), (1, 13, 11, 64, 96, 1, "int8"),
+            (2, 9, 13, 72, 40, 2, "bf16"), (1, 15, 17, 72, 24, 1, "int8"),
+            (3, 11, 9, 64, 128, 2, "bf16"), (2, 7, 9, 8, 200, 1, "int8"),
+            (1, 9, 7, 128, 320, 1, "bf16"), (2, 11, 13, 64, 200, 1, "int8"),
+            (1, 5, 19, 64, 72, 1, "f32"), (1, 6, 6, 128, 512, 1, "f32")]:
+        int8_out = out == "int8"
+        ep = epilogue(co, 9 * c, int8_out, False)
+        ep["activation"] = "relu6"
+        if out == "f32":
+            ep["out_dtype"] = torch.float32
+        a = dict(x=x_of((nb, h, w, c), int8_out),
+                 w=gemm_layout(i8(3, 3, c, co)), stride=s, pad_h=1, pad_w=1,
+                 **ep)
+        run("conv2d_implicit_gemm", a, "wgmma_w8",
+            f"w8 conv {(nb, h, w, c, co, s)} {a['out_dtype']}")
+        n += 1
+    flat = x_of((77 * 64 + 1,), False)
+    for name, what, a in [
+            ("matmul_epilogue", "K = 20",
+             dict(x=x_of((50, 20), False), w=gemm_layout(i8(20, 64)),
+                  **epilogue(64, 20, False, False))),
+            ("conv2d_implicit_gemm", "C = 12",
+             dict(x=x_of((1, 9, 9, 12), False),
+                  w=gemm_layout(i8(3, 3, 12, 32)), stride=1, pad_h=1,
+                  pad_w=1, **epilogue(32, 108, False, False))),
+            ("matmul_epilogue", "misaligned x",
+             dict(x=flat[1:].view(77, 64), w=gemm_layout(i8(64, 96)),
+                  **epilogue(96, 64, False, False)))]:
+        run(name, a, "simt", f"w8 {name} with {what}")
+        say("ragged", f"w8 {name} with {what}: simt, as planned "
+            f"({gemm_plan_of(name, a).reason})")
+        n += 1
     return n
 
 

@@ -40,16 +40,18 @@ _L = ctypes.c_longlong
 # (name, argtypes): pointers and the stream as c_void_p, or ctypes would
 # pass a Python int as a 32-bit int and cut the pointer.
 _SIGNATURES = {
-    "fcnn_matmul_epilogue": [_P, _P, _P, _P, _P, _P, _P,      # x w out b ws lo hi
+    "fcnn_matmul_epilogue": [_P, _P, _P, _P, _P, _P, _P,      # x w out b w_scale lo hi
                              _I, _I, _I, _I, _I, _I, _I,      # M K N xt wt ot act
                              _F, _F,                          # x_scale out_scale
                              _I, _I, _I, _I, _I, _I, _I,      # plan: variant bn bk stages
-                             _P],                             #   bres grid smem; stream
+                             _I, _I, _I,                      #   bres grid smem split th tw
+                             _P, _P],                         # ws stream
     "fcnn_conv_implicit_gemm": [_P, _P, _P, _P, _P, _P, _P,
                                 _I, _I, _I, _I, _I, _I, _I,   # N H W C KH KW Co
                                 _I, _I, _I, _I,               # sh sw ph pw
                                 _I, _I, _I, _I,               # xt wt ot act
-                                _F, _F, _I, _I, _I, _I, _I, _I, _I, _P],
+                                _F, _F, _I, _I, _I, _I, _I, _I, _I, _I,
+                                _I, _I, _P, _P],
     "fcnn_depthwise_conv2d": [_P, _P, _P, _P,                # x w out b
                               _I, _I, _I, _I, _I, _I,        # N H W C KH KW
                               _I, _I, _I, _I,                # sh sw ph pw

@@ -82,11 +82,12 @@ def conv2d_implicit_gemm(x: torch.Tensor, w: torch.Tensor,
     if out.numel() == 0:
         return out
     ptrs, codes, stream = launch_args(x, w, out, vecs, activation, out_dtype)
-    plan = plan_for(N * OH * OW, KH * KW * C, Co, x, w, out_dtype, conv_c=C)
+    plan = plan_for(N * OH * OW, KH * KW * C, Co, x, w, out_dtype, conv_c=C,
+                    conv_out=(N, OH, OW), stride=stride)
     from .build import load_library
     rc = load_library().fcnn_conv_implicit_gemm(
         *ptrs, N, H, W, C, KH, KW, Co, stride, stride, pad_h, pad_w, *codes,
-        float(x_scale), float(out_scale), *plan.args(), stream)
+        float(x_scale), float(out_scale), *plan.args(), None, stream)
     if rc != 0:
         raise RuntimeError(
             f"conv2d_implicit_gemm launch failed: CUDA error {rc} "

@@ -27,7 +27,28 @@
 // m64nBNk32 with int32 accumulation over the whole K.  The epilogue is
 // staged through shared memory and leaves as 16-byte row pieces.  C not a
 // multiple of 16 (or C < 16) or a misaligned pointer takes the mma.sync
-// variant; float x the SIMT loop.  The Pallas kernel's staging (row slabs,
+// variant; f32 x the SIMT loop.
+//
+// Weight-only int8 (bf16 x, int8 w: VGG-16 w8's twelve 3x3 convs after the
+// stem, C and Co 64 to 512, stride 1) is bound by the bf16 tensor cores
+// (9*C*Co / (C + Co) operations per byte of x and output, 288 to 2304).
+// What held the design back on the card was the A tile's gather (16-byte
+// cp.async from the producer's 128 threads, 8 channels a piece), then the
+// conversion of the weight tile and the loads from L2.  Variant
+// "wgmma_w8": at stride 1 with C a multiple of 64, A comes by TMA, one
+// (64 channels, tw, th, 1) box per tap over a rectangle of at most 128
+// output pixels of one image (conv_tile in kernels/matmul.py: the fewest
+// rectangles per image), the box shifted by the tap and zero-filled
+// outside the image; otherwise the producer gathers A with cp.async (C a
+// multiple of 8).  The int8 weight tile comes by cp.async into the ring's
+// staging slot and the two consumers convert it to the 128-byte-swizzled
+// bf16 tile (byte permutes and exact f32 subtractions, four weights in
+// eleven instructions) while the last step's wgmma m64nBNk16 bf16 runs,
+// with f32 sums over the whole K; the epilogue leaves from the registers.
+// The tile is as wide as Co, at most 128 (a 256-wide tile's 128 sums a
+// thread spilled and ran slower).
+//
+// The Pallas kernel's staging (row slabs,
 // batch chunks, stride-2 parity planes, shifted products, lax.map over
 // chunks) exists for the TPU's VMEM and (8, 128) tiling and is not carried
 // over.
@@ -43,7 +64,8 @@ extern "C" int fcnn_conv_implicit_gemm(
     int W, int C, int KH, int KW, int Co, int sh, int sw, int ph, int pw,
     int x_type, int w_type, int out_type, int act, float x_scale,
     float out_scale, int variant, int bn, int bk, int stages, int bres,
-    int grid, int smem, void* stream) {
+    int grid, int smem, int split, int th, int tw, void* ws,
+    void* stream) {
   fcnn::ConvA a;
   a.x = static_cast<const char*>(x);
   a.H = H;
@@ -63,6 +85,8 @@ extern "C" int fcnn_conv_implicit_gemm(
       out, bias, w_scale, lo, hi, act, x_scale, out_scale, out_type);
   return fcnn::launch_gemm(
       a, w, Co, x_type, w_type, C % 16 == 0 && C >= 16,
-      fcnn::make_plan(variant, bn, bk, stages, bres, grid, smem), e,
+      fcnn::make_plan(variant, bn, bk, stages, bres, grid, smem, split, th,
+                      tw),
+      static_cast<float*>(ws), e,
       static_cast<cudaStream_t>(stream));
 }

@@ -47,8 +47,30 @@
 // is not 16-byte aligned, C < 16.  They take variant "mma_sync"
 // (igemm_kernel): mma.sync m16n8k32 over single-byte tiles.  bf16 x bf16
 // (variant "mma_bf16", bgemm_kernel) runs mma.sync m16n8k16 with each warp
-// summing its own slice of K and a fixed-order reduction across warps; f32
-// x and weight-only int8 keep a SIMT loop ("simt", fgemm_kernel).
+// summing its own slice of K and a fixed-order reduction across warps.
+//
+// Weight-only int8, bf16 x int8 w (variant "wgmma_w8", w8gemm_kernel): the
+// same persistent grid, producer warpgroup, mbarrier ring and column
+// constants, on wgmma.m64nBNk16.f32.bf16.bf16 (BN 32, 64 or 128) with f32
+// sums over the whole K.  A K step is 64 bf16 (a 128-byte row, 128-byte
+// swizzle).  A comes by TMA: a matrix's 128 x 64 box, or, for a conv at
+// stride 1 with C a multiple of 64, one 4-D box per (tap, 64 channels)
+// over a th x tw rectangle of output pixels, shifted by the tap, the
+// image's edge filled with zeros (the padding); any other conv gathers A
+// with 16-byte cp.async, 8 channels a piece.  The int8 weight tile arrives
+// by cp.async (16- or 8-byte pieces, by K) into an int8 staging slot of
+// the stage; the consumers convert it to the bf16 tile wgmma reads (byte
+// permutes and exact f32 subtractions, i8x4_to_bf16) while the last step's
+// wgmma runs.  No bf16 copy of the weight exists in device memory: the
+// weight streams as int8.  The epilogue leaves from the registers
+// (store_direct), which leaves room for a 5th stage at BN = 128.  A matrix
+// whose tiles leave SMs idle (the FCs, M = batch) splits K over the grid:
+// each slice's f32 sums go to a workspace and a second pass
+// (splitk_reduce_kernel) adds the slices in index order and applies the
+// epilogue, so the result does not change from run to run.  A row pitch
+// that is not 16 bytes' multiple (K or C not a multiple of 8) or a
+// misaligned pointer takes "simt"; so do f32 x, f32 or int8 w ("simt",
+// fgemm_kernel: f32 on the tensor cores would be TF32).
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums; the encoder is looked up
@@ -66,7 +88,13 @@ enum Act { ACT_NONE = 0, ACT_RELU = 1, ACT_RELU6 = 2 };
 enum DType { DT_F32 = 0, DT_BF16 = 1, DT_I8 = 2 };
 // The main loop a launch runs; the host's plan (gemm_plan in
 // kernels/matmul.py) picks it.
-enum Variant { V_SIMT = 0, V_MMA_S8 = 1, V_WGMMA_S8 = 2, V_MMA_BF16 = 3 };
+enum Variant {
+  V_SIMT = 0,
+  V_MMA_S8 = 1,
+  V_WGMMA_S8 = 2,
+  V_MMA_BF16 = 3,
+  V_WGMMA_W8 = 4
+};
 
 struct Epilogue {
   const float* w_scale;  // (N,) per-output-channel dequant scale, or null
@@ -80,10 +108,11 @@ struct Epilogue {
   void* out;             // (M, N) row-major
 };
 
-// A launch's plan, made on the host: the variant, and for "wgmma" the
-// tile width, the K step in bytes, the ring's stages, whether the weight
-// panel stays resident, the grid and the dynamic shared memory, which the
-// kernel's own layout must equal.
+// A launch's plan, made on the host: the variant, and for "wgmma" and
+// "wgmma_w8" the tile width, the K step in bytes, the ring's stages,
+// whether the weight panel stays resident, the grid and the dynamic shared
+// memory, which the kernel's own layout must equal, and the K slices
+// ("wgmma_w8" matrices: 1, or the split-K slices summed by a second pass).
 struct GemmPlan {
   int variant;
   int bn;
@@ -92,6 +121,9 @@ struct GemmPlan {
   int bres;  // the weight panel stays resident (wgemm_kernel)
   int grid;
   int smem;
+  int split;
+  int th;  // "wgmma_w8" conv: the output tile's rows and columns of pixels
+  int tw;  // when A comes by TMA, one box per tap (0: gathered)
 };
 
 // y = act(acc * w_scale[n] * x_scale + bias[n]), then the lo/hi clamp.
@@ -448,6 +480,11 @@ __device__ __forceinline__ void fence_regs(int (&d)[R]) {
 #pragma unroll
   for (int i = 0; i < R; ++i) asm volatile("" : "+r"(d[i]) :: "memory");
 }
+template <int R>
+__device__ __forceinline__ void fence_regs(float (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
+}
 
 __host__ __device__ constexpr int out_size(int out_type) {
   return out_type == DT_F32 ? 4 : out_type == DT_BF16 ? 2 : 1;
@@ -479,6 +516,10 @@ __device__ __forceinline__ uint4 lds128u(uint32_t a) {
   asm volatile("ld.shared.v4.u32 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w) : "r"(a));
   return v;
+}
+__device__ __forceinline__ void sts128u(uint32_t a, uint4 v) {
+  asm volatile("st.shared.v4.u32 [%0], {%1, %2, %3, %4};\n"
+               :: "r"(a), "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w) : "memory");
 }
 __device__ __forceinline__ void sts128(uint32_t a, float4 v) {
   asm volatile("st.shared.v4.f32 [%0], {%1, %2, %3, %4};\n"
@@ -846,6 +887,486 @@ wgemm_kernel(const __grid_constant__ CUtensorMap map_a,
 }
 
 // ---------------------------------------------------------------------
+// Variant "wgmma_w8": bf16 x int8 weight -> f32 sums on bf16 wgmma (see the
+// note at the top).
+// ---------------------------------------------------------------------
+constexpr int W8_BK = 64;                 // K elements (bf16) per step
+constexpr int W8_A_BYTES = WG_BM * 128;   // a step's A tile: 128-byte rows
+
+// Dynamic shared memory of w8gemm_kernel<A, BN> (w8_smem in
+// kernels/matmul.py computes the same): 1024 bytes of alignment slack; the
+// ring of stages, each the A tile, the bf16 weight tile (BN rows of 128
+// bytes) and its int8 staging slot (BN rows of 64 bytes), with two
+// barriers; each consumer's column constants; the conv's row table.  The
+// outputs leave from the registers: a staged tile's room holds a stage.
+__host__ __device__ constexpr int w8gemm_smem(int bn, int stages, bool conv) {
+  return 1024 + stages * (W8_A_BYTES + bn * 192 + 16) + 2 * 24 * bn +
+         (conv ? WG_BM * 16 : 0);
+}
+
+__device__ __forceinline__ void cp_async8(void* dst, const void* src,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n"
+               :: "r"(smem_u32(dst)), "l"(src), "r"(valid ? 8 : 0));
+}
+
+// Four int8 weights (the bytes of q, lowest first) as two bf16 pairs, exact:
+// each byte, offset by 128, goes into the low mantissa bits of 2^23 by a
+// byte permute (0x4B0000xx), 2^23 + 128 is subtracted in f32 (exact), and
+// the upper halves of two such f32 values form a bf16 pair (an integer of
+// at most 8 significant bits is its f32 value's upper half).
+__device__ __forceinline__ void i8x4_to_bf16(uint32_t q, uint32_t& lo,
+                                             uint32_t& hi) {
+  const uint32_t u = q ^ 0x80808080u;
+  constexpr uint32_t kExp = 0x4B000000u;
+  constexpr float kBias = 8388736.0f;  // 2^23 + 128
+  const float f0 = __fsub_rn(__uint_as_float(__byte_perm(u, kExp, 0x7650)), kBias);
+  const float f1 = __fsub_rn(__uint_as_float(__byte_perm(u, kExp, 0x7651)), kBias);
+  const float f2 = __fsub_rn(__uint_as_float(__byte_perm(u, kExp, 0x7652)), kBias);
+  const float f3 = __fsub_rn(__uint_as_float(__byte_perm(u, kExp, 0x7653)), kBias);
+  lo = __byte_perm(__float_as_uint(f0), __float_as_uint(f1), 0x7632);
+  hi = __byte_perm(__float_as_uint(f2), __float_as_uint(f3), 0x7632);
+}
+
+// The A rows' pitch in elements: K for a matrix, C for a conv.
+inline int host_row_pitch(const MatrixA& a) { return a.K; }
+inline int host_row_pitch(const ConvA& a) { return a.C; }
+
+// One consumer warpgroup's 64 x BN tile of f32 sums through the epilogue
+// straight to the output, a column pair per store, each step a single
+// rounded operation in epilogue_value's order (``par``: the column
+// constants, as column_pair makes them); tile row r goes to output row
+// row_of(r), none where that is negative.
+template <typename OutT, int BN, class RowOf>
+__device__ __forceinline__ void store_direct(const float (&acc)[BN / 2],
+                                             uint32_t par, RowOf row_of,
+                                             int n0, int N, float act_lo,
+                                             float act_hi, float out_scale,
+                                             void* out) {
+  const int t = threadIdx.x & 127;
+  const int warp = t >> 5;
+  const int gid = (t & 31) >> 2;
+  const int tig = t & 3;
+  const long long m[2] = {row_of(warp * 16 + gid),
+                          row_of(warp * 16 + gid + 8)};
+  OutT* o = static_cast<OutT*>(out);
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+    const int c = j * 8 + tig * 2;
+    const int n = n0 + c;
+    const uint32_t pp = par + (c >> 1) * 48;
+    const float4 p0 = lds128(pp);       // pre0 pre1 last0 last1
+    const float4 p1 = lds128(pp + 16);  // bias0 bias1 lo0 lo1
+    const float4 p2 = lds128(pp + 32);  // hi0 hi1
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      if (m[h] < 0 || n >= N) continue;
+      float y[2];
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        float v = __fmaf_rn(__fmul_rn(acc[j * 4 + 2 * h + q], q ? p0.y : p0.x),
+                            q ? p0.w : p0.z, q ? p1.y : p1.x);
+        v = fminf(fmaxf(v, act_lo), act_hi);
+        y[q] = fminf(fmaxf(v, q ? p1.w : p1.z), q ? p2.y : p2.x);
+      }
+      OutT* dst = o + m[h] * N + n;
+      if (n + 1 < N && (N & 1) == 0) {
+        if constexpr (std::is_same<OutT, int8_t>::value) {
+          *reinterpret_cast<uint16_t*>(dst) = static_cast<uint16_t>(
+              requant_byte(y[0], out_scale) |
+              (requant_byte(y[1], out_scale) << 8));
+        } else if constexpr (std::is_same<OutT, __nv_bfloat16>::value) {
+          *reinterpret_cast<__nv_bfloat162*>(dst) =
+              __floats2bfloat162_rn(y[0], y[1]);
+        } else {
+          *reinterpret_cast<float2*>(dst) = make_float2(y[0], y[1]);
+        }
+      } else {  // an odd N, or the last column
+#pragma unroll
+        for (int q = 0; q < 2; ++q) {
+          if (n + q >= N) break;
+          if constexpr (std::is_same<OutT, int8_t>::value)
+            dst[q] = static_cast<int8_t>(requant_byte(y[q], out_scale));
+          else if constexpr (std::is_same<OutT, __nv_bfloat16>::value)
+            dst[q] = __float2bfloat16_rn(y[q]);
+          else
+            dst[q] = y[q];
+        }
+      }
+    }
+  }
+}
+
+// A row tile of a unit: a matrix's (and a gathered conv's) row tile mt
+// covers output rows 128 mt .. 128 mt + 127; a conv whose A comes by TMA
+// (th > 0) covers a th x tw rectangle of output pixels of one image, tile
+// row r at (r / tw, r % tw), row tile mt = (image, rectangle row,
+// rectangle column).
+struct RowTile {
+  long long m0;  // first output row (128-row tiles)
+  int img, oh0, ow0;
+};
+
+// A build with FCNN_W8_PROBE_NO_CONVERT or FCNN_W8_PROBE_NO_MMA defined
+// (tools/w8_gemm_probe.py, timing only: its results are wrong) skips the
+// weight tile's conversion or the wgmma.
+//
+// A unit of work is one row tile, one BN-wide column tile and one slice of
+// its K steps: unit u is column tile u % n_tiles, slice (u / n_tiles) %
+// split, row tile u / (n_tiles * split).  The grid is a multiple of the
+// column tiles, so a block keeps its column tile.  Slice sk runs steps
+// [sk * per, min((sk + 1) * per, k_steps)); with split > 1 its f32 sums go
+// to ws[sk] (M x N) and splitk_reduce_kernel applies the epilogue.
+template <class A, int BN>
+__global__ void __launch_bounds__(WG_THREADS, 1)
+w8gemm_kernel(const __grid_constant__ CUtensorMap map_a, A a,
+              const int8_t* __restrict__ w, int N, int stages, int split,
+              int per, int th, int tw, float* __restrict__ ws, Epilogue e) {
+  constexpr bool CONV = std::is_same<A, ConvA>::value;
+  constexpr int BB = BN * 128;  // the bf16 weight tile
+  constexpr int BI = BN * 64;   // its int8 staging slot
+  constexpr int STAGE = W8_A_BYTES + BB + BI;
+  // Registers per thread after the split, within the 384 * 168 of the
+  // launch: the producer issues the weight's cp.async (and the conv's
+  // gather); a consumer holds at most 64 f32 sums.
+  constexpr int P_REGS = 96;
+  constexpr int C_REGS = 200;
+  static_assert(128 * P_REGS + 256 * C_REGS <= WG_THREADS * 168, "registers");
+  const int K = a.K;
+  const int k_steps = (K + W8_BK - 1) / W8_BK;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* ring = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + stages * STAGE);
+  uint64_t* empty = full + stages;
+  uint8_t* pars = reinterpret_cast<uint8_t*>(empty + stages);
+  RowInfo* rows = reinterpret_cast<RowInfo*>(pars + 2 * 24 * BN);
+
+  const int tid = threadIdx.x;
+  const int wg = tid >> 7;
+  const int t = tid & 127;
+  const int M = a.M;
+  const int n_tiles = (N + BN - 1) / BN;
+  // a conv's A by TMA: th x tw rectangles of one image, one box per tap
+  const bool tma_conv = CONV && th > 0;
+  int rect_h = 1, rect_w = 1, row_tiles = (M + WG_BM - 1) / WG_BM;
+  if constexpr (CONV) {
+    if (tma_conv) {
+      rect_h = (a.OH + th - 1) / th;
+      rect_w = (a.OW + tw - 1) / tw;
+      row_tiles = M / (a.OH * a.OW) * rect_h * rect_w;
+    }
+  }
+  const int units = row_tiles * split * n_tiles;
+  auto row_tile = [&](int mt) {
+    RowTile rt;
+    rt.m0 = static_cast<long long>(mt) * WG_BM;
+    rt.img = mt / (rect_h * rect_w);
+    const int q = mt - rt.img * rect_h * rect_w;
+    rt.oh0 = (q / rect_w) * th;
+    rt.ow0 = (q % rect_w) * tw;
+    return rt;
+  };
+
+  if (tid == 0) {
+    for (int s = 0; s < stages; ++s) {
+      // the producer's 128 cp.async arrivals, and the A tile's TMA
+      mbar_init(&full[s], CONV && !tma_conv ? 128 : 129);
+      mbar_init(&empty[s], 256);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    // ---------------- producer ----------------
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(P_REGS)
+                 : "memory");
+    int s = 0;
+    uint32_t ph = 0;
+    const bool b16 = K % 16 == 0;  // 16-byte weight pieces, else 8
+    // the int8 weight rows of column tile nt at step ks into the staging
+    // slot: row r at r * 64, zeros past N and K
+    auto load_b = [&](uint8_t* bi, int nt, int ks) {
+      const int kb = ks * W8_BK;
+      if (b16) {
+#pragma unroll
+        for (int i = t; i < BN * 4; i += 128) {
+          const int n = nt * BN + (i >> 2);
+          const int k = kb + (i & 3) * 16;
+          const bool ok = n < N && k < K;
+          cp_async16(bi + i * 16, ok ? w + static_cast<long long>(n) * K + k : w,
+                     ok);
+        }
+      } else {
+#pragma unroll
+        for (int i = t; i < BN * 8; i += 128) {
+          const int n = nt * BN + (i >> 3);
+          const int k = kb + (i & 7) * 8;
+          const bool ok = n < N && k < K;
+          cp_async8(bi + i * 8, ok ? w + static_cast<long long>(n) * K + k : w,
+                    ok);
+        }
+      }
+    };
+    for (int u = blockIdx.x; u < units; u += gridDim.x) {
+      const int nt = u % n_tiles;
+      const int mt = u / (n_tiles * split);
+      const int sk = (u / n_tiles) % split;
+      const int ks0 = sk * per;
+      const int ks1 = min(k_steps, ks0 + per);
+      // A by TMA: a matrix's 128 x 64 box, or a conv's (64 channels, tw,
+      // th, 1) box of the tap's shifted window (zeros outside the image:
+      // the padding); the weight by the producer's cp.async
+      auto tma_steps = [&]() {
+        const RowTile rt = row_tile(mt);
+        for (int ks = ks0; ks < ks1; ++ks) {
+          mbar_wait(&empty[s], ph ^ 1);
+          uint8_t* As = ring + s * STAGE;
+          if (t == 0) {
+            if constexpr (CONV) {
+              const int cblk = a.C / W8_BK;
+              const int tap = ks / cblk;
+              const int kh = tap / a.KW;
+              const int kw = tap - kh * a.KW;
+              mbar_expect_tx(&full[s], th * tw * 128);
+              tma_load_4d(As, &map_a, (ks - tap * cblk) * W8_BK,
+                          rt.ow0 - a.pw + kw, rt.oh0 - a.ph + kh, rt.img,
+                          &full[s]);
+            } else {
+              mbar_expect_tx(&full[s], W8_A_BYTES);
+              tma_load_2d(As, &map_a, ks * W8_BK, mt * WG_BM, &full[s]);
+            }
+          }
+          load_b(As + W8_A_BYTES + BB, nt, ks);
+          cp_async_arrive(&full[s]);
+          if (++s == stages) { s = 0; ph ^= 1; }
+        }
+      };
+      if constexpr (!CONV) {
+        tma_steps();
+      } else if (tma_conv) {
+        tma_steps();
+      } else {
+        // The gather: thread t fills 16-byte chunk t % 8 (8 channels) of
+        // rows t / 8 + 16 p, neighbouring threads on neighbouring bytes of
+        // one pixel.
+        const int chunk = t & 7;
+        const int r0 = t >> 3;
+        named_sync(3, 128);  // every load of the last tile is issued
+        {
+          RowInfo ri = a.row(static_cast<long long>(mt) * WG_BM + t);
+          if (ri.base < 0) {
+            ri.base = 0;
+            ri.ih = -(1 << 20);
+          } else {
+            ri.base += (static_cast<long long>(ri.ih) * a.W + ri.iw) * a.C;
+          }
+          rows[t] = ri;
+        }
+        named_sync(3, 128);
+        // this thread's position in K: channel c of tap (kh, kw)
+        int k = ks0 * W8_BK + chunk * 8;
+        const int tap0 = k / a.C;
+        int c = k - tap0 * a.C, kh = tap0 / a.KW, kw = tap0 - kh * a.KW;
+        const __nv_bfloat16* xb = reinterpret_cast<const __nv_bfloat16*>(a.x);
+        for (int ks = ks0; ks < ks1; ++ks) {
+          mbar_wait(&empty[s], ph ^ 1);
+          uint8_t* As = ring + s * STAGE;
+          load_b(As + W8_A_BYTES + BB, nt, ks);
+          const long long tap =
+              (static_cast<long long>(kh) * a.W + kw) * a.C + c;
+#pragma unroll
+          for (int p = 0; p < WG_BM / 16; ++p) {
+            const int r = p * 16 + r0;
+            const RowInfo ri = rows[r];
+            const bool ok =
+                k < K &&
+                static_cast<unsigned>(ri.ih + kh) < static_cast<unsigned>(a.H) &&
+                static_cast<unsigned>(ri.iw + kw) < static_cast<unsigned>(a.W);
+            cp_async16(As + swizzle<128>(r * 128 + chunk * 16),
+                       ok ? xb + ri.base + tap : xb, ok);
+          }
+          cp_async_arrive(&full[s]);
+          k += W8_BK;
+          c += W8_BK;
+          while (c >= a.C) {
+            c -= a.C;
+            if (++kw == a.KW) { kw = 0; ++kh; }
+          }
+          if (++s == stages) { s = 0; ph ^= 1; }
+        }
+      }
+    }
+    return;
+  }
+
+  // ---------------- consumers: warpgroup cw owns rows cw*64 .. +63 ----
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(C_REGS)
+               : "memory");
+  const int cw = wg - 1;
+  const int ct = tid - 128;  // 0 .. 255 over both consumers
+  const uint32_t par = smem_u32(pars + cw * 24 * BN);
+  const float act_lo = e.act == ACT_NONE ? -INFINITY : 0.0f;
+  const float act_hi = e.act == ACT_RELU6 ? 6.0f : INFINITY;
+  int s = 0;
+  uint32_t ph = 0;
+  float acc[BN / 2];
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) acc[i] = 0.0f;
+  if (split == 1)
+    for (int i = t; i < BN / 2; i += 128)
+      column_pair(e, (blockIdx.x % n_tiles) * BN + 2 * i, N, par + i * 48);
+
+  for (int u = blockIdx.x; u < units; u += gridDim.x) {
+    const int nt = u % n_tiles;
+    const int mt = u / (n_tiles * split);
+    const int sk = (u / n_tiles) % split;
+    const int ks0 = sk * per;
+    const int ks1 = min(k_steps, ks0 + per);
+    const int n0 = nt * BN;
+    int prev = 0;
+    fence_regs(acc);
+    for (int ks = ks0; ks < ks1; ++ks) {
+      mbar_wait(&full[s], ph);
+      uint8_t* As = ring + s * STAGE;
+      const uint32_t bb = smem_u32(As + W8_A_BYTES);
+      const uint32_t bi = bb + BB;
+      // the staged int8 weight tile into the bf16 tile, 128-byte swizzled:
+      // input piece i (16 weights of row i / 4) becomes the row's 16-byte
+      // chunks 2 (i % 4) and 2 (i % 4) + 1, thread ct taking pieces ct +
+      // 256 j, all its loads issued first; the last step's wgmma runs
+      // meanwhile
+#ifndef FCNN_W8_PROBE_NO_CONVERT
+      constexpr int PIECES = (BN * 4 + 255) / 256;  // a thread's, at most
+      uint4 q[PIECES];
+#pragma unroll
+      for (int j = 0; j < PIECES; ++j)
+        if (BN * 4 >= 256 || ct + j * 256 < BN * 4)
+          q[j] = lds128u(bi + (ct + j * 256) * 16);
+#pragma unroll
+      for (int j = 0; j < PIECES; ++j) {
+        const int i = ct + j * 256;
+        if (BN * 4 < 256 && i >= BN * 4) break;
+        uint4 lo, hi;
+        i8x4_to_bf16(q[j].x, lo.x, lo.y);
+        i8x4_to_bf16(q[j].y, lo.z, lo.w);
+        i8x4_to_bf16(q[j].z, hi.x, hi.y);
+        i8x4_to_bf16(q[j].w, hi.z, hi.w);
+        const int r = i >> 2;
+        const int p = i & 3;
+        const uint32_t row = bb + r * 128;
+        sts128u(row + (((2 * p) ^ (r & 7)) << 4), lo);
+        sts128u(row + (((2 * p + 1) ^ (r & 7)) << 4), hi);
+      }
+#endif
+      // the bf16 tile (and the conv's cp.async A) to the async proxy, and
+      // both consumers' halves of it written
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      named_sync(4, 256);
+      const uint64_t da = wg_desc<128>(As + cw * 64 * 128);
+      const uint64_t db = wg_desc<128>(As + W8_A_BYTES);
+      wgmma_fence();
+#ifndef FCNN_W8_PROBE_NO_MMA
+#pragma unroll
+      for (int j = 0; j < W8_BK / 16; ++j)
+        wgmma_bf16<BN>(acc, da + 2 * j, db + 2 * j, (ks > ks0 || j > 0) ? 1 : 0);
+#endif
+      wgmma_commit();
+      if (ks > ks0) {  // the last step's products are done: free its slot
+        wgmma_wait<1>();
+        mbar_arrive(&empty[prev]);
+      }
+      prev = s;
+      if (++s == stages) { s = 0; ph ^= 1; }
+    }
+    wgmma_wait<0>();
+    fence_regs(acc);
+    mbar_arrive(&empty[prev]);
+
+    const RowTile rt = row_tile(mt);
+    const int lr0 = cw * 64;  // this consumer's first row in the tile
+    if (split > 1) {  // this slice's sums, straight from the registers
+      float* dst = ws + static_cast<long long>(sk) * M * N;
+      const int warp = t >> 5;
+      const int gid = (t & 31) >> 2;
+      const int tig = t & 3;
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+        const int c = n0 + j * 8 + tig * 2;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const long long m = rt.m0 + lr0 + warp * 16 + gid + 8 * h;
+          if (m >= M) continue;
+          float* p = dst + m * N + c;
+          const float v0 = acc[j * 4 + 2 * h];
+          const float v1 = acc[j * 4 + 2 * h + 1];
+          if (c + 1 < N && (N & 1) == 0) {
+            *reinterpret_cast<float2*>(p) = make_float2(v0, v1);
+          } else {
+            if (c < N) p[0] = v0;
+            if (c + 1 < N) p[1] = v1;
+          }
+        }
+      }
+      continue;
+    }
+    // the tile's rows in the output: rows of a row tile, or the pixels of
+    // a conv's rectangle
+    auto row_of = [&](int r) -> long long {
+      const int lr = lr0 + r;
+      if constexpr (CONV) {
+        if (tma_conv) {
+          const int oh = rt.oh0 + lr / tw;
+          const int ow = rt.ow0 + lr % tw;
+          return lr < th * tw && oh < a.OH && ow < a.OW
+              ? (static_cast<long long>(rt.img) * a.OH + oh) * a.OW + ow
+              : -1ll;
+        }
+      }
+      const long long m = rt.m0 + lr;
+      return m < M ? m : -1ll;
+    };
+    const float osc = e.out_scale;
+    if (e.out_type == DT_I8)
+      store_direct<int8_t, BN>(acc, par, row_of, n0, N, act_lo, act_hi, osc,
+                               e.out);
+    else if (e.out_type == DT_BF16)
+      store_direct<__nv_bfloat16, BN>(acc, par, row_of, n0, N, act_lo, act_hi,
+                                      osc, e.out);
+    else
+      store_direct<float, BN>(acc, par, row_of, n0, N, act_lo, act_hi, osc,
+                              e.out);
+  }
+}
+
+// The split-K pass: out[m, n] = epilogue(ws[0][m][n] + ws[1][m][n] + ...),
+// the slices added in index order with f32 rounding, two columns a thread
+// (T = float; a template, so that each unit that includes this defines it).
+template <typename T>
+__global__ void __launch_bounds__(256)
+splitk_reduce_kernel(const T* __restrict__ ws, int split, int M, int N,
+                     Epilogue e) {
+  const int half = (N + 1) / 2;
+  const long long pairs = static_cast<long long>(M) * half;
+  const long long mn = static_cast<long long>(M) * N;
+  for (long long i = blockIdx.x * 256ll + threadIdx.x; i < pairs;
+       i += gridDim.x * 256ll) {
+    const long long m = i / half;
+    const int c = 2 * static_cast<int>(i - m * half);
+    const long long idx = m * N + c;
+    const bool two = c + 1 < N;
+    T v0 = ws[idx];
+    T v1 = two ? ws[idx + 1] : T(0);
+    for (int sk = 1; sk < split; ++sk) {
+      v0 = __fadd_rn(v0, ws[sk * mn + idx]);
+      if (two) v1 = __fadd_rn(v1, ws[sk * mn + idx + 1]);
+    }
+    epilogue_store2(v0, v1, m, c, N, e);
+  }
+}
+
+// ---------------------------------------------------------------------
 // Variant "mma_sync": int8 x int8 -> int32 on mma.sync m16n8k32, for the
 // shapes "wgmma" does not take.  Block tile 128 (M) x 64 (N), K step 64
 // bytes, 8 warps as 4 (M) x 2 (N); a warp owns 32 x 32.  Single bytes go
@@ -1070,9 +1591,10 @@ bgemm_kernel(const T* __restrict__ x, const T* __restrict__ w, int M, int K,
 }
 
 // ---------------------------------------------------------------------
-// Variant "simt" (f32 x f32, and weight-only int8 with f32 or bf16
-// activations): a plain SIMT tile, f32 accumulation.  No path launches
-// them at full size; 64 x 64 tiles, 4 x 4 outputs per thread.
+// Variant "simt" (f32 x f32 or int8 w, and the bf16 x int8 launches the
+// "wgmma_w8" plan refuses): a plain SIMT tile, f32 FMA sums, 64 x 64
+// tiles, 4 x 4 outputs per thread.  At full width only the f32 witness of
+// VGG-16 w8's Winograd route (its FCs, f32 x int8 w) runs it.
 // ---------------------------------------------------------------------
 constexpr int FG_BM = 64;
 constexpr int FG_BN = 64;
@@ -1184,23 +1706,27 @@ inline EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// A TMA map over the int8 (rows, cols) row-major matrix at base, box
-// box_rows x box_cols (box_cols bytes swizzled at box_cols), zero fill
-// outside.  Encoded per launch: the caching allocator reuses addresses.
+// A TMA map over the int8 (elem 1) or bf16 (elem 2) (rows, cols) row-major
+// matrix at base, box box_rows x box_cols elements (a box row of 128 bytes
+// swizzled at 128, of 64 at 64), zero fill outside.  Encoded per launch:
+// the caching allocator reuses addresses.
 inline bool make_map(CUtensorMap* map, const void* base, long long rows,
-                     int cols, int box_rows, int box_cols) {
+                     int cols, int box_rows, int box_cols, int elem = 1) {
   const EncodeTiledFn enc = encode_tiled();
   if (!enc) return false;
   const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols),
                               static_cast<cuuint64_t>(rows)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) *
+                                 static_cast<cuuint64_t>(elem)};
   const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_cols),
                              static_cast<cuuint32_t>(box_rows)};
   const cuuint32_t unit[2] = {1, 1};
-  return enc(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(base),
+  return enc(map, elem == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                            : CU_TENSOR_MAP_DATA_TYPE_UINT8,
+             2, const_cast<void*>(base),
              dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-             box_cols == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
-                             : CU_TENSOR_MAP_SWIZZLE_64B,
+             box_cols * elem == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                                    : CU_TENSOR_MAP_SWIZZLE_64B,
              CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
@@ -1227,17 +1753,103 @@ inline int launch_wgemm(const A& a, const int8_t* w, int N, const GemmPlan& p,
   return static_cast<int>(cudaGetLastError());
 }
 
+// A TMA map over the bf16 NHWC image x as (C, W, H, N), box (64 channels,
+// bw, bh, 1), 128-byte swizzle, zero fill outside (the conv's padding).
+inline bool make_map_nhwc(CUtensorMap* map, const void* base, int C, int W,
+                          int H, int N, int bw, int bh) {
+  const EncodeTiledFn enc = encode_tiled();
+  if (!enc) return false;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(C),
+                              static_cast<cuuint64_t>(W),
+                              static_cast<cuuint64_t>(H),
+                              static_cast<cuuint64_t>(N)};
+  const cuuint64_t strides[3] = {dims[0] * 2, dims[0] * dims[1] * 2,
+                                 dims[0] * dims[1] * dims[2] * 2};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(W8_BK),
+                             static_cast<cuuint32_t>(bw),
+                             static_cast<cuuint32_t>(bh), 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+             const_cast<void*>(base), dims, strides, box, unit,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// "wgmma_w8": refuses (cudaErrorInvalidValue) a plan whose shared memory,
+// grid or K slices differ from the kernel's own count, a split without a
+// workspace ``ws`` (split x M x N f32) or on a conv, or a conv tile by TMA
+// (th x tw) that the conv does not allow.
+template <class A, int BN>
+inline int launch_w8gemm(const A& a, const int8_t* w, int N,
+                         const GemmPlan& p, float* ws, const Epilogue& e,
+                         cudaStream_t s) {
+  constexpr bool CONV = std::is_same<A, ConvA>::value;
+  const int bad = static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap ma{};
+  if constexpr (CONV) {
+    // A by TMA: stride 1, whole 64-channel blocks, a rectangle of at most
+    // 128 pixels
+    if (p.th > 0 &&
+        (a.sh != 1 || a.sw != 1 || a.C % W8_BK || p.tw < 1 ||
+         p.th * p.tw > WG_BM ||
+         !make_map_nhwc(&ma, a.x, a.C, a.W, a.H, a.M / (a.OH * a.OW), p.tw,
+                        p.th)))
+      return bad;
+  } else {
+    if (p.th != 0 || !make_map(&ma, a.x, a.M, a.K, WG_BM, W8_BK, 2))
+      return bad;
+  }
+  const int n_tiles = (N + BN - 1) / BN;
+  const int k_steps = (a.K + W8_BK - 1) / W8_BK;
+  const int split = p.split;
+  if (split < 1 || (split > 1 && (CONV || ws == nullptr))) return bad;
+  const int per = (k_steps + split - 1) / split;
+  if ((split - 1) * per >= k_steps) return bad;  // an empty slice
+  const int smem = w8gemm_smem(BN, p.stages, CONV);
+  if (smem != p.smem || p.bk != 2 * W8_BK || p.stages < 2 || p.grid < 1 ||
+      p.grid % n_tiles)
+    return bad;
+  auto kern = w8gemm_kernel<A, BN>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kern<<<p.grid, WG_THREADS, smem, s>>>(ma, a, w, N, p.stages, split, per,
+                                        p.th, p.tw, ws, e);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || split == 1) return static_cast<int>(err);
+  const long long pairs = static_cast<long long>(a.M) * ((N + 1) / 2);
+  const int blocks = static_cast<int>(
+      pairs / 256 + 1 < 132 * 8 ? pairs / 256 + 1 : 132 * 8);
+  splitk_reduce_kernel<float><<<blocks, 256, 0, s>>>(ws, split, a.M, N, e);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // x_type/w_type: DType.  ``row_ok``: the A rows' pitch (K for a matrix, C
 // for a conv) is a multiple of 16 bytes and at least 16, the caller's
-// check of what "wgmma" needs besides aligned pointers.
+// check of what "wgmma" needs besides aligned pointers.  ``ws``: the
+// split-K workspace of a "wgmma_w8" plan with split > 1, else null.
 template <class A>
 inline int launch_gemm(const A& a, const void* w, int N, int x_type,
-                       int w_type, bool row_ok, const GemmPlan& p,
+                       int w_type, bool row_ok, const GemmPlan& p, float* ws,
                        const Epilogue& e, cudaStream_t s) {
   constexpr bool CONV = std::is_same<A, ConvA>::value;
   const int bad = static_cast<int>(cudaErrorInvalidValue);
   if (a.M <= 0 || N <= 0) return 0;
   const bool int8 = x_type == DT_I8 && w_type == DT_I8;
+  if (p.variant == V_WGMMA_W8) {
+    if (x_type != DT_BF16 || w_type != DT_I8 || host_row_pitch(a) % 8 ||
+        !aligned(a.x, 16) || !aligned(w, 16))
+      return bad;
+    const int8_t* wq = static_cast<const int8_t*>(w);
+    switch (p.bn) {
+      case 32: return launch_w8gemm<A, 32>(a, wq, N, p, ws, e, s);
+      case 64: return launch_w8gemm<A, 64>(a, wq, N, p, ws, e, s);
+      case 128: return launch_w8gemm<A, 128>(a, wq, N, p, ws, e, s);
+      default: return bad;
+    }
+  }
+  if (p.split != 1 || p.th != 0) return bad;
   if (p.variant == V_WGMMA_S8) {
     if (!int8 || !row_ok || !aligned(a.x, 16) || !aligned(w, 16)) return bad;
     const int8_t* wq = static_cast<const int8_t*>(w);
@@ -1314,8 +1926,11 @@ inline Epilogue make_epilogue(void* out, const float* bias,
 }
 
 inline GemmPlan make_plan(int variant, int bn, int bk, int stages, int bres,
-                          int grid, int smem) {
+                          int grid, int smem, int split, int th, int tw) {
   GemmPlan p;
+  p.split = split;
+  p.th = th;
+  p.tw = tw;
   p.variant = variant;
   p.bn = bn;
   p.bk = bk;

@@ -12,8 +12,15 @@ launch, on the host, from the shapes, types and pointers):
       "wgmma"     wgmma with a TMA ring and a staged epilogue
       "mma_sync"  mma.sync, for a row pitch that is not a multiple of 16
                   bytes, a misaligned pointer, or a conv's C < 16
+  bf16 x int8 (weight-only int8, + w_scale) -> f32 sums:
+      "wgmma_w8"  bf16 wgmma, the int8 weight tile converted to bf16 in
+                  shared memory; a matrix whose tiles leave SMs idle splits
+                  K (the slices added in a fixed order by a second pass)
+      "simt"      for a row pitch that is not a multiple of 16 bytes (K or
+                  C not a multiple of 8) or a misaligned pointer
   bf16 x bf16                 -> "mma_bf16" (mma.sync m16n8k16, f32 sums)
-  f32 x f32, f32/bf16 x int8  -> "simt"     (f32 FMAs; weight-only int8)
+  f32 x f32, f32 x int8       -> "simt"     (f32 FMAs: f32 on the tensor
+                                             cores would be TF32)
 
 On the GPU the weight must be stored as :func:`gemm_layout` gives it
 ((N, K) with K contiguous; the lowering makes it once per node).
@@ -28,21 +35,23 @@ from typing import NamedTuple, Optional
 import torch
 
 __all__ = ["matmul_epilogue", "matmul_epilogue_plain", "epilogue_plain",
-           "fma_f32", "gemm_layout", "is_gemm_layout", "gemm_plan",
-           "GemmPlan", "VARIANTS"]
+           "matmul_epilogue_split_plain", "fma_f32", "gemm_layout",
+           "is_gemm_layout", "gemm_plan", "GemmPlan", "VARIANTS"]
 
 _ACT_CODES = {None: 0, "relu": 1, "relu6": 2}
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
 
 # The main loops, in the order of their codes in the C interface.
-VARIANTS = ("simt", "mma_sync", "wgmma", "mma_bf16")
+VARIANTS = ("simt", "mma_sync", "wgmma", "mma_bf16", "wgmma_w8")
 # Shared memory a thread block can use on an H100, and its SM count.
 SMEM_LIMIT = 227 * 1024
 H100_SMS = 132
 WG_BM = 128             # rows of a "wgmma" output tile
 MAX_STAGES = 6
 PANEL_LIMIT = 144 * 1024   # the largest weight panel kept resident
+W8_BK = 64              # K elements (bf16) of a "wgmma_w8" step: 128 bytes
+W8_MIN_STEPS = 4        # the fewest K steps of a "wgmma_w8" split-K slice
 
 
 def gemm_layout(w: torch.Tensor) -> torch.Tensor:
@@ -68,12 +77,16 @@ def is_gemm_layout(w: torch.Tensor) -> bool:
 
 
 class GemmPlan(NamedTuple):
-    """One launch's plan: the variant and, for "wgmma", the output tile's
-    width ``bn``, the K step ``bk`` in bytes, the ring's ``stages``, whether
-    the block's weight panel (all of K for its BN columns) stays resident
-    in shared memory (``bres``), the persistent grid and the dynamic shared
-    memory; ``reason`` says why an int8 launch does not take "wgmma" (""
-    where it does)."""
+    """One launch's plan: the variant and, for "wgmma" and "wgmma_w8", the
+    output tile's width ``bn``, the K step ``bk`` in bytes, the ring's
+    ``stages``, whether the block's weight panel (all of K for its BN
+    columns) stays resident in shared memory (``bres``, "wgmma" only), the
+    persistent grid and the dynamic shared memory; ``split``, the K slices
+    of a "wgmma_w8" matrix (1: none); ``th`` x ``tw``, the rectangle of
+    output pixels of a "wgmma_w8" conv whose A tile comes by TMA, one box
+    per tap (0 x 0: gathered by cp.async); ``reason`` says why an int8 or
+    bf16 x int8 launch does not take its tensor-core variant ("" where it
+    does)."""
     variant: str
     bn: int = 0
     bk: int = 0
@@ -82,11 +95,15 @@ class GemmPlan(NamedTuple):
     grid: int = 0
     smem: int = 0
     reason: str = ""
+    split: int = 1
+    th: int = 0
+    tw: int = 0
 
     def args(self):
         """The plan's integers as the C entry points take them."""
         return (VARIANTS.index(self.variant), self.bn, self.bk, self.stages,
-                int(self.bres), self.grid, self.smem)
+                int(self.bres), self.grid, self.smem, self.split, self.th,
+                self.tw)
 
 
 def wgmma_smem(bn: int, bk: int, stages: int, k_steps: int, bres: bool,
@@ -101,6 +118,73 @@ def wgmma_smem(bn: int, bk: int, stages: int, k_steps: int, bres: bool,
             + (k_steps * bn * bk if bres else 0) + 16 * stages + 16
             + 2 * 24 * bn + 2 * 64 * (bn * out_itemsize + 16)
             + (WG_BM * 16 if conv else 0))
+
+
+def w8_smem(bn: int, stages: int, conv: bool) -> int:
+    """Dynamic shared memory of the "wgmma_w8" kernel (``w8gemm_smem`` in
+    csrc/gemm_common.cuh, which refuses a plan whose count differs): 1024
+    bytes of alignment slack; per stage the 128 x 64 bf16 A tile, the
+    BN x 64 bf16 weight tile, its int8 staging slot and two barriers; each
+    consumer's column constants; the conv's 128-row table (the outputs
+    leave from the registers)."""
+    return (1024 + stages * (WG_BM * 2 * W8_BK + bn * 3 * W8_BK + 16)
+            + 2 * 24 * bn + (WG_BM * 16 if conv else 0))
+
+
+def _w8_refusal(k: int, conv_c: Optional[int], x_ptr: int,
+                w_ptr: int) -> str:
+    pitch = conv_c if conv_c is not None else k
+    if pitch % 8:
+        what = "C" if conv_c is not None else "K"
+        return (f"row pitch {2 * pitch} bytes ({what} = {pitch} bf16) not a "
+                f"multiple of 16")
+    if x_ptr % 16:
+        return "x not 16-byte aligned"
+    if w_ptr % 16:
+        return "w not 16-byte aligned"
+    return ""
+
+
+def w8_split(m: int, k: int, bn: int, n: int, sms: int) -> int:
+    """The K slices of a "wgmma_w8" matrix launch: where its 128 x ``bn``
+    tiles leave SMs idle, as many slices as fill them, each at least
+    :data:`W8_MIN_STEPS` K steps, then as few as keep the steps per slice
+    (no slice empty); else 1."""
+    k_steps = -(-k // W8_BK)
+    tiles = -(-m // WG_BM) * -(-n // bn)
+    split = max(1, min(sms // tiles, k_steps // W8_MIN_STEPS))
+    per = -(-k_steps // split)
+    return -(-k_steps // per)
+
+
+def conv_tile(oh: int, ow: int):
+    """The rectangle (th, tw) of at most 128 output pixels that a "wgmma_w8"
+    conv tile covers when its A comes by TMA: the fewest rectangles per
+    image, then the widest."""
+    def key(tw):
+        th = min(WG_BM // tw, oh)
+        return (-(-oh // th) * -(-ow // tw), -tw)
+    tw = min(range(1, min(ow, WG_BM) + 1), key=key)
+    return min(WG_BM // tw, oh), tw
+
+
+def _w8_plan(m: int, k: int, n: int, conv_c: Optional[int], conv_out,
+             stride: int, sms: int) -> GemmPlan:
+    conv = conv_c is not None
+    bn = next((b for b in (32, 64) if n <= b), 128)
+    split = 1 if conv else w8_split(m, k, bn, n, sms)
+    row_tiles, th, tw = -(-m // WG_BM), 0, 0
+    if conv and conv_out is not None and stride == 1 and conv_c % W8_BK == 0:
+        images, oh, ow = conv_out
+        th, tw = conv_tile(oh, ow)
+        row_tiles = images * -(-oh // th) * -(-ow // tw)
+    n_tiles = -(-n // bn)
+    units = row_tiles * n_tiles * split
+    grid = units if units <= sms else max(sms // n_tiles, 1) * n_tiles
+    free = SMEM_LIMIT - w8_smem(bn, 0, conv)
+    stages = min(MAX_STAGES, free // (WG_BM * 2 * W8_BK + bn * 3 * W8_BK + 16))
+    return GemmPlan("wgmma_w8", bn, 2 * W8_BK, stages, False, grid,
+                    w8_smem(bn, stages, conv), split=split, th=th, tw=tw)
 
 
 def _tile_n(m: int, k: int, n: int, sms: int, conv: bool) -> int:
@@ -137,11 +221,13 @@ def _wgmma_refusal(k: int, conv_c: Optional[int], x_ptr: int,
 
 
 def gemm_plan(m: int, k: int, n: int, x_dtype, w_dtype, out_dtype, *,
-              conv_c: Optional[int] = None, x_ptr: int = 0, w_ptr: int = 0,
+              conv_c: Optional[int] = None, conv_out=None, stride: int = 1,
+              x_ptr: int = 0, w_ptr: int = 0,
               sms: int = H100_SMS) -> GemmPlan:
     """The main loop, tile and stages of one launch of either GEMM kernel
     at GEMM shape (M, K, N), chosen before the launch from the shapes, the
-    types and the pointers (``conv_c``: the conv's C, None for a matrix).
+    types and the pointers (``conv_c``: the conv's C, None for a matrix;
+    ``conv_out``: the conv's (images, OH, OW), and ``stride``).
 
     int8 x int8 takes "wgmma" unless its rows are not 16-byte pieces (K, or
     the conv's C, not a multiple of 16; C < 16) or a pointer is not 16-byte
@@ -150,9 +236,18 @@ def gemm_plan(m: int, k: int, n: int, x_dtype, w_dtype, out_dtype, *,
     resident where it is at most :data:`PANEL_LIMIT` and three A stages fit
     beside it; its stages as many as fit :data:`SMEM_LIMIT` (at most
     :data:`MAX_STAGES`, the tile narrowed until two fit); one persistent
-    block per SM, the grid a multiple of the column tiles.  bf16 x bf16
+    block per SM, the grid a multiple of the column tiles.
+
+    bf16 x int8 (weight-only int8) takes "wgmma_w8" unless its rows are not
+    16-byte pieces (K, or the conv's C, not a multiple of 8) or a pointer is
+    not 16-byte aligned ("simt", with the reason).  Its K step is 64 bf16;
+    its tile width the narrowest of 32, 64, 128 that covers N (128 past
+    it); a matrix splits K by :func:`w8_split`; a conv at stride 1 with C a
+    multiple of 64 takes its A by TMA over :func:`conv_tile`'s rectangles
+    of output pixels (else the cp.async gather); its stages as many as fit
+    (at most :data:`MAX_STAGES`); the grid as for "wgmma".  bf16 x bf16
     matrices with K a multiple of 8 and 16-byte aligned pointers take
-    "mma_bf16"; the rest "simt"."""
+    "mma_bf16"; the rest (f32 x) "simt"."""
     if x_dtype == torch.int8 and w_dtype == torch.int8:
         why = _wgmma_refusal(k, conv_c, x_ptr, w_ptr)
         if why:
@@ -184,6 +279,11 @@ def gemm_plan(m: int, k: int, n: int, x_dtype, w_dtype, out_dtype, *,
         return GemmPlan("wgmma", bn, bk, stages, bres, grid,
                         wgmma_smem(bn, bk, stages, k_steps, bres, osize,
                                    conv))
+    if x_dtype == torch.bfloat16 and w_dtype == torch.int8:
+        why = _w8_refusal(k, conv_c, x_ptr, w_ptr)
+        if why:
+            return GemmPlan("simt", reason=why)
+        return _w8_plan(m, k, n, conv_c, conv_out, stride, sms)
     if (x_dtype == torch.bfloat16 and w_dtype == torch.bfloat16
             and conv_c is None and k % 8 == 0 and x_ptr % 16 == 0
             and w_ptr % 16 == 0):
@@ -196,11 +296,12 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def plan_for(m, k, n, x, w, out_dtype, conv_c=None) -> GemmPlan:
+def plan_for(m, k, n, x, w, out_dtype, conv_c=None, conv_out=None,
+             stride=1) -> GemmPlan:
     """:func:`gemm_plan` for CUDA operands ``x`` and ``w``."""
     return gemm_plan(m, k, n, x.dtype, w.dtype, out_dtype, conv_c=conv_c,
-                     x_ptr=x.data_ptr(), w_ptr=w.data_ptr(),
-                     sms=_sm_count(x.device.index or 0))
+                     conv_out=conv_out, stride=stride, x_ptr=x.data_ptr(),
+                     w_ptr=w.data_ptr(), sms=_sm_count(x.device.index or 0))
 
 
 def fma_f32(a: torch.Tensor, b, c: torch.Tensor) -> torch.Tensor:
@@ -269,6 +370,27 @@ def matmul_epilogue_plain(x, w, bias=None, w_scale=None, activation=None,
         acc = (x.double() @ w.double()).float()
     else:
         acc = x.float() @ w.to(x.dtype).float()
+    return epilogue_plain(acc, w_scale, x_scale, bias, activation, lo, hi,
+                          out_dtype, out_scale)
+
+
+def matmul_epilogue_split_plain(x, w, split: int, bias=None, w_scale=None,
+                                activation=None, out_dtype=None,
+                                x_scale: float = 1.0, out_scale: float = 1.0,
+                                lo=None, hi=None):
+    """:func:`matmul_epilogue_plain` of a float ``x`` in the order of a
+    "wgmma_w8" plan that splits K into ``split`` slices: each slice of
+    ``ceil(k_steps / split)`` K steps of :data:`W8_BK` summed in f32, the
+    slices then added one by one in index order with f32 rounding (the
+    split-K pass), then the epilogue."""
+    out_dtype = _default_out_dtype(x, out_dtype)
+    k = x.shape[1]
+    k_steps = -(-k // W8_BK)
+    per = -(-k_steps // split) * W8_BK
+    acc = None
+    for k0 in range(0, k, per):
+        part = x[:, k0:k0 + per].float() @ w[k0:k0 + per].to(x.dtype).float()
+        acc = part if acc is None else acc + part
     return epilogue_plain(acc, w_scale, x_scale, bias, activation, lo, hi,
                           out_dtype, out_scale)
 
@@ -374,10 +496,13 @@ def matmul_epilogue(x: torch.Tensor, w: torch.Tensor,
         return out
     ptrs, codes, stream = launch_args(x, w, out, vecs, activation, out_dtype)
     plan = plan_for(M, K, N, x, w, out_dtype)
+    # the split-K slices' f32 sums ("wgmma_w8" with split > 1)
+    ws = (torch.empty((plan.split, M, N), dtype=torch.float32,
+                      device=x.device) if plan.split > 1 else None)
     from .build import load_library
     rc = load_library().fcnn_matmul_epilogue(
         *ptrs, M, K, N, *codes, float(x_scale), float(out_scale),
-        *plan.args(), stream)
+        *plan.args(), None if ws is None else ws.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"matmul_epilogue launch failed: CUDA error {rc} "
                            f"(M={M} K={K} N={N} x={x.dtype} w={w.dtype} "
