@@ -46,7 +46,19 @@ float activations; the bf16 paths run ``quant=None`` in bf16:
   then the same with its float convs summed in f64, its agreement alone;
 - SqueezeNet v1.1 at batch 1 in fp32 (``BASELINE.json:6``; cuDNN's f32
   convs, TF32 off, no hand kernel), then at batch 128 full int8
-  (passthrough Concats).
+  (passthrough Concats);
+- the rest of the classification zoo, full int8 at ``bench.py:58-81``'s
+  batches (``ZOO_REST``): DenseNet-121 b128 (a standalone int8 Scale
+  before each dense layer, int8 Concats, the growth-32 3x3 convs at
+  N = 32); ResNeXt-50 b128, its 16 grouped 3x3 convs (cardinality 32)
+  through ``conv2d_implicit_gemm`` on their block-diagonal dense weight
+  (``kernels/dispatch.py``), each beside PyTorch's f32
+  ``F.conv2d(groups=32)`` as its library call, then behind an
+  ``InferenceServer``; SE-ResNet-50 b96 (Sigmoid, the int8 Axpy);
+  Inception-v3 b128 at 299x299 (1x7, 7x1, 1x3, 3x1 convs on
+  ``conv2d_implicit_gemm``, requantizing AVE pools); ShuffleNet v1 b128
+  (its grouped 1x1 and depthwise convs in PyTorch's float grouped conv,
+  its baked ``int8_grouped=False``) and v2 b128.
 
 Phases, each printing its own lines:
 
@@ -59,7 +71,9 @@ Phases, each printing its own lines:
    for every kernel whose wrapper counts variants the variant (main loop)
    it took: every int8 GEMM launch must take "wgmma" but where the plan
    gives a reason on a path of ``FALLBACK_OK`` (MobileNet-v2's K = 24
-   convs, printed), a bf16 x bf16 GEMM "mma_bf16", a bf16 x with an int8
+   convs, GoogLeNet's 5x5 convs on 24 channels, the ShuffleNets' K = 24,
+   58, 116 and 232 convs, printed), a bf16 x bf16 GEMM "mma_bf16", a bf16
+   x with an int8
    weight (weight-only) "wgmma_w8", an f32 x "simt"; every depthwise
    launch "k3s1"
    or "k3s2" by its stride and every chain launch, int8 or float,
@@ -70,7 +84,9 @@ Phases, each printing its own lines:
    value), and timed (CUDA events, median of 20 behind a spin kernel)
    beside its bound (and the share of it reached) and a library
    yardstick (and the kernel's multiple of it): ``torch._int_mm`` at a GEMM's
-   (M, K, N), and for the depthwise kernels ``F.conv2d(groups=C)`` on
+   (M, K, N) (at a grouped conv's block-diagonal launch the f32
+   ``F.conv2d(groups=g)`` it computes, and the bound of the grouped work,
+   the dense product's beside it), and for the depthwise kernels ``F.conv2d(groups=C)`` on
    channels-last bf16 (PyTorch has no int8 grouped conv, so the int8
    kernel's yardstick is that bf16 conv too).  No single PyTorch call
    computes a bottleneck: the chain kernels have no yardstick.  Instead
@@ -129,8 +145,12 @@ Phases, each printing its own lines:
    and 72, batch 1; a K and a C not a multiple of 8 and a misaligned x
    refused to "simt", their reasons printed), and
    ``ident`` on int8, bf16 and f32 at odd sizes, against the plain
-   versions.
-6. server (ResNet-50, then GoogLeNet): ``InferenceServer(batch_size=B,
+   versions; before the rest of the zoo's paths, ``conv2d_implicit_gemm``
+   on block-diagonal weights (4, 8 and 32 channels a group) and on 1x7,
+   7x1, 1x3 and 3x1 kernels with their pads, stride 1 and 2, each on
+   "wgmma" and equal to plain (``ragged_zoo_rest``).
+6. server (ResNet-50, then GoogLeNet, then ResNeXt-50):
+   ``InferenceServer(batch_size=B,
    batch_slots=[8, B])`` with int8 transfer; 8 client threads send 32
    requests; every answer equals the engine's direct output, with no
    fault.
@@ -142,7 +162,9 @@ Phases, each printing its own lines:
 The order: ResNet-50 (phases 2-4), the ragged cases (5), the server (6),
 ResNet-50 with ``fuse_chains``, the two bf16 ResNet-50 paths, the
 MobileNets, the boundary probe (7), VGG-16 (w8, w8 Winograd, w8a8),
-GoogLeNet and its server, AlexNet, SqueezeNet (fp32, w8a8).  Then the
+GoogLeNet and its server, AlexNet, SqueezeNet (fp32, w8a8), the rest of
+the zoo's ragged cases, DenseNet-121, ResNeXt-50 and its server,
+SE-ResNet-50, Inception-v3, ShuffleNet v1 and v2.  Then the
 card's name and power limit, one JSON line of kernel numbers, and, last,
 ``{"ok": true, "device": {...}}``.  Any failed check exits nonzero
 before those lines.  Without a GPU, or without the repository beside it,
@@ -239,7 +261,36 @@ EXPECTED = {
     # squeeze and expand1x1 per fire x 8 + conv10; expand3x3 x 8
     "squeezenet_v11 b128": {**_ZERO, "matmul_epilogue": 17,
                             "conv2d_implicit_gemm": 8},
+    # the rest of the zoo (ZOO_REST).  DenseNet-121: each dense layer's 1x1
+    # (58), the 3 transitions' and the FC; the 58 growth-32 3x3 convs
+    "densenet121 b128": {**_ZERO, "matmul_epilogue": 62,
+                         "conv2d_implicit_gemm": 58},
+    # 2 x 16 blocks' 1x1 convs, the 4 projections and the FC; the 16
+    # grouped 3x3 convs on their block-diagonal weight
+    "resnext50 b128": {**_ZERO, "matmul_epilogue": 37,
+                       "conv2d_implicit_gemm": 16},
+    # ResNet-50's 37, the SE path's down and up 1x1 convs x 16; 16 3x3
+    "se_resnet50 b96": {**_ZERO, "matmul_epilogue": 69,
+                        "conv2d_implicit_gemm": 16},
+    # the 1x1 convs and the FC; every kxk conv but the fp stem, 34 of them
+    # 1x7, 7x1, 1x3 or 3x1
+    "inception_v3 b128": {**_ZERO, "matmul_epilogue": 38,
+                          "conv2d_implicit_gemm": 53},
+    # resx1_conv1 (ungrouped) and the FC; the grouped 1x1 and depthwise
+    # convs take PyTorch's float grouped conv (its int8_grouped=False)
+    "shufflenet_v1 b128": {**_ZERO, "matmul_epilogue": 2},
+    # the 1x1 convs and the FC; the depthwise convs in the float grouped
+    # conv
+    "shufflenet_v2 b128": {**_ZERO, "matmul_epilogue": 37},
 }
+# The rest of the classification zoo, w8a8: path -> (model, batch), the
+# batches of bench.py:58-81.
+ZOO_REST = {"densenet121 b128": ("densenet121", 128),
+            "resnext50 b128": ("resnext50", 128),
+            "se_resnet50 b96": ("se_resnet50", 96),
+            "inception_v3 b128": ("inception_v3", 128),
+            "shufflenet_v1 b128": ("shufflenet_v1", 128),
+            "shufflenet_v2 b128": ("shufflenet_v2", 128)}
 # the 13 Winograd convs of the Winograd path
 WINOGRAD_CONVS = 13
 # F(6,3)'s error on bf16-rounded transformed operands against F.conv2d:
@@ -280,9 +331,11 @@ GEMMS = ("matmul_epilogue", "conv2d_implicit_gemm")
 MAIN_VARIANT = ("depthwise_conv2d", "depthwise_conv2d_int8",
                 "fused_chain", "fused_chain_float")
 # The paths whose int8 GEMM launches may leave "wgmma" where the plan gives
-# a reason (a 24-byte row pitch: MobileNet-v2's K = 24 1x1 convs,
-# GoogLeNet's 5x5 convs on 24 channels).
-FALLBACK_OK = ("mobilenet_v2 b128 dw override", "googlenet b256")
+# a reason (a row pitch that is not whole 16-byte pieces: MobileNet-v2's
+# K = 24 1x1 convs, GoogLeNet's 5x5 convs on 24 channels, ShuffleNet v1's
+# first 1x1 conv on 24 channels and v2's 1x1 convs on 24, 58, 116 and 232).
+FALLBACK_OK = ("mobilenet_v2 b128 dw override", "googlenet b256",
+               "shufflenet_v1 b128", "shufflenet_v2 b128")
 # Cycles of the spin kernel queued before each timed launch: more than
 # the host needs to issue the launch.
 SPIN_CYCLES = 2_000_000
@@ -604,12 +657,14 @@ def dims(kernel, a):
     return nb, oh, ow, c, kh, kw
 
 
-def bound_ms(kernel, a, out):
+def bound_ms(kernel, a, out, group=1):
     """Least time on an H100 SXM: the larger of the bytes the function
     must move (each input read once, the output written once) over the
     memory rate and its operations over the peak for their type (int8 or
     bf16 on the tensor cores by x's type, float32 FMA for f32 x and for the
-    float depthwise variant, which computes in f32; ``ident`` does none)."""
+    float depthwise variant, which computes in f32; ``ident`` does none).
+    A conv on a block-diagonal weight computes a grouped conv: its
+    operations are the dense product's over ``group``."""
     import torch
     nbytes = out.numel() * out.element_size()
     for t in a.values():
@@ -621,7 +676,7 @@ def bound_ms(kernel, a, out):
     elif kernel in CHAINS:
         ops = chain_ops(a)
     else:
-        ops = 2.0 * math.prod(dims(kernel, a))
+        ops = 2.0 * math.prod(dims(kernel, a)) / group
     x = a["x"] if "x" in a else a["xq"]
     peak = {torch.int8: PEAK_INT8_OPS, torch.bfloat16: PEAK_BF16_OPS}.get(
         x.dtype, PEAK_F32_OPS)
@@ -699,15 +754,26 @@ def per_launch(a, out):
 _LIBRARY_MS = {}
 
 
-def library_ms(kernel, a):
+def library_ms(kernel, a, group=1):
     """The yardstick, timed once per shape and never called by the port:
     ``torch._int_mm`` (int8 x int8 -> int32, no epilogue) at an int8
     GEMM's (M, K, N), ``torch.matmul`` in x's type at a float one;
     ``F.conv2d(groups=C)`` with its bias on channels-last bf16 at a
-    depthwise launch's shape; ``x.clone()`` for ``ident``."""
+    depthwise launch's shape; ``x.clone()`` for ``ident``; for a conv on a
+    block-diagonal weight the grouped conv it computes, f32
+    ``F.conv2d(groups=group)`` (PyTorch has no int8 conv on the card)."""
     import torch
     if kernel in CHAINS:            # no single PyTorch call computes it
         return None
+    if group > 1:
+        x, w = a["x"], a["w"]
+        key = ("grouped", tuple(x.shape), tuple(w.shape), a["stride"],
+               a["pad_h"], a["pad_w"], group)
+        if key not in _LIBRARY_MS:
+            _LIBRARY_MS[key] = _time_grouped_conv(
+                tuple(x.shape), w.shape[0], w.shape[1], w.shape[3],
+                a["stride"], a["pad_h"], a["pad_w"], group)
+        return _LIBRARY_MS[key]
     if kernel == "ident":
         x = a["x"]
         key = ("clone", tuple(x.shape), x.dtype)
@@ -772,6 +838,24 @@ def _time_conv(x_shape, k, co, stride, pad_h, pad_w):
     b = torch.randn(co, device="cuda", generator=gen).to(torch.bfloat16)
     return median_ms(lambda: F.conv2d(x, wt, b, stride=stride,
                                       padding=(pad_h, pad_w)))
+
+
+def _time_grouped_conv(x_shape, kh, kw, co, stride, pad_h, pad_w, group):
+    """F.conv2d(groups=group) with its bias in f32 (TF32 off) on
+    channels-last int8 values, at a block-diagonal launch's shape."""
+    import torch
+    import torch.nn.functional as F
+    nb, h, w, c = x_shape
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    x = torch.randint(-127, 128, (nb, c, h, w), device="cuda",
+                      generator=gen).float().contiguous(
+                          memory_format=torch.channels_last)
+    wt = torch.randint(-127, 128, (co, c // group, kh, kw), device="cuda",
+                       generator=gen).float().contiguous(
+                           memory_format=torch.channels_last)
+    b = torch.randn(co, device="cuda", generator=gen)
+    return median_ms(lambda: F.conv2d(x, wt, b, stride=stride,
+                                      padding=(pad_h, pad_w), groups=group))
 
 
 def _time_dw_conv(d, stride, pad_h, pad_w):
@@ -983,16 +1067,21 @@ def describe(kernel, a, out):
             f" {d[4]}x{d[5]} s{a['stride']} {a['activation']} out={dt}")
 
 
-def kernels_vs_plain(label, launches):
+def kernels_vs_plain(label, launches, groups=None):
     """Every recorded wrapper call of a path's forward, repeated on its own
     tensors, against the plain version, and timed; one row per call.  A
     row's ``ms`` is one whole call: for ``fused_chain`` that is its
-    ``launches`` (one per block of the chain)."""
+    ``launches`` (one per block of the chain).  ``groups`` maps the data
+    pointer of each block-diagonal weight (a grouped int8 conv's) to its
+    group count: such a launch's bound counts the grouped conv's
+    operations and its library call is the f32 grouped conv."""
     import torch
     fns = _kernel_fns()
     rows = []
     for i, launch in enumerate(launches):
         name, a = launch["kernel"], launch["args"]
+        group = ((groups or {}).get(a["w"].data_ptr(), 1)
+                 if name in GEMMS else 1)
         float_sums = name == "fused_chain_float" or (
             name in ("matmul_epilogue", "conv2d_implicit_gemm")
             and a["x"].dtype != torch.int8)
@@ -1014,10 +1103,11 @@ def kernels_vs_plain(label, launches):
             elif launch.get("variant") == "wgmma_w8":
                 tiles = w8_other_plans_ms(name, a, ref)
             del ref
-        desc = describe(name, a, out)
+        desc = describe(name, a, out) + (f" block-diagonal g={group}"
+                                         if group > 1 else "")
         check(ok, f"{label}: launch {i}, {desc}: kernel differs from plain, "
               f"max err {max_err}, {over} elements over 1 ulp")
-        b_ms, b_by = bound_ms(name, a, out)
+        b_ms, b_by = bound_ms(name, a, out, group)
         rows.append({"path": label, "kernel": name, "shape": desc,
                      "x_shape": tuple(a["x"].shape if "x" in a
                                       else a["xq"].shape),
@@ -1032,7 +1122,11 @@ def kernels_vs_plain(label, launches):
                      "plain_ms": median_ms(lambda: plain(**a), reps=3,
                                            warmup=1),
                      "bound_ms": b_ms, "bound_by": b_by,
-                     "library_ms": library_ms(name, a), "tiles": tiles})
+                     "dense_bound_ms": (bound_ms(name, a, out)[0]
+                                        if group > 1 else b_ms),
+                     "group": group,
+                     "library_ms": library_ms(name, a, group),
+                     "tiles": tiles})
     for desc in dict.fromkeys(r["shape"] for r in rows):
         same = [r for r in rows if r["shape"] == desc]
         lib = same[0]["library_ms"]
@@ -1099,6 +1193,8 @@ def kernels_vs_plain(label, launches):
 def _library_name(desc):
     if desc.startswith("fused_chain"):
         return "library: none"
+    if "block-diagonal" in desc:
+        return f"f32 F.conv2d(groups={desc.rsplit('=', 1)[1]})"
     if desc.startswith("ident"):
         return "x.clone()"
     if "depthwise" in desc:
@@ -1341,6 +1437,16 @@ def chains_beside_unchained(rows, chained, unchained, node_ms):
             f"blocks (computed)")
 
 
+def block_diagonal_weights(eng):
+    """{data pointer: group} of the block-diagonal weights the engine laid
+    out for its grouped int8 convs (made at the first forward)."""
+    grouped = {n.name: n.attrs["group"] for n in eng.graph.nodes
+               if n.op == "Convolution" and n.attrs.get("group", 1) > 1}
+    return {t.data_ptr(): grouped[node] for (node, key), t
+            in eng._ctx._consts.items()
+            if node in grouped and key.startswith("gemm_w/")}
+
+
 def run_path(label, g, cfg, eng, x, smi, check_launch=None):
     """Phases 2-4 of one path; returns its kernel rows, its median ms per
     batch and its profiled forward's device ms by graph node."""
@@ -1350,8 +1456,18 @@ def run_path(label, g, cfg, eng, x, smi, check_launch=None):
         for launch in launches:
             check_launch(launch)
     check_variants(label, launches)
-    rows = kernels_vs_plain(label, launches)
+    rows = kernels_vs_plain(label, launches, block_diagonal_weights(eng))
     del launches
+    grouped = [r for r in rows if r["group"] > 1]
+    if grouped:
+        sums = _sums(grouped)
+        say(label, f"the {len(grouped)} block-diagonal (grouped int8) "
+            f"launches of one forward: {sums['ms']:.4f} ms on "
+            f"conv2d_implicit_gemm, bound {sums['bound_ms']:.4f} ms for "
+            f"the grouped work, {sum(r['dense_bound_ms'] for r in grouped):.4f}"
+            f" for the dense product the kernel computes; f32 "
+            f"F.conv2d(groups) {sums['library_ms']:.4f} ms; variants "
+            f"{sorted({r['variant'] for r in grouped})}")
     for name in KERNELS:
         mine = [r for r in rows if r["kernel"] == name]
         if mine:
@@ -2159,6 +2275,9 @@ def kernel_summary(name, rows, counts):
                + ("; PyTorch has no int8 grouped conv" if name.endswith(
                    "_int8") else "")
                if name.startswith("depthwise") else "torch._int_mm")
+    if name == "conv2d_implicit_gemm":
+        library += ("; f32 F.conv2d(groups=g) at a grouped conv's "
+                    "block-diagonal launches (ResNeXt-50)")
     if name in CHAINS:
         library = "none: no single PyTorch call computes a bottleneck"
     elif name == "ident":
@@ -2280,6 +2399,85 @@ def classic_paths(smi, rng, rows, counts, speed):
     torch.cuda.empty_cache()
 
 
+def ragged_zoo_rest():
+    """The B2 launches of the rest of the zoo off their paths' shapes, each
+    on "wgmma" and equal to its plain version (int8 0 LSB, bf16 within 1
+    ulp): grouped convs on their block-diagonal weight at 4, 8 and 32
+    channels a group, stride 1 and 2, odd H and W; asymmetric kernels 1x7
+    pad (0, 3), 7x1 (3, 0), 1x3 (0, 1) and 3x1 (1, 0) at stride 1 and 2.
+    A generator of its own.  Returns the number of cases."""
+    import torch
+    from feathercnn_tpu_torch.kernels.dispatch import block_diagonal
+    from feathercnn_tpu_torch.kernels.matmul import gemm_layout
+    kernel, plain = _kernel_fns()["conv2d_implicit_gemm"]
+    gen = torch.Generator(device="cuda").manual_seed(10)
+
+    def i8(*s):
+        return torch.randint(-127, 128, s, dtype=torch.int8, device="cuda",
+                             generator=gen)
+
+    cases = []
+    for cg, s, (h, w) in [(4, 1, (15, 13)), (4, 2, (15, 13)),
+                          (8, 1, (9, 11)), (8, 2, (11, 9)),
+                          (32, 1, (7, 9)), (32, 2, (9, 7))]:
+        co = 32 * cg
+        cases.append((f"block-diagonal Cg={cg} g=32 x(2, {h}, {w}, {co}) "
+                      f"s{s}", i8(2, h, w, co),
+                      gemm_layout(block_diagonal(i8(3, 3, cg, co), 32)),
+                      s, 1, 1))
+    for kh, kw, ph, pw in [(1, 7, 0, 3), (7, 1, 3, 0), (1, 3, 0, 1),
+                           (3, 1, 1, 0)]:
+        for s in (1, 2):
+            cases.append((f"{kh}x{kw} pad ({ph}, {pw}) x(2, 17, 15, 160) "
+                          f"s{s}", i8(2, 17, 15, 160),
+                          gemm_layout(i8(kh, kw, 160, 192)), s, ph, pw))
+    n = 0
+    for what, x, w, s, ph, pw in cases:
+        co = w.shape[3]
+        for out_dtype in (torch.int8, torch.bfloat16):
+            a = dict(x=x, w=w, bias=torch.randn(co, device="cuda",
+                                                generator=gen),
+                     w_scale=torch.rand(co, device="cuda", generator=gen)
+                     * 1e-3 + 1e-4, stride=s, pad_h=ph, pad_w=pw,
+                     activation="relu", out_dtype=out_dtype, x_scale=1.0,
+                     out_scale=0.5)
+            before = dict(kernel.variants)
+            got = kernel(**a)
+            took = [v for v, m in kernel.variants.items() if m != before[v]]
+            check(took == ["wgmma"], f"{what} {out_dtype}: took {took}")
+            err, ok, _ = compare(got, plain(**a))
+            check(ok, f"{what} {out_dtype}: max err {err}")
+            n += 1
+    return n
+
+
+def zoo_rest_paths(smi, rng, rows, counts, speed):
+    """The rest of the classification zoo (phases 2-4 each), w8a8:
+    DenseNet-121 b128, ResNeXt-50 b128 and its server, SE-ResNet-50 b96,
+    Inception-v3 b128, ShuffleNet v1 and v2 b128 (``ZOO_REST``), after the
+    ragged cases of the grouped (block-diagonal) and asymmetric
+    ``conv2d_implicit_gemm`` launches.  Adds to ``rows``, ``counts`` and
+    ``speed``."""
+    import functools
+    import torch
+    from feathercnn_tpu_torch.models import build_model
+    n = ragged_zoo_rest()
+    say("kernels", f"{n} block-diagonal (Cg 4, 8, 32) and asymmetric (1x7, "
+        f"7x1, 1x3, 3x1) conv2d_implicit_gemm cases at stride 1 and 2, each "
+        f"on wgmma and equal to plain")
+    for label, (name, batch) in ZOO_REST.items():
+        g = calibrated(functools.partial(build_model, name), batch, rng)
+        x = images(g, batch, rng)
+        cfg, eng = make_engine(label, g)
+        counts[label] = EXPECTED[label]
+        r, speed[label], _ = run_path(label, g, cfg, eng, x, smi)
+        rows += r
+        if name == "resnext50":
+            serve(eng, x, batch, "ResNeXt-50")
+        del eng, x, g
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2381,6 +2579,7 @@ def main() -> int:
     rows += boundary(label, smi)
 
     classic_paths(smi, rng, rows, counts, speed)
+    zoo_rest_paths(smi, rng, rows, counts, speed)
 
     say("done", f"every phase passed in "
         f"{time.perf_counter() - t_start:.1f} s (from the start of the "

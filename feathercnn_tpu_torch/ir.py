@@ -278,9 +278,35 @@ def _elementwise_shape(node, in_specs, graph):
     return [in_specs[0]]
 
 
-for _op in ["ReLU", "ReLU6", "BatchNorm", "Scale", "Dropout", "LRN",
-            "Softmax", "Split", "FusedBottleneck", "FusedChain"]:
+for _op in ["ReLU", "ReLU6", "Sigmoid", "BatchNorm", "Scale", "Bias",
+            "Dropout", "LRN", "Softmax", "Split", "FusedBottleneck",
+            "FusedChain"]:
     register_shape_fn(_op)(_elementwise_shape)
+
+
+@register_shape_fn("Axpy")
+def _axpy_shape(node, in_specs, graph):
+    """SENet-Caffe's Axpy layer: out = a*x + y with bottoms [a (the
+    per-channel gate, (N, 1, 1, C) or (N, C)), x, y]."""
+    s, x, y = in_specs
+    if x.shape != y.shape:
+        raise ValueError(f"{node.name}: Axpy x/y shapes differ "
+                         f"{x.shape} vs {y.shape}")
+    if s.shape[0] != x.shape[0] or s.shape[-1] != x.shape[-1]:
+        raise ValueError(f"{node.name}: Axpy scale shape {s.shape} does "
+                         f"not broadcast over {x.shape}")
+    return [TensorSpec(x.shape, x.dtype)]
+
+
+@register_shape_fn("ShuffleChannel")
+def _shuffle_channel_shape(node, in_specs, graph):
+    """ShuffleNet's channel shuffle: a permutation of the channel axis."""
+    g = int(node.attrs.get("group", 1))
+    c = in_specs[0].shape[-1]
+    if c % g:
+        raise ValueError(
+            f"{node.name}: channels {c} not divisible by group {g}")
+    return [in_specs[0]]
 
 
 @register_shape_fn("Eltwise")

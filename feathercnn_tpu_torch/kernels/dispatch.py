@@ -16,10 +16,12 @@ order:
   xla            everything else: the fp convs (PyTorch's conv, as the
                  reference leaves them to XLA's), and the int8 convs the
                  reference runs through XLA's int8 conv — the merged
-                 sibling convs (per-channel act_segments), which go through
-                 the two GEMM kernels, and the int8 depthwise convs, which
-                 go to kernels/depthwise.py (depthwise_conv2d_int8), with
-                 the scales folded as that branch folds them.
+                 sibling convs (per-channel act_segments) and the grouped
+                 convs with 1 < group < C (on a block-diagonal weight),
+                 which go through the two GEMM kernels, and the int8
+                 depthwise convs, which go to kernels/depthwise.py
+                 (depthwise_conv2d_int8), with the scales folded as that
+                 branch folds them.
 
 Like the reference, the dispatcher passes ``cin * group`` to select_algo
 for a grouped conv, so the "depthwise" branch is reached only through
@@ -49,8 +51,8 @@ from .ident import ident
 from .matmul import gemm_layout, matmul_epilogue
 from .winograd import transform_weights, winograd_conv2d_transformed
 
-__all__ = ["select_algo", "conv_forward", "fc_forward", "fused_chain",
-           "fused_chain_float", "ident"]
+__all__ = ["select_algo", "block_diagonal", "conv_forward", "fc_forward",
+           "fused_chain", "fused_chain_float", "ident"]
 
 
 def select_algo(node, cin: int, quant: bool) -> str:
@@ -73,14 +75,31 @@ def _dequant_weight(w, q, dtype, node, ctx):
     return w.to(dtype)
 
 
-def _gemm_weight(node, w, dtype, ctx, matrix: bool):
+def block_diagonal(w: torch.Tensor, group: int) -> torch.Tensor:
+    """A grouped conv's HWIO weight (KH, KW, C/group, Co) as the dense
+    (KH, KW, C, Co) weight of the same conv: output channel o of group
+    j = o // (Co/group) keeps its weights on input channels
+    j*(C/group) .. (j+1)*(C/group) - 1 and is zero on every other."""
+    kh, kw, cg, co = w.shape
+    cog = co // group
+    dense = w.new_zeros((kh, kw, cg * group, co))
+    for j in range(group):
+        dense[:, :, j * cg:(j + 1) * cg, j * cog:(j + 1) * cog] = \
+            w[..., j * cog:(j + 1) * cog]
+    return dense
+
+
+def _gemm_weight(node, w, dtype, ctx, matrix: bool, group: int = 1):
     """The node's weight as ``dtype`` in the GEMM kernels' layout
     (``gemm_layout``): a 1x1 or FC weight as its (K, N) matrix, a kxk one
-    HWIO; made once per node."""
+    HWIO; a grouped conv's (``group`` > 1) first made dense by
+    :func:`block_diagonal`; made once per node."""
+    def make():
+        wd = block_diagonal(w, group) if group > 1 else w
+        return gemm_layout((wd.reshape(wd.shape[-2], -1) if matrix else wd)
+                           .to(dtype))
     return ctx.kept(node, f"gemm_w/{dtype}/{'matrix' if matrix else 'hwio'}",
-                    lambda: gemm_layout(
-                        (w.reshape(w.shape[-2], -1) if matrix else w)
-                        .to(dtype)))
+                    make)
 
 
 def _int8_product(node, x2, w2):
@@ -270,13 +289,23 @@ def conv_forward(node, x, w, bias, ctx):
         # + bias, act or act_segments, requant.  PyTorch has no int8 conv
         # on CUDA, so the port's kernels run it: the folded scale as
         # w_scale with x_scale 1.0 (one multiply, as the branch does), and
-        # the segments as the GEMM kernels' per-channel lo/hi clamp.
+        # the segments as the GEMM kernels' per-channel lo/hi clamp.  A
+        # grouped conv that is not depthwise (1 < group < C: ResNeXt's
+        # cardinality-32 convs) runs on the same GEMM kernels with its
+        # block-diagonal dense weight: the zeros add nothing to the int32
+        # sums, so the result is XLA's grouped conv's.
         depthwise = group != 1 and segs is None and _is_depthwise(
             node, x, group, dil, sh, sw)
-        if not depthwise and (group != 1 or dil != 1 or sh != sw):
+        grouped = group != 1 and not depthwise and 1 < group < cin
+        if (group != 1 and not (depthwise or grouped)) or dil != 1 \
+                or sh != sw:
             raise NotImplementedError(
-                f"{node.name}: int8 conv with group={group}, dilation={dil}, "
-                f"stride=({sh},{sw}) is not ported yet")
+                f"{node.name}: int8 conv with group={group} on {cin} "
+                f"channels, dilation={dil}, stride=({sh},{sw}) is not ported "
+                "yet (the port runs a depthwise conv, a grouped conv with "
+                "1 < group < C, and an ungrouped one, undilated at a square "
+                "stride)")
+        wg = group if grouped else 1
         xq = _quantize_act(x, q["x_scale"])
         ws = ctx.const(node, "w_scale_x_scale",
                        lambda: np.asarray(q["w_scale"], np.float32)
@@ -297,12 +326,12 @@ def conv_forward(node, x, w, bias, ctx):
         if kh == 1 and kw == 1:
             x2, (n, oh, ow) = _pointwise_input(xq, sh, sw, ph, pw)
             y = matmul_epilogue(x2, _gemm_weight(node, w, torch.int8, ctx,
-                                                 True), bias, ws, **kw_)
+                                                 True, wg), bias, ws, **kw_)
             return y.reshape(n, oh, ow, -1)
         return conv2d_implicit_gemm(xq.contiguous(),
                                     _gemm_weight(node, w, torch.int8, ctx,
-                                                 False), bias, ws, stride=sh,
-                                    pad_h=ph, pad_w=pw, **kw_)
+                                                 False, wg), bias, ws,
+                                    stride=sh, pad_h=ph, pad_w=pw, **kw_)
 
     # float conv (PyTorch's, as the reference leaves it to XLA's):
     # f32 accumulation of compute-dtype operands, + bias, act, requant

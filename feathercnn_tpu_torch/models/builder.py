@@ -3,9 +3,9 @@ layer methods of the ops the port lowers.  Same seeded draws in the same
 order, so a model built here has the reference zoo's weights.
 
 
-The model zoo (SqueezeNet/MobileNet/VGG/ResNet/GoogLeNet) is defined with
-this builder using the exact layer sequences of the public Caffe deploy
-prototxts that FeatherCNN's converter consumes
+The model zoo (the classification models of ``feathercnn_tpu/models/
+zoo.py``) is defined with this builder using the exact layer sequences of
+the public Caffe deploy prototxts that FeatherCNN's converter consumes
 ([pub] tools/feather_convert_caffe.cpp).  Weights are He-initialized unless
 loaded from a converted model — so every model runs (and is benchmarked)
 without needing the original .caffemodel files, while the converter drops
@@ -189,6 +189,25 @@ class GraphBuilder:
         out = self._add(Node(name, "LRN", [x], [name],
                              {"local_size": local_size, "alpha": alpha,
                               "beta": beta}))[0]
+        self._channels[out] = self._channels[x]
+        return out
+
+    def sigmoid(self, name: str, x: str) -> str:
+        out = self._add(Node(name, "Sigmoid", [x], [name]))[0]
+        self._channels[out] = self._channels[x]
+        return out
+
+    def axpy(self, name: str, scale: str, x: str, y: str) -> str:
+        """SENet-Caffe Axpy: out = scale*x + y (fused SE gate +
+        residual add)."""
+        out = self._add(Node(name, "Axpy", [scale, x, y], [name]))[0]
+        self._channels[out] = self._channels[x]
+        return out
+
+    def shuffle_channel(self, name: str, x: str, group: int) -> str:
+        """ShuffleNet channel shuffle (caffe-ShuffleNet fork layer)."""
+        out = self._add(Node(name, "ShuffleChannel", [x], [name],
+                             {"group": group}))[0]
         self._channels[out] = self._channels[x]
         return out
 

@@ -1,21 +1,25 @@
-"""Model zoo — the ResNet family (ResNet-50/101/152), MobileNet-v1/v2,
-SqueezeNet v1.0/v1.1, VGG-16/19, GoogLeNet and AlexNet of
-``feathercnn_tpu/models/zoo.py``, Caffe deploy structure and naming.
+"""Model zoo — the classification models of ``feathercnn_tpu/models/
+zoo.py``: the ResNet family (ResNet-50/101/152), MobileNet-v1/v2,
+SqueezeNet v1.0/v1.1, VGG-16/19, GoogLeNet, AlexNet, ShuffleNet v1/v2,
+SE-ResNet-50, Inception-v3, DenseNet-121/169/201 and ResNeXt-50, Caffe
+deploy structure and naming.
 
 Layer sequences, seeded weights and baked config overrides
 (``meta["config_overrides"]``) are the reference's, so ``resnet50(seed=s)``
 here and there build the same graph with the same weights.  The other
-families come with their lowerings.
+families (segmentation, detection) come with their lowerings.
 """
 
 from __future__ import annotations
 
-from ..ir import Graph
+from ..ir import Graph, Node
 from .builder import GraphBuilder
 
 __all__ = ["squeezenet_v11", "squeezenet_v10", "vgg16", "vgg19",
            "googlenet", "alexnet", "resnet50", "resnet101", "resnet152",
-           "mobilenet_v1", "mobilenet_v2", "MODEL_BUILDERS", "build_model"]
+           "mobilenet_v1", "mobilenet_v2", "shufflenet_v1", "shufflenet_v2",
+           "se_resnet50", "inception_v3", "densenet121", "densenet169",
+           "densenet201", "resnext50", "MODEL_BUILDERS", "build_model"]
 
 
 def _fire(b, name, x, s1, e1, e3):
@@ -362,6 +366,389 @@ def resnet152(batch: int = 1, seed: int = 0,
     return _resnet(152, batch, seed, with_softmax)
 
 
+def shufflenet_v1(batch: int = 1, seed: int = 0, groups: int = 3,
+                  with_softmax: bool = True) -> Graph:
+    """ShuffleNet v1 (224x224), the public caffe-ShuffleNet deploy
+    structure (farmingyard/caffe-ShuffleNet, 1x g=3 by default): grouped
+    1x1 convs + ShuffleChannel + depthwise 3x3, stride-2 units concat an
+    AVE-pooled shortcut, stride-1 units use Eltwise-SUM residuals.
+    Exercises the ShuffleChannel permutation between grouped convs (the
+    int8 edge must ride through it)."""
+    stage_out = {1: [144, 288, 576], 2: [200, 400, 800],
+                 3: [240, 480, 960], 4: [272, 544, 1088],
+                 8: [384, 768, 1536]}[groups]
+    b = GraphBuilder("shufflenet_v1", seed)
+
+    def gconv_bn(name, x, ch, group, relu=False):
+        x = b.conv(name, x, ch, 1, group=group, bias=False)
+        x = b.bn_scale(name + "_bnsc", x)
+        if relu:
+            x = b.relu(name + "_relu", x)
+        return x
+
+    def unit(name, x, out_ch, stride, first=False):
+        cin = b._channels[x]
+        mid = out_ch // 4
+        y = gconv_bn(name + "_conv1", x, mid, 1 if first else groups,
+                     relu=True)
+        if groups > 1:
+            y = b.shuffle_channel(name + "_shuffle", y, groups)
+        y = b.conv(name + "_conv2", y, mid, 3, stride, 1, group=mid,
+                   bias=False)
+        y = b.bn_scale(name + "_conv2_bnsc", y)
+        y = gconv_bn(name + "_conv3", y,
+                     out_ch - cin if stride == 2 else out_ch, groups)
+        if stride == 2:
+            # caffe deploy: 3x3 s2 AVE pool, no pad (ceil -> floor match)
+            sc = b.pool(name + "_avepool", x, 3, 2, mode="AVE")
+            out = b.concat(name + "_concat", [sc, y])
+        else:
+            out = b.eltwise(name + "_add", [x, y])
+        return b.relu(name + "_relu", out)
+
+    x = b.input("data", (batch, 224, 224, 3))
+    x = b.conv("conv1", x, 24, 3, stride=2, pad=1, bias=False)
+    x = b.bn_scale("conv1_bnsc", x)
+    x = b.relu("conv1_relu", x)
+    x = b.pool("pool1", x, 3, 2)
+    n = 0
+    for stage, (out_ch, repeats) in enumerate(
+            zip(stage_out, (4, 8, 4)), start=2):
+        for i in range(repeats):
+            n += 1
+            x = unit(f"resx{n}", x, out_ch, stride=2 if i == 0 else 1,
+                     first=(stage == 2 and i == 0))
+    x = b.pool("pool5", x, 0, mode="AVE", global_pooling=True)
+    x = b.fc("fc1000", x, 1000)
+    if with_softmax:
+        x = b.softmax("prob", x)
+    g = b.finish([x])
+    # the reference's measured bake: the grouped 1x1 and depthwise convs
+    # on float inputs (no int8 edge into a grouped conv)
+    g.meta["config_overrides"] = {"int8_grouped": False}
+    return g
+
+
+def shufflenet_v2(batch: int = 1, seed: int = 0, width: str = "1.0x",
+                  with_softmax: bool = True) -> Graph:
+    """ShuffleNet v2 (224x224), the public Caffe deploy structure
+    (miaow1988/ShuffleNet_V2_pytorch_caffe exports): stride-1 units
+    Slice channels in half, run 1x1 -> dw3x3 -> 1x1 on one half, Concat
+    and ShuffleChannel(2); stride-2 units run both branches on the full
+    input.  Exercises Slice + ShuffleChannel + Concat composition."""
+    stage_out = {"0.5x": [48, 96, 192, 1024],
+                 "1.0x": [116, 232, 464, 1024],
+                 "1.5x": [176, 352, 704, 1024],
+                 "2.0x": [244, 488, 976, 2048]}[width]
+    b = GraphBuilder("shufflenet_v2", seed)
+
+    def conv_bn(name, x, ch, kernel=1, stride=1, pad=0, group=1,
+                relu=True):
+        x = b.conv(name, x, ch, kernel, stride, pad, group=group,
+                   bias=False)
+        x = b.bn_scale(name + "_bnsc", x)
+        if relu:
+            x = b.relu(name + "_relu", x)
+        return x
+
+    def unit(name, x, out_ch, stride):
+        cin = b._channels[x]
+        half = out_ch // 2
+        if stride == 1:
+            l, r = b._add(Node(name + "_slice", "Slice", [x],
+                               [name + "_l", name + "_r"],
+                               {"axis": -1}))
+            b._channels[name + "_l"] = cin // 2
+            b._channels[name + "_r"] = cin // 2
+            y = conv_bn(name + "_c1", r, half, 1)
+            y = conv_bn(name + "_dw", y, half, 3, 1, 1, group=half,
+                        relu=False)
+            y = conv_bn(name + "_c2", y, half, 1)
+            out = b.concat(name + "_concat", [l, y])
+        else:
+            sc = conv_bn(name + "_sdw", x, cin, 3, 2, 1, group=cin,
+                         relu=False)
+            sc = conv_bn(name + "_sc", sc, half, 1)
+            y = conv_bn(name + "_c1", x, half, 1)
+            y = conv_bn(name + "_dw", y, half, 3, 2, 1, group=half,
+                        relu=False)
+            y = conv_bn(name + "_c2", y, half, 1)
+            out = b.concat(name + "_concat", [sc, y])
+        return b.shuffle_channel(name + "_shuffle", out, 2)
+
+    x = b.input("data", (batch, 224, 224, 3))
+    x = conv_bn("conv1", x, 24, 3, 2, 1)
+    x = b.pool("pool1", x, 3, 2)
+    n = 0
+    for stage, (out_ch, repeats) in enumerate(
+            zip(stage_out[:3], (4, 8, 4)), start=2):
+        for i in range(repeats):
+            n += 1
+            x = unit(f"unit{n}", x, out_ch, stride=2 if i == 0 else 1)
+    x = conv_bn("conv5", x, stage_out[3], 1)
+    x = b.pool("pool5", x, 0, mode="AVE", global_pooling=True)
+    x = b.fc("fc", x, 1000)
+    if with_softmax:
+        x = b.softmax("prob", x)
+    g = b.finish([x])
+    # the reference's measured bakes: the depthwise convs on float inputs,
+    # and its TPU form of the channel shuffle (a one-hot permutation
+    # matmul; the port computes the same permutation for either value)
+    g.meta["config_overrides"] = {"int8_grouped": False,
+                                  "shuffle_matmul": True}
+    return g
+
+
+def se_resnet50(batch: int = 1, seed: int = 0, reduction: int = 16,
+                with_softmax: bool = True) -> Graph:
+    """SE-ResNet-50 (224x224), the public SENet-Caffe deploy structure
+    (hujie-frank/SENet SE-ResNet-50.prototxt): ResNet-50 bottlenecks with
+    a squeeze-excite path per block — global AVE pool, 1x1 down (C/16) +
+    ReLU, 1x1 up (C) + Sigmoid — applied through the Axpy layer
+    (gate*residual + shortcut) with fused ReLU."""
+    b = GraphBuilder("se_resnet50", seed)
+
+    def conv_bn(name, x, ch, kernel, stride=1, pad=0, relu=True):
+        x = b.conv(name, x, ch, kernel, stride, pad, bias=False)
+        x = b.bn_scale(name + "/bn", x)
+        if relu:
+            x = b.relu(name + "/relu", x)
+        return x
+
+    def bottleneck(name, x, ch, stride=1, project=False):
+        shortcut = x
+        if project:
+            shortcut = conv_bn(name + "_1x1_proj", x, ch * 4, 1,
+                               stride=stride, relu=False)
+        y = conv_bn(name + "_1x1_reduce", x, ch, 1, stride=stride)
+        y = conv_bn(name + "_3x3", y, ch, 3, pad=1)
+        y = conv_bn(name + "_1x1_increase", y, ch * 4, 1, relu=False)
+        s = b.pool(name + "_global_pool", y, 0, mode="AVE",
+                   global_pooling=True)
+        s = b.conv(name + "_1x1_down", s, ch * 4 // reduction, 1,
+                   relu=True)
+        s = b.conv(name + "_1x1_up", s, ch * 4, 1)
+        s = b.sigmoid(name + "_prob", s)
+        out = b.axpy(name + "_axpy", s, y, shortcut)
+        return b.relu(name + "_relu", out)
+
+    x = b.input("data", (batch, 224, 224, 3))
+    x = conv_bn("conv1", x, 64, 7, stride=2, pad=3)
+    x = b.pool("pool1", x, 3, 2)
+    for stage, (ch, blocks) in enumerate(
+            zip([64, 128, 256, 512], [3, 4, 6, 3]), start=2):
+        for i in range(blocks):
+            stride = 2 if (i == 0 and stage > 2) else 1
+            x = bottleneck(f"conv{stage}_{i + 1}", x, ch, stride=stride,
+                           project=(i == 0))
+    x = b.pool("pool5", x, 0, mode="AVE", global_pooling=True)
+    x = b.fc("classifier", x, 1000)
+    if with_softmax:
+        x = b.softmax("prob", x)
+    return b.finish([x])
+
+
+def inception_v3(batch: int = 1, seed: int = 0,
+                 with_softmax: bool = True) -> Graph:
+    """Inception-v3 (299x299), the public Caffe deploy structure
+    (soeaver/caffe-model inception_v3 deploy): factorized 7x7 (1x7/7x1)
+    and 3x3 (1x3/3x1) branches with conv+BN+Scale+ReLU throughout —
+    exercises asymmetric kernels and pads on the implicit-GEMM conv."""
+    b = GraphBuilder("inception_v3", seed)
+
+    def cbr(name, x, ch, kh=1, kw=None, stride=1, ph=0, pw=None):
+        kw = kh if kw is None else kw
+        pw = ph if pw is None else pw
+        x = b.conv(name, x, ch, stride=stride, bias=False,
+                   kernel_h=kh, kernel_w=kw, pad_h=ph, pad_w=pw)
+        x = b.bn_scale(name + "_bnsc", x)
+        return b.relu(name + "/relu", x)
+
+    def module_a(name, x, pool_proj):
+        b1 = cbr(f"{name}_1x1", x, 64)
+        b2 = cbr(f"{name}_5x5_reduce", x, 48)
+        b2 = cbr(f"{name}_5x5", b2, 64, 5, ph=2)
+        b3 = cbr(f"{name}_3x3_reduce", x, 64)
+        b3 = cbr(f"{name}_3x3_1", b3, 96, 3, ph=1)
+        b3 = cbr(f"{name}_3x3_2", b3, 96, 3, ph=1)
+        bp = b.pool(f"{name}_pool", x, 3, 1, pad=1, mode="AVE")
+        bp = cbr(f"{name}_pool_proj", bp, pool_proj)
+        return b.concat(f"{name}_concat", [b1, b2, b3, bp])
+
+    def module_b(name, x, c7):
+        b1 = cbr(f"{name}_1x1", x, 192)
+        b2 = cbr(f"{name}_1x7_reduce", x, c7)
+        b2 = cbr(f"{name}_1x7", b2, c7, 1, 7, ph=0, pw=3)
+        b2 = cbr(f"{name}_7x1", b2, 192, 7, 1, ph=3, pw=0)
+        b3 = cbr(f"{name}_7x1_reduce", x, c7)
+        b3 = cbr(f"{name}_7x1_2", b3, c7, 7, 1, ph=3, pw=0)
+        b3 = cbr(f"{name}_1x7_2", b3, c7, 1, 7, ph=0, pw=3)
+        b3 = cbr(f"{name}_7x1_3", b3, c7, 7, 1, ph=3, pw=0)
+        b3 = cbr(f"{name}_1x7_3", b3, 192, 1, 7, ph=0, pw=3)
+        bp = b.pool(f"{name}_pool", x, 3, 1, pad=1, mode="AVE")
+        bp = cbr(f"{name}_pool_proj", bp, 192)
+        return b.concat(f"{name}_concat", [b1, b2, b3, bp])
+
+    def module_c(name, x):
+        b1 = cbr(f"{name}_1x1", x, 320)
+        b2 = cbr(f"{name}_3x3_reduce", x, 384)
+        b2a = cbr(f"{name}_1x3", b2, 384, 1, 3, ph=0, pw=1)
+        b2b = cbr(f"{name}_3x1", b2, 384, 3, 1, ph=1, pw=0)
+        b3 = cbr(f"{name}_dbl_3x3_reduce", x, 448)
+        b3 = cbr(f"{name}_dbl_3x3", b3, 384, 3, ph=1)
+        b3a = cbr(f"{name}_dbl_1x3", b3, 384, 1, 3, ph=0, pw=1)
+        b3b = cbr(f"{name}_dbl_3x1", b3, 384, 3, 1, ph=1, pw=0)
+        bp = b.pool(f"{name}_pool", x, 3, 1, pad=1, mode="AVE")
+        bp = cbr(f"{name}_pool_proj", bp, 192)
+        return b.concat(f"{name}_concat", [b1, b2a, b2b, b3a, b3b, bp])
+
+    x = b.input("data", (batch, 299, 299, 3))
+    x = cbr("conv1_3x3_s2", x, 32, 3, stride=2)        # 149
+    x = cbr("conv2_3x3", x, 32, 3)                     # 147
+    x = cbr("conv3_3x3", x, 64, 3, ph=1)               # 147
+    x = b.pool("pool1_3x3_s2", x, 3, 2)                # 73
+    x = cbr("conv4_1x1", x, 80)
+    x = cbr("conv5_3x3", x, 192, 3)                    # 71
+    x = b.pool("pool2_3x3_s2", x, 3, 2)                # 35
+    x = module_a("mixed", x, 32)                       # 256
+    x = module_a("mixed_1", x, 64)                     # 288
+    x = module_a("mixed_2", x, 64)                     # 288
+    # reduction A -> 17x17x768
+    r1 = cbr("mixed_3_3x3_s2", x, 384, 3, stride=2)
+    r2 = cbr("mixed_3_3x3_reduce", x, 64)
+    r2 = cbr("mixed_3_3x3_1", r2, 96, 3, ph=1)
+    r2 = cbr("mixed_3_3x3_2", r2, 96, 3, stride=2)
+    rp = b.pool("mixed_3_pool", x, 3, 2)
+    x = b.concat("mixed_3_concat", [r1, r2, rp])
+    for i, c7 in zip(range(4, 8), (128, 160, 160, 192)):
+        x = module_b(f"mixed_{i}", x, c7)
+    # reduction B -> 8x8x1280
+    r1 = cbr("mixed_8_1x1", x, 192)
+    r1 = cbr("mixed_8_3x3_s2", r1, 320, 3, stride=2)
+    r2 = cbr("mixed_8_1x7_reduce", x, 192)
+    r2 = cbr("mixed_8_1x7", r2, 192, 1, 7, ph=0, pw=3)
+    r2 = cbr("mixed_8_7x1", r2, 192, 7, 1, ph=3, pw=0)
+    r2 = cbr("mixed_8_3x3", r2, 192, 3, stride=2)
+    rp = b.pool("mixed_8_pool", x, 3, 2)
+    x = b.concat("mixed_8_concat", [r1, r2, rp])
+    x = module_c("mixed_9", x)                         # 2048
+    x = module_c("mixed_10", x)
+    x = b.pool("pool3_8x8_s1", x, 0, mode="AVE", global_pooling=True)
+    x = b.dropout("drop", x)
+    x = b.fc("classifier", x, 1000)
+    if with_softmax:
+        x = b.softmax("prob", x)
+    g = b.finish([x])
+    return g
+
+
+def densenet121(batch: int = 1, seed: int = 0,
+                with_softmax: bool = True) -> Graph:
+    """DenseNet-121 (224x224), Caffe deploy structure (the public
+    DenseNet-Caffe release): pre-activation BN+Scale+ReLU before every
+    conv, dense blocks of concatenated growth-32 features, 0.5-compression
+    transitions.  Exercises long Concat chains (int8-edge propagation) and
+    standalone Scale nodes (pre-activation BN cannot fold into a preceding
+    conv across a Concat)."""
+    return _densenet(121, batch, seed, with_softmax)
+
+
+def densenet169(batch: int = 1, seed: int = 0,
+                with_softmax: bool = True) -> Graph:
+    """DenseNet-169 (6/12/32/32 blocks)."""
+    return _densenet(169, batch, seed, with_softmax)
+
+
+def densenet201(batch: int = 1, seed: int = 0,
+                with_softmax: bool = True) -> Graph:
+    """DenseNet-201 (6/12/48/32 blocks)."""
+    return _densenet(201, batch, seed, with_softmax)
+
+
+def _densenet(depth: int, batch: int, seed: int,
+              with_softmax: bool) -> Graph:
+    blocks = {121: (6, 12, 24, 16), 169: (6, 12, 32, 32),
+              201: (6, 12, 48, 32)}[depth]
+    b = GraphBuilder(f"densenet{depth}", seed)
+
+    def bn_relu(name, x):
+        x = b.bn_scale(name, x)
+        return b.relu(name + "/relu", x)
+
+    def dense_layer(name, x, growth=32):
+        y = bn_relu(name + "/x1", x)
+        y = b.conv(name + "/x1", y, 4 * growth, 1, bias=False)
+        y = bn_relu(name + "/x2", y)
+        return b.conv(name + "/x2", y, growth, 3, pad=1, bias=False)
+
+    x = b.input("data", (batch, 224, 224, 3))
+    x = b.conv("conv1", x, 64, 7, stride=2, pad=3, bias=False)
+    x = bn_relu("conv1", x)
+    x = b.pool("pool1", x, 3, 2)
+    ch = 64
+    for stage, layers in zip((2, 3, 4, 5), blocks):
+        for j in range(1, layers + 1):
+            y = dense_layer(f"conv{stage}_{j}", x)
+            x = b.concat(f"concat_{stage}_{j}", [x, y])
+            ch += 32
+        if stage < 5:
+            x = bn_relu(f"conv{stage}_blk", x)
+            ch //= 2
+            x = b.conv(f"conv{stage}_blk", x, ch, 1, bias=False)
+            x = b.pool(f"pool{stage}", x, 2, 2, mode="AVE")
+    x = bn_relu("conv5_blk", x)
+    x = b.pool("pool5", x, 0, mode="AVE", global_pooling=True)
+    x = b.fc("fc6", x, 1000)
+    if with_softmax:
+        x = b.softmax("prob", x)
+    return b.finish([x])
+
+
+def resnext50(batch: int = 1, seed: int = 0,
+              with_softmax: bool = True) -> Graph:
+    """ResNeXt-50 (32x4d), Caffe deploy structure: bottlenecks whose 3x3
+    conv is grouped (cardinality 32) — exercises the grouped int8 conv
+    (``int8_grouped``, on by default: the grouped 3x3 convs take int8
+    edges; kernels/dispatch.py runs them on the implicit-GEMM kernel with
+    a block-diagonal weight)."""
+    b = GraphBuilder("resnext50", seed)
+
+    def conv_bn(name, x, ch, kernel, stride=1, pad=0, group=1, relu=True):
+        x = b.conv(name, x, ch, kernel, stride, pad, group=group,
+                   bias=False)
+        x = b.bn_scale(name + "_bnsc", x)
+        if relu:
+            x = b.relu(name + "_relu", x)
+        return x
+
+    def block(name, x, ch, stride=1, project=False):
+        shortcut = x
+        if project:
+            shortcut = conv_bn(name + "_branch1", x, ch * 2, 1,
+                               stride=stride, relu=False)
+        y = conv_bn(name + "_branch2a", x, ch, 1)
+        y = conv_bn(name + "_branch2b", y, ch, 3, stride=stride, pad=1,
+                    group=32)
+        y = conv_bn(name + "_branch2c", y, ch * 2, 1, relu=False)
+        out = b.eltwise(name, [shortcut, y])
+        return b.relu(name + "_relu", out)
+
+    x = b.input("data", (batch, 224, 224, 3))
+    x = conv_bn("conv1", x, 64, 7, stride=2, pad=3)
+    x = b.pool("pool1", x, 3, 2)
+    for stage, (ch, blocks) in enumerate(
+            zip([128, 256, 512, 1024], [3, 4, 6, 3]), start=2):
+        for i in range(blocks):
+            stride = 2 if (i == 0 and stage > 2) else 1
+            x = block(f"res{stage}{chr(ord('a') + i)}", x, ch,
+                      stride=stride, project=(i == 0))
+    x = b.pool("pool5", x, 0, mode="AVE", global_pooling=True)
+    x = b.fc("fc1000", x, 1000)
+    if with_softmax:
+        x = b.softmax("prob", x)
+    return b.finish([x])
+
+
 MODEL_BUILDERS = {
     "squeezenet_v11": squeezenet_v11,
     "squeezenet_v10": squeezenet_v10,
@@ -374,6 +761,14 @@ MODEL_BUILDERS = {
     "resnet152": resnet152,
     "mobilenet_v1": mobilenet_v1,
     "mobilenet_v2": mobilenet_v2,
+    "shufflenet_v1": shufflenet_v1,
+    "shufflenet_v2": shufflenet_v2,
+    "se_resnet50": se_resnet50,
+    "inception_v3": inception_v3,
+    "densenet121": densenet121,
+    "densenet169": densenet169,
+    "densenet201": densenet201,
+    "resnext50": resnext50,
 }
 
 

@@ -13,7 +13,9 @@ module, as there:
 
 An op with no lowering here raises ``NotImplementedError`` naming it
 (``lower_node``): among the reference's, for example Deconvolution, the
-detection ops, SpaceToDepth and the ladder ops of ``concat_dus``.
+detection ops, SpaceToDepth, the ladder ops of ``concat_dus``, and PReLU,
+TanH, ELU, AbsVal, Exp, Log, BNLL, Power, MVN, Tile, Reduction and
+Threshold, which no zoo builder uses.
 """
 
 from __future__ import annotations
@@ -451,6 +453,130 @@ def _lower_lrn(node, inputs, params, ctx):
     if rq:
         return [quantize(y, q["y_scale"])]
     return [y.to(x.dtype)]
+
+
+def _channel_gate(s: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """A per-channel gate or scaler given as (N, C) or (N, 1, 1, C),
+    shaped to broadcast over ``x`` (N, H, W, C)."""
+    if s.dim() < x.dim():
+        s = s.reshape((s.shape[0],) + (1,) * (x.dim() - s.dim())
+                      + tuple(s.shape[1:]))
+    return s
+
+
+@register_lowering("Sigmoid")
+def _lower_sigmoid(node, inputs, params, ctx):
+    """``1 / (1 + exp(-x))`` as the reference's compiled
+    ``jax.nn.sigmoid`` computes it: ``exp`` and the add rounded to x's
+    type, the division in f32 (``torch.sigmoid`` rounds once and differs
+    by an ulp in ~30% of bf16 values).  The result stays f32: the
+    reference's compiled consumer (the SE gate's Axpy) reads the division
+    before its rounding to a bf16 x's type (XLA keeps the excess
+    precision inside a fusion), so an f32 gate gives the reference's
+    Axpy outputs; rounded to bf16 it is the reference's Sigmoid edge."""
+    return [1 / (1 + torch.exp(-inputs[0])).float()]
+
+
+@register_lowering("Scale")
+def _lower_scale(node, inputs, params, ctx):
+    """Per-channel affine (an un-folded Scale, or a BatchNorm that
+    ``fold_batchnorm`` turned into one), in the reference's three forms:
+
+    - int8 edge (quant/rewrite.py ``requant_int8``): an int8 ``x``
+      dequantized by ``x_scale``, ``x * gamma + beta`` in f32 (one rounding,
+      as the reference's compiled form contracts it), the fused activation,
+      then ``round(y / y_scale)`` with a divide;
+    - two bottoms (Caffe's ScaleLayer with a runtime scaler, e.g. an SE
+      gate): ``x * bottom[1]`` broadcast over H and W in x's type, plus the
+      learned bias ``params[0]`` where ``bias_term`` is set;
+    - the plain per-channel affine in x's type."""
+    x = inputs[0]
+    a = node.attrs
+    bias = a.get("bias_term", False)
+    act = a.get("activation")
+    q = ctx.qinfo(node)
+    if q is not None and q.get("requant_int8"):
+        xf = (x.float() * scalar(q["x_scale"], x.device)
+              if x.dtype == torch.int8 else x.float())
+        if bias and len(params) > 1:
+            y = torch.addcmul(params[1].float(), xf, params[0].float())
+        else:
+            y = xf * params[0].float()
+        return [quantize(apply_activation(y, act), q["y_scale"])]
+    if len(inputs) > 1:
+        y = x * _channel_gate(inputs[1], x).to(x.dtype)
+        if bias and params:
+            y = y + params[0].to(x.dtype)
+        return [apply_activation(y, act)]
+    y = x * params[0].to(x.dtype)
+    if bias and len(params) > 1:
+        y = y + params[1].to(x.dtype)
+    return [apply_activation(y, act)]
+
+
+@register_lowering("Axpy")
+def _lower_axpy(node, inputs, params, ctx):
+    """SENet-Caffe's Axpy: ``out = a * x + y``, ``a`` the SE path's
+    per-channel gate ((N, C) or (N, 1, 1, C)), the fused activation after.
+
+    int8-edge form (quant/rewrite.py ``axpy_int8``): x and y arrive int8 at
+    their calibrated scales (``in_scales``) or float, the gate float; each
+    int8 operand dequantized by its own multiply, ``a * x + y`` in f32 (one
+    rounding, as the reference's compiled form contracts it), the
+    activation, then ``round(out / y_scale)`` with a divide.  The float
+    form computes ``a * x + y`` in f32 and returns x's type."""
+    s, x, y = inputs
+    s = _channel_gate(s, x).float()
+    q = ctx.qinfo(node)
+    act = node.attrs.get("activation")
+    if q is not None and q.get("axpy_int8"):
+        sx, sy = q["in_scales"]
+        xf = (x.float() * scalar(sx, x.device) if x.dtype == torch.int8
+              else x.float())
+        yf = (y.float() * scalar(sy, y.device) if y.dtype == torch.int8
+              else y.float())
+        out = torch.addcmul(yf, s, xf)
+        return [quantize(apply_activation(out, act), q["y_scale"])]
+    out = torch.addcmul(y.float(), s, x.float())
+    return [apply_activation(out, act).to(x.dtype)]
+
+
+@register_lowering("Bias")
+def _lower_bias(node, inputs, params, ctx):
+    """Caffe's BiasLayer: ``x + b``, ``b`` the learned blob or the second
+    bottom, in x's type."""
+    x = inputs[0]
+    b = params[0] if params else inputs[1]
+    return [x + b.to(x.dtype)]
+
+
+@register_lowering("BatchNorm")
+def _lower_batchnorm(node, inputs, params, ctx):
+    """Inference BatchNorm with stored statistics, ``(x - mean) /
+    sqrt(var + eps)`` in f32, in x's type.  ``fold_batchnorm`` turns it
+    into a Scale; this runs on the un-optimized graph
+    (``Engine(..., optimize_graph=False)``, the oracle path)."""
+    x = inputs[0]
+    mean, var = params[0].float(), params[1].float()
+    inv = torch.rsqrt(var + node.attrs.get("eps", 1e-5))
+    return [((x.float() - mean) * inv).to(x.dtype)]
+
+
+@register_lowering("ShuffleChannel")
+def _lower_shuffle_channel(node, inputs, params, ctx):
+    """ShuffleNet's channel shuffle: the channels viewed as (group,
+    C/group), transposed and flattened, so output channel ``j*g + i`` reads
+    input channel ``i*(C/g) + j``.  A permutation, the same for int8 and
+    float edges; ``shuffle_matmul`` (the reference's TPU form: a one-hot
+    permutation matmul, exact in every type) computes this same
+    permutation."""
+    x = inputs[0]
+    g = int(node.attrs.get("group", 1))
+    if g == 1:
+        return [x]
+    lead, c = tuple(x.shape[:-1]), x.shape[-1]
+    return [x.reshape(lead + (g, c // g)).transpose(-1, -2)
+            .reshape(lead + (c,))]
 
 
 # ----------------------------------------------------------------------
