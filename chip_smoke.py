@@ -3,12 +3,16 @@
 
     python3 chip_smoke.py
 
-Drives the port's main paths at full width and 224x224 on the "cuda"
-backend, with seeded random weights.  The int8 paths are calibrated by the
+Drives the port's main paths at full width and the models' input sizes on
+the "cuda" backend, with seeded random weights.  The int8 paths are calibrated by the
 port (``method="max"``) and run full int8 (``quant="w8a8"``) with bf16
 float activations; the bf16 paths run ``quant=None`` in bf16:
 
-- ResNet-50 at batch 128, then behind an ``InferenceServer``;
+- ResNet-50 at batch 128, then behind an ``InferenceServer``; then the
+  same calibrated model written by ``save_ftpu`` to a temporary
+  directory, reloaded by ``Engine.from_path`` and compiled
+  (``compile(batch)``): its output equal to the built engine's
+  (``torch.equal``), its ``summary(top=5)`` printed on one line;
 - MobileNet-v1 at batch 256 on its default route, where its 13 depthwise
   convs take the int8 depthwise kernel, and with the 13 ``*/dw`` layers
   overridden to "depthwise" (the float depthwise kernel, int8 in);
@@ -58,7 +62,18 @@ float activations; the bf16 paths run ``quant=None`` in bf16:
   Inception-v3 b128 at 299x299 (1x7, 7x1, 1x3, 3x1 convs on
   ``conv2d_implicit_gemm``, requantizing AVE pools); ShuffleNet v1 b128
   (its grouped 1x1 and depthwise convs in PyTorch's float grouped conv,
-  its baked ``int8_grouped=False``) and v2 b128.
+  its baked ``int8_grouped=False``) and v2 b128;
+- the segmentation family, full int8 at ``bench.py:58-81``'s batches and
+  the deploys' sizes (``SEGMENTATION``): DeepLab-LargeFOV b16 at 321x321
+  (conv5_1-3 at dilation 2 and fc6 at 12 on ``conv2d_implicit_gemm``
+  with its taps spaced by the dilation, the kernels line's
+  ``conv2d_implicit_gemm_dilated``; an Interp to 321x321), FCN-8s,
+  FCN-16s and FCN-32s b16 at 224x224 (conv1's pad 100, the 7x7 fc6 on
+  ``conv2d_implicit_gemm``, the N = 21 score convs on
+  ``matmul_epilogue``, the Deconvolutions and Crops in PyTorch) and
+  PSPNet-50 b4 at 473x473 (stages 4-5 at dilation 2 and 4, the
+  requantizing pyramid pools of its baked ``avepool_matmul``, conv6 at
+  N = 150).
 
 Phases, each printing its own lines:
 
@@ -113,7 +128,9 @@ Phases, each printing its own lines:
    weight dequantized once).
 4. per path, agreement and speed: images 0-1 (or 0) through the port on
    the CPU (the plain versions) hold top-1 equal and the prob cosine >= 0.999
-   against the card (bf16 rounds at other places on the two devices, so a
+   against the card (a segmentation path its image 0: the per-pixel top-1
+   equal at >= 99.9% of the pixels and the cosine of its probability map
+   >= 0.999) (bf16 rounds at other places on the two devices, so a
    float edge may differ in its last bit and move an int8 value by one
    step); the classic zoo's paths (``LOGIT_AGREEMENT``) hold the cosine of
    the logits too, and AlexNet's and the Winograd route's that alone, each
@@ -148,7 +165,12 @@ Phases, each printing its own lines:
    versions; before the rest of the zoo's paths, ``conv2d_implicit_gemm``
    on block-diagonal weights (4, 8 and 32 channels a group) and on 1x7,
    7x1, 1x3 and 3x1 kernels with their pads, stride 1 and 2, each on
-   "wgmma" and equal to plain (``ragged_zoo_rest``).
+   "wgmma" and equal to plain (``ragged_zoo_rest``); before the
+   segmentation paths, the dilated ``conv2d_implicit_gemm`` at d = 2, 4,
+   6 and 12, pad d and 0, C 16, 48 and 64, stride 1 and 2, int8 x on
+   "wgmma", a bf16 x with an int8 weight on "wgmma_w8" (A by TMA) and an
+   f32 x on "simt", and d = 12 on a map smaller than the kernel's span,
+   each equal to plain within its gate (``ragged_dilated``).
 6. server (ResNet-50, then GoogLeNet, then ResNeXt-50):
    ``InferenceServer(batch_size=B,
    batch_slots=[8, B])`` with int8 transfer; 8 client threads send 32
@@ -160,11 +182,12 @@ Phases, each printing its own lines:
    ``x.clone()``.
 
 The order: ResNet-50 (phases 2-4), the ragged cases (5), the server (6),
-ResNet-50 with ``fuse_chains``, the two bf16 ResNet-50 paths, the
+the loaded ResNet-50 (2-4), ResNet-50 with ``fuse_chains``, the two bf16 ResNet-50 paths, the
 MobileNets, the boundary probe (7), VGG-16 (w8, w8 Winograd, w8a8),
 GoogLeNet and its server, AlexNet, SqueezeNet (fp32, w8a8), the rest of
 the zoo's ragged cases, DenseNet-121, ResNeXt-50 and its server,
-SE-ResNet-50, Inception-v3, ShuffleNet v1 and v2.  Then the
+SE-ResNet-50, Inception-v3, ShuffleNet v1 and v2, the dilated cases,
+DeepLab-LargeFOV, FCN-8s, FCN-16s, FCN-32s and PSPNet-50.  Then the
 card's name and power limit, one JSON line of kernel numbers, and, last,
 ``{"ok": true, "device": {...}}``.  Any failed check exits nonzero
 before those lines.  Without a GPU, or without the repository beside it,
@@ -216,7 +239,16 @@ KERNELS = {
     "ident": {
         "source": "feathercnn_tpu_torch/kernels/csrc/ident.cu",
         "replaces": "bench/chain_micro.py:187"},
+    # the dilated launches of conv2d_implicit_gemm (counted on its
+    # ``dilated_launches`` too): their own entry of the kernels line
+    "conv2d_implicit_gemm_dilated": {
+        "source": "feathercnn_tpu_torch/kernels/csrc/conv_implicit_gemm.cu",
+        "replaces": "feathercnn_tpu/kernels/dispatch.py:221 (XLA's dilated "
+                    "int8 conv, rhs_dilation; no Pallas kernel)"},
 }
+DILATED = "conv2d_implicit_gemm_dilated"
+# the wrappers, each an attribute of kernels/dispatch.py
+WRAPPERS = tuple(k for k in KERNELS if k != DILATED)
 _ZERO = dict.fromkeys(KERNELS, 0)
 # path -> launches of one forward.  A kernel's entry in the kernels line
 # takes its numbers from the first path here that launches it.
@@ -282,7 +314,43 @@ EXPECTED = {
     # the 1x1 convs and the FC; the depthwise convs in the float grouped
     # conv
     "shufflenet_v2 b128": {**_ZERO, "matmul_epilogue": 37},
+    # the main path's model written by save_ftpu, reloaded by
+    # Engine.from_path: the main path's launches
+    "resnet50 b128 loaded": {**_ZERO, "matmul_epilogue": 33,
+                             "conv2d_implicit_gemm": 16},
+    # the segmentation family (SEGMENTATION).  DeepLab: fc7 and fc8_voc12
+    # (N = 21); the nine 3x3 convs of stages 1-4 but the fp stem, and
+    # conv5_1-3 (d = 2) and fc6 (d = 12) dilated
+    "deeplab_largefov b16": {**_ZERO, "matmul_epilogue": 2,
+                             "conv2d_implicit_gemm": 13,
+                             "conv2d_implicit_gemm_dilated": 4},
+    # FCN: fc7, score_fr (N = 21) and the skip scores (N = 21; 2 in
+    # FCN-8s, 1 in FCN-16s); the twelve 3x3 convs but the fp stem (pad
+    # 100) and the 7x7 fc6
+    "fcn8s b16": {**_ZERO, "matmul_epilogue": 4, "conv2d_implicit_gemm": 13},
+    "fcn16s b16": {**_ZERO, "matmul_epilogue": 3,
+                   "conv2d_implicit_gemm": 13},
+    "fcn32s b16": {**_ZERO, "matmul_epilogue": 2,
+                   "conv2d_implicit_gemm": 13},
+    # PSPNet: the bottlenecks' 1x1 convs (the projections merged beside
+    # branch2a), the four pyramid 1x1 convs and conv6 (N = 150); the stem's
+    # two 3x3 convs after the fp one, stages 2-3's seven, conv5_4, and the
+    # six (d = 2) and three (d = 4) dilated of stages 4-5
+    "pspnet50 b4": {**_ZERO, "matmul_epilogue": 37,
+                    "conv2d_implicit_gemm": 19,
+                    "conv2d_implicit_gemm_dilated": 9},
 }
+# The segmentation family, w8a8 at bench.py:58-81's batches and the
+# deploys' sizes: path -> (model, batch, output (H, W, classes)).
+SEGMENTATION = {
+    "deeplab_largefov b16": ("deeplab_largefov", 16, (321, 321, 21)),
+    "fcn8s b16": ("fcn8s", 16, (224, 224, 21)),
+    "fcn16s b16": ("fcn16s", 16, (224, 224, 21)),
+    "fcn32s b16": ("fcn32s", 16, (224, 224, 21)),
+    "pspnet50 b4": ("pspnet50", 4, (473, 473, 150))}
+# per-pixel top-1 agreement of a segmentation path's first image, card
+# against CPU
+PIXEL_AGREEMENT = 0.999
 # The rest of the classification zoo, w8a8: path -> (model, batch), the
 # batches of bench.py:58-81.
 ZOO_REST = {"densenet121 b128": ("densenet121", 128),
@@ -444,11 +512,17 @@ def calibrated(builder, batch, rng):
     return g
 
 
+def engine_config(quant="w8a8", compute_dtype="bfloat16", **config):
+    """A path's config: the "cuda" backend and the named fields."""
+    from feathercnn_tpu_torch import EngineConfig
+    return EngineConfig(backend="cuda", compute_dtype=compute_dtype,
+                        quant=quant, **config)
+
+
 def make_engine(label, g, quant="w8a8", compute_dtype="bfloat16", **config):
-    from feathercnn_tpu_torch import Engine, EngineConfig
+    from feathercnn_tpu_torch import Engine
     t0 = time.perf_counter()
-    cfg = EngineConfig(backend="cuda", compute_dtype=compute_dtype,
-                       quant=quant, **config)
+    cfg = engine_config(quant, compute_dtype, **config)
     eng = Engine(g, cfg)
     check(eng.device.type == "cuda", f"engine on {eng.device}")
     what = {"w8a8": f"w8a8 {compute_dtype}, calibrated on 3x8 seeded images",
@@ -492,13 +566,13 @@ class LaunchRecorder:
         return rec
 
     def run(self, forward, *args):
-        orig = {n: getattr(self.dispatch, n) for n in KERNELS}
+        orig = {n: getattr(self.dispatch, n) for n in WRAPPERS}
         try:
-            for n in KERNELS:
+            for n in WRAPPERS:
                 setattr(self.dispatch, n, self._wrap(n, orig[n]))
             return forward(*args)
         finally:
-            for n in KERNELS:
+            for n in WRAPPERS:
                 setattr(self.dispatch, n, orig[n])
 
 
@@ -526,6 +600,7 @@ def reset_counts():
         fn.launches = 0
         if hasattr(fn, "variants"):
             fn.variants = dict.fromkeys(fn.variants, 0)
+    _kernel_fns()["conv2d_implicit_gemm"][0].dilated_launches = 0
 
 
 def gemm_plan_of(kernel, a):
@@ -595,7 +670,25 @@ def check_variants(label, launches):
 
 
 def read_counts():
-    return {name: fn.launches for name, (fn, _) in _kernel_fns().items()}
+    counts = {name: fn.launches for name, (fn, _) in _kernel_fns().items()}
+    counts[DILATED] = _kernel_fns()["conv2d_implicit_gemm"][0].dilated_launches
+    return counts
+
+
+def row_kernel(launch):
+    """The kernels line's name of a recorded launch: a dilated
+    ``conv2d_implicit_gemm`` launch is ``DILATED``."""
+    if (launch["kernel"] == "conv2d_implicit_gemm"
+            and launch["args"].get("dilation", 1) > 1):
+        return DILATED
+    return launch["kernel"]
+
+
+def rows_of(name, rows):
+    """A kernel's rows: ``conv2d_implicit_gemm``'s take its dilated ones
+    too (its count does), ``DILATED``'s only those."""
+    kinds = (name, DILATED) if name == "conv2d_implicit_gemm" else (name,)
+    return [r for r in rows if r["kernel"] in kinds]
 
 
 def drive(label, eng, x):
@@ -611,12 +704,15 @@ def drive(label, eng, x):
     check(counts == EXPECTED[label],
           f"{label}: launches {counts}, expected {EXPECTED[label]}")
     want = ((len(x), 1, 1, 1000) if label.startswith("squeezenet")
+            else (len(x),) + SEGMENTATION[label][2] if label in SEGMENTATION
             else (len(x), 1000))
     check(tuple(out.shape) == want,
           f"{label}: output {tuple(out.shape)}, expected {want}")
     check(bool(torch.isfinite(out.float()).all()), "non-finite output")
     recorded = {name: sum(launches_of(r) for r in recorder.launches
-                          if r["kernel"] == name) for name in KERNELS}
+                          if r["kernel"] == name) for name in WRAPPERS}
+    recorded[DILATED] = sum(row_kernel(r) == DILATED
+                            for r in recorder.launches)
     check(recorded == counts, f"recorded {recorded} vs counted {counts}")
     return out, recorder.launches
 
@@ -650,8 +746,9 @@ def dims(kernel, a):
     w = a["w"] if "w" in a else a["wq"]
     nb, h, wd, c = x.shape
     kh, kw = w.shape[0], w.shape[1]
-    oh = (h + 2 * a["pad_h"] - kh) // a["stride"] + 1
-    ow = (wd + 2 * a["pad_w"] - kw) // a["stride"] + 1
+    d = a.get("dilation", 1)
+    oh = (h + 2 * a["pad_h"] - d * (kh - 1) - 1) // a["stride"] + 1
+    ow = (wd + 2 * a["pad_w"] - d * (kw - 1) - 1) // a["stride"] + 1
     if kernel == "conv2d_implicit_gemm":
         return nb * oh * ow, kh * kw * c, w.shape[3]
     return nb, oh, ow, c, kh, kw
@@ -664,7 +761,9 @@ def bound_ms(kernel, a, out, group=1):
     bf16 on the tensor cores by x's type, float32 FMA for f32 x and for the
     float depthwise variant, which computes in f32; ``ident`` does none).
     A conv on a block-diagonal weight computes a grouped conv: its
-    operations are the dense product's over ``group``."""
+    operations are the dense product's over ``group``.  A dilated conv's
+    count only the taps that land in the image (a tap in the padding is a
+    structural zero: at d = 12 on a 41x41 map most are)."""
     import torch
     nbytes = out.numel() * out.element_size()
     for t in a.values():
@@ -675,6 +774,8 @@ def bound_ms(kernel, a, out, group=1):
         ops = 0.0
     elif kernel in CHAINS:
         ops = chain_ops(a)
+    elif a.get("dilation", 1) > 1:
+        ops = 2.0 * dilated_taps(a) * a["x"].shape[3] * a["w"].shape[3]
     else:
         ops = 2.0 * math.prod(dims(kernel, a)) / group
     x = a["x"] if "x" in a else a["xq"]
@@ -686,6 +787,21 @@ def bound_ms(kernel, a, out, group=1):
     t_ops = ops / peak * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                  else "operations")
+
+
+def dilated_taps(a):
+    """The (output pixel, tap) pairs of a dilated conv launch whose input
+    pixel lies in the image, over its batch."""
+    x, w, s, d = a["x"], a["w"], a["stride"], a["dilation"]
+    nb, h, wd, _ = x.shape
+
+    def valid(size, k, pad, out):
+        pos = (np.arange(out)[:, None] * s - pad + np.arange(k)[None] * d)
+        return int(((pos >= 0) & (pos < size)).sum())
+
+    _, oh, ow, _, _, _ = dims("depthwise", a)
+    return nb * valid(h, w.shape[0], a["pad_h"], oh) * valid(
+        wd, w.shape[1], a["pad_w"], ow)
 
 
 def compare(kernel_out, plain_out, gate="exact"):
@@ -761,7 +877,9 @@ def library_ms(kernel, a, group=1):
     ``F.conv2d(groups=C)`` with its bias on channels-last bf16 at a
     depthwise launch's shape; ``x.clone()`` for ``ident``; for a conv on a
     block-diagonal weight the grouped conv it computes, f32
-    ``F.conv2d(groups=group)`` (PyTorch has no int8 conv on the card)."""
+    ``F.conv2d(groups=group)`` (PyTorch has no int8 conv on the card); for a
+    dilated conv bf16 ``F.conv2d(dilation=d)`` on channels-last tensors,
+    as a weight-only conv's (the int8 values dequantized)."""
     import torch
     if kernel in CHAINS:            # no single PyTorch call computes it
         return None
@@ -782,14 +900,16 @@ def library_ms(kernel, a, group=1):
         return _LIBRARY_MS[key]
     d = dims(kernel, a)
     x = a["x"] if "x" in a else a["xq"]
+    dil = a.get("dilation", 1)
     key = (kernel == "depthwise_conv2d" or kernel == "depthwise_conv2d_int8",
-           d, a.get("stride"), a.get("pad_h"), a.get("pad_w"), x.dtype)
+           d, a.get("stride"), a.get("pad_h"), a.get("pad_w"), x.dtype, dil)
     if key not in _LIBRARY_MS:
-        if kernel == "conv2d_implicit_gemm" and x.dtype != torch.int8:
+        if kernel == "conv2d_implicit_gemm" and (x.dtype != torch.int8
+                                                 or dil > 1):
             w = a["w"]
             _LIBRARY_MS[key] = _time_conv(tuple(x.shape), w.shape[0],
                                           w.shape[3], a["stride"],
-                                          a["pad_h"], a["pad_w"])
+                                          a["pad_h"], a["pad_w"], dil)
         elif key[0]:
             _LIBRARY_MS[key] = _time_dw_conv(d, a["stride"], a["pad_h"],
                                              a["pad_w"])
@@ -824,9 +944,10 @@ def _time_int_mm(m, k, n):
         return None
 
 
-def _time_conv(x_shape, k, co, stride, pad_h, pad_w):
-    """F.conv2d with its bias on channels-last bf16 at a float implicit-GEMM
-    launch's shape (a weight-only int8 weight dequantized once to bf16)."""
+def _time_conv(x_shape, k, co, stride, pad_h, pad_w, dilation=1):
+    """F.conv2d with its bias on channels-last bf16 at a float or dilated
+    implicit-GEMM launch's shape (an int8 weight dequantized once to
+    bf16)."""
     import torch
     import torch.nn.functional as F
     nb, h, w, c = x_shape
@@ -837,7 +958,8 @@ def _time_conv(x_shape, k, co, stride, pad_h, pad_w):
         torch.bfloat16).contiguous(memory_format=torch.channels_last)
     b = torch.randn(co, device="cuda", generator=gen).to(torch.bfloat16)
     return median_ms(lambda: F.conv2d(x, wt, b, stride=stride,
-                                      padding=(pad_h, pad_w)))
+                                      padding=(pad_h, pad_w),
+                                      dilation=dilation))
 
 
 def _time_grouped_conv(x_shape, kh, kw, co, stride, pad_h, pad_w, group):
@@ -1061,6 +1183,8 @@ def describe(kernel, a, out):
         return (f"{kernel} M={d[0]} K={d[1]} N={d[2]} x{tuple(a['x'].shape)} "
                 f"{xdt} out={dt}" + (f" stride={a['stride']}" if "stride" in a
                                      else "")
+                + (f" dilation={a['dilation']}" if a.get("dilation", 1) > 1
+                   else "")
                 + (" lo/hi" if a.get("lo") is not None else ""))
     x = a["x"] if "x" in a else a["xq"]
     return (f"{kernel} x{tuple(x.shape)} {str(x.dtype).replace('torch.', '')}"
@@ -1108,7 +1232,8 @@ def kernels_vs_plain(label, launches, groups=None):
         check(ok, f"{label}: launch {i}, {desc}: kernel differs from plain, "
               f"max err {max_err}, {over} elements over 1 ulp")
         b_ms, b_by = bound_ms(name, a, out, group)
-        rows.append({"path": label, "kernel": name, "shape": desc,
+        rows.append({"path": label, "kernel": row_kernel(launch),
+                     "shape": desc,
                      "x_shape": tuple(a["x"].shape if "x" in a
                                       else a["xq"].shape),
                      "x_bytes": (a["x"].numel() * a["x"].element_size()
@@ -1199,6 +1324,8 @@ def _library_name(desc):
         return "x.clone()"
     if "depthwise" in desc:
         return "bf16 F.conv2d(groups=C)"
+    if "dilation=" in desc:
+        return "bf16 F.conv2d(dilation)"
     if " int8 " in desc:
         return "_int_mm"
     return ("bf16 F.conv2d" if desc.startswith("conv2d_implicit_gemm")
@@ -1220,6 +1347,12 @@ def ops_per_batch(graph):
             total += (2 * bn * oh * ow * (2 * c * cm + 9 * cm * cm)
                       * n.attrs.get("nb", 1))
             continue
+        if n.op == "Deconvolution":
+            # every input pixel times every tap, into each output channel
+            inp = graph.specs[n.inputs[0]].shape
+            w = graph.params[n.params[0]].shape      # HWIO (kh, kw, cin/g, co)
+            total += 2 * int(np.prod(inp[:3])) * int(np.prod(w))
+            continue
         if n.op not in ("Convolution", "InnerProduct"):
             continue
         out = graph.specs[n.outputs[0]].shape
@@ -1237,10 +1370,26 @@ def agreement(label, g, cfg, eng, x, out):
     """Images 0-1 (0 at batch 1) through the port on the CPU against the
     card: top-1 equal and the prob cosine >= 0.999; on the classic zoo's
     paths (``LOGIT_AGREEMENT``) the cosine of the logits too, and on a
-    path of ``PROB_WITNESS`` that alone, the prob cosine printed."""
+    path of ``PROB_WITNESS`` that alone, the prob cosine printed.  A
+    segmentation path (``SEGMENTATION``) holds its first image: the
+    per-pixel top-1 class equal at >= ``PIXEL_AGREEMENT`` of the pixels
+    and the cosine of the whole probability map >= 0.999."""
     import torch
     from feathercnn_tpu_torch import Engine
     cpu = Engine(g, cfg, device="cpu")
+    if label in SEGMENTATION:
+        ref = cpu(x[:1]).double().numpy()[0]
+        got = out[:1].double().cpu().numpy()[0]
+        same = float((ref.argmax(-1) == got.argmax(-1)).mean())
+        cos = _cosine(got.ravel(), ref.ravel())
+        check(same >= PIXEL_AGREEMENT, f"{label} image 0: per-pixel top-1 "
+              f"agreement {same}")
+        check(cos >= 0.999, f"{label} image 0: prob cosine {cos}")
+        say("agreement", f"{label} image 0: per-pixel top-1 equal at "
+            f"{100 * same:.4f}% of {ref.shape[0] * ref.shape[1]} pixels "
+            f"(>= {100 * PIXEL_AGREEMENT:.1f}%), prob cosine {cos:.6f} "
+            f"(>= 0.999), max |prob diff| {float(np.abs(got - ref).max()):.3e}")
+        return
     k = min(2, len(x))
     ref = cpu(x[:k]).double().numpy().reshape(k, -1)
     got = out[:k].double().cpu().numpy().reshape(k, -1)
@@ -1469,7 +1618,7 @@ def run_path(label, g, cfg, eng, x, smi, check_launch=None):
             f"F.conv2d(groups) {sums['library_ms']:.4f} ms; variants "
             f"{sorted({r['variant'] for r in grouped})}")
     for name in KERNELS:
-        mine = [r for r in rows if r["kernel"] == name]
+        mine = rows_of(name, rows)
         if mine:
             sums = _sums(mine)
             say(label, f"{name} per forward: {len(mine)} calls, "
@@ -2251,9 +2400,9 @@ def kernel_summary(name, rows, counts):
     ``launches_per_forward`` and ``max_err_vs_plain`` repeat ``launches``
     and ``max_abs_err`` under the names the port's issue tracker asks
     for."""
-    paths = [p for p in EXPECTED if counts[p][name]]
+    paths = [p for p in EXPECTED if p in counts and counts[p][name]]
     main = paths[0]
-    mine = [r for r in rows if r["kernel"] == name]
+    mine = rows_of(name, rows)
     main_rows = [r for r in mine if r["path"] == main]
     sums = _sums(main_rows)
     by_bytes = sum(r["bound_ms"] for r in main_rows
@@ -2277,7 +2426,11 @@ def kernel_summary(name, rows, counts):
                if name.startswith("depthwise") else "torch._int_mm")
     if name == "conv2d_implicit_gemm":
         library += ("; f32 F.conv2d(groups=g) at a grouped conv's "
-                    "block-diagonal launches (ResNeXt-50)")
+                    "block-diagonal launches (ResNeXt-50); bf16 "
+                    "F.conv2d(dilation=d) at a dilated one")
+    if name == DILATED:
+        library = ("bf16 F.conv2d(dilation=d), channels-last, on the "
+                   "dequantized tensors; PyTorch has no int8 conv on the card")
     if name in CHAINS:
         library = "none: no single PyTorch call computes a bottleneck"
     elif name == "ident":
@@ -2451,6 +2604,76 @@ def ragged_zoo_rest():
     return n
 
 
+def ragged_dilated():
+    """The dilated ``conv2d_implicit_gemm`` off its paths' shapes, each
+    held against its plain version (int8 out 0 LSB, bf16 out within 1 ulp;
+    a float x within the float-sum gate): 3x3 at d = 2, 4, 6 and 12, pad d
+    (the zoo's) and pad 0, C of 16, 48 and 64, odd H and W, stride 1 and
+    2, int8 x on "wgmma" (the zoo's route), a bf16 x with an int8 weight
+    on "wgmma_w8" (C a multiple of 64: A by TMA, one box per tap shifted
+    by the dilation) and an f32 x on "simt"; then d = 12 on a map
+    smaller than the dilated kernel's span (most taps in the padding,
+    DeepLab's fc6).  A generator of its own.  Returns the number of
+    cases."""
+    import torch
+    from feathercnn_tpu_torch.kernels.matmul import gemm_layout
+    kernel, plain = _kernel_fns()["conv2d_implicit_gemm"]
+    gen = torch.Generator(device="cuda").manual_seed(11)
+
+    def i8(*s):
+        return torch.randint(-127, 128, s, dtype=torch.int8, device="cuda",
+                             generator=gen)
+
+    cases = []      # (what, x, w, stride, pad, dilation, variant)
+    for d in (2, 4, 6, 12):
+        for pad in (d, 0):
+            for c, (h, w) in ((16, (2 * d + 9, 2 * d + 7)),
+                              (48, (2 * d + 5, 2 * d + 11)),
+                              (64, (2 * d + 15, 2 * d + 13))):
+                for s in ((1, 2) if c == 64 else (1,)):
+                    cases.append((f"d={d} pad {pad} x(2, {h}, {w}, {c}) s{s}",
+                                  i8(2, h, w, c),
+                                  gemm_layout(i8(3, 3, c, 96)), s, pad, d,
+                                  "wgmma"))
+    cases.append(("d=12 pad 12 x(1, 9, 11, 64): taps past the map",
+                  i8(1, 9, 11, 64), gemm_layout(i8(3, 3, 64, 160)), 1, 12,
+                  12, "wgmma"))
+    for d in (2, 4):
+        x = torch.randn(2, 17, 19, 128, device="cuda", generator=gen)
+        cases.append((f"d={d} pad {d} bf16 x(2, 17, 19, 128) int8 w",
+                      x.to(torch.bfloat16), gemm_layout(i8(3, 3, 128, 64)),
+                      1, d, d, "wgmma_w8"))
+        cases.append((f"d={d} pad {d} f32 x(2, 17, 19, 24) f32 w", x[..., :24]
+                      .contiguous(), gemm_layout(torch.randn(
+                          3, 3, 24, 40, device="cuda", generator=gen) * 0.1),
+                      1, d, d, "simt"))
+    n = 0
+    for what, x, w, s, pad, d, want in cases:
+        co = w.shape[3]
+        outs = ((torch.int8, torch.bfloat16) if x.dtype == torch.int8
+                else (torch.bfloat16 if x.dtype == torch.bfloat16
+                      else torch.float32,))
+        for out_dtype in outs:
+            a = dict(x=x, w=w, bias=torch.randn(co, device="cuda",
+                                                generator=gen),
+                     w_scale=(torch.rand(co, device="cuda", generator=gen)
+                              * 1e-3 + 1e-4) if w.dtype == torch.int8
+                     else None, stride=s, pad_h=pad, pad_w=pad,
+                     activation="relu", out_dtype=out_dtype, x_scale=1.0,
+                     out_scale=0.5 if out_dtype == torch.int8 else 1.0,
+                     dilation=d)
+            before = dict(kernel.variants)
+            got = kernel(**a)
+            took = [v for v, m in kernel.variants.items() if m != before[v]]
+            check(took == [want], f"dilated {what} {out_dtype}: took {took}, "
+                  f"expected {want}")
+            err, ok, _ = compare(got, plain(**a),
+                                 "exact" if x.dtype == torch.int8 else "float")
+            check(ok, f"dilated {what} {out_dtype}: max err {err}")
+            n += 1
+    return n
+
+
 def zoo_rest_paths(smi, rng, rows, counts, speed):
     """The rest of the classification zoo (phases 2-4 each), w8a8:
     DenseNet-121 b128, ResNeXt-50 b128 and its server, SE-ResNet-50 b96,
@@ -2476,6 +2699,66 @@ def zoo_rest_paths(smi, rng, rows, counts, speed):
             serve(eng, x, batch, "ResNeXt-50")
         del eng, x, g
         torch.cuda.empty_cache()
+
+
+def segmentation_paths(smi, rng, rows, counts, speed):
+    """The segmentation family (phases 2-4 each), w8a8 at its deploy sizes
+    (``SEGMENTATION``), after the dilated ``conv2d_implicit_gemm`` cases.
+    Adds to ``rows``, ``counts`` and ``speed``."""
+    import functools
+    import torch
+    from feathercnn_tpu_torch.models import build_model
+    n = ragged_dilated()
+    say("kernels", f"{n} dilated conv2d_implicit_gemm cases (d = 2, 4, 6, "
+        f"12; pad d and 0; stride 1 and 2; int8 x on wgmma, bf16 x with an "
+        f"int8 weight on wgmma_w8, f32 x on simt), each equal to plain "
+        f"within its gate")
+    for label, (name, batch, _) in SEGMENTATION.items():
+        g = calibrated(functools.partial(build_model, name), batch, rng)
+        x = images(g, batch, rng)
+        cfg, eng = make_engine(label, g)
+        counts[label] = EXPECTED[label]
+        r, speed[label], _ = run_path(label, g, cfg, eng, x, smi)
+        rows += r
+        del eng, x, g
+        torch.cuda.empty_cache()
+
+
+def loaded_path(g, x, built, smi, rows, counts, speed):
+    """The main path's calibrated graph written by the port's ``save_ftpu``
+    into a temporary directory, reloaded by ``Engine.from_path``, compiled
+    (``compile(batch)``) and run as a path of its own (phases 2-4): its
+    output on ``x`` equal to the built engine's ``built`` (``torch.equal``),
+    and its ``summary(top=5)`` printed."""
+    import tempfile
+    import torch
+    from feathercnn_tpu_torch import Engine
+    from feathercnn_tpu_torch.model_format import save_ftpu
+    label = "resnet50 b128 loaded"
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "resnet50.ftpu")
+        save_ftpu(g, path)
+        t0 = time.perf_counter()
+        cfg = engine_config()
+        eng = Engine.from_path(path, cfg)
+        eng.compile(batch=len(x))
+        say(label, f"{os.path.getsize(path) / 1e6:.1f} MB .ftpu written by "
+            f"save_ftpu, loaded by Engine.from_path and compiled at "
+            f"b{len(x)} in {time.perf_counter() - t0:.1f} s")
+    check(eng.device.type == "cuda", f"engine on {eng.device}")
+    got = eng(torch.from_numpy(x).cuda())
+    check(torch.equal(got, built), f"{label}: output differs from the built "
+          f"engine's (max |diff| "
+          f"{float((got.float() - built.float()).abs().max())})")
+    say(label, f"output equal to the built engine's (torch.equal, "
+        f"{tuple(got.shape)} {str(got.dtype).replace('torch.', '')})")
+    print(eng.summary(top=5).replace("\n", " | "), flush=True)
+    del got
+    counts[label] = EXPECTED[label]
+    r, speed[label], _ = run_path(label, g, cfg, eng, x, smi)
+    rows += r
+    del eng
+    torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -2505,8 +2788,12 @@ def main() -> int:
     ragged_cases()
     serve(eng, x)
     unchained = eng.graph
+    built = eng(torch.from_numpy(x).cuda())
     del eng
     torch.cuda.empty_cache()
+    # the same model through a .ftpu file
+    loaded_path(g, x, built, smi, rows, counts, speed)
+    del built
 
     # ResNet-50 b128 with fuse_chains: the same calibrated graph with the
     # wildcard region table that bench.py --fuse-chains sets
@@ -2580,6 +2867,7 @@ def main() -> int:
 
     classic_paths(smi, rng, rows, counts, speed)
     zoo_rest_paths(smi, rng, rows, counts, speed)
+    segmentation_paths(smi, rng, rows, counts, speed)
 
     say("done", f"every phase passed in "
         f"{time.perf_counter() - t_start:.1f} s (from the start of the "

@@ -9,7 +9,14 @@ once; a forward walks the node list, lowering each node to PyTorch ops
 (and, on the "cuda" backend, to the hand-written kernels).  There is no
 trace or compile step: PyTorch runs eagerly.  Under ``torch.profiler``
 each node's ops run inside a ``record_function`` range named after the
-node, so a profile gives device time per graph node.
+node, so a profile gives device time per graph node.  ``compile(batch)``
+is the reference's ahead-of-time step here: one forward at the declared
+shapes, which moves the weights to the device and makes each node's kept
+constants.
+
+A model comes from a builder of ``models/``, from ``Engine.from_path`` (a
+``.ftpu`` file, ``model_format.py``), or, already optimized and
+quantized, through ``Engine.from_optimized``, which runs no pass.
 
 The engine runs on the first CUDA device unless the caller passes
 ``device="cpu"``; it never falls back to the CPU on its own.  Float32
@@ -103,6 +110,36 @@ class Engine:
         self._ctx = LoweringCtx(self.graph, self.config, self.device)
 
     # ------------------------------------------------------------------
+    @classmethod
+    def from_optimized(cls, graph: Graph,
+                       config: Optional[EngineConfig] = None,
+                       device=None) -> "Engine":
+        """Engine over an already optimized and quantized graph, running no
+        pass (a second int8 rewrite would corrupt the scales): shapes are
+        re-inferred, nothing else changes."""
+        self = object.__new__(cls)
+        self.config = config or EngineConfig()
+        self.config.check_supported()
+        self.device = resolve_device(device)
+        self.graph = copy.deepcopy(graph)
+        infer_shapes(self.graph)
+        self.graph.validate()
+        self._device_params = None
+        self._ctx = LoweringCtx(self.graph, self.config, self.device)
+        return self
+
+    @classmethod
+    def from_path(cls, path: str, config: Optional[EngineConfig] = None,
+                  prefer_native: bool = True, **kw) -> "Engine":
+        """Load a ``.ftpu`` model with ``model_format.load_ftpu`` and build
+        the engine (``kw`` goes to the constructor: ``optimize_graph``,
+        ``device``).  ``prefer_native`` is accepted for the reference's
+        signature and has no effect: the port has no native mmap loader
+        yet, and numpy's memmap already pages the weights in lazily."""
+        from .model_format import load_ftpu
+        return cls(load_ftpu(path), config, **kw)
+
+    # ------------------------------------------------------------------
     @property
     def input_names(self) -> List[str]:
         return list(self.graph.inputs)
@@ -113,6 +150,15 @@ class Engine:
 
     def blob_shape(self, name: str):
         return self.graph.specs[name].shape
+
+    def summary(self, top: Optional[int] = None) -> str:
+        """Per-layer table of the optimized graph: output shape, params,
+        FLOPs/img, activation MB/img (1 byte under w8a8, else the compute
+        dtype's size); ``top`` keeps the N layers with the most FLOPs."""
+        from .utils.summary import summarize
+        act_bytes = 1 if self.config.quant == "w8a8" else torch.empty(
+            (), dtype=getattr(torch, self.config.compute_dtype)).element_size()
+        return summarize(self.graph, act_bytes=act_bytes, top=top)
 
     # ------------------------------------------------------------------
     def _prepare_params(self) -> Dict[str, torch.Tensor]:
@@ -128,7 +174,8 @@ class Engine:
                 weight_names.add(n.params[0])
         out: Dict[str, torch.Tensor] = {}
         for k, v in self.graph.params.items():
-            t = torch.from_numpy(np.ascontiguousarray(v))
+            # a loaded model's weights are read-only memmaps: copied here
+            t = torch.from_numpy(np.require(v, requirements=("C", "W")))
             if (k in weight_names and t.dtype == torch.float32
                     and cdtype != torch.float32):
                 t = t.to(cdtype)
@@ -190,6 +237,19 @@ class Engine:
                     f"may not)")
             tensors[name] = x.to(self.device)
         return self._forward(self._prepare_params(), tensors, wanted)
+
+    def compile(self, batch: Optional[int] = None) -> None:
+        """The reference's ahead-of-time step: one forward on zeros at the
+        declared input shapes (``batch`` replacing the batch), so that the
+        first ``run`` finds the weights on the device and every node's
+        constants made."""
+        inputs = {}
+        for name, spec in self.graph.inputs.items():
+            shape = list(spec.shape)
+            if batch is not None:
+                shape[0] = batch
+            inputs[name] = torch.zeros(shape, dtype=getattr(torch, spec.dtype))
+        self.run(inputs)
 
     def __call__(self, x) -> torch.Tensor:
         """Forward returning the primary output."""

@@ -256,6 +256,100 @@ def _conv_shape(node, in_specs, graph):
     return [TensorSpec((n, oh, ow, co), in_specs[0].dtype)]
 
 
+@register_shape_fn("Deconvolution")
+def _deconv_shape(node, in_specs, graph):
+    """Transposed conv (Caffe Deconvolution, the FCN upsampling op):
+    out = stride*(in-1) + dilated_kernel - 2*pad."""
+    (n, h, w, c) = in_specs[0].shape
+    kh, kw, sh, sw, ph, pw, dil = _conv_attrs(node)
+    co = node.attrs["num_output"]
+    oh = sh * (h - 1) + dil * (kh - 1) + 1 - 2 * ph
+    ow = sw * (w - 1) + dil * (kw - 1) + 1 - 2 * pw
+    return [TensorSpec((n, oh, ow, co), in_specs[0].dtype)]
+
+
+def _interp_out(size: int, attrs) -> int:
+    """Caffe InterpLayer (the DeepLab fork) output size, align-corners:
+    zoom gives (in-1)*z+1, shrink (in-1)/s+1, shrink first."""
+    if attrs.get("shrink_factor", 1) != 1:
+        size = (size - 1) // attrs["shrink_factor"] + 1
+    if attrs.get("zoom_factor", 1) != 1:
+        size = (size - 1) * attrs["zoom_factor"] + 1
+    return size
+
+
+@register_shape_fn("Interp")
+def _interp_shape(node, in_specs, graph):
+    (n, h, w, c) = in_specs[0].shape
+    a = node.attrs
+    # pad_beg/pad_end are <= 0 (a crop before the resize)
+    h += a.get("pad_beg", 0) + a.get("pad_end", 0)
+    w += a.get("pad_beg", 0) + a.get("pad_end", 0)
+    oh = a.get("height") or _interp_out(h, a)
+    ow = a.get("width") or _interp_out(w, a)
+    return [TensorSpec((n, int(oh), int(ow), c), in_specs[0].dtype)]
+
+
+@register_shape_fn("Crop")
+def _crop_shape(node, in_specs, graph):
+    """Caffe Crop: bottom[0] cut to bottom[1]'s size on the NHWC
+    ``axes``."""
+    axes = node.attrs.get("axes", [1, 2])
+    shape = list(in_specs[0].shape)
+    for d in axes:
+        shape[d % in_specs[0].rank] = in_specs[1].shape[d]
+    return [TensorSpec(tuple(shape), in_specs[0].dtype)]
+
+
+@register_shape_fn("SPP")
+def _spp_shape(node, in_specs, graph):
+    """Caffe SPPLayer: 2^l x 2^l bins for l < pyramid_height, each
+    flattened in NCHW order and concatenated -> (N, C*sum(4^l))."""
+    n, h, w, c = in_specs[0].shape
+    p = int(node.attrs.get("pyramid_height", 1))
+    total = sum((2 ** l) ** 2 for l in range(p))
+    return [TensorSpec((n, c * total), in_specs[0].dtype)]
+
+
+@register_shape_fn("Tile")
+def _tile_shape(node, in_specs, graph):
+    """Caffe TileLayer: the tensor repeated ``tiles`` times along the NHWC
+    ``axis``."""
+    axis = node.attrs.get("axis", -1) % in_specs[0].rank
+    shape = list(in_specs[0].shape)
+    shape[axis] *= int(node.attrs.get("tiles", 1))
+    return [TensorSpec(tuple(shape), in_specs[0].dtype)]
+
+
+@register_shape_fn("Reduction")
+def _reduction_shape(node, in_specs, graph):
+    """Caffe ReductionLayer: every dim from ``axis`` (Caffe's NCHW terms)
+    reduced away; f32."""
+    axis = int(node.attrs.get("axis", 0))
+    shape = in_specs[0].shape
+    if len(shape) == 4:
+        n, h, w, c = shape
+        shape = (n, c, h, w)
+    if not 0 <= axis < len(shape):
+        raise ValueError(f"{node.name}: Reduction axis {axis} out of "
+                         f"range for rank {len(shape)}")
+    return [TensorSpec(tuple(shape[:axis]), "float32")]
+
+
+@register_shape_fn("ArgMax")
+def _argmax_shape(node, in_specs, graph):
+    """Caffe ArgMaxLayer: with ``axis`` that dim becomes top_k; without,
+    (N, 1, top_k) indices or (N, 2, top_k) [indices; values].  f32."""
+    k = int(node.attrs.get("top_k", 1))
+    spec = in_specs[0]
+    if node.attrs.get("axis") is not None:
+        shape = list(spec.shape)
+        shape[node.attrs["axis"] % spec.rank] = k
+        return [TensorSpec(tuple(shape), "float32")]
+    rows = 2 if node.attrs.get("out_max_val") else 1
+    return [TensorSpec((spec.shape[0], rows, k), "float32")]
+
+
 @register_shape_fn("Pooling")
 def _pool_shape(node, in_specs, graph):
     (n, h, w, c) = in_specs[0].shape
@@ -280,7 +374,8 @@ def _elementwise_shape(node, in_specs, graph):
 
 for _op in ["ReLU", "ReLU6", "Sigmoid", "BatchNorm", "Scale", "Bias",
             "Dropout", "LRN", "Softmax", "Split", "FusedBottleneck",
-            "FusedChain"]:
+            "FusedChain", "PReLU", "TanH", "ELU", "AbsVal", "Exp", "Log",
+            "BNLL", "Power", "Threshold", "MVN"]:
     register_shape_fn(_op)(_elementwise_shape)
 
 

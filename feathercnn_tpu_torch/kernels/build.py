@@ -52,6 +52,13 @@ _SIGNATURES = {
                                 _I, _I, _I, _I,               # xt wt ot act
                                 _F, _F, _I, _I, _I, _I, _I, _I, _I, _I,
                                 _I, _I, _P, _P],
+    # the same with the dilation after pw
+    "fcnn_conv_implicit_gemm_dilated": [_P, _P, _P, _P, _P, _P, _P,
+                                        _I, _I, _I, _I, _I, _I, _I,
+                                        _I, _I, _I, _I, _I,   # sh sw ph pw d
+                                        _I, _I, _I, _I,
+                                        _F, _F, _I, _I, _I, _I, _I, _I, _I,
+                                        _I, _I, _I, _P, _P],
     "fcnn_depthwise_conv2d": [_P, _P, _P, _P,                # x w out b
                               _I, _I, _I, _I, _I, _I,        # N H W C KH KW
                               _I, _I, _I, _I,                # sh sw ph pw

@@ -4,8 +4,15 @@
 // Replaces the Pallas kernel feathercnn_tpu/kernels/conv.py:100
 // (conv2d_implicit_gemm; body _conv_kernel at :47-93).  Same function:
 // y[n, oh, ow, co] = epilogue(sum over kh, kw, c of
-// x[n, oh*s - ph + kh, ow*s - pw + kw, c] * w[kh, kw, c, co]), with zero
-// padding.  As a GEMM: M = N*OH*OW output pixels, N = Co, K = KH*KW*C.
+// x[n, oh*s - ph + kh*d, ow*s - pw + kw*d, c] * w[kh, kw, c, co]), with
+// zero padding.  As a GEMM: M = N*OH*OW output pixels, N = Co, K = KH*KW*C.
+// The dilation d (1 but for the dilated int8 convs, which the reference
+// leaves to XLA's int8 conv, feathercnn_tpu/kernels/dispatch.py:221-252:
+// DeepLab's conv5 at d = 2 and fc6 at d = 12, PSPNet's stages 4-5 at
+// d = 2 and 4) only spaces the taps: each tap's offset from a row's
+// window origin is (kh*d, kw*d) pixels, the same bounds check zero-fills
+// the taps that land in the padding (at d = 12 on a 41x41 map most of
+// them), and nothing else of the plan or the tiles changes.
 //
 // What bounds it on an H100 SXM: the main path's convs are the 3x3 stride-1
 // int8 convs at 56^2*64, 28^2*128, 14^2*256 and 7^2*512 (batch 128).  They
@@ -58,14 +65,21 @@
 // while |acc| < 2^24.
 #include "gemm_common.cuh"
 
-extern "C" int fcnn_conv_implicit_gemm(
+namespace {
+
+int conv_implicit_gemm(
     const void* x, const void* w, void* out, const float* bias,
     const float* w_scale, const float* lo, const float* hi, int N, int H,
     int W, int C, int KH, int KW, int Co, int sh, int sw, int ph, int pw,
-    int x_type, int w_type, int out_type, int act, float x_scale,
+    int d, int x_type, int w_type, int out_type, int act, float x_scale,
     float out_scale, int variant, int bn, int bk, int stages, int bres,
     int grid, int smem, int split, int th, int tw, void* ws,
     void* stream) {
+  if (d < 1) return static_cast<int>(cudaErrorInvalidValue);
+  // the dilated kernel spans d*(K-1)+1 pixels; a span past the padded
+  // input leaves no output
+  if (H + 2 * ph < d * (KH - 1) + 1 || W + 2 * pw < d * (KW - 1) + 1)
+    return 0;
   fcnn::ConvA a;
   a.x = static_cast<const char*>(x);
   a.H = H;
@@ -76,9 +90,9 @@ extern "C" int fcnn_conv_implicit_gemm(
   a.sw = sw;
   a.ph = ph;
   a.pw = pw;
-  a.OH = (H + 2 * ph - KH) / sh + 1;
-  a.OW = (W + 2 * pw - KW) / sw + 1;
-  if (a.OH <= 0 || a.OW <= 0) return 0;
+  a.d = d;
+  a.OH = (H + 2 * ph - d * (KH - 1) - 1) / sh + 1;
+  a.OW = (W + 2 * pw - d * (KW - 1) - 1) / sw + 1;
   a.M = N * a.OH * a.OW;
   a.K = KH * KW * C;
   const fcnn::Epilogue e = fcnn::make_epilogue(
@@ -89,4 +103,39 @@ extern "C" int fcnn_conv_implicit_gemm(
                       tw),
       static_cast<float*>(ws), e,
       static_cast<cudaStream_t>(stream));
+}
+
+}  // namespace
+
+// The undilated conv (d = 1).
+extern "C" int fcnn_conv_implicit_gemm(
+    const void* x, const void* w, void* out, const float* bias,
+    const float* w_scale, const float* lo, const float* hi, int N, int H,
+    int W, int C, int KH, int KW, int Co, int sh, int sw, int ph, int pw,
+    int x_type, int w_type, int out_type, int act, float x_scale,
+    float out_scale, int variant, int bn, int bk, int stages, int bres,
+    int grid, int smem, int split, int th, int tw, void* ws,
+    void* stream) {
+  return conv_implicit_gemm(x, w, out, bias, w_scale, lo, hi, N, H, W, C,
+                            KH, KW, Co, sh, sw, ph, pw, 1, x_type, w_type,
+                            out_type, act, x_scale, out_scale, variant, bn,
+                            bk, stages, bres, grid, smem, split, th, tw, ws,
+                            stream);
+}
+
+// The same conv at dilation d: tap (kh, kw) reads pixel (kh*d, kw*d) of
+// the output pixel's window.
+extern "C" int fcnn_conv_implicit_gemm_dilated(
+    const void* x, const void* w, void* out, const float* bias,
+    const float* w_scale, const float* lo, const float* hi, int N, int H,
+    int W, int C, int KH, int KW, int Co, int sh, int sw, int ph, int pw,
+    int d, int x_type, int w_type, int out_type, int act, float x_scale,
+    float out_scale, int variant, int bn, int bk, int stages, int bres,
+    int grid, int smem, int split, int th, int tw, void* ws,
+    void* stream) {
+  return conv_implicit_gemm(x, w, out, bias, w_scale, lo, hi, N, H, W, C,
+                            KH, KW, Co, sh, sw, ph, pw, d, x_type, w_type,
+                            out_type, act, x_scale, out_scale, variant, bn,
+                            bk, stages, bres, grid, smem, split, th, tw, ws,
+                            stream);
 }

@@ -340,6 +340,8 @@ struct MatrixA {
 struct ConvA {
   const char* x;  // (N, H, W, C)
   int H, W, C, KW, sh, sw, ph, pw, OH, OW;
+  int d;          // dilation: tap (kh, kw) reads pixel (kh*d, kw*d) of the
+                  // row's window
   int M, K;       // M = N*OH*OW, K = KH*KW*C
 
   __device__ __forceinline__ RowInfo row(long long m) const {
@@ -366,8 +368,8 @@ struct ConvA {
     const int c = k - tap * C;
     const int kh = tap / KW;
     const int kw = tap - kh * KW;
-    const int ih = r.ih + kh;
-    const int iw = r.iw + kw;
+    const int ih = r.ih + kh * d;
+    const int iw = r.iw + kw * d;
     if (ih < 0 || ih >= H || iw < 0 || iw >= W) return false;
     *off = r.base + (static_cast<long long>(ih) * W + iw) * C + c;
     return true;
@@ -748,16 +750,17 @@ wgemm_kernel(const __grid_constant__ CUtensorMap map_a,
             }
           }
           // this step's tap, as an offset from a row's window origin
+          const int dh = kh * a.d, dw = kw * a.d;
           const long long tap =
-              (static_cast<long long>(kh) * a.W + kw) * a.C + c;
+              (static_cast<long long>(dh) * a.W + dw) * a.C + c;
 #pragma unroll
           for (int p = 0; p < WG_BM / RPP; ++p) {
             const int r = p * RPP + r0;
             const RowInfo ri = rows[r];
             const bool ok =
                 k < K &&
-                static_cast<unsigned>(ri.ih + kh) < static_cast<unsigned>(a.H) &&
-                static_cast<unsigned>(ri.iw + kw) < static_cast<unsigned>(a.W);
+                static_cast<unsigned>(ri.ih + dh) < static_cast<unsigned>(a.H) &&
+                static_cast<unsigned>(ri.iw + dw) < static_cast<unsigned>(a.W);
             cp_async16(As + swizzle<BK>(r * BK + chunk * 16),
                        ok ? a.x + ri.base + tap : a.x, ok);
           }
@@ -1131,8 +1134,8 @@ w8gemm_kernel(const __grid_constant__ CUtensorMap map_a, A a,
               const int kw = tap - kh * a.KW;
               mbar_expect_tx(&full[s], th * tw * 128);
               tma_load_4d(As, &map_a, (ks - tap * cblk) * W8_BK,
-                          rt.ow0 - a.pw + kw, rt.oh0 - a.ph + kh, rt.img,
-                          &full[s]);
+                          rt.ow0 - a.pw + kw * a.d, rt.oh0 - a.ph + kh * a.d,
+                          rt.img, &full[s]);
             } else {
               mbar_expect_tx(&full[s], W8_A_BYTES);
               tma_load_2d(As, &map_a, ks * W8_BK, mt * WG_BM, &full[s]);
@@ -1174,16 +1177,17 @@ w8gemm_kernel(const __grid_constant__ CUtensorMap map_a, A a,
           mbar_wait(&empty[s], ph ^ 1);
           uint8_t* As = ring + s * STAGE;
           load_b(As + W8_A_BYTES + BB, nt, ks);
+          const int dh = kh * a.d, dw = kw * a.d;
           const long long tap =
-              (static_cast<long long>(kh) * a.W + kw) * a.C + c;
+              (static_cast<long long>(dh) * a.W + dw) * a.C + c;
 #pragma unroll
           for (int p = 0; p < WG_BM / 16; ++p) {
             const int r = p * 16 + r0;
             const RowInfo ri = rows[r];
             const bool ok =
                 k < K &&
-                static_cast<unsigned>(ri.ih + kh) < static_cast<unsigned>(a.H) &&
-                static_cast<unsigned>(ri.iw + kw) < static_cast<unsigned>(a.W);
+                static_cast<unsigned>(ri.ih + dh) < static_cast<unsigned>(a.H) &&
+                static_cast<unsigned>(ri.iw + dw) < static_cast<unsigned>(a.W);
             cp_async16(As + swizzle<128>(r * 128 + chunk * 16),
                        ok ? xb + ri.base + tap : xb, ok);
           }

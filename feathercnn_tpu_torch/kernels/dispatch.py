@@ -16,8 +16,9 @@ order:
   xla            everything else: the fp convs (PyTorch's conv, as the
                  reference leaves them to XLA's), and the int8 convs the
                  reference runs through XLA's int8 conv — the merged
-                 sibling convs (per-channel act_segments) and the grouped
-                 convs with 1 < group < C (on a block-diagonal weight),
+                 sibling convs (per-channel act_segments), the grouped
+                 convs with 1 < group < C (on a block-diagonal weight) and
+                 the dilated convs (the taps spaced by the dilation),
                  which go through the two GEMM kernels, and the int8
                  depthwise convs, which go to kernels/depthwise.py
                  (depthwise_conv2d_int8), with the scales folded as that
@@ -293,18 +294,21 @@ def conv_forward(node, x, w, bias, ctx):
         # grouped conv that is not depthwise (1 < group < C: ResNeXt's
         # cardinality-32 convs) runs on the same GEMM kernels with its
         # block-diagonal dense weight: the zeros add nothing to the int32
-        # sums, so the result is XLA's grouped conv's.
+        # sums, so the result is XLA's grouped conv's.  A dilated conv
+        # (XLA's rhs_dilation: DeepLab's conv5 and fc6, PSPNet's stages 4-5)
+        # is ungrouped here (the reference sends a grouped dilated one to
+        # the float conv) and runs on conv2d_implicit_gemm with its taps
+        # spaced by the dilation.
         depthwise = group != 1 and segs is None and _is_depthwise(
             node, x, group, dil, sh, sw)
         grouped = group != 1 and not depthwise and 1 < group < cin
-        if (group != 1 and not (depthwise or grouped)) or dil != 1 \
-                or sh != sw:
+        if (group != 1 and not (depthwise or grouped)) or sh != sw:
             raise NotImplementedError(
                 f"{node.name}: int8 conv with group={group} on {cin} "
-                f"channels, dilation={dil}, stride=({sh},{sw}) is not ported "
-                "yet (the port runs a depthwise conv, a grouped conv with "
-                "1 < group < C, and an ungrouped one, undilated at a square "
-                "stride)")
+                f"channels, {node.attrs['num_output']} outputs, "
+                f"stride=({sh},{sw}) is not ported yet (the port runs a "
+                "depthwise conv, a grouped conv with 1 < group < C, and an "
+                "ungrouped one, dilated or not, at a square stride)")
         wg = group if grouped else 1
         xq = _quantize_act(x, q["x_scale"])
         ws = ctx.const(node, "w_scale_x_scale",
@@ -331,7 +335,8 @@ def conv_forward(node, x, w, bias, ctx):
         return conv2d_implicit_gemm(xq.contiguous(),
                                     _gemm_weight(node, w, torch.int8, ctx,
                                                  False, wg), bias, ws,
-                                    stride=sh, pad_h=ph, pad_w=pw, **kw_)
+                                    stride=sh, pad_h=ph, pad_w=pw,
+                                    dilation=dil, **kw_)
 
     # float conv (PyTorch's, as the reference leaves it to XLA's):
     # f32 accumulation of compute-dtype operands, + bias, act, requant

@@ -92,6 +92,71 @@ class GraphBuilder:
             out = self.relu(name + "/relu", out)
         return out
 
+    def deconv(self, name: str, x: str, num_output: int, kernel: int,
+               stride: int = 1, pad: int = 0, group: int = 1,
+               bias: bool = True, dilation: int = 1,
+               relu: bool = False) -> str:
+        """Transposed conv (Caffe Deconvolution); weights HWIO
+        (KH, KW, Cin/g, Cout)."""
+        cin = self._channels[x]
+        w = self._param(name + "/w", (kernel, kernel, cin // group,
+                                      num_output), "weight")
+        params = [w]
+        if bias:
+            params.append(self._param(name + "/b", (num_output,), "zeros"))
+        attrs = {"num_output": num_output, "kernel_h": kernel,
+                 "kernel_w": kernel, "stride": stride, "group": group,
+                 "bias_term": bias, "dilation": dilation,
+                 "pad_h": pad, "pad_w": pad}
+        out = self._add(Node(name, "Deconvolution", [x], [name], attrs,
+                             params))[0]
+        self._channels[out] = num_output
+        if relu:
+            out = self.relu(name + "/relu", out)
+        return out
+
+    def reshape(self, name: str, x: str, shape) -> str:
+        out = self._add(Node(name, "Reshape", [x], [name],
+                             {"shape": list(shape)}))[0]
+        self._channels[out] = shape[-1] if shape[-1] > 0 \
+            else self._channels.get(x, 0)
+        return out
+
+    def argmax(self, name: str, x: str, axis: int = -1, top_k: int = 1,
+               out_max_val: bool = False) -> str:
+        attrs = {"top_k": top_k, "out_max_val": out_max_val}
+        if axis is not None:
+            attrs["axis"] = axis
+        out = self._add(Node(name, "ArgMax", [x], [name], attrs))[0]
+        self._channels[out] = top_k if axis is not None else 1
+        return out
+
+    def interp(self, name: str, x: str, **attrs) -> str:
+        """Align-corners bilinear resize (DeepLab InterpLayer); attrs from
+        {height, width, zoom_factor, shrink_factor, pad_beg, pad_end}."""
+        out = self._add(Node(name, "Interp", [x], [name], dict(attrs)))[0]
+        self._channels[out] = self._channels[x]
+        return out
+
+    def crop(self, name: str, x: str, ref: str,
+             axes: Sequence[int] = (1, 2),
+             offsets: Sequence[int] = (0,)) -> str:
+        out = self._add(Node(name, "Crop", [x, ref], [name],
+                             {"axes": list(axes),
+                              "offsets": list(offsets)}))[0]
+        self._channels[out] = self._channels[x]
+        return out
+
+    def spp(self, name: str, x: str, pyramid_height: int,
+            mode: str = "MAX") -> str:
+        """Caffe SPPLayer: fixed-length pyramid pooling head."""
+        out = self._add(Node(name, "SPP", [x], [name],
+                             {"pyramid_height": pyramid_height,
+                              "pool": mode}))[0]
+        total = sum((2 ** lvl) ** 2 for lvl in range(pyramid_height))
+        self._channels[out] = self._channels[x] * total
+        return out
+
     def fc(self, name: str, x: str, num_output: int, bias: bool = True,
            relu: bool = False) -> str:
         cin = self._channels[x]

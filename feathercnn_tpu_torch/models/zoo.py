@@ -1,13 +1,14 @@
 """Model zoo — the classification models of ``feathercnn_tpu/models/
 zoo.py``: the ResNet family (ResNet-50/101/152), MobileNet-v1/v2,
 SqueezeNet v1.0/v1.1, VGG-16/19, GoogLeNet, AlexNet, ShuffleNet v1/v2,
-SE-ResNet-50, Inception-v3, DenseNet-121/169/201 and ResNeXt-50, Caffe
+SE-ResNet-50, Inception-v3, DenseNet-121/169/201 and ResNeXt-50, and the
+segmentation models FCN-32s/16s/8s, DeepLab-LargeFOV and PSPNet-50, Caffe
 deploy structure and naming.
 
 Layer sequences, seeded weights and baked config overrides
 (``meta["config_overrides"]``) are the reference's, so ``resnet50(seed=s)``
-here and there build the same graph with the same weights.  The other
-families (segmentation, detection) come with their lowerings.
+here and there build the same graph with the same weights.  The detection
+family comes with its lowerings.
 """
 
 from __future__ import annotations
@@ -19,7 +20,8 @@ __all__ = ["squeezenet_v11", "squeezenet_v10", "vgg16", "vgg19",
            "googlenet", "alexnet", "resnet50", "resnet101", "resnet152",
            "mobilenet_v1", "mobilenet_v2", "shufflenet_v1", "shufflenet_v2",
            "se_resnet50", "inception_v3", "densenet121", "densenet169",
-           "densenet201", "resnext50", "MODEL_BUILDERS", "build_model"]
+           "densenet201", "resnext50", "fcn32s", "fcn16s", "fcn8s",
+           "deeplab_largefov", "pspnet50", "MODEL_BUILDERS", "build_model"]
 
 
 def _fire(b, name, x, s1, e1, e3):
@@ -749,6 +751,192 @@ def resnext50(batch: int = 1, seed: int = 0,
     return b.finish([x])
 
 
+def _fcn(variant: int, batch: int, seed: int, num_classes: int,
+         size: int, with_softmax: bool) -> Graph:
+    """FCN-32s/16s/8s semantic segmentation (the public voc-fcn* deploys):
+    VGG-16 backbone with Caffe's pad-100 trick, fully-convolutional
+    fc6/fc7, stride-2 Deconvolution upsamples fused with pool4/pool3 skip
+    scores (16s/8s), and a final Crop back to the input's spatial size
+    (offsets 19/27/31 — fixed by the network geometry).  Exercises
+    Deconvolution/Crop/Eltwise composition in real models."""
+    b = GraphBuilder(f"fcn{variant}s", seed)
+    data = b.input("data", (batch, size, size, 3))
+    x = b.conv("conv1_1", data, 64, 3, pad=100, relu=True)
+    x = b.conv("conv1_2", x, 64, 3, pad=1, relu=True)
+    x = b.pool("pool1", x, 2, 2)
+    pools = {}
+    for stage, n, ch in [(2, 2, 128), (3, 3, 256), (4, 3, 512),
+                         (5, 3, 512)]:
+        for i in range(1, n + 1):
+            x = b.conv(f"conv{stage}_{i}", x, ch, 3, pad=1, relu=True)
+        x = b.pool(f"pool{stage}", x, 2, 2)
+        pools[stage] = x
+    x = b.conv("fc6", x, 4096, 7, relu=True)
+    x = b.dropout("drop6", x)
+    x = b.conv("fc7", x, 4096, 1, relu=True)
+    x = b.dropout("drop7", x)
+    x = b.conv("score_fr", x, num_classes, 1)
+    if variant == 32:
+        x = b.deconv("upscore", x, num_classes, 64, stride=32, bias=False)
+        x = b.crop("score", x, data, axes=(1, 2), offsets=(19, 19))
+    else:
+        x = b.deconv("upscore2", x, num_classes, 4, stride=2, bias=False)
+        s4 = b.conv("score_pool4", pools[4], num_classes, 1)
+        s4 = b.crop("score_pool4c", s4, x, axes=(1, 2), offsets=(5, 5))
+        x = b.eltwise("fuse_pool4", [x, s4])
+        if variant == 16:
+            x = b.deconv("upscore16", x, num_classes, 32, stride=16,
+                         bias=False)
+            x = b.crop("score", x, data, axes=(1, 2), offsets=(27, 27))
+        else:
+            x = b.deconv("upscore_pool4", x, num_classes, 4, stride=2,
+                         bias=False)
+            s3 = b.conv("score_pool3", pools[3], num_classes, 1)
+            s3 = b.crop("score_pool3c", s3, x, axes=(1, 2),
+                        offsets=(9, 9))
+            x = b.eltwise("fuse_pool3", [x, s3])
+            x = b.deconv("upscore8", x, num_classes, 16, stride=8,
+                         bias=False)
+            x = b.crop("score", x, data, axes=(1, 2), offsets=(31, 31))
+    if with_softmax:
+        x = b.softmax("prob", x)
+    return b.finish([x])
+
+
+def fcn32s(batch: int = 1, seed: int = 0, num_classes: int = 21,
+           size: int = 224, with_softmax: bool = True) -> Graph:
+    """FCN-32s (voc-fcn32s deploy structure)."""
+    return _fcn(32, batch, seed, num_classes, size, with_softmax)
+
+
+def fcn16s(batch: int = 1, seed: int = 0, num_classes: int = 21,
+           size: int = 224, with_softmax: bool = True) -> Graph:
+    """FCN-16s: + pool4 skip score fused before the x16 upsample."""
+    return _fcn(16, batch, seed, num_classes, size, with_softmax)
+
+
+def fcn8s(batch: int = 1, seed: int = 0, num_classes: int = 21,
+          size: int = 224, with_softmax: bool = True) -> Graph:
+    """FCN-8s: + pool4 and pool3 skip scores (the full skip ladder)."""
+    return _fcn(8, batch, seed, num_classes, size, with_softmax)
+
+
+def pspnet50(batch: int = 1, seed: int = 0, num_classes: int = 150,
+             size: int = 473, with_softmax: bool = True) -> Graph:
+    """PSPNet-50 (the public pspnet50_ADE20K deploy structure): dilated
+    ResNet-50 backbone (three-3x3 stem, stride-1 dilation-2/4 stages 4-5,
+    output stride 8) + Pyramid Pooling Module (AVE-pool bins {1,2,3,6},
+    1x1 conv+BN+ReLU per bin, align-corners Interp back to feature size,
+    Concat), 3x3 fusion conv, and Interp zoom x8 to input resolution.
+    ``size`` must satisfy (size-1) % 8 == 0 with the stride-8 feature
+    divisible by 6 (473 -> 60, 233 -> 30, 89 -> 12)."""
+    b = GraphBuilder("pspnet50", seed)
+
+    def conv_bn(name, x, ch, kernel, stride=1, pad=0, dilation=1,
+                relu=True):
+        x = b.conv(name, x, ch, kernel, stride, pad, dilation=dilation,
+                   bias=False)
+        x = b.bn_scale(name + "/bn", x)
+        if relu:
+            x = b.relu(name + "/relu", x)
+        return x
+
+    def bottleneck(name, x, ch, stride=1, dilation=1, project=False):
+        shortcut = x
+        if project:
+            shortcut = conv_bn(name + "_branch1", x, ch * 4, 1,
+                               stride=stride, relu=False)
+        y = conv_bn(name + "_branch2a", x, ch, 1, stride=stride)
+        y = conv_bn(name + "_branch2b", y, ch, 3, pad=dilation,
+                    dilation=dilation)
+        y = conv_bn(name + "_branch2c", y, ch * 4, 1, relu=False)
+        out = b.eltwise(name, [shortcut, y])
+        return b.relu(name + "_relu", out)
+
+    data = b.input("data", (batch, size, size, 3))
+    x = conv_bn("conv1_1_3x3_s2", data, 64, 3, stride=2, pad=1)
+    x = conv_bn("conv1_2_3x3", x, 64, 3, pad=1)
+    x = conv_bn("conv1_3_3x3", x, 128, 3, pad=1)
+    x = b.pool("pool1", x, 3, 2, pad=1)
+    for stage, ch, blocks, stride, dil in [(2, 64, 3, 1, 1),
+                                           (3, 128, 4, 2, 1),
+                                           (4, 256, 6, 1, 2),
+                                           (5, 512, 3, 1, 4)]:
+        for i in range(blocks):
+            x = bottleneck(f"conv{stage}_{i + 1}", x, ch,
+                           stride=stride if i == 0 else 1,
+                           dilation=dil, project=(i == 0))
+    feat = (size - 1) // 8 + 1
+    if feat % 6:
+        raise ValueError(f"size {size}: stride-8 feature {feat} "
+                         "not divisible by the {1,2,3,6} pyramid bins")
+    branches = [x]
+    for bin_ in (1, 2, 3, 6):
+        k = feat // bin_
+        p = b.pool(f"pool{bin_}x{bin_}", x, k, stride=k, mode="AVE")
+        p = conv_bn(f"pool{bin_}x{bin_}_conv", p, 512, 1)
+        p = b.interp(f"pool{bin_}x{bin_}_interp", p,
+                     height=feat, width=feat)
+        branches.append(p)
+    x = b.concat("ppm_concat", branches)
+    x = conv_bn("conv5_4", x, 512, 3, pad=1)
+    x = b.dropout("conv5_4_dropout", x)
+    x = b.conv("conv6", x, num_classes, 1)
+    x = b.interp("conv6_interp", x, zoom_factor=8)
+    if with_softmax:
+        x = b.softmax("prob", x)
+    g = b.finish([x])
+    # the reference's measured per-model bakes
+    g.meta["config_overrides"] = {"avepool_matmul": True,
+                                  "nested_pools": True}
+    return g
+
+
+def deeplab_largefov(batch: int = 1, seed: int = 0, num_classes: int = 21,
+                     size: int = 321, with_softmax: bool = True) -> Graph:
+    """DeepLab-LargeFOV (v1/v2 VGG-16 variant; the public
+    test_val.prototxt): VGG-16 with DeepLab's 3x3/pad-1 pools, stride-1
+    pool4/pool5 (output stride 8), dilation-2 conv5 block, atrous
+    fc6 (3x3, dilation 12, 1024ch), and an align-corners Interp
+    zoom x8 back to input resolution.  Exercises dilated convs +
+    Interp in a real deploy shape."""
+    b = GraphBuilder("deeplab_largefov", seed)
+    data = b.input("data", (batch, size, size, 3))
+    x = data
+    for stage, n, ch, pstride in [(1, 2, 64, 2), (2, 2, 128, 2),
+                                  (3, 3, 256, 2), (4, 3, 512, 1),
+                                  (5, 3, 512, 1)]:
+        dil = 2 if stage == 5 else 1
+        for i in range(1, n + 1):
+            x = b.conv(f"conv{stage}_{i}", x, ch, 3, pad=dil,
+                       dilation=dil, relu=True)
+        x = b.pool(f"pool{stage}", x, 3, pstride, pad=1)
+    x = b.pool("pool5a", x, 3, 1, pad=1, mode="AVE")
+    x = b.conv("fc6", x, 1024, 3, pad=12, dilation=12, relu=True)
+    x = b.dropout("drop6", x)
+    x = b.conv("fc7", x, 1024, 1, relu=True)
+    x = b.dropout("drop7", x)
+    x = b.conv("fc8_voc12", x, num_classes, 1)
+    x = b.interp("fc8_interp", x, zoom_factor=8)
+    if with_softmax:
+        x = b.softmax("prob", x)
+    return b.finish([x])
+
+
+def _rpn_softmax(b: GraphBuilder, cls_score: str, prefix: str) -> str:
+    """The RPN per-anchor softmax: split Caffe's [bg*A, fg*A] channel
+    halves into a (2, A) axis pair, softmax over the 2, restore the
+    channel layout (the NHWC equivalent of the deploys' NCHW
+    Reshape(0,2,-1,0) + Softmax(axis=1) + Reshape)."""
+    from ..ir import infer_shapes
+    infer_shapes(b.graph)
+    n, fh, fw, c2a = b.graph.specs[cls_score].shape
+    a = c2a // 2
+    r = b.reshape(prefix + "_reshape", cls_score, (n, fh, fw, 2, a))
+    r = b.softmax(prefix + "_prob", r, axis=-2)
+    return b.reshape(prefix + "_prob_reshape", r, (n, fh, fw, 2 * a))
+
+
 MODEL_BUILDERS = {
     "squeezenet_v11": squeezenet_v11,
     "squeezenet_v10": squeezenet_v10,
@@ -769,6 +957,11 @@ MODEL_BUILDERS = {
     "densenet169": densenet169,
     "densenet201": densenet201,
     "resnext50": resnext50,
+    "fcn32s": fcn32s,
+    "fcn16s": fcn16s,
+    "fcn8s": fcn8s,
+    "deeplab_largefov": deeplab_largefov,
+    "pspnet50": pspnet50,
 }
 
 

@@ -12,10 +12,9 @@ module, as there:
     plain PyTorch.
 
 An op with no lowering here raises ``NotImplementedError`` naming it
-(``lower_node``): among the reference's, for example Deconvolution, the
-detection ops, SpaceToDepth, the ladder ops of ``concat_dus``, and PReLU,
-TanH, ELU, AbsVal, Exp, Log, BNLL, Power, MVN, Tile, Reduction and
-Threshold, which no zoo builder uses.
+(``lower_node``): among the reference's, the detection ops (PriorBox,
+Permute, Normalize, DetectionOutput, Proposal, ROIPooling, PSROIPooling),
+SpaceToDepth and the ladder ops of ``concat_dus``.
 """
 
 from __future__ import annotations
@@ -225,6 +224,221 @@ def _lower_fc(node, inputs, params, ctx):
     return [y.to(x.dtype)]
 
 
+def _subpixel_plan(k: int, s: int, p: int):
+    """Per-dimension plan of the subpixel deconv: a stride-s transposed
+    conv is s dense convs (one per output phase r = oy mod s) with
+    ~ceil(k/s)-tap subkernels, interleaved.  Returns (Lp, PL, taps),
+    taps[t][r] the source kernel index (or -1), so that
+    y[s*q + r] = sum_t x[q + t - PL] * W[taps[t][r]]; None where the
+    geometry needs the textbook form (a pad would go negative)."""
+    L = -(-k // s)
+    a = [(r + p) // s for r in range(s)]
+    Lp = L + (max(a) - min(a))
+    PL = Lp - 1 - max(a)
+    if PL < 0:
+        return None
+    taps = np.full((Lp, s), -1, np.int64)
+    for r in range(s):
+        b = (r + p) % s
+        for t in range(Lp):
+            idx = s * (PL + a[r] - t) + b
+            if 0 <= idx < k:
+                taps[t, r] = idx
+    return Lp, PL, taps
+
+
+def _subpixel_weight(w: torch.Tensor, plan_h, plan_w, sh, sw, group):
+    """The subpixel plans' dense weight: the (Lph, Lpw, Cin/g,
+    g*sh*sw*Cout/g) HWIO gather of ``w`` (zeros where a phase has no tap,
+    each group's outputs contiguous)."""
+    k_h, k_w, cig, cout = w.shape
+    (lph, _, taps_h), (lpw, _, taps_w) = plan_h, plan_w
+    ih = torch.as_tensor(np.clip(taps_h, 0, k_h - 1))
+    iw = torch.as_tensor(np.clip(taps_w, 0, k_w - 1))
+    mask = torch.as_tensor(((taps_h >= 0)[:, :, None, None]
+                            & (taps_w >= 0)[None, None, :, :])
+                           .astype(np.float32))
+    wg = w[ih[:, :, None, None].to(w.device),
+           iw[None, None, :, :].to(w.device)]      # (Lph, sh, Lpw, sw, ...)
+    wg = wg * mask[..., None, None].to(wg.device, wg.dtype)
+    g = group
+    wg = wg.reshape(lph, sh, lpw, sw, cig, g, cout // g)
+    wg = wg.permute(0, 2, 4, 5, 1, 3, 6)
+    return wg.reshape(lph, lpw, cig, g * sh * sw * (cout // g))
+
+
+@register_lowering("Deconvolution")
+def _lower_deconv(node, inputs, params, ctx):
+    """Transposed conv (Caffe Deconvolution, FCN's upsampling), as the
+    reference lowers it: at stride > 1 without dilation the subpixel form
+    (one dense conv of sh*sw*Cout outputs over ceil(k/s)-tap subkernels,
+    then depth to space; the gathered weight made once per node), else the
+    textbook conv of the stride-dilated input with the flipped kernel.
+    The products of compute-dtype operands summed in f32 (the reference's
+    ``preferred_element_type``), + bias, activation, x's type.  Weights
+    HWIO (KH, KW, Cin/g, Cout), each group's outputs contiguous.  An int8
+    x (an int8 edge) is dequantized first, as the dispatcher's
+    ``_dequant_int8_edge`` does."""
+    x = inputs[0]
+    if x.dtype == torch.int8:
+        q = ctx.qinfo(node)
+        xs = (q.get("x_scale") or q.get("input_scale", 1.0)) if q else 1.0
+        x = (x.float() * scalar(xs, x.device)).to(
+            getattr(torch, ctx.config.compute_dtype))
+    w = params[0].to(x.dtype)
+    bias = (params[1] if node.attrs.get("bias_term", True)
+            and len(params) > 1 else None)
+    kh, kw, sh, sw, ph, pw, dil, group = conv_hparams(node)
+    n, ih, iw, _ = x.shape
+    cout = w.shape[3]
+    oh = sh * (ih - 1) + dil * (kh - 1) + 1 - 2 * ph
+    ow = sw * (iw - 1) + dil * (kw - 1) + 1 - 2 * pw
+    plan_h = _subpixel_plan(kh, sh, ph)
+    plan_w = _subpixel_plan(kw, sw, pw)
+    qh, qw = -(-oh // sh), -(-ow // sw)
+    pr_h = qh + max((r + ph) // sh for r in range(sh)) - ih
+    pr_w = qw + max((r + pw) // sw for r in range(sw)) - iw
+    if (dil == 1 and (sh > 1 or sw > 1) and plan_h and plan_w
+            and pr_h >= 0 and pr_w >= 0):
+        wg = ctx.kept(node, f"subpixel/{x.dtype}", lambda: _subpixel_weight(
+            w, plan_h, plan_w, sh, sw, group))
+        xp = F.pad(x.float(), (0, 0, plan_w[1], pr_w, plan_h[1], pr_h))
+        y = nchw_conv(xp, wg.float(), 1, 0, 1, group)
+        y = y.reshape(n, qh, qw, group, sh, sw, cout // group)
+        y = y.permute(0, 1, 4, 2, 5, 3, 6).reshape(
+            n, qh * sh, qw * sw, cout)[:, :oh, :ow, :]
+    else:
+        # the input dilated by the stride, the kernel flipped, padding
+        # dil*(k-1) - pad on each side
+        xd = x.float()
+        if sh > 1 or sw > 1:
+            xd = x.new_zeros((n, (ih - 1) * sh + 1, (iw - 1) * sw + 1,
+                              x.shape[3]), dtype=torch.float32)
+            xd[:, ::sh, ::sw] = x.float()
+        pad_h, pad_w = dil * (kh - 1) - ph, dil * (kw - 1) - pw
+        if pad_h < 0 or pad_w < 0:
+            xd = xd[:, max(-pad_h, 0):xd.shape[1] - max(-pad_h, 0),
+                    max(-pad_w, 0):xd.shape[2] - max(-pad_w, 0)]
+        y = nchw_conv(xd, torch.flip(w, (0, 1)).float(), 1,
+                      (max(pad_h, 0), max(pad_w, 0)), dil, group)
+    if bias is not None:
+        y = y + bias.float()
+    y = apply_activation(y, node.attrs.get("activation"))
+    return [y.to(x.dtype)]
+
+
+def _interp_matrix(n_in: int, n_out: int) -> np.ndarray:
+    """Align-corners bilinear interpolation as a dense (n_out, n_in) f32
+    matrix (Caffe InterpLayer: src = i*(in-1)/(out-1))."""
+    a = np.zeros((n_out, n_in), np.float32)
+    if n_out == 1 or n_in == 1:
+        a[:, 0] = 1.0
+        return a
+    for i in range(n_out):
+        src = i * (n_in - 1) / (n_out - 1)
+        lo = min(int(np.floor(src)), n_in - 2)
+        frac = src - lo
+        a[i, lo] = 1.0 - frac
+        a[i, lo + 1] = frac
+    return a
+
+
+@register_lowering("Interp")
+def _lower_interp(node, inputs, params, ctx):
+    """Bilinear resize (DeepLab's InterpLayer), align-corners, as two
+    dense f32 matrix products with the interpolation matrices (made once
+    per node), the rows first; negative pads crop first."""
+    x = inputs[0]
+    pb = node.attrs.get("pad_beg", 0)
+    pe = node.attrs.get("pad_end", 0)
+    if pb or pe:
+        x = x[:, -pb:x.shape[1] + pe, -pb:x.shape[2] + pe, :]
+    n, h, w, c = x.shape
+    oh, ow = ctx.graph.specs[node.outputs[0]].shape[1:3]
+    y = x.float()
+    if oh != h:
+        ah = ctx.const(node, f"interp_h/{h}", lambda: _interp_matrix(h, oh))
+        y = torch.matmul(ah, y.reshape(n, h, w * c)).reshape(n, oh, w, c)
+    if ow != w:
+        aw = ctx.const(node, f"interp_w/{w}", lambda: _interp_matrix(w, ow))
+        y = torch.matmul(aw, y.reshape(n * y.shape[1], w, c)).reshape(
+            n, y.shape[1], ow, c)
+    return [y.to(x.dtype)]
+
+
+@register_lowering("Crop")
+def _lower_crop(node, inputs, params, ctx):
+    """Caffe Crop: bottom[0] cut to bottom[1]'s size on the NHWC ``axes``
+    at the parallel ``offsets`` (the last offset repeats); a window past
+    the edge raises."""
+    x, ref = inputs
+    axes = [d % x.dim() for d in node.attrs.get("axes", [1, 2])]
+    offsets = list(node.attrs.get("offsets", [0]))
+    for i, d in enumerate(axes):
+        off = offsets[i] if i < len(offsets) else offsets[-1]
+        if off + ref.shape[d] > x.shape[d]:
+            raise ValueError(
+                f"{node.name}: crop offset {off} + ref size {ref.shape[d]} "
+                f"exceeds input size {x.shape[d]} on axis {d}")
+        x = x.narrow(d, off, ref.shape[d])
+    return [x]
+
+
+@register_lowering("ArgMax")
+def _lower_argmax(node, inputs, params, ctx):
+    """Caffe ArgMaxLayer, indices as f32 (the first of equal values
+    first).  With ``axis``: that dim becomes top_k indices (max values
+    under ``out_max_val``); without: per image over the NCHW-order
+    flattening, (N, 1, top_k) indices or (N, 2, top_k) [indices;
+    values]."""
+    x = inputs[0].float()
+    k = int(node.attrs.get("top_k", 1))
+    out_max_val = bool(node.attrs.get("out_max_val"))
+    axis = node.attrs.get("axis")
+
+    def top(t, dim):
+        if k == 1:
+            val, idx = torch.max(t, dim=dim, keepdim=True)
+            return val, idx
+        val, idx = torch.sort(t, dim=dim, descending=True, stable=True)
+        return val.narrow(dim, 0, k), idx.narrow(dim, 0, k)
+
+    if axis is not None:
+        val, idx = top(x, axis % x.dim())
+        return [val if out_max_val else idx.float()]
+    if x.dim() == 4:
+        x = x.permute(0, 3, 1, 2)
+    val, idx = top(x.reshape(x.shape[0], -1), 1)
+    if out_max_val:
+        return [torch.stack([idx.float(), val], dim=1)]
+    return [idx.float()[:, None, :]]
+
+
+@register_lowering("SPP")
+def _lower_spp(node, inputs, params, ctx):
+    """Caffe SPPLayer: per level l a pooling of 2^l x 2^l bins (kernel
+    ceil(size/bins), stride = kernel, pad (kernel*bins - size + 1)//2),
+    each flattened in Caffe's NCHW order, concatenated."""
+    x = inputs[0]
+    n, h, w, c = x.shape
+    levels = []
+    for lvl in range(int(node.attrs.get("pyramid_height", 1))):
+        bins = 2 ** lvl
+        kh, kw = -(-h // bins), -(-w // bins)
+        sub = Node(f"{node.name}/pool_{lvl}", "Pooling", list(node.inputs),
+                   [f"{node.name}/pool_{lvl}"],
+                   {"pool": node.attrs.get("pool", "MAX"), "kernel_h": kh,
+                    "kernel_w": kw, "stride_h": kh, "stride_w": kw,
+                    "pad_h": (kh * bins - h + 1) // 2,
+                    "pad_w": (kw * bins - w + 1) // 2, "ceil_mode": True})
+        (y,) = _lower_pool(sub, [x], [], ctx)
+        if y.shape[1] != bins or y.shape[2] != bins:
+            raise ValueError(f"{node.name}: level {lvl} pooled to "
+                             f"{tuple(y.shape)}, want {bins} x {bins}")
+        levels.append(y.permute(0, 3, 1, 2).reshape(n, -1))
+    return [torch.cat(levels, dim=-1)]
+
+
 # ----------------------------------------------------------------------
 # Pooling — Caffe semantics: ceil-mode output size; AVE divides by the
 # window clipped to the *padded* region.
@@ -314,12 +528,18 @@ def _lower_pool(node, inputs, params, ctx):
 # Elementwise / shape ops
 # ----------------------------------------------------------------------
 
+def weak(v: float, x: torch.Tensor) -> torch.Tensor:
+    """The Python number ``v`` as the reference's arithmetic with ``x``
+    takes it (JAX's weak typing): rounded to x's type first."""
+    return torch.tensor(v, dtype=x.dtype, device=x.device)
+
+
 @register_lowering("ReLU")
 def _lower_relu(node, inputs, params, ctx):
     slope = node.attrs.get("negative_slope", 0.0)
     x = inputs[0]
     if slope:
-        return [torch.where(x > 0, x, x * slope)]
+        return [torch.where(x > 0, x, x * weak(slope, x))]
     return [torch.clamp_min(x, 0)]
 
 
@@ -348,7 +568,7 @@ def _lower_eltwise(node, inputs, params, ctx):
     if op == "SUM":
         coeffs = node.attrs.get("coeffs")
         if coeffs:
-            y = sum(c * x for c, x in zip(coeffs, inputs))
+            y = _coeff_sum(coeffs, inputs)
         else:
             y = inputs[0]
             for x in inputs[1:]:
@@ -364,6 +584,21 @@ def _lower_eltwise(node, inputs, params, ctx):
     else:
         raise ValueError(f"unknown Eltwise operation {op!r}")
     return [apply_activation(y, node.attrs.get("activation"))]
+
+
+def _coeff_sum(coeffs, inputs):
+    """``sum(c * x)`` as the reference's compiled Eltwise computes it, each
+    coefficient rounded to x's type: in f32 each product fused into the
+    add that consumes it (``_sum_terms``); in bf16 every product and every
+    sum rounded to bf16, left to right."""
+    x0 = inputs[0]
+    if x0.dtype == torch.float32:
+        return _sum_terms([(x, weak(c, x)) for c, x in zip(coeffs, inputs)])
+    y = None
+    for c, x in zip(coeffs, inputs):
+        t = x * weak(c, x)
+        y = t if y is None else y + t
+    return y
 
 
 def _sum_terms(terms):
@@ -577,6 +812,141 @@ def _lower_shuffle_channel(node, inputs, params, ctx):
     lead, c = tuple(x.shape[:-1]), x.shape[-1]
     return [x.reshape(lead + (g, c // g)).transpose(-1, -2)
             .reshape(lead + (c,))]
+
+
+# ----------------------------------------------------------------------
+# The loose ops: layers a converted Caffe graph may hold that no zoo
+# builder uses.  Each computes in x's type, its Python-number attributes
+# rounded to that type first, as the reference's arithmetic does.
+# ----------------------------------------------------------------------
+
+@register_lowering("PReLU")
+def _lower_prelu(node, inputs, params, ctx):
+    x = inputs[0]
+    slope = params[0].to(x.dtype)      # (C,), or one value (channel_shared)
+    return [torch.where(x > 0, x, x * slope)]
+
+
+@register_lowering("TanH")
+def _lower_tanh(node, inputs, params, ctx):
+    return [torch.tanh(inputs[0])]
+
+
+@register_lowering("ELU")
+def _lower_elu(node, inputs, params, ctx):
+    """``jax.nn.elu``: ``alpha * expm1(x)`` where x <= 0, each step
+    rounded to x's type."""
+    x = inputs[0]
+    alpha = weak(node.attrs.get("alpha", 1.0), x)
+    neg = torch.where(x > 0, torch.zeros_like(x), x)
+    return [torch.where(x > 0, x, alpha * torch.expm1(neg))]
+
+
+@register_lowering("AbsVal")
+def _lower_abs(node, inputs, params, ctx):
+    return [torch.abs(inputs[0])]
+
+
+@register_lowering("Exp")
+def _lower_exp(node, inputs, params, ctx):
+    return [torch.exp(inputs[0])]
+
+
+@register_lowering("Log")
+def _lower_log(node, inputs, params, ctx):
+    return [torch.log(inputs[0])]
+
+
+@register_lowering("BNLL")
+def _lower_bnll(node, inputs, params, ctx):
+    """``softplus`` as ``jax.nn.softplus`` computes it (``logaddexp(x,
+    0)``): ``max(x, 0) + log1p(exp(-|x|))``, each step in x's type; a NaN
+    x stays NaN."""
+    x = inputs[0]
+    y = torch.clamp_min(x, 0) + torch.log1p(torch.exp(-torch.abs(x)))
+    return [torch.where(torch.isnan(x), x, y)]
+
+
+@register_lowering("Power")
+def _lower_power(node, inputs, params, ctx):
+    """Caffe PowerLayer, ``(shift + scale * x) ** power``, with scale and
+    shift rounded to x's type.  In f32 the multiply-add is one FMA and in
+    bf16 two roundings, as the reference's compiled form computes them;
+    the power is taken in f32 and rounded to x's type, but in f32 at a
+    power that is not a whole number, where it is taken in f64 and
+    rounded once (XLA's f32 ``pow`` is within 1 ulp of that)."""
+    a = node.attrs
+    x = inputs[0]
+    scale, shift = weak(a.get("scale", 1.0), x), weak(a.get("shift", 0.0), x)
+    if x.dtype == torch.float32:
+        y = torch.addcmul(shift, x, scale)
+    else:
+        y = x * scale + shift
+    p = a.get("power", 1.0)
+    if p == 1.0:
+        return [y]
+    if x.dtype == torch.float32 and p != int(p):
+        return [torch.pow(y.double(), p).float()]
+    return [torch.pow(y.float(), p).to(x.dtype)]
+
+
+@register_lowering("MVN")
+def _lower_mvn(node, inputs, params, ctx):
+    """Caffe MVNLayer: per-image mean (and, by default, variance)
+    normalization in f32 over H, W (and C with ``across_channels``); the
+    variance divides by ``std + eps``, as Caffe does."""
+    x = inputs[0].float()
+    dims = (1, 2, 3) if node.attrs.get("across_channels") else (1, 2)
+    if x.dim() == 2:
+        dims = (1,)
+    y = x - x.mean(dim=dims, keepdim=True)
+    if node.attrs.get("normalize_variance", True):
+        std = torch.sqrt((y * y).mean(dim=dims, keepdim=True))
+        y = y / (std + node.attrs.get("eps", 1e-9))
+    return [y.to(inputs[0].dtype)]
+
+
+@register_lowering("Tile")
+def _lower_tile(node, inputs, params, ctx):
+    """Caffe TileLayer: the whole tensor repeated along one axis."""
+    x = inputs[0]
+    reps = [1] * x.dim()
+    reps[node.attrs.get("axis", -1) % x.dim()] = int(
+        node.attrs.get("tiles", 1))
+    return [x.repeat(*reps)]
+
+
+@register_lowering("Reduction")
+def _lower_reduction(node, inputs, params, ctx):
+    """Caffe ReductionLayer: SUM, ASUM, SUMSQ or MEAN over every dim from
+    ``axis`` (Caffe's NCHW terms: an NHWC x is transposed first), times
+    ``coeff``; f32."""
+    x = inputs[0].float()
+    if x.dim() == 4:
+        x = x.permute(0, 3, 1, 2)
+    axis = int(node.attrs.get("axis", 0))
+    op = node.attrs.get("operation", "SUM")
+    dims = tuple(range(axis, x.dim()))
+    if op == "ASUM":
+        y = torch.abs(x).sum(dim=dims)
+    elif op == "SUMSQ":
+        y = (x * x).sum(dim=dims)
+    elif op == "MEAN":
+        y = x.mean(dim=dims)
+    elif op == "SUM":
+        y = x.sum(dim=dims)
+    else:
+        raise ValueError(f"unknown Reduction operation {op!r}")
+    coeff = node.attrs.get("coeff", 1.0)
+    return [y * coeff if coeff != 1.0 else y]
+
+
+@register_lowering("Threshold")
+def _lower_threshold(node, inputs, params, ctx):
+    """Caffe ThresholdLayer: 1 where x > threshold, else 0, in x's
+    type."""
+    x = inputs[0]
+    return [(x > weak(node.attrs.get("threshold", 0.0), x)).to(x.dtype)]
 
 
 # ----------------------------------------------------------------------

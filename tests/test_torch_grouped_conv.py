@@ -98,8 +98,9 @@ def test_grouped_int8_conv_routes():
     1 < group < C runs on the implicit-GEMM kernel with its block-diagonal
     weight, laid out once.  A dilated grouped conv takes float inputs and
     PyTorch's float conv, as the reference's rewrite and dispatcher send it
-    to XLA's float conv; a dilated ungrouped int8 conv, and a grouped conv
-    with group == C and two outputs per channel, raise with the reason."""
+    to XLA's float conv; a dilated ungrouped int8 conv runs on the
+    implicit-GEMM kernel with its dilation, and a grouped conv with group
+    == C and two outputs per channel raises with the reason."""
     x = np.random.default_rng(1).normal(size=(1, 9, 9, 64)).astype(
         np.float32)
     cfg = EngineConfig(backend="cuda", compute_dtype="bfloat16",
@@ -132,11 +133,20 @@ def test_grouped_int8_conv_routes():
     assert "x_scale" in eng.graph.meta["quant"]["g"]
     assert "emit_int8" not in eng.graph.meta["quant"]["c"]
     assert torch.isfinite(eng(x).float()).all()
-    for graph, why in [(_grouped_graph(1, dilation=2), "dilation=2"),
-                       (_grouped_graph(64, num_output=128), "group=64")]:
-        calibrate(graph, [x], method="max", device="cpu")
-        with pytest.raises(NotImplementedError, match=why):
-            Engine(graph, cfg, device="cpu")(x)
+    g = _grouped_graph(1, dilation=2)
+    calibrate(g, [x], method="max", device="cpu")
+    seen = []
+    dispatch.conv2d_implicit_gemm = lambda *a, **kw: seen.append(
+        kw["dilation"]) or orig(*a, **kw)
+    try:
+        assert torch.isfinite(Engine(g, cfg, device="cpu")(x).float()).all()
+    finally:
+        dispatch.conv2d_implicit_gemm = orig
+    assert seen == [2]
+    graph = _grouped_graph(64, num_output=128)
+    calibrate(graph, [x], method="max", device="cpu")
+    with pytest.raises(NotImplementedError, match="group=64"):
+        Engine(graph, cfg, device="cpu")(x)
 
 
 def _launch_shapes(monkeypatch, build, batch):
