@@ -73,7 +73,24 @@ float activations; the bf16 paths run ``quant=None`` in bf16:
   ``matmul_epilogue``, the Deconvolutions and Crops in PyTorch) and
   PSPNet-50 b4 at 473x473 (stages 4-5 at dilation 2 and 4, the
   requantizing pyramid pools of its baked ``avepool_matmul``, conv6 at
-  N = 150).
+  N = 150);
+- the detection families, full int8 at ``bench.py:58-81``'s batches and
+  the deploys' sizes (``DETECTION``): MobileNet-SSD b128 at 300x300 (13
+  depthwise convs on the int8 depthwise kernel, DetectionOutput with its
+  baked ``det_thresh_first``), VGG16-SSD300 b16 (fc6 at dilation 6, the
+  f32 Normalize on conv4_3, 8,732 priors), Faster R-CNN VGG16 b1 and
+  R-FCN ResNet-101 b1 at 600x800 with ``im_info`` (Proposal over 17,100
+  anchors, ROIPooling and fc6/fc7 on 300 ROIs; stage 5 at dilation 2,
+  PSROIPooling and the vote Softmax).  Their agreement holds the head's
+  inputs to the port on the CPU (cosine >= 0.999), then the head itself
+  on the card's own inputs: DetectionOutput's and Proposal's rows equal
+  to the port's on the CPU (image, label, score and order bit for bit,
+  boxes within ``BOX_ULPS``), ROIPooling equal, PSROIPooling within 1
+  ulp; it prints the kept detections and ROIs.  After the first
+  ResNet-50 path, ``fma_check`` holds the port's multiply-add on the card
+  (``torch.addcmul``) to its CPU form (``ops.lowering.fma_exact``) on
+  ResNet-50's int8 Eltwise inputs: the int8 Eltwise (0 LSB) and an f32
+  ``coeffs`` sum (0 ulp).
 
 Phases, each printing its own lines:
 
@@ -130,7 +147,8 @@ Phases, each printing its own lines:
    the CPU (the plain versions) hold top-1 equal and the prob cosine >= 0.999
    against the card (a segmentation path its image 0: the per-pixel top-1
    equal at >= 99.9% of the pixels and the cosine of its probability map
-   >= 0.999) (bf16 rounds at other places on the two devices, so a
+   >= 0.999; a detection path the steps of ``detection_agreement``, and
+   the head's share of the node ranges) (bf16 rounds at other places on the two devices, so a
    float edge may differ in its last bit and move an int8 value by one
    step); the classic zoo's paths (``LOGIT_AGREEMENT``) hold the cosine of
    the logits too, and AlexNet's and the Winograd route's that alone, each
@@ -181,13 +199,15 @@ Phases, each printing its own lines:
    difference, and ``ident``'s own time beside its byte bound and
    ``x.clone()``.
 
-The order: ResNet-50 (phases 2-4), the ragged cases (5), the server (6),
+The order: ResNet-50 (phases 2-4), the multiply-add check, the ragged
+cases (5), the server (6),
 the loaded ResNet-50 (2-4), ResNet-50 with ``fuse_chains``, the two bf16 ResNet-50 paths, the
 MobileNets, the boundary probe (7), VGG-16 (w8, w8 Winograd, w8a8),
 GoogLeNet and its server, AlexNet, SqueezeNet (fp32, w8a8), the rest of
 the zoo's ragged cases, DenseNet-121, ResNeXt-50 and its server,
 SE-ResNet-50, Inception-v3, ShuffleNet v1 and v2, the dilated cases,
-DeepLab-LargeFOV, FCN-8s, FCN-16s, FCN-32s and PSPNet-50.  Then the
+DeepLab-LargeFOV, FCN-8s, FCN-16s, FCN-32s and PSPNet-50, MobileNet-SSD,
+VGG16-SSD300, Faster R-CNN and R-FCN.  Then the
 card's name and power limit, one JSON line of kernel numbers, and, last,
 ``{"ok": true, "device": {...}}``.  Any failed check exits nonzero
 before those lines.  Without a GPU, or without the repository beside it,
@@ -339,7 +359,43 @@ EXPECTED = {
     "pspnet50 b4": {**_ZERO, "matmul_epilogue": 37,
                     "conv2d_implicit_gemm": 19,
                     "conv2d_implicit_gemm_dilated": 9},
+    # the detection families (DETECTION).  MobileNet-SSD: the 13 pointwise
+    # convs, conv14_1-conv17_1 and the 12 head convs (loc and conf on 6
+    # sources); conv14_2-conv17_2 (3x3 s2); the 13 depthwise convs on the
+    # int8 depthwise kernel (the reference's default "xla" branch)
+    "mobilenet_ssd b128": {**_ZERO, "matmul_epilogue": 29,
+                           "conv2d_implicit_gemm": 4,
+                           "depthwise_conv2d_int8": 13},
+    # VGG16-SSD300: fc7, the four extras' 1x1 convs and the 12 head convs;
+    # the 12 3x3 convs after the fp stem, conv6_2-conv9_2 and fc6 (d = 6)
+    "vgg16_ssd300 b16": {**_ZERO, "matmul_epilogue": 17,
+                         "conv2d_implicit_gemm": 17,
+                         "conv2d_implicit_gemm_dilated": 1},
+    # Faster R-CNN: the RPN's two 1x1 heads, fc6 and fc7 on the 300 ROIs,
+    # cls_score and bbox_pred; the 12 3x3 convs after the fp stem and the
+    # RPN's 3x3
+    "faster_rcnn_vgg16 b1": {**_ZERO, "matmul_epilogue": 6,
+                             "conv2d_implicit_gemm": 13},
+    # R-FCN: ResNet-101's 1x1 convs (the projections merged beside
+    # branch2a), the RPN's two heads, conv_new_1, rfcn_cls and rfcn_bbox;
+    # its 33 3x3 convs, stage 5's three at d = 2, and the RPN's 3x3
+    "rfcn_resnet101 b1": {**_ZERO, "matmul_epilogue": 71,
+                          "conv2d_implicit_gemm": 34,
+                          "conv2d_implicit_gemm_dilated": 3},
 }
+# The detection families, w8a8 at bench.py:58-81's batches and the
+# deploys' sizes (two-stage with ``im_info`` [h, w, 1]): path -> (model,
+# batch, the primary output's shape).
+DETECTION = {
+    "mobilenet_ssd b128": ("mobilenet_ssd", 128, (128, 100, 7)),
+    "vgg16_ssd300 b16": ("vgg16_ssd300", 16, (16, 200, 7)),
+    "faster_rcnn_vgg16 b1": ("faster_rcnn_vgg16", 1, (300, 21)),
+    "rfcn_resnet101 b1": ("rfcn_resnet101", 1, (300, 1, 1, 21))}
+# the data-dependent head ops, held on the card's own inputs
+HEAD_OPS = ("DetectionOutput", "Proposal", "ROIPooling", "PSROIPooling")
+# a decoded box coordinate on the card against the port's CPU form, in f32
+# ulps (the card's exp may differ; the port's is IEEE steps and fma)
+BOX_ULPS = 2
 # The segmentation family, w8a8 at bench.py:58-81's batches and the
 # deploys' sizes: path -> (model, batch, output (H, W, classes)).
 SEGMENTATION = {
@@ -499,9 +555,35 @@ def toolchain():
 # phase 2
 # ----------------------------------------------------------------------
 def images(g, batch, rng):
-    """``batch`` seeded images at the model's input size."""
-    return rng.normal(size=(batch,) + tuple(g.inputs["data"].shape[1:])
-                      ).astype(np.float32)
+    """``batch`` seeded images at the model's input size; with
+    ``im_info`` [h, w, 1] rows beside them where the model takes it (the
+    two-stage detectors)."""
+    x = rng.normal(size=(batch,) + tuple(g.inputs["data"].shape[1:])
+                   ).astype(np.float32)
+    if "im_info" not in g.inputs:
+        return x
+    info = np.tile(np.asarray([[x.shape[1], x.shape[2], 1.0]], np.float32),
+                   (batch, 1))
+    return {"data": x, "im_info": info}
+
+
+def batch_of(x):
+    return len(x["data"]) if isinstance(x, dict) else len(x)
+
+
+def to_card(x):
+    """A path's input (an array, or name -> array) on the card."""
+    import torch
+    if isinstance(x, dict):
+        return {k: torch.from_numpy(v).cuda() for k, v in x.items()}
+    return torch.from_numpy(x).cuda()
+
+
+def first(x, k):
+    """The first ``k`` images of a path's input."""
+    if isinstance(x, dict):
+        return {name: v[:k] for name, v in x.items()}
+    return x[:k]
 
 
 def calibrated(builder, batch, rng):
@@ -700,12 +782,14 @@ def drive(label, eng, x):
     out = recorder.run(eng, x)
     torch.cuda.synchronize()
     counts = read_counts()
-    say(label, f"one forward at b{len(x)}: launches {counts}")
+    say(label, f"one forward at b{batch_of(x)}: launches {counts}")
     check(counts == EXPECTED[label],
           f"{label}: launches {counts}, expected {EXPECTED[label]}")
-    want = ((len(x), 1, 1, 1000) if label.startswith("squeezenet")
-            else (len(x),) + SEGMENTATION[label][2] if label in SEGMENTATION
-            else (len(x), 1000))
+    n = batch_of(x)
+    want = ((n, 1, 1, 1000) if label.startswith("squeezenet")
+            else (n,) + SEGMENTATION[label][2] if label in SEGMENTATION
+            else DETECTION[label][2] if label in DETECTION
+            else (n, 1000))
     check(tuple(out.shape) == want,
           f"{label}: output {tuple(out.shape)}, expected {want}")
     check(bool(torch.isfinite(out.float()).all()), "non-finite output")
@@ -1390,6 +1474,9 @@ def agreement(label, g, cfg, eng, x, out):
             f"(>= {100 * PIXEL_AGREEMENT:.1f}%), prob cosine {cos:.6f} "
             f"(>= 0.999), max |prob diff| {float(np.abs(got - ref).max()):.3e}")
         return
+    if label in DETECTION:
+        detection_agreement(label, cpu, eng, x)
+        return
     k = min(2, len(x))
     ref = cpu(x[:k]).double().numpy().reshape(k, -1)
     got = out[:k].double().cpu().numpy().reshape(k, -1)
@@ -1449,7 +1536,7 @@ def speed_and_profile(label, eng, x, smi):
     Returns the median ms and the profiled forward's device ms by graph
     node (the engine's per-node profiler ranges; {} where not measured)."""
     import torch
-    xd = torch.from_numpy(x).cuda()
+    xd = to_card(x)
     times = []
     for _ in range(12):
         torch.cuda.synchronize()
@@ -1459,7 +1546,7 @@ def speed_and_profile(label, eng, x, smi):
         times.append((time.perf_counter() - t0) * 1e3)
     ms = statistics.median(times[2:])
     ops = ops_per_batch(eng.graph)
-    batch = len(x)
+    batch = batch_of(x)
     what, kind, peak = {
         "w8a8": ("w8a8 bf16", "int8", PEAK_INT8_OPS),
         "w8": ("w8 bf16", "bf16", PEAK_BF16_OPS)}.get(
@@ -2761,6 +2848,169 @@ def loaded_path(g, x, built, smi, rows, counts, speed):
     torch.cuda.empty_cache()
 
 
+def _ulps32(a, b):
+    """Elementwise distance in f32 ulps of two f32 numpy arrays."""
+    ia = a.view(np.int32).astype(np.int64)
+    ib = b.view(np.int32).astype(np.int64)
+    ia = np.where(ia < 0, -(ia & 0x7FFFFFFF), ia)
+    ib = np.where(ib < 0, -(ib & 0x7FFFFFFF), ib)
+    return np.abs(ia - ib)
+
+
+def detection_agreement(label, cpu, eng, x):
+    """A detection path's agreement, in three steps (its output is
+    data-dependent, so a cosine of the rows says little):
+
+    1. the head's inputs (``mbox_loc`` and ``mbox_conf_flatten``, or
+       ``rpn_cls_prob_reshape`` and ``rpn_bbox_pred``) of images 0-1 (0 at
+       batch 1) on the card against the port on the CPU: cosine >= 0.999;
+    2. every head node (DetectionOutput, Proposal, ROIPooling,
+       PSROIPooling) of the whole batch run by the port on the CPU on the
+       card's own input values: the card's rows equal, image, label,
+       score and order bit for bit, each box coordinate within
+       ``BOX_ULPS`` f32 ulps; a pooled ROI feature equal (ROIPooling,
+       a max) or within 1 ulp of its type (PSROIPooling, f64 sums rounded
+       once);
+    3. the kept detections or ROIs counted."""
+    import torch
+    from feathercnn_tpu_torch.ops.lowering import lower_node
+    heads = [n for n in cpu.graph.nodes if n.op in HEAD_OPS]
+    k = min(2, batch_of(x))
+    blobs = list(heads[0].inputs[:2])
+    ref = cpu.run(first(x, k), extract=blobs)
+    got = eng.run(to_card(first(x, k)), extract=blobs)
+    for b in blobs:
+        for i in range(k if heads[0].op == "DetectionOutput" else 1):
+            r = ref[b][i].double().numpy().ravel()
+            t = got[b][i].double().cpu().numpy().ravel()
+            cos = _cosine(t, r)
+            check(cos >= 0.999, f"{label} image {i}: {b} cosine {cos}")
+            say("agreement", f"{label} image {i}: head input {b} cosine "
+                f"{cos:.6f} (>= 0.999), max |diff| "
+                f"{float(np.abs(t - r).max()):.3e}")
+    names = sorted({v for n in heads for v in n.inputs + n.outputs})
+    vals = eng.run(to_card(x), extract=names)
+    vals = {k_: v.cpu() for k_, v in vals.items()}
+    for n in heads:
+        with torch.inference_mode():
+            (mine,) = lower_node(n, [vals[i] for i in n.inputs], [],
+                                 cpu._ctx)
+        card = vals[n.outputs[0]]
+        if n.op in ("DetectionOutput", "Proposal"):
+            c, m = card.numpy(), mine.numpy()
+            ids = slice(0, 3) if n.op == "DetectionOutput" else slice(0, 1)
+            boxes = slice(3, 7) if n.op == "DetectionOutput" else slice(1, 5)
+            same = np.array_equal(c[..., ids], m[..., ids])
+            check(same, f"{label} {n.name}: the card's rows differ from the "
+                  f"port's on the CPU in image, label or score "
+                  f"({int((c[..., ids] != m[..., ids]).any(-1).sum())} rows)")
+            u = int(_ulps32(np.ascontiguousarray(c[..., boxes]),
+                            np.ascontiguousarray(m[..., boxes])).max())
+            check(u <= BOX_ULPS, f"{label} {n.name}: a box {u} ulps off")
+            kept = (int((c[..., 1] >= 0).sum()) if n.op == "DetectionOutput"
+                    else int((c[:, 0] >= 0).sum()))
+            what = ("detections" if n.op == "DetectionOutput"
+                    else "ROIs")
+            held = ("image, label, score" if n.op == "DetectionOutput"
+                    else "image")
+            slots = (f"{c.shape[1]} slots x {c.shape[0]} images"
+                     if c.ndim == 3 else f"{c.shape[0]}")
+            say("agreement", f"{label} {n.name}: the card's {c.shape} rows "
+                f"equal the port's on the CPU on the card's inputs ({held} "
+                f"and order bit for bit, boxes within {u} ulp); {kept} "
+                f"{what} kept of {slots}")
+            continue
+        if n.op == "ROIPooling":
+            check(torch.equal(card, mine),
+                  f"{label} {n.name}: differs from the port on the CPU")
+            say("agreement", f"{label} {n.name}: {tuple(card.shape)} equal "
+                f"to the port's on the CPU on the card's inputs")
+            continue
+        d = (card.float() - mine.float()).abs()
+        tol = (torch.finfo(card.dtype).eps
+               * torch.maximum(card.float().abs(), mine.float().abs()))
+        check(bool((d <= tol).all()), f"{label} {n.name}: max |diff| "
+              f"{float(d.max())} over 1 ulp")
+        say("agreement", f"{label} {n.name}: {tuple(card.shape)} within 1 "
+            f"ulp of the port's on the CPU on the card's inputs "
+            f"({int((d > 0).sum())} values off, max |diff| {float(d.max()):.3e})")
+
+
+def fma_check(eng, x):
+    """The port's multiply-add (``ops.lowering.fma``: ``torch.addcmul`` on
+    the card) against its CPU form (``fma_exact``: the f64 product and
+    sum, rounded once) on ResNet-50's own tensors, on the card: each int8
+    Eltwise node on its inputs of 32 images (0 LSB), and an f32 ``coeffs``
+    sum (0.3, -1.7) of the same inputs dequantized (0 ulp)."""
+    import torch
+    from feathercnn_tpu_torch.ops import lowering
+    q = eng.graph.meta["quant"]
+    nodes = [n for n in eng.graph.nodes if n.op == "Eltwise"
+             and (q.get(n.name) or {}).get("eltwise_int8")]
+    vals = eng.run(to_card(x[:32]), extract=sorted(
+        {i for n in nodes for i in n.inputs}))
+    f32_vals = 0
+    for n in nodes:
+        ins = [vals[i] for i in n.inputs]
+        f32 = [v.float() * lowering.scalar(s, v.device)
+               if v.dtype == torch.int8 and s is not None else v.float()
+               for v, s in zip(ins, q[n.name]["in_scales"])]
+        with torch.inference_mode():
+            (card,) = lowering.lower_node(n, ins, [], eng._ctx)
+            coeff = lowering._coeff_sum([0.3, -1.7], f32)
+            orig, lowering.fma = lowering.fma, lowering.fma_exact
+            try:
+                (exact,) = lowering.lower_node(n, ins, [], eng._ctx)
+                coeff_exact = lowering._coeff_sum([0.3, -1.7], f32)
+            finally:
+                lowering.fma = orig
+        check(card.dtype == torch.int8 and torch.equal(card, exact),
+              f"int8 Eltwise {n.name}: {int((card != exact).sum())} values "
+              f"off the f64 form")
+        check(torch.equal(coeff.view(torch.int32),
+                          coeff_exact.view(torch.int32)),
+              f"coeffs sum at {n.name}: "
+              f"{int((coeff.view(torch.int32) != coeff_exact.view(torch.int32)).sum())}"
+              f" values off the f64 form")
+        f32_vals += coeff.numel()
+    say("fma", f"{len(nodes)} int8 Eltwise nodes of ResNet-50 (32 images): "
+        f"torch.addcmul on the card equal to the f64 form rounded once "
+        f"(0 LSB); the f32 coeffs sum (0.3, -1.7) of their dequantized "
+        f"inputs, {f32_vals} values: 0 ulp")
+
+
+def detection_paths(smi, rng, rows, counts, speed):
+    """The detection families (phases 2-4 each), w8a8 at their deploy
+    sizes (``DETECTION``), with the head's share of the profiled device
+    time by node.  Adds to ``rows``, ``counts`` and ``speed``."""
+    import torch
+    from feathercnn_tpu_torch.models import build_model
+    from feathercnn_tpu_torch.quant import calibrate
+    for label, (name, batch, _) in DETECTION.items():
+        g = build_model(name, batch=batch, seed=SEED)
+        # the RPN's Reshape holds the declared batch: the two-stage
+        # models calibrate on 3 single images
+        n_cal = batch if "im_info" in g.inputs else 8
+        calibrate(g, [images(g, n_cal, rng) for _ in range(3)],
+                  method="max")
+        x = images(g, batch, rng)
+        cfg, eng = make_engine(label, g)
+        counts[label] = EXPECTED[label]
+        r, speed[label], node_ms = run_path(label, g, cfg, eng, x, smi)
+        rows += r
+        if node_ms:
+            total = sum(node_ms.values())
+            heads = [(n.op, n.name, node_ms[n.name]) for n in eng.graph.nodes
+                     if n.name in node_ms and n.op in HEAD_OPS + (
+                         "Softmax", "PriorBox", "Normalize")]
+            say("profile", f"{label}: the head's nodes of {total:.3f} ms of "
+                "node ranges: " + ", ".join(
+                    f"{nm} ({op}) {ms:.3f} ms {100 * ms / total:.1f}%"
+                    for op, nm, ms in heads))
+        del eng, x, g
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2785,6 +3035,7 @@ def main() -> int:
     counts[label] = EXPECTED[label]
     r, speed[label], node_ms = run_path(label, g, cfg, eng, x, smi)
     rows += r
+    fma_check(eng, x)
     ragged_cases()
     serve(eng, x)
     unchained = eng.graph
@@ -2868,6 +3119,7 @@ def main() -> int:
     classic_paths(smi, rng, rows, counts, speed)
     zoo_rest_paths(smi, rng, rows, counts, speed)
     segmentation_paths(smi, rng, rows, counts, speed)
+    detection_paths(smi, rng, rows, counts, speed)
 
     say("done", f"every phase passed in "
         f"{time.perf_counter() - t_start:.1f} s (from the start of the "

@@ -7,8 +7,7 @@ same thing to both engines.  What differs:
   reference's ``"xla"``) or ``"cuda"`` (the hand-written kernels through
   ``kernels/dispatch.py``, the role of ``"pallas"``).
 - The fields whose pass or lowering is not ported yet (``s2d_stem``,
-  ``concat_dus``, ``sharding``, ``psroi_fuse_ave``,
-  ``compilation_cache_dir``) raise ``NotImplementedError`` when set
+  ``concat_dus``, ``sharding``, ``compilation_cache_dir``) raise ``NotImplementedError`` when set
   (``check_supported``).  ``fuse_blocks`` and ``fuse_chains`` run the
   region-fusion passes, as in the reference.
 - The TPU formulation flags (``lrn_band``, ``shuffle_matmul``,
@@ -30,7 +29,6 @@ _NOT_PORTED = {
     "s2d_stem": "the space-to-depth stem pass",
     "concat_dus": "the concat-ladder pass",
     "sharding": "parallel/ (sharded engines)",
-    "psroi_fuse_ave": "the PSROIPooling fusion",
     "compilation_cache_dir": "a compiled-executable cache (the port runs "
                              "eagerly)",
 }
@@ -98,7 +96,7 @@ class EngineConfig:
     maxpool_shift: bool = False
     topk_radix: bool = True
     det_thresh_first: int = 0
-    psroi_fuse_ave: bool = False        # not ported
+    psroi_fuse_ave: bool = False        # a graph pass: run as the reference
     proposal_sort_payload: bool = True
     roipool_full_pyramid: bool = False
     roipool_table: bool = True

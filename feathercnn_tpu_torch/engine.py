@@ -86,6 +86,9 @@ class Engine:
                      merge_concats=self.config.merge_concats,
                      fold_scale_chains=self.config.fold_scale_chains,
                      nested_pools=self.config.nested_pools)
+            if self.config.psroi_fuse_ave:
+                from .passes import fuse_psroi_ave
+                fuse_psroi_ave(self.graph)
         if self.config.quant:
             from .quant.rewrite import quantize_graph
             quantize_graph(self.graph, self.config.quant,

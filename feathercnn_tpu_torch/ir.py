@@ -290,6 +290,103 @@ def _interp_shape(node, in_specs, graph):
     return [TensorSpec((n, int(oh), int(ow), c), in_specs[0].dtype)]
 
 
+def _priorbox_count(node) -> int:
+    """Priors per feature-map cell (Caffe PriorBoxLayer Reshape):
+    one per min_size, one sqrt(min*max) per max_size, plus one per extra
+    aspect ratio (x2 when flipped) per min_size."""
+    a = node.attrs
+    n_min = len(a.get("min_sizes", []))
+    n_max = len(a.get("max_sizes", []))
+    ars = [r for r in a.get("aspect_ratios", []) if abs(r - 1.0) > 1e-6]
+    per_ar = 2 if a.get("flip", True) else 1
+    return n_min * (1 + per_ar * len(ars)) + n_max
+
+
+@register_shape_fn("PriorBox")
+def _priorbox_shape(node, in_specs, graph):
+    """(1, 2, H*W*num_priors*4): row 0 = boxes, row 1 = variances
+    (Caffe ssd PriorBoxLayer top shape)."""
+    (_, h, w, _) = in_specs[0].shape
+    return [TensorSpec((1, 2, h * w * _priorbox_count(node) * 4),
+                       "float32")]
+
+
+@register_shape_fn("Permute")
+def _permute_shape(node, in_specs, graph):
+    """Caffe ssd PermuteLayer.  Only order (0,2,3,1) is supported — the
+    SSD head pattern NCHW->NHWC, which is the IDENTITY in this IR's NHWC
+    storage; after it the value is treated as a literal tensor (Flatten
+    then reads it in Caffe's post-permute order for free)."""
+    order = tuple(node.attrs.get("order", (0, 1, 2, 3)))
+    if order == (0, 1, 2, 3):
+        return [in_specs[0]]
+    if order != (0, 2, 3, 1):
+        raise NotImplementedError(
+            f"{node.name}: Permute order {order} (only the SSD NCHW->NHWC "
+            "pattern (0,2,3,1) is supported)")
+    return [in_specs[0]]
+
+
+@register_shape_fn("Normalize")
+def _normalize_shape(node, in_specs, graph):
+    return [in_specs[0]]
+
+
+@register_shape_fn("DetectionOutput")
+def _detection_output_shape(node, in_specs, graph):
+    """Fixed-shape variant of Caffe ssd DetectionOutputLayer: the
+    reference emits a ragged (1, 1, num_det, 7); static XLA shapes make
+    it (N, keep_top_k, 7) padded with label -1 rows."""
+    n = in_specs[0].shape[0]
+    keep = int(node.attrs.get("keep_top_k", 200))
+    return [TensorSpec((n, keep, 7), "float32")]
+
+
+@register_shape_fn("Proposal")
+def _proposal_shape(node, in_specs, graph):
+    """RPN ProposalLayer (the C++ 'Proposal' layer of the Faster R-CNN
+    Caffe forks; semantics of py-faster-rcnn's proposal_layer.py):
+    anchors + deltas -> decoded, clipped, NMS'd ROIs.  Static-shape
+    form: (batch * post_nms_top_n, 5) rows [batch_idx, x1, y1, x2, y2]
+    with batch_idx = image index (-1 on padding rows); per-image NMS
+    vmaps over the batch (the reference layer is batch-1 only).  A
+    second output is NOT emitted — the deploy graphs only consume the
+    rois."""
+    n = int(node.attrs.get("post_nms_top_n", 300))
+    batch = int(in_specs[0].shape[0])
+    return [TensorSpec((batch * n, 5), "float32")]
+
+
+@register_shape_fn("ROIPooling")
+def _roipool_shape(node, in_specs, graph):
+    """Fast R-CNN ROIPoolingLayer: (R, pooled_h, pooled_w, C)."""
+    r = in_specs[1].shape[0]
+    c = in_specs[0].shape[-1]
+    ph = int(node.attrs["pooled_h"])
+    pw = int(node.attrs["pooled_w"])
+    return [TensorSpec((r, ph, pw, c), in_specs[0].dtype)]
+
+
+@register_shape_fn("PSROIPooling")
+def _psroipool_shape(node, in_specs, graph):
+    """R-FCN's position-sensitive ROI pooling (psroi_pooling_layer.cu):
+    (R, group_size, group_size, output_dim) — each bin averages its own
+    channel group."""
+    r = in_specs[1].shape[0]
+    k = int(node.attrs["group_size"])
+    c = int(node.attrs["output_dim"])
+    cin = in_specs[0].shape[-1]
+    if cin != k * k * c:
+        raise ValueError(
+            f"{node.name}: PSROIPooling input channels {cin} != "
+            f"group_size^2 * output_dim = {k * k * c}")
+    if node.attrs.get("fuse_ave"):
+        # fused vote-average tail (passes.fuse_psroi_ave): the global
+        # AVE pool's (R, 1, 1, C) shape, bins contracted away
+        return [TensorSpec((r, 1, 1, c), in_specs[0].dtype)]
+    return [TensorSpec((r, k, k, c), in_specs[0].dtype)]
+
+
 @register_shape_fn("Crop")
 def _crop_shape(node, in_specs, graph):
     """Caffe Crop: bottom[0] cut to bottom[1]'s size on the NHWC

@@ -115,11 +115,67 @@ class GraphBuilder:
             out = self.relu(name + "/relu", out)
         return out
 
+    def normalize(self, name: str, x: str,
+                  across_spatial: bool = False,
+                  channel_shared: bool = False,
+                  init_scale: float = 1.0) -> str:
+        """SSD NormalizeLayer: channel L2 + learned scale."""
+        c = 1 if channel_shared else self._channels[x]
+        pname = name + "/scale"
+        self.graph.params[pname] = np.full((c,), init_scale, np.float32)
+        out = self._add(Node(name, "Normalize", [x], [name],
+                             {"across_spatial": across_spatial,
+                              "channel_shared": channel_shared},
+                             [pname]))[0]
+        self._channels[out] = self._channels[x]
+        return out
+
+    def priorbox(self, name: str, feat: str, data: str,
+                 min_sizes, max_sizes=(), aspect_ratios=(),
+                 flip: bool = True, clip: bool = False,
+                 variances=(0.1, 0.1, 0.2, 0.2), step: float = 0,
+                 offset: float = 0.5) -> str:
+        attrs = {"min_sizes": list(min_sizes),
+                 "max_sizes": list(max_sizes),
+                 "aspect_ratios": list(aspect_ratios), "flip": flip,
+                 "clip": clip, "variances": list(variances),
+                 "offset": offset}
+        if step:
+            attrs["step"] = step
+        out = self._add(Node(name, "PriorBox", [feat, data], [name],
+                             attrs))[0]
+        self._channels[out] = 2
+        return out
+
+    def permute(self, name: str, x: str, order=(0, 2, 3, 1)) -> str:
+        """SSD PermuteLayer; only the NCHW->NHWC head pattern (identity in
+        this IR's NHWC storage) is supported — see ir._permute_shape."""
+        out = self._add(Node(name, "Permute", [x], [name],
+                             {"order": tuple(order)}))[0]
+        self._channels[out] = self._channels[x]
+        return out
+
     def reshape(self, name: str, x: str, shape) -> str:
         out = self._add(Node(name, "Reshape", [x], [name],
                              {"shape": list(shape)}))[0]
         self._channels[out] = shape[-1] if shape[-1] > 0 \
             else self._channels.get(x, 0)
+        return out
+
+    def detection_output(self, name: str, loc: str, conf: str,
+                         priors: str, num_classes: int,
+                         nms_threshold: float = 0.45,
+                         nms_top_k: int = 400, keep_top_k: int = 200,
+                         confidence_threshold: float = 0.01,
+                         background_label_id: int = 0) -> str:
+        out = self._add(Node(
+            name, "DetectionOutput", [loc, conf, priors], [name],
+            {"num_classes": num_classes, "share_location": True,
+             "background_label_id": background_label_id,
+             "nms_threshold": nms_threshold, "nms_top_k": nms_top_k,
+             "keep_top_k": keep_top_k,
+             "confidence_threshold": confidence_threshold}))[0]
+        self._channels[out] = 7
         return out
 
     def argmax(self, name: str, x: str, axis: int = -1, top_k: int = 1,
@@ -145,6 +201,53 @@ class GraphBuilder:
                              {"axes": list(axes),
                               "offsets": list(offsets)}))[0]
         self._channels[out] = self._channels[x]
+        return out
+
+    def dwconv(self, name: str, x: str, kernel: int = 3, stride: int = 1,
+               pad: int = 1, bias: bool = True, relu: bool = False) -> str:
+        c = self._channels[x]
+        return self.conv(name, x, c, kernel, stride, pad, group=c, bias=bias,
+                         relu=relu)
+
+    def proposal(self, name: str, scores: str, deltas: str,
+                 im_info: str, feat_stride: int = 16,
+                 pre_nms_top_n: int = 6000, post_nms_top_n: int = 300,
+                 nms_thresh: float = 0.7, min_size: int = 16,
+                 scales=(8.0, 16.0, 32.0),
+                 ratios=(0.5, 1.0, 2.0)) -> str:
+        """RPN ProposalLayer (Faster R-CNN forks): anchors + deltas ->
+        NMS'd (post_nms_top_n, 5) ROIs."""
+        out = self._add(Node(name, "Proposal",
+                             [scores, deltas, im_info], [name],
+                             {"feat_stride": feat_stride,
+                              "pre_nms_top_n": pre_nms_top_n,
+                              "post_nms_top_n": post_nms_top_n,
+                              "nms_thresh": nms_thresh,
+                              "min_size": min_size,
+                              "scales": list(scales),
+                              "ratios": list(ratios)}))[0]
+        self._channels[out] = 5
+        return out
+
+    def roi_pooling(self, name: str, x: str, rois: str, pooled_h: int,
+                    pooled_w: int,
+                    spatial_scale: float = 1.0 / 16) -> str:
+        """Fast R-CNN ROIPoolingLayer: (R, pooled_h, pooled_w, C)."""
+        out = self._add(Node(name, "ROIPooling", [x, rois], [name],
+                             {"pooled_h": pooled_h, "pooled_w": pooled_w,
+                              "spatial_scale": spatial_scale}))[0]
+        self._channels[out] = self._channels[x]
+        return out
+
+    def psroi_pooling(self, name: str, x: str, rois: str,
+                      output_dim: int, group_size: int,
+                      spatial_scale: float = 1.0 / 16) -> str:
+        """R-FCN position-sensitive ROI pooling."""
+        out = self._add(Node(name, "PSROIPooling", [x, rois], [name],
+                             {"output_dim": output_dim,
+                              "group_size": group_size,
+                              "spatial_scale": spatial_scale}))[0]
+        self._channels[out] = output_dim
         return out
 
     def spp(self, name: str, x: str, pyramid_height: int,

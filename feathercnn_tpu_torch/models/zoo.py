@@ -1,14 +1,14 @@
 """Model zoo — the classification models of ``feathercnn_tpu/models/
 zoo.py``: the ResNet family (ResNet-50/101/152), MobileNet-v1/v2,
 SqueezeNet v1.0/v1.1, VGG-16/19, GoogLeNet, AlexNet, ShuffleNet v1/v2,
-SE-ResNet-50, Inception-v3, DenseNet-121/169/201 and ResNeXt-50, and the
-segmentation models FCN-32s/16s/8s, DeepLab-LargeFOV and PSPNet-50, Caffe
-deploy structure and naming.
+SE-ResNet-50, Inception-v3, DenseNet-121/169/201 and ResNeXt-50, the
+segmentation models FCN-32s/16s/8s, DeepLab-LargeFOV and PSPNet-50, and
+the detection models MobileNet-SSD, VGG16-SSD300, Faster R-CNN VGG16 and
+R-FCN ResNet-101, Caffe deploy structure and naming.
 
 Layer sequences, seeded weights and baked config overrides
 (``meta["config_overrides"]``) are the reference's, so ``resnet50(seed=s)``
-here and there build the same graph with the same weights.  The detection
-family comes with its lowerings.
+here and there build the same graph with the same weights.
 """
 
 from __future__ import annotations
@@ -21,7 +21,9 @@ __all__ = ["squeezenet_v11", "squeezenet_v10", "vgg16", "vgg19",
            "mobilenet_v1", "mobilenet_v2", "shufflenet_v1", "shufflenet_v2",
            "se_resnet50", "inception_v3", "densenet121", "densenet169",
            "densenet201", "resnext50", "fcn32s", "fcn16s", "fcn8s",
-           "deeplab_largefov", "pspnet50", "MODEL_BUILDERS", "build_model"]
+           "deeplab_largefov", "pspnet50", "mobilenet_ssd", "vgg16_ssd300",
+           "faster_rcnn_vgg16", "rfcn_resnet101", "MODEL_BUILDERS",
+           "build_model"]
 
 
 def _fire(b, name, x, s1, e1, e3):
@@ -937,6 +939,283 @@ def _rpn_softmax(b: GraphBuilder, cls_score: str, prefix: str) -> str:
     return b.reshape(prefix + "_prob_reshape", r, (n, fh, fw, 2 * a))
 
 
+def faster_rcnn_vgg16(batch: int = 1, seed: int = 0,
+                      num_classes: int = 21, size=(600, 800),
+                      pre_nms_top_n: int = 6000,
+                      post_nms_top_n: int = 300) -> Graph:
+    """Faster R-CNN VGG16 (the public py-faster-rcnn test.prototxt
+    structure, run end-to-end on-device): VGG-16 conv body (no pool5),
+    RPN (3x3 + cls/bbox 1x1 heads, per-anchor softmax via a 5-D reshape
+    that pairs Caffe's [bg*A, fg*A] channel halves), Proposal (anchor
+    decode + NMS -> 300 ROIs), ROIPooling 7x7, fc6/fc7 heads, and
+    per-ROI cls_prob/bbox_pred outputs.  Inputs: `data` (1,H,W,3) and
+    `im_info` (1,3)=[im_h, im_w, scale].  Outputs: cls_prob (300,21),
+    bbox_pred (300,84), rois (300,5) — final per-class decode is the
+    caller's (the reference's test.py does the same host-side)."""
+    # The reference deploy is batch 1; batch > 1 vmaps the RPN/Proposal
+    # per image and routes image-major (N*post_n, 5) rois through the
+    # batched ROI head (flattened-row-axis gather in ops/lowering.py).
+    h, w = size
+    b = GraphBuilder("faster_rcnn_vgg16", seed)
+    data = b.input("data", (batch, h, w, 3))
+    im_info = b.input("im_info", (batch, 3))
+    x = data
+    for stage, n, ch in [(1, 2, 64), (2, 2, 128), (3, 3, 256),
+                         (4, 3, 512), (5, 3, 512)]:
+        for i in range(1, n + 1):
+            x = b.conv(f"conv{stage}_{i}", x, ch, 3, pad=1, relu=True)
+        if stage < 5:
+            x = b.pool(f"pool{stage}", x, 2, 2)
+    conv5 = x                                         # (1, h/16, w/16, 512)
+
+    rpn = b.conv("rpn_conv/3x3", conv5, 512, 3, pad=1, relu=True)
+    cls_score = b.conv("rpn_cls_score", rpn, 18, 1)   # [bg*9, fg*9]
+    bbox_pred = b.conv("rpn_bbox_pred", rpn, 36, 1)
+    prob = _rpn_softmax(b, cls_score, "rpn_cls")
+    rois = b.proposal("proposal", prob, bbox_pred, im_info,
+                      feat_stride=16, pre_nms_top_n=pre_nms_top_n,
+                      post_nms_top_n=post_nms_top_n)
+    pooled = b.roi_pooling("roi_pool5", conv5, rois, 7, 7, 1.0 / 16)
+    y = b.fc("fc6", pooled, 4096, relu=True)
+    y = b.dropout("drop6", y)
+    y = b.fc("fc7", y, 4096, relu=True)
+    y = b.dropout("drop7", y)
+    cls = b.fc("cls_score", y, num_classes)
+    cls = b.softmax("cls_prob", cls)
+    box = b.fc("bbox_pred", y, num_classes * 4)
+    return b.finish([cls, box, rois])
+
+
+def rfcn_resnet101(batch: int = 1, seed: int = 0, num_classes: int = 21,
+                   size=(600, 800), post_nms_top_n: int = 300) -> Graph:
+    """R-FCN ResNet-101 (the public py-R-FCN test_agnostic prototxt
+    structure, class-aware head): ResNet-101 with an a-trous stage 5
+    (stride 1, dilation 2 — output stride 16), RPN on the stage-4
+    output, Proposal, 1x1 conv_new_1 (1024), position-sensitive score
+    maps rfcn_cls (k^2*C) / rfcn_bbox (k^2*8), PSROIPooling (k=7), and
+    per-ROI global AVE vote -> cls_prob / bbox_pred.  Fully on-device
+    like the Faster R-CNN zoo model."""
+    # batch > 1: same image-major batched ROI-head path as Faster R-CNN
+    h, w = size
+    b = GraphBuilder("rfcn_resnet101", seed)
+    data = b.input("data", (batch, h, w, 3))
+    im_info = b.input("im_info", (batch, 3))
+
+    def conv_bn(name, x, ch, kernel, stride=1, pad=0, dilation=1,
+                relu=True):
+        x = b.conv(name, x, ch, kernel, stride, pad, dilation=dilation,
+                   bias=False)
+        x = b.bn_scale("bn" + name[3:] if name.startswith("res")
+                       else name + "_bn", x)
+        if relu:
+            x = b.relu(name + "_relu", x)
+        return x
+
+    def bottleneck(name, x, ch, stride=1, dilation=1, project=False):
+        shortcut = x
+        if project:
+            shortcut = conv_bn(f"res{name}_branch1", x, ch * 4, 1,
+                               stride=stride, relu=False)
+        y = conv_bn(f"res{name}_branch2a", x, ch, 1, stride=stride)
+        y = conv_bn(f"res{name}_branch2b", y, ch, 3, pad=dilation,
+                    dilation=dilation)
+        y = conv_bn(f"res{name}_branch2c", y, ch * 4, 1, relu=False)
+        out = b.eltwise(f"res{name}", [shortcut, y])
+        return b.relu(f"res{name}_relu", out)
+
+    x = conv_bn("conv1", data, 64, 7, stride=2, pad=3)
+    x = b.pool("pool1", x, 3, 2)
+    for stage, (ch, blocks, stride, dil) in enumerate(
+            zip([64, 128, 256, 512], [3, 4, 23, 3], [1, 2, 2, 1],
+                [1, 1, 1, 2]), start=2):
+        numbered = stage in (3, 4)
+        for i in range(blocks):
+            blk = ("a" if i == 0 else f"b{i}") if numbered \
+                else chr(ord("a") + i)
+            x = bottleneck(f"{stage}{blk}", x, ch,
+                           stride=stride if i == 0 else 1,
+                           dilation=dil, project=(i == 0))
+        if stage == 4:
+            res4 = x                                  # stride-16, 1024ch
+
+    rpn = b.conv("rpn_conv/3x3", res4, 512, 3, pad=1, relu=True)
+    cls_score = b.conv("rpn_cls_score", rpn, 18, 1)
+    bbox = b.conv("rpn_bbox_pred", rpn, 36, 1)
+    prob = _rpn_softmax(b, cls_score, "rpn_cls")
+    rois = b.proposal("proposal", prob, bbox, im_info, feat_stride=16,
+                      post_nms_top_n=post_nms_top_n)
+
+    x = b.conv("conv_new_1", x, 1024, 1, relu=True)
+    k = 7
+    cls_map = b.conv("rfcn_cls", x, k * k * num_classes, 1)
+    loc_map = b.conv("rfcn_bbox", x, k * k * 8, 1)
+    cls = b.psroi_pooling("psroipooled_cls_rois", cls_map, rois,
+                          num_classes, k)
+    cls = b.pool("ave_cls_score_rois", cls, 0, mode="AVE",
+                 global_pooling=True)
+    cls = b.softmax("cls_prob", cls)
+    loc = b.psroi_pooling("psroipooled_loc_rois", loc_map, rois, 8, k)
+    loc = b.pool("ave_bbox_pred_rois", loc, 0, mode="AVE",
+                 global_pooling=True)
+    return b.finish([cls, loc, rois])
+
+
+def _ssd_head(b: GraphBuilder, data: str, sources, num_classes: int,
+              keep_top_k: int = 100, nms_top_k: int = 400,
+              confidence_threshold: float = 0.01,
+              nms_threshold: float = 0.45,
+              bg_bias: float = 0.0) -> str:
+    """The shared SSD multibox head ([pub] FeatherCNN runs the ssd-fork
+    deploys through its converter; layer pattern from the public
+    SSD/MobileNet-SSD deploy prototxts): per source a 1x1 loc conv
+    (np*4 ch) and conf conv (np*classes ch), each Permute(0,2,3,1)+
+    Flatten; PriorBox per source; heads Concat on axis 1, priors on
+    axis 2; conf Reshape->Softmax->Flatten; DetectionOutput."""
+    locs, confs, priors = [], [], []
+    for src, np_, kw in sources:
+        n = src.split("/")[0]
+        loc = b.conv(f"{n}_mbox_loc", src, np_ * 4, 1)
+        loc = b.permute(f"{n}_mbox_loc_perm", loc)
+        locs.append(b.flatten(f"{n}_mbox_loc_flat", loc))
+        conf = b.conv(f"{n}_mbox_conf", src, np_ * num_classes, 1)
+        if bg_bias:
+            # a trained-SSD-like score distribution: the background logit
+            # raised so that O(100) foreground scores clear the
+            # threshold (the random weights' near-uniform softmax lets
+            # every prior through); 0.0 keeps the goldens' graph
+            bia = b.graph.params[f"{n}_mbox_conf/b"]
+            bia[0::num_classes] = bg_bias
+        conf = b.permute(f"{n}_mbox_conf_perm", conf)
+        confs.append(b.flatten(f"{n}_mbox_conf_flat", conf))
+        priors.append(b.priorbox(f"{n}_mbox_priorbox", src, data, **kw))
+    loc = b.concat("mbox_loc", locs, axis=1)
+    conf = b.concat("mbox_conf", confs, axis=1)
+    pb = b.concat("mbox_priorbox", priors, axis=2)
+    conf = b.reshape("mbox_conf_reshape", conf, (0, -1, num_classes))
+    conf = b.softmax("mbox_conf_softmax", conf)
+    conf = b.flatten("mbox_conf_flatten", conf)
+    return b.detection_output(
+        "detection_out", loc, conf, pb, num_classes,
+        nms_threshold=nms_threshold, nms_top_k=nms_top_k,
+        keep_top_k=keep_top_k, confidence_threshold=confidence_threshold)
+
+
+def mobilenet_ssd(batch: int = 1, seed: int = 0, num_classes: int = 21,
+                  keep_top_k: int = 100,
+                  confidence_threshold: float = 0.25,
+                  bg_bias: float = 0.0) -> Graph:
+    """MobileNet-SSD 300x300 (the public chuanqi305 VOC deploy): MobileNet
+    v1 body (BN folded into the convs, as the deploy ships), 4 extra
+    dw-sep-free stages, heads on conv11/conv13/conv14_2..conv17_2 with
+    min_sizes 60..285.  Priors per cell: 3 on conv11 (AR {2}), 6 after."""
+    b = GraphBuilder("mobilenet_ssd", seed)
+
+    def cbr(name, x, ch, kernel=1, stride=1, pad=0, group=1):
+        return b.conv(name, x, ch, kernel, stride, pad, group=group,
+                      relu=True)
+
+    def dw_sep(idx, x, ch, stride):
+        cin = b._channels[x]
+        x = cbr(f"conv{idx}/dw", x, cin, 3, stride, 1, group=cin)
+        return cbr(f"conv{idx}", x, ch, 1)
+
+    data = b.input("data", (batch, 300, 300, 3))
+    x = cbr("conv0", data, 32, 3, 2, 1)
+    x = dw_sep(1, x, 64, 1)
+    x = dw_sep(2, x, 128, 2)
+    x = dw_sep(3, x, 128, 1)
+    x = dw_sep(4, x, 256, 2)
+    x = dw_sep(5, x, 256, 1)
+    x = dw_sep(6, x, 512, 2)
+    for i in range(7, 12):
+        x = dw_sep(i, x, 512, 1)
+    conv11 = x                                    # 19x19x512
+    x = dw_sep(12, x, 1024, 2)
+    conv13 = dw_sep(13, x, 1024, 1)               # 10x10x1024
+    x = cbr("conv14_1", conv13, 256, 1)
+    conv14 = cbr("conv14_2", x, 512, 3, 2, 1)     # 5x5
+    x = cbr("conv15_1", conv14, 128, 1)
+    conv15 = cbr("conv15_2", x, 256, 3, 2, 1)     # 3x3
+    x = cbr("conv16_1", conv15, 128, 1)
+    conv16 = cbr("conv16_2", x, 256, 3, 2, 1)     # 2x2
+    x = cbr("conv17_1", conv16, 64, 1)
+    conv17 = cbr("conv17_2", x, 128, 3, 2, 1)     # 1x1
+
+    def pb(mn, mx=None, ars=(2.0, 3.0)):
+        kw = {"min_sizes": [mn], "aspect_ratios": list(ars)}
+        if mx is not None:
+            kw["max_sizes"] = [mx]
+        return kw
+
+    out = _ssd_head(b, data, [
+        (conv11, 3, pb(60.0, None, (2.0,))),
+        (conv13, 6, pb(105.0, 150.0)),
+        (conv14, 6, pb(150.0, 195.0)),
+        (conv15, 6, pb(195.0, 240.0)),
+        (conv16, 6, pb(240.0, 285.0)),
+        (conv17, 6, pb(285.0, 300.0)),
+    ], num_classes, keep_top_k=keep_top_k, nms_top_k=100,
+        confidence_threshold=confidence_threshold, bg_bias=bg_bias)
+    g = b.finish([out])
+    # the reference's measured per-model bake
+    g.meta["config_overrides"] = {"det_thresh_first": 512}
+    return g
+
+
+def vgg16_ssd300(batch: int = 1, seed: int = 0, num_classes: int = 21,
+                 keep_top_k: int = 200,
+                 confidence_threshold: float = 0.01,
+                 bg_bias: float = 0.0) -> Graph:
+    """SSD300 (the original Wei Liu VGG-16 deploy): VGG through conv5_3
+    (ceil-mode pool3 75->38, stride-1 3x3 pool5), atrous fc6 (dilation
+    6), conv6_1..conv9_2 extras, L2 Normalize (init 20) on conv4_3, 8732
+    priors over 38/19/10/5/3/1 grids with steps 8..300."""
+    b = GraphBuilder("vgg16_ssd300", seed)
+    data = b.input("data", (batch, 300, 300, 3))
+    x = data
+    for stage, n, ch in [(1, 2, 64), (2, 2, 128), (3, 3, 256),
+                         (4, 3, 512), (5, 3, 512)]:
+        for i in range(1, n + 1):
+            x = b.conv(f"conv{stage}_{i}", x, ch, 3, pad=1, relu=True)
+        if stage == 4:
+            conv4_3 = x                           # 38x38x512
+        if stage < 5:
+            x = b.pool(f"pool{stage}", x, 2, 2)   # ceil: 75 -> 38
+        else:
+            x = b.pool("pool5", x, 3, 1, pad=1)
+    x = b.conv("fc6", x, 1024, 3, pad=6, dilation=6, relu=True)
+    fc7 = b.conv("fc7", x, 1024, 1, relu=True)    # 19x19x1024
+    x = b.conv("conv6_1", fc7, 256, 1, relu=True)
+    conv6 = b.conv("conv6_2", x, 512, 3, stride=2, pad=1, relu=True)
+    x = b.conv("conv7_1", conv6, 128, 1, relu=True)
+    conv7 = b.conv("conv7_2", x, 256, 3, stride=2, pad=1, relu=True)
+    x = b.conv("conv8_1", conv7, 128, 1, relu=True)
+    conv8 = b.conv("conv8_2", x, 256, 3, relu=True)     # 5 -> 3
+    x = b.conv("conv9_1", conv8, 128, 1, relu=True)
+    conv9 = b.conv("conv9_2", x, 256, 3, relu=True)     # 3 -> 1
+    norm4_3 = b.normalize("conv4_3_norm", conv4_3, init_scale=20.0)
+
+    def pb(mn, mx, step, ars):
+        return {"min_sizes": [mn], "max_sizes": [mx], "step": step,
+                "aspect_ratios": list(ars)}
+
+    out = _ssd_head(b, data, [
+        (norm4_3, 4, pb(30.0, 60.0, 8.0, (2.0,))),
+        (fc7, 6, pb(60.0, 111.0, 16.0, (2.0, 3.0))),
+        (conv6, 6, pb(111.0, 162.0, 32.0, (2.0, 3.0))),
+        (conv7, 6, pb(162.0, 213.0, 64.0, (2.0, 3.0))),
+        (conv8, 4, pb(213.0, 264.0, 100.0, (2.0,))),
+        (conv9, 4, pb(264.0, 315.0, 300.0, (2.0,))),
+    ], num_classes, keep_top_k=keep_top_k, nms_top_k=400,
+        confidence_threshold=confidence_threshold, bg_bias=bg_bias)
+    g = b.finish([out])
+    # the reference's measured per-model bakes
+    g.meta["config_overrides"] = {"topk_radix": False,
+                                  "det_take_gather": True,
+                                  "det_thresh_first": 1024}
+    return g
+
+
 MODEL_BUILDERS = {
     "squeezenet_v11": squeezenet_v11,
     "squeezenet_v10": squeezenet_v10,
@@ -962,6 +1241,10 @@ MODEL_BUILDERS = {
     "fcn8s": fcn8s,
     "deeplab_largefov": deeplab_largefov,
     "pspnet50": pspnet50,
+    "mobilenet_ssd": mobilenet_ssd,
+    "vgg16_ssd300": vgg16_ssd300,
+    "faster_rcnn_vgg16": faster_rcnn_vgg16,
+    "rfcn_resnet101": rfcn_resnet101,
 }
 
 

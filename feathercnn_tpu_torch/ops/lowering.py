@@ -12,9 +12,8 @@ module, as there:
     plain PyTorch.
 
 An op with no lowering here raises ``NotImplementedError`` naming it
-(``lower_node``): among the reference's, the detection ops (PriorBox,
-Permute, Normalize, DetectionOutput, Proposal, ROIPooling, PSROIPooling),
-SpaceToDepth and the ladder ops of ``concat_dus``.
+(``lower_node``): among the reference's, SpaceToDepth and the ladder ops
+of ``concat_dus``.
 """
 
 from __future__ import annotations
@@ -601,20 +600,51 @@ def _coeff_sum(coeffs, inputs):
     return y
 
 
+def fma_exact(a: torch.Tensor, b: torch.Tensor,
+              c: torch.Tensor) -> torch.Tensor:
+    """``a * b + c`` of f32 values rounded once to f32, on any device and
+    any ATen path: the product of two f32 values is exact in f64, the f64
+    sum rounds once, and where that sum lands exactly on an f32 rounding
+    midpoint while it is inexact (the one case in which rounding it again
+    to f32 differs from rounding the exact value once) it moves one f64
+    ulp toward the exact value, whose error the two-sum gives.  Exact for
+    results in f32's normal range."""
+    p = a.double() * b.double()
+    c = c.double()
+    s = p + c
+    z = s - p
+    err = (p - (s - z)) + (c - z)
+    tie = (s.view(torch.int64) & 0x1FFFFFFF) == 0x10000000
+    s = torch.where(tie & (err != 0), torch.nextafter(s, s + err), s)
+    return s.float()
+
+
+def fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """``a * b + c`` rounded once to f32 (a fused multiply-add), whatever
+    ATen's CPU dispatch picks: on the card ``torch.addcmul``, one FMA per
+    element (``chip_smoke.py`` holds it to ``fma_exact``); on the CPU
+    ``fma_exact``, since ``torch.addcmul`` is an FMA on ATen's vectorized
+    paths only (under ``ATEN_CPU_CAPABILITY=default`` it rounds the product
+    first)."""
+    if a.is_cuda or b.is_cuda or c.is_cuda:
+        return torch.addcmul(c, a, b)
+    return fma_exact(a, b, c)
+
+
 def _sum_terms(terms):
     """Left-to-right sum of ``x*s`` terms (s None: plain ``x``), fusing a
     product into the add that consumes it: ``a*s + t`` and ``t + b*s`` are
-    single-rounding FMAs (torch.addcmul), preferring the left operand."""
+    single-rounding FMAs (``fma``), preferring the left operand."""
     (x0, s0), rest = terms[0], terms[1:]
     if not rest:
         return x0 * s0 if s0 is not None else x0
     (x1, s1), rest = rest[0], rest[1:]
     if s0 is not None:
-        acc = torch.addcmul(x1 * s1 if s1 is not None else x1, x0, s0)
+        acc = fma(x0, s0, x1 * s1 if s1 is not None else x1)
     else:
-        acc = torch.addcmul(x0, x1, s1) if s1 is not None else x0 + x1
+        acc = fma(x1, s1, x0) if s1 is not None else x0 + x1
     for x, s in rest:
-        acc = torch.addcmul(acc, x, s) if s is not None else acc + x
+        acc = fma(x, s, acc) if s is not None else acc + x
     return acc
 
 
@@ -675,8 +705,7 @@ def _lower_lrn(node, inputs, params, ctx):
     for j in range(1, n):
         ssum = ssum + sq[..., j:j + c]
     del sq
-    b = torch.addcmul(scalar(k, xf.device), ssum, scalar(alpha / n,
-                                                         xf.device))
+    b = fma(ssum, scalar(alpha / n, xf.device), scalar(k, xf.device))
     if beta == 0.75:
         r = 1.0 / torch.sqrt(b)
         scl = r * torch.sqrt(r)
@@ -734,7 +763,7 @@ def _lower_scale(node, inputs, params, ctx):
         xf = (x.float() * scalar(q["x_scale"], x.device)
               if x.dtype == torch.int8 else x.float())
         if bias and len(params) > 1:
-            y = torch.addcmul(params[1].float(), xf, params[0].float())
+            y = fma(xf, params[0].float(), params[1].float())
         else:
             y = xf * params[0].float()
         return [quantize(apply_activation(y, act), q["y_scale"])]
@@ -770,9 +799,9 @@ def _lower_axpy(node, inputs, params, ctx):
               else x.float())
         yf = (y.float() * scalar(sy, y.device) if y.dtype == torch.int8
               else y.float())
-        out = torch.addcmul(yf, s, xf)
+        out = fma(s, xf, yf)
         return [quantize(apply_activation(out, act), q["y_scale"])]
-    out = torch.addcmul(y.float(), s, x.float())
+    out = fma(s, x.float(), y.float())
     return [apply_activation(out, act).to(x.dtype)]
 
 
@@ -817,8 +846,19 @@ def _lower_shuffle_channel(node, inputs, params, ctx):
 # ----------------------------------------------------------------------
 # The loose ops: layers a converted Caffe graph may hold that no zoo
 # builder uses.  Each computes in x's type, its Python-number attributes
-# rounded to that type first, as the reference's arithmetic does.
+# rounded to that type first, as the reference's arithmetic does.  The
+# transcendental ones (TanH, ELU, Exp, Log, BNLL, a fractional Power) are
+# evaluated in f64 and rounded once to x's type (``_in_f64``): a result
+# within one ulp of the exact value, the same on every ATen CPU path and
+# on the card (ATen's f32 ``tanh``, ``exp`` and ``log`` differ by ISA and
+# build).
 # ----------------------------------------------------------------------
+
+
+def _in_f64(fn, x: torch.Tensor) -> torch.Tensor:
+    """``fn`` of x in f64, rounded once to x's type."""
+    return fn(x.double()).to(x.dtype)
+
 
 @register_lowering("PReLU")
 def _lower_prelu(node, inputs, params, ctx):
@@ -829,17 +869,18 @@ def _lower_prelu(node, inputs, params, ctx):
 
 @register_lowering("TanH")
 def _lower_tanh(node, inputs, params, ctx):
-    return [torch.tanh(inputs[0])]
+    return [_in_f64(torch.tanh, inputs[0])]
 
 
 @register_lowering("ELU")
 def _lower_elu(node, inputs, params, ctx):
-    """``jax.nn.elu``: ``alpha * expm1(x)`` where x <= 0, each step
-    rounded to x's type."""
+    """``jax.nn.elu``: x where x > 0, else ``alpha * expm1(x)`` with alpha
+    rounded to x's type, in f64 and rounded once."""
     x = inputs[0]
-    alpha = weak(node.attrs.get("alpha", 1.0), x)
+    alpha = weak(node.attrs.get("alpha", 1.0), x).double()
     neg = torch.where(x > 0, torch.zeros_like(x), x)
-    return [torch.where(x > 0, x, alpha * torch.expm1(neg))]
+    return [torch.where(x > 0, x, _in_f64(
+        lambda v: alpha * torch.expm1(v), neg))]
 
 
 @register_lowering("AbsVal")
@@ -849,21 +890,22 @@ def _lower_abs(node, inputs, params, ctx):
 
 @register_lowering("Exp")
 def _lower_exp(node, inputs, params, ctx):
-    return [torch.exp(inputs[0])]
+    return [_in_f64(torch.exp, inputs[0])]
 
 
 @register_lowering("Log")
 def _lower_log(node, inputs, params, ctx):
-    return [torch.log(inputs[0])]
+    return [_in_f64(torch.log, inputs[0])]
 
 
 @register_lowering("BNLL")
 def _lower_bnll(node, inputs, params, ctx):
-    """``softplus`` as ``jax.nn.softplus`` computes it (``logaddexp(x,
-    0)``): ``max(x, 0) + log1p(exp(-|x|))``, each step in x's type; a NaN
+    """``softplus`` as ``jax.nn.softplus`` defines it (``logaddexp(x,
+    0)``): ``max(x, 0) + log1p(exp(-|x|))`` in f64, rounded once; a NaN
     x stays NaN."""
     x = inputs[0]
-    y = torch.clamp_min(x, 0) + torch.log1p(torch.exp(-torch.abs(x)))
+    y = _in_f64(lambda v: torch.clamp_min(v, 0)
+                + torch.log1p(torch.exp(-torch.abs(v))), x)
     return [torch.where(torch.isnan(x), x, y)]
 
 
@@ -872,21 +914,20 @@ def _lower_power(node, inputs, params, ctx):
     """Caffe PowerLayer, ``(shift + scale * x) ** power``, with scale and
     shift rounded to x's type.  In f32 the multiply-add is one FMA and in
     bf16 two roundings, as the reference's compiled form computes them;
-    the power is taken in f32 and rounded to x's type, but in f32 at a
-    power that is not a whole number, where it is taken in f64 and
-    rounded once (XLA's f32 ``pow`` is within 1 ulp of that)."""
+    a whole power is taken in f32 and rounded to x's type, any other in
+    f64 and rounded once."""
     a = node.attrs
     x = inputs[0]
     scale, shift = weak(a.get("scale", 1.0), x), weak(a.get("shift", 0.0), x)
     if x.dtype == torch.float32:
-        y = torch.addcmul(shift, x, scale)
+        y = fma(x, scale, shift)
     else:
         y = x * scale + shift
     p = a.get("power", 1.0)
     if p == 1.0:
         return [y]
-    if x.dtype == torch.float32 and p != int(p):
-        return [torch.pow(y.double(), p).float()]
+    if p != int(p):
+        return [_in_f64(lambda v: torch.pow(v, p), y)]
     return [torch.pow(y.float(), p).to(x.dtype)]
 
 
@@ -1016,6 +1057,478 @@ def _lower_fused_chain(node, inputs, params, ctx):
     scales = (a["sx"], a["sy1"], a["sy2"], a.get("s_out"))
     return [_run_chain(node, ctx, inputs[0], *params, w_scales=ws,
                        scales=scales)]
+
+
+# ----------------------------------------------------------------------
+# Detection heads (SSD: Permute, Normalize, PriorBox, DetectionOutput;
+# two-stage: Proposal, ROIPooling, PSROIPooling).  Each computes one exact
+# form of the reference's lowering, whatever its TPU formulation flags
+# (``topk_radix``, ``det_thresh_first``, ``det_take_gather``,
+# ``nms_blocked``, ``proposal_sort_payload``, ``roipool_table``,
+# ``roipool_full_pyramid``) say.  Ties in every top-K and sort are broken
+# by index, as the reference's CPU forms break them: a stable descending
+# sort (``torch.topk`` keeps no tie order).  ``exp`` is the reference's
+# own f32 expansion (``exp_f32``), and a product feeding an add is one
+# rounding (``fma``), as the reference's compiled form contracts it.
+# ----------------------------------------------------------------------
+
+@register_lowering("Permute")
+def _lower_permute(node, inputs, params, ctx):
+    """SSD's NCHW->NHWC Permute: the identity in NHWC storage (the shape
+    function refuses every other order); Flatten then reads the value in
+    Caffe's post-permute order."""
+    return [inputs[0]]
+
+
+@register_lowering("Normalize")
+def _lower_normalize(node, inputs, params, ctx):
+    """Caffe ssd NormalizeLayer: f32 L2 norm over the channels of each
+    pixel (or over the whole image with ``across_spatial``), ``sqrt(sum +
+    1e-10)``, the division, then the learned per-channel (or shared)
+    scale; x's type."""
+    x = inputs[0].float()
+    dims = (1, 2, 3) if node.attrs.get("across_spatial") else (-1,)
+    norm = torch.sqrt((x * x).sum(dim=dims, keepdim=True)
+                      + scalar(1e-10, x.device))
+    y = x / norm
+    if params:
+        y = y * params[0].float().reshape(-1)
+    return [y.to(inputs[0].dtype)]
+
+
+def priorbox_boxes(node, feat_shape, img_shape) -> np.ndarray:
+    """Caffe ssd PriorBoxLayer (prior_box_layer.cpp Forward) on the host,
+    the reference's numpy form: (1, 2, H*W*num_priors*4) f32, row 0 the
+    boxes, row 1 the variances."""
+    a = node.attrs
+    _, fh, fw, _ = feat_shape
+    _, ih, iw, _ = img_shape
+    step_w = float(a.get("step", 0)) or iw / fw
+    step_h = float(a.get("step", 0)) or ih / fh
+    offset = float(a.get("offset", 0.5))
+    min_sizes = [float(s) for s in a.get("min_sizes", [])]
+    max_sizes = [float(s) for s in a.get("max_sizes", [])]
+    flip = bool(a.get("flip", True))
+    # Caffe expands aspect_ratios_ = [1] + [r, (1/r if flip)] per given r
+    ars = [1.0]
+    for r in a.get("aspect_ratios", []):
+        r = float(r)
+        if any(abs(r - e) < 1e-6 for e in ars):
+            continue
+        ars.append(r)
+        if flip:
+            ars.append(1.0 / r)
+    wh = []      # (box_w, box_h) per prior, Caffe emission order
+    for i, s in enumerate(min_sizes):
+        wh.append((s, s))
+        if max_sizes:
+            sp = float(np.sqrt(s * max_sizes[i]))
+            wh.append((sp, sp))
+        for r in ars:
+            if abs(r - 1.0) < 1e-6:
+                continue
+            wh.append((s * np.sqrt(r), s / np.sqrt(r)))
+    wh = np.asarray(wh, np.float32)                      # (np, 2)
+    cx = (np.arange(fw, dtype=np.float32) + offset) * step_w
+    cy = (np.arange(fh, dtype=np.float32) + offset) * step_h
+    cxg, cyg = np.meshgrid(cx, cy)                       # (fh, fw)
+    cxg = cxg[..., None]
+    cyg = cyg[..., None]
+    boxes = np.stack([
+        (cxg - wh[:, 0] / 2) / iw, (cyg - wh[:, 1] / 2) / ih,
+        (cxg + wh[:, 0] / 2) / iw, (cyg + wh[:, 1] / 2) / ih,
+    ], axis=-1)                                          # (fh, fw, np, 4)
+    if a.get("clip"):
+        boxes = np.clip(boxes, 0.0, 1.0)
+    var = [float(v) for v in a.get("variances", [0.1])]
+    if len(var) == 1:
+        var = var * 4
+    variances = np.tile(np.asarray(var, np.float32),
+                        fh * fw * len(wh))
+    return np.stack([boxes.reshape(-1), variances])[None]
+
+
+@register_lowering("PriorBox")
+def _lower_priorbox(node, inputs, params, ctx):
+    """The priors depend on shapes alone: made on the host once per node
+    and kept on the device."""
+    feat = ctx.graph.specs[node.inputs[0]].shape
+    img = ctx.graph.specs[node.inputs[1]].shape
+    return [ctx.const(node, "priors",
+                      lambda: priorbox_boxes(node, feat, img))]
+
+
+def _stable_top(x: torch.Tensor, k: int):
+    """The k largest along the last axis, descending, ties by index (the
+    reference's top-K on the CPU): values and indices."""
+    val, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return val[..., :k], idx[..., :k]
+
+
+def _take_rows(t: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``t[..., idx, :]`` per leading slice: t (..., P, F), idx (..., K)."""
+    return torch.gather(t, -2, idx[..., None].expand(
+        idx.shape + (t.shape[-1],)))
+
+
+# The f32 ``exp`` of the reference's compiled heads (XLA's CPU expansion):
+# x clamped, n = floor(x*log2(e) + 1/2), r = x - n*ln2 in two FMA steps,
+# Cephes' degree-5 polynomial by FMA steps, 2^n applied to the exponent
+# (2^127 * 2 at n = 128), results below f32's least normal flushed to 0.
+_EXP_CLAMP = (-88.3762626647949, 88.7228391)
+_EXP_POLY = (1.9875691500e-4, 1.3981999507e-3, 8.3334519073e-3,
+             4.1665795894e-2, 1.6666665459e-1, 5.0000001201e-1)
+
+
+def exp_f32(x: torch.Tensor) -> torch.Tensor:
+    """f32 ``exp`` as the reference's compiled detection heads compute it
+    (XLA's CPU expansion, the constants above), so a decoded box is the
+    reference's to the bit: equal to ``jnp.exp`` up to 88.3763, within 6
+    ulp above it, where the result passes 2.4e38
+    (``tests/test_torch_detection_ops.py``).  Every step is an IEEE f32
+    operation or an ``fma``: the same value on the CPU and the card."""
+    dev = x.device
+    x = torch.clamp(x.float(), *_EXP_CLAMP)
+    n = torch.floor(fma(x, scalar(1.44269504088896341, dev),
+                        scalar(0.5, dev)))
+    r = fma(n, scalar(-0.693359375, dev), x)
+    r = fma(n, scalar(2.12194440e-4, dev), r)
+    y = torch.full_like(r, float(np.float32(_EXP_POLY[0])))
+    for c in _EXP_POLY[1:]:
+        y = fma(y, r, scalar(c, dev))
+    y = fma(y, r * r, r) + scalar(1.0, dev)
+    k = n.to(torch.int32)
+    top = k > 127
+    y = y * ((torch.where(top, k - 1, k) + 127) << 23).view(torch.float32)
+    y = torch.where(top, y * 2, y)
+    return torch.where(y < torch.finfo(torch.float32).tiny,
+                       torch.zeros((), device=dev), y)
+
+
+@register_lowering("DetectionOutput")
+def _lower_detection_output(node, inputs, params, ctx):
+    """Caffe ssd DetectionOutputLayer, fixed shape: CENTER_SIZE decode
+    (``pvar * l * pw + pcx`` as the reference's compiled model computes
+    it: ``pvar * l`` rounded, its product with pw fused into the add; a
+    head compiled alone folds the constant ``pvar * pw`` first, one
+    rounding apart), per class the top ``nms_top_k`` priors by score (ties by
+    prior index), greedy NMS over those above ``confidence_threshold``
+    (kernels/nms.py), then the ``keep_top_k`` best kept boxes over all
+    classes (ties by class, then rank).  Output (N, keep_top_k, 7) rows
+    [image_id, label, score, xmin, ymin, xmax, ymax], padded with label
+    -1, score and box 0.  ``share_location=False`` decodes each class's
+    own deltas.  The reference's ``topk_radix``, ``det_thresh_first`` and
+    ``det_take_gather`` forms give these same rows."""
+    from ..kernels.nms import greedy_nms
+    a = node.attrs
+    num_classes = int(a["num_classes"])
+    bg = int(a.get("background_label_id", 0))
+    conf_thresh = float(a.get("confidence_threshold", 0.01))
+    nms_thresh = float(a.get("nms_threshold", 0.45))
+    nms_top_k = int(a.get("nms_top_k", 400))
+    keep_top_k = int(a.get("keep_top_k", 200))
+    share_loc = bool(a.get("share_location", True))
+    num_loc = 1 if share_loc else num_classes
+
+    loc, conf, priors = inputs
+    dev = loc.device
+    n = loc.shape[0]
+    pb = priors.float().reshape(2, -1, 4)
+    pbox, pvar = pb[0], pb[1]
+    P = pbox.shape[0]
+    loc = loc.reshape(n, P, num_loc, 4).float()
+    conf = conf.reshape(n, P, num_classes).float()
+    K = min(nms_top_k, P)
+    cls = [c for c in range(num_classes) if c != bg]
+    cls_t = torch.as_tensor(cls, device=dev)
+
+    pw = pbox[:, 2] - pbox[:, 0]
+    ph = pbox[:, 3] - pbox[:, 1]
+    pcx = (pbox[:, 0] + pbox[:, 2]) * 0.5
+    pcy = (pbox[:, 1] + pbox[:, 3]) * 0.5
+
+    def decode(l):                              # (..., P, 4) -> (..., P, 4)
+        cx = fma(pvar[:, 0] * l[..., 0], pw, pcx)
+        cy = fma(pvar[:, 1] * l[..., 1], ph, pcy)
+        w = exp_f32(pvar[:, 2] * l[..., 2]) * pw
+        h = exp_f32(pvar[:, 3] * l[..., 3]) * ph
+        return torch.stack([cx - w / 2, cy - h / 2, cx + w / 2, cy + h / 2],
+                           dim=-1)
+
+    rows = conf[:, :, cls_t].transpose(1, 2)              # (N, C', P)
+    sc, idx = _stable_top(rows, K)                        # (N, C', K)
+    if share_loc:
+        boxes = decode(loc[:, :, 0])                      # (N, P, 4)
+        bx = _take_rows(boxes[:, None].expand(n, len(cls), P, 4), idx)
+    else:
+        boxes = decode(loc[:, :, cls_t].transpose(1, 2))  # (N, C', P, 4)
+        bx = _take_rows(boxes, idx)
+    keep = greedy_nms(bx, sc > scalar(conf_thresh, dev), nms_thresh)
+    sc = torch.where(keep, sc, torch.full_like(sc, -1.0)).reshape(n, -1)
+    bx = bx.reshape(n, -1, 4)
+    lb = cls_t.float().repeat_interleave(K)               # (C' * K,)
+    top, ti = _stable_top(sc, min(keep_top_k, sc.shape[1]))
+    good = top > 0
+    out = torch.cat([
+        torch.where(good, lb[ti], torch.full_like(top, -1.0))[..., None],
+        torch.where(good, top, torch.zeros_like(top))[..., None],
+        torch.where(good[..., None], _take_rows(bx, ti),
+                    torch.zeros((), device=dev))], dim=-1)
+    pad = keep_top_k - out.shape[1]
+    if pad:
+        fill = torch.tensor([-1.0, 0, 0, 0, 0, 0], device=dev)
+        out = torch.cat([out, fill.expand(n, pad, 6)], dim=1)
+    img_id = torch.arange(n, dtype=torch.float32, device=dev)
+    return [torch.cat([img_id[:, None, None].expand(n, keep_top_k, 1), out],
+                      dim=-1)]
+
+
+def generate_anchors(base_size=16, ratios=(0.5, 1.0, 2.0),
+                     scales=(8.0, 16.0, 32.0)) -> np.ndarray:
+    """The RPN anchor grid (py-faster-rcnn generate_anchors.py): the base
+    box's aspect ratios, then scales.  (A, 4) [x1, y1, x2, y2] f32 around
+    the base box's center."""
+    w = h = float(base_size)
+    cx = cy = (base_size - 1) * 0.5
+    out = []
+    size = w * h
+    for r in ratios:
+        ws = np.round(np.sqrt(size / r))
+        hs = np.round(ws * r)
+        for s in scales:
+            sw, sh = ws * s, hs * s
+            out.append([cx - 0.5 * (sw - 1), cy - 0.5 * (sh - 1),
+                        cx + 0.5 * (sw - 1), cy + 0.5 * (sh - 1)])
+    return np.asarray(out, np.float32)
+
+
+def _anchor_geometry(node, fh, fw):
+    """(4, fh*fw*A) f32: the shifted anchors' widths, heights and centers
+    with the +1 width convention, in the (h, w, anchor) order of the score
+    map's channels."""
+    a = node.attrs
+    stride = float(a.get("feat_stride", 16))
+    anchors = generate_anchors(int(a.get("base_size", 16)),
+                               tuple(a.get("ratios", (0.5, 1.0, 2.0))),
+                               tuple(a.get("scales", (8.0, 16.0, 32.0))))
+    sx = np.arange(fw, dtype=np.float32) * np.float32(stride)
+    sy = np.arange(fh, dtype=np.float32) * np.float32(stride)
+    sxg, syg = np.meshgrid(sx, sy)
+    shifts = np.stack([sxg, syg, sxg, syg], -1)
+    al = (shifts[:, :, None, :] + anchors).reshape(-1, 4)
+    one, half = np.float32(1.0), np.float32(0.5)
+    aw = al[:, 2] - al[:, 0] + one
+    ah = al[:, 3] - al[:, 1] + one
+    return np.stack([aw, ah, al[:, 0] + half * aw, al[:, 1] + half * ah])
+
+
+@register_lowering("Proposal")
+def _lower_proposal(node, inputs, params, ctx):
+    """RPN proposal generation (py-faster-rcnn proposal_layer.py): decode
+    the deltas on the shifted anchors (+1 width convention; ``exp`` of a
+    delta past f32's range is inf, and the clip takes the box to the
+    image's edge), clip to ``im_info``'s [h, w, scale] (kept f32), drop
+    boxes under ``min_size * scale`` (score -inf), take the
+    ``pre_nms_top_n`` best (ties by index), greedy NMS at ``nms_thresh``,
+    and emit the ``post_nms_top_n`` best kept as (N * post_nms_top_n, 5)
+    rows [image, x1, y1, x2, y2], image-major; a padding row has image -1
+    and a zero box.  ``proposal_sort_payload`` picks a TPU form of the
+    same rows."""
+    from ..kernels.nms import greedy_nms
+    a = node.attrs
+    pre_n = int(a.get("pre_nms_top_n", 6000))
+    post_n = int(a.get("post_nms_top_n", 300))
+    nms_thresh = float(a.get("nms_thresh", 0.7))
+    min_size = float(a.get("min_size", 16))
+    scores, deltas, im_info = inputs
+    dev = scores.device
+    im_info = im_info.float()
+    n, fh, fw, c2a = scores.shape
+    A = c2a // 2
+    if im_info.shape[0] != n:
+        im_info = im_info[:1].expand(n, im_info.shape[-1])
+    aw, ah, acx, acy = ctx.const(node, f"anchors/{fh}x{fw}",
+                                 lambda: _anchor_geometry(node, fh, fw))
+    # channels are Caffe-ordered [bg*A, fg*A]: the fg half
+    fg = scores[..., A:].float().reshape(n, -1)
+    dl = deltas.float().reshape(n, -1, 4)
+    cx = fma(dl[..., 0], aw, acx)
+    cy = fma(dl[..., 1], ah, acy)
+    w = exp_f32(dl[..., 2]) * aw
+    h = exp_f32(dl[..., 3]) * ah
+    half = scalar(0.5, dev)
+    im_h, im_w, im_scale = (im_info[:, i:i + 1] for i in range(3))
+    zero = torch.zeros((), device=dev)
+    one = scalar(1.0, dev)
+
+    def clip(v, hi):
+        return torch.minimum(torch.maximum(v, zero), hi - one)
+
+    boxes = torch.stack([clip(cx - half * w, im_w), clip(cy - half * h, im_h),
+                         clip(cx + half * w, im_w), clip(cy + half * h, im_h)],
+                        dim=-1)                          # (N, P, 4)
+    ms = scalar(min_size, dev) * im_scale
+    bw = boxes[..., 2] - boxes[..., 0] + one
+    bh = boxes[..., 3] - boxes[..., 1] + one
+    fg = torch.where((bw >= ms) & (bh >= ms), fg,
+                     torch.full_like(fg, -float("inf")))
+    K = min(pre_n, fg.shape[1])
+    top, order = _stable_top(fg, K)
+    b = _take_rows(boxes, order)                         # (N, K, 4)
+    keep = greedy_nms(b, top > -float("inf"), nms_thresh, plus_one=1.0)
+    sc = torch.where(keep, top, torch.full_like(top, -float("inf")))
+    R = min(post_n, K)
+    sc_top, ri = _stable_top(sc, R)
+    good = torch.gather(keep, 1, ri) & (sc_top > -float("inf"))
+    rois = torch.where(good[..., None], _take_rows(b, ri),
+                       torch.zeros((), device=dev))
+    if R < post_n:
+        rois = torch.cat([rois, rois.new_zeros(n, post_n - R, 4)], dim=1)
+        good = torch.cat([good, good.new_zeros(n, post_n - R)], dim=1)
+    img = torch.arange(n, dtype=torch.float32, device=dev)[:, None]
+    bidx = torch.where(good, img.expand(n, post_n),
+                       torch.full((), -1.0, device=dev))
+    return [torch.cat([bidx[..., None], rois], dim=-1).reshape(n * post_n,
+                                                                5)]
+
+
+def _roi_batch(rois, n):
+    """Each ROI's image (column 0 truncated and clamped to [0, n - 1]) and
+    whether it is a padding row (column 0 < 0)."""
+    r = rois.float()
+    return r, torch.clamp(r[:, 0].to(torch.int32), 0, n - 1).long(), \
+        r[:, 0] < 0
+
+
+@register_lowering("ROIPooling")
+def _lower_roipool(node, inputs, params, ctx):
+    """Fast R-CNN ROIPoolingLayer: each ROI rounded onto the feature grid
+    (``floor(coord * spatial_scale + 0.5)``, Caffe's half-away round of
+    these non-negative coordinates), split into pooled_h x pooled_w bins
+    with the exact integer floor/ceil boundaries the reference uses,
+    clipped to the map; the MAX of each bin in x's type, 0 for an empty
+    bin and for a padding ROI.  The bins are taken as a running max over
+    each bin's rows (at most the longest bin's length of steps), then over
+    its columns.  ``roipool_table`` and ``roipool_full_pyramid`` pick TPU
+    forms of the same values."""
+    x, rois = inputs
+    ph = int(node.attrs["pooled_h"])
+    pw = int(node.attrs["pooled_w"])
+    scale = scalar(float(node.attrs.get("spatial_scale", 1.0 / 16)),
+                   x.device)
+    N, H, W, C = x.shape
+    r, bidx, pad_roi = _roi_batch(rois, N)
+    half = scalar(0.5, x.device)
+    x1, y1, x2, y2 = (torch.floor(r[:, i] * scale + half) for i in range(1, 5))
+    one = scalar(1.0, x.device)
+    rw = torch.maximum(x2 - x1 + one, one)
+    rh = torch.maximum(y2 - y1 + one, one)
+
+    def bounds(start, length, bins, size):
+        st = start.to(torch.int64)[:, None]
+        ln = length.to(torch.int64)[:, None]
+        i = torch.arange(bins, device=x.device)[None, :]
+        lo = torch.div(i * ln, bins, rounding_mode="floor") + st
+        hi = torch.div((i + 1) * ln + bins - 1, bins,
+                       rounding_mode="floor") + st
+        return lo.clamp(0, size), hi.clamp(0, size)
+
+    lo_h, hi_h = bounds(y1, rh, ph, H)                    # (R, ph)
+    lo_w, hi_w = bounds(x1, rw, pw, W)                    # (R, pw)
+    fill = torch.tensor(-float("inf"), dtype=x.dtype, device=x.device)
+    # the rows of each bin: (R, ph, W, C)
+    span_h = int((hi_h - lo_h).max())
+    rows = fill.expand(lo_h.shape + (W, C)).clone()
+    for t in range(span_h):
+        y = lo_h + t
+        v = x[bidx[:, None], y.clamp(max=H - 1)]
+        rows = torch.where((y < hi_h)[..., None, None],
+                           torch.maximum(rows, v), rows)
+    # then the columns: (R, ph, pw, C)
+    span_w = int((hi_w - lo_w).max())
+    out = fill.expand(lo_h.shape + (pw, C)).clone()
+    for t in range(span_w):
+        xc = lo_w + t                                     # (R, pw)
+        v = torch.gather(rows, 2, xc.clamp(max=W - 1)[:, None, :, None]
+                         .expand(-1, ph, -1, C))
+        out = torch.where((xc < hi_w)[:, None, :, None],
+                          torch.maximum(out, v), out)
+    full = ((hi_h > lo_h)[:, :, None] & (hi_w > lo_w)[:, None, :]
+            & ~pad_roi[:, None, None])
+    return [torch.where(full[..., None], out, torch.zeros((), dtype=x.dtype,
+                                                          device=x.device))]
+
+
+@register_lowering("PSROIPooling")
+def _lower_psroipool(node, inputs, params, ctx):
+    """R-FCN's position-sensitive ROI pooling (psroi_pooling_layer.cu):
+    bin (i, j) of an ROI AVERAGES its window of channel group
+    ``(c*k + i)*k + j``; empty bins 0.  The window boundaries in the
+    reference's exact integers (coordinates rounded half away from zero,
+    the extent clamped to 0.1 feature cell, in units of 1/(10*q*k) pixels
+    for ``spatial_scale = 1/q``).  The sums are taken in f64 over the two
+    axes' 0/1 masks and rounded once to f32, then divided by the bin's
+    count in f32.  With ``fuse_ave`` (passes.fuse_psroi_ave) the masks are
+    first divided by their counts in f32 and the k x k bins summed away,
+    then divided by k^2: (R, 1, 1, C), as the reference's fused form."""
+    x, rois = inputs
+    k = int(node.attrs["group_size"])
+    cdim = int(node.attrs["output_dim"])
+    scale = float(node.attrs.get("spatial_scale", 1.0 / 16))
+    q = int(round(1.0 / scale))
+    if abs(1.0 / scale - q) > 1e-4:
+        raise NotImplementedError(
+            f"{node.name}: spatial_scale {scale} is not 1/int")
+    N, H, W, _ = x.shape
+    dev = x.device
+    r, bidx, pad_roi = _roi_batch(rois, N)
+    half = scalar(0.5, dev)
+    sx = torch.floor(r[:, 1] + half).to(torch.int64)
+    sy = torch.floor(r[:, 2] + half).to(torch.int64)
+    ex = torch.floor(r[:, 3] + scalar(1.5, dev)).to(torch.int64)
+    ey = torch.floor(r[:, 4] + scalar(1.5, dev)).to(torch.int64)
+    lx = torch.clamp_min(10 * (ex - sx), q)
+    ly = torch.clamp_min(10 * (ey - sy), q)
+    u = 10 * k * q
+
+    def masks(s, ln, size, offset=None):
+        i = torch.arange(k, device=dev)[None, :]
+        lo = torch.div(i * ln[:, None] + 10 * k * s[:, None], u,
+                       rounding_mode="floor").clamp(0, size)
+        hi = torch.div((i + 1) * ln[:, None] + 10 * k * s[:, None] + u - 1,
+                       u, rounding_mode="floor").clamp(0, size)
+        if offset is not None:      # rows of the image, on the N*H axis
+            lo = torch.where(pad_roi[:, None], 0, lo + offset[:, None])
+            hi = torch.where(pad_roi[:, None], 0, hi + offset[:, None])
+            size = N * size
+        pos = torch.arange(size, device=dev)
+        return ((pos >= lo[..., None]) & (pos < hi[..., None])).float()
+
+    mh = masks(sy, ly, H, bidx * H)                       # (R, k, N*H)
+    mw = masks(sx, lx, W)                                 # (R, k, W)
+    R = mh.shape[0]
+    fused = bool(node.attrs.get("fuse_ave"))
+    if fused:
+        mh = mh / torch.clamp_min(mh.sum(-1), 1.0)[..., None]
+        mw = mw / torch.clamp_min(mw.sum(-1), 1.0)[..., None]
+    # x's channels (c*k + i)*k + j -> (i, N*H, W * j * c), in f64
+    xs = x.double().reshape(N * H, W, cdim, k, k).permute(3, 0, 1, 4, 2)
+    t = torch.bmm(mh.double().transpose(0, 1),
+                  xs.reshape(k, N * H, W * k * cdim))   # (i, R, W*j*c)
+    t = t.reshape(k, R, W, k, cdim).permute(1, 3, 2, 0, 4).reshape(
+        R * k, W, k * cdim)                               # (r*j, W, i*c)
+    ssum = torch.bmm(mw.double().reshape(R * k, 1, W), t).reshape(
+        R, k, k, cdim).transpose(1, 2)                    # (R, i, j, C)
+    if fused:
+        s_ = ssum.sum(dim=(1, 2)).float()
+        return [(s_ / scalar(float(k * k), dev))[:, None, None, :].to(
+            x.dtype)]
+    s_ = ssum.float()
+    count = mh.sum(-1)[:, :, None] * mw.sum(-1)[:, None, :]
+    out = torch.where(count[..., None] > 0,
+                      s_ / torch.clamp_min(count, 1.0)[..., None],
+                      torch.zeros((), device=dev))
+    return [out.to(x.dtype)]
 
 
 @register_lowering("Slice")

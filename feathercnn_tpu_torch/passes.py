@@ -1,8 +1,9 @@
 """Graph optimization passes — a copy of ``feathercnn_tpu/passes.py``.
 
 Plain numpy on the graph, run in the reference's order so both engines see
-the same graph.  (``fuse_psroi_ave`` is not ported: its config flag
-raises.)
+the same graph.  ``fuse_psroi_ave`` (R-FCN's vote average folded into
+its PSROIPooling) runs after ``optimize`` where ``psroi_fuse_ave`` is set,
+as in the reference's engine.
 
 
 The reference runs a single in-place fusion walk in ``Net::InitFromBuffer``:
@@ -216,6 +217,35 @@ def fold_scale_chain(graph: Graph) -> None:
                 changed = True
             keep.append(n)
         graph.nodes = keep
+
+
+def fuse_psroi_ave(graph: Graph) -> None:
+    """R-FCN head: PSROIPooling -> global AVE Pooling (the k x k vote
+    average, [pub] rfcn deploys' ave_cls_score_rois/ave_bbox_pred_rois)
+    collapses into the PSROI mask contraction itself: per-bin counts are
+    SEPARABLE (count[r,i,j] = ch[r,i]*cw[r,j]), so normalizing the two
+    axis masks row-wise folds the per-bin average, and the k^2 vote mean
+    contracts the bin axes away — one einsum emits (R, 1, 1, C) directly
+    with no (R, k, k, C) intermediate.  Exact to f32 rounding (division
+    moves from k^2*C elements to 2k mask rows).  Gated by
+    EngineConfig.psroi_fuse_ave; applied when the pool is the sole
+    consumer."""
+    producers = graph.producers()
+    keep: List[Node] = []
+    for n in graph.nodes:
+        if (n.op == "Pooling" and n.attrs.get("global_pooling")
+                and n.attrs.get("pool") == "AVE"):
+            prod = producers.get(n.inputs[0])
+            if (prod is not None and prod.op == "PSROIPooling"
+                    and not prod.attrs.get("fuse_ave")
+                    and _sole_consumer(graph, n.inputs[0])):
+                prod.attrs["fuse_ave"] = True
+                # keep the POOL's public blob name (graph outputs /
+                # extract() consumers see the same names as unfused)
+                prod.outputs = [n.outputs[0]]
+                continue
+        keep.append(n)
+    graph.nodes = keep
 
 
 def derive_nested_pools(graph: Graph) -> int:

@@ -34,7 +34,7 @@ def test_engine_checks_input_shapes():
 
 def test_unported_config_fields_raise_naming_them():
     for field, value in [("s2d_stem", True), ("concat_dus", True),
-                         ("psroi_fuse_ave", True), ("sharding", object()),
+                         ("sharding", object()),
                          ("compilation_cache_dir", "cache")]:
         with pytest.raises(NotImplementedError, match=field):
             Engine(_graph(), EngineConfig(**{field: value}), device="cpu")
@@ -42,9 +42,30 @@ def test_unported_config_fields_raise_naming_them():
 
 def test_unported_op_raises_naming_it():
     g = _graph()
-    g.nodes[-1].op = "Normalize"
-    with pytest.raises(NotImplementedError, match="Normalize"):
+    g.nodes[-1].op = "SpaceToDepth"
+    with pytest.raises(NotImplementedError, match="SpaceToDepth"):
         Engine(g, device="cpu", optimize_graph=False)
+
+
+def test_psroi_fuse_ave_runs_the_pass():
+    """``psroi_fuse_ave`` runs ``passes.fuse_psroi_ave``, as in the
+    reference: R-FCN's PSROIPooling takes in its vote's global AVE pool
+    (``fuse_ave``) and the pool's output name; without the flag both
+    nodes stay."""
+    from feathercnn_tpu_torch.models import rfcn_resnet101
+    g = rfcn_resnet101(size=(64, 64), post_nms_top_n=8)
+    ops = lambda eng: {n.name: (n.op, n.attrs.get("fuse_ave"))
+                       for n in eng.graph.nodes
+                       if n.op in ("PSROIPooling", "Pooling")
+                       and "rois" in n.name}
+    plain = ops(Engine(g, device="cpu"))
+    fused = ops(Engine(g, EngineConfig(psroi_fuse_ave=True), device="cpu"))
+    assert plain == {"psroipooled_cls_rois": ("PSROIPooling", None),
+                     "ave_cls_score_rois": ("Pooling", None),
+                     "psroipooled_loc_rois": ("PSROIPooling", None),
+                     "ave_bbox_pred_rois": ("Pooling", None)}, plain
+    assert fused == {"psroipooled_cls_rois": ("PSROIPooling", True),
+                     "psroipooled_loc_rois": ("PSROIPooling", True)}, fused
 
 
 def test_config_json_round_trip_and_backends():
