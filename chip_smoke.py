@@ -101,24 +101,27 @@ Phases, each printing its own lines:
    after, against the path's expected counts (``EXPECTED``); the output is
    finite.  The arguments of every launch are recorded on the way, and
    for every kernel whose wrapper counts variants the variant (main loop)
-   it took: every int8 GEMM launch must take "wgmma" but where the plan
-   gives a reason on a path of ``FALLBACK_OK`` (MobileNet-v2's K = 24
-   convs, GoogLeNet's 5x5 convs on 24 channels, the ShuffleNets' K = 24,
-   58, 116 and 232 convs, printed), a bf16 x bf16 GEMM "mma_bf16", a bf16
-   x with an int8
+   it took, which must be the one its plan names: every int8 GEMM launch
+   "wgmma", or "wgmma_ragged" where its rows are not whole 16-byte pieces
+   (MobileNet-v2's K = 24 convs, GoogLeNet's 5x5 convs on 24 channels,
+   the ShuffleNets' K = 24, 58, 116 and 232 convs; counted as the kernels
+   line's ``*_ragged`` entries too, the plan's reasons printed), none on
+   "mma_sync"; a bf16 x bf16 GEMM "mma_bf16", a bf16 x with an int8
    weight (weight-only) "wgmma_w8", an f32 x "simt"; every depthwise
-   launch "k3s1"
-   or "k3s2" by its stride and every chain launch, int8 or float,
-   "wgmma".
+   launch "k3s1" or "k3s2" by its stride and every chain launch, int8 or
+   float, "wgmma".
 3. per path, kernels: each launch of that forward is repeated on its own
    tensors and held against the kernel's plain PyTorch version (int8 out:
    equal; bf16 out: within 1 bf16 ulp; f32: within 1e-5 of the largest
    value), and timed (CUDA events, median of 20 behind a spin kernel)
    beside its bound (and the share of it reached) and a library
    yardstick (and the kernel's multiple of it): ``torch._int_mm`` at a GEMM's
-   (M, K, N) (at a grouped conv's block-diagonal launch the f32
-   ``F.conv2d(groups=g)`` it computes, and the bound of the grouped work,
-   the dense product's beside it), and for the depthwise kernels ``F.conv2d(groups=C)`` on
+   (M, K, N), on operands zero-padded to its rules (M > 16, K and N
+   multiples of 8; the padding not timed) where it refuses the shape, the
+   row marked so (at a grouped conv's block-diagonal launch the f32
+   ``F.conv2d(groups=g)`` it computes, the bf16 one beside it, and the
+   bound of the grouped work, the dense product's beside it), and for the
+   depthwise kernels ``F.conv2d(groups=C)`` on
    channels-last bf16 (PyTorch has no int8 grouped conv, so the int8
    kernel's yardstick is that bf16 conv too).  No single PyTorch call
    computes a bottleneck: the chain kernels have no yardstick.  Instead
@@ -139,7 +142,10 @@ Phases, each printing its own lines:
    body (its earlier variant) and, where its plan splits K, on the same
    body unsplit (the plans forced through the C entry point, uncounted),
    each held to the same gate, and each path prints the sums per
-   forward.  ``ident`` is bit-equal, its yardstick ``x.clone()``.
+   forward; each "wgmma_ragged" launch likewise on "mma_sync" (the body
+   those launches took before), equal to plain, and each path prints its
+   ragged launches' sums: kernel, bound and share, old body, plain,
+   library and multiple.  ``ident`` is bit-equal, its yardstick ``x.clone()``.
    A float GEMM's yardstick is ``torch.matmul`` in x's type, a float
    ``conv2d_implicit_gemm``'s ``F.conv2d`` on channels-last bf16 (the
    weight dequantized once).
@@ -170,7 +176,11 @@ Phases, each printing its own lines:
    planned variant, the GEMM kernels at the
    edges of their variants (M not a multiple of the tile, N = 24 and 1000,
    K = 16, 24, 32, 2048, every output type, misaligned x, each on its
-   planned variant, and the refusal of a weight not in ``gemm_layout``),
+   planned variant, and the refusal of a weight not in ``gemm_layout``;
+   ``ragged_rows``: "wgmma_ragged" at K = 24, 58, 116 and 232 and on 5x5
+   and 3x3 convs over C = 24 at stride 1 and 2, x at 0, 2, 4 and 8 bytes
+   from an aligned base, a conv's x at 2 and 4 and a K of 300 on
+   "mma_sync", their reasons printed),
    the chain's ragged shapes and output types (int8 and float modes: tile
    counts that are not a multiple of the tiles a block takes, a one-tile
    int8 launch whose columns the two consumers split, saturated conv2 sums
@@ -265,10 +275,24 @@ KERNELS = {
         "source": "feathercnn_tpu_torch/kernels/csrc/conv_implicit_gemm.cu",
         "replaces": "feathercnn_tpu/kernels/dispatch.py:221 (XLA's dilated "
                     "int8 conv, rhs_dilation; no Pallas kernel)"},
+    # the int8 launches whose rows are not whole 16-byte pieces, on the
+    # "wgmma_ragged" variant (counted on the wrapper's ``variants`` too):
+    # their own entries of the kernels line
+    "matmul_epilogue_ragged": {
+        "source": "feathercnn_tpu_torch/kernels/csrc/matmul_epilogue.cu",
+        "replaces": "feathercnn_tpu/kernels/matmul.py:96 (K not a multiple "
+                    "of 16)"},
+    "conv2d_implicit_gemm_ragged": {
+        "source": "feathercnn_tpu_torch/kernels/csrc/conv_implicit_gemm.cu",
+        "replaces": "feathercnn_tpu/kernels/conv.py:100 (C not a multiple "
+                    "of 16)"},
 }
 DILATED = "conv2d_implicit_gemm_dilated"
+RAGGED = {"matmul_epilogue": "matmul_epilogue_ragged",
+          "conv2d_implicit_gemm": "conv2d_implicit_gemm_ragged"}
 # the wrappers, each an attribute of kernels/dispatch.py
-WRAPPERS = tuple(k for k in KERNELS if k != DILATED)
+WRAPPERS = tuple(k for k in KERNELS
+                 if k != DILATED and k not in RAGGED.values())
 _ZERO = dict.fromkeys(KERNELS, 0)
 # path -> launches of one forward.  A kernel's entry in the kernels line
 # takes its numbers from the first path here that launches it.
@@ -279,7 +303,9 @@ EXPECTED = {
                           "depthwise_conv2d_int8": 13},
     "mobilenet_v1 b256 dw override": {**_ZERO, "matmul_epilogue": 14,
                                       "depthwise_conv2d": 13},
+    # the two K = 24 1x1 convs ragged
     "mobilenet_v2 b128 dw override": {**_ZERO, "matmul_epilogue": 35,
+                                      "matmul_epilogue_ragged": 2,
                                       "depthwise_conv2d": 17},
     # one launch per block: 4 calls over 2 + 3 + 5 + 2 identity blocks
     "resnet50 b128 fuse_chains": {**_ZERO, "matmul_epilogue": 9,
@@ -302,9 +328,11 @@ EXPECTED = {
     "vgg16 b128 w8a8": {**_ZERO, "matmul_epilogue": 3,
                         "conv2d_implicit_gemm": 12},
     # 1 + 4 per inception (1x1, 3x3_reduce, 5x5_reduce, pool_proj) x 9 +
-    # the FC; 1 + 2 per inception (3x3, 5x5) x 9
+    # the FC; 1 + 2 per inception (3x3, 5x5) x 9, the 5x5 convs of 4b and
+    # 4c on C = 24 ragged
     "googlenet b256": {**_ZERO, "matmul_epilogue": 38,
-                       "conv2d_implicit_gemm": 19},
+                       "conv2d_implicit_gemm": 19,
+                       "conv2d_implicit_gemm_ragged": 2},
     # conv3 and the FCs; conv2, 4 and 5 are 2-group float convs
     "alexnet b256": {**_ZERO, "matmul_epilogue": 3,
                      "conv2d_implicit_gemm": 1},
@@ -330,10 +358,13 @@ EXPECTED = {
                           "conv2d_implicit_gemm": 53},
     # resx1_conv1 (ungrouped) and the FC; the grouped 1x1 and depthwise
     # convs take PyTorch's float grouped conv (its int8_grouped=False)
-    "shufflenet_v1 b128": {**_ZERO, "matmul_epilogue": 2},
+    # (resx1_conv1 on the stem's 24 channels ragged)
+    "shufflenet_v1 b128": {**_ZERO, "matmul_epilogue": 2,
+                           "matmul_epilogue_ragged": 1},
     # the 1x1 convs and the FC; the depthwise convs in the float grouped
-    # conv
-    "shufflenet_v2 b128": {**_ZERO, "matmul_epilogue": 37},
+    # conv (35 of the 1x1 convs ragged: K = 24, 58, 116, 232)
+    "shufflenet_v2 b128": {**_ZERO, "matmul_epilogue": 37,
+                           "matmul_epilogue_ragged": 35},
     # the main path's model written by save_ftpu, reloaded by
     # Engine.from_path: the main path's launches
     "resnet50 b128 loaded": {**_ZERO, "matmul_epilogue": 33,
@@ -454,12 +485,6 @@ GEMMS = ("matmul_epilogue", "conv2d_implicit_gemm")
 # chains.
 MAIN_VARIANT = ("depthwise_conv2d", "depthwise_conv2d_int8",
                 "fused_chain", "fused_chain_float")
-# The paths whose int8 GEMM launches may leave "wgmma" where the plan gives
-# a reason (a row pitch that is not whole 16-byte pieces: MobileNet-v2's
-# K = 24 1x1 convs, GoogLeNet's 5x5 convs on 24 channels, ShuffleNet v1's
-# first 1x1 conv on 24 channels and v2's 1x1 convs on 24, 58, 116 and 232).
-FALLBACK_OK = ("mobilenet_v2 b128 dw override", "googlenet b256",
-               "shufflenet_v1 b128", "shufflenet_v2 b128")
 # Cycles of the spin kernel queued before each timed launch: more than
 # the host needs to issue the launch.
 SPIN_CYCLES = 2_000_000
@@ -699,30 +724,32 @@ def gemm_plan_of(kernel, a):
                     stride=a["stride"])
 
 
-def gemm_variant_wanted(kernel, a):
-    """The variant a GEMM launch must take: "wgmma" for int8 x (int8 w);
+def gemm_variants_wanted(kernel, a):
+    """The variants a GEMM launch may take: "wgmma" or "wgmma_ragged"
+    (rows that are not whole 16-byte pieces) for int8 x (int8 w);
     "wgmma_w8" for a bf16 x with an int8 weight (weight-only); "simt" for
     an f32 x (f32 on the tensor cores would be TF32) and for every other
     float conv; "mma_bf16" for a bf16 x bf16 matrix."""
     import torch
     if a["x"].dtype == torch.int8:
-        return "wgmma"
+        return ("wgmma", "wgmma_ragged")
     if a["x"].dtype == torch.bfloat16 and a["w"].dtype == torch.int8:
-        return "wgmma_w8"
+        return ("wgmma_w8",)
     if (a["x"].dtype == a["w"].dtype == torch.bfloat16
             and kernel == "matmul_epilogue"):
-        return "mma_bf16"
-    return "simt"
+        return ("mma_bf16",)
+    return ("simt",)
 
 
 def check_variants(label, launches):
-    """Every int8 GEMM launch of the forward took "wgmma", but on the
-    paths of FALLBACK_OK where the plan gives its reason (printed); every
-    bf16 x bf16 one "mma_bf16", every weight-only one (bf16 x, int8 w)
-    "wgmma_w8", every f32 x one "simt"; every depthwise launch (all 3x3)
-    "k3s1" or "k3s2" by its stride, and every chain launch (int8 or float)
-    "wgmma"."""
-    taken, exceptions = {}, []
+    """Every GEMM launch of the forward took the variant its plan names,
+    one of those ``gemm_variants_wanted`` allows: every int8 one "wgmma",
+    or "wgmma_ragged" where its rows are not whole 16-byte pieces (the
+    plan's reasons printed, with their counts), every bf16 x bf16 one
+    "mma_bf16", every weight-only one (bf16 x, int8 w) "wgmma_w8", every
+    f32 x one "simt"; every depthwise launch (all 3x3) "k3s1" or "k3s2" by
+    its stride, and every chain launch (int8 or float) "wgmma"."""
+    taken, ragged = {}, {}
     for i, r in enumerate(launches):
         if r["kernel"] in MAIN_VARIANT:
             v, a = r["variant"], r["args"]
@@ -737,23 +764,27 @@ def check_variants(label, launches):
             continue
         a, v = r["args"], r["variant"]
         taken[v] = taken.get(v, 0) + 1
-        want = gemm_variant_wanted(r["kernel"], a)
-        if v == want:
-            continue
+        want = gemm_variants_wanted(r["kernel"], a)
         plan = gemm_plan_of(r["kernel"], a)
         m, k, n = dims(r["kernel"], a)
-        what = f"launch {i} {r['kernel']} M={m} K={k} N={n}: {v} ({plan.reason})"
-        check(v == plan.variant and plan.reason and label in FALLBACK_OK,
-              f"{label}: {what}, expected {want}")
-        exceptions.append(what)
-    say(label, f"variants {taken}" + ("; not wgmma, as planned: "
-                                           + "; ".join(exceptions)
-                                           if exceptions else ""))
+        check(v in want and v == plan.variant,
+              f"{label}: launch {i} {r['kernel']} M={m} K={k} N={n} took "
+              f"{v}, planned {plan.variant} ({plan.reason}), expected one "
+              f"of {want}")
+        if v == "wgmma_ragged":
+            key = f"{r['kernel']} K={k} ({plan.reason})"
+            ragged[key] = ragged.get(key, 0) + 1
+    planned = "; ".join(f"{key} x{c}" for key, c in ragged.items())
+    say(label, f"variants {taken}" + ("; wgmma_ragged, as planned: "
+                                      + planned if ragged else ""))
 
 
 def read_counts():
-    counts = {name: fn.launches for name, (fn, _) in _kernel_fns().items()}
-    counts[DILATED] = _kernel_fns()["conv2d_implicit_gemm"][0].dilated_launches
+    fns = _kernel_fns()
+    counts = {name: fn.launches for name, (fn, _) in fns.items()}
+    counts[DILATED] = fns["conv2d_implicit_gemm"][0].dilated_launches
+    for wrapper, name in RAGGED.items():
+        counts[name] = fns[wrapper][0].variants["wgmma_ragged"]
     return counts
 
 
@@ -766,11 +797,22 @@ def row_kernel(launch):
     return launch["kernel"]
 
 
+def counted_as(launch):
+    """The kernels line's entries whose counts a recorded launch adds to:
+    its wrapper's, and ``DILATED``'s for a dilated conv, the ragged entry
+    of its wrapper for a "wgmma_ragged" launch."""
+    names = [launch["kernel"]]
+    if row_kernel(launch) == DILATED:
+        names.append(DILATED)
+    if launch.get("variant") == "wgmma_ragged":
+        names.append(RAGGED[launch["kernel"]])
+    return tuple(names)
+
+
 def rows_of(name, rows):
-    """A kernel's rows: ``conv2d_implicit_gemm``'s take its dilated ones
-    too (its count does), ``DILATED``'s only those."""
-    kinds = (name, DILATED) if name == "conv2d_implicit_gemm" else (name,)
-    return [r for r in rows if r["kernel"] in kinds]
+    """A kernel's rows: those of the launches its count counts
+    (``conv2d_implicit_gemm``'s take its dilated and ragged ones too)."""
+    return [r for r in rows if name in r["counted"]]
 
 
 def drive(label, eng, x):
@@ -794,9 +836,7 @@ def drive(label, eng, x):
           f"{label}: output {tuple(out.shape)}, expected {want}")
     check(bool(torch.isfinite(out.float()).all()), "non-finite output")
     recorded = {name: sum(launches_of(r) for r in recorder.launches
-                          if r["kernel"] == name) for name in WRAPPERS}
-    recorded[DILATED] = sum(row_kernel(r) == DILATED
-                            for r in recorder.launches)
+                          if name in counted_as(r)) for name in KERNELS}
     check(recorded == counts, f"recorded {recorded} vs counted {counts}")
     return out, recorder.launches
 
@@ -1012,15 +1052,32 @@ def _time_matmul(m, k, n, dtype):
     return median_ms(lambda: a @ b)
 
 
-def _time_int_mm(m, k, n):
+def library_padded(kernel, a, group=1):
+    """Whether the launch's library time is ``_int_mm`` on zero-padded
+    operands: an int8 GEMM, undilated and not grouped, whose (M, K, N)
+    ``_int_mm`` refuses as it stands (it takes M > 16 and K, N multiples
+    of 8)."""
     import torch
-    if m <= 16 or k % 8 or n % 8:
-        return None
+    if kernel not in GEMMS or a["x"].dtype != torch.int8 or group > 1 \
+            or a.get("dilation", 1) > 1:
+        return False
+    m, k, n = dims(kernel, a)
+    return m <= 16 or k % 8 != 0 or n % 8 != 0
+
+
+def _time_int_mm(m, k, n):
+    """``torch._int_mm`` at (M, K, N); where it refuses the shape, on
+    operands zero-padded to its rules (M to 17, K and N to multiples of
+    8), made padded (the padding is not timed)."""
+    import torch
+    mp, kp, np_ = max(m, 17), -(-k // 8) * 8, -(-n // 8) * 8
     gen = torch.Generator(device="cuda").manual_seed(1)
-    a = torch.randint(-127, 128, (m, k), dtype=torch.int8, device="cuda",
-                      generator=gen)
-    bt = torch.randint(-127, 128, (n, k), dtype=torch.int8, device="cuda",
-                       generator=gen)
+    a = torch.zeros(mp, kp, dtype=torch.int8, device="cuda")
+    a[:m, :k] = torch.randint(-127, 128, (m, k), dtype=torch.int8,
+                              device="cuda", generator=gen)
+    bt = torch.zeros(np_, kp, dtype=torch.int8, device="cuda")
+    bt[:n, :k] = torch.randint(-127, 128, (n, k), dtype=torch.int8,
+                               device="cuda", generator=gen)
     try:
         return median_ms(lambda: torch._int_mm(a, bt.t()))
     except RuntimeError as e:       # a yardstick: its absence fails nothing
@@ -1046,22 +1103,40 @@ def _time_conv(x_shape, k, co, stride, pad_h, pad_w, dilation=1):
                                       dilation=dilation))
 
 
-def _time_grouped_conv(x_shape, kh, kw, co, stride, pad_h, pad_w, group):
-    """F.conv2d(groups=group) with its bias in f32 (TF32 off) on
-    channels-last int8 values, at a block-diagonal launch's shape."""
+def _time_grouped_conv(x_shape, kh, kw, co, stride, pad_h, pad_w, group,
+                       dtype=None):
+    """F.conv2d(groups=group) with its bias in f32 (TF32 off), or in
+    ``dtype`` (bf16), on channels-last int8 values, at a block-diagonal
+    launch's shape."""
     import torch
     import torch.nn.functional as F
     nb, h, w, c = x_shape
+    dtype = dtype or torch.float32
     gen = torch.Generator(device="cuda").manual_seed(1)
     x = torch.randint(-127, 128, (nb, c, h, w), device="cuda",
-                      generator=gen).float().contiguous(
+                      generator=gen).to(dtype).contiguous(
                           memory_format=torch.channels_last)
     wt = torch.randint(-127, 128, (co, c // group, kh, kw), device="cuda",
-                       generator=gen).float().contiguous(
+                       generator=gen).to(dtype).contiguous(
                            memory_format=torch.channels_last)
-    b = torch.randn(co, device="cuda", generator=gen)
+    b = torch.randn(co, device="cuda", generator=gen).to(dtype)
     return median_ms(lambda: F.conv2d(x, wt, b, stride=stride,
                                       padding=(pad_h, pad_w), groups=group))
+
+
+def _library_bf16_grouped(a, group):
+    """bf16 channels-last ``F.conv2d(groups=group)`` at a block-diagonal
+    launch's shape, beside the f32 call of ``library_ms``; timed once per
+    shape."""
+    import torch
+    x, w = a["x"], a["w"]
+    key = ("grouped bf16", tuple(x.shape), tuple(w.shape), a["stride"],
+           a["pad_h"], a["pad_w"], group)
+    if key not in _LIBRARY_MS:
+        _LIBRARY_MS[key] = _time_grouped_conv(
+            tuple(x.shape), w.shape[0], w.shape[1], w.shape[3], a["stride"],
+            a["pad_h"], a["pad_w"], group, torch.bfloat16)
+    return _LIBRARY_MS[key]
 
 
 def _time_dw_conv(d, stride, pad_h, pad_w):
@@ -1145,55 +1220,72 @@ def dw_tile_ms(kernel, a, want):
     return res
 
 
+def forced_launch(kernel, a, out, plan, what):
+    """A callable that launches the GEMM kernel on the recorded call's
+    tensors ``a`` into ``out`` (contiguous, as the wrapper makes it) with
+    ``plan`` forced, through the C entry point (uncounted: the wrapper is
+    not called); a CUDA error fails the run as ``what``."""
+    import torch
+    from feathercnn_tpu_torch.kernels.build import load_library
+    from feathercnn_tpu_torch.kernels.matmul import launch_args
+    check(out.is_contiguous(), f"{what}: the output must be contiguous")
+    lib = load_library()
+    vecs = {k: a[k] for k in ("bias", "w_scale", "lo", "hi")}
+    ptrs, codes, _ = launch_args(a["x"], a["w"], out, vecs, a["activation"],
+                                 out.dtype)
+    scales = (float(a["x_scale"]), float(a["out_scale"]))
+
+    def run():
+        st = torch.cuda.current_stream().cuda_stream
+        if kernel == "matmul_epilogue":
+            m, k, n = dims(kernel, a)
+            rc = lib.fcnn_matmul_epilogue(*ptrs, m, k, n, *codes, *scales,
+                                          *plan.args(), None, st)
+        else:
+            nb, h, w, c = a["x"].shape
+            kh, kw, _, co = a["w"].shape
+            geometry = (nb, h, w, c, kh, kw, co, a["stride"], a["stride"],
+                        a["pad_h"], a["pad_w"])
+            d = a.get("dilation", 1)
+            if d == 1:
+                rc = lib.fcnn_conv_implicit_gemm(
+                    *ptrs, *geometry, *codes, *scales, *plan.args(), None,
+                    st)
+            else:
+                rc = lib.fcnn_conv_implicit_gemm_dilated(
+                    *ptrs, *geometry, d, *codes, *scales, *plan.args(),
+                    None, st)
+        check(rc == 0, f"{what}: CUDA error {rc}")
+    return run
+
+
 _W8_ALT_MS = {}
 
 
 def w8_other_plans_ms(kernel, a, want):
     """{plan: median ms} of a "wgmma_w8" GEMM launch on the plans it did
     not take, launched through the C entry point on the same tensors with
-    the plan forced (uncounted: the wrapper is not called), each held
-    within the float gate of ``want`` (the plain version); timed once per
-    shape: "simt" (the body these launches took before; 5 runs, the
-    largest VGG-16 launch takes ~28 ms on it) and, for a matrix whose K the
-    plan splits, "unsplit" (the same body on its 128 x BN tiles alone, one
-    block each)."""
+    the plan forced (``forced_launch``), each held within the float gate
+    of ``want`` (the plain version); timed once per shape: "simt" (the body
+    these launches took before; 5 runs, the largest VGG-16 launch takes
+    ~28 ms on it) and, for a matrix whose K the plan splits, "unsplit"
+    (the same body on its 128 x BN tiles alone, one block each)."""
     import torch
-    from feathercnn_tpu_torch.kernels.build import load_library
-    from feathercnn_tpu_torch.kernels.matmul import GemmPlan, launch_args
+    from feathercnn_tpu_torch.kernels.matmul import GemmPlan
     key = (kernel, tuple(a["x"].shape), tuple(a["w"].shape), a.get("stride"),
            want.dtype)
     if key in _W8_ALT_MS:
         return _W8_ALT_MS[key]
-    vecs = {k: a[k] for k in ("bias", "w_scale", "lo", "hi")}
-    lib = load_library()
-    plans = {"simt": GemmPlan("simt")}
     taken = gemm_plan_of(kernel, a)
+    plans = {"simt": GemmPlan("simt", ldw=taken.ldw)}
     if taken.split > 1:
         m, _, n = dims(kernel, a)
         plans["unsplit"] = taken._replace(
             split=1, grid=-(-m // 128) * -(-n // taken.bn))
     res = {}
     for name, plan in plans.items():
-        out = torch.empty_like(want)
-        ptrs, codes, _ = launch_args(a["x"], a["w"], out, vecs,
-                                     a["activation"], want.dtype)
-
-        def run(plan=plan, ptrs=ptrs, codes=codes):
-            st = torch.cuda.current_stream().cuda_stream
-            if kernel == "matmul_epilogue":
-                m, k, n = dims(kernel, a)
-                rc = lib.fcnn_matmul_epilogue(
-                    *ptrs, m, k, n, *codes, float(a["x_scale"]),
-                    float(a["out_scale"]), *plan.args(), None, st)
-            else:
-                nb, h, w, c = a["x"].shape
-                kh, kw, _, co = a["w"].shape
-                rc = lib.fcnn_conv_implicit_gemm(
-                    *ptrs, nb, h, w, c, kh, kw, co, a["stride"],
-                    a["stride"], a["pad_h"], a["pad_w"], *codes,
-                    float(a["x_scale"]), float(a["out_scale"]),
-                    *plan.args(), None, st)
-            check(rc == 0, f"{kernel} on {name}: CUDA error {rc}")
+        out = torch.empty(want.shape, dtype=want.dtype, device=want.device)
+        run = forced_launch(kernel, a, out, plan, f"{kernel} on {name}")
         run()
         err, ok, _ = compare(out, want, "float")
         check(ok, f"{kernel} x{tuple(a['x'].shape)} on {name}: max err {err}")
@@ -1201,6 +1293,32 @@ def w8_other_plans_ms(kernel, a, want):
                      else median_ms(run))
     _W8_ALT_MS[key] = res
     return res
+
+
+_RAGGED_OLD_MS = {}
+
+
+def ragged_old_body_ms(kernel, a, want):
+    """{"mma_sync": median ms} of a "wgmma_ragged" launch on the body such
+    launches took before ("mma_sync", the first body), with the plan
+    forced through the C entry point on the same tensors
+    (``forced_launch``), held equal to ``want`` (the plain version: int8
+    0 LSB, bf16 1 ulp); timed once per shape."""
+    import torch
+    from feathercnn_tpu_torch.kernels.matmul import GemmPlan
+    key = (kernel, tuple(a["x"].shape), tuple(a["w"].shape), a.get("stride"),
+           a.get("pad_h"), a.get("dilation", 1), want.dtype)
+    if key not in _RAGGED_OLD_MS:
+        # (the plain conv's output has the f64 conv's permuted strides)
+        out = torch.empty(want.shape, dtype=want.dtype, device=want.device)
+        plan = GemmPlan("mma_sync", ldw=gemm_plan_of(kernel, a).ldw)
+        run = forced_launch(kernel, a, out, plan, f"{kernel} on mma_sync")
+        run()
+        err, ok, _ = compare(out, want)
+        check(ok, f"{kernel} x{tuple(a['x'].shape)} on mma_sync: max err "
+              f"{err}")
+        _RAGGED_OLD_MS[key] = {"mma_sync": median_ms(run)}
+    return _RAGGED_OLD_MS[key]
 
 
 _CHAIN_ALT_MS = {}
@@ -1310,6 +1428,8 @@ def kernels_vs_plain(label, launches, groups=None):
                 tiles = chain_alt_ms(a, out)
             elif launch.get("variant") == "wgmma_w8":
                 tiles = w8_other_plans_ms(name, a, ref)
+            elif launch.get("variant") == "wgmma_ragged":
+                tiles = ragged_old_body_ms(name, a, ref)
             del ref
         desc = describe(name, a, out) + (f" block-diagonal g={group}"
                                          if group > 1 else "")
@@ -1317,6 +1437,7 @@ def kernels_vs_plain(label, launches, groups=None):
               f"max err {max_err}, {over} elements over 1 ulp")
         b_ms, b_by = bound_ms(name, a, out, group)
         rows.append({"path": label, "kernel": row_kernel(launch),
+                     "counted": counted_as(launch),
                      "shape": desc,
                      "x_shape": tuple(a["x"].shape if "x" in a
                                       else a["xq"].shape),
@@ -1335,6 +1456,9 @@ def kernels_vs_plain(label, launches, groups=None):
                                         if group > 1 else b_ms),
                      "group": group,
                      "library_ms": library_ms(name, a, group),
+                     "library_padded": library_padded(name, a, group),
+                     "library_bf16_ms": (_library_bf16_grouped(a, group)
+                                         if group > 1 else None),
                      "tiles": tiles})
     for desc in dict.fromkeys(r["shape"] for r in rows):
         same = [r for r in rows if r["shape"] == desc]
@@ -1352,7 +1476,12 @@ def kernels_vs_plain(label, launches, groups=None):
             f"{100 * same[0]['bound_ms'] / med:.1f}% of it), plain "
             f"{statistics.median(r['plain_ms'] for r in same):.3f} ms, "
             + _library_name(desc) + f" {lib if lib is None else round(lib, 4)}"
+            + (" (on operands zero-padded to its rules)"
+               if same[0]["library_padded"] else "")
             + ("" if lib is None else f" ({med / lib:.2f}x library)")
+            + ("" if same[0]["library_bf16_ms"] is None else
+               f", bf16 F.conv2d(groups) {same[0]['library_bf16_ms']:.4f} "
+               f"({med / same[0]['library_bf16_ms']:.2f}x)")
             + (f", variant {same[0]['variant']}" if same[0]["variant"]
                else "")
             + ("" if not same[0]["tiles"] else (
@@ -1385,6 +1514,23 @@ def kernels_vs_plain(label, launches, groups=None):
                    f"{sum(r['ms'] for r in unsplit):.4f} ms, unsplit "
                    f"{sum(r['tiles']['unsplit'] for r in unsplit):.4f}"
                    if unsplit else ""))
+    for kern in GEMMS:
+        mine = [r for r in rows if RAGGED[kern] in r["counted"]]
+        if mine:
+            sums = _sums(mine)
+            old = sum(r["tiles"]["mma_sync"] for r in mine)
+            say(label, f"{kern} ragged launches of one forward: {len(mine)}"
+                f", {sums['ms']:.4f} ms on wgmma_ragged, bound "
+                f"{sums['bound_ms']:.4f} ms "
+                f"({100 * sums['bound_ms'] / sums['ms']:.1f}% of it), "
+                f"{old:.4f} on mma_sync (the old body, each equal "
+                f"to plain; {old / sums['ms']:.2f}x), plain "
+                f"{sums['plain_ms']:.3f}, library _int_mm "
+                + ("none" if sums["library_ms"] is None else
+                   f"{sums['library_ms']:.4f} "
+                   f"({sums['ms'] / sums['library_ms']:.2f}x")
+                + f"; {sum(r['library_padded'] for r in mine)} of them on "
+                f"zero-padded operands)")
     for var in ("k3s1", "k3s2"):
         mine = [r for r in rows if r["tiles"] and r["variant"] == var]
         if not mine:
@@ -1702,7 +1848,8 @@ def run_path(label, g, cfg, eng, x, smi, check_launch=None):
             f"conv2d_implicit_gemm, bound {sums['bound_ms']:.4f} ms for "
             f"the grouped work, {sum(r['dense_bound_ms'] for r in grouped):.4f}"
             f" for the dense product the kernel computes; f32 "
-            f"F.conv2d(groups) {sums['library_ms']:.4f} ms; variants "
+            f"F.conv2d(groups) {sums['library_ms']:.4f} ms, bf16 "
+            f"{sum(r['library_bf16_ms'] for r in grouped):.4f} ms; variants "
             f"{sorted({r['variant'] for r in grouped})}")
     for name in KERNELS:
         mine = rows_of(name, rows)
@@ -1912,8 +2059,9 @@ def ragged_cases():
         f"equal to plain (int8 0 LSB, bf16 1 ulp, f32 1e-5 of the largest "
         f"value; the chain cases exactly)")
     n = ragged_gemm(gen)
-    say("kernels", f"{n} GEMM cases at the edges of the wgmma and wgmma_w8 "
-        f"designs, each on its planned variant and within its gate (int8 x "
+    say("kernels", f"{n} GEMM cases at the edges of the wgmma, wgmma_ragged "
+        f"and wgmma_w8 designs, each on its planned variant and within its "
+        f"gate (int8 x "
         f"equal to plain, float x the float gate; 2 of them dot1x1's int8 "
         f"product, torch._int_mm)")
     n = ragged_float_chain(gen) + ragged_ident(gen)
@@ -2038,9 +2186,10 @@ def ragged_gemm(gen):
     plain version and on the variant its plan names: M not a multiple of
     the 128-row tile, N = 24 and 1000, K = 16, 24, 32, 2048, every output
     type, the lo/hi clamp, a persistent grid with several tiles per block,
-    stride-2 convs with C = 16, 24, 64, misaligned x (the "mma_sync"
-    variant), bf16 x with an even and an odd K; and the refusal of a weight
-    not in gemm_layout."""
+    stride-2 convs with C = 8, 16, 24, 64, misaligned x (a matrix's on
+    "wgmma_ragged", a conv's on "mma_sync"), the ragged rows
+    (``ragged_rows``), bf16 x with an even and an odd K; and the refusal of
+    a weight not in gemm_layout."""
     import torch
     from feathercnn_tpu_torch.kernels.matmul import gemm_layout
     fns = _kernel_fns()
@@ -2082,13 +2231,14 @@ def ragged_gemm(gen):
                          w_scale=f32(nn) * 1e-3, activation=None if clamp
                          else "relu", out_dtype=out_dtype, x_scale=0.02,
                          out_scale=0.6, lo=lo, hi=hi)
-                run("matmul_epilogue", a, "mma_sync" if k % 16 else "wgmma",
+                run("matmul_epilogue", a,
+                    "wgmma_ragged" if k % 16 else "wgmma",
                     f"matmul {(m, k, nn)} {out_dtype} clamp={clamp}")
                 n += 1
     a = dict(x=misaligned(515, 64), w=gemm_layout(i8(64, 200)),
              bias=f32(200), w_scale=f32(200) * 1e-3, activation="relu",
              out_dtype=torch.int8, x_scale=0.02, out_scale=0.6)
-    run("matmul_epilogue", a, "mma_sync", "matmul with misaligned x")
+    run("matmul_epilogue", a, "wgmma_ragged", "matmul with misaligned x")
     n += 1
     for (nb, h, w, c, co, k, s, p) in [(3, 17, 15, 64, 96, 3, 2, 1),
                                        (2, 19, 13, 16, 40, 3, 2, 1),
@@ -2101,7 +2251,7 @@ def ragged_gemm(gen):
                      pad_w=p, activation="relu6", out_dtype=out_dtype,
                      x_scale=0.02, out_scale=0.5)
             run("conv2d_implicit_gemm", a,
-                "mma_sync" if c % 16 else "wgmma",
+                "wgmma_ragged" if c % 16 else "wgmma",
                 f"conv {(nb, h, w, c, co, k, s)} {out_dtype}")
             n += 1
     a = dict(x=misaligned(2, 9, 9, 32), w=gemm_layout(i8(3, 3, 32, 48)),
@@ -2110,6 +2260,7 @@ def ragged_gemm(gen):
              out_scale=0.5)
     run("conv2d_implicit_gemm", a, "mma_sync", "conv with misaligned x")
     n += 1
+    n += ragged_rows(run)
     for (m, k, nn, want) in [(128, 2048, 1000, "mma_bf16"),
                              (77, 136, 24, "mma_bf16"),
                              (300, 130, 72, "simt")]:
@@ -2153,6 +2304,73 @@ def ragged_gemm(gen):
             check(False, f"{name}: a weight not in gemm_layout was taken")
         except ValueError:
             pass
+    return n
+
+
+def ragged_rows(run):
+    """"wgmma_ragged" at the launches it was made for, each on its planned
+    variant and equal to plain (``run``; int8 0 LSB, bf16 1 ulp), on a
+    generator of its own (the cases after keep their inputs): matrices at
+    K = 24, 58, 116 and 232 (the ShuffleNets' and MobileNet-v2's 1x1
+    convs) with M and N not multiples of the tile, and 5x5 and 3x3 convs on
+    C = 24 (GoogLeNet's 5x5 convs) at stride 1 and 2, each with x at 0, 2,
+    4 and 8 bytes from an aligned base (a matrix takes any offset; a conv
+    gathers 8-byte pieces, so at 2 and 4 it keeps "mma_sync"), bf16 out at
+    offset 0; then a ragged K past RAGGED_K_MAX on "mma_sync".  The
+    reasons of the launches not on "wgmma_ragged" are printed."""
+    import torch
+    from feathercnn_tpu_torch.kernels.matmul import RAGGED_K_MAX, gemm_layout
+    gen = torch.Generator(device="cuda").manual_seed(11)
+
+    def at(off, *shape):        # x at ``off`` bytes past an aligned base
+        size = math.prod(shape)
+        flat = torch.randint(-127, 128, (size + 16,), dtype=torch.int8,
+                             device="cuda", generator=gen)
+        return flat[off:off + size].view(*shape)
+
+    def vec(nn):
+        return torch.rand(nn, device="cuda", generator=gen) + 0.5
+
+    def epilogue(nn, out_dtype, act):
+        return dict(bias=vec(nn), w_scale=vec(nn) * 1e-3, activation=act,
+                    out_dtype=out_dtype, x_scale=0.02, out_scale=20.0)
+
+    n, planned = 0, {}
+    for (m, k, nn) in [(3001, 24, 144), (1000, 58, 58), (777, 116, 116),
+                       (300, 232, 232), (129, 24, 24)]:
+        for off in (0, 2, 4, 8):
+            for out_dtype in ((torch.int8, torch.bfloat16) if off == 0
+                              else (torch.int8,)):
+                a = dict(x=at(off, m, k), w=gemm_layout(at(0, k, nn)),
+                         **epilogue(nn, out_dtype, "relu"))
+                run("matmul_epilogue", a, "wgmma_ragged",
+                    f"ragged matmul {(m, k, nn)} x+{off} {out_dtype}")
+                n += 1
+    for (nb, h, w, co, kk, s) in [(2, 14, 14, 64, 5, 1), (3, 13, 11, 40, 5, 2),
+                                  (2, 12, 10, 32, 3, 1), (2, 11, 9, 72, 3, 2)]:
+        for off in (0, 2, 4, 8):
+            want = "wgmma_ragged" if off % 8 == 0 else "mma_sync"
+            for out_dtype in ((torch.int8, torch.bfloat16) if off == 0
+                              else (torch.int8,)):
+                a = dict(x=at(off, nb, h, w, 24),
+                         w=gemm_layout(at(0, kk, kk, 24, co)), stride=s,
+                         pad_h=kk // 2, pad_w=kk // 2,
+                         **epilogue(co, out_dtype, "relu6"))
+                what = f"ragged conv {(nb, h, w, 24, co, kk, s)} x+{off}"
+                run("conv2d_implicit_gemm", a, want, f"{what} {out_dtype}")
+                if want != "wgmma_ragged":
+                    planned[what] = gemm_plan_of("conv2d_implicit_gemm",
+                                                 a).reason
+                n += 1
+    k = RAGGED_K_MAX + 44
+    a = dict(x=at(0, 500, k), w=gemm_layout(at(0, k, 64)),
+             **epilogue(64, torch.int8, "relu"))
+    run("matmul_epilogue", a, "mma_sync", f"ragged matmul K = {k}")
+    planned[f"ragged matmul K = {k}"] = gemm_plan_of("matmul_epilogue",
+                                                     a).reason
+    n += 1
+    for what, why in planned.items():
+        say("ragged", f"{what}: mma_sync, as planned ({why})")
     return n
 
 
@@ -2501,6 +2719,7 @@ def kernel_summary(name, rows, counts):
         shapes.append({
             "shape": desc, "calls": len(same),
             "variant": same[0]["variant"],
+            "library_padded": same[0]["library_padded"],
             "launches": sum(r["launches"] for r in same),
             "bound_by": same[0]["bound_by"],
             "max_abs_err": max(r["max_abs_err"] for r in same),
@@ -2518,6 +2737,13 @@ def kernel_summary(name, rows, counts):
     if name == DILATED:
         library = ("bf16 F.conv2d(dilation=d), channels-last, on the "
                    "dequantized tensors; PyTorch has no int8 conv on the card")
+    old_body = {}
+    if name in RAGGED.values():
+        library = ("torch._int_mm at the launch's (M, K, N), on operands "
+                   "zero-padded to its rules where it refuses the shape")
+        # the same launches on the body they took before this variant
+        old_body = {"old_body": "mma_sync", "old_body_ms": sum(
+            r["tiles"]["mma_sync"] for r in main_rows)}
     if name in CHAINS:
         library = "none: no single PyTorch call computes a bottleneck"
     elif name == "ident":
@@ -2531,6 +2757,7 @@ def kernel_summary(name, rows, counts):
         "bound_by": "bytes" if 2 * by_bytes >= sums["bound_ms"]
         else "operations",
         "library": library,
+        **old_body,
         "paths": [{"path": p, "launches": counts[p][name],
                    **_sums([r for r in mine if r["path"] == p])}
                   for p in paths],

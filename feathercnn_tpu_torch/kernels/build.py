@@ -44,21 +44,22 @@ _SIGNATURES = {
                              _I, _I, _I, _I, _I, _I, _I,      # M K N xt wt ot act
                              _F, _F,                          # x_scale out_scale
                              _I, _I, _I, _I, _I, _I, _I,      # plan: variant bn bk stages
-                             _I, _I, _I,                      #   bres grid smem split th tw
+                             _I, _I, _I, _I, _I,              #   bres grid smem split th tw
+                                                              #   ldw sst
                              _P, _P],                         # ws stream
     "fcnn_conv_implicit_gemm": [_P, _P, _P, _P, _P, _P, _P,
                                 _I, _I, _I, _I, _I, _I, _I,   # N H W C KH KW Co
                                 _I, _I, _I, _I,               # sh sw ph pw
                                 _I, _I, _I, _I,               # xt wt ot act
                                 _F, _F, _I, _I, _I, _I, _I, _I, _I, _I,
-                                _I, _I, _P, _P],
+                                _I, _I, _I, _I, _P, _P],
     # the same with the dilation after pw
     "fcnn_conv_implicit_gemm_dilated": [_P, _P, _P, _P, _P, _P, _P,
                                         _I, _I, _I, _I, _I, _I, _I,
                                         _I, _I, _I, _I, _I,   # sh sw ph pw d
                                         _I, _I, _I, _I,
                                         _F, _F, _I, _I, _I, _I, _I, _I, _I,
-                                        _I, _I, _I, _P, _P],
+                                        _I, _I, _I, _I, _I, _P, _P],
     "fcnn_depthwise_conv2d": [_P, _P, _P, _P,                # x w out b
                               _I, _I, _I, _I, _I, _I,        # N H W C KH KW
                               _I, _I, _I, _I,                # sh sw ph pw

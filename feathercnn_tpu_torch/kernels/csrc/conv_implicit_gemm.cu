@@ -32,9 +32,15 @@
 // counters, so the K loop has no division; a bounds check stands in for
 // the zero padding), ahead of two consumer warpgroups running wgmma
 // m64nBNk32 with int32 accumulation over the whole K.  The epilogue is
-// staged through shared memory and leaves as 16-byte row pieces.  C not a
-// multiple of 16 (or C < 16) or a misaligned pointer takes the mma.sync
-// variant; f32 x the SIMT loop.
+// staged through shared memory and leaves as 16-byte row pieces.  C a
+// multiple of 8 but not of 16 (GoogLeNet's 5x5 convs on C = 24), or an x
+// 8- but not 16-byte aligned, takes "wgmma_ragged": the same kernel with
+// the gather in 8-byte cp.async pieces (a tap's channels are whole 8-byte
+// pieces; the src-size 0 form zero-fills the padding and the K past its
+// end) and the weight's rows padded to a 16-byte pitch once per node
+// (gemm_layout), so that B still comes by TMA.  C not a multiple of 8 or
+// an x not 8-byte aligned takes the mma.sync variant (no zoo launch); f32
+// x the SIMT loop.
 //
 // Weight-only int8 (bf16 x, int8 w: VGG-16 w8's twelve 3x3 convs after the
 // stem, C and Co 64 to 512, stride 1) is bound by the bf16 tensor cores
@@ -73,8 +79,8 @@ int conv_implicit_gemm(
     int W, int C, int KH, int KW, int Co, int sh, int sw, int ph, int pw,
     int d, int x_type, int w_type, int out_type, int act, float x_scale,
     float out_scale, int variant, int bn, int bk, int stages, int bres,
-    int grid, int smem, int split, int th, int tw, void* ws,
-    void* stream) {
+    int grid, int smem, int split, int th, int tw, int ldw, int sst,
+    void* ws, void* stream) {
   if (d < 1) return static_cast<int>(cudaErrorInvalidValue);
   // the dilated kernel spans d*(K-1)+1 pixels; a span past the padded
   // input leaves no output
@@ -98,9 +104,9 @@ int conv_implicit_gemm(
   const fcnn::Epilogue e = fcnn::make_epilogue(
       out, bias, w_scale, lo, hi, act, x_scale, out_scale, out_type);
   return fcnn::launch_gemm(
-      a, w, Co, x_type, w_type, C % 16 == 0 && C >= 16,
+      a, w, Co, x_type, w_type,
       fcnn::make_plan(variant, bn, bk, stages, bres, grid, smem, split, th,
-                      tw),
+                      tw, ldw, sst),
       static_cast<float*>(ws), e,
       static_cast<cudaStream_t>(stream));
 }
@@ -114,13 +120,13 @@ extern "C" int fcnn_conv_implicit_gemm(
     int W, int C, int KH, int KW, int Co, int sh, int sw, int ph, int pw,
     int x_type, int w_type, int out_type, int act, float x_scale,
     float out_scale, int variant, int bn, int bk, int stages, int bres,
-    int grid, int smem, int split, int th, int tw, void* ws,
-    void* stream) {
+    int grid, int smem, int split, int th, int tw, int ldw, int sst,
+    void* ws, void* stream) {
   return conv_implicit_gemm(x, w, out, bias, w_scale, lo, hi, N, H, W, C,
                             KH, KW, Co, sh, sw, ph, pw, 1, x_type, w_type,
                             out_type, act, x_scale, out_scale, variant, bn,
-                            bk, stages, bres, grid, smem, split, th, tw, ws,
-                            stream);
+                            bk, stages, bres, grid, smem, split, th, tw, ldw,
+                            sst, ws, stream);
 }
 
 // The same conv at dilation d: tap (kh, kw) reads pixel (kh*d, kw*d) of
@@ -131,11 +137,11 @@ extern "C" int fcnn_conv_implicit_gemm_dilated(
     int W, int C, int KH, int KW, int Co, int sh, int sw, int ph, int pw,
     int d, int x_type, int w_type, int out_type, int act, float x_scale,
     float out_scale, int variant, int bn, int bk, int stages, int bres,
-    int grid, int smem, int split, int th, int tw, void* ws,
-    void* stream) {
+    int grid, int smem, int split, int th, int tw, int ldw, int sst,
+    void* ws, void* stream) {
   return conv_implicit_gemm(x, w, out, bias, w_scale, lo, hi, N, H, W, C,
                             KH, KW, Co, sh, sw, ph, pw, d, x_type, w_type,
                             out_type, act, x_scale, out_scale, variant, bn,
-                            bk, stages, bres, grid, smem, split, th, tw, ws,
-                            stream);
+                            bk, stages, bres, grid, smem, split, th, tw, ldw,
+                            sst, ws, stream);
 }

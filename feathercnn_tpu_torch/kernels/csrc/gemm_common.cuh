@@ -39,13 +39,33 @@
 // per-column constants are made once, each element takes epilogue_value's
 // steps as short branch-free code (measured: the branchy per-element code,
 // unrolled over up to 128 accumulators a thread, cost more than the whole
-// main loop at K = 64), and the tile leaves as 16-byte row pieces.  The
-// whole K accumulates in int32: exact.
+// main loop at K = 64), with the activation's, the lo/hi and an int8
+// output's +-127 clamps folded into one per column (column_pair), and the
+// tile leaves as 16-byte row pieces; a tile that spans all of an even N
+// whose rows are not 16-byte pieces is staged packed and leaves as one
+// run.  At K <= 256 that arithmetic, not the bytes, binds the launch
+// (tools/int8_gemm_probe.py --parts).  The whole K accumulates in int32:
+// exact.
 //
-// The shapes it cannot take (the host's plan decides before the launch):
-// a row pitch that is not a multiple of 16 bytes (K or C), a pointer that
-// is not 16-byte aligned, C < 16.  They take variant "mma_sync"
-// (igemm_kernel): mma.sync m16n8k32 over single-byte tiles.  bf16 x bf16
+// Rows that are not whole 16-byte pieces (K or C not a multiple of 16, or
+// a matrix's x not 16-byte aligned) take variant "wgmma_ragged": the same
+// kernel, ring, consumers and epilogue with another A path.  The weight's
+// rows are padded to a 16-byte pitch once per node (gemm_layout; the
+// kernel reads the pitch, ldw, and TMA fills the bytes past K with zeros),
+// so B still comes by TMA.  A matrix's 128-row A tile is one run of
+// 128 * K bytes (whatever K is): a bulk copy (cp.async.bulk) brings the
+// run's 16-byte-aligned middle into a staging ring of its own, a few tiles
+// ahead, the producer's threads copy the unaligned head and tail bytes,
+// and then each thread re-lays its row into the swizzled K-major stage,
+// funnel-shifting aligned 32-bit words into 16-byte pieces and writing
+// zeros from K to the K step.  HBM bytes are the useful bytes.  Up to
+// K = 256 (RAGGED_K_MAX: the staged tiles fit beside the ring).  A conv
+// with C a multiple of 8 gathers A with 8-byte cp.async (a tap's channels
+// are whole 8-byte pieces; the src-size 0 form zero-fills the padding and
+// the K past its end).  What is left takes variant "mma_sync"
+// (igemm_kernel, mma.sync m16n8k32 over single-byte tiles): C not a
+// multiple of 8 (the stems' C = 3), a conv x not 8-byte aligned, a ragged
+// matrix past K = 256; no zoo launch takes it.  bf16 x bf16
 // (variant "mma_bf16", bgemm_kernel) runs mma.sync m16n8k16 with each warp
 // summing its own slice of K and a fixed-order reduction across warps.
 //
@@ -93,7 +113,8 @@ enum Variant {
   V_MMA_S8 = 1,
   V_WGMMA_S8 = 2,
   V_MMA_BF16 = 3,
-  V_WGMMA_W8 = 4
+  V_WGMMA_W8 = 4,
+  V_WGMMA_RAGGED = 5
 };
 
 struct Epilogue {
@@ -112,7 +133,9 @@ struct Epilogue {
 // "wgmma_w8" the tile width, the K step in bytes, the ring's stages,
 // whether the weight panel stays resident, the grid and the dynamic shared
 // memory, which the kernel's own layout must equal, and the K slices
-// ("wgmma_w8" matrices: 1, or the split-K slices summed by a second pass).
+// ("wgmma_w8" matrices: 1, or the split-K slices summed by a second pass);
+// the weight's row pitch and, for a "wgmma_ragged" matrix, the tiles its
+// staging ring holds.
 struct GemmPlan {
   int variant;
   int bn;
@@ -124,6 +147,8 @@ struct GemmPlan {
   int split;
   int th;  // "wgmma_w8" conv: the output tile's rows and columns of pixels
   int tw;  // when A comes by TMA, one box per tap (0: gathered)
+  int ldw;  // elements between the weight's (N, K) rows (0: K)
+  int sst;  // "wgmma_ragged" matrix: staged A tiles in flight (>= 2)
 };
 
 // y = act(acc * w_scale[n] * x_scale + bias[n]), then the lo/hi clamp.
@@ -214,6 +239,13 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src,
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
                :: "r"(smem_u32(dst)), "l"(src), "r"(valid ? 16 : 0));
 }
+// 8 bytes, the same way (cp.async.ca: .cg copies 16 bytes only).
+__device__ __forceinline__ void cp_async8(void* dst, const void* src,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n"
+               :: "r"(smem_u32(dst)), "l"(src), "r"(valid ? 8 : 0));
+}
+
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
 }
@@ -432,6 +464,17 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// ``bytes`` (a multiple of 16) from global src to shared dst, both 16-byte
+// aligned, by the bulk copy engine; completion is counted on bar.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n"
+      :: "r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
 // A 4-D box (c0 innermost); coordinates may be negative or past the end,
 // where the box fills with zeros.
 __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
@@ -492,19 +535,34 @@ __host__ __device__ constexpr int out_size(int out_type) {
   return out_type == DT_F32 ? 4 : out_type == DT_BF16 ? 2 : 1;
 }
 
-// Dynamic shared memory of wgemm_kernel<A, BN, BK> (gemm_plan in
+// A "wgmma_ragged" matrix's K at most: its staged tiles (128 * K bytes
+// each, at least two) fit beside the ring.
+constexpr int RAGGED_K_MAX = 256;
+
+// One staging buffer of a "wgmma_ragged" matrix: a tile's 128 * K bytes,
+// placed at the run's own offset mod 16 (so the bulk copy's aligned middle
+// lands aligned), plus the 20 bytes the re-lay's last word loads may read
+// past it, in 128-byte units.
+__host__ __device__ constexpr int ragged_stage_bytes(int k) {
+  return (WG_BM * k + 48 + 127) / 128 * 128;
+}
+
+// Dynamic shared memory of wgemm_kernel<A, BN, BK, RAGGED> (gemm_plan in
 // kernels/matmul.py computes the same): 1024 bytes of alignment slack; the
 // ring of (A, B) stages, or of A stages and the resident weight panel
-// (bres: k_steps tiles of BN x BK); two barriers per stage and the panel's
-// (16 bytes); each consumer's per-column epilogue constants (48 bytes per
-// column pair) and staged output tile (64 rows of BN * out_size + 16
-// bytes); the conv's row table.
+// (bres: k_steps tiles of BN x BK); a ragged matrix's sst staging buffers
+// of sb bytes; two barriers per stage and the panel's (16 bytes), and one
+// per staging buffer (16 bytes each); each consumer's per-column epilogue
+// constants (48 bytes per column pair) and staged output tile (64 rows of
+// BN * out_size + 16 bytes); the conv's row table.
 __host__ __device__ constexpr int wgemm_smem(int bn, int bk, int stages,
                                              int k_steps, bool bres,
-                                             int osize, bool conv) {
+                                             int osize, bool conv, int sb = 0,
+                                             int sst = 0) {
   return 1024 + stages * (WG_BM + (bres ? 0 : bn)) * bk +
-         (bres ? k_steps * bn * bk : 0) + 16 * stages + 16 + 2 * 24 * bn +
-         2 * 64 * (bn * osize + 16) + (conv ? WG_BM * 16 : 0);
+         (bres ? k_steps * bn * bk : 0) + sst * (sb + 16) + 16 * stages +
+         16 + 2 * 24 * bn + 2 * 64 * (bn * osize + 16) +
+         (conv ? WG_BM * 16 : 0);
 }
 
 __device__ __forceinline__ float4 lds128(uint32_t a) {
@@ -526,6 +584,11 @@ __device__ __forceinline__ void sts128u(uint32_t a, uint4 v) {
 __device__ __forceinline__ void sts128(uint32_t a, float4 v) {
   asm volatile("st.shared.v4.f32 [%0], {%1, %2, %3, %4};\n"
                :: "r"(a), "f"(v.x), "f"(v.y), "f"(v.z), "f"(v.w) : "memory");
+}
+__device__ __forceinline__ uint32_t lds32(uint32_t a) {
+  uint32_t v;
+  asm volatile("ld.shared.u32 %0, [%1];\n" : "=r"(v) : "r"(a) : "memory");
+  return v;
 }
 __device__ __forceinline__ void sts16(uint32_t a, uint32_t v) {
   asm volatile("st.shared.u16 [%0], %1;\n"
@@ -551,20 +614,42 @@ __device__ __forceinline__ uint32_t requant_byte(float y, float out_scale) {
   return __float_as_uint(__fadd_rn(q, kMagic)) & 0xFFu;
 }
 
-// The epilogue constants of output columns n and n + 1 (n even), as
-// wgemm_kernel keeps them: y = fma(acc * pre, last, bias), the activation's
-// clamp, then [lo, hi].  This is epilogue_value step for step: pre is
-// w_scale[n] where both scales apply (else 1, an exact multiply), last the
-// scale of the FMA (x_scale, else w_scale[n], else 1) and bias -0.0 where
-// there is none (fma(y, s, -0.0) rounds as y * s does); lo/hi are +-inf
-// where there is no clamp.
+// clamp(clamp(v, a, b), a2, b2) as the one clamp(v, a, b) it equals
+// (fminf(fmaxf(v, a), b), a > b giving b): the intersection where the
+// two meet, else the constant the nesting gives (a2 if b < a2, else b2).
+__device__ __forceinline__ void fold_clamp(float& a, float& b, float a2,
+                                           float b2) {
+  a = fminf(a, b);
+  a2 = fminf(a2, b2);
+  if (fmaxf(a, a2) <= fminf(b, b2)) {
+    a = fmaxf(a, a2);
+    b = fminf(b, b2);
+  } else {
+    a = b = b < a2 ? a2 : b2;
+  }
+}
+
+// The epilogue constants of output columns n and n + 1 (n even), as the
+// wgmma kernels keep them: y = fma(acc * pre, last, bias), then one clamp
+// to [lo, hi].  This is epilogue_value step for step: pre is w_scale[n]
+// where both scales apply (else 1, an exact multiply), last the scale of
+// the FMA (x_scale, else w_scale[n], else 1) and bias -0.0 where there is
+// none (fma(y, s, -0.0) rounds as y * s does).  [lo, hi] folds the
+// activation's clamp and the lo/hi clamp (fold_clamp), and for an int8
+// output (out_scale > 0 and finite: launch_wgemm checks it) the
+// requantization's +-127 too, as +-127 / out_scale: a y held there gives
+// t = y * out_scale within an ulp of +-127, which rounds to +-127, and
+// every y inside gives |t| <= 127 + an ulp, so rint(t) needs no clamp of
+// its own (requant_i8's bytes, bit for bit; requant_byte's clamp, where
+// store_direct applies it, then changes nothing).
 __device__ __forceinline__ void column_pair(const Epilogue& e, int n, int N,
                                             uint32_t dst) {
   float v[10];
 #pragma unroll
   for (int q = 0; q < 2; ++q) {
     float pre = 1.0f, last = 1.0f, bias = -0.0f;
-    float lo = -INFINITY, hi = INFINITY;
+    float lo = e.act == ACT_NONE ? -INFINITY : 0.0f;
+    float hi = e.act == ACT_RELU6 ? 6.0f : INFINITY;
     if (n + q < N) {
       const float ws = e.w_scale ? e.w_scale[n + q] : 1.0f;
       if (e.x_scale != 1.0f) {
@@ -574,10 +659,11 @@ __device__ __forceinline__ void column_pair(const Epilogue& e, int n, int N,
         last = ws;
       }
       if (e.bias) bias = e.bias[n + q];
-      if (e.lo) {
-        lo = e.lo[n + q];
-        hi = e.hi[n + q];
-      }
+      if (e.lo) fold_clamp(lo, hi, e.lo[n + q], e.hi[n + q]);
+    }
+    if (e.out_type == DT_I8 && e.out_scale > 0.0f && e.out_scale < INFINITY) {
+      const float bound = __fdiv_rn(127.0f, e.out_scale);
+      fold_clamp(lo, hi, -bound, bound);
     }
     v[q] = pre;
     v[2 + q] = last;
@@ -596,14 +682,25 @@ __device__ __forceinline__ void column_pair(const Epilogue& e, int n, int N,
 // Each step is a single rounded operation in epilogue_value's order, so
 // the values are the same bits; the code per element is short and has no
 // branch, which matters here: the tile is 16-128 accumulators per thread,
-// all unrolled.  SMALL_K (K <= 256, so |acc| <= 128 * 128 * 256 = 2^22):
-// the accumulator becomes a float as (acc + 1.5 * 2^23 read as a float) -
-// 1.5 * 2^23, exact in that range, on the full-rate pipes.
-template <typename OutT, int BN, bool SMALL_K>
+// all unrolled, and at K <= 256 these steps, not the products or the
+// bytes, bound the launch (tools/int8_gemm_probe.py --parts).  SMALL_K (K <= 256, so |acc| <= 128 * 128 * 256 = 2^22): the
+// accumulator becomes a float as (acc + 1.5 * 2^23 read as a float) -
+// 1.5 * 2^23, exact in that range, on the full-rate pipes.  One clamp
+// (column_pair's folded bounds); an int8 byte is the low byte of
+// t + 1.5 * 2^23, t = y * out_scale (rint, round half to even; |t| <=
+// 127 + an ulp by the bounds), two bytes packed by one byte permute.
+//
+// PACKED: the rows are ``pitch`` = N * sizeof(OutT) bytes apart, so that a
+// column at or past ``lim`` = N would land on the next row: its pair goes
+// to a scratch slot past the 64 rows instead (a select, not a branch,
+// which would break the unrolled loop's schedule; an instantiation of its
+// own, since the select also costs the stores their constant offsets).
+template <typename OutT, int BN, bool SMALL_K, bool PACKED = false>
 __device__ __forceinline__ void stage_tile(const int (&acc)[BN / 2],
                                            uint32_t par, uint32_t os,
-                                           int pitch, float act_lo,
-                                           float act_hi, float out_scale) {
+                                           int pitch, float out_scale,
+                                           int lim = BN) {
+  constexpr float kMagic = 12582912.0f;
   const int t = threadIdx.x & 127;
   const int warp = t >> 5;
   const int gid = (t & 31) >> 2;
@@ -624,16 +721,19 @@ __device__ __forceinline__ void stage_tile(const int (&acc)[BN / 2],
         const float f = SMALL_K
             ? __fsub_rn(__int_as_float(a + 0x4B400000), 12582912.0f)
             : static_cast<float>(a);
-        float v = __fmaf_rn(__fmul_rn(f, q ? p0.y : p0.x), q ? p0.w : p0.z,
-                            q ? p1.y : p1.x);
-        v = fminf(fmaxf(v, act_lo), act_hi);
+        const float v = __fmaf_rn(__fmul_rn(f, q ? p0.y : p0.x),
+                                  q ? p0.w : p0.z, q ? p1.y : p1.x);
         y[q] = fminf(fmaxf(v, q ? p1.w : p1.z), q ? p2.y : p2.x);
       }
-      const uint32_t a = os + (warp * 16 + gid + 8 * h) * pitch +
-                         c * static_cast<int>(sizeof(OutT));
+      uint32_t a = os + (warp * 16 + gid + 8 * h) * pitch +
+                   c * static_cast<int>(sizeof(OutT));
+      if constexpr (PACKED) a = c < lim ? a : os + 64 * pitch;
       if constexpr (std::is_same<OutT, int8_t>::value) {
-        sts16(a, requant_byte(y[0], out_scale) |
-                     (requant_byte(y[1], out_scale) << 8));
+        const uint32_t b0 = __float_as_uint(
+            __fadd_rn(__fmul_rn(y[0], out_scale), kMagic));
+        const uint32_t b1 = __float_as_uint(
+            __fadd_rn(__fmul_rn(y[1], out_scale), kMagic));
+        sts16(a, __byte_perm(b0, b1, 0x0040));
       } else if constexpr (std::is_same<OutT, __nv_bfloat16>::value) {
         const __nv_bfloat162 b = __floats2bfloat162_rn(y[0], y[1]);
         sts32(a, *reinterpret_cast<const uint32_t*>(&b));
@@ -644,34 +744,111 @@ __device__ __forceinline__ void stage_tile(const int (&acc)[BN / 2],
   }
 }
 
-template <class A, int BN, int BK>
+// The bytes of row r of a staged ragged tile (``row``: its first byte in
+// shared memory, K bytes, at any alignment) for K step k0, into the
+// BK-byte-swizzled A stage ``as``: each 16-byte piece from five aligned
+// 32-bit loads and four funnel shifts, the bytes past K zeroed, a row
+// past M (``live`` false) all zeros.
+__device__ __forceinline__ uint32_t low_bytes(int n) {  // the low n of 4
+  return n >= 4 ? 0xFFFFFFFFu : n <= 0 ? 0u : (1u << (8 * n)) - 1u;
+}
+template <int BK>
+__device__ __forceinline__ void relay_row(uint32_t row, bool live, int k0,
+                                          int K, uint32_t as, int r) {
+#pragma unroll
+  for (int j = 0; j < BK / 16; ++j) {
+    const int kk = k0 + 16 * j;
+    const int nv = min(max(K - kk, 0), 16);  // the same for every row
+    uint4 v = make_uint4(0u, 0u, 0u, 0u);
+    if (live && nv > 0) {
+      const uint32_t p = row + kk;
+      const uint32_t wa = p & ~3u;
+      const uint32_t sh = (p & 3u) * 8;
+      const uint32_t w0 = lds32(wa), w1 = lds32(wa + 4), w2 = lds32(wa + 8),
+                     w3 = lds32(wa + 12), w4 = lds32(wa + 16);
+      v.x = __funnelshift_r(w0, w1, sh) & low_bytes(nv);
+      v.y = __funnelshift_r(w1, w2, sh) & low_bytes(nv - 4);
+      v.z = __funnelshift_r(w2, w3, sh) & low_bytes(nv - 8);
+      v.w = __funnelshift_r(w3, w4, sh) & low_bytes(nv - 12);
+    }
+    sts128u(as + swizzle<BK>(r * BK + 16 * j), v);
+  }
+}
+
+// Word i of a 16-byte piece.
+__device__ __forceinline__ uint32_t word_of(const uint4& v, int i) {
+  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+}
+
+// The first nb bytes of a 16-byte output piece to dst, in the widest
+// stores dst's alignment allows (a row pitch of N = 116 int8 outputs is
+// 4-byte aligned, 58 2-byte aligned): one 16-byte store where it can.
+__device__ __forceinline__ void store_piece(uint8_t* dst, const uint4& v,
+                                            int nb) {
+  const unsigned al = static_cast<unsigned>(reinterpret_cast<uintptr_t>(dst));
+  if (nb == 16 && (al & 15) == 0) {
+    *reinterpret_cast<uint4*>(dst) = v;
+    return;
+  }
+  if (nb == 16 && (al & 7) == 0) {
+    reinterpret_cast<uint2*>(dst)[0] = make_uint2(v.x, v.y);
+    reinterpret_cast<uint2*>(dst)[1] = make_uint2(v.z, v.w);
+    return;
+  }
+  int b = 0;
+  if ((al & 3) == 0) {
+    for (; b + 4 <= nb; b += 4)
+      *reinterpret_cast<uint32_t*>(dst + b) = word_of(v, b >> 2);
+  } else if ((al & 1) == 0) {
+    for (; b + 2 <= nb; b += 2)
+      *reinterpret_cast<uint16_t*>(dst + b) =
+          static_cast<uint16_t>(word_of(v, b >> 2) >> (8 * (b & 3)));
+  }
+  for (; b < nb; ++b)
+    dst[b] = static_cast<uint8_t>(word_of(v, b >> 2) >> (8 * (b & 3)));
+}
+
+// RAGGED: variant "wgmma_ragged".  A matrix's A then comes through the
+// staging ring (sst buffers), a conv's in 8-byte pieces; otherwise
+// ("wgmma") a matrix's by TMA, a conv's in 16-byte pieces.
+//
+// A build with FCNN_WG_PROBE_NO_MMA, FCNN_WG_PROBE_NO_STAGE or
+// FCNN_WG_PROBE_NO_STORE defined (tools/int8_gemm_probe.py --parts,
+// timing only: its results are wrong) skips the wgmma, the epilogue's
+// arithmetic into the staged tile (stage_tile), or the tile's stores.
+template <class A, int BN, int BK, bool RAGGED>
 __global__ void __launch_bounds__(WG_THREADS, 1)
 wgemm_kernel(const __grid_constant__ CUtensorMap map_a,
              const __grid_constant__ CUtensorMap map_b, A a, int N,
-             int stages, int bres, Epilogue e) {
+             int stages, int bres, int sst, Epilogue e) {
   constexpr bool CONV = std::is_same<A, ConvA>::value;
+  constexpr bool STAGED = RAGGED && !CONV;  // A through the staging ring
   constexpr int A_BYTES = WG_BM * BK;
   constexpr int B_BYTES = BN * BK;
   // Registers per thread after the split, within the 384 * 168 of the
-  // launch: a TMA producer needs few; the conv's gathering producer more,
-  // as many as the consumers' accumulators leave (128 of them at BN = 256).
-  constexpr int P_REGS = !CONV ? 40 : BN == 256 ? 56 : 96;
-  constexpr int C_REGS = !CONV ? 232 : BN == 256 ? 224 : 200;
+  // launch: a TMA producer needs few; the conv's gathering producer and
+  // the staged matrix's re-laying one more, as many as the consumers'
+  // accumulators leave (128 of them at BN = 256).
+  constexpr bool BUSY = CONV || STAGED;
+  constexpr int P_REGS = !BUSY ? 40 : BN == 256 ? 56 : 96;
+  constexpr int C_REGS = !BUSY ? 232 : BN == 256 ? 224 : 200;
   static_assert(128 * P_REGS + 256 * C_REGS <= WG_THREADS * 168, "registers");
   const int K = a.K;
   const int k_steps = (K + BK - 1) / BK;
   // bres: the block's whole weight panel (k_steps B tiles) stays resident
   // behind the ring, loaded once; the ring then carries A alone.
   const int STAGE = A_BYTES + (bres ? 0 : B_BYTES);
+  const int SB = STAGED ? ragged_stage_bytes(K) : 0;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* ring = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
   uint8_t* bpanel = ring + stages * STAGE;
-  uint64_t* full = reinterpret_cast<uint64_t*>(
-      bpanel + (bres ? k_steps * B_BYTES : 0));
+  uint8_t* stg = bpanel + (bres ? k_steps * B_BYTES : 0);
+  uint64_t* full = reinterpret_cast<uint64_t*>(stg + (STAGED ? sst * SB : 0));
   uint64_t* empty = full + stages;
   uint64_t* bready = empty + stages;
-  uint8_t* pars = reinterpret_cast<uint8_t*>(bready + 2);
+  uint64_t* sfull = bready + 2;  // a staging buffer's bulk copy has landed
+  uint8_t* pars = reinterpret_cast<uint8_t*>(sfull + (STAGED ? 2 * sst : 0));
   const int osize = out_size(e.out_type);
   const int pitch = BN * osize + 16;
   uint8_t* outs = pars + 2 * 24 * BN;
@@ -686,10 +863,14 @@ wgemm_kernel(const __grid_constant__ CUtensorMap map_a,
 
   if (tid == 0) {
     for (int s = 0; s < stages; ++s) {
-      mbar_init(&full[s], CONV ? 129 : 1);
+      // the producer's 128 threads (their cp.async, or their re-laid
+      // rows) and thread 0's weight tile; or the TMA of both
+      mbar_init(&full[s], BUSY ? 129 : 1);
       mbar_init(&empty[s], 256);
     }
     mbar_init(bready, 1);
+    if constexpr (STAGED)
+      for (int i = 0; i < sst; ++i) mbar_init(&sfull[2 * i], 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
@@ -710,9 +891,11 @@ wgemm_kernel(const __grid_constant__ CUtensorMap map_a,
                     (blockIdx.x % n_tiles) * BN, bready);
     }
     if constexpr (CONV) {
-      // Thread t fills 16-byte chunk t % CPR of rows t / CPR + p * RPP:
+      // Thread t fills PW-byte piece t % CPR of rows t / CPR + p * RPP:
       // neighbouring threads read neighbouring bytes of one pixel's taps.
-      constexpr int CPR = BK / 16;
+      // A piece never straddles two taps (PW divides C).
+      constexpr int PW = RAGGED ? 8 : 16;
+      constexpr int CPR = BK / PW;
       constexpr int RPP = 128 / CPR;
       const int chunk = t % CPR;
       const int r0 = t / CPR;
@@ -733,7 +916,7 @@ wgemm_kernel(const __grid_constant__ CUtensorMap map_a,
         }
         named_sync(3, 128);
         // this thread's position in K: channel c of tap (kh, kw)
-        int k = chunk * 16, c = k, kh = 0, kw = 0;
+        int k = chunk * PW, c = k, kh = 0, kw = 0;
         while (c >= a.C) {
           c -= a.C;
           if (++kw == a.KW) { kw = 0; ++kh; }
@@ -761,8 +944,12 @@ wgemm_kernel(const __grid_constant__ CUtensorMap map_a,
                 k < K &&
                 static_cast<unsigned>(ri.ih + dh) < static_cast<unsigned>(a.H) &&
                 static_cast<unsigned>(ri.iw + dw) < static_cast<unsigned>(a.W);
-            cp_async16(As + swizzle<BK>(r * BK + chunk * 16),
-                       ok ? a.x + ri.base + tap : a.x, ok);
+            uint8_t* dst = As + swizzle<BK>(r * BK + chunk * PW);
+            const char* src = ok ? a.x + ri.base + tap : a.x;
+            if constexpr (PW == 16)
+              cp_async16(dst, src, ok);
+            else
+              cp_async8(dst, src, ok);
           }
           cp_async_arrive(&full[s]);
           k += BK;
@@ -771,6 +958,77 @@ wgemm_kernel(const __grid_constant__ CUtensorMap map_a,
             c -= a.C;
             if (++kw == a.KW) { kw = 0; ++kh; }
           }
+          if (++s == stages) { s = 0; ph ^= 1; }
+        }
+      }
+    } else if constexpr (STAGED) {
+      // Local tile j (tile blockIdx.x + j * gridDim.x) is staged in buffer
+      // j % sst as its run of rows * K bytes, byte i at offset (start %
+      // 16) + i: the bulk copy brings the run's 16-byte-aligned middle,
+      // the 128 threads copy the bytes before and after it.  Tiles go in
+      // sst - 1 ahead of the one being re-laid.
+      const uintptr_t xa = reinterpret_cast<uintptr_t>(a.x);
+      const int my_tiles =
+          tiles > static_cast<int>(blockIdx.x)
+              ? (tiles - 1 - static_cast<int>(blockIdx.x)) / gridDim.x + 1
+              : 0;
+      auto tile_of = [&](int j) { return blockIdx.x + j * gridDim.x; };
+      auto issue = [&](int j) {
+        const long long m0 = static_cast<long long>(tile_of(j) / n_tiles) *
+                             WG_BM;
+        const long long rows = min(static_cast<long long>(WG_BM), M - m0);
+        const uintptr_t s0 = xa + m0 * K;
+        const uintptr_t e0 = s0 + rows * K;
+        const uintptr_t a0 = (s0 + 15) & ~uintptr_t(15);
+        const uintptr_t b0 = e0 & ~uintptr_t(15);
+        uint8_t* run = stg + (j % sst) * SB + (s0 & 15);
+        uint64_t* bar = &sfull[2 * (j % sst)];
+        const int head = a0 < b0 ? static_cast<int>(a0 - s0)
+                                 : static_cast<int>(e0 - s0);
+        for (int i = t; i < head; i += 128)
+          run[i] = static_cast<uint8_t>(a.x[m0 * K + i]);
+        if (a0 < b0) {
+          const int tail = static_cast<int>(e0 - b0);
+          for (int i = t; i < tail; i += 128)
+            run[b0 - s0 + i] = *reinterpret_cast<const uint8_t*>(b0 + i);
+          if (t == 0) {
+            mbar_expect_tx(bar, static_cast<uint32_t>(b0 - a0));
+            bulk_load(run + (a0 - s0), reinterpret_cast<const void*>(a0),
+                      static_cast<uint32_t>(b0 - a0), bar);
+          }
+        } else if (t == 0) {
+          mbar_arrive(bar);
+        }
+      };
+      for (int j = 0; j < min(sst - 1, my_tiles); ++j) issue(j);
+      for (int j = 0; j < my_tiles; ++j) {
+        // tile j - 1 is re-laid (its buffer is free), and the head and
+        // tail bytes of tile j, copied when it was issued, are written
+        named_sync(3, 128);
+        if (j + sst - 1 < my_tiles) issue(j + sst - 1);
+        const int tile = tile_of(j);
+        const int mt = tile / n_tiles;
+        const int nt = tile - mt * n_tiles;
+        const long long m0 = static_cast<long long>(mt) * WG_BM;
+        const uint32_t row = smem_u32(stg + (j % sst) * SB +
+                                      ((xa + m0 * K) & 15) + t * K);
+        const bool live = m0 + t < M;
+        mbar_wait(&sfull[2 * (j % sst)], (j / sst) & 1);
+        for (int ks = 0; ks < k_steps; ++ks) {
+          mbar_wait(&empty[s], ph ^ 1);
+          uint8_t* As = ring + s * STAGE;
+          if (t == 0) {
+            if (bres) {
+              mbar_arrive(&full[s]);
+            } else {
+              mbar_expect_tx(&full[s], B_BYTES);
+              tma_load_2d(As + A_BYTES, &map_b, ks * BK, nt * BN, &full[s]);
+            }
+          }
+          relay_row<BK>(row, live, ks * BK, K, smem_u32(As), t);
+          // the re-laid row to the async proxy (wgmma reads it there)
+          asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+          mbar_arrive(&full[s]);
           if (++s == stages) { s = 0; ph ^= 1; }
         }
       }
@@ -798,11 +1056,17 @@ wgemm_kernel(const __grid_constant__ CUtensorMap map_a,
   const int cw = wg - 1;
   const uint32_t par = smem_u32(pars + cw * 24 * BN);  // column constants
   const uint32_t os = smem_u32(outs + cw * 64 * pitch);
-  const bool vec_out = (static_cast<long long>(N) * osize) % 16 == 0 &&
-                       reinterpret_cast<uintptr_t>(e.out) % 16 == 0;
-  const float act_lo = e.act == ACT_NONE ? -INFINITY : 0.0f;
-  const float act_hi = e.act == ACT_RELU6 ? 6.0f : INFINITY;
+  const bool out16 = reinterpret_cast<uintptr_t>(e.out) % 16 == 0;
+  const bool vec_out = (static_cast<long long>(N) * osize) % 16 == 0 && out16;
   const bool small_k = K <= 256;
+  // A tile that spans every column (one column tile) of an even N whose
+  // rows are not whole 16-byte pieces (ShuffleNet's N = 58, 116; K <= 256,
+  // int8 or bf16 out) is staged packed, its rows N * osize bytes apart: a
+  // consumer's 64 rows are then one run of the output, 16-byte aligned at
+  // both ends but the last tile's, and leave as 16-byte pieces.  (An even
+  // N keeps each column pair's store aligned in shared memory.)
+  const bool packed = !vec_out && out16 && n_tiles == 1 && (N & 1) == 0 &&
+                      small_k && e.out_type != DT_F32;
   int s = 0;
   uint32_t ph = 0;
   int acc[BN / 2];
@@ -821,7 +1085,7 @@ wgemm_kernel(const __grid_constant__ CUtensorMap map_a,
     fence_regs(acc);
     for (int ks = 0; ks < k_steps; ++ks) {
       mbar_wait(&full[s], ph);
-      if constexpr (CONV)  // cp.async wrote A through the generic proxy
+      if constexpr (BUSY)  // the producer wrote A through the generic proxy
         asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
       const uint8_t* As = ring + s * STAGE + cw * 64 * BK;
       const uint64_t da = wg_desc<BK>(As);
@@ -833,7 +1097,9 @@ wgemm_kernel(const __grid_constant__ CUtensorMap map_a,
       wgmma_fence();
 #pragma unroll
       for (int j = 0; j < BK / 32; ++j)
+#ifndef FCNN_WG_PROBE_NO_MMA
         wgmma_s8<BN>(acc, da + 2 * j, db + 2 * j, (ks > 0 || j > 0) ? 1 : 0);
+#endif
       wgmma_commit();
       if (ks > 0) {  // the last step's products are done: free its slot
         wgmma_wait<1>();
@@ -848,23 +1114,41 @@ wgemm_kernel(const __grid_constant__ CUtensorMap map_a,
 
     // epilogue: column constants in, the tile staged, 16-byte pieces out
     named_sync(1 + cw, 128);  // the last tile's pieces have left os
+#ifndef FCNN_WG_PROBE_NO_STAGE
     const float osc = e.out_scale;
-    if (e.out_type == DT_I8) {
-      if (small_k)
-        stage_tile<int8_t, BN, true>(acc, par, os, pitch, act_lo, act_hi, osc);
+    if (packed) {
+      if (e.out_type == DT_I8)
+        stage_tile<int8_t, BN, true, true>(acc, par, os, N, osc, N);
       else
-        stage_tile<int8_t, BN, false>(acc, par, os, pitch, act_lo, act_hi, osc);
+        stage_tile<__nv_bfloat16, BN, true, true>(acc, par, os, 2 * N, osc,
+                                                  N);
+    } else if (e.out_type == DT_I8) {
+      if (small_k)
+        stage_tile<int8_t, BN, true>(acc, par, os, pitch, osc);
+      else
+        stage_tile<int8_t, BN, false>(acc, par, os, pitch, osc);
     } else if (e.out_type == DT_BF16) {
       if (small_k)
-        stage_tile<__nv_bfloat16, BN, true>(acc, par, os, pitch, act_lo,
-                                            act_hi, osc);
+        stage_tile<__nv_bfloat16, BN, true>(acc, par, os, pitch, osc);
       else
-        stage_tile<__nv_bfloat16, BN, false>(acc, par, os, pitch, act_lo,
-                                             act_hi, osc);
+        stage_tile<__nv_bfloat16, BN, false>(acc, par, os, pitch, osc);
     } else {
-      stage_tile<float, BN, false>(acc, par, os, pitch, act_lo, act_hi, osc);
+      stage_tile<float, BN, false>(acc, par, os, pitch, osc);
     }
+#endif
     named_sync(1 + cw, 128);
+    if (packed) {  // this consumer's rows, one run of the output
+      const long long rows = max(0ll, min(64ll, M - m0));
+      const int bytes = static_cast<int>(rows) * N * osize;
+      uint8_t* dst = static_cast<uint8_t*>(e.out) + m0 * N * osize;
+      int i = t * 16;
+#ifndef FCNN_WG_PROBE_NO_STORE
+      for (; i + 16 <= bytes; i += 128 * 16)
+        *reinterpret_cast<uint4*>(dst + i) = lds128u(os + i);
+      if (i < bytes) store_piece(dst + i, lds128u(os + i), bytes - i);
+#endif
+      continue;
+    }
     const int per = 16 / osize;  // elements per piece
     const int ppr = BN / per;    // pieces per row
     for (int idx = t; idx < 64 * ppr; idx += 128) {
@@ -872,19 +1156,17 @@ wgemm_kernel(const __grid_constant__ CUtensorMap map_a,
       const int pc = idx - r * ppr;
       const long long m = m0 + r;
       const int c0 = n0 + pc * per;
+#ifdef FCNN_WG_PROBE_NO_STORE
+      continue;
+#endif
       if (m >= M || c0 >= N) continue;
       const uint4 v = lds128u(os + r * pitch + pc * 16);
       uint8_t* dst = static_cast<uint8_t*>(e.out) +
                      (m * N + c0) * static_cast<long long>(osize);
-      if (vec_out && c0 + per <= N) {
+      if (vec_out && c0 + per <= N)
         *reinterpret_cast<uint4*>(dst) = v;
-      } else {  // the row's ragged end, or an unaligned row: byte by byte
-        const int nb = min(per, N - c0) * osize;
-        for (int b = 0; b < nb; ++b) {
-          const uint32_t word = b < 4 ? v.x : b < 8 ? v.y : b < 12 ? v.z : v.w;
-          dst[b] = static_cast<uint8_t>(word >> (8 * (b & 3)));
-        }
-      }
+      else  // the row's ragged end, or a row not 16-byte aligned
+        store_piece(dst, v, min(per, N - c0) * osize);
     }
   }
 }
@@ -905,12 +1187,6 @@ constexpr int W8_A_BYTES = WG_BM * 128;   // a step's A tile: 128-byte rows
 __host__ __device__ constexpr int w8gemm_smem(int bn, int stages, bool conv) {
   return 1024 + stages * (W8_A_BYTES + bn * 192 + 16) + 2 * 24 * bn +
          (conv ? WG_BM * 16 : 0);
-}
-
-__device__ __forceinline__ void cp_async8(void* dst, const void* src,
-                                          bool valid) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n"
-               :: "r"(smem_u32(dst)), "l"(src), "r"(valid ? 8 : 0));
 }
 
 // Four int8 weights (the bytes of q, lowest first) as two bf16 pairs, exact:
@@ -938,13 +1214,12 @@ inline int host_row_pitch(const ConvA& a) { return a.C; }
 // One consumer warpgroup's 64 x BN tile of f32 sums through the epilogue
 // straight to the output, a column pair per store, each step a single
 // rounded operation in epilogue_value's order (``par``: the column
-// constants, as column_pair makes them); tile row r goes to output row
-// row_of(r), none where that is negative.
+// constants, as column_pair makes them, one clamp); tile row r goes to
+// output row row_of(r), none where that is negative.
 template <typename OutT, int BN, class RowOf>
 __device__ __forceinline__ void store_direct(const float (&acc)[BN / 2],
                                              uint32_t par, RowOf row_of,
-                                             int n0, int N, float act_lo,
-                                             float act_hi, float out_scale,
+                                             int n0, int N, float out_scale,
                                              void* out) {
   const int t = threadIdx.x & 127;
   const int warp = t >> 5;
@@ -969,7 +1244,6 @@ __device__ __forceinline__ void store_direct(const float (&acc)[BN / 2],
       for (int q = 0; q < 2; ++q) {
         float v = __fmaf_rn(__fmul_rn(acc[j * 4 + 2 * h + q], q ? p0.y : p0.x),
                             q ? p0.w : p0.z, q ? p1.y : p1.x);
-        v = fminf(fmaxf(v, act_lo), act_hi);
         y[q] = fminf(fmaxf(v, q ? p1.w : p1.z), q ? p2.y : p2.x);
       }
       OutT* dst = o + m[h] * N + n;
@@ -1023,8 +1297,9 @@ struct RowTile {
 template <class A, int BN>
 __global__ void __launch_bounds__(WG_THREADS, 1)
 w8gemm_kernel(const __grid_constant__ CUtensorMap map_a, A a,
-              const int8_t* __restrict__ w, int N, int stages, int split,
-              int per, int th, int tw, float* __restrict__ ws, Epilogue e) {
+              const int8_t* __restrict__ w, int ldw, int N, int stages,
+              int split, int per, int th, int tw, float* __restrict__ ws,
+              Epilogue e) {
   constexpr bool CONV = std::is_same<A, ConvA>::value;
   constexpr int BB = BN * 128;  // the bf16 weight tile
   constexpr int BI = BN * 64;   // its int8 staging slot
@@ -1087,9 +1362,10 @@ w8gemm_kernel(const __grid_constant__ CUtensorMap map_a, A a,
                  : "memory");
     int s = 0;
     uint32_t ph = 0;
-    const bool b16 = K % 16 == 0;  // 16-byte weight pieces, else 8
-    // the int8 weight rows of column tile nt at step ks into the staging
-    // slot: row r at r * 64, zeros past N and K
+    // 16-byte weight pieces, else 8 (the plan takes K a multiple of 8)
+    const bool b16 = K % 16 == 0 && ldw % 16 == 0;
+    // the int8 weight rows (ldw bytes apart) of column tile nt at step ks
+    // into the staging slot: row r at r * 64, zeros past N and K
     auto load_b = [&](uint8_t* bi, int nt, int ks) {
       const int kb = ks * W8_BK;
       if (b16) {
@@ -1098,8 +1374,8 @@ w8gemm_kernel(const __grid_constant__ CUtensorMap map_a, A a,
           const int n = nt * BN + (i >> 2);
           const int k = kb + (i & 3) * 16;
           const bool ok = n < N && k < K;
-          cp_async16(bi + i * 16, ok ? w + static_cast<long long>(n) * K + k : w,
-                     ok);
+          cp_async16(bi + i * 16,
+                     ok ? w + static_cast<long long>(n) * ldw + k : w, ok);
         }
       } else {
 #pragma unroll
@@ -1107,8 +1383,8 @@ w8gemm_kernel(const __grid_constant__ CUtensorMap map_a, A a,
           const int n = nt * BN + (i >> 3);
           const int k = kb + (i & 7) * 8;
           const bool ok = n < N && k < K;
-          cp_async8(bi + i * 8, ok ? w + static_cast<long long>(n) * K + k : w,
-                    ok);
+          cp_async8(bi + i * 8,
+                    ok ? w + static_cast<long long>(n) * ldw + k : w, ok);
         }
       }
     };
@@ -1211,8 +1487,6 @@ w8gemm_kernel(const __grid_constant__ CUtensorMap map_a, A a,
   const int cw = wg - 1;
   const int ct = tid - 128;  // 0 .. 255 over both consumers
   const uint32_t par = smem_u32(pars + cw * 24 * BN);
-  const float act_lo = e.act == ACT_NONE ? -INFINITY : 0.0f;
-  const float act_hi = e.act == ACT_RELU6 ? 6.0f : INFINITY;
   int s = 0;
   uint32_t ph = 0;
   float acc[BN / 2];
@@ -1333,14 +1607,11 @@ w8gemm_kernel(const __grid_constant__ CUtensorMap map_a, A a,
     };
     const float osc = e.out_scale;
     if (e.out_type == DT_I8)
-      store_direct<int8_t, BN>(acc, par, row_of, n0, N, act_lo, act_hi, osc,
-                               e.out);
+      store_direct<int8_t, BN>(acc, par, row_of, n0, N, osc, e.out);
     else if (e.out_type == DT_BF16)
-      store_direct<__nv_bfloat16, BN>(acc, par, row_of, n0, N, act_lo, act_hi,
-                                      osc, e.out);
+      store_direct<__nv_bfloat16, BN>(acc, par, row_of, n0, N, osc, e.out);
     else
-      store_direct<float, BN>(acc, par, row_of, n0, N, act_lo, act_hi, osc,
-                              e.out);
+      store_direct<float, BN>(acc, par, row_of, n0, N, osc, e.out);
   }
 }
 
@@ -1372,7 +1643,10 @@ splitk_reduce_kernel(const T* __restrict__ ws, int split, int M, int N,
 
 // ---------------------------------------------------------------------
 // Variant "mma_sync": int8 x int8 -> int32 on mma.sync m16n8k32, for the
-// shapes "wgmma" does not take.  Block tile 128 (M) x 64 (N), K step 64
+// shapes neither "wgmma" nor "wgmma_ragged" takes (C not a multiple of 8,
+// a conv x not 8-byte aligned, a ragged matrix past K = 256): no zoo
+// launch.  The first body of the port, kept as it was, and timed beside
+// the ragged launches as the plan not taken.  Block tile 128 (M) x 64 (N), K step 64
 // bytes, 8 warps as 4 (M) x 2 (N); a warp owns 32 x 32.  Single bytes go
 // to shared memory, one tile at a time; shared rows are padded to 80 bytes
 // so a warp's fragment loads hit 32 distinct banks.
@@ -1385,7 +1659,8 @@ constexpr int IG_THREADS = 256;
 
 template <class A>
 __global__ void __launch_bounds__(IG_THREADS)
-igemm_kernel(A a, const int8_t* __restrict__ w, int N, Epilogue e) {
+igemm_kernel(A a, const int8_t* __restrict__ w, int ldw, int N,
+             Epilogue e) {
   __shared__ __align__(16) int8_t As[IG_BM][IG_LDS];
   __shared__ __align__(16) int8_t Bs[IG_BN][IG_LDS];
   __shared__ RowInfo rows[IG_BM];
@@ -1426,7 +1701,7 @@ igemm_kernel(A a, const int8_t* __restrict__ w, int N, Epilogue e) {
       const int k = k0 + kk;
       const int n = n0 + nn;
       Bs[nn][kk] = (k < K && n < N)
-          ? w[static_cast<long long>(n) * K + k] : static_cast<int8_t>(0);
+          ? w[static_cast<long long>(n) * ldw + k] : static_cast<int8_t>(0);
     }
     __syncthreads();
 #pragma unroll
@@ -1493,8 +1768,8 @@ constexpr int BG_WARPS = 8;
 
 template <typename T>  // __nv_bfloat16 (a template: defined in every unit)
 __global__ void __launch_bounds__(BG_WARPS * 32)
-bgemm_kernel(const T* __restrict__ x, const T* __restrict__ w, int M, int K,
-             int N, Epilogue e) {
+bgemm_kernel(const T* __restrict__ x, const T* __restrict__ w, int ldw, int M,
+             int K, int N, Epilogue e) {
   __shared__ float red[BG_WARPS / 2][BG_ROWS * BG_COLS];
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
@@ -1512,7 +1787,7 @@ bgemm_kernel(const T* __restrict__ x, const T* __restrict__ w, int M, int K,
     const int n = n0 + nt * 8 + gid;
     nok[nt] = n < N;
     wrow[nt] = reinterpret_cast<const uint4*>(
-        w + static_cast<long long>(nok[nt] ? n : 0) * K);
+        w + static_cast<long long>(nok[nt] ? n : 0) * ldw);
   }
   const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
 
@@ -1610,7 +1885,7 @@ __device__ __forceinline__ float to_f32(int8_t v) { return static_cast<float>(v)
 
 template <class A, typename TX, typename TW>
 __global__ void __launch_bounds__(256)
-fgemm_kernel(A a, const TW* __restrict__ w, int N, Epilogue e) {
+fgemm_kernel(A a, const TW* __restrict__ w, int ldw, int N, Epilogue e) {
   __shared__ float As[FG_BK][FG_BM + 4];
   __shared__ float Bs[FG_BK][FG_BN + 1];
   __shared__ RowInfo rows[FG_BM];
@@ -1649,7 +1924,7 @@ fgemm_kernel(A a, const TW* __restrict__ w, int N, Epilogue e) {
       const int k = k0 + kk;
       const int n = n0 + nn;
       Bs[kk][nn] = (k < K && n < N)
-          ? to_f32(w[static_cast<long long>(n) * K + k]) : 0.0f;
+          ? to_f32(w[static_cast<long long>(n) * ldw + k]) : 0.0f;
     }
     __syncthreads();
 #pragma unroll
@@ -1711,16 +1986,18 @@ inline EncodeTiledFn encode_tiled() {
 }
 
 // A TMA map over the int8 (elem 1) or bf16 (elem 2) (rows, cols) row-major
-// matrix at base, box box_rows x box_cols elements (a box row of 128 bytes
-// swizzled at 128, of 64 at 64), zero fill outside.  Encoded per launch:
-// the caching allocator reuses addresses.
+// matrix at base, rows ``pitch`` elements apart (0: cols), box box_rows x
+// box_cols elements (a box row of 128 bytes swizzled at 128, of 64 at 64),
+// zero fill outside (the columns past cols too).  Encoded per launch: the
+// caching allocator reuses addresses.
 inline bool make_map(CUtensorMap* map, const void* base, long long rows,
-                     int cols, int box_rows, int box_cols, int elem = 1) {
+                     int cols, int box_rows, int box_cols, int elem = 1,
+                     long long pitch = 0) {
   const EncodeTiledFn enc = encode_tiled();
   if (!enc) return false;
   const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols),
                               static_cast<cuuint64_t>(rows)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) *
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(pitch ? pitch : cols) *
                                  static_cast<cuuint64_t>(elem)};
   const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_cols),
                              static_cast<cuuint32_t>(box_rows)};
@@ -1735,26 +2012,56 @@ inline bool make_map(CUtensorMap* map, const void* base, long long rows,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <class A, int BN, int BK>
-inline int launch_wgemm(const A& a, const int8_t* w, int N, const GemmPlan& p,
-                        const Epilogue& e, cudaStream_t s) {
+// "wgmma" and "wgmma_ragged" (RAGGED): refuses (cudaErrorInvalidValue) a
+// plan whose shared memory, stages, grid or staging ring differ from the
+// kernel's own count, a weight pitch ``ldw`` that TMA cannot stride, or an
+// int8 output whose out_scale is not positive and finite (column_pair
+// folds +-127 / out_scale into the clamp).
+template <class A, int BN, int BK, bool RAGGED>
+inline int launch_wgemm(const A& a, const int8_t* w, long long ldw, int N,
+                        const GemmPlan& p, const Epilogue& e,
+                        cudaStream_t s) {
   constexpr bool CONV = std::is_same<A, ConvA>::value;
+  constexpr bool STAGED = RAGGED && !CONV;
+  const int bad = static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap ma{}, mb{};
-  if (!CONV && !make_map(&ma, a.x, a.M, a.K, WG_BM, BK))
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (!make_map(&mb, w, N, a.K, BN, BK))
-    return static_cast<int>(cudaErrorInvalidValue);
+  if (!CONV && !STAGED && !make_map(&ma, a.x, a.M, a.K, WG_BM, BK)) return bad;
+  if (ldw % 16 || !make_map(&mb, w, N, a.K, BN, BK, 1, ldw)) return bad;
   const int n_tiles = (N + BN - 1) / BN;
+  const int sb = STAGED ? ragged_stage_bytes(a.K) : 0;
+  const int sst = STAGED ? p.sst : 0;
   const int smem = wgemm_smem(BN, BK, p.stages, (a.K + BK - 1) / BK, p.bres,
-                              out_size(e.out_type), CONV);
-  if (smem != p.smem || p.stages < 2 || p.grid < 1 || p.grid % n_tiles)
-    return static_cast<int>(cudaErrorInvalidValue);
-  auto kern = wgemm_kernel<A, BN, BK>;
+                              out_size(e.out_type), CONV, sb, sst);
+  if (smem != p.smem || p.stages < 2 || p.grid < 1 || p.grid % n_tiles ||
+      (STAGED ? p.sst < 2 || a.K > RAGGED_K_MAX : p.sst != 0))
+    return bad;
+  if (e.out_type == DT_I8 && !(e.out_scale > 0.0f && e.out_scale < INFINITY))
+    return bad;
+  auto kern = wgemm_kernel<A, BN, BK, RAGGED>;
   const cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  kern<<<p.grid, WG_THREADS, smem, s>>>(ma, mb, a, N, p.stages, p.bres, e);
+  kern<<<p.grid, WG_THREADS, smem, s>>>(ma, mb, a, N, p.stages, p.bres, sst,
+                                        e);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The plan's tile (BN, BK) of "wgmma" or "wgmma_ragged".
+template <class A, bool RAGGED>
+inline int launch_wgemm_tile(const A& a, const int8_t* w, long long ldw,
+                             int N, const GemmPlan& p, const Epilogue& e,
+                             cudaStream_t s) {
+  switch (p.bn * 1000 + p.bk) {
+    case 32064: return launch_wgemm<A, 32, 64, RAGGED>(a, w, ldw, N, p, e, s);
+    case 32128: return launch_wgemm<A, 32, 128, RAGGED>(a, w, ldw, N, p, e, s);
+    case 64064: return launch_wgemm<A, 64, 64, RAGGED>(a, w, ldw, N, p, e, s);
+    case 64128: return launch_wgemm<A, 64, 128, RAGGED>(a, w, ldw, N, p, e, s);
+    case 128064: return launch_wgemm<A, 128, 64, RAGGED>(a, w, ldw, N, p, e, s);
+    case 128128: return launch_wgemm<A, 128, 128, RAGGED>(a, w, ldw, N, p, e, s);
+    case 256064: return launch_wgemm<A, 256, 64, RAGGED>(a, w, ldw, N, p, e, s);
+    case 256128: return launch_wgemm<A, 256, 128, RAGGED>(a, w, ldw, N, p, e, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 // A TMA map over the bf16 NHWC image x as (C, W, H, N), box (64 channels,
@@ -1785,7 +2092,7 @@ inline bool make_map_nhwc(CUtensorMap* map, const void* base, int C, int W,
 // workspace ``ws`` (split x M x N f32) or on a conv, or a conv tile by TMA
 // (th x tw) that the conv does not allow.
 template <class A, int BN>
-inline int launch_w8gemm(const A& a, const int8_t* w, int N,
+inline int launch_w8gemm(const A& a, const int8_t* w, int ldw, int N,
                          const GemmPlan& p, float* ws, const Epilogue& e,
                          cudaStream_t s) {
   constexpr bool CONV = std::is_same<A, ConvA>::value;
@@ -1818,8 +2125,8 @@ inline int launch_w8gemm(const A& a, const int8_t* w, int N,
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  kern<<<p.grid, WG_THREADS, smem, s>>>(ma, a, w, N, p.stages, split, per,
-                                        p.th, p.tw, ws, e);
+  kern<<<p.grid, WG_THREADS, smem, s>>>(ma, a, w, ldw, N, p.stages, split,
+                                        per, p.th, p.tw, ws, e);
   err = cudaGetLastError();
   if (err != cudaSuccess || split == 1) return static_cast<int>(err);
   const long long pairs = static_cast<long long>(a.M) * ((N + 1) / 2);
@@ -1829,66 +2136,65 @@ inline int launch_w8gemm(const A& a, const int8_t* w, int N,
   return static_cast<int>(cudaGetLastError());
 }
 
-// x_type/w_type: DType.  ``row_ok``: the A rows' pitch (K for a matrix, C
-// for a conv) is a multiple of 16 bytes and at least 16, the caller's
-// check of what "wgmma" needs besides aligned pointers.  ``ws``: the
-// split-K workspace of a "wgmma_w8" plan with split > 1, else null.
+// x_type/w_type: DType.  ``ws``: the split-K workspace of a "wgmma_w8"
+// plan with split > 1, else null.  The weight's (N, K) rows lie p.ldw
+// elements apart (0: K).
 template <class A>
 inline int launch_gemm(const A& a, const void* w, int N, int x_type,
-                       int w_type, bool row_ok, const GemmPlan& p, float* ws,
+                       int w_type, const GemmPlan& p, float* ws,
                        const Epilogue& e, cudaStream_t s) {
   constexpr bool CONV = std::is_same<A, ConvA>::value;
   const int bad = static_cast<int>(cudaErrorInvalidValue);
   if (a.M <= 0 || N <= 0) return 0;
   const bool int8 = x_type == DT_I8 && w_type == DT_I8;
+  const int ldw = p.ldw ? p.ldw : a.K;
+  if (ldw < a.K) return bad;
+  // the A rows' pitch in elements: K for a matrix, C for a conv
+  const int pitch = host_row_pitch(a);
+  const int8_t* wq = static_cast<const int8_t*>(w);
   if (p.variant == V_WGMMA_W8) {
-    if (x_type != DT_BF16 || w_type != DT_I8 || host_row_pitch(a) % 8 ||
+    if (x_type != DT_BF16 || w_type != DT_I8 || pitch % 8 || ldw % 8 ||
         !aligned(a.x, 16) || !aligned(w, 16))
       return bad;
-    const int8_t* wq = static_cast<const int8_t*>(w);
     switch (p.bn) {
-      case 32: return launch_w8gemm<A, 32>(a, wq, N, p, ws, e, s);
-      case 64: return launch_w8gemm<A, 64>(a, wq, N, p, ws, e, s);
-      case 128: return launch_w8gemm<A, 128>(a, wq, N, p, ws, e, s);
+      case 32: return launch_w8gemm<A, 32>(a, wq, ldw, N, p, ws, e, s);
+      case 64: return launch_w8gemm<A, 64>(a, wq, ldw, N, p, ws, e, s);
+      case 128: return launch_w8gemm<A, 128>(a, wq, ldw, N, p, ws, e, s);
       default: return bad;
     }
   }
   if (p.split != 1 || p.th != 0) return bad;
   if (p.variant == V_WGMMA_S8) {
-    if (!int8 || !row_ok || !aligned(a.x, 16) || !aligned(w, 16)) return bad;
-    const int8_t* wq = static_cast<const int8_t*>(w);
-    switch (p.bn * 1000 + p.bk) {
-      case 32064: return launch_wgemm<A, 32, 64>(a, wq, N, p, e, s);
-      case 32128: return launch_wgemm<A, 32, 128>(a, wq, N, p, e, s);
-      case 64064: return launch_wgemm<A, 64, 64>(a, wq, N, p, e, s);
-      case 64128: return launch_wgemm<A, 64, 128>(a, wq, N, p, e, s);
-      case 128064: return launch_wgemm<A, 128, 64>(a, wq, N, p, e, s);
-      case 128128: return launch_wgemm<A, 128, 128>(a, wq, N, p, e, s);
-      case 256064: return launch_wgemm<A, 256, 64>(a, wq, N, p, e, s);
-      case 256128: return launch_wgemm<A, 256, 128>(a, wq, N, p, e, s);
-      default: return bad;
-    }
+    if (!int8 || pitch % 16 || pitch < 16 || !aligned(a.x, 16) ||
+        !aligned(w, 16))
+      return bad;
+    return launch_wgemm_tile<A, false>(a, wq, ldw, N, p, e, s);
+  }
+  if (p.variant == V_WGMMA_RAGGED) {
+    // a conv's taps in 8-byte pieces; a matrix's rows at any alignment
+    if (!int8 || !aligned(w, 16) || (CONV && (pitch % 8 || !aligned(a.x, 8))))
+      return bad;
+    return launch_wgemm_tile<A, true>(a, wq, ldw, N, p, e, s);
   }
   if (p.variant == V_MMA_S8) {
     if (!int8) return bad;
     dim3 grid(static_cast<unsigned>((a.M + IG_BM - 1) / IG_BM),
               static_cast<unsigned>((N + IG_BN - 1) / IG_BN));
-    igemm_kernel<A><<<grid, IG_THREADS, 0, s>>>(
-        a, static_cast<const int8_t*>(w), N, e);
+    igemm_kernel<A><<<grid, IG_THREADS, 0, s>>>(a, wq, ldw, N, e);
     return static_cast<int>(cudaGetLastError());
   }
   if (p.variant == V_MMA_BF16) {
     if constexpr (CONV) {
       return bad;
     } else {
-      if (x_type != DT_BF16 || w_type != DT_BF16 || a.K % 8 ||
+      if (x_type != DT_BF16 || w_type != DT_BF16 || a.K % 8 || ldw % 8 ||
           !aligned(a.x, 16) || !aligned(w, 16))
         return bad;
       dim3 grid(static_cast<unsigned>((N + BG_COLS - 1) / BG_COLS),
                 static_cast<unsigned>((a.M + BG_ROWS - 1) / BG_ROWS));
       bgemm_kernel<__nv_bfloat16><<<grid, BG_WARPS * 32, 0, s>>>(
           reinterpret_cast<const __nv_bfloat16*>(a.x),
-          static_cast<const __nv_bfloat16*>(w), a.M, a.K, N, e);
+          static_cast<const __nv_bfloat16*>(w), ldw, a.M, a.K, N, e);
       return static_cast<int>(cudaGetLastError());
     }
   }
@@ -1897,16 +2203,15 @@ inline int launch_gemm(const A& a, const void* w, int N, int x_type,
             static_cast<unsigned>((N + FG_BN - 1) / FG_BN));
   if (x_type == DT_F32 && w_type == DT_F32)
     fgemm_kernel<A, float, float><<<grid, 256, 0, s>>>(
-        a, static_cast<const float*>(w), N, e);
+        a, static_cast<const float*>(w), ldw, N, e);
   else if (x_type == DT_F32 && w_type == DT_I8)
-    fgemm_kernel<A, float, int8_t><<<grid, 256, 0, s>>>(
-        a, static_cast<const int8_t*>(w), N, e);
+    fgemm_kernel<A, float, int8_t><<<grid, 256, 0, s>>>(a, wq, ldw, N, e);
   else if (x_type == DT_BF16 && w_type == DT_BF16)
     fgemm_kernel<A, __nv_bfloat16, __nv_bfloat16><<<grid, 256, 0, s>>>(
-        a, static_cast<const __nv_bfloat16*>(w), N, e);
+        a, static_cast<const __nv_bfloat16*>(w), ldw, N, e);
   else if (x_type == DT_BF16 && w_type == DT_I8)
-    fgemm_kernel<A, __nv_bfloat16, int8_t><<<grid, 256, 0, s>>>(
-        a, static_cast<const int8_t*>(w), N, e);
+    fgemm_kernel<A, __nv_bfloat16, int8_t><<<grid, 256, 0, s>>>(a, wq, ldw, N,
+                                                                e);
   else
     return bad;
   return static_cast<int>(cudaGetLastError());
@@ -1930,8 +2235,11 @@ inline Epilogue make_epilogue(void* out, const float* bias,
 }
 
 inline GemmPlan make_plan(int variant, int bn, int bk, int stages, int bres,
-                          int grid, int smem, int split, int th, int tw) {
+                          int grid, int smem, int split, int th, int tw,
+                          int ldw, int sst) {
   GemmPlan p;
+  p.ldw = ldw;
+  p.sst = sst;
   p.split = split;
   p.th = th;
   p.tw = tw;

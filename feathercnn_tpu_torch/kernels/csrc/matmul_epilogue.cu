@@ -28,11 +28,23 @@
 // the epilogue stages the tile through shared memory and writes 16-byte
 // row pieces, while the producer already loads the next tile.  A K of 16
 // to 64 takes a 64-byte step (the bytes past K arrive as zeros).
-// A row pitch that is not a multiple of 16 bytes (K = 24: MobileNet-v2) or
-// a misaligned pointer takes the mma.sync variant; bf16 x bf16 (the bf16
-// FC) the mma.sync m16n8k16 variant, 8 warps over slices of K; f32 x a
-// SIMT loop.  The host's plan (gemm_plan in kernels/matmul.py) picks the
-// variant, tile, K step and stages.
+// A row pitch that is not a multiple of 16 bytes (K = 24, 58, 116, 232:
+// MobileNet-v2's and the ShuffleNets' 1x1 convs) or an x that is not
+// 16-byte aligned takes "wgmma_ragged", up to K = 256: the same ring,
+// consumers and epilogue, the weight's rows padded to a 16-byte pitch
+// once per node (gemm_layout) so that B still comes by TMA, and A staged:
+// a 128-row tile of a contiguous (M, K) matrix is one run of 128 * K bytes,
+// which a bulk copy brings (its 16-byte-aligned middle; the producer's
+// threads copy the ends) into a staging ring a few tiles ahead, and the
+// producer's threads re-lay it, one row each, into the swizzled K-major
+// stage with zeros past K.  These launches are bound by bytes, most of
+// them the output's; the staged A moves only the useful bytes, and the
+// epilogue stores each 16-byte output piece in the widest stores the
+// output row's alignment allows (N = 116 int8: 4 bytes).  The mma.sync
+// variant ("mma_sync", the first body) is left for a ragged K past 256;
+// bf16 x bf16 (the bf16 FC) takes the mma.sync m16n8k16 variant, 8 warps
+// over slices of K; f32 x a SIMT loop.  The host's plan (gemm_plan in
+// kernels/matmul.py) picks the variant, tile, K step and stages.
 //
 // Weight-only int8 (bf16 x, int8 w: VGG-16 w8's fc6-8, M = 128, K 25088
 // and 4096, N 4096 and 1000) is bound by bytes: the int8 weight, 123.6 MB
@@ -58,8 +70,8 @@ extern "C" int fcnn_matmul_epilogue(
     const float* w_scale, const float* lo, const float* hi, int M, int K,
     int N, int x_type, int w_type, int out_type, int act, float x_scale,
     float out_scale, int variant, int bn, int bk, int stages, int bres,
-    int grid, int smem, int split, int th, int tw, void* ws,
-    void* stream) {
+    int grid, int smem, int split, int th, int tw, int ldw, int sst,
+    void* ws, void* stream) {
   fcnn::MatrixA a;
   a.x = static_cast<const char*>(x);
   a.M = M;
@@ -67,9 +79,9 @@ extern "C" int fcnn_matmul_epilogue(
   const fcnn::Epilogue e = fcnn::make_epilogue(
       out, bias, w_scale, lo, hi, act, x_scale, out_scale, out_type);
   return fcnn::launch_gemm(
-      a, w, N, x_type, w_type, K % 16 == 0 && K >= 16,
+      a, w, N, x_type, w_type,
       fcnn::make_plan(variant, bn, bk, stages, bres, grid, smem, split, th,
-                      tw),
+                      tw, ldw, sst),
       static_cast<float*>(ws), e,
       static_cast<cudaStream_t>(stream));
 }

@@ -10,8 +10,15 @@ Variants (main loops of one kernel; :func:`gemm_plan` picks one per
 launch, on the host, from the shapes, types and pointers):
   int8 x int8 (+ both scales) -> float or int8 out, int32 sums:
       "wgmma"     wgmma with a TMA ring and a staged epilogue
-      "mma_sync"  mma.sync, for a row pitch that is not a multiple of 16
-                  bytes, a misaligned pointer, or a conv's C < 16
+      "wgmma_ragged"  the same ring, consumers and epilogue for rows that
+                  are not whole 16-byte pieces (K or C not a multiple of
+                  16, or a matrix's x not 16-byte aligned): a matrix's A
+                  tile staged by a bulk copy and re-laid in shared memory
+                  (K <= 256), a conv's gathered in 8-byte pieces (C a
+                  multiple of 8); the weight's rows padded to 16 bytes
+      "mma_sync"  mma.sync (the first body), for what neither takes: C
+                  not a multiple of 8, a conv x not 8-byte aligned, a
+                  ragged K past 256
   bf16 x int8 (weight-only int8, + w_scale) -> f32 sums:
       "wgmma_w8"  bf16 wgmma, the int8 weight tile converted to bf16 in
                   shared memory; a matrix whose tiles leave SMs idle splits
@@ -23,7 +30,8 @@ launch, on the host, from the shapes, types and pointers):
                                              cores would be TF32)
 
 On the GPU the weight must be stored as :func:`gemm_layout` gives it
-((N, K) with K contiguous; the lowering makes it once per node).
+((N, K) with K contiguous, an int8 weight's rows padded to a multiple of
+16 bytes; the lowering makes it once per node).
 """
 
 from __future__ import annotations
@@ -36,14 +44,16 @@ import torch
 
 __all__ = ["matmul_epilogue", "matmul_epilogue_plain", "epilogue_plain",
            "matmul_epilogue_split_plain", "fma_f32", "gemm_layout",
-           "is_gemm_layout", "gemm_plan", "GemmPlan", "VARIANTS"]
+           "is_gemm_layout", "gemm_pitch", "gemm_plan", "GemmPlan",
+           "VARIANTS"]
 
 _ACT_CODES = {None: 0, "relu": 1, "relu6": 2}
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
 
 # The main loops, in the order of their codes in the C interface.
-VARIANTS = ("simt", "mma_sync", "wgmma", "mma_bf16", "wgmma_w8")
+VARIANTS = ("simt", "mma_sync", "wgmma", "mma_bf16", "wgmma_w8",
+            "wgmma_ragged")
 # Shared memory a thread block can use on an H100, and its SM count.
 SMEM_LIMIT = 227 * 1024
 H100_SMS = 132
@@ -52,6 +62,8 @@ MAX_STAGES = 6
 PANEL_LIMIT = 144 * 1024   # the largest weight panel kept resident
 W8_BK = 64              # K elements (bf16) of a "wgmma_w8" step: 128 bytes
 W8_MIN_STEPS = 4        # the fewest K steps of a "wgmma_w8" split-K slice
+RAGGED_K_MAX = 256      # a "wgmma_ragged" matrix's K at most (staged tiles)
+ROW_BYTES = 16          # an int8 weight's rows are padded to this multiple
 
 
 def gemm_layout(w: torch.Tensor) -> torch.Tensor:
@@ -59,21 +71,52 @@ def gemm_layout(w: torch.Tensor) -> torch.Tensor:
     kernels read a weight: a (K, N) matrix as (N, K) with K contiguous, an
     HWIO (KH, KW, C, Co) conv weight as (Co, KH, KW, C), so that each
     output channel's K row runs over (kh, kw, c) as the im2col row does.
-    wgmma takes an int8 B operand only K-major.  The lowering makes it once
-    per node; on a CUDA tensor the wrappers take no other layout."""
+    wgmma takes an int8 B operand only K-major.  An int8 weight whose K is
+    not a multiple of :data:`ROW_BYTES` keeps its rows that many bytes
+    apart, the bytes past K zero (a strided view: the logical shape and
+    values stay), so that TMA can bring its tiles ("wgmma_ragged").  The
+    lowering makes it once per node; on a CUDA tensor the wrappers take no
+    other layout."""
+    if w.dim() not in (2, 4):
+        raise ValueError(f"gemm_layout takes a (K, N) or HWIO weight, got "
+                         f"shape {tuple(w.shape)}")
+    n, k = w.shape[-1], math.prod(w.shape[:-1])
+    pitch = k
+    if w.dtype == torch.int8 and k % ROW_BYTES:
+        pitch = -(-k // ROW_BYTES) * ROW_BYTES
+    rows = w.new_zeros((n, pitch))
+    rows[:, :k] = w.reshape(k, n).t()
+    k_rows = rows[:, :k]
     if w.dim() == 2:
-        return w.t().contiguous().t()
-    if w.dim() == 4:
-        return w.permute(3, 0, 1, 2).contiguous().permute(1, 2, 3, 0)
-    raise ValueError(f"gemm_layout takes a (K, N) or HWIO weight, got "
-                     f"shape {tuple(w.shape)}")
+        return k_rows.t()
+    return k_rows.view(n, *w.shape[:3]).permute(1, 2, 3, 0)
+
+
+def _k_rows(w: torch.Tensor) -> torch.Tensor:
+    """The (N, K...) view of a weight: its output channels first."""
+    return w.t() if w.dim() == 2 else w.permute(3, 0, 1, 2)
+
+
+def gemm_pitch(w: torch.Tensor) -> int:
+    """Elements between the (N, K) rows of a weight stored as
+    :func:`gemm_layout` stores it: K, or K padded to :data:`ROW_BYTES`."""
+    rows = _k_rows(w)
+    k = rows[0].numel()
+    # one row: its stride is the layout's where gemm_layout made it
+    return rows.stride(0) if rows.shape[0] > 1 or rows.stride(0) > k else k
 
 
 def is_gemm_layout(w: torch.Tensor) -> bool:
-    """Whether ``w`` is stored as :func:`gemm_layout` stores it."""
-    if w.dim() == 2:
-        return w.t().is_contiguous()
-    return w.dim() == 4 and w.permute(3, 0, 1, 2).is_contiguous()
+    """Whether ``w`` is stored as :func:`gemm_layout` stores it: each
+    output channel's K row contiguous, the rows K apart or a multiple of
+    :data:`ROW_BYTES` apart past K."""
+    if w.dim() not in (2, 4):
+        return False
+    rows = _k_rows(w)
+    if rows.shape[0] == 0 or not rows[0].is_contiguous():
+        return False
+    k, pitch = rows[0].numel(), gemm_pitch(w)
+    return pitch == k or (pitch > k and pitch % ROW_BYTES == 0)
 
 
 class GemmPlan(NamedTuple):
@@ -84,9 +127,11 @@ class GemmPlan(NamedTuple):
     persistent grid and the dynamic shared memory; ``split``, the K slices
     of a "wgmma_w8" matrix (1: none); ``th`` x ``tw``, the rectangle of
     output pixels of a "wgmma_w8" conv whose A tile comes by TMA, one box
-    per tap (0 x 0: gathered by cp.async); ``reason`` says why an int8 or
-    bf16 x int8 launch does not take its tensor-core variant ("" where it
-    does)."""
+    per tap (0 x 0: gathered by cp.async); ``reason`` says why an int8
+    launch does not take "wgmma" (why it takes "wgmma_ragged", or why
+    neither), or a bf16 x int8 one "wgmma_w8" ("" where it does);
+    ``ldw``, the weight's row pitch (:func:`gemm_pitch`; 0: K); ``sst``,
+    the A tiles a "wgmma_ragged" matrix stages at once (else 0)."""
     variant: str
     bn: int = 0
     bk: int = 0
@@ -98,25 +143,39 @@ class GemmPlan(NamedTuple):
     split: int = 1
     th: int = 0
     tw: int = 0
+    ldw: int = 0
+    sst: int = 0
 
     def args(self):
         """The plan's integers as the C entry points take them."""
         return (VARIANTS.index(self.variant), self.bn, self.bk, self.stages,
                 int(self.bres), self.grid, self.smem, self.split, self.th,
-                self.tw)
+                self.tw, self.ldw, self.sst)
+
+
+def ragged_stage_bytes(k: int) -> int:
+    """One staging buffer of a "wgmma_ragged" matrix (``ragged_stage_bytes``
+    in csrc/gemm_common.cuh): a 128-row tile's 128 * K bytes at the run's
+    own offset mod 16, and the bytes the re-lay's last loads read past it,
+    in 128-byte units."""
+    return -(-(WG_BM * k + 48) // 128) * 128
 
 
 def wgmma_smem(bn: int, bk: int, stages: int, k_steps: int, bres: bool,
-               out_itemsize: int, conv: bool) -> int:
-    """Dynamic shared memory of the "wgmma" kernel (``wgemm_smem`` in
-    csrc/gemm_common.cuh, which refuses a plan whose count differs): 1024
-    bytes of alignment slack; the ring of (A, B) stages, or of A stages and
-    the resident weight panel; two barriers per stage and the panel's; each
-    consumer's column constants (48 bytes per column pair) and staged
-    64-row output tile; the conv's 128-row table."""
+               out_itemsize: int, conv: bool, sb: int = 0,
+               sst: int = 0) -> int:
+    """Dynamic shared memory of the "wgmma" and "wgmma_ragged" kernel
+    (``wgemm_smem`` in csrc/gemm_common.cuh, which refuses a plan whose
+    count differs): 1024 bytes of alignment slack; the ring of (A, B)
+    stages, or of A stages and the resident weight panel; a ragged
+    matrix's ``sst`` staging buffers of ``sb`` bytes; two barriers per
+    stage and the panel's, and one per staging buffer; each consumer's
+    column constants (48 bytes per column pair) and staged 64-row output
+    tile; the conv's 128-row table."""
     return (1024 + stages * (WG_BM + (0 if bres else bn)) * bk
-            + (k_steps * bn * bk if bres else 0) + 16 * stages + 16
-            + 2 * 24 * bn + 2 * 64 * (bn * out_itemsize + 16)
+            + (k_steps * bn * bk if bres else 0) + sst * (sb + 16)
+            + 16 * stages + 16 + 2 * 24 * bn + 2 * 64 * (bn * out_itemsize
+                                                        + 16)
             + (WG_BM * 16 if conv else 0))
 
 
@@ -206,7 +265,7 @@ def _tile_n(m: int, k: int, n: int, sms: int, conv: bool) -> int:
 
 
 def _wgmma_refusal(k: int, conv_c: Optional[int], x_ptr: int,
-                   w_ptr: int) -> str:
+                   w_ptr: int, ldw: int) -> str:
     if conv_c is not None and conv_c < 16:
         return "C < 16"
     pitch = conv_c if conv_c is not None else k
@@ -215,28 +274,91 @@ def _wgmma_refusal(k: int, conv_c: Optional[int], x_ptr: int,
         return f"row pitch {pitch} bytes ({what}) not a multiple of 16"
     if x_ptr % 16:
         return "x not 16-byte aligned"
+    if w_ptr % 16 or ldw % 16:
+        return "w not 16-byte aligned"
+    return ""
+
+
+def _ragged_refusal(k: int, conv_c: Optional[int], x_ptr: int, w_ptr: int,
+                    ldw: int) -> str:
+    if conv_c is not None:
+        if conv_c % 8:
+            return f"C = {conv_c} not a multiple of 8 (8-byte pieces)"
+        if x_ptr % 8:
+            return "x not 8-byte aligned"
+    elif k > RAGGED_K_MAX:
+        return f"K = {k} > {RAGGED_K_MAX} (the staged A tiles do not fit)"
+    if ldw % ROW_BYTES:
+        return f"w rows {ldw} bytes apart: not padded by gemm_layout"
     if w_ptr % 16:
         return "w not 16-byte aligned"
     return ""
 
 
+def _wgmma_plan(variant: str, m: int, k: int, n: int, osize: int,
+                conv: bool, sms: int, ldw: int, reason: str = ""
+                ) -> GemmPlan:
+    """The tile, K step, ring and grid of a "wgmma" or "wgmma_ragged"
+    launch (see :func:`gemm_plan`)."""
+    bk = 64 if k <= 64 else 128
+    bn = _tile_n(m, k, n, sms, conv)
+    k_steps = -(-k // bk)
+    # a ragged matrix's staging ring: 4 tiles in flight where 3 A stages
+    # fit beside them, else 2
+    sb = ragged_stage_bytes(k) if variant == "wgmma_ragged" and not conv \
+        else 0
+    while True:
+        for sst in ((4, 2) if sb else (0,)):
+            # the weight panel resident where it fits beside >= 3 A stages
+            bres = k_steps * bn * bk <= PANEL_LIMIT
+            if bres:
+                free = SMEM_LIMIT - wgmma_smem(bn, bk, 0, k_steps, True,
+                                               osize, conv, sb, sst)
+                stages = min(MAX_STAGES, free // (WG_BM * bk + 16))
+                bres = stages >= 3
+            if not bres:
+                free = SMEM_LIMIT - wgmma_smem(bn, bk, 0, k_steps, False,
+                                               osize, conv, sb, sst)
+                stages = min(MAX_STAGES, free // ((WG_BM + bn) * bk + 16))
+            if stages >= 3:
+                break
+        if stages >= 2 or bn == 32:
+            break
+        bn //= 2
+    n_tiles = -(-n // bn)
+    tiles = -(-m // WG_BM) * n_tiles
+    # a multiple of the column tiles: each block keeps one column tile
+    grid = tiles if tiles <= sms else max(sms // n_tiles, 1) * n_tiles
+    return GemmPlan(variant, bn, bk, stages, bres, grid,
+                    wgmma_smem(bn, bk, stages, k_steps, bres, osize, conv,
+                               sb, sst), reason, ldw=ldw, sst=sst)
+
+
 def gemm_plan(m: int, k: int, n: int, x_dtype, w_dtype, out_dtype, *,
               conv_c: Optional[int] = None, conv_out=None, stride: int = 1,
-              x_ptr: int = 0, w_ptr: int = 0,
+              x_ptr: int = 0, w_ptr: int = 0, w_pitch: Optional[int] = None,
               sms: int = H100_SMS) -> GemmPlan:
     """The main loop, tile and stages of one launch of either GEMM kernel
     at GEMM shape (M, K, N), chosen before the launch from the shapes, the
-    types and the pointers (``conv_c``: the conv's C, None for a matrix;
-    ``conv_out``: the conv's (images, OH, OW), and ``stride``).
+    types, the pointers and the weight's row pitch (``conv_c``: the conv's
+    C, None for a matrix; ``conv_out``: the conv's (images, OH, OW), and
+    ``stride``; ``w_pitch``: :func:`gemm_pitch` of the weight, None for
+    the pitch :func:`gemm_layout` gives it).
 
     int8 x int8 takes "wgmma" unless its rows are not 16-byte pieces (K, or
     the conv's C, not a multiple of 16; C < 16) or a pointer is not 16-byte
-    aligned ("mma_sync", with the reason).  Its K step is 64 bytes at
-    K <= 64, else 128; its tile width by :func:`_tile_n`; the weight panel
-    resident where it is at most :data:`PANEL_LIMIT` and three A stages fit
-    beside it; its stages as many as fit :data:`SMEM_LIMIT` (at most
-    :data:`MAX_STAGES`, the tile narrowed until two fit); one persistent
-    block per SM, the grid a multiple of the column tiles.
+    aligned.  Its K step is 64 bytes at K <= 64, else 128; its tile width
+    by :func:`_tile_n`; the weight panel resident where it is at most
+    :data:`PANEL_LIMIT` and three A stages fit beside it; its stages as
+    many as fit :data:`SMEM_LIMIT` (at most :data:`MAX_STAGES`, the tile
+    narrowed until two fit); one persistent block per SM, the grid a
+    multiple of the column tiles.  What "wgmma" refuses takes
+    "wgmma_ragged" (the refusal its ``reason``), planned the same way,
+    where the weight's rows are padded to 16 bytes and: a matrix's K is at
+    most :data:`RAGGED_K_MAX` (x at any alignment: its staging ring holds
+    4 tiles, or 2 where 3 A stages do not fit beside 4); a conv's C is a
+    multiple of 8 and x is 8-byte aligned.  The rest takes
+    "mma_sync", both refusals its reason.
 
     bf16 x int8 (weight-only int8) takes "wgmma_w8" unless its rows are not
     16-byte pieces (K, or the conv's C, not a multiple of 8) or a pointer is
@@ -248,47 +370,33 @@ def gemm_plan(m: int, k: int, n: int, x_dtype, w_dtype, out_dtype, *,
     (at most :data:`MAX_STAGES`); the grid as for "wgmma".  bf16 x bf16
     matrices with K a multiple of 8 and 16-byte aligned pointers take
     "mma_bf16"; the rest (f32 x) "simt"."""
+    ldw = k if w_pitch is None else w_pitch
+    if w_pitch is None and w_dtype == torch.int8 and k % ROW_BYTES:
+        ldw = -(-k // ROW_BYTES) * ROW_BYTES
     if x_dtype == torch.int8 and w_dtype == torch.int8:
-        why = _wgmma_refusal(k, conv_c, x_ptr, w_ptr)
-        if why:
-            return GemmPlan("mma_sync", reason=why)
-        bk = 64 if k <= 64 else 128
-        bn = _tile_n(m, k, n, sms, conv_c is not None)
         osize = torch.empty((), dtype=out_dtype).element_size()
         conv = conv_c is not None
-        k_steps = -(-k // bk)
-        while True:
-            # the weight panel resident where it fits beside >= 3 A stages
-            bres = k_steps * bn * bk <= PANEL_LIMIT
-            if bres:
-                free = SMEM_LIMIT - wgmma_smem(bn, bk, 0, k_steps, True, osize,
-                                               conv)
-                stages = min(MAX_STAGES, free // (WG_BM * bk + 16))
-                bres = stages >= 3
-            if not bres:
-                free = SMEM_LIMIT - wgmma_smem(bn, bk, 0, k_steps, False,
-                                               osize, conv)
-                stages = min(MAX_STAGES, free // ((WG_BM + bn) * bk + 16))
-            if stages >= 2 or bn == 32:
-                break
-            bn //= 2
-        n_tiles = -(-n // bn)
-        tiles = -(-m // WG_BM) * n_tiles
-        # a multiple of the column tiles: each block keeps one column tile
-        grid = tiles if tiles <= sms else max(sms // n_tiles, 1) * n_tiles
-        return GemmPlan("wgmma", bn, bk, stages, bres, grid,
-                        wgmma_smem(bn, bk, stages, k_steps, bres, osize,
-                                   conv))
+        why = _wgmma_refusal(k, conv_c, x_ptr, w_ptr, ldw)
+        if not why:
+            return _wgmma_plan("wgmma", m, k, n, osize, conv, sms, ldw)
+        why_not = _ragged_refusal(k, conv_c, x_ptr, w_ptr, ldw)
+        if not why_not:
+            return _wgmma_plan("wgmma_ragged", m, k, n, osize, conv, sms,
+                               ldw, why)
+        return GemmPlan("mma_sync", reason=f"{why}; {why_not}", ldw=ldw)
     if x_dtype == torch.bfloat16 and w_dtype == torch.int8:
         why = _w8_refusal(k, conv_c, x_ptr, w_ptr)
+        if not why and ldw % 8:
+            why = f"w rows {ldw} bytes apart, not a multiple of 8"
         if why:
-            return GemmPlan("simt", reason=why)
-        return _w8_plan(m, k, n, conv_c, conv_out, stride, sms)
+            return GemmPlan("simt", reason=why, ldw=ldw)
+        return _w8_plan(m, k, n, conv_c, conv_out, stride, sms)._replace(
+            ldw=ldw)
     if (x_dtype == torch.bfloat16 and w_dtype == torch.bfloat16
             and conv_c is None and k % 8 == 0 and x_ptr % 16 == 0
-            and w_ptr % 16 == 0):
-        return GemmPlan("mma_bf16")
-    return GemmPlan("simt")
+            and w_ptr % 16 == 0 and ldw % 8 == 0):
+        return GemmPlan("mma_bf16", ldw=ldw)
+    return GemmPlan("simt", ldw=ldw)
 
 
 @functools.lru_cache(maxsize=None)
@@ -301,7 +409,8 @@ def plan_for(m, k, n, x, w, out_dtype, conv_c=None, conv_out=None,
     """:func:`gemm_plan` for CUDA operands ``x`` and ``w``."""
     return gemm_plan(m, k, n, x.dtype, w.dtype, out_dtype, conv_c=conv_c,
                      conv_out=conv_out, stride=stride, x_ptr=x.data_ptr(),
-                     w_ptr=w.data_ptr(), sms=_sm_count(x.device.index or 0))
+                     w_ptr=w.data_ptr(), w_pitch=gemm_pitch(w),
+                     sms=_sm_count(x.device.index or 0))
 
 
 def fma_f32(a: torch.Tensor, b, c: torch.Tensor) -> torch.Tensor:

@@ -1,8 +1,9 @@
 """The GEMM kernels' weight layout and launch plan, on the CPU.
 
 ``gemm_layout`` stores a weight as the CUDA kernels read it ((N, K), K
-contiguous) with its values and logical shape unchanged, so the plain
-versions take it as they take the original.  ``gemm_plan`` picks each
+contiguous, an int8 weight's rows padded to a multiple of 16 bytes) with
+its values and logical shape unchanged, so the plain versions take it as
+they take the original.  ``gemm_plan`` picks each
 launch's main loop, tile and stages on the host; here it is held to what
 the wgmma design needs at every GEMM launch shape of the three served
 models at their chip batches, found by running each model's int8 forward
@@ -26,8 +27,9 @@ from feathercnn_tpu_torch.engine import Engine
 from feathercnn_tpu_torch.kernels import dispatch
 from feathercnn_tpu_torch.kernels.conv import conv2d_implicit_gemm
 from feathercnn_tpu_torch.kernels.matmul import (SMEM_LIMIT, gemm_layout,
-                                                 gemm_plan, is_gemm_layout,
-                                                 launch_args, matmul_epilogue)
+                                                 gemm_pitch, gemm_plan,
+                                                 is_gemm_layout, launch_args,
+                                                 matmul_epilogue)
 from feathercnn_tpu_torch.models import mobilenet_v1, mobilenet_v2, resnet50
 from feathercnn_tpu_torch.models.builder import GraphBuilder
 from feathercnn_tpu_torch.quant import calibrate
@@ -49,7 +51,13 @@ def test_gemm_layout_keeps_values_and_the_pallas_results():
         assert lw.shape == w.shape and torch.equal(lw, w), shape
         assert is_gemm_layout(lw), shape
         k_major = lw.t() if lw.dim() == 2 else lw.permute(3, 0, 1, 2)
-        assert k_major.is_contiguous(), shape
+        k = k_major[0].numel()
+        assert k_major[0].is_contiguous(), shape
+        # int8 rows padded to whole 16-byte pieces (zeros past K)
+        assert gemm_pitch(lw) == -(-k // 16) * 16, shape
+        rows = torch.as_strided(lw, (shape[-1], gemm_pitch(lw)),
+                                (gemm_pitch(lw), 1))
+        assert not rows[:, k:].any(), shape
         if min(shape[-2:]) > 1:
             assert not is_gemm_layout(w.contiguous()), shape
     with pytest.raises(ValueError):
@@ -139,7 +147,8 @@ def test_plan_takes_wgmma_at_every_served_launch(monkeypatch):
     every one plans "wgmma" with at most 227 KB of shared memory, a tile
     width that is a multiple of 8 and at most 256, and >= 2 stages, but
     MobileNet-v2's K = 24 launches (a 24-byte row pitch), which plan
-    "mma_sync" with that reason."""
+    "wgmma_ragged" with that reason (the same bounds, a staging ring of
+    >= 2 tiles, the weight's rows 32 bytes apart)."""
     for build, batch, dw, want_count in [(resnet50, 128, False, 49),
                                          (mobilenet_v1, 256, False, 14),
                                          (mobilenet_v2, 128, True, 35)]:
@@ -151,10 +160,11 @@ def test_plan_takes_wgmma_at_every_served_launch(monkeypatch):
             p = gemm_plan(m, k, n, xdt, wdt, odt, conv_c=c)
             if k % 16:
                 assert build is mobilenet_v2 and k == 24, case
-                assert p.variant == "mma_sync", (case, p)
+                assert p.variant == "wgmma_ragged", (case, p)
                 assert "not a multiple of 16" in p.reason, (case, p)
-                continue
-            assert p.variant == "wgmma" and not p.reason, (case, p)
+                assert p.sst >= 2 and p.ldw == 32, (case, p)
+            else:
+                assert p.variant == "wgmma" and not p.reason, (case, p)
             assert p.smem <= SMEM_LIMIT and p.stages >= 2, (case, p)
             assert p.bn % 8 == 0 and 32 <= p.bn <= 256, (case, p)
             assert p.bk in (64, 128) and (p.bk == 64) == (k <= 64), (case, p)
@@ -162,11 +172,19 @@ def test_plan_takes_wgmma_at_every_served_launch(monkeypatch):
             n_tiles = -(-n // p.bn)
             assert p.grid % n_tiles == 0, (case, p)
     i8, bf = torch.int8, torch.bfloat16
-    assert gemm_plan(401408, 24, 144, i8, i8, bf).variant == "mma_sync"
+    assert gemm_plan(401408, 24, 144, i8, i8, bf).variant == "wgmma_ragged"
     p = gemm_plan(1000, 64, 64, i8, i8, i8, x_ptr=8)
-    assert p.variant == "mma_sync" and "aligned" in p.reason
+    assert p.variant == "wgmma_ragged" and "aligned" in p.reason
     p = gemm_plan(1000, 9 * 8, 64, i8, i8, i8, conv_c=8)
-    assert p.variant == "mma_sync" and p.reason == "C < 16"
+    assert p.variant == "wgmma_ragged" and p.reason == "C < 16"
+    # what neither takes keeps the first body, both reasons given
+    p = gemm_plan(1000, 9 * 8, 64, i8, i8, i8, conv_c=8, x_ptr=4)
+    assert p.variant == "mma_sync" and p.reason.endswith(
+        "x not 8-byte aligned"), p
+    p = gemm_plan(1000, 7 * 7 * 3, 64, i8, i8, i8, conv_c=3)
+    assert p.variant == "mma_sync" and "not a multiple of 8" in p.reason
+    p = gemm_plan(1000, 300, 64, i8, i8, i8)
+    assert p.variant == "mma_sync" and "K = 300 > 256" in p.reason
     for odt in (i8, bf, torch.float32):     # every output type fits
         p = gemm_plan(401408, 2048, 2560, i8, i8, odt)
         assert p.variant == "wgmma" and p.smem <= SMEM_LIMIT and \

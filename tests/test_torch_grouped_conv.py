@@ -195,7 +195,7 @@ def test_plan_at_the_new_paths_launch_shapes(monkeypatch):
     planned "wgmma" with at most 227 KB of shared memory, >= 2 stages and
     a tile width that is a multiple of 8 and at most 256, but the
     ShuffleNets' launches whose K is not a multiple of 16 (a row pitch
-    that is not whole 16-byte pieces: "mma_sync" with that reason): v1's
+    that is not whole 16-byte pieces: "wgmma_ragged" with that reason): v1's
     first 1x1 conv (K = 24) and 35 of v2's 37 (K = 24, 58, 116, 232).
     Among them N = 32 (DenseNet's growth convs) and every KH x KW of
     Inception-v3."""
@@ -218,10 +218,11 @@ def test_plan_at_the_new_paths_launch_shapes(monkeypatch):
                 assert build in (shufflenet_v1, shufflenet_v2), case
                 fallbacks[build.__name__] = fallbacks.get(build.__name__,
                                                           0) + 1
-                assert p.variant == "mma_sync", (case, p)
+                assert p.variant == "wgmma_ragged", (case, p)
                 assert "not a multiple of 16" in p.reason, (case, p)
-                continue
-            assert p.variant == "wgmma" and not p.reason, (case, p)
+                assert p.sst >= 2 and p.ldw % 16 == 0, (case, p)
+            else:
+                assert p.variant == "wgmma" and not p.reason, (case, p)
             assert p.smem <= SMEM_LIMIT and p.stages >= 2, (case, p)
             assert p.bn % 8 == 0 and 32 <= p.bn <= 256, (case, p)
             assert 1 <= p.grid <= 132 and p.grid % -(-n // p.bn) == 0, \
