@@ -106,7 +106,7 @@ Phases, each printing its own lines:
    (MobileNet-v2's K = 24 convs, GoogLeNet's 5x5 convs on 24 channels,
    the ShuffleNets' K = 24, 58, 116 and 232 convs; counted as the kernels
    line's ``*_ragged`` entries too, the plan's reasons printed), none on
-   "mma_sync"; a bf16 x bf16 GEMM "mma_bf16", a bf16 x with an int8
+   "mma_sync"; a bf16 x bf16 GEMM "wgmma_bf16", a bf16 x with an int8
    weight (weight-only) "wgmma_w8", an f32 x "simt"; every depthwise
    launch "k3s1" or "k3s2" by its stride and every chain launch, int8 or
    float, "wgmma".
@@ -145,7 +145,16 @@ Phases, each printing its own lines:
    forward; each "wgmma_ragged" launch likewise on "mma_sync" (the body
    those launches took before), equal to plain, and each path prints its
    ragged launches' sums: kernel, bound and share, old body, plain,
-   library and multiple.  ``ident`` is bit-equal, its yardstick ``x.clone()``.
+   library and multiple.  Each int8 launch whose plan splits K is also run
+   and timed unsplit (the plan such launches took before) and on the
+   other tile width with its split, each equal to plain, and each path
+   prints a ``split launches`` line: launches, splits, ms split and
+   unsplit, and any launch more than 3% slower split.  Each "wgmma_bf16"
+   launch (the bf16 FC) is held to its split order's plain version
+   (``matmul_epilogue_split_plain``) and timed unsplit, within the float
+   gate.  R-FCN's three
+   stage-5 dilated launches must split.
+   ``ident`` is bit-equal, its yardstick ``x.clone()``.
    A float GEMM's yardstick is ``torch.matmul`` in x's type, a float
    ``conv2d_implicit_gemm``'s ``F.conv2d`` on channels-last bf16 (the
    weight dequantized once).
@@ -160,8 +169,9 @@ Phases, each printing its own lines:
    the logits too, and AlexNet's and the Winograd route's that alone, each
    with a witness (the path with every float conv summed in f64, or in
    f32) that holds both (``PROB_WITNESS`` says why); median ms per batch
-   and images/s over 10 forwards; one profiled forward's device time by
-   kernel, by graph node (the engine names a profiler range after each
+   and images/s over 10 forwards; one profiled forward's device time
+   (``device_spans``: the union of the kernels' spans) by kernel, by graph
+   node (the engine names a profiler range after each
    node) and by graph op (the Winograd convs, Concat and LRN are PyTorch
    ops: their time is read here).  The
    Winograd path also holds each Winograd conv's output against
@@ -726,10 +736,10 @@ def gemm_plan_of(kernel, a):
 
 def gemm_variants_wanted(kernel, a):
     """The variants a GEMM launch may take: "wgmma" or "wgmma_ragged"
-    (rows that are not whole 16-byte pieces) for int8 x (int8 w);
-    "wgmma_w8" for a bf16 x with an int8 weight (weight-only); "simt" for
-    an f32 x (f32 on the tensor cores would be TF32) and for every other
-    float conv; "mma_bf16" for a bf16 x bf16 matrix."""
+    (rows that are not whole 16-byte pieces) for int8 x (int8 w), K split
+    or not; "wgmma_w8" for a bf16 x with an int8 weight (weight-only);
+    "simt" for an f32 x (f32 on the tensor cores would be TF32) and for
+    every other float conv; "wgmma_bf16" for a bf16 x bf16 matrix."""
     import torch
     if a["x"].dtype == torch.int8:
         return ("wgmma", "wgmma_ragged")
@@ -737,7 +747,7 @@ def gemm_variants_wanted(kernel, a):
         return ("wgmma_w8",)
     if (a["x"].dtype == a["w"].dtype == torch.bfloat16
             and kernel == "matmul_epilogue"):
-        return ("mma_bf16",)
+        return ("wgmma_bf16",)
     return ("simt",)
 
 
@@ -746,7 +756,7 @@ def check_variants(label, launches):
     one of those ``gemm_variants_wanted`` allows: every int8 one "wgmma",
     or "wgmma_ragged" where its rows are not whole 16-byte pieces (the
     plan's reasons printed, with their counts), every bf16 x bf16 one
-    "mma_bf16", every weight-only one (bf16 x, int8 w) "wgmma_w8", every
+    "wgmma_bf16", every weight-only one (bf16 x, int8 w) "wgmma_w8", every
     f32 x one "simt"; every depthwise launch (all 3x3) "k3s1" or "k3s2" by
     its stride, and every chain launch (int8 or float) "wgmma"."""
     taken, ragged = {}, {}
@@ -1224,23 +1234,28 @@ def forced_launch(kernel, a, out, plan, what):
     """A callable that launches the GEMM kernel on the recorded call's
     tensors ``a`` into ``out`` (contiguous, as the wrapper makes it) with
     ``plan`` forced, through the C entry point (uncounted: the wrapper is
-    not called); a CUDA error fails the run as ``what``."""
+    not called), with the split-K workspace the plan needs
+    (``split_workspace``); a CUDA error fails the run as ``what``."""
     import torch
     from feathercnn_tpu_torch.kernels.build import load_library
-    from feathercnn_tpu_torch.kernels.matmul import launch_args
+    from feathercnn_tpu_torch.kernels.matmul import (launch_args,
+                                                     split_workspace)
     check(out.is_contiguous(), f"{what}: the output must be contiguous")
     lib = load_library()
     vecs = {k: a[k] for k in ("bias", "w_scale", "lo", "hi")}
     ptrs, codes, _ = launch_args(a["x"], a["w"], out, vecs, a["activation"],
                                  out.dtype)
     scales = (float(a["x_scale"]), float(a["out_scale"]))
+    m, _, n = dims(kernel, a)
+    ws = split_workspace(plan, m, n, a["x"].dtype, out.device)
+    tail = (*plan.args(), None if ws is None else ws.data_ptr())
 
     def run():
         st = torch.cuda.current_stream().cuda_stream
         if kernel == "matmul_epilogue":
-            m, k, n = dims(kernel, a)
+            k = dims(kernel, a)[1]
             rc = lib.fcnn_matmul_epilogue(*ptrs, m, k, n, *codes, *scales,
-                                          *plan.args(), None, st)
+                                          *tail, st)
         else:
             nb, h, w, c = a["x"].shape
             kh, kw, _, co = a["w"].shape
@@ -1249,35 +1264,37 @@ def forced_launch(kernel, a, out, plan, what):
             d = a.get("dilation", 1)
             if d == 1:
                 rc = lib.fcnn_conv_implicit_gemm(
-                    *ptrs, *geometry, *codes, *scales, *plan.args(), None,
-                    st)
+                    *ptrs, *geometry, *codes, *scales, *tail, st)
             else:
                 rc = lib.fcnn_conv_implicit_gemm_dilated(
-                    *ptrs, *geometry, d, *codes, *scales, *plan.args(),
-                    None, st)
+                    *ptrs, *geometry, d, *codes, *scales, *tail, st)
         check(rc == 0, f"{what}: CUDA error {rc}")
     return run
 
 
-_W8_ALT_MS = {}
+_FLOAT_ALT_MS = {}
 
 
-def w8_other_plans_ms(kernel, a, want):
-    """{plan: median ms} of a "wgmma_w8" GEMM launch on the plans it did
-    not take, launched through the C entry point on the same tensors with
-    the plan forced (``forced_launch``), each held within the float gate
-    of ``want`` (the plain version); timed once per shape: "simt" (the body
-    these launches took before; 5 runs, the largest VGG-16 launch takes
-    ~28 ms on it) and, for a matrix whose K the plan splits, "unsplit"
-    (the same body on its 128 x BN tiles alone, one block each)."""
+def float_other_plans_ms(kernel, a, want):
+    """{plan: median ms} of a "wgmma_w8" or "wgmma_bf16" GEMM launch on the
+    plans it did not take, launched through the C entry point on the same
+    tensors with the plan forced (``forced_launch``), each held within the
+    float gate of ``want`` (the plain version of the launch's sum order);
+    timed once per shape: for "wgmma_w8", "simt", the body these launches
+    took before (5 runs: the largest VGG-16 launch takes ~28 ms on it),
+    and, for a matrix whose K the plan splits, "unsplit" (the same body on
+    its 128 x BN tiles alone, one block each).  (The body "wgmma_bf16"
+    replaced is gone from this tree: tools/split_gemm_probe.py --root
+    times it in the parent's.)"""
     import torch
     from feathercnn_tpu_torch.kernels.matmul import GemmPlan
     key = (kernel, tuple(a["x"].shape), tuple(a["w"].shape), a.get("stride"),
            want.dtype)
-    if key in _W8_ALT_MS:
-        return _W8_ALT_MS[key]
+    if key in _FLOAT_ALT_MS:
+        return _FLOAT_ALT_MS[key]
     taken = gemm_plan_of(kernel, a)
-    plans = {"simt": GemmPlan("simt", ldw=taken.ldw)}
+    plans = ({"simt": GemmPlan("simt", ldw=taken.ldw)}
+             if taken.variant == "wgmma_w8" else {})
     if taken.split > 1:
         m, _, n = dims(kernel, a)
         plans["unsplit"] = taken._replace(
@@ -1291,7 +1308,7 @@ def w8_other_plans_ms(kernel, a, want):
         check(ok, f"{kernel} x{tuple(a['x'].shape)} on {name}: max err {err}")
         res[name] = (median_ms(run, reps=5, warmup=1) if name == "simt"
                      else median_ms(run))
-    _W8_ALT_MS[key] = res
+    _FLOAT_ALT_MS[key] = res
     return res
 
 
@@ -1319,6 +1336,60 @@ def ragged_old_body_ms(kernel, a, want):
               f"{err}")
         _RAGGED_OLD_MS[key] = {"mma_sync": median_ms(run)}
     return _RAGGED_OLD_MS[key]
+
+
+_SPLIT_ALT_MS = {}
+
+
+def split_other_plans_ms(kernel, a, want):
+    """{plan: median ms} of an int8 launch whose plan splits K, on the
+    plans it did not take, forced through the C entry point on the same
+    tensors (``forced_launch``), each held equal to ``want`` (the plain
+    version: int8 0 LSB, bf16 1 ulp): "unsplit" (the planner's plan
+    without the split, the plan such launches took before) and the other
+    tile width with as many slices as fill the SMs (``split_k``: "BN 128
+    split s", or "BN 64 split s" where the plan's tile is 128 wide; the
+    rule's plan with that tile, its stages as many as fit); timed once
+    per shape."""
+    import torch
+    from feathercnn_tpu_torch.kernels.matmul import (
+        MAX_STAGES, SMEM_LIMIT, _sm_count, _wgmma_plan, split_k, wgmma_smem)
+    key = (kernel, tuple(a["x"].shape), tuple(a["w"].shape), a.get("stride"),
+           a.get("pad_h"), a.get("dilation", 1), want.dtype)
+    if key in _SPLIT_ALT_MS:
+        return _SPLIT_ALT_MS[key]
+    taken = gemm_plan_of(kernel, a)
+    m, k, n = dims(kernel, a)
+    sms = _sm_count(a["x"].device.index or 0)
+    conv, osize = kernel == "conv2d_implicit_gemm", want.element_size()
+    bn, k_steps, row_tiles = (64 if taken.bn == 128 else 128,
+                              -(-k // taken.bk), -(-m // 128))
+    split = split_k(row_tiles * -(-n // bn), k_steps, sms)
+
+    def smem(stages):
+        return wgmma_smem(bn, taken.bk, stages, k_steps, False, osize, conv,
+                          0, 0)
+    stages = min(MAX_STAGES, (SMEM_LIMIT - smem(0)) // (smem(1) - smem(0)))
+    units = row_tiles * -(-n // bn) * split
+    other = taken._replace(bn=bn, split=split, stages=stages,
+                           smem=smem(stages), grid=units if units <= sms
+                           else max(sms // -(-n // bn), 1) * -(-n // bn))
+    plans = {"unsplit": _wgmma_plan(taken.variant, m, k, n, osize, conv,
+                                    sms, taken.ldw, taken.reason,
+                                    split=False),
+             f"BN {bn} split {split}": other}
+    res = {}
+    for name, plan in plans.items():
+        # (the plain conv's output has the f64 conv's permuted strides)
+        out = torch.empty(want.shape, dtype=want.dtype, device=want.device)
+        run = forced_launch(kernel, a, out, plan, f"{kernel} on {name}")
+        run()
+        err, ok, _ = compare(out, want)
+        check(ok, f"{kernel} x{tuple(a['x'].shape)} on {name}: max err "
+              f"{err}")
+        res[name] = median_ms(run)
+    _SPLIT_ALT_MS[key] = res
+    return res
 
 
 _CHAIN_ALT_MS = {}
@@ -1416,20 +1487,32 @@ def kernels_vs_plain(label, launches, groups=None):
         kernel, plain = fns[name]
         out = kernel(**a)
         tiles = None
+        variant = launch.get("variant")
+        split = gemm_plan_of(name, a).split if name in GEMMS else 1
         if name == "fused_chain_float":
             max_err, ok, over, elements = per_launch(a, out)
         else:
-            ref = plain(**a)
+            if variant == "wgmma_bf16":   # held to its split order
+                from feathercnn_tpu_torch.kernels.matmul import \
+                    matmul_epilogue_split_plain
+                ref = matmul_epilogue_split_plain(split=split, **a)
+            else:
+                ref = plain(**a)
             max_err, ok, over = compare(out, ref, gate)
             elements = out.numel()
             if name in ("depthwise_conv2d", "depthwise_conv2d_int8"):
                 tiles = dw_tile_ms(name, a, ref)
             elif name == "fused_chain":
                 tiles = chain_alt_ms(a, out)
-            elif launch.get("variant") == "wgmma_w8":
-                tiles = w8_other_plans_ms(name, a, ref)
-            elif launch.get("variant") == "wgmma_ragged":
-                tiles = ragged_old_body_ms(name, a, ref)
+            elif variant in ("wgmma_w8", "wgmma_bf16"):
+                tiles = float_other_plans_ms(name, a, ref) or None
+            elif variant in ("wgmma", "wgmma_ragged"):
+                tiles = {}
+                if variant == "wgmma_ragged":
+                    tiles.update(ragged_old_body_ms(name, a, ref))
+                if split > 1:
+                    tiles.update(split_other_plans_ms(name, a, ref))
+                tiles = tiles or None
             del ref
         desc = describe(name, a, out) + (f" block-diagonal g={group}"
                                          if group > 1 else "")
@@ -1446,7 +1529,7 @@ def kernels_vs_plain(label, launches, groups=None):
                      "over_1ulp": over, "elements": elements,
                      "float_sums": float_sums,
                      "launches": launches_of(launch),
-                     "variant": launch.get("variant"),
+                     "variant": variant, "split": split,
                      "max_abs_err": max_err,
                      "ms": median_ms(lambda: kernel(**a)),
                      "plain_ms": median_ms(lambda: plain(**a), reps=3,
@@ -1484,6 +1567,7 @@ def kernels_vs_plain(label, launches, groups=None):
                f"({med / same[0]['library_bf16_ms']:.2f}x)")
             + (f", variant {same[0]['variant']}" if same[0]["variant"]
                else "")
+            + (f" split {same[0]['split']}" if same[0]["split"] > 1 else "")
             + ("" if not same[0]["tiles"] else (
                 ", other tiles " if same[0]["kernel"].startswith("depthwise")
                 else ", other plans ") + ", ".join(
@@ -1514,6 +1598,7 @@ def kernels_vs_plain(label, launches, groups=None):
                    f"{sum(r['ms'] for r in unsplit):.4f} ms, unsplit "
                    f"{sum(r['tiles']['unsplit'] for r in unsplit):.4f}"
                    if unsplit else ""))
+    split_lines(label, rows)
     for kern in GEMMS:
         mine = [r for r in rows if RAGGED[kern] in r["counted"]]
         if mine:
@@ -1543,6 +1628,47 @@ def kernels_vs_plain(label, launches, groups=None):
             f"{sum(r['ms'] for r in mine):.4f} ms at the plan's tiles, "
             + ", ".join(f"{v:.4f} at {t}" for t, v in other.items()))
     return rows
+
+
+def split_lines(label, rows):
+    """The path's lines for the launches this slice redesigned: its int8
+    launches whose plan splits K (launches, splits, ms split and unsplit,
+    the other tile width's; each launch more than 3% slower split than
+    unsplit named), and its bf16 x bf16 ones on "wgmma_bf16" (ms beside
+    unsplit, the bound and ``torch.matmul``)."""
+    split = [r for r in rows if r["split"] > 1
+             and r["variant"] in ("wgmma", "wgmma_ragged")]
+    if split:
+        new = sum(r["ms"] for r in split)
+        old = sum(r["tiles"]["unsplit"] for r in split)
+        alt = sum(ms for r in split for t, ms in r["tiles"].items()
+                  if t.startswith("BN "))
+        by_kernel = {k: sum(k in r["counted"] for r in split)
+                     for k in (*GEMMS, DILATED)}
+        splits = {}
+        for r in split:
+            splits[r["split"]] = splits.get(r["split"], 0) + 1
+        slower = [f"{r['shape']} {r['ms']:.4f} vs {r['tiles']['unsplit']:.4f}"
+                  for r in split if r["ms"] > 1.03 * r["tiles"]["unsplit"]]
+        say(label, f"split launches of one forward: {len(split)} "
+            f"({by_kernel}), split {splits}: {new:.4f} ms split, "
+            f"{old:.4f} ms unsplit (the earlier plan; each equal to plain; "
+            f"{old / new:.2f}x), {alt:.4f} ms on the other tile width; "
+            f"more than 3% slower split: {len(slower)}"
+            + ("".join(f"; {s}" for s in slower)))
+    bf = [r for r in rows if r["variant"] == "wgmma_bf16"]
+    if bf:
+        sums = _sums(bf)
+        unsplit = [r["tiles"]["unsplit"] for r in bf
+                   if r["tiles"] and "unsplit" in r["tiles"]]
+        say(label, f"bf16 x bf16 launches of one forward: {len(bf)}, split "
+            f"{sorted({r['split'] for r in bf})}, {sums['ms']:.4f} ms on "
+            f"wgmma_bf16 (each within the float gate of the split-order "
+            f"plain)" + (f", unsplit {sum(unsplit):.4f}" if unsplit else "")
+            + f", bound {sums['bound_ms']:.4f} ms "
+            f"({100 * sums['bound_ms'] / sums['ms']:.1f}% of it), "
+            f"torch.matmul {sums['library_ms']:.4f} "
+            f"({sums['ms'] / sums['library_ms']:.2f}x)")
 
 
 def _library_name(desc):
@@ -1665,15 +1791,35 @@ def _kernel_group(key):
         return ("depthwise_conv2d_int8"
                 if "Lb1E" in key or ", true," in key else "depthwise_conv2d")
     if any(k in key for k in ("wgemm_kernel", "igemm_kernel",
-                              "fgemm_kernel", "w8gemm_kernel")):
+                              "fgemm_kernel", "w8gemm_kernel",
+                              "splitk_reduce_kernel")):
         return ("conv2d_implicit_gemm" if "ConvA" in key
                 else "matmul_epilogue")
-    if "bgemm_kernel" in key or "splitk_reduce_kernel" in key:
-        return "matmul_epilogue"
     if "at::native" in key:
         return "PyTorch's own ops"
     return ("cuDNN/cuBLAS (the float convs; the Winograd path's transforms "
             "and GEMMs)")
+
+
+def device_spans(prof):
+    """(name, µs) of every kernel, copy and set the profiled run put on
+    the card, each from its start, or from the end of every one before it
+    where that is later, to its end.  A programmatic dependent launch (the
+    split-K pass) starts its blocks while the kernel before it runs and
+    waits in place for its results: that wait is not the pass's time.  On
+    one stream the spans then add up to the union of the kernels'
+    intervals, the card's busy time."""
+    events = []
+    for ev in prof.events():
+        if (getattr(ev, "is_user_annotation", False)
+                or "CUDA" not in str(getattr(ev, "device_type", ""))):
+            continue
+        events.append((ev.time_range.start, ev.time_range.end, ev.key))
+    spans, end = [], -math.inf
+    for start, stop, key in sorted(events):
+        spans.append((key, max(0.0, stop - max(start, end))))
+        end = max(end, stop)
+    return spans
 
 
 def speed_and_profile(label, eng, x, smi):
@@ -1712,23 +1858,24 @@ def speed_and_profile(label, eng, x, smi):
         eng(xd)
         torch.cuda.synchronize()
     del xd
-    rows = []
     nodes = {n.name for n in eng.graph.nodes}
     node_ms = {}
     for ev in prof.key_averages():
         dev_us = getattr(ev, "device_time_total", None)
         if dev_us is None:
             dev_us = getattr(ev, "cuda_time_total", 0)
-        on_card = "CUDA" in str(getattr(ev, "device_type", ""))
-        if getattr(ev, "is_user_annotation", False):
-            # a node's range as the card ran it: from the start of its
-            # first kernel to the end of its last (the host-side range
-            # links only PyTorch's own kernels, not the hand kernels)
-            if on_card and ev.key in nodes:
-                node_ms[ev.key] = dev_us / 1e3
-        elif dev_us and on_card:
-            rows.append((dev_us, ev.count, ev.key))
-    rows.sort(reverse=True)
+        # a node's range as the card ran it: from the start of its first
+        # kernel to the end of its last (the host-side range links only
+        # PyTorch's own kernels, not the hand kernels)
+        if (getattr(ev, "is_user_annotation", False) and ev.key in nodes
+                and "CUDA" in str(getattr(ev, "device_type", ""))):
+            node_ms[ev.key] = dev_us / 1e3
+    by_key = {}
+    for key, us in device_spans(prof):
+        t, c = by_key.get(key, (0.0, 0))
+        by_key[key] = (t + us, c + 1)
+    rows = sorted(((t, c, key) for key, (t, c) in by_key.items() if t),
+                  reverse=True)
     total = sum(r[0] for r in rows)
     if not total:
         say("profile", f"{label}: device time not measured (the profiler "
@@ -1739,7 +1886,9 @@ def speed_and_profile(label, eng, x, smi):
         grp = _kernel_group(key)
         t, c = groups.get(grp, (0.0, 0))
         groups[grp] = (t + us, c + cnt)
-    say("profile", f"{label}: device kernel time of one forward: "
+    say("profile", f"{label}: device kernel time of one forward (the "
+        "union of its kernels' spans, a split-K pass from the end of its "
+        "main loop): "
         f"{total / 1e3:.3f} ms over {sum(r[1] for r in rows)} kernels, busy "
         f"{100 * total / 1e3 / ms:.1f}% of the median forward; "
         + ", ".join(f"{k} {v / 1e3:.3f} ms x{c} ({100 * v / total:.1f}%)"
@@ -2191,7 +2340,8 @@ def ragged_gemm(gen):
     (``ragged_rows``), bf16 x with an even and an odd K; and the refusal of
     a weight not in gemm_layout."""
     import torch
-    from feathercnn_tpu_torch.kernels.matmul import gemm_layout
+    from feathercnn_tpu_torch.kernels.matmul import (
+        gemm_layout, matmul_epilogue_split_plain)
     fns = _kernel_fns()
 
     def i8(*s):
@@ -2201,14 +2351,19 @@ def ragged_gemm(gen):
     def f32(*s, lo=0.5, hi=1.5):
         return torch.rand(*s, device="cuda", generator=gen) * (hi - lo) + lo
 
-    def run(name, a, want, what):
+    def run(name, a, want, what, split=None):
         kernel, plain = fns[name]
         before = dict(kernel.variants)
         got = kernel(**a)
         v = next(k for k, c in kernel.variants.items() if c != before[k])
         check(v == want, f"{what}: took {v}, planned {want}")
+        took = gemm_plan_of(name, a).split
+        check(split is None or (took > 1) == split,
+              f"{what}: split {took}, expected {'>' if split else '='} 1")
         gate = "exact" if a["x"].dtype == torch.int8 else "float"
-        err, ok, _ = compare(got, plain(**a), gate)
+        ref = (matmul_epilogue_split_plain(split=took, **a)
+               if v == "wgmma_bf16" else plain(**a))
+        err, ok, _ = compare(got, ref, gate)
         check(ok, f"{what} ({v}): max err {err}")
 
     def misaligned(*s):
@@ -2261,16 +2416,25 @@ def ragged_gemm(gen):
     run("conv2d_implicit_gemm", a, "mma_sync", "conv with misaligned x")
     n += 1
     n += ragged_rows(run)
-    for (m, k, nn, want) in [(128, 2048, 1000, "mma_bf16"),
-                             (77, 136, 24, "mma_bf16"),
-                             (300, 130, 72, "simt")]:
+    # bf16 x bf16: split K (uneven slices, a partial last step, several
+    # row tiles), several tiles a block, odd N, bf16 and f32 out
+    for (m, k, nn, want, odt) in [
+            (128, 2048, 1000, "wgmma_bf16", torch.bfloat16),
+            (128, 2048, 1000, "wgmma_bf16", torch.float32),
+            (77, 136, 24, "wgmma_bf16", torch.bfloat16),
+            (200, 2600, 999, "wgmma_bf16", torch.bfloat16),
+            (77, 4104, 24, "wgmma_bf16", torch.float32),
+            (300, 3072, 200, "wgmma_bf16", torch.bfloat16),
+            (9000, 256, 200, "wgmma_bf16", torch.bfloat16),
+            (300, 130, 72, "simt", torch.bfloat16)]:
         a = dict(x=torch.randn(m, k, device="cuda", generator=gen).to(
                      torch.bfloat16),
                  w=gemm_layout((torch.randn(k, nn, device="cuda", generator=gen)
                                 * k ** -0.5).to(torch.bfloat16)),
-                 bias=f32(nn), activation="relu")
-        run("matmul_epilogue", a, want, f"bf16 matmul {(m, k, nn)}")
+                 bias=f32(nn), activation="relu", out_dtype=odt)
+        run("matmul_epilogue", a, want, f"bf16 matmul {(m, k, nn)} {odt}")
         n += 1
+    n += split_cases(run, i8, f32)
     n += ragged_w8(run)
     # the "dot1x1" algo's int8 product on the card (torch._int_mm, not a
     # hand kernel): exact against the f64 product of the int8 grids; a shape
@@ -2304,6 +2468,54 @@ def ragged_gemm(gen):
             check(False, f"{name}: a weight not in gemm_layout was taken")
         except ValueError:
             pass
+    return n
+
+
+def split_cases(run, i8, f32):
+    """int8 launches whose plan splits K, off the paths' shapes, each equal
+    to plain on its variant: a matrix at M = 128 and past it (uneven
+    slices), a conv at stride 1 and 2, a dilated one, ragged M and N,
+    every output type and the lo/hi clamp; and three the rule leaves
+    unsplit (a K loop too short to pay for the second pass, a ragged conv
+    at C = 40 on "wgmma_ragged", a batch's worth of tiles)."""
+    import math
+    import torch
+    from feathercnn_tpu_torch.kernels.matmul import gemm_layout
+    n = 0
+    for (m, k, nn, clamp, split) in [(128, 4096, 1000, False, True),
+                                     (200, 4096, 264, True, True),
+                                     (77, 4096, 96, False, True),
+                                     (128, 2048, 1000, False, False)]:
+        for out_dtype in (torch.int8, torch.bfloat16, torch.float32):
+            lo = hi = None
+            if clamp:
+                lo = torch.full((nn,), -math.inf, device="cuda")
+                hi = torch.full((nn,), math.inf, device="cuda")
+                lo[: nn // 2] = 0.0
+                hi[nn // 4: nn // 2] = 6.0
+            a = dict(x=i8(m, k), w=gemm_layout(i8(k, nn)), bias=f32(nn),
+                     w_scale=f32(nn) * 1e-3, activation=None if clamp
+                     else "relu", out_dtype=out_dtype, x_scale=0.02,
+                     out_scale=5.0, lo=lo, hi=hi)
+            run("matmul_epilogue", a, "wgmma", f"split matmul {(m, k, nn)} "
+                f"{out_dtype}", split=split)
+            n += 1
+    for (nb, h, w, c, co, k, s, p, d, split) in [
+            (1, 38, 50, 512, 512, 3, 1, 2, 2, True),
+            (1, 19, 25, 256, 200, 3, 1, 1, 1, True),
+            (2, 10, 10, 256, 128, 3, 2, 1, 1, True),
+            (1, 20, 20, 40, 200, 7, 1, 3, 1, False),
+            (16, 28, 28, 256, 256, 3, 1, 1, 1, False)]:
+        for out_dtype in (torch.int8, torch.bfloat16):
+            a = dict(x=i8(nb, h, w, c), w=gemm_layout(i8(k, k, c, co)),
+                     bias=f32(co), w_scale=f32(co) * 1e-3, stride=s, pad_h=p,
+                     pad_w=p, activation="relu", out_dtype=out_dtype,
+                     x_scale=0.02, out_scale=5.0, dilation=d)
+            run("conv2d_implicit_gemm", a,
+                "wgmma_ragged" if c % 16 else "wgmma",
+                f"split conv {(nb, h, w, c, co, k, s, d)} {out_dtype}",
+                split=split)
+            n += 1
     return n
 
 
@@ -3225,6 +3437,14 @@ def detection_paths(smi, rng, rows, counts, speed):
         counts[label] = EXPECTED[label]
         r, speed[label], node_ms = run_path(label, g, cfg, eng, x, smi)
         rows += r
+        if label == "rfcn_resnet101 b1":
+            # stage 5's dilated convs at batch 1: few tiles, K split
+            dil = [q for q in r if q["kernel"] == DILATED]
+            check(len(dil) == 3 and all(q["variant"] == "wgmma"
+                                        and q["split"] > 1 for q in dil),
+                  f"{label}: dilated launches "
+                  f"{[(q['variant'], q['split']) for q in dil]}, expected "
+                  "3 on a split wgmma plan")
         if node_ms:
             total = sum(node_ms.values())
             heads = [(n.op, n.name, node_ms[n.name]) for n in eng.graph.nodes

@@ -21,7 +21,7 @@ import torch
 import torch.nn.functional as F
 
 from .matmul import (VARIANTS, _default_out_dtype, check_operands,
-                     epilogue_plain, launch_args, plan_for)
+                     epilogue_plain, launch_args, plan_for, split_workspace)
 
 __all__ = ["conv2d_implicit_gemm", "conv2d_implicit_gemm_plain"]
 
@@ -92,11 +92,12 @@ def conv2d_implicit_gemm(x: torch.Tensor, w: torch.Tensor,
     ptrs, codes, stream = launch_args(x, w, out, vecs, activation, out_dtype)
     plan = plan_for(N * OH * OW, KH * KW * C, Co, x, w, out_dtype, conv_c=C,
                     conv_out=(N, OH, OW), stride=stride)
+    ws = split_workspace(plan, N * OH * OW, Co, x.dtype, x.device)
     from .build import load_library
     lib = load_library()
     geometry = (N, H, W, C, KH, KW, Co, stride, stride, pad_h, pad_w)
-    tail = (*codes, float(x_scale), float(out_scale), *plan.args(), None,
-            stream)
+    tail = (*codes, float(x_scale), float(out_scale), *plan.args(),
+            None if ws is None else ws.data_ptr(), stream)
     if dilation == 1:
         rc = lib.fcnn_conv_implicit_gemm(*ptrs, *geometry, *tail)
     else:

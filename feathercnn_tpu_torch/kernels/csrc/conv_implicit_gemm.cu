@@ -42,6 +42,17 @@
 // an x not 8-byte aligned takes the mma.sync variant (no zoo launch); f32
 // x the SIMT loop.
 //
+// At batch 1 a conv has few 128-row tiles: R-FCN's stage-5 convs at
+// dilation 2 (38x50 maps, M = 1,900, K = 4,608, N = 512) make 15 x 2 = 30
+// tiles, and 30 blocks walking all 36 K steps left 102 SMs idle.  Where
+// the tiles leave SMs idle the plan (gemm_plan, from the tiles and the SMs
+// alone) splits K: each block runs one slice (9 of R-FCN's 36 steps, 120
+// blocks) and writes its int32 sums to a workspace, and a second pass adds
+// the slices, exactly, and applies the same epilogue, as for a matrix
+// (matmul_epilogue.cu).  The producer starts a slice's gather at its tap
+// (one division per slice).  The batch-128 convs have hundreds of tiles
+// and do not split; nor does "wgmma_ragged" (no zoo launch would).
+//
 // Weight-only int8 (bf16 x, int8 w: VGG-16 w8's twelve 3x3 convs after the
 // stem, C and Co 64 to 512, stride 1) is bound by the bf16 tensor cores
 // (9*C*Co / (C + Co) operations per byte of x and output, 288 to 2304).
@@ -107,7 +118,7 @@ int conv_implicit_gemm(
       a, w, Co, x_type, w_type,
       fcnn::make_plan(variant, bn, bk, stages, bres, grid, smem, split, th,
                       tw, ldw, sst),
-      static_cast<float*>(ws), e,
+      ws, e,
       static_cast<cudaStream_t>(stream));
 }
 

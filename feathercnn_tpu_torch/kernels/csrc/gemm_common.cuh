@@ -65,9 +65,12 @@
 // the K past its end).  What is left takes variant "mma_sync"
 // (igemm_kernel, mma.sync m16n8k32 over single-byte tiles): C not a
 // multiple of 8 (the stems' C = 3), a conv x not 8-byte aligned, a ragged
-// matrix past K = 256; no zoo launch takes it.  bf16 x bf16
-// (variant "mma_bf16", bgemm_kernel) runs mma.sync m16n8k16 with each warp
-// summing its own slice of K and a fixed-order reduction across warps.
+// matrix past K = 256; no zoo launch takes it.  Where a launch's tiles
+// fill at most a third of the SMs and its blocks' K loops are long (the
+// convs at batch 1, the score convs at N = 21), its K splits over the
+// grid: each slice's int32 sums go to a workspace and
+// splitk_reduce_kernel<int> adds the slices (exact) and applies the
+// epilogue, as "wgmma_w8" below does in f32.
 //
 // Weight-only int8, bf16 x int8 w (variant "wgmma_w8", w8gemm_kernel): the
 // same persistent grid, producer warpgroup, mbarrier ring and column
@@ -91,6 +94,11 @@
 // that is not 16 bytes' multiple (K or C not a multiple of 8) or a
 // misaligned pointer takes "simt"; so do f32 x, f32 or int8 w ("simt",
 // fgemm_kernel: f32 on the tensor cores would be TF32).
+//
+// bf16 x bf16 (variant "wgmma_bf16", w8gemm_kernel<MatrixA, BN, true>: the
+// bf16 FC, M = batch): the same kernel with the bf16 weight tile brought
+// by TMA beside A (no staging slot, no conversion), its split-K and its
+// second pass.
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums; the encoder is looked up
@@ -112,9 +120,9 @@ enum Variant {
   V_SIMT = 0,
   V_MMA_S8 = 1,
   V_WGMMA_S8 = 2,
-  V_MMA_BF16 = 3,
-  V_WGMMA_W8 = 4,
-  V_WGMMA_RAGGED = 5
+  V_WGMMA_W8 = 3,
+  V_WGMMA_RAGGED = 4,
+  V_WGMMA_BF16 = 5
 };
 
 struct Epilogue {
@@ -129,13 +137,12 @@ struct Epilogue {
   void* out;             // (M, N) row-major
 };
 
-// A launch's plan, made on the host: the variant, and for "wgmma" and
-// "wgmma_w8" the tile width, the K step in bytes, the ring's stages,
+// A launch's plan, made on the host: the variant, and for the wgmma
+// variants the tile width, the K step in bytes, the ring's stages,
 // whether the weight panel stays resident, the grid and the dynamic shared
-// memory, which the kernel's own layout must equal, and the K slices
-// ("wgmma_w8" matrices: 1, or the split-K slices summed by a second pass);
-// the weight's row pitch and, for a "wgmma_ragged" matrix, the tiles its
-// staging ring holds.
+// memory, which the kernel's own layout must equal, and the K slices (1,
+// or the split-K slices summed by a second pass); the weight's row pitch
+// and, for a "wgmma_ragged" matrix, the tiles its staging ring holds.
 struct GemmPlan {
   int variant;
   int bn;
@@ -452,6 +459,21 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
 }
 __device__ __forceinline__ void named_sync(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(threads) : "memory");
+}
+
+// The TMA descriptor into the cache before its first load.
+__device__ __forceinline__ void prefetch_map(const CUtensorMap* map) {
+  asm volatile("prefetch.tensormap [%0];\n"
+               :: "l"(reinterpret_cast<uint64_t>(map)) : "memory");
+}
+
+// The main loops' side of programmatic dependent launch: the split-K pass
+// (launched with it) may start its blocks once every block of the main
+// loop has passed this point; it waits for the main loop's results
+// itself (griddepcontrol.wait).  Without a dependent launch it does
+// nothing.
+__device__ __forceinline__ void allow_dependents() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
 }
 
 __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
@@ -808,6 +830,30 @@ __device__ __forceinline__ void store_piece(uint8_t* dst, const uint4& v,
     dst[b] = static_cast<uint8_t>(word_of(v, b >> 2) >> (8 * (b & 3)));
 }
 
+// Unit u of a launch whose K splits (SPLIT) into ``split`` slices of
+// ``per`` steps: column tile u % n_tiles, slice (u / n_tiles) % split, row
+// tile u / (n_tiles * split), and the slice's steps [ks0, ks1); without
+// SPLIT, tile u and all k_steps.
+struct Unit {
+  int mt, nt, ks0, ks1;
+};
+template <bool SPLIT>
+__device__ __forceinline__ Unit unit_of(int u, int n_tiles, int split,
+                                        int per, int k_steps) {
+  Unit w;
+  const int q = u / n_tiles;
+  w.nt = u - q * n_tiles;
+  w.mt = q;
+  w.ks0 = 0;
+  w.ks1 = k_steps;
+  if constexpr (SPLIT) {
+    w.mt = q / split;
+    w.ks0 = (q - w.mt * split) * per;
+    w.ks1 = min(k_steps, w.ks0 + per);
+  }
+  return w;
+}
+
 // RAGGED: variant "wgmma_ragged".  A matrix's A then comes through the
 // staging ring (sst buffers), a conv's in 8-byte pieces; otherwise
 // ("wgmma") a matrix's by TMA, a conv's in 16-byte pieces.
@@ -816,11 +862,21 @@ __device__ __forceinline__ void store_piece(uint8_t* dst, const uint4& v,
 // FCNN_WG_PROBE_NO_STORE defined (tools/int8_gemm_probe.py --parts,
 // timing only: its results are wrong) skips the wgmma, the epilogue's
 // arithmetic into the staged tile (stage_tile), or the tile's stores.
-template <class A, int BN, int BK, bool RAGGED>
+//
+// SPLIT (split > 1; "wgmma" alone, BK = 128, not with a resident panel; an
+// instantiation of its own, so that the split's code leaves the common
+// one's epilogue, which bounds the small-K launches, as it was): a unit of
+// work is one tile and one slice of its K steps (unit_of), as in
+// w8gemm_kernel.  Slice sk runs steps [sk * per, min((sk + 1) * per,
+// k_steps)) and writes its int32 sums to ws[sk] (M x N) from the
+// registers; splitk_reduce_kernel<int> adds the slices (exact) and applies
+// the epilogue.
+template <class A, int BN, int BK, bool RAGGED, bool SPLIT>
 __global__ void __launch_bounds__(WG_THREADS, 1)
 wgemm_kernel(const __grid_constant__ CUtensorMap map_a,
              const __grid_constant__ CUtensorMap map_b, A a, int N,
-             int stages, int bres, int sst, Epilogue e) {
+             int stages, int bres, int sst, int split, int per,
+             int* __restrict__ ws, Epilogue e) {
   constexpr bool CONV = std::is_same<A, ConvA>::value;
   constexpr bool STAGED = RAGGED && !CONV;  // A through the staging ring
   constexpr int A_BYTES = WG_BM * BK;
@@ -860,6 +916,7 @@ wgemm_kernel(const __grid_constant__ CUtensorMap map_a,
   const int M = a.M;
   const int n_tiles = (N + BN - 1) / BN;
   const int tiles = ((M + WG_BM - 1) / WG_BM) * n_tiles;
+  const int units = SPLIT ? tiles * split : tiles;
 
   if (tid == 0) {
     for (int s = 0; s < stages; ++s) {
@@ -874,6 +931,7 @@ wgemm_kernel(const __grid_constant__ CUtensorMap map_a,
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
+  if constexpr (SPLIT) allow_dependents();
 
   // The grid is a multiple of the column tiles (the host checks it), so a
   // block keeps one column tile: its epilogue constants are made once, and
@@ -899,9 +957,9 @@ wgemm_kernel(const __grid_constant__ CUtensorMap map_a,
       constexpr int RPP = 128 / CPR;
       const int chunk = t % CPR;
       const int r0 = t / CPR;
-      for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-        const int mt = tile / n_tiles;
-        const int nt = tile - mt * n_tiles;
+      for (int u = blockIdx.x; u < units; u += gridDim.x) {
+        const Unit w = unit_of<SPLIT>(u, n_tiles, split, per, k_steps);
+        const int mt = w.mt, nt = w.nt, ks0 = w.ks0, ks1 = w.ks1;
         named_sync(3, 128);  // every load of the last tile is issued
         {  // the row's window origin: its offset in x, and (ih, iw); a row
            // past M gets an ih that fails every bounds check
@@ -916,12 +974,12 @@ wgemm_kernel(const __grid_constant__ CUtensorMap map_a,
         }
         named_sync(3, 128);
         // this thread's position in K: channel c of tap (kh, kw)
-        int k = chunk * PW, c = k, kh = 0, kw = 0;
+        int k = ks0 * BK + chunk * PW, c = k, kh = 0, kw = 0;
         while (c >= a.C) {
           c -= a.C;
           if (++kw == a.KW) { kw = 0; ++kh; }
         }
-        for (int ks = 0; ks < k_steps; ++ks) {
+        for (int ks = ks0; ks < ks1; ++ks) {
           mbar_wait(&empty[s], ph ^ 1);
           uint8_t* As = ring + s * STAGE;
           if (t == 0) {
@@ -1033,10 +1091,10 @@ wgemm_kernel(const __grid_constant__ CUtensorMap map_a,
         }
       }
     } else if (t == 0) {
-      for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-        const int mt = tile / n_tiles;
-        const int nt = tile - mt * n_tiles;
-        for (int ks = 0; ks < k_steps; ++ks) {
+      for (int u = blockIdx.x; u < units; u += gridDim.x) {
+        const Unit w = unit_of<SPLIT>(u, n_tiles, split, per, k_steps);
+        const int mt = w.mt, nt = w.nt;
+        for (int ks = w.ks0; ks < w.ks1; ++ks) {
           mbar_wait(&empty[s], ph ^ 1);
           uint8_t* As = ring + s * STAGE;
           mbar_expect_tx(&full[s], STAGE);
@@ -1072,18 +1130,19 @@ wgemm_kernel(const __grid_constant__ CUtensorMap map_a,
   int acc[BN / 2];
 #pragma unroll
   for (int i = 0; i < BN / 2; ++i) acc[i] = 0;
-  for (int i = t; i < BN / 2; i += 128)
-    column_pair(e, (blockIdx.x % n_tiles) * BN + 2 * i, N, par + i * 48);
+  if constexpr (!SPLIT)
+    for (int i = t; i < BN / 2; i += 128)
+      column_pair(e, (blockIdx.x % n_tiles) * BN + 2 * i, N, par + i * 48);
   if (bres) mbar_wait(bready, 0);
 
-  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-    const int mt = tile / n_tiles;
-    const int nt = tile - mt * n_tiles;
+  for (int u = blockIdx.x; u < units; u += gridDim.x) {
+    const Unit w = unit_of<SPLIT>(u, n_tiles, split, per, k_steps);
+    const int mt = w.mt, nt = w.nt, ks0 = w.ks0, ks1 = w.ks1;
     const long long m0 = static_cast<long long>(mt) * WG_BM + cw * 64;
     const int n0 = nt * BN;
     int prev = 0;
     fence_regs(acc);
-    for (int ks = 0; ks < k_steps; ++ks) {
+    for (int ks = ks0; ks < ks1; ++ks) {
       mbar_wait(&full[s], ph);
       if constexpr (BUSY)  // the producer wrote A through the generic proxy
         asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
@@ -1098,10 +1157,11 @@ wgemm_kernel(const __grid_constant__ CUtensorMap map_a,
 #pragma unroll
       for (int j = 0; j < BK / 32; ++j)
 #ifndef FCNN_WG_PROBE_NO_MMA
-        wgmma_s8<BN>(acc, da + 2 * j, db + 2 * j, (ks > 0 || j > 0) ? 1 : 0);
+        wgmma_s8<BN>(acc, da + 2 * j, db + 2 * j,
+                     (ks > ks0 || j > 0) ? 1 : 0);
 #endif
       wgmma_commit();
-      if (ks > 0) {  // the last step's products are done: free its slot
+      if (ks > ks0) {  // the last step's products are done: free its slot
         wgmma_wait<1>();
         mbar_arrive(&empty[prev]);
       }
@@ -1111,6 +1171,32 @@ wgemm_kernel(const __grid_constant__ CUtensorMap map_a,
     wgmma_wait<0>();
     fence_regs(acc);
     mbar_arrive(&empty[prev]);
+
+    if constexpr (SPLIT) {  // this slice's int32 sums, from the registers
+      int* dst = ws + static_cast<long long>(ks0 / per) * M * N;
+      const int warp = t >> 5;
+      const int gid = (t & 31) >> 2;
+      const int tig = t & 3;
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+        const int c = n0 + j * 8 + tig * 2;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const long long m = m0 + warp * 16 + gid + 8 * h;
+          if (m >= M || c >= N) continue;
+          int* p = dst + m * N + c;
+          const int v0 = acc[j * 4 + 2 * h];
+          const int v1 = acc[j * 4 + 2 * h + 1];
+          if (c + 1 < N && (N & 1) == 0) {
+            *reinterpret_cast<int2*>(p) = make_int2(v0, v1);
+          } else {
+            p[0] = v0;
+            if (c + 1 < N) p[1] = v1;
+          }
+        }
+      }
+      continue;
+    }
 
     // epilogue: column constants in, the tile staged, 16-byte pieces out
     named_sync(1 + cw, 128);  // the last tile's pieces have left os
@@ -1187,6 +1273,13 @@ constexpr int W8_A_BYTES = WG_BM * 128;   // a step's A tile: 128-byte rows
 __host__ __device__ constexpr int w8gemm_smem(int bn, int stages, bool conv) {
   return 1024 + stages * (W8_A_BYTES + bn * 192 + 16) + 2 * 24 * bn +
          (conv ? WG_BM * 16 : 0);
+}
+
+// The same for w8gemm_kernel<MatrixA, BN, true> ("wgmma_bf16"; bf16_smem
+// in kernels/matmul.py): a stage holds the A tile and the bf16 weight
+// tile, both brought by TMA (no staging slot).
+__host__ __device__ constexpr int bf16gemm_smem(int bn, int stages) {
+  return 1024 + stages * (W8_A_BYTES + bn * 128 + 16) + 2 * 24 * bn;
 }
 
 // Four int8 weights (the bytes of q, lowest first) as two bf16 pairs, exact:
@@ -1294,15 +1387,22 @@ struct RowTile {
 // column tiles, so a block keeps its column tile.  Slice sk runs steps
 // [sk * per, min((sk + 1) * per, k_steps)); with split > 1 its f32 sums go
 // to ws[sk] (M x N) and splitk_reduce_kernel applies the epilogue.
-template <class A, int BN>
+//
+// W16 (variant "wgmma_bf16", a bf16 x bf16 matrix): the weight is bf16 and
+// comes by TMA (map_b, a BN x 64 box, 128-byte swizzled) into the stage's
+// bf16 tile beside A; no staging slot, no conversion, and the producer's
+// thread 0 alone issues both loads.
+template <class A, int BN, bool W16>
 __global__ void __launch_bounds__(WG_THREADS, 1)
-w8gemm_kernel(const __grid_constant__ CUtensorMap map_a, A a,
+w8gemm_kernel(const __grid_constant__ CUtensorMap map_a,
+              const __grid_constant__ CUtensorMap map_b, A a,
               const int8_t* __restrict__ w, int ldw, int N, int stages,
               int split, int per, int th, int tw, float* __restrict__ ws,
               Epilogue e) {
   constexpr bool CONV = std::is_same<A, ConvA>::value;
-  constexpr int BB = BN * 128;  // the bf16 weight tile
-  constexpr int BI = BN * 64;   // its int8 staging slot
+  static_assert(!(W16 && CONV), "a bf16 x bf16 launch is a matrix");
+  constexpr int BB = BN * 128;          // the bf16 weight tile
+  constexpr int BI = W16 ? 0 : BN * 64;  // its int8 staging slot
   constexpr int STAGE = W8_A_BYTES + BB + BI;
   // Registers per thread after the split, within the 384 * 168 of the
   // launch: the producer issues the weight's cp.async (and the conv's
@@ -1348,13 +1448,15 @@ w8gemm_kernel(const __grid_constant__ CUtensorMap map_a, A a,
 
   if (tid == 0) {
     for (int s = 0; s < stages; ++s) {
-      // the producer's 128 cp.async arrivals, and the A tile's TMA
-      mbar_init(&full[s], CONV && !tma_conv ? 128 : 129);
+      // the producer's 128 cp.async arrivals, and the A tile's TMA (W16:
+      // the TMA of both tiles alone)
+      mbar_init(&full[s], W16 ? 1 : CONV && !tma_conv ? 128 : 129);
       mbar_init(&empty[s], 256);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
+  allow_dependents();
 
   if (wg == 0) {
     // ---------------- producer ----------------
@@ -1362,6 +1464,25 @@ w8gemm_kernel(const __grid_constant__ CUtensorMap map_a, A a,
                  : "memory");
     int s = 0;
     uint32_t ph = 0;
+    if constexpr (W16) {
+      if (t == 0) {
+        prefetch_map(&map_a);
+        prefetch_map(&map_b);
+        for (int u = blockIdx.x; u < units; u += gridDim.x) {
+          const Unit w = unit_of<true>(u, n_tiles, split, per, k_steps);
+          for (int ks = w.ks0; ks < w.ks1; ++ks) {
+            mbar_wait(&empty[s], ph ^ 1);
+            uint8_t* As = ring + s * STAGE;
+            mbar_expect_tx(&full[s], STAGE);
+            tma_load_2d(As, &map_a, ks * W8_BK, w.mt * WG_BM, &full[s]);
+            tma_load_2d(As + W8_A_BYTES, &map_b, ks * W8_BK, w.nt * BN,
+                        &full[s]);
+            if (++s == stages) { s = 0; ph ^= 1; }
+          }
+        }
+      }
+      return;
+    }
     // 16-byte weight pieces, else 8 (the plan takes K a multiple of 8)
     const bool b16 = K % 16 == 0 && ldw % 16 == 0;
     // the int8 weight rows (ldw bytes apart) of column tile nt at step ks
@@ -1492,9 +1613,11 @@ w8gemm_kernel(const __grid_constant__ CUtensorMap map_a, A a,
   float acc[BN / 2];
 #pragma unroll
   for (int i = 0; i < BN / 2; ++i) acc[i] = 0.0f;
-  if (split == 1)
+  if (split == 1) {
     for (int i = t; i < BN / 2; i += 128)
       column_pair(e, (blockIdx.x % n_tiles) * BN + 2 * i, N, par + i * 48);
+    named_sync(1 + cw, 128);  // the column constants are written
+  }
 
   for (int u = blockIdx.x; u < units; u += gridDim.x) {
     const int nt = u % n_tiles;
@@ -1508,40 +1631,42 @@ w8gemm_kernel(const __grid_constant__ CUtensorMap map_a, A a,
     for (int ks = ks0; ks < ks1; ++ks) {
       mbar_wait(&full[s], ph);
       uint8_t* As = ring + s * STAGE;
-      const uint32_t bb = smem_u32(As + W8_A_BYTES);
-      const uint32_t bi = bb + BB;
-      // the staged int8 weight tile into the bf16 tile, 128-byte swizzled:
-      // input piece i (16 weights of row i / 4) becomes the row's 16-byte
-      // chunks 2 (i % 4) and 2 (i % 4) + 1, thread ct taking pieces ct +
-      // 256 j, all its loads issued first; the last step's wgmma runs
-      // meanwhile
+      if constexpr (!W16) {
+        // the staged int8 weight tile into the bf16 tile, 128-byte swizzled:
+        // input piece i (16 weights of row i / 4) becomes the row's 16-byte
+        // chunks 2 (i % 4) and 2 (i % 4) + 1, thread ct taking pieces ct +
+        // 256 j, all its loads issued first; the last step's wgmma runs
+        // meanwhile
+        const uint32_t bb = smem_u32(As + W8_A_BYTES);
+        const uint32_t bi = bb + BB;
 #ifndef FCNN_W8_PROBE_NO_CONVERT
-      constexpr int PIECES = (BN * 4 + 255) / 256;  // a thread's, at most
-      uint4 q[PIECES];
+        constexpr int PIECES = (BN * 4 + 255) / 256;  // a thread's, at most
+        uint4 q[PIECES];
 #pragma unroll
-      for (int j = 0; j < PIECES; ++j)
-        if (BN * 4 >= 256 || ct + j * 256 < BN * 4)
-          q[j] = lds128u(bi + (ct + j * 256) * 16);
+        for (int j = 0; j < PIECES; ++j)
+          if (BN * 4 >= 256 || ct + j * 256 < BN * 4)
+            q[j] = lds128u(bi + (ct + j * 256) * 16);
 #pragma unroll
-      for (int j = 0; j < PIECES; ++j) {
-        const int i = ct + j * 256;
-        if (BN * 4 < 256 && i >= BN * 4) break;
-        uint4 lo, hi;
-        i8x4_to_bf16(q[j].x, lo.x, lo.y);
-        i8x4_to_bf16(q[j].y, lo.z, lo.w);
-        i8x4_to_bf16(q[j].z, hi.x, hi.y);
-        i8x4_to_bf16(q[j].w, hi.z, hi.w);
-        const int r = i >> 2;
-        const int p = i & 3;
-        const uint32_t row = bb + r * 128;
-        sts128u(row + (((2 * p) ^ (r & 7)) << 4), lo);
-        sts128u(row + (((2 * p + 1) ^ (r & 7)) << 4), hi);
-      }
+        for (int j = 0; j < PIECES; ++j) {
+          const int i = ct + j * 256;
+          if (BN * 4 < 256 && i >= BN * 4) break;
+          uint4 lo, hi;
+          i8x4_to_bf16(q[j].x, lo.x, lo.y);
+          i8x4_to_bf16(q[j].y, lo.z, lo.w);
+          i8x4_to_bf16(q[j].z, hi.x, hi.y);
+          i8x4_to_bf16(q[j].w, hi.z, hi.w);
+          const int r = i >> 2;
+          const int p = i & 3;
+          const uint32_t row = bb + r * 128;
+          sts128u(row + (((2 * p) ^ (r & 7)) << 4), lo);
+          sts128u(row + (((2 * p + 1) ^ (r & 7)) << 4), hi);
+        }
 #endif
-      // the bf16 tile (and the conv's cp.async A) to the async proxy, and
-      // both consumers' halves of it written
-      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-      named_sync(4, 256);
+        // the bf16 tile (and the conv's cp.async A) to the async proxy, and
+        // both consumers' halves of it written
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+        named_sync(4, 256);
+      }
       const uint64_t da = wg_desc<128>(As + cw * 64 * 128);
       const uint64_t db = wg_desc<128>(As + W8_A_BYTES);
       wgmma_fence();
@@ -1615,18 +1740,60 @@ w8gemm_kernel(const __grid_constant__ CUtensorMap map_a, A a,
   }
 }
 
+// One slice's sums added to the running sum: f32 with one rounding, int32
+// exactly; four columns at once as four such adds.
+__device__ __forceinline__ float add_slice(float a, float b) {
+  return __fadd_rn(a, b);
+}
+__device__ __forceinline__ int add_slice(int a, int b) { return a + b; }
+__device__ __forceinline__ float4 add_slice(float4 a, float4 b) {
+  return make_float4(__fadd_rn(a.x, b.x), __fadd_rn(a.y, b.y),
+                     __fadd_rn(a.z, b.z), __fadd_rn(a.w, b.w));
+}
+__device__ __forceinline__ int4 add_slice(int4 a, int4 b) {
+  return make_int4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
+}
+template <typename T> struct Four;  // four T in one 16-byte load
+template <> struct Four<float> { typedef float4 V; };
+template <> struct Four<int> { typedef int4 V; };
+
 // The split-K pass: out[m, n] = epilogue(ws[0][m][n] + ws[1][m][n] + ...),
-// the slices added in index order with f32 rounding, two columns a thread
-// (T = float; a template, so that each unit that includes this defines it).
-template <typename T>
+// the slices added in index order (add_slice), four columns a thread where
+// N is a multiple of 4 (16-byte loads), else two, then epilogue_store2 (the
+// int32 sums converted to f32 as the single-pass kernel converts them).
+// T = float ("wgmma_w8", "wgmma_bf16") or int ("wgmma");
+// A, the main loop's operand (MatrixA or ConvA), only names the instance,
+// so that a profile tells a conv's pass from a matrix's.  Launched as the
+// main loop's dependent (launch_splitk_reduce): its blocks wait for the
+// main loop's sums before they read them.
+template <typename T, class A>
 __global__ void __launch_bounds__(256)
 splitk_reduce_kernel(const T* __restrict__ ws, int split, int M, int N,
                      Epilogue e) {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+  const long long mn = static_cast<long long>(M) * N;
+  const long long step = gridDim.x * 256ll;
+  if (N % 4 == 0) {
+    typedef typename Four<T>::V V;
+    const V* w4 = reinterpret_cast<const V*>(ws);
+    const long long quads = mn / 4;
+    for (long long i = blockIdx.x * 256ll + threadIdx.x; i < quads;
+         i += step) {
+      V v = w4[i];
+#pragma unroll 4
+      for (int sk = 1; sk < split; ++sk) v = add_slice(v, w4[sk * quads + i]);
+      const long long m = 4 * i / N;
+      const int c = static_cast<int>(4 * i - m * N);
+      epilogue_store2(static_cast<float>(v.x), static_cast<float>(v.y), m, c,
+                      N, e);
+      epilogue_store2(static_cast<float>(v.z), static_cast<float>(v.w), m,
+                      c + 2, N, e);
+    }
+    return;
+  }
   const int half = (N + 1) / 2;
   const long long pairs = static_cast<long long>(M) * half;
-  const long long mn = static_cast<long long>(M) * N;
-  for (long long i = blockIdx.x * 256ll + threadIdx.x; i < pairs;
-       i += gridDim.x * 256ll) {
+  for (long long i = blockIdx.x * 256ll + threadIdx.x; i < pairs; i += step) {
     const long long m = i / half;
     const int c = 2 * static_cast<int>(i - m * half);
     const long long idx = m * N + c;
@@ -1634,11 +1801,33 @@ splitk_reduce_kernel(const T* __restrict__ ws, int split, int M, int N,
     T v0 = ws[idx];
     T v1 = two ? ws[idx + 1] : T(0);
     for (int sk = 1; sk < split; ++sk) {
-      v0 = __fadd_rn(v0, ws[sk * mn + idx]);
-      if (two) v1 = __fadd_rn(v1, ws[sk * mn + idx + 1]);
+      v0 = add_slice(v0, ws[sk * mn + idx]);
+      if (two) v1 = add_slice(v1, ws[sk * mn + idx + 1]);
     }
-    epilogue_store2(v0, v1, m, c, N, e);
+    epilogue_store2(static_cast<float>(v0), static_cast<float>(v1), m, c, N,
+                    e);
   }
+}
+
+// splitk_reduce_kernel over ``split`` (M, N) slices at ws, on stream s, as
+// a programmatic dependent launch of the main loop just queued there.
+template <typename T, class A>
+inline int launch_splitk_reduce(const T* ws, int split, int M, int N,
+                                const Epilogue& e, cudaStream_t s) {
+  const long long items = N % 4 == 0 ? static_cast<long long>(M) * N / 4
+                                     : static_cast<long long>(M) * ((N + 1) / 2);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(
+      items / 256 + 1 < 132 * 8 ? items / 256 + 1 : 132 * 8));
+  cfg.blockDim = dim3(256);
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return static_cast<int>(cudaLaunchKernelEx(
+      &cfg, splitk_reduce_kernel<T, A>, ws, split, M, N, e));
 }
 
 // ---------------------------------------------------------------------
@@ -1742,130 +1931,6 @@ igemm_kernel(A a, const int8_t* __restrict__ w, int ldw, int N,
                                    r, c0, N, e);
       }
     }
-  }
-}
-
-// ---------------------------------------------------------------------
-// Variant "mma_bf16": bf16 x bf16 with f32 sums (the bf16 paths' FC,
-// M = batch).  A block owns 128 rows x 8 columns, so N = 1000 gives 125
-// blocks (each reads A from L2; at M = 128 that costs less than leaving
-// SMs idle).  Its 8 warps each sum their own slice of K on mma.sync
-// m16n8k16, fragments loaded straight from global memory as 16-byte
-// pieces (K a multiple of 8, 16-byte aligned pointers), every load of a
-// K step issued before its products, so a step costs one L2 latency.  In
-// each 32-deep K step thread tig feeds the fragment slots of
-// k = 2*tig + {0, 1, 8, 9, 16, 17, 24, 25} with the eight consecutive
-// k = 8*tig .. 8*tig + 7, for A and B alike, so a warp reads whole
-// sectors.  Each step's products go into a fresh tensor-core sum that one
-// rounded f32 add takes into the warp's sum, as fused_chain_float.cu does;
-// the warps' sums are then added in a fixed order through shared memory
-// ((w + w+4), then the four in order): deterministic, no atomics.
-// ---------------------------------------------------------------------
-constexpr int BG_ROWS = 128;
-constexpr int BG_COLS = 8;
-constexpr int BG_NT = BG_COLS / 8;
-constexpr int BG_WARPS = 8;
-
-template <typename T>  // __nv_bfloat16 (a template: defined in every unit)
-__global__ void __launch_bounds__(BG_WARPS * 32)
-bgemm_kernel(const T* __restrict__ x, const T* __restrict__ w, int ldw, int M,
-             int K, int N, Epilogue e) {
-  __shared__ float red[BG_WARPS / 2][BG_ROWS * BG_COLS];
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int gid = lane >> 2;
-  const int tig = lane & 3;
-  const long long m0 = static_cast<long long>(blockIdx.y) * BG_ROWS;
-  const int n0 = blockIdx.x * BG_COLS;
-  const int steps = (K + 31) / 32;
-  const int s0 = warp * steps / BG_WARPS;
-  const int s1 = (warp + 1) * steps / BG_WARPS;
-  const uint4* wrow[BG_NT];
-  bool nok[BG_NT];
-#pragma unroll
-  for (int nt = 0; nt < BG_NT; ++nt) {
-    const int n = n0 + nt * 8 + gid;
-    nok[nt] = n < N;
-    wrow[nt] = reinterpret_cast<const uint4*>(
-        w + static_cast<long long>(nok[nt] ? n : 0) * ldw);
-  }
-  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
-
-  float acc[8][BG_NT][4];
-#pragma unroll
-  for (int mt = 0; mt < 8; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < BG_NT; ++nt)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) acc[mt][nt][q] = 0.0f;
-
-  for (int st = s0; st < s1; ++st) {
-    const int k = st * 32 + 8 * tig;  // this thread's 8 consecutive k
-    uint4 b[BG_NT];
-#pragma unroll
-    for (int nt = 0; nt < BG_NT; ++nt)
-      b[nt] = (nok[nt] && k < K) ? wrow[nt][k >> 3] : zero;
-    uint4 av[8][2];  // the step's A pieces, all loads in flight at once
-#pragma unroll
-    for (int mt = 0; mt < 8; ++mt)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const long long r = m0 + mt * 16 + gid + 8 * h;
-        av[mt][h] = (r < M && k < K)
-            ? *reinterpret_cast<const uint4*>(x + r * K + k) : zero;
-      }
-#pragma unroll
-    for (int mt = 0; mt < 8; ++mt) {
-      const uint4 lo = av[mt][0];
-      const uint4 hi = av[mt][1];
-      // slots (row, k): a[half] = {(r, 2t), (r+8, 2t), (r, 2t+8), (r+8, 2t+8)}
-      const uint32_t a0[4] = {lo.x, hi.x, lo.y, hi.y};
-      const uint32_t a1[4] = {lo.z, hi.z, lo.w, hi.w};
-#pragma unroll
-      for (int nt = 0; nt < BG_NT; ++nt) {
-        float p[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-        mma_bf16(p, a0, b[nt].x, b[nt].y);
-        mma_bf16(p, a1, b[nt].z, b[nt].w);
-#pragma unroll
-        for (int q = 0; q < 4; ++q)
-          acc[mt][nt][q] = __fadd_rn(acc[mt][nt][q], p[q]);
-      }
-    }
-  }
-  // warps 4-7 hand their sums to warps 0-3, which add them and publish
-  auto slot = [&](int mt, int nt, int q) {
-    return (mt * 16 + gid + 8 * (q >> 1)) * BG_COLS + nt * 8 + 2 * tig +
-           (q & 1);
-  };
-  if (warp >= BG_WARPS / 2) {
-#pragma unroll
-    for (int mt = 0; mt < 8; ++mt)
-#pragma unroll
-      for (int nt = 0; nt < BG_NT; ++nt)
-#pragma unroll
-        for (int q = 0; q < 4; ++q)
-          red[warp - BG_WARPS / 2][slot(mt, nt, q)] = acc[mt][nt][q];
-  }
-  __syncthreads();
-  if (warp < BG_WARPS / 2) {
-#pragma unroll
-    for (int mt = 0; mt < 8; ++mt)
-#pragma unroll
-      for (int nt = 0; nt < BG_NT; ++nt)
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          float& v = red[warp][slot(mt, nt, q)];
-          v = __fadd_rn(acc[mt][nt][q], v);
-        }
-  }
-  __syncthreads();
-  for (int i = threadIdx.x; i < BG_ROWS * BG_COLS; i += BG_WARPS * 32) {
-    float v = red[0][i];
-#pragma unroll
-    for (int wi = 1; wi < BG_WARPS / 2; ++wi) v = __fadd_rn(v, red[wi][i]);
-    const long long r = m0 + i / BG_COLS;
-    const int c = n0 + i % BG_COLS;
-    if (r < M && c < N) epilogue_store(v, r, c, N, e);
   }
 }
 
@@ -2013,13 +2078,15 @@ inline bool make_map(CUtensorMap* map, const void* base, long long rows,
 }
 
 // "wgmma" and "wgmma_ragged" (RAGGED): refuses (cudaErrorInvalidValue) a
-// plan whose shared memory, stages, grid or staging ring differ from the
-// kernel's own count, a weight pitch ``ldw`` that TMA cannot stride, or an
-// int8 output whose out_scale is not positive and finite (column_pair
-// folds +-127 / out_scale into the clamp).
+// plan whose shared memory, stages, grid, staging ring or K slices differ
+// from the kernel's own count, a split without a workspace ``ws`` (split x
+// M x N int32), with a resident panel, on "wgmma_ragged" or at a 64-byte K
+// step, a weight pitch ``ldw`` that TMA cannot stride, or an int8 output
+// whose out_scale is not positive and finite (column_pair folds +-127 /
+// out_scale into the clamp).
 template <class A, int BN, int BK, bool RAGGED>
 inline int launch_wgemm(const A& a, const int8_t* w, long long ldw, int N,
-                        const GemmPlan& p, const Epilogue& e,
+                        const GemmPlan& p, int* ws, const Epilogue& e,
                         cudaStream_t s) {
   constexpr bool CONV = std::is_same<A, ConvA>::value;
   constexpr bool STAGED = RAGGED && !CONV;
@@ -2028,38 +2095,51 @@ inline int launch_wgemm(const A& a, const int8_t* w, long long ldw, int N,
   if (!CONV && !STAGED && !make_map(&ma, a.x, a.M, a.K, WG_BM, BK)) return bad;
   if (ldw % 16 || !make_map(&mb, w, N, a.K, BN, BK, 1, ldw)) return bad;
   const int n_tiles = (N + BN - 1) / BN;
+  const int k_steps = (a.K + BK - 1) / BK;
+  const int split = p.split;
+  if (split < 1 || (split > 1 && (ws == nullptr || p.bres || RAGGED)))
+    return bad;
+  const int per = (k_steps + split - 1) / split;
+  if ((split - 1) * per >= k_steps) return bad;  // an empty slice
   const int sb = STAGED ? ragged_stage_bytes(a.K) : 0;
   const int sst = STAGED ? p.sst : 0;
-  const int smem = wgemm_smem(BN, BK, p.stages, (a.K + BK - 1) / BK, p.bres,
+  const int smem = wgemm_smem(BN, BK, p.stages, k_steps, p.bres,
                               out_size(e.out_type), CONV, sb, sst);
   if (smem != p.smem || p.stages < 2 || p.grid < 1 || p.grid % n_tiles ||
       (STAGED ? p.sst < 2 || a.K > RAGGED_K_MAX : p.sst != 0))
     return bad;
   if (e.out_type == DT_I8 && !(e.out_scale > 0.0f && e.out_scale < INFINITY))
     return bad;
-  auto kern = wgemm_kernel<A, BN, BK, RAGGED>;
-  const cudaError_t err = cudaFuncSetAttribute(
+  auto kern = wgemm_kernel<A, BN, BK, RAGGED, false>;
+  if constexpr (BK == 128 && !RAGGED) {
+    if (split > 1) kern = wgemm_kernel<A, BN, BK, RAGGED, true>;
+  } else {
+    if (split > 1) return bad;
+  }
+  cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   kern<<<p.grid, WG_THREADS, smem, s>>>(ma, mb, a, N, p.stages, p.bres, sst,
-                                        e);
-  return static_cast<int>(cudaGetLastError());
+                                        split, per, ws, e);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || split == 1) return static_cast<int>(err);
+  return launch_splitk_reduce<int, A>(ws, split, a.M, N, e, s);
 }
 
 // The plan's tile (BN, BK) of "wgmma" or "wgmma_ragged".
 template <class A, bool RAGGED>
 inline int launch_wgemm_tile(const A& a, const int8_t* w, long long ldw,
-                             int N, const GemmPlan& p, const Epilogue& e,
-                             cudaStream_t s) {
+                             int N, const GemmPlan& p, int* ws,
+                             const Epilogue& e, cudaStream_t s) {
   switch (p.bn * 1000 + p.bk) {
-    case 32064: return launch_wgemm<A, 32, 64, RAGGED>(a, w, ldw, N, p, e, s);
-    case 32128: return launch_wgemm<A, 32, 128, RAGGED>(a, w, ldw, N, p, e, s);
-    case 64064: return launch_wgemm<A, 64, 64, RAGGED>(a, w, ldw, N, p, e, s);
-    case 64128: return launch_wgemm<A, 64, 128, RAGGED>(a, w, ldw, N, p, e, s);
-    case 128064: return launch_wgemm<A, 128, 64, RAGGED>(a, w, ldw, N, p, e, s);
-    case 128128: return launch_wgemm<A, 128, 128, RAGGED>(a, w, ldw, N, p, e, s);
-    case 256064: return launch_wgemm<A, 256, 64, RAGGED>(a, w, ldw, N, p, e, s);
-    case 256128: return launch_wgemm<A, 256, 128, RAGGED>(a, w, ldw, N, p, e, s);
+    case 32064: return launch_wgemm<A, 32, 64, RAGGED>(a, w, ldw, N, p, ws, e, s);
+    case 32128: return launch_wgemm<A, 32, 128, RAGGED>(a, w, ldw, N, p, ws, e, s);
+    case 64064: return launch_wgemm<A, 64, 64, RAGGED>(a, w, ldw, N, p, ws, e, s);
+    case 64128: return launch_wgemm<A, 64, 128, RAGGED>(a, w, ldw, N, p, ws, e, s);
+    case 128064: return launch_wgemm<A, 128, 64, RAGGED>(a, w, ldw, N, p, ws, e, s);
+    case 128128: return launch_wgemm<A, 128, 128, RAGGED>(a, w, ldw, N, p, ws, e, s);
+    case 256064: return launch_wgemm<A, 256, 64, RAGGED>(a, w, ldw, N, p, ws, e, s);
+    case 256128: return launch_wgemm<A, 256, 128, RAGGED>(a, w, ldw, N, p, ws, e, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -2087,17 +2167,17 @@ inline bool make_map_nhwc(CUtensorMap* map, const void* base, int C, int W,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// "wgmma_w8": refuses (cudaErrorInvalidValue) a plan whose shared memory,
-// grid or K slices differ from the kernel's own count, a split without a
-// workspace ``ws`` (split x M x N f32) or on a conv, or a conv tile by TMA
-// (th x tw) that the conv does not allow.
-template <class A, int BN>
-inline int launch_w8gemm(const A& a, const int8_t* w, int ldw, int N,
+// "wgmma_w8" and "wgmma_bf16" (W16): refuses (cudaErrorInvalidValue) a
+// plan whose shared memory, grid or K slices differ from the kernel's own
+// count, a split without a workspace ``ws`` (split x M x N f32) or on a
+// conv, or a conv tile by TMA (th x tw) that the conv does not allow.
+template <class A, int BN, bool W16>
+inline int launch_w8gemm(const A& a, const void* w, int ldw, int N,
                          const GemmPlan& p, float* ws, const Epilogue& e,
                          cudaStream_t s) {
   constexpr bool CONV = std::is_same<A, ConvA>::value;
   const int bad = static_cast<int>(cudaErrorInvalidValue);
-  CUtensorMap ma{};
+  CUtensorMap ma{}, mb{};
   if constexpr (CONV) {
     // A by TMA: stride 1, whole 64-channel blocks, a rectangle of at most
     // 128 pixels
@@ -2110,6 +2190,8 @@ inline int launch_w8gemm(const A& a, const int8_t* w, int ldw, int N,
   } else {
     if (p.th != 0 || !make_map(&ma, a.x, a.M, a.K, WG_BM, W8_BK, 2))
       return bad;
+    // the bf16 weight's (N, K) rows, ldw elements apart, in BN x 64 boxes
+    if (W16 && !make_map(&mb, w, N, a.K, BN, W8_BK, 2, ldw)) return bad;
   }
   const int n_tiles = (N + BN - 1) / BN;
   const int k_steps = (a.K + W8_BK - 1) / W8_BK;
@@ -2117,31 +2199,30 @@ inline int launch_w8gemm(const A& a, const int8_t* w, int ldw, int N,
   if (split < 1 || (split > 1 && (CONV || ws == nullptr))) return bad;
   const int per = (k_steps + split - 1) / split;
   if ((split - 1) * per >= k_steps) return bad;  // an empty slice
-  const int smem = w8gemm_smem(BN, p.stages, CONV);
+  const int smem = W16 ? bf16gemm_smem(BN, p.stages)
+                       : w8gemm_smem(BN, p.stages, CONV);
   if (smem != p.smem || p.bk != 2 * W8_BK || p.stages < 2 || p.grid < 1 ||
       p.grid % n_tiles)
     return bad;
-  auto kern = w8gemm_kernel<A, BN>;
+  auto kern = w8gemm_kernel<A, BN, W16>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  kern<<<p.grid, WG_THREADS, smem, s>>>(ma, a, w, ldw, N, p.stages, split,
-                                        per, p.th, p.tw, ws, e);
+  kern<<<p.grid, WG_THREADS, smem, s>>>(
+      ma, mb, a, static_cast<const int8_t*>(w), ldw, N, p.stages, split, per,
+      p.th, p.tw, ws, e);
   err = cudaGetLastError();
   if (err != cudaSuccess || split == 1) return static_cast<int>(err);
-  const long long pairs = static_cast<long long>(a.M) * ((N + 1) / 2);
-  const int blocks = static_cast<int>(
-      pairs / 256 + 1 < 132 * 8 ? pairs / 256 + 1 : 132 * 8);
-  splitk_reduce_kernel<float><<<blocks, 256, 0, s>>>(ws, split, a.M, N, e);
-  return static_cast<int>(cudaGetLastError());
+  return launch_splitk_reduce<float, A>(ws, split, a.M, N, e, s);
 }
 
-// x_type/w_type: DType.  ``ws``: the split-K workspace of a "wgmma_w8"
-// plan with split > 1, else null.  The weight's (N, K) rows lie p.ldw
+// x_type/w_type: DType.  ``ws``: the split-K workspace of a plan with
+// split > 1 (f32 for "wgmma_w8" and "wgmma_bf16", int32 for "wgmma"), else
+// null.  The weight's (N, K) rows lie p.ldw
 // elements apart (0: K).
 template <class A>
 inline int launch_gemm(const A& a, const void* w, int N, int x_type,
-                       int w_type, const GemmPlan& p, float* ws,
+                       int w_type, const GemmPlan& p, void* ws,
                        const Epilogue& e, cudaStream_t s) {
   constexpr bool CONV = std::is_same<A, ConvA>::value;
   const int bad = static_cast<int>(cudaErrorInvalidValue);
@@ -2152,51 +2233,54 @@ inline int launch_gemm(const A& a, const void* w, int N, int x_type,
   // the A rows' pitch in elements: K for a matrix, C for a conv
   const int pitch = host_row_pitch(a);
   const int8_t* wq = static_cast<const int8_t*>(w);
+  float* wsf = static_cast<float*>(ws);
   if (p.variant == V_WGMMA_W8) {
     if (x_type != DT_BF16 || w_type != DT_I8 || pitch % 8 || ldw % 8 ||
         !aligned(a.x, 16) || !aligned(w, 16))
       return bad;
     switch (p.bn) {
-      case 32: return launch_w8gemm<A, 32>(a, wq, ldw, N, p, ws, e, s);
-      case 64: return launch_w8gemm<A, 64>(a, wq, ldw, N, p, ws, e, s);
-      case 128: return launch_w8gemm<A, 128>(a, wq, ldw, N, p, ws, e, s);
+      case 32: return launch_w8gemm<A, 32, false>(a, w, ldw, N, p, wsf, e, s);
+      case 64: return launch_w8gemm<A, 64, false>(a, w, ldw, N, p, wsf, e, s);
+      case 128: return launch_w8gemm<A, 128, false>(a, w, ldw, N, p, wsf, e, s);
       default: return bad;
     }
   }
-  if (p.split != 1 || p.th != 0) return bad;
-  if (p.variant == V_WGMMA_S8) {
-    if (!int8 || pitch % 16 || pitch < 16 || !aligned(a.x, 16) ||
-        !aligned(w, 16))
-      return bad;
-    return launch_wgemm_tile<A, false>(a, wq, ldw, N, p, e, s);
-  }
-  if (p.variant == V_WGMMA_RAGGED) {
-    // a conv's taps in 8-byte pieces; a matrix's rows at any alignment
-    if (!int8 || !aligned(w, 16) || (CONV && (pitch % 8 || !aligned(a.x, 8))))
-      return bad;
-    return launch_wgemm_tile<A, true>(a, wq, ldw, N, p, e, s);
-  }
-  if (p.variant == V_MMA_S8) {
-    if (!int8) return bad;
-    dim3 grid(static_cast<unsigned>((a.M + IG_BM - 1) / IG_BM),
-              static_cast<unsigned>((N + IG_BN - 1) / IG_BN));
-    igemm_kernel<A><<<grid, IG_THREADS, 0, s>>>(a, wq, ldw, N, e);
-    return static_cast<int>(cudaGetLastError());
-  }
-  if (p.variant == V_MMA_BF16) {
+  if (p.variant == V_WGMMA_BF16) {
     if constexpr (CONV) {
       return bad;
     } else {
       if (x_type != DT_BF16 || w_type != DT_BF16 || a.K % 8 || ldw % 8 ||
           !aligned(a.x, 16) || !aligned(w, 16))
         return bad;
-      dim3 grid(static_cast<unsigned>((N + BG_COLS - 1) / BG_COLS),
-                static_cast<unsigned>((a.M + BG_ROWS - 1) / BG_ROWS));
-      bgemm_kernel<__nv_bfloat16><<<grid, BG_WARPS * 32, 0, s>>>(
-          reinterpret_cast<const __nv_bfloat16*>(a.x),
-          static_cast<const __nv_bfloat16*>(w), ldw, a.M, a.K, N, e);
-      return static_cast<int>(cudaGetLastError());
+      switch (p.bn) {
+        case 32: return launch_w8gemm<A, 32, true>(a, w, ldw, N, p, wsf, e, s);
+        case 64: return launch_w8gemm<A, 64, true>(a, w, ldw, N, p, wsf, e, s);
+        case 128: return launch_w8gemm<A, 128, true>(a, w, ldw, N, p, wsf, e, s);
+        default: return bad;
+      }
     }
+  }
+  if (p.th != 0) return bad;
+  int* wsi = static_cast<int*>(ws);
+  if (p.variant == V_WGMMA_S8) {
+    if (!int8 || pitch % 16 || pitch < 16 || !aligned(a.x, 16) ||
+        !aligned(w, 16))
+      return bad;
+    return launch_wgemm_tile<A, false>(a, wq, ldw, N, p, wsi, e, s);
+  }
+  if (p.variant == V_WGMMA_RAGGED) {
+    // a conv's taps in 8-byte pieces; a matrix's rows at any alignment
+    if (!int8 || !aligned(w, 16) || (CONV && (pitch % 8 || !aligned(a.x, 8))))
+      return bad;
+    return launch_wgemm_tile<A, true>(a, wq, ldw, N, p, wsi, e, s);
+  }
+  if (p.split != 1) return bad;
+  if (p.variant == V_MMA_S8) {
+    if (!int8) return bad;
+    dim3 grid(static_cast<unsigned>((a.M + IG_BM - 1) / IG_BM),
+              static_cast<unsigned>((N + IG_BN - 1) / IG_BN));
+    igemm_kernel<A><<<grid, IG_THREADS, 0, s>>>(a, wq, ldw, N, e);
+    return static_cast<int>(cudaGetLastError());
   }
   if (p.variant != V_SIMT) return bad;
   dim3 grid(static_cast<unsigned>((a.M + FG_BM - 1) / FG_BM),

@@ -42,9 +42,31 @@
 // epilogue stores each 16-byte output piece in the widest stores the
 // output row's alignment allows (N = 116 int8: 4 bytes).  The mma.sync
 // variant ("mma_sync", the first body) is left for a ragged K past 256;
-// bf16 x bf16 (the bf16 FC) takes the mma.sync m16n8k16 variant, 8 warps
-// over slices of K; f32 x a SIMT loop.  The host's plan (gemm_plan in
-// kernels/matmul.py) picks the variant, tile, K step and stages.
+// f32 x takes a SIMT loop.  The host's plan (gemm_plan in
+// kernels/matmul.py) picks the variant, tile, K step, stages and K slices.
+//
+// A launch whose 128 x BN tiles fill at most a third of the SMs and whose
+// blocks' K loops are long (gemm_plan's rule: FCN's and Faster R-CNN's
+// score convs at N = 21 and 84, K = 4096) splits K over the grid: each
+// block runs one slice of one tile and writes its int32 sums from the
+// registers to a (split, M, N) workspace the wrapper allocates; a second
+// pass (splitk_reduce_kernel<int>, launched as the main loop's
+// programmatic dependent, so its blocks are in place when the main loop
+// ends) adds the slices, exactly, and applies the same epilogue
+// (epilogue_value and requant_i8, which column_pair's folded clamp equals
+// bit for bit).  No resident panel then.  The FCs at M = 128 and K <= 2048
+// (ResNet-50's, 32 tiles) keep one slice: their 16-step loops do not pay
+// for the second pass.
+//
+// bf16 x bf16 (the bf16 paths' FC, (128, 2048, 1000)) takes "wgmma_bf16":
+// the "wgmma_w8" kernel below with the bf16 weight tile brought by TMA
+// beside A (a BN x 64 box, 128-byte swizzle; no staging slot, no
+// conversion), f32 sums, K split as "wgmma_w8" splits it and the f32
+// slices added in index order by the second pass.  It is bound by bytes
+// (the 4 MB weight, read once: 0.0015 ms); at 8 tiles unsplit it kept 124
+// SMs idle.  It replaced the first body, mma.sync m16n8k16 with fragments
+// loaded from global memory (125 blocks of 128 x 8, each reading all of
+// A), which is gone.
 //
 // Weight-only int8 (bf16 x, int8 w: VGG-16 w8's fc6-8, M = 128, K 25088
 // and 4096, N 4096 and 1000) is bound by bytes: the int8 weight, 123.6 MB
@@ -82,6 +104,6 @@ extern "C" int fcnn_matmul_epilogue(
       a, w, N, x_type, w_type,
       fcnn::make_plan(variant, bn, bk, stages, bres, grid, smem, split, th,
                       tw, ldw, sst),
-      static_cast<float*>(ws), e,
+      ws, e,
       static_cast<cudaStream_t>(stream));
 }

@@ -9,7 +9,10 @@ tensor it computes the same function with :func:`matmul_epilogue_plain`.
 Variants (main loops of one kernel; :func:`gemm_plan` picks one per
 launch, on the host, from the shapes, types and pointers):
   int8 x int8 (+ both scales) -> float or int8 out, int32 sums:
-      "wgmma"     wgmma with a TMA ring and a staged epilogue
+      "wgmma"     wgmma with a TMA ring and a staged epilogue; a launch
+                  whose tiles leave SMs idle splits K (``split``; the
+                  int32 slices added exactly by a second pass, which
+                  applies the epilogue)
       "wgmma_ragged"  the same ring, consumers and epilogue for rows that
                   are not whole 16-byte pieces (K or C not a multiple of
                   16, or a matrix's x not 16-byte aligned): a matrix's A
@@ -25,7 +28,9 @@ launch, on the host, from the shapes, types and pointers):
                   K (the slices added in a fixed order by a second pass)
       "simt"      for a row pitch that is not a multiple of 16 bytes (K or
                   C not a multiple of 8) or a misaligned pointer
-  bf16 x bf16                 -> "mma_bf16" (mma.sync m16n8k16, f32 sums)
+  bf16 x bf16 (a matrix), f32 sums:
+      "wgmma_bf16"  the "wgmma_w8" kernel with the bf16 weight tile brought
+                  by TMA (no conversion), K split the same way
   f32 x f32, f32 x int8       -> "simt"     (f32 FMAs: f32 on the tensor
                                              cores would be TF32)
 
@@ -45,15 +50,15 @@ import torch
 __all__ = ["matmul_epilogue", "matmul_epilogue_plain", "epilogue_plain",
            "matmul_epilogue_split_plain", "fma_f32", "gemm_layout",
            "is_gemm_layout", "gemm_pitch", "gemm_plan", "GemmPlan",
-           "VARIANTS"]
+           "VARIANTS", "split_workspace"]
 
 _ACT_CODES = {None: 0, "relu": 1, "relu6": 2}
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
 
 # The main loops, in the order of their codes in the C interface.
-VARIANTS = ("simt", "mma_sync", "wgmma", "mma_bf16", "wgmma_w8",
-            "wgmma_ragged")
+VARIANTS = ("simt", "mma_sync", "wgmma", "wgmma_w8", "wgmma_ragged",
+            "wgmma_bf16")
 # Shared memory a thread block can use on an H100, and its SM count.
 SMEM_LIMIT = 227 * 1024
 H100_SMS = 132
@@ -61,7 +66,16 @@ WG_BM = 128             # rows of a "wgmma" output tile
 MAX_STAGES = 6
 PANEL_LIMIT = 144 * 1024   # the largest weight panel kept resident
 W8_BK = 64              # K elements (bf16) of a "wgmma_w8" step: 128 bytes
-W8_MIN_STEPS = 4        # the fewest K steps of a "wgmma_w8" split-K slice
+SPLIT_MIN_STEPS = 4     # the fewest K steps of a split-K slice
+# ... of a "wgmma_bf16" slice: its second pass reads split x M x N f32,
+# which at M = 128 costs more than shorter slices save
+BF16_MIN_STEPS = 8
+# An int8 launch splits K only where its tiles fill at most a third of the
+# SMs and each block's unsplit main loop loads at least this many bytes
+# (k_steps x (128 + BN) x BK): shorter loops, or tiles that already fill
+# half the SMs (a split of 2), do not win back the second pass and its
+# workspace (chip_smoke.py's split launches lines)
+SPLIT_MIN_BYTES = 384 * 1024
 RAGGED_K_MAX = 256      # a "wgmma_ragged" matrix's K at most (staged tiles)
 ROW_BYTES = 16          # an int8 weight's rows are padded to this multiple
 
@@ -120,12 +134,13 @@ def is_gemm_layout(w: torch.Tensor) -> bool:
 
 
 class GemmPlan(NamedTuple):
-    """One launch's plan: the variant and, for "wgmma" and "wgmma_w8", the
+    """One launch's plan: the variant and, for the wgmma variants, the
     output tile's width ``bn``, the K step ``bk`` in bytes, the ring's
     ``stages``, whether the block's weight panel (all of K for its BN
     columns) stays resident in shared memory (``bres``, "wgmma" only), the
     persistent grid and the dynamic shared memory; ``split``, the K slices
-    of a "wgmma_w8" matrix (1: none); ``th`` x ``tw``, the rectangle of
+    whose sums a second pass adds (1: none; :func:`split_workspace` holds
+    them); ``th`` x ``tw``, the rectangle of
     output pixels of a "wgmma_w8" conv whose A tile comes by TMA, one box
     per tap (0 x 0: gathered by cp.async); ``reason`` says why an int8
     launch does not take "wgmma" (why it takes "wgmma_ragged", or why
@@ -190,6 +205,14 @@ def w8_smem(bn: int, stages: int, conv: bool) -> int:
             + 2 * 24 * bn + (WG_BM * 16 if conv else 0))
 
 
+def bf16_smem(bn: int, stages: int) -> int:
+    """Dynamic shared memory of the "wgmma_bf16" kernel (``bf16gemm_smem``
+    in csrc/gemm_common.cuh): as :func:`w8_smem` for a matrix, with a stage
+    of the A tile and the bf16 weight tile alone (both by TMA)."""
+    return (1024 + stages * (WG_BM * 2 * W8_BK + bn * 2 * W8_BK + 16)
+            + 2 * 24 * bn)
+
+
 def _w8_refusal(k: int, conv_c: Optional[int], x_ptr: int,
                 w_ptr: int) -> str:
     pitch = conv_c if conv_c is not None else k
@@ -204,16 +227,35 @@ def _w8_refusal(k: int, conv_c: Optional[int], x_ptr: int,
     return ""
 
 
-def w8_split(m: int, k: int, bn: int, n: int, sms: int) -> int:
-    """The K slices of a "wgmma_w8" matrix launch: where its 128 x ``bn``
-    tiles leave SMs idle, as many slices as fill them, each at least
-    :data:`W8_MIN_STEPS` K steps, then as few as keep the steps per slice
-    (no slice empty); else 1."""
-    k_steps = -(-k // W8_BK)
-    tiles = -(-m // WG_BM) * -(-n // bn)
-    split = max(1, min(sms // tiles, k_steps // W8_MIN_STEPS))
+def split_k(tiles: int, k_steps: int, sms: int,
+            min_steps: int = SPLIT_MIN_STEPS) -> int:
+    """The K slices of a launch of ``tiles`` output tiles and ``k_steps``
+    K steps: where its tiles leave SMs idle, as many slices as fill them,
+    each at least ``min_steps`` K steps, then as few as keep the steps per
+    slice (no slice empty); else 1."""
+    split = max(1, min(sms // tiles, k_steps // min_steps))
     per = -(-k_steps // split)
     return -(-k_steps // per)
+
+
+def w8_split(m: int, k: int, bn: int, n: int, sms: int,
+             min_steps: int = SPLIT_MIN_STEPS) -> int:
+    """The K slices (:func:`split_k`) of a "wgmma_w8" matrix launch on
+    128 x ``bn`` tiles (a "wgmma_bf16" one's with ``min_steps``
+    :data:`BF16_MIN_STEPS`)."""
+    return split_k(-(-m // WG_BM) * -(-n // bn), -(-k // W8_BK), sms,
+                   min_steps)
+
+
+def split_workspace(plan: GemmPlan, m: int, n: int, x_dtype,
+                    device) -> Optional[torch.Tensor]:
+    """The (split, M, N) sums of a plan that splits K, uninitialised (each
+    slice writes all of its own): int32 for an int8 x, f32 for a float one;
+    None for a plan that does not split."""
+    if plan.split == 1:
+        return None
+    dtype = torch.int32 if x_dtype == torch.int8 else torch.float32
+    return torch.empty((plan.split, m, n), dtype=dtype, device=device)
 
 
 def conv_tile(oh: int, ow: int):
@@ -228,10 +270,16 @@ def conv_tile(oh: int, ow: int):
 
 
 def _w8_plan(m: int, k: int, n: int, conv_c: Optional[int], conv_out,
-             stride: int, sms: int) -> GemmPlan:
+             stride: int, sms: int, w16: bool = False) -> GemmPlan:
+    """The plan of a "wgmma_w8" launch, or with ``w16`` of a "wgmma_bf16"
+    matrix (see :func:`gemm_plan`)."""
     conv = conv_c is not None
-    bn = next((b for b in (32, 64) if n <= b), 128)
-    split = 1 if conv else w8_split(m, k, bn, n, sms)
+    # a bf16 weight tile is twice an int8 one's bytes: at most 64 wide, so
+    # that twice the blocks share the loads
+    bn = next((b for b in (32, 64) if n <= b), 64 if w16 else 128)
+    split = 1 if conv else w8_split(m, k, bn, n, sms,
+                                    BF16_MIN_STEPS if w16 else
+                                    SPLIT_MIN_STEPS)
     row_tiles, th, tw = -(-m // WG_BM), 0, 0
     if conv and conv_out is not None and stride == 1 and conv_c % W8_BK == 0:
         images, oh, ow = conv_out
@@ -240,10 +288,12 @@ def _w8_plan(m: int, k: int, n: int, conv_c: Optional[int], conv_out,
     n_tiles = -(-n // bn)
     units = row_tiles * n_tiles * split
     grid = units if units <= sms else max(sms // n_tiles, 1) * n_tiles
-    free = SMEM_LIMIT - w8_smem(bn, 0, conv)
-    stages = min(MAX_STAGES, free // (WG_BM * 2 * W8_BK + bn * 3 * W8_BK + 16))
-    return GemmPlan("wgmma_w8", bn, 2 * W8_BK, stages, False, grid,
-                    w8_smem(bn, stages, conv), split=split, th=th, tw=tw)
+    smem = (lambda st: bf16_smem(bn, st)) if w16 else (
+        lambda st: w8_smem(bn, st, conv))
+    stages = min(MAX_STAGES, (SMEM_LIMIT - smem(0)) // (smem(1) - smem(0)))
+    return GemmPlan("wgmma_bf16" if w16 else "wgmma_w8", bn, 2 * W8_BK,
+                    stages, False, grid, smem(stages), split=split, th=th,
+                    tw=tw)
 
 
 def _tile_n(m: int, k: int, n: int, sms: int, conv: bool) -> int:
@@ -296,10 +346,12 @@ def _ragged_refusal(k: int, conv_c: Optional[int], x_ptr: int, w_ptr: int,
 
 
 def _wgmma_plan(variant: str, m: int, k: int, n: int, osize: int,
-                conv: bool, sms: int, ldw: int, reason: str = ""
-                ) -> GemmPlan:
-    """The tile, K step, ring and grid of a "wgmma" or "wgmma_ragged"
-    launch (see :func:`gemm_plan`)."""
+                conv: bool, sms: int, ldw: int, reason: str = "",
+                split: bool = True) -> GemmPlan:
+    """The tile, K step, ring, K slices and grid of a "wgmma" or
+    "wgmma_ragged" launch (see :func:`gemm_plan`); with ``split`` False,
+    the plan without K slices (the one such a launch took before K was
+    split, timed beside the rule's by chip_smoke.py)."""
     bk = 64 if k <= 64 else 128
     bn = _tile_n(m, k, n, sms, conv)
     k_steps = -(-k // bk)
@@ -308,9 +360,14 @@ def _wgmma_plan(variant: str, m: int, k: int, n: int, osize: int,
     sb = ragged_stage_bytes(k) if variant == "wgmma_ragged" and not conv \
         else 0
     while True:
+        tiles = -(-m // WG_BM) * -(-n // bn)
+        worth = (split and variant == "wgmma" and 3 * tiles <= sms
+                 and k_steps * (WG_BM + bn) * bk >= SPLIT_MIN_BYTES)
+        sp = split_k(tiles, k_steps, sms) if worth else 1
         for sst in ((4, 2) if sb else (0,)):
             # the weight panel resident where it fits beside >= 3 A stages
-            bres = k_steps * bn * bk <= PANEL_LIMIT
+            # (not with a split: a block then runs one slice of one tile)
+            bres = sp == 1 and k_steps * bn * bk <= PANEL_LIMIT
             if bres:
                 free = SMEM_LIMIT - wgmma_smem(bn, bk, 0, k_steps, True,
                                                osize, conv, sb, sst)
@@ -326,12 +383,12 @@ def _wgmma_plan(variant: str, m: int, k: int, n: int, osize: int,
             break
         bn //= 2
     n_tiles = -(-n // bn)
-    tiles = -(-m // WG_BM) * n_tiles
+    units = -(-m // WG_BM) * n_tiles * sp
     # a multiple of the column tiles: each block keeps one column tile
-    grid = tiles if tiles <= sms else max(sms // n_tiles, 1) * n_tiles
+    grid = units if units <= sms else max(sms // n_tiles, 1) * n_tiles
     return GemmPlan(variant, bn, bk, stages, bres, grid,
                     wgmma_smem(bn, bk, stages, k_steps, bres, osize, conv,
-                               sb, sst), reason, ldw=ldw, sst=sst)
+                               sb, sst), reason, split=sp, ldw=ldw, sst=sst)
 
 
 def gemm_plan(m: int, k: int, n: int, x_dtype, w_dtype, out_dtype, *,
@@ -351,7 +408,10 @@ def gemm_plan(m: int, k: int, n: int, x_dtype, w_dtype, out_dtype, *,
     by :func:`_tile_n`; the weight panel resident where it is at most
     :data:`PANEL_LIMIT` and three A stages fit beside it; its stages as
     many as fit :data:`SMEM_LIMIT` (at most :data:`MAX_STAGES`, the tile
-    narrowed until two fit); one persistent block per SM, the grid a
+    narrowed until two fit); where its tiles fill at most a third of the
+    SMs and a block's K loop loads at least :data:`SPLIT_MIN_BYTES`, K
+    split into :func:`split_k`'s slices ("wgmma" alone) (no resident panel then, one slice
+    of one tile per block); one persistent block per SM, the grid a
     multiple of the column tiles.  What "wgmma" refuses takes
     "wgmma_ragged" (the refusal its ``reason``), planned the same way,
     where the weight's rows are padded to 16 bytes and: a matrix's K is at
@@ -369,7 +429,9 @@ def gemm_plan(m: int, k: int, n: int, x_dtype, w_dtype, out_dtype, *,
     of output pixels (else the cp.async gather); its stages as many as fit
     (at most :data:`MAX_STAGES`); the grid as for "wgmma".  bf16 x bf16
     matrices with K a multiple of 8 and 16-byte aligned pointers take
-    "mma_bf16"; the rest (f32 x) "simt"."""
+    "wgmma_bf16", planned as a "wgmma_w8" matrix but for its tile, at most
+    64 wide, its slices, at least :data:`BF16_MIN_STEPS` K steps, and its
+    stages (:func:`bf16_smem`); the rest (f32 x) "simt"."""
     ldw = k if w_pitch is None else w_pitch
     if w_pitch is None and w_dtype == torch.int8 and k % ROW_BYTES:
         ldw = -(-k // ROW_BYTES) * ROW_BYTES
@@ -395,7 +457,8 @@ def gemm_plan(m: int, k: int, n: int, x_dtype, w_dtype, out_dtype, *,
     if (x_dtype == torch.bfloat16 and w_dtype == torch.bfloat16
             and conv_c is None and k % 8 == 0 and x_ptr % 16 == 0
             and w_ptr % 16 == 0 and ldw % 8 == 0):
-        return GemmPlan("mma_bf16", ldw=ldw)
+        return _w8_plan(m, k, n, None, None, 1, sms, w16=True)._replace(
+            ldw=ldw)
     return GemmPlan("simt", ldw=ldw)
 
 
@@ -488,7 +551,8 @@ def matmul_epilogue_split_plain(x, w, split: int, bias=None, w_scale=None,
                                 x_scale: float = 1.0, out_scale: float = 1.0,
                                 lo=None, hi=None):
     """:func:`matmul_epilogue_plain` of a float ``x`` in the order of a
-    "wgmma_w8" plan that splits K into ``split`` slices: each slice of
+    "wgmma_w8" or "wgmma_bf16" plan that splits K into ``split`` slices
+    (the gate of both variants on the card): each slice of
     ``ceil(k_steps / split)`` K steps of :data:`W8_BK` summed in f32, the
     slices then added one by one in index order with f32 rounding (the
     split-K pass), then the epilogue."""
@@ -605,9 +669,7 @@ def matmul_epilogue(x: torch.Tensor, w: torch.Tensor,
         return out
     ptrs, codes, stream = launch_args(x, w, out, vecs, activation, out_dtype)
     plan = plan_for(M, K, N, x, w, out_dtype)
-    # the split-K slices' f32 sums ("wgmma_w8" with split > 1)
-    ws = (torch.empty((plan.split, M, N), dtype=torch.float32,
-                      device=x.device) if plan.split > 1 else None)
+    ws = split_workspace(plan, M, N, x.dtype, x.device)
     from .build import load_library
     rc = load_library().fcnn_matmul_epilogue(
         *ptrs, M, K, N, *codes, float(x_scale), float(out_scale),

@@ -189,7 +189,7 @@ def test_plan_takes_wgmma_at_every_served_launch(monkeypatch):
         p = gemm_plan(401408, 2048, 2560, i8, i8, odt)
         assert p.variant == "wgmma" and p.smem <= SMEM_LIMIT and \
             p.stages >= 2, (odt, p)
-    assert gemm_plan(128, 2048, 1000, bf, bf, bf).variant == "mma_bf16"
+    assert gemm_plan(128, 2048, 1000, bf, bf, bf).variant == "wgmma_bf16"
     assert gemm_plan(128, 2044, 1000, bf, bf, bf).variant == "simt"
     assert gemm_plan(128, 2048, 1000, bf, bf, bf, x_ptr=8).variant == "simt"
     assert gemm_plan(77, 64, 24, torch.float32, torch.float32,
