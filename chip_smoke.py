@@ -55,9 +55,12 @@ float activations; the bf16 paths run ``quant=None`` in bf16:
   batches (``ZOO_REST``): DenseNet-121 b128 (a standalone int8 Scale
   before each dense layer, int8 Concats, the growth-32 3x3 convs at
   N = 32); ResNeXt-50 b128, its 16 grouped 3x3 convs (cardinality 32)
-  through ``conv2d_implicit_gemm`` on their block-diagonal dense weight
-  (``kernels/dispatch.py``), each beside PyTorch's f32
-  ``F.conv2d(groups=32)`` as its library call, then behind an
+  through ``conv2d_implicit_gemm`` as super-groups on "wgmma_halo" (the
+  kernels line's ``conv2d_implicit_gemm_grouped``; q = 32 / (C/32) groups
+  a 32-wide column tile, each tile's input halo staged once by TMA), each
+  beside PyTorch's f32 ``F.conv2d(groups=32)`` as its library call and
+  the bf16 one, and timed on the block-diagonal plan these launches took
+  before, then behind an
   ``InferenceServer``; SE-ResNet-50 b96 (Sigmoid, the int8 Axpy);
   Inception-v3 b128 at 299x299 (1x7, 7x1, 1x3, 3x1 convs on
   ``conv2d_implicit_gemm``, requantizing AVE pools); ShuffleNet v1 b128
@@ -118,9 +121,11 @@ Phases, each printing its own lines:
    yardstick (and the kernel's multiple of it): ``torch._int_mm`` at a GEMM's
    (M, K, N), on operands zero-padded to its rules (M > 16, K and N
    multiples of 8; the padding not timed) where it refuses the shape, the
-   row marked so (at a grouped conv's block-diagonal launch the f32
-   ``F.conv2d(groups=g)`` it computes, the bf16 one beside it, and the
-   bound of the grouped work, the dense product's beside it), and for the
+   row marked so (at a grouped conv's launch the f32
+   ``F.conv2d(groups=g)`` it computes, the bf16 one beside it, the bound
+   of the grouped work, and for a super-group launch the ops bound of the
+   products it runs, A's bytes from L2 in its halos beside those a gather
+   of each tap would move, one line per stage), and for the
    depthwise kernels ``F.conv2d(groups=C)`` on
    channels-last bf16 (PyTorch has no int8 grouped conv, so the int8
    kernel's yardstick is that bf16 conv too).  No single PyTorch call
@@ -203,7 +208,11 @@ Phases, each printing its own lines:
    versions; before the rest of the zoo's paths, ``conv2d_implicit_gemm``
    on block-diagonal weights (4, 8 and 32 channels a group) and on 1x7,
    7x1, 1x3 and 3x1 kernels with their pads, stride 1 and 2, each on
-   "wgmma" and equal to plain (``ragged_zoo_rest``); before the
+   "wgmma", and on the super-group route ("wgmma_halo", halos of one and
+   of four column tiles, six maps a tile past the batch; the grouped
+   shapes no q fits on their block-diagonal weight), each equal to plain
+   (``ragged_zoo_rest``);
+   before the
    segmentation paths, the dilated ``conv2d_implicit_gemm`` at d = 2, 4,
    6 and 12, pad d and 0, C 16, 48 and 64, stride 1 and 2, int8 x on
    "wgmma", a bf16 x with an int8 weight on "wgmma_w8" (A by TMA) and an
@@ -296,13 +305,20 @@ KERNELS = {
         "source": "feathercnn_tpu_torch/kernels/csrc/conv_implicit_gemm.cu",
         "replaces": "feathercnn_tpu/kernels/conv.py:100 (C not a multiple "
                     "of 16)"},
+    # the grouped launches of conv2d_implicit_gemm on the super-group route
+    # (counted on its ``grouped_launches`` too): their own entry
+    "conv2d_implicit_gemm_grouped": {
+        "source": "feathercnn_tpu_torch/kernels/csrc/conv_implicit_gemm.cu",
+        "replaces": "feathercnn_tpu/kernels/dispatch.py:221 (XLA's grouped "
+                    "int8 conv, feature_group_count; no Pallas kernel)"},
 }
 DILATED = "conv2d_implicit_gemm_dilated"
+GROUPED = "conv2d_implicit_gemm_grouped"
 RAGGED = {"matmul_epilogue": "matmul_epilogue_ragged",
           "conv2d_implicit_gemm": "conv2d_implicit_gemm_ragged"}
 # the wrappers, each an attribute of kernels/dispatch.py
 WRAPPERS = tuple(k for k in KERNELS
-                 if k != DILATED and k not in RAGGED.values())
+                 if k not in (DILATED, GROUPED) and k not in RAGGED.values())
 _ZERO = dict.fromkeys(KERNELS, 0)
 # path -> launches of one forward.  A kernel's entry in the kernels line
 # takes its numbers from the first path here that launches it.
@@ -356,9 +372,10 @@ EXPECTED = {
     "densenet121 b128": {**_ZERO, "matmul_epilogue": 62,
                          "conv2d_implicit_gemm": 58},
     # 2 x 16 blocks' 1x1 convs, the 4 projections and the FC; the 16
-    # grouped 3x3 convs on their block-diagonal weight
+    # grouped 3x3 convs as super-groups (q = 32 / (C/32), BN = S = 32)
     "resnext50 b128": {**_ZERO, "matmul_epilogue": 37,
-                       "conv2d_implicit_gemm": 16},
+                       "conv2d_implicit_gemm": 16,
+                       "conv2d_implicit_gemm_grouped": 16},
     # ResNet-50's 37, the SE path's down and up 1x1 convs x 16; 16 3x3
     "se_resnet50 b96": {**_ZERO, "matmul_epilogue": 69,
                         "conv2d_implicit_gemm": 16},
@@ -570,7 +587,7 @@ def toolchain():
     log = build.build_log().splitlines()
     for line in log:
         if "registers" in line or ("spill" in line and " 0 bytes spill"
-                                   not in line):
+                                   not in line) or "Performance" in line:
             say("toolchain", "ptxas: " + line.split(":", 1)[-1].strip())
     # the int8 chain kernel's "wgmma" builds by name: <columns of conv2's
     # passes, conv2 summed per tap in f32>
@@ -718,6 +735,7 @@ def reset_counts():
         if hasattr(fn, "variants"):
             fn.variants = dict.fromkeys(fn.variants, 0)
     _kernel_fns()["conv2d_implicit_gemm"][0].dilated_launches = 0
+    _kernel_fns()["conv2d_implicit_gemm"][0].grouped_launches = 0
 
 
 def gemm_plan_of(kernel, a):
@@ -729,20 +747,22 @@ def gemm_plan_of(kernel, a):
     if kernel != GEMMS[1]:
         return plan_for(m, k, n, a["x"], a["w"], out_dtype)
     nb, oh, ow, _, _, _ = dims("depthwise", a)
-    return plan_for(m, k, n, a["x"], a["w"], out_dtype,
+    kh, kw, s, _ = a["w"].shape
+    return plan_for(m, kh * kw * s, n, a["x"], a["w"], out_dtype,
                     conv_c=a["x"].shape[3], conv_out=(nb, oh, ow),
-                    stride=a["stride"])
+                    stride=a["stride"], group=a.get("groups", 1))
 
 
 def gemm_variants_wanted(kernel, a):
     """The variants a GEMM launch may take: "wgmma" or "wgmma_ragged"
     (rows that are not whole 16-byte pieces) for int8 x (int8 w), K split
-    or not; "wgmma_w8" for a bf16 x with an int8 weight (weight-only);
+    or not, or "wgmma_halo" (a grouped 3x3 conv's super-groups);
+    "wgmma_w8" for a bf16 x with an int8 weight (weight-only);
     "simt" for an f32 x (f32 on the tensor cores would be TF32) and for
     every other float conv; "wgmma_bf16" for a bf16 x bf16 matrix."""
     import torch
     if a["x"].dtype == torch.int8:
-        return ("wgmma", "wgmma_ragged")
+        return ("wgmma", "wgmma_ragged", "wgmma_halo")
     if a["x"].dtype == torch.bfloat16 and a["w"].dtype == torch.int8:
         return ("wgmma_w8",)
     if (a["x"].dtype == a["w"].dtype == torch.bfloat16
@@ -793,27 +813,44 @@ def read_counts():
     fns = _kernel_fns()
     counts = {name: fn.launches for name, (fn, _) in fns.items()}
     counts[DILATED] = fns["conv2d_implicit_gemm"][0].dilated_launches
+    counts[GROUPED] = fns["conv2d_implicit_gemm"][0].grouped_launches
     for wrapper, name in RAGGED.items():
         counts[name] = fns[wrapper][0].variants["wgmma_ragged"]
     return counts
 
 
+def supergroup_of(a):
+    """(group, q, S) of a recorded ``conv2d_implicit_gemm`` call on the
+    super-group route (``groups`` > 1 at ``supergroup``'s q), else None."""
+    from feathercnn_tpu_torch.kernels.matmul import supergroup
+    group = a.get("groups", 1)
+    if group == 1:
+        return None
+    kh, kw, s, co = a["w"].shape
+    q = supergroup(a["x"].shape[3], co, group, (kh, kw))[0]
+    return (group, q, s) if q else None
+
+
 def row_kernel(launch):
     """The kernels line's name of a recorded launch: a dilated
-    ``conv2d_implicit_gemm`` launch is ``DILATED``."""
-    if (launch["kernel"] == "conv2d_implicit_gemm"
-            and launch["args"].get("dilation", 1) > 1):
-        return DILATED
+    ``conv2d_implicit_gemm`` launch is ``DILATED``, a super-group one
+    ``GROUPED``."""
+    if launch["kernel"] == "conv2d_implicit_gemm":
+        if launch["args"].get("dilation", 1) > 1:
+            return DILATED
+        if supergroup_of(launch["args"]):
+            return GROUPED
     return launch["kernel"]
 
 
 def counted_as(launch):
     """The kernels line's entries whose counts a recorded launch adds to:
-    its wrapper's, and ``DILATED``'s for a dilated conv, the ragged entry
-    of its wrapper for a "wgmma_ragged" launch."""
+    its wrapper's, and ``DILATED``'s for a dilated conv, ``GROUPED``'s for
+    a super-group one, the ragged entry of its wrapper for a
+    "wgmma_ragged" launch."""
     names = [launch["kernel"]]
-    if row_kernel(launch) == DILATED:
-        names.append(DILATED)
+    if row_kernel(launch) in (DILATED, GROUPED):
+        names.append(row_kernel(launch))
     if launch.get("variant") == "wgmma_ragged":
         names.append(RAGGED[launch["kernel"]])
     return tuple(names)
@@ -894,8 +931,10 @@ def bound_ms(kernel, a, out, group=1):
     memory rate and its operations over the peak for their type (int8 or
     bf16 on the tensor cores by x's type, float32 FMA for f32 x and for the
     float depthwise variant, which computes in f32; ``ident`` does none).
-    A conv on a block-diagonal weight computes a grouped conv: its
-    operations are the dense product's over ``group``.  A dilated conv's
+    A conv on a block-diagonal or super-group weight computes a grouped
+    conv: its operations are the dense product's over ``group``, and a
+    super-group launch's weight bytes the grouped weight's (KH*KW*C/g*Co),
+    not its compact layout's.  A dilated conv's
     count only the taps that land in the image (a tap in the padding is a
     structural zero: at d = 12 on a 41x41 map most are)."""
     import torch
@@ -904,6 +943,10 @@ def bound_ms(kernel, a, out, group=1):
         for u in (t if isinstance(t, (tuple, list)) else (t,)):
             if isinstance(u, torch.Tensor):
                 nbytes += u.numel() * u.element_size()
+    sg = supergroup_of(a) if kernel == "conv2d_implicit_gemm" else None
+    if sg:
+        w = a["w"]
+        nbytes -= w.numel() - w.numel() * a["x"].shape[3] // sg[0] // sg[2]
     if kernel == "ident":
         ops = 0.0
     elif kernel in CHAINS:
@@ -1009,8 +1052,8 @@ def library_ms(kernel, a, group=1):
     ``torch._int_mm`` (int8 x int8 -> int32, no epilogue) at an int8
     GEMM's (M, K, N), ``torch.matmul`` in x's type at a float one;
     ``F.conv2d(groups=C)`` with its bias on channels-last bf16 at a
-    depthwise launch's shape; ``x.clone()`` for ``ident``; for a conv on a
-    block-diagonal weight the grouped conv it computes, f32
+    depthwise launch's shape; ``x.clone()`` for ``ident``; for a grouped
+    conv's launch (super-group or block-diagonal) the grouped conv, f32
     ``F.conv2d(groups=group)`` (PyTorch has no int8 conv on the card); for a
     dilated conv bf16 ``F.conv2d(dilation=d)`` on channels-last tensors,
     as a weight-only conv's (the int8 values dequantized)."""
@@ -1116,7 +1159,7 @@ def _time_conv(x_shape, k, co, stride, pad_h, pad_w, dilation=1):
 def _time_grouped_conv(x_shape, kh, kw, co, stride, pad_h, pad_w, group,
                        dtype=None):
     """F.conv2d(groups=group) with its bias in f32 (TF32 off), or in
-    ``dtype`` (bf16), on channels-last int8 values, at a block-diagonal
+    ``dtype`` (bf16), on channels-last int8 values, at a grouped conv
     launch's shape."""
     import torch
     import torch.nn.functional as F
@@ -1135,7 +1178,7 @@ def _time_grouped_conv(x_shape, kh, kw, co, stride, pad_h, pad_w, group,
 
 
 def _library_bf16_grouped(a, group):
-    """bf16 channels-last ``F.conv2d(groups=group)`` at a block-diagonal
+    """bf16 channels-last ``F.conv2d(groups=group)`` at a grouped conv
     launch's shape, beside the f32 call of ``library_ms``; timed once per
     shape."""
     import torch
@@ -1392,6 +1435,71 @@ def split_other_plans_ms(kernel, a, want):
     return res
 
 
+_GROUPED_ALT_MS = {}
+
+
+def ungrouped(wc, group, q):
+    """The grouped HWIO weight (KH, KW, C/g, Co) that ``grouped_layout(w,
+    group, q)`` compacted into ``wc``."""
+    import torch
+    kh, kw, s, co = wc.shape
+    cgi, cgo = s // q, co // group
+    slot = (torch.arange(co, device=wc.device) // cgo) % q
+    idx = slot[:, None] * cgi + torch.arange(cgi, device=wc.device)[None, :]
+    return wc.permute(3, 0, 1, 2).gather(
+        3, idx[:, None, None, :].expand(co, kh, kw, cgi)).permute(1, 2, 3, 0)
+
+
+def grouped_other_plans_ms(a, want):
+    """{plan: median ms} of a super-group launch (group g, q, S) on the
+    plan it did not take, forced through the C entry point on the same x
+    (``forced_launch``) and held equal to ``want`` (the plain version: int8
+    0 LSB, bf16 1 ulp): "block-diagonal", the plan these launches took
+    before (the dense block-diagonal weight, made here from the compact
+    one, on an ungrouped "wgmma" plan); timed once per shape."""
+    import torch
+    from feathercnn_tpu_torch.kernels.dispatch import block_diagonal
+    from feathercnn_tpu_torch.kernels.matmul import (
+        _sm_count, gemm_layout, gemm_plan, grouped_layout)
+    key = (tuple(a["x"].shape), tuple(a["w"].shape), a["stride"],
+           a["pad_h"], a.get("groups"), want.dtype)
+    if key in _GROUPED_ALT_MS:
+        return _GROUPED_ALT_MS[key]
+    group, q, _ = supergroup_of(a)
+    x, wc = a["x"], a["w"]
+    c, kh, kw, co = x.shape[3], wc.shape[0], wc.shape[1], wc.shape[3]
+    m = dims(GEMMS[1], a)[0]
+    wg = ungrouped(wc, group, q)
+    check(torch.equal(grouped_layout(wg, group, q), wc),
+          "ungrouped() does not invert grouped_layout")
+    dense = gemm_layout(block_diagonal(wg, group))
+    plan = gemm_plan(m, kh * kw * c, co, x.dtype, dense.dtype, want.dtype,
+                     conv_c=c, x_ptr=x.data_ptr(), w_ptr=dense.data_ptr(),
+                     sms=_sm_count(x.device.index or 0))
+    out = torch.empty(want.shape, dtype=want.dtype, device=want.device)
+    run = forced_launch(GEMMS[1], dict(a, w=dense), out, plan,
+                        "grouped conv on block-diagonal")
+    run()
+    err, ok, _ = compare(out, want)
+    check(ok, f"grouped conv x{tuple(x.shape)} on block-diagonal ({plan}): "
+          f"max err {err}")
+    res = {"block-diagonal": median_ms(run)}
+    _GROUPED_ALT_MS[key] = res
+    return res
+
+
+def halo_bytes(a, plan):
+    """Bytes of x a "wgmma_halo" launch brings from L2: each tile's halo,
+    all C channels (its column-tile groups' halos together)."""
+    from feathercnn_tpu_torch.kernels.matmul import halo_images
+    nb, oh, ow, c, _, _ = dims("depthwise", a)
+    st = a["stride"]
+    ti = halo_images(plan.th, plan.tw, oh, ow)
+    rects = -(-nb // ti) * -(-oh // plan.th) * -(-ow // plan.tw)
+    return (rects * ti * ((plan.th - 1) * st + 3) * ((plan.tw - 1) * st + 3)
+            * c)
+
+
 _CHAIN_ALT_MS = {}
 
 
@@ -1468,17 +1576,24 @@ def kernels_vs_plain(label, launches, groups=None):
     """Every recorded wrapper call of a path's forward, repeated on its own
     tensors, against the plain version, and timed; one row per call.  A
     row's ``ms`` is one whole call: for ``fused_chain`` that is its
-    ``launches`` (one per block of the chain).  ``groups`` maps the data
-    pointer of each block-diagonal weight (a grouped int8 conv's) to its
-    group count: such a launch's bound counts the grouped conv's
-    operations and its library call is the f32 grouped conv."""
+    ``launches`` (one per block of the chain).  A grouped int8 conv's
+    launch (``groups`` > 1) must take the weight the engine kept for it
+    (``groups``: data pointer -> (group, q), ``grouped_weights``); its
+    bound counts the grouped conv's operations, its library call is the
+    f32 grouped conv, and a super-group launch is also timed on the plans
+    it did not take (``grouped_other_plans_ms``)."""
     import torch
     fns = _kernel_fns()
     rows = []
     for i, launch in enumerate(launches):
         name, a = launch["kernel"], launch["args"]
-        group = ((groups or {}).get(a["w"].data_ptr(), 1)
-                 if name in GEMMS else 1)
+        group = a.get("groups", 1) if name == GEMMS[1] else 1
+        sg = supergroup_of(a) if group > 1 else None
+        if group > 1 and groups is not None:
+            kept = groups.get(a["w"].data_ptr())
+            check(kept == (group, sg[1] if sg else 0),
+                  f"{label}: launch {i} (groups={group}) took a weight the "
+                  f"engine did not keep for it: {kept}")
         float_sums = name == "fused_chain_float" or (
             name in ("matmul_epilogue", "conv2d_implicit_gemm")
             and a["x"].dtype != torch.int8)
@@ -1506,16 +1621,19 @@ def kernels_vs_plain(label, launches, groups=None):
                 tiles = chain_alt_ms(a, out)
             elif variant in ("wgmma_w8", "wgmma_bf16"):
                 tiles = float_other_plans_ms(name, a, ref) or None
-            elif variant in ("wgmma", "wgmma_ragged"):
+            elif variant in ("wgmma", "wgmma_ragged", "wgmma_halo"):
                 tiles = {}
                 if variant == "wgmma_ragged":
                     tiles.update(ragged_old_body_ms(name, a, ref))
                 if split > 1:
                     tiles.update(split_other_plans_ms(name, a, ref))
+                if sg:
+                    tiles.update(grouped_other_plans_ms(a, ref))
                 tiles = tiles or None
             del ref
-        desc = describe(name, a, out) + (f" block-diagonal g={group}"
-                                         if group > 1 else "")
+        desc = describe(name, a, out) + (
+            f" super-group g={group} q={sg[1]} S={sg[2]}" if sg
+            else f" block-diagonal g={group}" if group > 1 else "")
         check(ok, f"{label}: launch {i}, {desc}: kernel differs from plain, "
               f"max err {max_err}, {over} elements over 1 ulp")
         b_ms, b_by = bound_ms(name, a, out, group)
@@ -1535,13 +1653,22 @@ def kernels_vs_plain(label, launches, groups=None):
                      "plain_ms": median_ms(lambda: plain(**a), reps=3,
                                            warmup=1),
                      "bound_ms": b_ms, "bound_by": b_by,
-                     "dense_bound_ms": (bound_ms(name, a, out)[0]
-                                        if group > 1 else b_ms),
                      "group": group,
                      "library_ms": library_ms(name, a, group),
                      "library_padded": library_padded(name, a, group),
                      "library_bf16_ms": (_library_bf16_grouped(a, group)
                                          if group > 1 else None),
+                     # a super-group launch: its products' (zeros too)
+                     # bound on the int8 peak, A's bytes from L2 in its
+                     # halos, and those a gather of every tap of every row
+                     # would move (M * KH * KW * C)
+                     "sg_ops_ms": (2.0 * dims(name, a)[0] * a["w"].shape[3]
+                                   * math.prod(a["w"].shape[:3])
+                                   / PEAK_INT8_OPS * 1e3 if sg else None),
+                     "halo_bytes": (halo_bytes(a, gemm_plan_of(name, a))
+                                    if sg else None),
+                     "gather_bytes": (dims(name, a)[0] * dims(name, a)[1]
+                                      if sg else None),
                      "tiles": tiles})
     for desc in dict.fromkeys(r["shape"] for r in rows):
         same = [r for r in rows if r["shape"] == desc]
@@ -1674,8 +1801,8 @@ def split_lines(label, rows):
 def _library_name(desc):
     if desc.startswith("fused_chain"):
         return "library: none"
-    if "block-diagonal" in desc:
-        return f"f32 F.conv2d(groups={desc.rsplit('=', 1)[1]})"
+    if "block-diagonal" in desc or "super-group" in desc:
+        return f"f32 F.conv2d(groups={desc.split(' g=')[1].split()[0]})"
     if desc.startswith("ident"):
         return "x.clone()"
     if "depthwise" in desc:
@@ -1790,6 +1917,8 @@ def _kernel_group(key):
     if "dw_kernel" in key:      # dw_kernel<TX, S, INT_W, ...>, mangled or not
         return ("depthwise_conv2d_int8"
                 if "Lb1E" in key or ", true," in key else "depthwise_conv2d")
+    if "hgemm_kernel" in key:    # the super-group halo kernel: conv only
+        return "conv2d_implicit_gemm"
     if any(k in key for k in ("wgemm_kernel", "igemm_kernel",
                               "fgemm_kernel", "w8gemm_kernel",
                               "splitk_reduce_kernel")):
@@ -1968,14 +2097,19 @@ def chains_beside_unchained(rows, chained, unchained, node_ms):
             f"blocks (computed)")
 
 
-def block_diagonal_weights(eng):
-    """{data pointer: group} of the block-diagonal weights the engine laid
-    out for its grouped int8 convs (made at the first forward)."""
-    grouped = {n.name: n.attrs["group"] for n in eng.graph.nodes
+def grouped_weights(eng):
+    """{data pointer: (group, q)} of the weights the engine laid out for
+    its grouped int8 convs (made at the first forward, kept under
+    ``gemm_w/.../g<group>q<q>``): the compact super-group weight, or at q
+    0 the block-diagonal one."""
+    grouped = {n.name for n in eng.graph.nodes
                if n.op == "Convolution" and n.attrs.get("group", 1) > 1}
-    return {t.data_ptr(): grouped[node] for (node, key), t
-            in eng._ctx._consts.items()
-            if node in grouped and key.startswith("gemm_w/")}
+    out = {}
+    for (node, key), t in eng._ctx._consts.items():
+        if node in grouped and key.startswith("gemm_w/"):
+            group, q = key.rsplit("/g", 1)[1].split("q")
+            out[t.data_ptr()] = (int(group), int(q))
+    return out
 
 
 def run_path(label, g, cfg, eng, x, smi, check_launch=None):
@@ -1987,19 +2121,9 @@ def run_path(label, g, cfg, eng, x, smi, check_launch=None):
         for launch in launches:
             check_launch(launch)
     check_variants(label, launches)
-    rows = kernels_vs_plain(label, launches, block_diagonal_weights(eng))
+    rows = kernels_vs_plain(label, launches, grouped_weights(eng))
     del launches
-    grouped = [r for r in rows if r["group"] > 1]
-    if grouped:
-        sums = _sums(grouped)
-        say(label, f"the {len(grouped)} block-diagonal (grouped int8) "
-            f"launches of one forward: {sums['ms']:.4f} ms on "
-            f"conv2d_implicit_gemm, bound {sums['bound_ms']:.4f} ms for "
-            f"the grouped work, {sum(r['dense_bound_ms'] for r in grouped):.4f}"
-            f" for the dense product the kernel computes; f32 "
-            f"F.conv2d(groups) {sums['library_ms']:.4f} ms, bf16 "
-            f"{sum(r['library_bf16_ms'] for r in grouped):.4f} ms; variants "
-            f"{sorted({r['variant'] for r in grouped})}")
+    grouped_lines(label, rows)
     for name in KERNELS:
         mine = rows_of(name, rows)
         if mine:
@@ -2015,6 +2139,59 @@ def run_path(label, g, cfg, eng, x, smi, check_launch=None):
     torch.cuda.empty_cache()
     ms, node_ms = speed_and_profile(label, eng, x, smi)
     return rows, ms, node_ms
+
+
+def grouped_lines(label, rows):
+    """A path's grouped int8 launches: their sums (ms, the grouped work's
+    bound and its share, the super-group product's ops bound, A's bytes
+    from L2 in the halos beside those a gather of each tap would move, both
+    library calls, the block-diagonal plan's time and each launch slower
+    than it)
+    and one line per stage (input channels C)."""
+    grouped = [r for r in rows if r["group"] > 1]
+    if not grouped:
+        return
+    sums = _sums(grouped)
+    sg = [r for r in grouped if r["sg_ops_ms"] is not None]
+
+    def other(rs):
+        tot = {}
+        for r in rs:
+            for t, ms in (r["tiles"] or {}).items():
+                tot[t] = tot.get(t, 0.0) + ms
+        return ", ".join(f"{t} {ms:.4f}" for t, ms in tot.items())
+    bf16 = sum(r["library_bf16_ms"] for r in grouped)
+    slower = [r for r in sg if r["ms"] > r["tiles"]["block-diagonal"]]
+    say(label, f"the {len(grouped)} grouped int8 launches of one forward "
+        f"({len(sg)} super-group): {sums['ms']:.4f} ms on "
+        f"conv2d_implicit_gemm, bound {sums['bound_ms']:.4f} ms for the "
+        f"grouped work ({100 * sums['bound_ms'] / sums['ms']:.1f}% of it), "
+        f"the super-group product's ops bound "
+        f"{sum(r['sg_ops_ms'] for r in sg):.4f} ms, A's bytes from L2 "
+        f"{sum(r['halo_bytes'] for r in sg) / 1e9:.3f} GB in halos (a "
+        f"gather of each tap: "
+        f"{sum(r['gather_bytes'] for r in sg) / 1e9:.3f} GB); f32 "
+        f"F.conv2d(groups) {sums['library_ms']:.4f} ms, bf16 "
+        f"{bf16:.4f} ms ({sums['ms'] / bf16:.2f}x); the plan not taken "
+        f"(equal to plain) {other(sg)}; slower than block-diagonal: "
+        f"{len(slower)}"
+        + "".join(f"; {r['shape']} {r['ms']:.4f} vs "
+                  f"{r['tiles']['block-diagonal']:.4f}" for r in slower)
+        + f"; variants {sorted({r['variant'] for r in grouped})}")
+    for c in sorted({r["x_shape"][3] for r in sg}):
+        mine = [r for r in sg if r["x_shape"][3] == c]
+        ms = sum(r["ms"] for r in mine)
+        bound = sum(r["bound_ms"] for r in mine)
+        hb = sum(r["halo_bytes"] for r in mine) / 1e9
+        gb = sum(r["gather_bytes"] for r in mine) / 1e9
+        say(label, f"grouped stage C={c} ({mine[0]['shape'].split()[-2]}, "
+            f"{len(mine)} launches): {ms:.4f} ms, bound {bound:.4f} "
+            f"({100 * bound / ms:.1f}%), products' ops bound "
+            f"{sum(r['sg_ops_ms'] for r in mine):.4f}, A's bytes from L2 "
+            f"{hb:.3f} GB in halos (a gather of each tap: {gb:.3f} GB), bf16 "
+            f"F.conv2d(groups) "
+            f"{sum(r['library_bf16_ms'] for r in mine):.4f}; "
+            f"{other(mine)}")
 
 
 def winograd_check(label, eng, x):
@@ -2944,12 +3121,20 @@ def kernel_summary(name, rows, counts):
                if name.startswith("depthwise") else "torch._int_mm")
     if name == "conv2d_implicit_gemm":
         library += ("; f32 F.conv2d(groups=g) at a grouped conv's "
-                    "block-diagonal launches (ResNeXt-50); bf16 "
-                    "F.conv2d(dilation=d) at a dilated one")
+                    "launches (ResNeXt-50); bf16 F.conv2d(dilation=d) at a "
+                    "dilated one")
+    old_body = {}
+    if name == GROUPED:
+        library = ("f32 F.conv2d(groups=g), TF32 off, on the int8 values "
+                   "(PyTorch has no int8 conv on the card); bf16 "
+                   "channels-last in library_bf16_ms")
+        # the same launches on the block-diagonal plan they took before
+        old_body = {"old_body": "block-diagonal", "old_body_ms": sum(
+            r["tiles"]["block-diagonal"] for r in main_rows),
+            "library_bf16_ms": sum(r["library_bf16_ms"] for r in main_rows)}
     if name == DILATED:
         library = ("bf16 F.conv2d(dilation=d), channels-last, on the "
                    "dequantized tensors; PyTorch has no int8 conv on the card")
-    old_body = {}
     if name in RAGGED.values():
         library = ("torch._int_mm at the launch's (M, K, N), on operands "
                    "zero-padded to its rules where it refuses the shape")
@@ -3083,11 +3268,24 @@ def ragged_zoo_rest():
     on "wgmma" and equal to its plain version (int8 0 LSB, bf16 within 1
     ulp): grouped convs on their block-diagonal weight at 4, 8 and 32
     channels a group, stride 1 and 2, odd H and W; asymmetric kernels 1x7
-    pad (0, 3), 7x1 (3, 0), 1x3 (0, 1) and 3x1 (1, 0) at stride 1 and 2.
+    pad (0, 3), 7x1 (3, 0), 1x3 (0, 1) and 3x1 (1, 0) at stride 1 and 2;
+    the super-group route (``groups``, ``grouped_layout``'s weight; counted
+    in ``grouped_launches``) on "wgmma_halo" at 4, 8, 16 and 32 channels a
+    group (g = 32, q = 32 / (C/32), S = 32: at stride 1 with an int8
+    output halos of four column tiles' channels, 128-byte rows, else of
+    one, 32-byte rows; a 5 x 4 output map at stride 2, six maps a tile,
+    four of them past the batch) and with three and two column tiles
+    (halos of one), at stride 1 and 2; and the grouped shapes no q fits,
+    each on its block-diagonal weight with the plan's reason: 64 channels
+    a group in and 32 out (g = 2), Co != C (16 outputs a group at g = 4),
+    C = 24 (g = 3, 32 outputs a group; "wgmma_ragged") and 12 outputs a
+    group.
     A generator of its own.  Returns the number of cases."""
     import torch
     from feathercnn_tpu_torch.kernels.dispatch import block_diagonal
-    from feathercnn_tpu_torch.kernels.matmul import gemm_layout
+    from feathercnn_tpu_torch.kernels.matmul import (gemm_layout,
+                                                     grouped_layout,
+                                                     supergroup)
     kernel, plain = _kernel_fns()["conv2d_implicit_gemm"]
     gen = torch.Generator(device="cuda").manual_seed(10)
 
@@ -3110,8 +3308,30 @@ def ragged_zoo_rest():
             cases.append((f"{kh}x{kw} pad ({ph}, {pw}) x(2, 17, 15, 160) "
                           f"s{s}", i8(2, 17, 15, 160),
                           gemm_layout(i8(kh, kw, 160, 192)), s, ph, pw))
+    # (C/g, g, Co/g, stride, (H, W), the variant)
+    sgs = [(cg, 32, cg, s, hw, "wgmma_halo") for cg, hw in
+           [(4, (15, 13)), (8, (11, 9)), (16, (9, 11)), (32, (7, 9))]
+           for s in (1, 2)]
+    sgs += [(64, 2, 32, 1, (9, 11), "wgmma"),
+            (64, 2, 32, 2, (13, 9), "wgmma"),
+            (32, 3, 32, 1, (9, 7), "wgmma_halo"),
+            (32, 2, 32, 2, (11, 9), "wgmma_halo"),
+            (8, 4, 16, 1, (13, 11), "wgmma"), (8, 4, 16, 2, (11, 13),
+                                                "wgmma"),
+            (8, 3, 32, 1, (9, 7), "wgmma_ragged"),
+            (8, 4, 12, 1, (9, 11), "wgmma")]
+    for cg, g, cgo, s, (h, w), want in sgs:
+        c, co = cg * g, cgo * g
+        q = supergroup(c, co, g)[0]
+        wg = i8(3, 3, cg, co)
+        wk = grouped_layout(wg, g, q) if q else gemm_layout(
+            block_diagonal(wg, g))
+        cases.append((f"{'super-group q=' + str(q) if q else 'no q'} "
+                      f"C/g={cg} g={g} Co={co} x(2, {h}, {w}, {c}) s{s}",
+                      i8(2, h, w, c), wk, s, 1, 1, g, want))
     n = 0
-    for what, x, w, s, ph, pw in cases:
+    for what, x, w, s, ph, pw, *grouped in cases:
+        g, want = grouped or (1, "wgmma")
         co = w.shape[3]
         for out_dtype in (torch.int8, torch.bfloat16):
             a = dict(x=x, w=w, bias=torch.randn(co, device="cuda",
@@ -3119,11 +3339,19 @@ def ragged_zoo_rest():
                      w_scale=torch.rand(co, device="cuda", generator=gen)
                      * 1e-3 + 1e-4, stride=s, pad_h=ph, pad_w=pw,
                      activation="relu", out_dtype=out_dtype, x_scale=1.0,
-                     out_scale=0.5)
+                     out_scale=0.5, groups=g)
             before = dict(kernel.variants)
+            routed = kernel.grouped_launches
             got = kernel(**a)
             took = [v for v, m in kernel.variants.items() if m != before[v]]
-            check(took == ["wgmma"], f"{what} {out_dtype}: took {took}")
+            check(took == [want], f"{what} {out_dtype}: took {took}")
+            route = kernel.grouped_launches - routed
+            check(route == int(what.startswith("super-group")),
+                  f"{what}: {route} launches on the super-group route")
+            if g > 1 and "no q" in what:
+                reason = gemm_plan_of(GEMMS[1], a).reason
+                check(reason.startswith("block-diagonal: "),
+                      f"{what}: plan reason {reason!r}")
             err, ok, _ = compare(got, plain(**a))
             check(ok, f"{what} {out_dtype}: max err {err}")
             n += 1
@@ -3204,16 +3432,20 @@ def zoo_rest_paths(smi, rng, rows, counts, speed):
     """The rest of the classification zoo (phases 2-4 each), w8a8:
     DenseNet-121 b128, ResNeXt-50 b128 and its server, SE-ResNet-50 b96,
     Inception-v3 b128, ShuffleNet v1 and v2 b128 (``ZOO_REST``), after the
-    ragged cases of the grouped (block-diagonal) and asymmetric
+    ragged cases of the grouped (super-group and block-diagonal) and
+    asymmetric
     ``conv2d_implicit_gemm`` launches.  Adds to ``rows``, ``counts`` and
     ``speed``."""
     import functools
     import torch
     from feathercnn_tpu_torch.models import build_model
     n = ragged_zoo_rest()
-    say("kernels", f"{n} block-diagonal (Cg 4, 8, 32) and asymmetric (1x7, "
-        f"7x1, 1x3, 3x1) conv2d_implicit_gemm cases at stride 1 and 2, each "
-        f"on wgmma and equal to plain")
+    say("kernels", f"{n} block-diagonal (Cg 4, 8, 32), asymmetric (1x7, "
+        f"7x1, 1x3, 3x1) and grouped (wgmma_halo at C/g 4, 8, 16, 32, "
+        f"g = 32, and with 3 and 2 column tiles; block-diagonal where no q "
+        f"fits: 64 in / 32 out a group, Co != C at g = 4, C = 24 on "
+        f"wgmma_ragged, 12 outputs a group) conv2d_implicit_gemm cases at "
+        f"stride 1 and 2, each on its planned variant and equal to plain")
     for label, (name, batch) in ZOO_REST.items():
         g = calibrated(functools.partial(build_model, name), batch, rng)
         x = images(g, batch, rng)

@@ -60,6 +60,12 @@ _SIGNATURES = {
                                         _I, _I, _I, _I,
                                         _F, _F, _I, _I, _I, _I, _I, _I, _I,
                                         _I, _I, _I, _I, _I, _P, _P],
+    "fcnn_conv_implicit_gemm_grouped": [_P, _P, _P, _P, _P, _P, _P,
+                                        _I, _I, _I, _I, _I, _I, _I,
+                                        _I, _I, _I, _I, _I,   # sh sw ph pw S
+                                        _I, _I, _I, _I,
+                                        _F, _F, _I, _I, _I, _I, _I, _I, _I,
+                                        _I, _I, _I, _I, _I, _P, _P],
     "fcnn_depthwise_conv2d": [_P, _P, _P, _P,                # x w out b
                               _I, _I, _I, _I, _I, _I,        # N H W C KH KW
                               _I, _I, _I, _I,                # sh sw ph pw

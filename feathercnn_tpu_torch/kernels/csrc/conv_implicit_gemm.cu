@@ -72,6 +72,30 @@
 // The tile is as wide as Co, at most 128 (a 256-wide tile's 128 sums a
 // thread spilled and ran slower).
 //
+// A grouped int8 conv (1 < group < C; ResNeXt-50's sixteen cardinality-32
+// 3x3 convs, C = Co = 128 to 1024, 4 to 32 channels a group), which the
+// reference leaves to XLA's int8 conv with feature_group_count
+// (feathercnn_tpu/kernels/dispatch.py:221-231), is memory-bound: x in and
+// y out are its bytes, 2*M*Co*9*C/group its operations (9*Cg per byte).
+// Run on its block-diagonal dense weight it was a dense product group
+// times larger, bound by the tensor cores and by A's gather (each column
+// tile re-gathering all 9*C bytes of a row).  Entry
+// fcnn_conv_implicit_gemm_grouped runs it as super-groups on variant
+// "wgmma_halo" (hgemm_kernel, gemm_common.cuh): a column tile is q whole
+// groups (kernels/matmul.py::supergroup: 32 outputs reading S = 32 input
+// channels, q = 32/Cg for ResNeXt), against the compact weight
+// (grouped_layout: Co rows of 9*S, zero off each output channel's group).
+// Each tile of at most 128 output pixels has its input halo (the 32
+// channels of each of four column tiles, 128-byte rows, at stride 1; of
+// one at stride 2) brought once by one 4-D TMA box, and the nine taps are
+// read from it by ldmatrix into register-A wgmma, two pairs of consumer
+// warpgroups taking tiles in turn; what binds it then is the tile's
+// epilogue (PERF.md).  The grid is a multiple of the column-tile groups
+// and unit u's group is u's remainder, so the blocks reading one tile's
+// disjoint channel slices run side by side and its pixels stay in L2.
+// Any other grouped conv runs on the plain entry with its block-diagonal
+// weight.
+//
 // The Pallas kernel's staging (row slabs,
 // batch chunks, stride-2 parity planes, shifted products, lax.map over
 // chunks) exists for the TPU's VMEM and (8, 128) tiling and is not carried
@@ -84,19 +108,8 @@
 
 namespace {
 
-int conv_implicit_gemm(
-    const void* x, const void* w, void* out, const float* bias,
-    const float* w_scale, const float* lo, const float* hi, int N, int H,
-    int W, int C, int KH, int KW, int Co, int sh, int sw, int ph, int pw,
-    int d, int x_type, int w_type, int out_type, int act, float x_scale,
-    float out_scale, int variant, int bn, int bk, int stages, int bres,
-    int grid, int smem, int split, int th, int tw, int ldw, int sst,
-    void* ws, void* stream) {
-  if (d < 1) return static_cast<int>(cudaErrorInvalidValue);
-  // the dilated kernel spans d*(K-1)+1 pixels; a span past the padded
-  // input leaves no output
-  if (H + 2 * ph < d * (KH - 1) + 1 || W + 2 * pw < d * (KW - 1) + 1)
-    return 0;
+fcnn::ConvA conv_a(const void* x, int N, int H, int W, int C, int KH, int KW,
+                   int sh, int sw, int ph, int pw, int d) {
   fcnn::ConvA a;
   a.x = static_cast<const char*>(x);
   a.H = H;
@@ -112,6 +125,23 @@ int conv_implicit_gemm(
   a.OW = (W + 2 * pw - d * (KW - 1) - 1) / sw + 1;
   a.M = N * a.OH * a.OW;
   a.K = KH * KW * C;
+  return a;
+}
+
+int conv_implicit_gemm(
+    const void* x, const void* w, void* out, const float* bias,
+    const float* w_scale, const float* lo, const float* hi, int N, int H,
+    int W, int C, int KH, int KW, int Co, int sh, int sw, int ph, int pw,
+    int d, int x_type, int w_type, int out_type, int act, float x_scale,
+    float out_scale, int variant, int bn, int bk, int stages, int bres,
+    int grid, int smem, int split, int th, int tw, int ldw, int sst,
+    void* ws, void* stream) {
+  if (d < 1) return static_cast<int>(cudaErrorInvalidValue);
+  // the dilated kernel spans d*(K-1)+1 pixels; a span past the padded
+  // input leaves no output
+  if (H + 2 * ph < d * (KH - 1) + 1 || W + 2 * pw < d * (KW - 1) + 1)
+    return 0;
+  const fcnn::ConvA a = conv_a(x, N, H, W, C, KH, KW, sh, sw, ph, pw, d);
   const fcnn::Epilogue e = fcnn::make_epilogue(
       out, bias, w_scale, lo, hi, act, x_scale, out_scale, out_type);
   return fcnn::launch_gemm(
@@ -155,4 +185,27 @@ extern "C" int fcnn_conv_implicit_gemm_dilated(
                             out_type, act, x_scale, out_scale, variant, bn,
                             bk, stages, bres, grid, smem, split, th, tw, ldw,
                             sst, ws, stream);
+}
+
+// A grouped conv as super-groups of S = 32 channels ("wgmma_halo"): column
+// tile nt (32 output channels) reads input channels nt*S .. nt*S + S - 1
+// of each tap; w is the compact (Co, 9*S) weight (grouped_layout).
+extern "C" int fcnn_conv_implicit_gemm_grouped(
+    const void* x, const void* w, void* out, const float* bias,
+    const float* w_scale, const float* lo, const float* hi, int N, int H,
+    int W, int C, int KH, int KW, int Co, int sh, int sw, int ph, int pw,
+    int S, int x_type, int w_type, int out_type, int act, float x_scale,
+    float out_scale, int variant, int bn, int bk, int stages, int bres,
+    int grid, int smem, int split, int th, int tw, int ldw, int sst,
+    void* ws, void* stream) {
+  if (ws != nullptr || sst != 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (H + 2 * ph < KH || W + 2 * pw < KW) return 0;
+  const fcnn::ConvA a = conv_a(x, N, H, W, C, KH, KW, sh, sw, ph, pw, 1);
+  return fcnn::launch_hgemm(
+      a, KH, S, w, Co, x_type, w_type,
+      fcnn::make_plan(variant, bn, bk, stages, bres, grid, smem, split, th,
+                      tw, ldw, sst),
+      fcnn::make_epilogue(out, bias, w_scale, lo, hi, act, x_scale,
+                          out_scale, out_type),
+      static_cast<cudaStream_t>(stream));
 }

@@ -20,7 +20,8 @@
 // the 1x1 convs at small K (stages 2-3, the MobileNets) are bound by
 // bytes, and their output bytes dominate; the 3x3 convs at ResNet-50's
 // stages 3-5 (9*C operations per byte) and the widest merged convs are
-// bound by operations.
+// bound by operations.  A grouped conv (ResNeXt-50's) does 9*C/group
+// operations per byte and is bound by bytes at every stage.
 //
 // The int8 design (variant "wgmma", wgemm_kernel): a persistent grid, one
 // thread block per SM walking 128 x BN output tiles (BN 32 to 256, chosen
@@ -46,6 +47,16 @@
 // run.  At K <= 256 that arithmetic, not the bytes, binds the launch
 // (tools/int8_gemm_probe.py --parts).  The whole K accumulates in int32:
 // exact.
+//
+// A grouped 3x3 int8 conv (1 < group < C) runs as super-groups on variant
+// "wgmma_halo" (hgemm_kernel below): column tile nt is q whole groups whose
+// 32 outputs read only input channels nt*32 .. nt*32 + 31, against a
+// compact weight whose rows are zero off each output channel's group (K =
+// 9*32; kernels/matmul.py::grouped_layout).  Each tile's input halo comes
+// once by TMA and its nine taps are read from it by ldmatrix into
+// register-A wgmma, so A's bytes from L2 are the halo's, ~1.4 times x's,
+// where a gather of each tap would move nine times x's.  Any other grouped
+// conv runs on "wgmma" with its block-diagonal dense weight.
 //
 // Rows that are not whole 16-byte pieces (K or C not a multiple of 16, or
 // a matrix's x not 16-byte aligned) take variant "wgmma_ragged": the same
@@ -122,7 +133,8 @@ enum Variant {
   V_WGMMA_S8 = 2,
   V_WGMMA_W8 = 3,
   V_WGMMA_RAGGED = 4,
-  V_WGMMA_BF16 = 5
+  V_WGMMA_BF16 = 5,
+  V_WGMMA_HALO = 6
 };
 
 struct Epilogue {
@@ -712,12 +724,16 @@ __device__ __forceinline__ void column_pair(const Epilogue& e, int n, int N,
 // t + 1.5 * 2^23, t = y * out_scale (rint, round half to even; |t| <=
 // 127 + an ulp by the bounds), two bytes packed by one byte permute.
 //
+// PRE false: every column's pre is 1 (x_scale 1: column_pair keeps w_scale
+// in last), and the multiply by it, exact, is left out.
+//
 // PACKED: the rows are ``pitch`` = N * sizeof(OutT) bytes apart, so that a
 // column at or past ``lim`` = N would land on the next row: its pair goes
 // to a scratch slot past the 64 rows instead (a select, not a branch,
 // which would break the unrolled loop's schedule; an instantiation of its
 // own, since the select also costs the stores their constant offsets).
-template <typename OutT, int BN, bool SMALL_K, bool PACKED = false>
+template <typename OutT, int BN, bool SMALL_K, bool PACKED = false,
+          bool PRE = true>
 __device__ __forceinline__ void stage_tile(const int (&acc)[BN / 2],
                                            uint32_t par, uint32_t os,
                                            int pitch, float out_scale,
@@ -743,7 +759,7 @@ __device__ __forceinline__ void stage_tile(const int (&acc)[BN / 2],
         const float f = SMALL_K
             ? __fsub_rn(__int_as_float(a + 0x4B400000), 12582912.0f)
             : static_cast<float>(a);
-        const float v = __fmaf_rn(__fmul_rn(f, q ? p0.y : p0.x),
+        const float v = __fmaf_rn(PRE ? __fmul_rn(f, q ? p0.y : p0.x) : f,
                                   q ? p0.w : p0.z, q ? p1.y : p1.x);
         y[q] = fminf(fmaxf(v, q ? p1.w : p1.z), q ? p2.y : p2.x);
       }
@@ -1253,6 +1269,319 @@ wgemm_kernel(const __grid_constant__ CUtensorMap map_a,
         *reinterpret_cast<uint4*>(dst) = v;
       else  // the row's ragged end, or a row not 16-byte aligned
         store_piece(dst, v, min(per, N - c0) * osize);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------
+// Variant "wgmma_halo": a grouped 3x3 int8 conv's super-groups with each
+// tile's input halo staged once (see the note at the top).
+// ---------------------------------------------------------------------
+
+// A super-group's width: its column tile's output channels and the input
+// channels they read (HALO_S in kernels/matmul.py).
+constexpr int HALO_S = 32;
+
+// Four 8x8 b16 matrices from shared memory: lane l gives the address of
+// row l % 8 of matrix l / 8.
+__device__ __forceinline__ void ldmatrix4(uint32_t (&r)[4], uint32_t a) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a));
+}
+
+// A halo tile: ti images (ti > 1 only where the th x tw rectangle is the
+// whole output map: as many as 128 rows hold), th x tw output pixels each.
+__host__ __device__ constexpr int halo_images(int th, int tw, int OH,
+                                              int OW) {
+  return th == OH && tw == OW && 2 * th * tw <= WG_BM ? WG_BM / (th * tw)
+                                                      : 1;
+}
+
+// Column tiles whose channels one halo holds: four (rows of 128 bytes) at
+// stride 1 with an int8 output where they divide the launch's n_tiles, else
+// one (rows of 32 bytes).  TMA brings a box one row (pixel) at a time:
+// 128-byte rows move four times the bytes of 32-byte rows in the same
+// time.  (A stride-2 halo of 128-byte rows leaves room for small tiles
+// only, and a wider output for few stages.)
+__host__ __device__ constexpr int halo_group(int n_tiles, int stride,
+                                             int osize) {
+  return stride == 1 && osize == 1 && n_tiles % 4 == 0 ? 4 : 1;
+}
+
+// Dynamic shared memory of hgemm_kernel<G> (halo_smem in kernels/matmul.py
+// computes the same): 1024 bytes of alignment slack; the ring of halos
+// (halo_bytes each, in 1024-byte steps); the resident weight panel (g
+// column tiles' 3 tiles of 32 x 128 bytes); two barriers and a tile origin
+// per stage, the panel's barrier; the tile's row -> pixel table; each of
+// the four consumer warpgroups' column constants (g * 32 columns) and
+// staged 64-row output tile (g * 32 columns).
+__host__ __device__ constexpr int hgemm_smem(int g, int stages,
+                                             int halo_bytes, int osize) {
+  return 1024 + stages * ((halo_bytes + 1023) / 1024 * 1024) +
+         g * ((9 * HALO_S / 32 + 3) / 4) * HALO_S * 128 + 32 * stages + 16 +
+         4 * WG_BM + 4 * (24 * g * HALO_S + 64 * (g * HALO_S * osize + 16));
+}
+
+// hgemm_kernel<G>: the super-group conv (3x3, any square stride; column
+// tile nt's 32 outputs read input channels nt*32 .. +31) on a persistent
+// grid whose units are (tile, group of G column tiles, halo_group), the
+// group u % (n_tiles / G) as wgemm_kernel takes its column tile, so a block
+// keeps its column tiles and their weight panel: the compact weight's rows
+// of each, all K = 9*32 bytes, as 128-byte-swizzled 32 x 128 tiles (TMA,
+// once per block).  A tile is ti x th x tw output pixels (at most 128
+// rows); its input halo, the ti x ((th-1)*sh+3) x ((tw-1)*sw+3) pixels'
+// G * 32 channels from the group's first on, comes by one 4-D TMA box
+// (zero-filled outside the image: the padding), rows of G * 32 bytes
+// (swizzled at 128 bytes, so that ldmatrix's eight rows hit eight bank
+// groups), into a ring of halos kept full by one producer thread, which
+// also leaves each tile's origin (image, row, column) beside its halo.  A
+// pair of consumer warpgroups computes a tile, 64 rows each; the two pairs
+// take the block's tiles in turn (pair p the ring's stages p, p + 2, ...),
+// so that one pair's epilogue runs under the other's products: a tile's
+// work is too short for one pair's warps to hide its latencies.  K slice j
+// (32 bytes: tap j) of a warpgroup's rows is ldmatrix.x4 at each row's
+// window (lane l: row l % 16 of its warp's 16, 16-byte half l / 16), so the
+// nine shifted windows come from the one halo; all nine slices' A
+// fragments are loaded before the wgmmas (wgmma_s8_rs, B the panel's
+// slice).  The group's column tiles alternate between two accumulators,
+// each one's products running under the epilogue of the one before (G is
+// a template constant: a branch around a wgmma makes ptxas serialize them
+// all).  The epilogue is wgemm_kernel's arithmetic (stage_tile; without
+// the unit pre-scale at x_scale 1), the G column tiles staged side by
+// side, and the tile leaves as 16-byte row pieces, each row to its pixel
+// by a table made once (no division per tile; rows past the map or the
+// batch are not stored).
+template <int G>
+__global__ void __launch_bounds__(WG_THREADS + 256, 1)
+hgemm_kernel(const __grid_constant__ CUtensorMap map_x,
+             const __grid_constant__ CUtensorMap map_b, ConvA a, int N,
+             int stages, int th, int tw, Epilogue e) {
+  constexpr int BN = HALO_S;
+  constexpr int S = HALO_S;
+  constexpr int NC = 4;                      // consumer warpgroups
+  constexpr int NP = NC / 2;                 // pairs
+  constexpr int NSL = 9 * S / 32;            // K slices of 32 bytes: taps
+  constexpr int K_TILES = (NSL + 3) / 4;     // panel tiles of 128 bytes
+  constexpr int B_TILE = BN * 128;
+  constexpr int RB = G * S;                  // a halo row's bytes
+  constexpr uint32_t smask = RB == 128 ? 7u : 0u;
+  const int n_tiles = N / BN;
+  const int n_groups = n_tiles / G;
+  const int ti = halo_images(th, tw, a.OH, a.OW);
+  const int hh = (th - 1) * a.sh + 3;
+  const int hw = (tw - 1) * a.sw + 3;
+  const int halo_bytes = ti * hh * hw * RB;
+  const int HB = (halo_bytes + 1023) / 1024 * 1024;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* ring = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint8_t* bpanel = ring + stages * HB;
+  uint64_t* full =
+      reinterpret_cast<uint64_t*>(bpanel + G * K_TILES * B_TILE);
+  uint64_t* empty = full + stages;
+  uint64_t* bready = empty + stages;
+  int4* origin = reinterpret_cast<int4*>(bready + 2);
+  int* rowpix = reinterpret_cast<int*>(origin + stages);
+  uint8_t* pars = reinterpret_cast<uint8_t*>(rowpix + WG_BM);
+  const int osize = out_size(e.out_type);
+  const int pitch = G * BN * osize + 16;
+  uint8_t* outs = pars + NC * 24 * G * BN;
+
+  const int tid = threadIdx.x;
+  const int wg = tid >> 7;
+  const int t = tid & 127;
+  const int images = a.M / (a.OH * a.OW);
+  const int ty_n = (a.OH + th - 1) / th;
+  const int tx_n = (a.OW + tw - 1) / tw;
+  const int per_group = ty_n * tx_n;
+  const int units = (images + ti - 1) / ti * per_group * n_groups;
+  const int rows = ti * th * tw;
+
+  if (tid == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 256);
+    }
+    mbar_init(bready, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  if (tid < WG_BM) {  // row R of a tile: image i, pixel (y, x); -1 past it
+    const int i = tid / (th * tw);
+    const int p = tid - i * th * tw;
+    rowpix[tid] = tid < rows ? (i << 16) | ((p / tw) << 8) | (p % tw) : -1;
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    // ---------------- producer: one thread's TMA ------------------------
+    if (t == 0) {
+      prefetch_map(&map_x);
+      mbar_expect_tx(bready, G * K_TILES * B_TILE);
+      for (int g = 0; g < G; ++g)
+        for (int kt = 0; kt < K_TILES; ++kt)
+          tma_load_2d(bpanel + (g * K_TILES + kt) * B_TILE, &map_b, kt * 128,
+                      ((blockIdx.x % n_groups) * G + g) * BN, bready);
+      int s = 0;
+      uint32_t ph = 0;
+      for (int u = blockIdx.x; u < units; u += gridDim.x) {
+        const int rect = u / n_groups;
+        const int grp = u - rect * n_groups;
+        const int ig = rect / per_group;
+        const int rr = rect - ig * per_group;
+        const int ty = rr / tx_n;
+        const int tx = rr - ty * tx_n;
+        mbar_wait(&empty[s], ph ^ 1);
+        origin[s] = make_int4(ig * ti, ty * th, tx * tw, 0);
+        mbar_expect_tx(&full[s], halo_bytes);
+        tma_load_4d(ring + s * HB, &map_x, grp * RB, tx * tw * a.sw - a.pw,
+                    ty * th * a.sh - a.ph, ig * ti, &full[s]);
+        if (++s == stages) { s = 0; ph ^= 1; }
+      }
+    }
+    return;
+  }
+
+  // ---------------- consumers: pair pr, rows hf*64 .. +63 of its tiles ---
+  const int cw = wg - 1;
+  const int pr = cw >> 1;
+  const int hf = cw & 1;
+  const int nt0 = (blockIdx.x % n_groups) * G;  // the group's first tile
+  const uint32_t par = smem_u32(pars + cw * 24 * G * BN);
+  const uint32_t os = smem_u32(outs + cw * 64 * pitch);
+  const bool out16 = reinterpret_cast<uintptr_t>(e.out) % 16 == 0;
+  const bool vec_out = (static_cast<long long>(N) * osize) % 16 == 0 && out16;
+  for (int i = t; i < G * BN / 2; i += 128)
+    column_pair(e, nt0 * BN + 2 * i, N, par + i * 48);
+  // this lane's A row and its window's K slices, as unswizzled byte
+  // offsets into a halo, column tile 0 of the group (a row past the tile
+  // reads the tile's last row: not stored)
+  const int lane = t & 31;
+  const int ar = min(hf * 64 + (t >> 5) * 16 + (lane & 15), rows - 1);
+  const int ap = rowpix[ar];
+  const int p0 = (((ap >> 16) * hh + ((ap >> 8) & 255) * a.sh) * hw +
+                  (ap & 255) * a.sw);
+  // (its slice j, tap j: a tap row (hw * RB bytes) or a pixel (RB)
+  // further, column tile g's channels g * S on)
+  const uint32_t a0 = static_cast<uint32_t>(p0 * RB + (lane >> 4) * 16);
+  const uint32_t hwrb = static_cast<uint32_t>(hw * RB);
+  // the staged tile: the group's G column tiles side by side, 16-byte
+  // pieces of rows of G * BN outputs
+  const int per = 16 / osize;               // elements per piece
+  const int lg = 31 - __clz(G * BN / per);  // log2 of the pieces per row
+  int acc0[BN / 2], acc1[BN / 2];
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) acc0[i] = acc1[i] = 0;
+  // column tile g of the halo at hb: its A fragments and its products into
+  // acc, left in flight
+  auto issue = [&](int (&acc)[BN / 2], uint32_t hb, int g) {
+    uint32_t af[NSL][4];
+#pragma unroll
+    for (int j = 0; j < NSL; ++j) {
+      const uint32_t o = a0 + (j / 3) * hwrb + (j % 3) * RB + g * S;
+      ldmatrix4(af[j], hb + (o ^ (((o >> 7) & smask) << 4)));
+    }
+    wgmma_fence();
+#ifndef FCNN_WG_PROBE_NO_MMA
+    const uint8_t* bg = bpanel + g * K_TILES * B_TILE;
+#pragma unroll
+    for (int j = 0; j < NSL; ++j)
+      wgmma_s8_rs<BN>(acc, af[j],
+                      wg_desc<128>(bg + (j / 4) * B_TILE) + 2 * (j % 4),
+                      j > 0 ? 1 : 0);
+#endif
+    wgmma_commit();
+  };
+  // column tile g's sums in acc through the epilogue into its columns of
+  // the staged tile
+  // (a warp whose 16 rows all lie past the tile has nothing to stage)
+  const bool live = hf * 64 + (t >> 5) * 16 < rows;
+  auto stage = [&](const int (&acc)[BN / 2], int g) {
+#ifndef FCNN_WG_PROBE_NO_STAGE
+    if (!live) return;
+    const uint32_t pg = par + g * 24 * BN;
+    const uint32_t og = os + g * BN * osize;
+    const float osc = e.out_scale;
+    if (e.out_type == DT_I8) {  // (the engine's grouped convs: x_scale 1)
+      if (e.x_scale == 1.0f)
+        stage_tile<int8_t, BN, false, false, false>(acc, pg, og, pitch,
+                                                    osc);
+      else
+        stage_tile<int8_t, BN, false>(acc, pg, og, pitch, osc);
+    } else if (e.out_type == DT_BF16) {
+      stage_tile<__nv_bfloat16, BN, false>(acc, pg, og, pitch, osc);
+    } else {
+      stage_tile<float, BN, false>(acc, pg, og, pitch, osc);
+    }
+#endif
+  };
+  mbar_wait(bready, 0);
+  // the pair's tiles: local tiles pr, pr + NP, ... in stages pr, pr + NP,
+  // ... of the ring (stages is a multiple of NP)
+  int s = pr;
+  uint32_t ph = 0;
+  auto release = [&]() {  // every column tile's A is read: free the halo
+    mbar_arrive(&empty[s]);
+    s += NP;
+    if (s >= stages) { s -= stages; ph ^= 1; }
+  };
+  for (int u = blockIdx.x + pr * gridDim.x; u < units;
+       u += NP * gridDim.x) {
+    mbar_wait(&full[s], ph);
+    const int4 org = origin[s];
+    const uint32_t hb = smem_u32(ring + s * HB);
+    fence_regs(acc0);
+    issue(acc0, hb, 0);
+    named_sync(1 + cw, 128);  // the last tile's pieces have left os
+    // column tile g in acc0, g + 1 in acc1: each one's products run under
+    // the epilogue of the one before (G a constant, the loop unrolled: a
+    // branch around a wgmma makes ptxas serialize them all)
+#pragma unroll
+    for (int g = 0; g < G; g += 2) {
+      wgmma_wait<0>();
+      fence_regs(acc0);
+      if (g + 1 < G) {
+        fence_regs(acc1);
+        issue(acc1, hb, g + 1);
+      } else {
+        release();
+      }
+      stage(acc0, g);
+      if (g + 1 < G) {
+        wgmma_wait<0>();
+        fence_regs(acc1);
+        if (g + 2 < G) {
+          fence_regs(acc0);
+          issue(acc0, hb, g + 2);
+        } else {
+          release();
+        }
+        stage(acc1, g + 1);
+      }
+    }
+    named_sync(1 + cw, 128);
+#ifdef FCNN_WG_PROBE_NO_STORE
+    continue;
+#endif
+    for (int idx = t; idx < (64 << lg); idx += 128) {
+      const int r = idx >> lg;
+      const int pc = idx & ((1 << lg) - 1);
+      const int rp = rowpix[hf * 64 + r];
+      const int img = org.x + (rp >> 16);
+      const int oy = org.y + ((rp >> 8) & 255);
+      const int ox = org.z + (rp & 255);
+      if (rp < 0 || img >= images || oy >= a.OH || ox >= a.OW) continue;
+      const long long m =
+          (static_cast<long long>(img) * a.OH + oy) * a.OW + ox;
+      const uint4 v = lds128u(os + r * pitch + pc * 16);
+      uint8_t* dst = static_cast<uint8_t*>(e.out) +
+                     (m * N + nt0 * BN + pc * per) *
+                         static_cast<long long>(osize);
+      if (vec_out)
+        *reinterpret_cast<uint4*>(dst) = v;
+      else
+        store_piece(dst, v, 16);
     }
   }
 }
@@ -2214,6 +2543,78 @@ inline int launch_w8gemm(const A& a, const void* w, int ldw, int N,
   err = cudaGetLastError();
   if (err != cudaSuccess || split == 1) return static_cast<int>(err);
   return launch_splitk_reduce<float, A>(ws, split, a.M, N, e, s);
+}
+
+// A TMA map over the int8 NHWC image x as (C, W, H, N), box (S channels,
+// bw, bh, bn), rows of S bytes swizzled at S = 128 (none at 32), zero fill
+// outside (the conv's padding, and the images past the batch).
+inline bool make_map_halo(CUtensorMap* map, const void* base, int C, int W,
+                          int H, int N, int S, int bw, int bh, int bn) {
+  const EncodeTiledFn enc = encode_tiled();
+  if (!enc) return false;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(C),
+                              static_cast<cuuint64_t>(W),
+                              static_cast<cuuint64_t>(H),
+                              static_cast<cuuint64_t>(N)};
+  const cuuint64_t strides[3] = {dims[0], dims[0] * dims[1],
+                                 dims[0] * dims[1] * dims[2]};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(S),
+                             static_cast<cuuint32_t>(bw),
+                             static_cast<cuuint32_t>(bh),
+                             static_cast<cuuint32_t>(bn)};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 4, const_cast<void*>(base),
+             dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             S == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                      : CU_TENSOR_MAP_SWIZZLE_NONE,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// Variant "wgmma_halo", the super-group conv: x (N, H, W, C) int8, w the
+// compact (Co, 9 * S) int8 weight (grouped_layout), its rows p.ldw bytes
+// apart (0: 9 * S).  Refuses (cudaErrorInvalidValue) what is not a 3x3
+// int8 conv at dilation 1 and a square stride with S = BN = 32 and Co = C,
+// 16-byte aligned x and w, whose halo box fits TMA (each side at most
+// 256); a plan whose tile (p.th x p.tw, at most 128 rows), stages (even),
+// grid or shared memory differ from the kernel's own count; and an int8
+// output whose out_scale is not positive and finite.
+inline int launch_hgemm(const ConvA& a, int KH, int S, const void* w, int N,
+                        int x_type, int w_type, const GemmPlan& p,
+                        const Epilogue& e, cudaStream_t s) {
+  const int bad = static_cast<int>(cudaErrorInvalidValue);
+  if (a.M <= 0 || N <= 0) return 0;
+  const int ldw = p.ldw ? p.ldw : 9 * S;
+  const int ti = halo_images(p.th, p.tw, a.OH, a.OW);
+  const int hh = (p.th - 1) * a.sh + 3;
+  const int hw = (p.tw - 1) * a.sw + 3;
+  const int images = a.M / (a.OH * a.OW);
+  if (p.variant != V_WGMMA_HALO || x_type != DT_I8 || w_type != DT_I8 ||
+      S != HALO_S || p.bn != HALO_S || N != a.C || a.C % HALO_S ||
+      KH != 3 || a.KW != 3 || a.d != 1 || a.sh != a.sw || ldw < 9 * S ||
+      ldw % 16 || !aligned(a.x, 16) || !aligned(w, 16))
+    return bad;
+  const int g = halo_group(N / HALO_S, a.sh, out_size(e.out_type));
+  if (p.th < 1 || p.tw < 1 || ti * p.th * p.tw > WG_BM || hh > 256 ||
+      hw > 256 || p.stages < 2 || p.stages % 2 || p.grid < 1 ||
+      p.grid % (N / HALO_S / g) || p.split != 1 || p.bk != 128 ||
+      (e.out_type == DT_I8 && !(e.out_scale > 0.0f && e.out_scale < INFINITY)))
+    return bad;
+  const int smem = hgemm_smem(g, p.stages, ti * hh * hw * g * HALO_S,
+                              out_size(e.out_type));
+  if (smem != p.smem) return bad;
+  CUtensorMap mx{}, mb{};
+  if (!make_map_halo(&mx, a.x, a.C, a.W, a.H, images, g * HALO_S, hw, hh,
+                     ti) ||
+      !make_map(&mb, w, N, 9 * S, HALO_S, 128, 1, ldw))
+    return bad;
+  auto kern = hgemm_kernel<1>;
+  if (g == 4) kern = hgemm_kernel<4>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kern<<<p.grid, 128 * 5, smem, s>>>(mx, mb, a, N, p.stages, p.th, p.tw, e);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // x_type/w_type: DType.  ``ws``: the split-K workspace of a plan with

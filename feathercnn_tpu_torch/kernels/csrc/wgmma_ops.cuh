@@ -3,7 +3,8 @@
 // operand): the int8 GEMM kernel's and the weight-only int8 GEMM kernel's
 // bf16 form (gemm_common.cuh), the float chain
 // kernel's bf16 form with A in registers (fused_chain_float.cu) and the
-// int8 chain kernel's s8 form with A in registers (fused_chain.cu).
+// int8 chain kernel's and the grouped conv's halo kernel's s8 form with A
+// in registers (fused_chain.cu, gemm_common.cuh's hgemm_kernel).
 //
 // wgmma_s8<BN>: D(64 x BN, s32) (+)= A(64 x 32, s8) * B(BN x 32, s8)^T, A and
 // B K-major in shared memory behind the descriptors da and db; scale_d 0
@@ -220,6 +221,20 @@ template <int BN>
 __device__ __forceinline__ void wgmma_s8_rs(int (&d)[BN / 2],
                                             const uint32_t (&a)[4],
                                             uint64_t db, int scale_d);
+
+template <>
+__device__ __forceinline__ void wgmma_s8_rs<32>(int (&d)[16],
+                                               const uint32_t (&a)[4],
+                                               uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
 
 template <>
 __device__ __forceinline__ void wgmma_s8_rs<64>(int (&d)[32],

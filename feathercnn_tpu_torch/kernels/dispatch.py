@@ -17,9 +17,12 @@ order:
                  reference leaves them to XLA's), and the int8 convs the
                  reference runs through XLA's int8 conv — the merged
                  sibling convs (per-channel act_segments), the grouped
-                 convs with 1 < group < C (on a block-diagonal weight) and
-                 the dilated convs (the taps spaced by the dilation),
-                 which go through the two GEMM kernels, and the int8
+                 convs with 1 < group < C (3x3: as super-groups of q
+                 whole groups, each 32-wide column tile reading its own
+                 32 channels, on grouped_layout's compact weight; a 1x1
+                 one, or one no q fits, on a block-diagonal weight) and the dilated convs
+                 (the taps spaced by the dilation), which go through the
+                 two GEMM kernels, and the int8
                  depthwise convs, which go to kernels/depthwise.py
                  (depthwise_conv2d_int8), with the scales folded as that
                  branch folds them.
@@ -49,7 +52,7 @@ from .conv import conv2d_implicit_gemm
 from .depthwise import depthwise_conv2d, depthwise_conv2d_int8
 from .fused_chain import fused_chain, fused_chain_float
 from .ident import ident
-from .matmul import gemm_layout, matmul_epilogue
+from .matmul import gemm_layout, grouped_layout, matmul_epilogue, supergroup
 from .winograd import transform_weights, winograd_conv2d_transformed
 
 __all__ = ["select_algo", "block_diagonal", "conv_forward", "fc_forward",
@@ -90,16 +93,23 @@ def block_diagonal(w: torch.Tensor, group: int) -> torch.Tensor:
     return dense
 
 
-def _gemm_weight(node, w, dtype, ctx, matrix: bool, group: int = 1):
+def _gemm_weight(node, w, dtype, ctx, matrix: bool, group: int = 1,
+                 q: int = 0):
     """The node's weight as ``dtype`` in the GEMM kernels' layout
     (``gemm_layout``): a 1x1 or FC weight as its (K, N) matrix, a kxk one
-    HWIO; a grouped conv's (``group`` > 1) first made dense by
-    :func:`block_diagonal`; made once per node."""
+    HWIO; a grouped conv's (``group`` > 1) compacted to super-groups of
+    ``q`` groups by ``grouped_layout``, or, at ``q`` 0, made dense
+    by :func:`block_diagonal`; made once per node, kept under
+    ``gemm_w/<dtype>/<matrix|hwio>`` (``/g<group>q<q>`` for a grouped
+    conv's)."""
     def make():
+        if group > 1 and q:
+            return grouped_layout(w.to(dtype), group, q)
         wd = block_diagonal(w, group) if group > 1 else w
         return gemm_layout((wd.reshape(wd.shape[-2], -1) if matrix else wd)
                            .to(dtype))
-    return ctx.kept(node, f"gemm_w/{dtype}/{'matrix' if matrix else 'hwio'}",
+    key = f"gemm_w/{dtype}/{'matrix' if matrix else 'hwio'}"
+    return ctx.kept(node, key + (f"/g{group}q{q}" if group > 1 else ""),
                     make)
 
 
@@ -291,10 +301,15 @@ def conv_forward(node, x, w, bias, ctx):
         # on CUDA, so the port's kernels run it: the folded scale as
         # w_scale with x_scale 1.0 (one multiply, as the branch does), and
         # the segments as the GEMM kernels' per-channel lo/hi clamp.  A
-        # grouped conv that is not depthwise (1 < group < C: ResNeXt's
-        # cardinality-32 convs) runs on the same GEMM kernels with its
-        # block-diagonal dense weight: the zeros add nothing to the int32
-        # sums, so the result is XLA's grouped conv's.  A dilated conv
+        # grouped 3x3 conv that is not depthwise (1 < group < C: ResNeXt's
+        # cardinality-32 convs) runs on conv2d_implicit_gemm as
+        # super-groups of q whole groups (matmul.supergroup): each column
+        # tile reads its own q*C/group = 32 input channels, the weight
+        # compacted by grouped_layout, the zeros off each group adding
+        # nothing to the int32 sums, so the result is XLA's grouped conv's.
+        # Any other grouped conv (a 1x1 one, C/g != Co/g, groups wider than
+        # 32 channels) runs on its block-diagonal dense weight (no zoo
+        # launch).  A dilated conv
         # (XLA's rhs_dilation: DeepLab's conv5 and fc6, PSPNet's stages 4-5)
         # is ungrouped here (the reference sends a grouped dilated one to
         # the float conv) and runs on conv2d_implicit_gemm with its taps
@@ -332,11 +347,12 @@ def conv_forward(node, x, w, bias, ctx):
             y = matmul_epilogue(x2, _gemm_weight(node, w, torch.int8, ctx,
                                                  True, wg), bias, ws, **kw_)
             return y.reshape(n, oh, ow, -1)
+        q = supergroup(cin, w.shape[3], wg, (kh, kw))[0] if grouped else 0
         return conv2d_implicit_gemm(xq.contiguous(),
                                     _gemm_weight(node, w, torch.int8, ctx,
-                                                 False, wg), bias, ws,
+                                                 False, wg, q), bias, ws,
                                     stride=sh, pad_h=ph, pad_w=pw,
-                                    dilation=dil, **kw_)
+                                    dilation=dil, groups=wg, **kw_)
 
     # float conv (PyTorch's, as the reference leaves it to XLA's):
     # f32 accumulation of compute-dtype operands, + bias, act, requant

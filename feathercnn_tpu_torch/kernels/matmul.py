@@ -22,6 +22,10 @@ launch, on the host, from the shapes, types and pointers):
       "mma_sync"  mma.sync (the first body), for what neither takes: C
                   not a multiple of 8, a conv x not 8-byte aligned, a
                   ragged K past 256
+      "wgmma_halo"  a grouped 3x3 conv's super-groups (32 output
+                  channels a column tile reading 32 input channels): each
+                  tile's input halo by one TMA box, the nine taps by
+                  ldmatrix into register-A wgmma
   bf16 x int8 (weight-only int8, + w_scale) -> f32 sums:
       "wgmma_w8"  bf16 wgmma, the int8 weight tile converted to bf16 in
                   shared memory; a matrix whose tiles leave SMs idle splits
@@ -36,7 +40,10 @@ launch, on the host, from the shapes, types and pointers):
 
 On the GPU the weight must be stored as :func:`gemm_layout` gives it
 ((N, K) with K contiguous, an int8 weight's rows padded to a multiple of
-16 bytes; the lowering makes it once per node).
+16 bytes; the lowering makes it once per node).  A grouped int8 3x3 conv
+(1 < group < C) runs on "wgmma_halo" as super-groups (:func:`supergroup`):
+a column tile of q whole groups reads only their q * C/group = 32 input
+channels, its weight compacted by :func:`grouped_layout`.
 """
 
 from __future__ import annotations
@@ -50,7 +57,7 @@ import torch
 __all__ = ["matmul_epilogue", "matmul_epilogue_plain", "epilogue_plain",
            "matmul_epilogue_split_plain", "fma_f32", "gemm_layout",
            "is_gemm_layout", "gemm_pitch", "gemm_plan", "GemmPlan",
-           "VARIANTS", "split_workspace"]
+           "VARIANTS", "split_workspace", "supergroup", "grouped_layout"]
 
 _ACT_CODES = {None: 0, "relu": 1, "relu6": 2}
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
@@ -58,7 +65,7 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
 # The main loops, in the order of their codes in the C interface.
 VARIANTS = ("simt", "mma_sync", "wgmma", "wgmma_w8", "wgmma_ragged",
-            "wgmma_bf16")
+            "wgmma_bf16", "wgmma_halo")
 # Shared memory a thread block can use on an H100, and its SM count.
 SMEM_LIMIT = 227 * 1024
 H100_SMS = 132
@@ -78,6 +85,13 @@ BF16_MIN_STEPS = 8
 SPLIT_MIN_BYTES = 384 * 1024
 RAGGED_K_MAX = 256      # a "wgmma_ragged" matrix's K at most (staged tiles)
 ROW_BYTES = 16          # an int8 weight's rows are padded to this multiple
+HALO_S = 32             # a super-group's input and output channels
+HALO_MAX_STAGES = 8     # halos a "wgmma_halo" ring holds at most
+# a "wgmma_halo" tile's fixed cost in bytes of halo, for halo_tile's
+# choice: its epilogue over all 128 rows, whatever the rectangle leaves
+# of them, took ~3 times a 20 KB halo's time at ResNeXt-50's stage 2
+# (chip_smoke.py's and the tile's parts, H100)
+HALO_TILE_BYTES = 60 * 1024
 
 
 def gemm_layout(w: torch.Tensor) -> torch.Tensor:
@@ -104,6 +118,52 @@ def gemm_layout(w: torch.Tensor) -> torch.Tensor:
     if w.dim() == 2:
         return k_rows.t()
     return k_rows.view(n, *w.shape[:3]).permute(1, 2, 3, 0)
+
+
+def supergroup(c: int, co: int, group: int, kernel=(3, 3)) -> tuple:
+    """(q, reason) of a grouped int8 conv (``group`` groups, C input and Co
+    output channels, ``kernel`` = (KH, KW)) on the super-group route: its
+    column tiles are q whole groups, BN = q * Co/group output channels
+    reading the same S = q * C/group input channels.  The route's kernel
+    ("wgmma_halo") is built for 3x3 convs at BN = S = :data:`HALO_S` alone,
+    the one form ResNeXt-50's cardinality-32 convs take (q = 32 / (C/32)),
+    so q = 32 / (C/group) where C/group = Co/group divides 32 and q divides
+    ``group``.  (0, why) where no q fits: the conv keeps its
+    block-diagonal weight (``kernels/dispatch.py::block_diagonal``)."""
+    kh, kw = kernel
+    if (kh, kw) == (1, 1):
+        return 0, "a grouped 1x1 conv is a B1 matrix"
+    if (kh, kw) != (3, 3):
+        return 0, f"a {kh}x{kw} kernel (the super-group kernel is 3x3)"
+    cgi, cgo = c // group, co // group
+    q = HALO_S // cgi if cgi and HALO_S % cgi == 0 else 0
+    if cgi != cgo or not q or group % q:
+        return 0, (f"C/g = {cgi}, Co/g = {cgo}: no q dividing g = {group} "
+                   f"makes a {HALO_S} x {HALO_S} super-group (the kernel's "
+                   f"one form)")
+    return q, ""
+
+
+def grouped_layout(w: torch.Tensor, group: int, q: int) -> torch.Tensor:
+    """A grouped conv's HWIO weight (KH, KW, C/group, Co) as the super-group
+    route reads it: the (KH, KW, S, Co) weight, S = q * C/group, in which
+    output channel o of group j keeps its weights on the input channels
+    (j % q) * C/group .. + C/group - 1 of its super-group (groups j // q *
+    q .. + q - 1) and is zero on the other S - C/group, stored as
+    :func:`gemm_layout` stores it: row o is the (KH*KW*S) K row of column
+    tile o // BN, tap-major, padded to :data:`ROW_BYTES`.  At q = group it
+    is the block-diagonal dense weight."""
+    kh, kw, cgi, co = w.shape
+    if group < 1 or co % group or group % q:
+        raise ValueError(f"grouped_layout: Co = {co}, group = {group}, "
+                         f"q = {q}")
+    cgo = co // group
+    dense = w.new_zeros((kh, kw, q * cgi, co))
+    for j in range(group):
+        jl = j % q
+        dense[:, :, jl * cgi:(jl + 1) * cgi, j * cgo:(j + 1) * cgo] = \
+            w[..., j * cgo:(j + 1) * cgo]
+    return gemm_layout(dense)
 
 
 def _k_rows(w: torch.Tensor) -> torch.Tensor:
@@ -391,10 +451,119 @@ def _wgmma_plan(variant: str, m: int, k: int, n: int, osize: int,
                                sb, sst), reason, split=sp, ldw=ldw, sst=sst)
 
 
+def halo_images(th: int, tw: int, oh: int, ow: int) -> int:
+    """Images a "wgmma_halo" tile holds (``halo_images`` in
+    csrc/gemm_common.cuh): as many as 128 rows take where the th x tw
+    rectangle is the whole output map and two fit, else 1."""
+    return WG_BM // (th * tw) if (th, tw) == (oh, ow) and \
+        2 * th * tw <= WG_BM else 1
+
+
+def halo_group(n_tiles: int, stride: int = 1, osize: int = 1) -> int:
+    """Column tiles whose channels one "wgmma_halo" halo holds
+    (``halo_group`` in csrc/gemm_common.cuh): four (rows of 128 bytes) at
+    stride 1 with an int8 output where they divide the launch's
+    ``n_tiles``, else 1 (32-byte rows).  TMA brings a box one row (pixel)
+    at a time, so 128-byte rows move four times the bytes of 32-byte ones
+    in the same time; a stride-2 halo of 128-byte rows leaves room for
+    small tiles only, a wider output for few stages."""
+    return 4 if stride == 1 and osize == 1 and n_tiles % 4 == 0 else 1
+
+
+def halo_smem(stages: int, halo_bytes: int, osize: int, g: int = 1) -> int:
+    """Dynamic shared memory of the "wgmma_halo" kernel (``hgemm_smem`` in
+    csrc/gemm_common.cuh): 1024 bytes of alignment slack; the ring of
+    halos in 1024-byte steps; the resident weight panel (``g`` column
+    tiles' 9 * 32 bytes of K in 32 x 128-byte tiles); two barriers and a
+    tile origin per stage, the panel's barrier; the tile's row -> pixel
+    table; each of the four consumer warpgroups' column constants and
+    staged 64-row output tile (g * 32 columns each)."""
+    k_tiles = -(-(9 * HALO_S // 32) // 4)
+    return (1024 + stages * -(-halo_bytes // 1024) * 1024
+            + g * k_tiles * HALO_S * 128 + 32 * stages + 16 + 4 * WG_BM
+            + 4 * (24 * g * HALO_S + 64 * (g * HALO_S * osize + 16)))
+
+
+def halo_tile(oh: int, ow: int, stride: int, row_bytes: int,
+              fits=lambda halo_bytes: True):
+    """The "wgmma_halo" tile (th, tw) of a 3x3 conv's OH x OW map at
+    ``stride``, halo rows of ``row_bytes``: at most 128 output pixels
+    (several whole maps where they fit, ``halo_images``), its halo
+    ((th-1)*stride+3) x ((tw-1)*stride+3) within TMA's 256 a side and
+    within ``fits`` (of its bytes); the one whose halos cost least per
+    image, each halo's bytes plus :data:`HALO_TILE_BYTES`, then the one
+    with more rows, then the wider (a warp's rows then stay on one row of
+    the halo)."""
+    best = None
+    for tw in range(1, min(ow, WG_BM) + 1):
+        for th in range(1, min(oh, WG_BM // tw) + 1):
+            hh, hw = (th - 1) * stride + 3, (tw - 1) * stride + 3
+            ti = halo_images(th, tw, oh, ow)
+            if hh > 256 or hw > 256 or not fits(ti * hh * hw * row_bytes):
+                continue
+            rects = -(-oh // th) * -(-ow // tw)
+            cost = rects * (ti * hh * hw * row_bytes + HALO_TILE_BYTES) / ti
+            key = (cost, -ti * th * tw, -tw)
+            if best is None or key < best[0]:
+                best = (key, (th, tw))
+    return best[1]
+
+
+@functools.lru_cache(maxsize=None)
+def _halo_plan(c: int, n: int, osize: int, sms: int, conv_out,
+               stride: int, ldw: int) -> GemmPlan:
+    """The "wgmma_halo" plan of a super-group launch (see
+    :func:`supergroup_plan`), made once per shape: its tile search takes
+    milliseconds of Python."""
+    images, oh, ow = conv_out
+    n_tiles = c // HALO_S
+    g = halo_group(n_tiles, stride, osize)
+
+    def stages_for(hb):
+        def smem(st):
+            return halo_smem(st, hb, osize, g)
+        # a multiple of the two consumer pairs
+        return min(HALO_MAX_STAGES, (SMEM_LIMIT - smem(0))
+                   // (smem(1) - smem(0))) // 2 * 2
+    # at least four halos in flight
+    th, tw = halo_tile(oh, ow, stride, g * HALO_S,
+                       lambda hb: stages_for(hb) >= 4)
+    ti = halo_images(th, tw, oh, ow)
+    hb = ti * ((th - 1) * stride + 3) * ((tw - 1) * stride + 3) * g * HALO_S
+    stages = stages_for(hb)
+    n_groups = n_tiles // g
+    units = -(-images // ti) * -(-oh // th) * -(-ow // tw) * n_groups
+    grid = units if units <= sms else max(sms // n_groups, 1) * n_groups
+    return GemmPlan("wgmma_halo", HALO_S, 128, stages, True, grid,
+                    halo_smem(stages, hb, osize, g), th=th, tw=tw, ldw=ldw)
+
+
+def supergroup_plan(m: int, c: int, n: int, osize: int, conv_out,
+                    stride: int = 1, sms: int = H100_SMS, x_ptr: int = 0,
+                    w_ptr: int = 0, ldw: int = 9 * HALO_S) -> GemmPlan:
+    """The "wgmma_halo" plan of a super-group launch (a 3x3 conv over C
+    channels, its N = C outputs in C/32 column tiles of 32 reading 32
+    channels each; :func:`supergroup`): halos of :func:`halo_group`'s
+    column tiles over :func:`halo_tile`'s tile of the ``conv_out`` =
+    (images, OH, OW) map, with at least four in flight; the ring as deep
+    as fits, at most :data:`HALO_MAX_STAGES`, a multiple of the two
+    consumer pairs; the grid a multiple of the column tile groups.  Raises
+    where the pointers are not 16-byte aligned: nothing falls back."""
+    if (conv_out is None or n != c or c % HALO_S
+            or m != conv_out[0] * conv_out[1] * conv_out[2]):
+        raise ValueError(f"super-group launch M = {m}, C = {c}, N = {n}, "
+                         f"map {conv_out}")
+    if x_ptr % 16 or w_ptr % 16 or ldw % ROW_BYTES:
+        raise ValueError(f"super-group launch (C = {c}): x or w not 16-byte "
+                         f"aligned, or w rows {ldw} bytes apart")
+    return _halo_plan(c, n, osize, sms, tuple(conv_out), stride, ldw)
+
+
 def gemm_plan(m: int, k: int, n: int, x_dtype, w_dtype, out_dtype, *,
               conv_c: Optional[int] = None, conv_out=None, stride: int = 1,
               x_ptr: int = 0, w_ptr: int = 0, w_pitch: Optional[int] = None,
-              sms: int = H100_SMS) -> GemmPlan:
+              sms: int = H100_SMS, group: int = 1,
+              conv_s: Optional[int] = None, kernel=(1, 1)) -> GemmPlan:
     """The main loop, tile and stages of one launch of either GEMM kernel
     at GEMM shape (M, K, N), chosen before the launch from the shapes, the
     types, the pointers and the weight's row pitch (``conv_c``: the conv's
@@ -431,13 +600,34 @@ def gemm_plan(m: int, k: int, n: int, x_dtype, w_dtype, out_dtype, *,
     matrices with K a multiple of 8 and 16-byte aligned pointers take
     "wgmma_bf16", planned as a "wgmma_w8" matrix but for its tile, at most
     64 wide, its slices, at least :data:`BF16_MIN_STEPS` K steps, and its
-    stages (:func:`bf16_smem`); the rest (f32 x) "simt"."""
+    stages (:func:`bf16_smem`); the rest (f32 x) "simt".
+
+    A grouped int8 conv (``group`` > 1, its weight ``conv_s`` channels
+    wide, ``kernel`` = (KH, KW); K = KH * KW * conv_s) whose weight is
+    :func:`grouped_layout`'s at :func:`supergroup`'s q takes
+    :func:`supergroup_plan`; where no q fits, its block-diagonal weight
+    (conv_s = C) is planned as an ungrouped conv's, the reason saying why
+    no super-group fits."""
     ldw = k if w_pitch is None else w_pitch
     if w_pitch is None and w_dtype == torch.int8 and k % ROW_BYTES:
         ldw = -(-k // ROW_BYTES) * ROW_BYTES
     if x_dtype == torch.int8 and w_dtype == torch.int8:
         osize = torch.empty((), dtype=out_dtype).element_size()
         conv = conv_c is not None
+        if conv and group > 1:
+            q, why = supergroup(conv_c, n, group, kernel)
+            if q and conv_s == q * conv_c // group:
+                return supergroup_plan(m, conv_c, n, osize, conv_out,
+                                       stride, sms, x_ptr, w_ptr, ldw)
+            if q or conv_s != conv_c:
+                raise ValueError(
+                    f"a grouped conv's weight {conv_s} channels wide: "
+                    f"grouped_layout's is {q * conv_c // group if q else conv_c}")
+            plan = gemm_plan(m, k, n, x_dtype, w_dtype, out_dtype,
+                             conv_c=conv_c, x_ptr=x_ptr, w_ptr=w_ptr,
+                             w_pitch=w_pitch, sms=sms)
+            return plan._replace(reason="; ".join(
+                r for r in (f"block-diagonal: {why}", plan.reason) if r))
         why = _wgmma_refusal(k, conv_c, x_ptr, w_ptr, ldw)
         if not why:
             return _wgmma_plan("wgmma", m, k, n, osize, conv, sms, ldw)
@@ -468,12 +658,17 @@ def _sm_count(index: int) -> int:
 
 
 def plan_for(m, k, n, x, w, out_dtype, conv_c=None, conv_out=None,
-             stride=1) -> GemmPlan:
-    """:func:`gemm_plan` for CUDA operands ``x`` and ``w``."""
+             stride=1, group=1) -> GemmPlan:
+    """:func:`gemm_plan` for CUDA operands ``x`` and ``w`` (a conv's
+    ``group``: its weight's width and taps from ``w``'s HWIO shape)."""
+    grouped = {}
+    if group > 1:
+        grouped = dict(group=group, conv_s=w.shape[2],
+                       kernel=(w.shape[0], w.shape[1]))
     return gemm_plan(m, k, n, x.dtype, w.dtype, out_dtype, conv_c=conv_c,
                      conv_out=conv_out, stride=stride, x_ptr=x.data_ptr(),
                      w_ptr=w.data_ptr(), w_pitch=gemm_pitch(w),
-                     sms=_sm_count(x.device.index or 0))
+                     sms=_sm_count(x.device.index or 0), **grouped)
 
 
 def fma_f32(a: torch.Tensor, b, c: torch.Tensor) -> torch.Tensor:

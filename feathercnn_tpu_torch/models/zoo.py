@@ -713,8 +713,9 @@ def resnext50(batch: int = 1, seed: int = 0,
     """ResNeXt-50 (32x4d), Caffe deploy structure: bottlenecks whose 3x3
     conv is grouped (cardinality 32) — exercises the grouped int8 conv
     (``int8_grouped``, on by default: the grouped 3x3 convs take int8
-    edges; kernels/dispatch.py runs them on the implicit-GEMM kernel with
-    a block-diagonal weight)."""
+    edges; kernels/dispatch.py runs them on the implicit-GEMM kernel as
+    super-groups of 32 / (C/32) groups, each column tile of 32 outputs
+    gathering its own 32 input channels)."""
     b = GraphBuilder("resnext50", seed)
 
     def conv_bn(name, x, ch, kernel, stride=1, pad=0, group=1, relu=True):

@@ -1,6 +1,6 @@
 """Full-width, full-int8 (w8a8, bf16 activations) runs of ResNeXt-50 (its
-grouped int8 convs on the implicit-GEMM kernel with a block-diagonal
-weight) and DenseNet-121 (its standalone int8 Scales) through the PyTorch
+grouped int8 convs on the implicit-GEMM kernel as super-groups, each
+column tile reading its own groups' channels) and DenseNet-121 (its standalone int8 Scales) through the PyTorch
 port against the JAX package, on the CPU, one image at full size;
 tests/test_torch_se_inception_shufflenet_int8.py takes SE-ResNet-50,
 Inception-v3 and ShuffleNet v1/v2 with these helpers.
@@ -64,14 +64,17 @@ def _top1_and_cosine(name, teng, ref, got):
 def test_resnext50_grouped_int8_convs():
     """ResNeXt-50: its 16 grouped 3x3 convs (cardinality 32; 4 to 32
     channels a group, stride 2 in the first block of stages 3-5) take int8
-    edges and run through ``conv2d_implicit_gemm`` on their block-diagonal
-    weight, each call recorded; every int8 edge equals the reference's."""
+    edges and run through ``conv2d_implicit_gemm`` on the super-group
+    route (``groups=32``, the compact weight 32 channels wide: q = 32 /
+    (C/32) groups a column tile), each call recorded; every int8 edge
+    equals the reference's."""
     jeng, teng, x = _engines("resnext50")
     calls = []
     orig = dispatch.conv2d_implicit_gemm
 
     def record(xq, w, *a, **kw):
-        calls.append((tuple(xq.shape), tuple(w.shape), kw.get("stride")))
+        calls.append((tuple(xq.shape), tuple(w.shape), kw.get("stride"),
+                      kw.get("groups", 1)))
         return orig(xq, w, *a, **kw)
 
     grouped = [n for n in teng.graph.nodes if n.attrs.get("group", 1) > 1]
@@ -83,8 +86,8 @@ def test_resnext50_grouped_int8_convs():
                                                x)
     finally:
         dispatch.conv2d_implicit_gemm = orig
-    dense = [c for c in calls if c[1][2] == c[0][3] and c[1][3] == c[0][3]
-             and c[0][3] in (128, 256, 512, 1024)]
+    dense = [c for c in calls if c[1][2] == 32 and c[1][3] == c[0][3]
+             and c[3] == 32 and c[0][3] in (128, 256, 512, 1024)]
     assert len(calls) == len(dense) == 2 * 16, calls
     assert sorted({(c[0][3], c[2]) for c in dense}) == [
         (128, 1), (256, 1), (256, 2), (512, 1), (512, 2), (1024, 1),
