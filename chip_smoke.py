@@ -10,9 +10,17 @@ float activations; the bf16 paths run ``quant=None`` in bf16:
 
 - ResNet-50 at batch 128, then behind an ``InferenceServer``; then the
   same calibrated model written by ``save_ftpu`` to a temporary
-  directory, reloaded by ``Engine.from_path`` and compiled
+  directory, reloaded by ``Engine.from_path`` through the native mmap
+  loader (the port's C++ library, built at first use) and compiled
   (``compile(batch)``): its output equal to the built engine's
-  (``torch.equal``), its ``summary(top=5)`` printed on one line;
+  (``torch.equal``), its ``summary(top=5)`` printed on one line; then the
+  same file served by ``python -m feathercnn_tpu_torch.serve`` in a
+  subprocess (``cli_http``): seeded uint8 pictures through the C++
+  ``preprocess``, 32 ``.npy`` requests from 8 threads and 4 JSON ones,
+  every answer equal to the engine's direct run at b128, ``/healthz`` and
+  ``/metrics``; then ResNet-50 with ``s2d_stem`` (one SpaceToDepth, a 4x4
+  s1 stem on 12 channels in cuDNN's float conv), its stem's device ms
+  beside the 7x7 one's;
 - MobileNet-v1 at batch 256 on its default route, where its 13 depthwise
   convs take the int8 depthwise kernel, and with the 13 ``*/dw`` layers
   overridden to "depthwise" (the float depthwise kernel, int8 in);
@@ -54,7 +62,10 @@ float activations; the bf16 paths run ``quant=None`` in bf16:
 - the rest of the classification zoo, full int8 at ``bench.py:58-81``'s
   batches (``ZOO_REST``): DenseNet-121 b128 (a standalone int8 Scale
   before each dense layer, int8 Concats, the growth-32 3x3 convs at
-  N = 32); ResNeXt-50 b128, its 16 grouped 3x3 convs (cardinality 32)
+  N = 32), then the same with ``concat_dus`` (4 ladders, 54 appends that
+  write into one buffer in place, checked by its storage; the ladder
+  nodes' device ms beside the Concats'); ResNeXt-50 b128, its 16
+  grouped 3x3 convs (cardinality 32)
   through ``conv2d_implicit_gemm`` as super-groups on "wgmma_halo" (the
   kernels line's ``conv2d_implicit_gemm_grouped``; q = 32 / (C/32) groups
   a 32-wide column tile, each tile's input halo staged once by TMA), each
@@ -89,7 +100,13 @@ float activations; the bf16 paths run ``quant=None`` in bf16:
   on the card's own inputs: DetectionOutput's and Proposal's rows equal
   to the port's on the CPU (image, label, score and order bit for bit,
   boxes within ``BOX_ULPS``), ROIPooling equal, PSROIPooling within 1
-  ulp; it prints the kept detections and ROIs.  After the first
+  ulp; it prints the kept detections and ROIs; Faster R-CNN then behind
+  an in-process ``HttpFrontend`` (``two_stage_http``: 4 ``.npz`` answers
+  equal to its outputs, ``decode_detections`` equal on both).  The main
+  path, the s2d path and the ladder path are checked node by node
+  (``card_nodes``): each node run by the port on the CPU on the card's
+  own input values gives the card's int8 outputs, a library float conv
+  (the cuDNN stem) within 1 LSB.  After the first
   ResNet-50 path, ``fma_check`` holds the port's multiply-add on the card
   (``torch.addcmul``) to its CPU form (``ops.lowering.fma_exact``) on
   ResNet-50's int8 Eltwise inputs: the int8 Eltwise (0 LSB) and an f32
@@ -228,15 +245,18 @@ Phases, each printing its own lines:
    difference, and ``ident``'s own time beside its byte bound and
    ``x.clone()``.
 
-The order: ResNet-50 (phases 2-4), the multiply-add check, the ragged
-cases (5), the server (6),
-the loaded ResNet-50 (2-4), ResNet-50 with ``fuse_chains``, the two bf16 ResNet-50 paths, the
+The order: ResNet-50 (phases 2-4) and its node check, the multiply-add
+check, the ragged cases (5), the server (6),
+the loaded ResNet-50 (2-4) and the CLI over HTTP, ResNet-50 with
+``s2d_stem`` (2-4) and its node check, ResNet-50 with ``fuse_chains``,
+the two bf16 ResNet-50 paths, the
 MobileNets, the boundary probe (7), VGG-16 (w8, w8 Winograd, w8a8),
 GoogLeNet and its server, AlexNet, SqueezeNet (fp32, w8a8), the rest of
-the zoo's ragged cases, DenseNet-121, ResNeXt-50 and its server,
+the zoo's ragged cases, DenseNet-121 and with ``concat_dus`` (2-4, its
+node check), ResNeXt-50 and its server,
 SE-ResNet-50, Inception-v3, ShuffleNet v1 and v2, the dilated cases,
 DeepLab-LargeFOV, FCN-8s, FCN-16s, FCN-32s and PSPNet-50, MobileNet-SSD,
-VGG16-SSD300, Faster R-CNN and R-FCN.  Then the
+VGG16-SSD300, Faster R-CNN (and over HTTP) and R-FCN.  Then the
 card's name and power limit, one JSON line of kernel numbers, and, last,
 ``{"ok": true, "device": {...}}``.  Any failed check exits nonzero
 before those lines.  Without a GPU, or without the repository beside it,
@@ -440,7 +460,30 @@ EXPECTED = {
     "rfcn_resnet101 b1": {**_ZERO, "matmul_epilogue": 71,
                           "conv2d_implicit_gemm": 34,
                           "conv2d_implicit_gemm_dilated": 3},
+    # the rewrite passes.  The main path with ``s2d_stem``: its stem a 4x4
+    # s1 conv on 12 channels in PyTorch's (cuDNN's) float conv, as the 7x7
+    # one: the main path's launches
+    "resnet50 b128 s2d": {**_ZERO, "matmul_epilogue": 33,
+                          "conv2d_implicit_gemm": 16},
+    # DenseNet-121 with ``concat_dus``: its 58 Concats as 4 ladders of
+    # buffer appends (PyTorch copies): DenseNet-121's launches
+    "densenet121 b128 concat_dus": {**_ZERO, "matmul_epilogue": 62,
+                                    "conv2d_implicit_gemm": 58},
 }
+# The two rewrite-pass paths' graphs: SpaceToDepth nodes, and ladders,
+# appends and Concats left (tests/test_ladder.py's counts).
+S2D_STEMS = 1
+LADDERS = (4, 54, 0)
+# The CLI phase: requests sent as .npy (from 8 client threads) and as
+# JSON, the images' size before the C++ preprocess takes them to 224x224,
+# and ImageNet's mean and std.
+HTTP_NPY, HTTP_JSON = 32, 4
+RAW_SIZE = (240, 320)
+IMAGENET = ((0.485, 0.456, 0.406), (0.229, 0.224, 0.225))
+# Faster R-CNN's requests through an in-process HttpFrontend
+HTTP_TWO_STAGE = 4
+# path -> device busy ms of its profiled forward (speed_and_profile)
+BUSY = {}
 # The detection families, w8a8 at bench.py:58-81's batches and the
 # deploys' sizes (two-stage with ``im_info`` [h, w, 1]): path -> (model,
 # batch, the primary output's shape).
@@ -2010,6 +2053,7 @@ def speed_and_profile(label, eng, x, smi):
         say("profile", f"{label}: device time not measured (the profiler "
             "saw no CUDA kernels)")
         return ms, {}
+    BUSY[label] = total / 1e3
     groups = {}
     for us, cnt, key in rows:
         grp = _kernel_group(key)
@@ -3451,11 +3495,19 @@ def zoo_rest_paths(smi, rng, rows, counts, speed):
         x = images(g, batch, rng)
         cfg, eng = make_engine(label, g)
         counts[label] = EXPECTED[label]
-        r, speed[label], _ = run_path(label, g, cfg, eng, x, smi)
+        r, speed[label], node_ms = run_path(label, g, cfg, eng, x, smi)
         rows += r
         if name == "resnext50":
             serve(eng, x, batch, "ResNeXt-50")
-        del eng, x, g
+        if name == "densenet121":
+            concat_ms = {n.name: node_ms[n.name] for n in eng.graph.nodes
+                         if n.op == "Concat" and n.name in node_ms}
+            del eng
+            torch.cuda.empty_cache()
+            ladder_path(g, x, concat_ms, smi, rows, counts, speed)
+        else:
+            del eng
+        del x, g
         torch.cuda.empty_cache()
 
 
@@ -3484,13 +3536,15 @@ def segmentation_paths(smi, rng, rows, counts, speed):
 
 def loaded_path(g, x, built, smi, rows, counts, speed):
     """The main path's calibrated graph written by the port's ``save_ftpu``
-    into a temporary directory, reloaded by ``Engine.from_path``, compiled
-    (``compile(batch)``) and run as a path of its own (phases 2-4): its
-    output on ``x`` equal to the built engine's ``built`` (``torch.equal``),
-    and its ``summary(top=5)`` printed."""
+    into a temporary directory, reloaded by ``Engine.from_path`` through
+    the native mmap loader (its default; the native library built and the
+    loader called), compiled (``compile(batch)``) and run as a path of its
+    own (phases 2-4): its output on ``x`` equal to the built engine's
+    ``built`` (``torch.equal``), and its ``summary(top=5)`` printed; then
+    the same file served by the CLI over HTTP (``cli_http``)."""
     import tempfile
     import torch
-    from feathercnn_tpu_torch import Engine
+    from feathercnn_tpu_torch import Engine, native
     from feathercnn_tpu_torch.model_format import save_ftpu
     label = "resnet50 b128 loaded"
     with tempfile.TemporaryDirectory() as tmp:
@@ -3498,23 +3552,39 @@ def loaded_path(g, x, built, smi, rows, counts, speed):
         save_ftpu(g, path)
         t0 = time.perf_counter()
         cfg = engine_config()
-        eng = Engine.from_path(path, cfg)
+        loads, orig = [], native.load_ftpu_native
+
+        def counted(p):
+            loads.append(p)
+            return orig(p)
+
+        native.load_ftpu_native = counted
+        try:
+            eng = Engine.from_path(path, cfg)
+        finally:
+            native.load_ftpu_native = orig
+        check(loads == [path] and native.available(),
+              f"Engine.from_path loaded {loads} through the native loader, "
+              f"library built: {native.available()}")
         eng.compile(batch=len(x))
         say(label, f"{os.path.getsize(path) / 1e6:.1f} MB .ftpu written by "
-            f"save_ftpu, loaded by Engine.from_path and compiled at "
-            f"b{len(x)} in {time.perf_counter() - t0:.1f} s")
-    check(eng.device.type == "cuda", f"engine on {eng.device}")
-    got = eng(torch.from_numpy(x).cuda())
-    check(torch.equal(got, built), f"{label}: output differs from the built "
-          f"engine's (max |diff| "
-          f"{float((got.float() - built.float()).abs().max())})")
-    say(label, f"output equal to the built engine's (torch.equal, "
-        f"{tuple(got.shape)} {str(got.dtype).replace('torch.', '')})")
-    print(eng.summary(top=5).replace("\n", " | "), flush=True)
-    del got
-    counts[label] = EXPECTED[label]
-    r, speed[label], _ = run_path(label, g, cfg, eng, x, smi)
-    rows += r
+            f"save_ftpu, loaded by Engine.from_path through the native "
+            f"mmap loader ({native.library_path().name}, built at first "
+            f"use) and compiled at b{len(x)} in "
+            f"{time.perf_counter() - t0:.1f} s")
+        check(eng.device.type == "cuda", f"engine on {eng.device}")
+        got = eng(torch.from_numpy(x).cuda())
+        check(torch.equal(got, built), f"{label}: output differs from the "
+              f"built engine's (max |diff| "
+              f"{float((got.float() - built.float()).abs().max())})")
+        say(label, f"output equal to the built engine's (torch.equal, "
+            f"{tuple(got.shape)} {str(got.dtype).replace('torch.', '')})")
+        print(eng.summary(top=5).replace("\n", " | "), flush=True)
+        del got
+        counts[label] = EXPECTED[label]
+        r, speed[label], _ = run_path(label, g, cfg, eng, x, smi)
+        rows += r
+        cli_http(path, eng, smi)
     del eng
     torch.cuda.empty_cache()
 
@@ -3650,6 +3720,465 @@ def fma_check(eng, x):
         f"inputs, {f32_vals} values: 0 ulp")
 
 
+def ladder_filled(graph):
+    """{``__buf`` value: channels filled when its node ran} of a graph's
+    concat ladders: later appends write the rest of the one buffer in
+    place, so a ``__buf`` value read after the forward is held on these
+    channels alone."""
+    out = {}
+    for n in graph.nodes:
+        if n.op in ("LadderInit", "LadderAppend"):
+            parts = n.inputs if n.op == "LadderInit" else n.inputs[1:]
+            out[n.outputs[0]] = n.attrs.get("offset", 0) + sum(
+                graph.specs[p].shape[-1] for p in parts)
+    return out
+
+
+def card_nodes(label, g, cfg, eng, x):
+    """Node by node: each node of the card's graph run by the port on the
+    CPU on the card's own input values (images 0-1), and every int8 output
+    held to the card's.  A node whose card compute is a library float op
+    (cuDNN's stem conv, 7x7 or the s2d 4x4) may
+    differ by 1 LSB (the share that differs printed); every other int8
+    output (a hand kernel or an exact integer op) equal.  A conv with no
+    ``x_scale`` takes the float conv (the dispatcher's float branch, as
+    the reference's); one with an ``x_scale`` takes a hand kernel on int8
+    input, quantized first where its input is float.  A ladder's
+    ``__buf`` edges are held on their filled channels, and a ladder node
+    runs on a copy of its buffer (it writes in place)."""
+    import torch
+    from feathercnn_tpu_torch import Engine
+    from feathercnn_tpu_torch.ops.lowering import lower_node
+    cpu = Engine(g, cfg, device="cpu")
+    check([(n.name, n.op, n.inputs) for n in cpu.graph.nodes]
+          == [(n.name, n.op, n.inputs) for n in eng.graph.nodes],
+          f"{label}: the CPU engine built another graph")
+    k = min(2, batch_of(x))
+    names = [o for n in eng.graph.nodes for o in n.outputs]
+    card = {name: v.cpu() for name, v in
+            eng.run(to_card(first(x, k)), extract=names).items()}
+    cdtype = getattr(torch, cfg.compute_dtype)
+    for name, v in (first(x, k) if isinstance(x, dict)
+                    else {next(iter(eng.graph.inputs)): x[:k]}).items():
+        t = torch.from_numpy(v)
+        card[name] = t.to(cdtype) if t.dim() == 4 else t
+    params = cpu._prepare_params()
+    filled = ladder_filled(eng.graph)
+    checked = exact = worst = 0
+    loose = []
+    for n in eng.graph.nodes:
+        ins = [card[i].clone() if n.op.startswith("Ladder") else card[i]
+               for i in n.inputs]
+        with torch.inference_mode():
+            outs = lower_node(n, ins, [params[p] for p in n.params],
+                              cpu._ctx)
+        for o, mine in zip(n.outputs, outs):
+            theirs = card[o]
+            if theirs.dtype != torch.int8:
+                continue
+            check(mine.dtype == torch.int8, f"{label} {o}: int8 on the "
+                  f"card, {mine.dtype} on the CPU")
+            if o in filled:
+                theirs, mine = theirs[..., :filled[o]], mine[..., :filled[o]]
+            d = (theirs.int() - mine.int()).abs()
+            m = int(d.max())
+            checked += 1
+            exact += m == 0
+            worst = max(worst, m)
+            q = cpu._ctx.qinfo(n) or {}
+            if n.op == "Convolution" and q.get("x_scale") is None:
+                share = float((d > 0).float().mean())
+                loose.append(f"{n.name} (library float conv) {m} LSB at "
+                             f"{100 * share:.4f}% of {d.numel()}")
+                check(m <= 1, f"{label} {n.name}: the card's library float "
+                      f"conv {m} LSB off the port on the CPU")
+            else:
+                check(m == 0, f"{label} {n.name} ({n.op}): "
+                      f"{int((d > 0).sum())} int8 values up to {m} LSB off "
+                      "the port on the CPU on the card's inputs")
+    say("nodes", f"{label}: {checked} nodes' int8 outputs (images 0-{k - 1})"
+        f" on the card against the port on the CPU fed the card's inputs: "
+        f"{exact} exact, largest difference {worst} LSB; "
+        + ("; ".join(loose) if loose else "no library float conv"))
+
+
+def s2d_path(g, x, main_ms, smi, rows, counts, speed):
+    """The main path's calibrated graph with ``s2d_stem`` (phases 2-4):
+    one SpaceToDepth in front of a 4x4 s1 stem on 12 channels, the main
+    path's launches; the stem's device ms beside the main path's 7x7 stem
+    (``main_ms``: the main path's node ms), then the node-by-node check."""
+    import torch
+    label = "resnet50 b128 s2d"
+    cfg, eng = make_engine(label, g, s2d_stem=True)
+    s2d = [n for n in eng.graph.nodes if n.op == "SpaceToDepth"]
+    check(len(s2d) == S2D_STEMS, f"{label}: {len(s2d)} SpaceToDepth nodes")
+    stem = next(n for n in eng.graph.nodes if n.inputs == s2d[0].outputs)
+    a = stem.attrs
+    shape = eng.graph.specs[stem.inputs[0]].shape
+    check(stem.op == "Convolution" and (a["kernel_h"], a["kernel_w"],
+                                        a["stride"], a["pad"]) == (4, 4, 1, 0)
+          and shape[-1] == 12, f"{label}: stem {stem.op} {a} on {shape}")
+    counts[label] = EXPECTED[label]
+    r, speed[label], node_ms = run_path(label, g, cfg, eng, x, smi)
+    rows += r
+    old = next(n.name for n in eng.graph.nodes
+               if n.op == "Convolution" and n.name in main_ms)
+    # the two stems' cuDNN f32 convs alone, as the float branch runs them
+    # (x upcast from bf16, the weight dequantized), on the path's images
+    from feathercnn_tpu_torch.ops.lowering import lower_node, nchw_conv
+    q = eng.graph.meta["quant"][stem.name]
+    ws = torch.as_tensor(np.asarray(q["w_scale"], np.float32)).cuda()
+    xb = torch.from_numpy(x).cuda().to(torch.bfloat16)
+    with torch.inference_mode():
+        (xs,) = lower_node(s2d[0], [xb], [], eng._ctx)
+    w7 = torch.from_numpy(g.params[stem.params[0]]).cuda().float()
+    w4 = torch.from_numpy(eng.graph.params[stem.params[0]]).cuda().float() * ws
+    x7, x4 = xb.float(), xs.float()
+    ms7 = median_ms(lambda: nchw_conv(x7, w7, (2, 2), (3, 3)))
+    ms4 = median_ms(lambda: nchw_conv(x4, w4, (1, 1), (0, 0)))
+    say("profile", f"{label}: the stems' cuDNN f32 convs alone (median of "
+        f"20): 7x7 s2 on {tuple(x7.shape)} {ms7:.4f} ms, 4x4 s1 on "
+        f"{tuple(x4.shape)} {ms4:.4f} ms ({smi})")
+    del xb, xs, x7, x4, w7, w4
+    if node_ms and main_ms:
+        say("profile", f"{label}: stem {s2d[0].name} (SpaceToDepth) "
+            f"{node_ms[s2d[0].name]:.3f} ms + {stem.name} (cuDNN 4x4 s1 on "
+            f"{shape}) {node_ms[stem.name]:.3f} ms = "
+            f"{node_ms[s2d[0].name] + node_ms[stem.name]:.3f} ms, against "
+            f"the main path's 7x7 s2 {old} {main_ms[old]:.3f} ms; ms per "
+            f"batch {speed[label]:.2f} against {speed['resnet50 b128']:.2f}, "
+            f"device busy {BUSY.get(label, 0):.3f} against "
+            f"{BUSY.get('resnet50 b128', 0):.3f} ms ({smi})")
+    card_nodes(label, g, cfg, eng, x)
+    del eng
+    torch.cuda.empty_cache()
+
+
+def ladder_path(g, x, concat_ms, smi, rows, counts, speed):
+    """DenseNet-121 b128 with ``concat_dus`` (phases 2-4) on the plain
+    DenseNet path's graph and images: 4 ladders, 54 appends and no Concat
+    left, the plain path's launches; each append wrote in place (the
+    buffer's storage the same along a ladder); the ladder nodes' device ms
+    by node beside the plain path's Concats (``concat_ms``: each Concat
+    node's ms in the plain path's profiled forward), both paths' ms per
+    batch and device busy; then the node-by-node check."""
+    import torch
+    label = "densenet121 b128 concat_dus"
+    cfg, eng = make_engine(label, g, concat_dus=True)
+    ops = [n.op for n in eng.graph.nodes]
+    got = (ops.count("LadderInit"), ops.count("LadderAppend"),
+           ops.count("Concat"))
+    check(got == LADDERS, f"{label}: ladders, appends, Concats {got}, "
+          f"expected {LADDERS}")
+    counts[label] = EXPECTED[label]
+    r, speed[label], node_ms = run_path(label, g, cfg, eng, x, smi)
+    rows += r
+    ladders = []
+    for n in eng.graph.nodes:
+        if n.op == "LadderInit":
+            ladders.append([n.outputs[0]])
+        elif n.op == "LadderAppend":
+            check(n.inputs[0] == ladders[-1][-1], f"{n.name} appends to "
+                  f"{n.inputs[0]}")
+            ladders[-1].append(n.outputs[0])
+    vals = eng.run(to_card(x[:2]), extract=[b for lad in ladders
+                                            for b in lad])
+    for lad in ladders:
+        ptrs = {vals[b].data_ptr() for b in lad}
+        check(len(ptrs) == 1, f"{label}: ladder {lad[0]} in {len(ptrs)} "
+              "storages")
+    del vals
+    cons = eng.graph.consumers()
+    views = [n for n in eng.graph.nodes if n.op == "LadderView"]
+    strided = [n for n in views
+               if n.attrs["channels"] < eng.graph.specs[n.inputs[0]].shape[-1]]
+    readers = {}
+    for n in strided:
+        for u in cons[n.outputs[0]]:
+            readers[u.op] = readers.get(u.op, 0) + 1
+    copies = sum(c for op, c in readers.items()
+                 if op in ("Convolution", "InnerProduct"))
+    appends = ", ".join(str(len(lad) - 1) for lad in ladders)
+    say(label, f"{len(ladders)} ladders, each one storage from its "
+        f"LadderInit through its {appends} appends (data_ptr unchanged); "
+        f"{len(strided)} of {len(views)} "
+        f"views strided, read by {readers}: {copies} contiguous copies "
+        f"in a hand kernel's wrapper")
+    if node_ms and concat_ms:
+        lad = [(n.name, n.op, node_ms[n.name]) for n in eng.graph.nodes
+               if n.op.startswith("Ladder") and n.name in node_ms]
+        cat = list(concat_ms.values())
+        by_op = {}
+        for _, op, ms in lad:
+            by_op[op] = by_op.get(op, 0.0) + ms
+        say("profile", f"{label}: the {len(lad)} ladder nodes "
+            f"{sum(ms for _, _, ms in lad):.3f} ms ("
+            + ", ".join(f"{op} {ms:.3f}" for op, ms in sorted(by_op.items()))
+            + f") against the plain path's {len(cat)} Concats "
+            f"{sum(cat):.3f} ms; ms per batch {speed[label]:.2f} against "
+            f"{speed['densenet121 b128']:.2f}, device busy "
+            f"{BUSY.get(label, 0):.3f} against "
+            f"{BUSY.get('densenet121 b128', 0):.3f} ms ({smi})")
+        say("profile", f"{label}: ladder nodes by node (ms): " + ", ".join(
+            f"{name} {ms:.4f}" for name, _, ms in lad))
+    card_nodes(label, g, cfg, eng, x)
+    del eng
+    torch.cuda.empty_cache()
+
+
+def _http(base, path, body=None, ctype=None, timeout=300):
+    """(status, content type, body) of a GET, or of a POST of ``body``."""
+    import urllib.error
+    import urllib.request
+    req = urllib.request.Request(
+        base + path, data=body,
+        headers={"Content-Type": ctype} if ctype else {})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, r.headers["Content-Type"], r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.headers["Content-Type"], e.read()
+
+
+def _npy(a):
+    import io
+    buf = io.BytesIO()
+    np.save(buf, a)
+    return buf.getvalue()
+
+
+def _first_diverging(eng, other, x):
+    """The first node whose outputs differ between two engines over the
+    same graph on ``x`` (both on the card), with its largest difference."""
+    names = [o for n in eng.graph.nodes for o in n.outputs]
+    a = eng.run(x, extract=names)
+    b = other.run(x, extract=names)
+    for n in eng.graph.nodes:
+        for o in n.outputs:
+            d = float((a[o].float() - b[o].float()).abs().max())
+            if d:
+                return f"{n.name} ({n.op}) {o}: max |diff| {d}"
+    return "no node differs in process"
+
+
+def cli_http(path, eng, smi):
+    """``python -m feathercnn_tpu_torch.serve --model <path>`` (ResNet-50
+    w8a8, b128) in a subprocess: seeded uint8 pictures of ``RAW_SIZE``
+    through the port's C++ ``preprocess`` to 224x224 f32 (against its numpy
+    path: under 1% of the int8 values 1 LSB apart, tests/test_serving.py's
+    limit, and f32 within half an int8 step: its atol 2e-5 was measured at
+    37x53 -> 24x24, and at this size the C++ source's f32 coordinates
+    move a value by ~1e-4, in the reference's C++ too,
+    tests/test_torch_native.py), ``HTTP_NPY`` of them sent
+    as .npy from 8 client threads and ``HTTP_JSON`` as JSON; every answer
+    equal to ``eng``'s direct run of the same images at batch 128 (0
+    difference), ``/healthz`` 200, ``/metrics`` showing the requests and 0
+    faults; the subprocess stopped by SIGTERM and exiting 0, having loaded
+    the kernels' library that is already built."""
+    import io
+    import json
+    import queue
+    import signal
+    import torch
+    from feathercnn_tpu_torch import native
+    from feathercnn_tpu_torch.kernels import build
+    from feathercnn_tpu_torch.serve import InferenceServer, preprocess
+    label = "serve CLI"
+    rng = np.random.default_rng(SEED + 16)
+    n = HTTP_NPY + HTTP_JSON
+    raw = rng.integers(0, 256, size=(n,) + RAW_SIZE + (3,), dtype=np.uint8)
+    mean, std = IMAGENET
+    t0 = time.perf_counter()
+    imgs = np.stack([preprocess(im, (224, 224), mean, std) for im in raw])
+    t_cc = time.perf_counter() - t0
+    ref = np.stack([preprocess(im, (224, 224), mean, std,
+                               prefer_native=False) for im in raw])
+    check(native.available(), "the native library is not built")
+    srv = InferenceServer(eng, batch_size=BATCH)     # not started
+    scale = srv._transfer_scale
+    check(scale is not None, "int8 transfer not engaged")
+    f32_diff = float(np.abs(imgs - ref).max())
+    check(f32_diff < scale / 2, f"C++ f32 preprocess {f32_diff} off the "
+          f"numpy path, half an int8 step is {scale / 2}")
+    i8 = np.stack([preprocess(im, (224, 224), mean, std, quant_scale=scale)
+                   for im in raw])
+    i8_np = np.stack([preprocess(im, (224, 224), mean, std,
+                                 quant_scale=scale, prefer_native=False)
+                      for im in raw])
+    d8 = np.abs(i8.astype(np.int32) - i8_np)
+    off = float((d8 > 0).mean())
+    check(off < 0.01 and d8.max() <= 1,
+          f"C++ int8 preprocess: {off} of the values differ, by up to "
+          f"{d8.max()}")
+    say(label, f"{n} seeded uint8 {RAW_SIZE} pictures through the C++ "
+        f"preprocess to 224x224 in {t_cc * 1e3:.1f} ms: f32 max |diff| "
+        f"{f32_diff:.3e} from the numpy path (held below half an int8 "
+        f"step; the C++ source coordinates are f32, the numpy ones f64), "
+        f"int8 at the stem's scale {scale:.6g}: {100 * off:.4f}% of the "
+        f"values 1 LSB apart (< 1%, tests/test_serving.py's limit)")
+    q = srv._to_transfer(imgs)
+    pad = np.zeros((BATCH - n,) + q.shape[1:], q.dtype)
+    full = torch.from_numpy(np.concatenate([q, pad])).cuda()
+    direct = eng(full).float().cpu().numpy()[:n].reshape(n, -1)
+    del srv
+
+    lib = build._BUILD_ROOT / build._source_hash() / build._LIB_NAME
+    before = (sorted(os.listdir(build._BUILD_ROOT)), lib.stat().st_mtime_ns)
+    root = os.path.dirname(os.path.abspath(__file__))
+    cmd = [sys.executable, "-m", "feathercnn_tpu_torch.serve", "--model",
+           path, "--quant", "w8a8", "--batch-size", str(BATCH), "--host",
+           "127.0.0.1", "--port", "0"]
+    env = dict(os.environ, PYTHONPATH=root)
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=root, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    lines = queue.Queue()
+    log = []
+
+    def reader():
+        for line in proc.stdout:
+            lines.put(line)
+        lines.put(None)
+
+    threading.Thread(target=reader, daemon=True).start()
+    try:
+        port = None
+        while port is None:
+            line = lines.get(timeout=300)
+            check(line is not None, "the CLI exited before serving: "
+                  + "".join(log))
+            log.append(line)
+            if line.startswith("serving on 127.0.0.1:"):
+                port = int(line.split()[2].rsplit(":", 1)[1])
+        t_up = time.perf_counter() - t0
+        base = f"http://127.0.0.1:{port}"
+        answers = [None] * n
+        errors = []
+
+        def client(t):
+            for i in range(t, HTTP_NPY, 8):
+                code, ctype, body = _http(base, "/infer", _npy(imgs[i]),
+                                          "application/x-npy")
+                if code != 200 or ctype != "application/x-npy":
+                    errors.append((i, code, body[:200]))
+                    continue
+                answers[i] = np.load(io.BytesIO(body))
+
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=client, args=(t,))
+                   for t in range(8)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        wall = time.perf_counter() - t0
+        for i in range(HTTP_NPY, n):
+            body = json.dumps({"data": imgs[i].tolist()}).encode()
+            code, ctype, body = _http(base, "/infer", body,
+                                      "application/json")
+            if code != 200 or ctype != "application/json":
+                errors.append((i, code, body[:200]))
+                continue
+            answers[i] = np.asarray(json.loads(body)["result"], np.float32)
+        check(not errors, f"{label}: failed requests {errors}")
+        worst = max(float(np.abs(a.ravel() - direct[i]).max())
+                    for i, a in enumerate(answers))
+        if worst:
+            from feathercnn_tpu_torch import Engine
+            other = Engine.from_path(path, eng.config)
+            check(False, f"{label}: answers up to {worst} off the direct "
+                  f"run; in process, from_path against the engine: "
+                  + _first_diverging(eng, other, full))
+        code, _, body = _http(base, "/healthz")
+        check(code == 200, f"{label}: /healthz {code}")
+        code, _, body = _http(base, "/metrics")
+        text = body.decode()
+        check(code == 200 and f"feathercnn_images {n}\n" in text
+              and "feathercnn_faults 0\n" in text,
+              f"{label}: /metrics {code}: {text}")
+        metrics = dict(line.split() for line in text.splitlines())
+    finally:
+        if proc.poll() is None:
+            proc.send_signal(signal.SIGTERM)
+        try:
+            rc = proc.wait(timeout=120)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            rc = proc.wait()
+    check(rc == 0, f"{label}: the CLI exited {rc}: " + "".join(log[-20:]))
+    after = (sorted(os.listdir(build._BUILD_ROOT)), lib.stat().st_mtime_ns)
+    check(after == before, f"{label}: the CLI rebuilt the kernels: "
+          f"{before} -> {after}")
+    say(label, f"python -m feathercnn_tpu_torch.serve --model "
+        f"{os.path.basename(path)} --quant w8a8 --batch-size {BATCH}: "
+        f"serving on port {port} {t_up:.1f} s after start (the kernels' "
+        f"library found built); {HTTP_NPY} .npy requests from 8 threads in "
+        f"{wall:.2f} s and {HTTP_JSON} JSON requests, every answer equal "
+        f"to the direct run at b{BATCH} (0 difference); /healthz 200; "
+        f"/metrics: {metrics['feathercnn_images']} images in "
+        f"{metrics['feathercnn_batches']} batches, "
+        f"{metrics['feathercnn_faults']} faults; stopped, exit 0 ({smi})")
+
+
+def two_stage_http(eng, x):
+    """Faster R-CNN b1 behind an in-process ``HttpFrontend(port=0)`` over
+    an ``InferenceServer`` with ``im_info`` as its extra input:
+    ``HTTP_TWO_STAGE`` requests (the path's image and seeded others), each
+    ``.npz`` answer equal to the engine's outputs on the same int8-
+    transferred image, and ``decode_detections`` on the answer equal to
+    it on the direct outputs."""
+    import io
+    import torch
+    from feathercnn_tpu_torch.serve import (HttpFrontend, InferenceServer,
+                                            decode_detections)
+    label = "two-stage HTTP"
+    info = x["im_info"][:1]
+    h, w = x["data"].shape[1:3]
+    rng = np.random.default_rng(SEED + 17)
+    imgs = [x["data"][0]] + [
+        rng.normal(size=x["data"].shape[1:]).astype(np.float32)
+        for _ in range(HTTP_TWO_STAGE - 1)]
+    srv = InferenceServer(eng, batch_size=1, extra_inputs={"im_info": info})
+    srv.start()
+    front = HttpFrontend(srv, host="127.0.0.1", port=0)
+    front.start()
+    kept = []
+    try:
+        base = f"http://127.0.0.1:{front.port}"
+        for i, img in enumerate(imgs):
+            code, ctype, body = _http(base, "/infer", _npy(img),
+                                      "application/x-npy")
+            check((code, ctype) == (200, "application/x-npz"),
+                  f"{label} request {i}: {code} {ctype} {body[:200]}")
+            arch = np.load(io.BytesIO(body))
+            out = eng.run({"data": torch.from_numpy(
+                srv._to_transfer(img[None])).cuda(),
+                "im_info": torch.from_numpy(info).cuda()})
+            for k, v in out.items():
+                v = v.float().cpu().numpy()
+                check(np.array_equal(arch[k], v.reshape(arch[k].shape)),
+                      f"{label} request {i}: {k} differs from the direct run")
+            args = [arch["cls_prob"], arch["bbox_pred"], arch["proposal"]]
+            got = decode_detections(*args, (h, w))
+            want = decode_detections(*[
+                out[k].float().cpu().numpy().reshape(a.shape)
+                for k, a in zip(("cls_prob", "bbox_pred", "proposal"),
+                                args)], (h, w))
+            check(got.keys() == want.keys() and all(
+                np.array_equal(got[c], want[c]) for c in got),
+                f"{label} request {i}: decode_detections differs")
+            kept.append(sum(len(d) for d in got.values()))
+        m = srv.gauges()
+        check(m["faults"] == 0 and srv.healthy(), f"{label}: {m}")
+    finally:
+        front.stop()
+        srv.stop()
+    say(label, f"Faster R-CNN b1 behind HttpFrontend: {len(imgs)} .npy "
+        f"requests, each .npz answer ({', '.join(eng.graph.outputs)}) equal "
+        f"to the direct run, decode_detections equal on both ({kept} "
+        f"detections kept), 0 faults")
+
+
 def detection_paths(smi, rng, rows, counts, speed):
     """The detection families (phases 2-4 each), w8a8 at their deploy
     sizes (``DETECTION``), with the head's share of the profiled device
@@ -3669,6 +4198,8 @@ def detection_paths(smi, rng, rows, counts, speed):
         counts[label] = EXPECTED[label]
         r, speed[label], node_ms = run_path(label, g, cfg, eng, x, smi)
         rows += r
+        if label == "faster_rcnn_vgg16 b1":
+            two_stage_http(eng, x)
         if label == "rfcn_resnet101 b1":
             # stage 5's dilated convs at batch 1: few tiles, K split
             dil = [q for q in r if q["kernel"] == DILATED]
@@ -3714,6 +4245,7 @@ def main() -> int:
     counts[label] = EXPECTED[label]
     r, speed[label], node_ms = run_path(label, g, cfg, eng, x, smi)
     rows += r
+    card_nodes(label, g, cfg, eng, x)
     fma_check(eng, x)
     ragged_cases()
     serve(eng, x)
@@ -3721,9 +4253,11 @@ def main() -> int:
     built = eng(torch.from_numpy(x).cuda())
     del eng
     torch.cuda.empty_cache()
-    # the same model through a .ftpu file
+    # the same model through a .ftpu file, then served by the CLI
     loaded_path(g, x, built, smi, rows, counts, speed)
     del built
+    # the same model with the space-to-depth stem
+    s2d_path(g, x, node_ms, smi, rows, counts, speed)
 
     # ResNet-50 b128 with fuse_chains: the same calibrated graph with the
     # wildcard region table that bench.py --fuse-chains sets

@@ -6,10 +6,11 @@ same thing to both engines.  What differs:
 - ``backend`` is ``"torch"`` (the plain float oracle, the role of the
   reference's ``"xla"``) or ``"cuda"`` (the hand-written kernels through
   ``kernels/dispatch.py``, the role of ``"pallas"``).
-- The fields whose pass or lowering is not ported yet (``s2d_stem``,
-  ``concat_dus``, ``sharding``, ``compilation_cache_dir``) raise ``NotImplementedError`` when set
+- The fields whose pass or lowering is not ported yet (``sharding``,
+  ``compilation_cache_dir``) raise ``NotImplementedError`` when set
   (``check_supported``).  ``fuse_blocks`` and ``fuse_chains`` run the
-  region-fusion passes, as in the reference.
+  region-fusion passes, ``concat_dus`` the concat-ladder pass and
+  ``s2d_stem`` the space-to-depth stem pass, as in the reference.
 - The TPU formulation flags (``lrn_band``, ``shuffle_matmul``,
   ``avepool_*``, ``maxpool_shift``, ``topk_radix``, ``det_*``,
   ``roipool_*``, ``proposal_sort_payload``, ``nms_blocked``) pick among
@@ -26,8 +27,6 @@ __all__ = ["EngineConfig", "apply_baked_overrides"]
 
 # Fields whose pass or lowering is not in the port yet -> what is missing.
 _NOT_PORTED = {
-    "s2d_stem": "the space-to-depth stem pass",
-    "concat_dus": "the concat-ladder pass",
     "sharding": "parallel/ (sharded engines)",
     "compilation_cache_dir": "a compiled-executable cache (the port runs "
                              "eagerly)",
@@ -102,13 +101,13 @@ class EngineConfig:
     roipool_table: bool = True
     lrn_band: bool = True
     shuffle_matmul: bool = False
-    concat_dus: bool = False            # not ported
+    concat_dus: bool = False            # a graph pass: run as the reference
     compilation_cache_dir: Optional[str] = None   # not ported
     # Region fusion (passes_fusion.py): identity bottlenecks as
     # FusedBottleneck nodes; fuse_chains also merges same-shape runs into
     # FusedChain nodes, and implies fuse_blocks.
     fuse_blocks: bool = False
-    s2d_stem: bool = False              # not ported
+    s2d_stem: bool = False              # a graph pass: run as the reference
     fuse_chains: bool = False
 
     def check_supported(self) -> None:

@@ -3,10 +3,12 @@ the lowered ops.
 
 Counterpart of ``feathercnn_tpu/engine.py``.  Init runs the reference's
 steps in the reference's order (baked overrides -> ``optimize`` ->
-``quantize_graph`` -> the region-fusion passes under ``fuse_blocks`` /
-``fuse_chains`` -> ``infer_shapes``); the weights move to the device
-once; a forward walks the node list, lowering each node to PyTorch ops
-(and, on the "cuda" backend, to the hand-written kernels).  There is no
+``quantize_graph`` -> the concat-ladder pass under ``concat_dus`` -> the
+region-fusion passes under ``fuse_blocks`` / ``fuse_chains`` -> the
+space-to-depth stem under ``s2d_stem`` -> ``infer_shapes``); the weights
+move to the device once; a forward walks the node list, lowering each
+node to PyTorch ops (and, on the "cuda" backend, to the hand-written
+kernels).  There is no
 trace or compile step: PyTorch runs eagerly.  Under ``torch.profiler``
 each node's ops run inside a ``record_function`` range named after the
 node, so a profile gives device time per graph node.  ``compile(batch)``
@@ -15,7 +17,8 @@ shapes, which moves the weights to the device and makes each node's kept
 constants.
 
 A model comes from a builder of ``models/``, from ``Engine.from_path`` (a
-``.ftpu`` file, ``model_format.py``), or, already optimized and
+``.ftpu`` file, read by the C++ loader of ``native.py`` or by
+``model_format.py``), or, already optimized and
 quantized, through ``Engine.from_optimized``, which runs no pass.
 
 The engine runs on the first CUDA device unless the caller passes
@@ -98,6 +101,11 @@ class Engine:
                            fp_act_layers=self.config.fp_act_layers,
                            quant_overrides=dict(
                                self.config.quant_overrides))
+        if self.config.concat_dus:
+            # after the quant rewrite: the ladder pass reads the concat
+            # int8 marks to unify the chain onto one buffer scale
+            from .passes_ladder import dus_concat_ladders
+            dus_concat_ladders(self.graph)
         if self.config.fuse_blocks or self.config.fuse_chains:
             from .passes_fusion import fuse_bottlenecks, fuse_chains
             infer_shapes(self.graph)  # fresh specs for the region gate
@@ -107,6 +115,10 @@ class Engine:
             fuse_bottlenecks(self.graph, act_itemsize=act_item)
             if self.config.fuse_chains:
                 fuse_chains(self.graph, act_itemsize=act_item)
+        if self.config.s2d_stem:
+            from .passes_stem import space_to_depth_stem
+            infer_shapes(self.graph)
+            space_to_depth_stem(self.graph)
         infer_shapes(self.graph)
         self.graph.validate()
         self._device_params: Optional[Dict[str, torch.Tensor]] = None
@@ -134,13 +146,18 @@ class Engine:
     @classmethod
     def from_path(cls, path: str, config: Optional[EngineConfig] = None,
                   prefer_native: bool = True, **kw) -> "Engine":
-        """Load a ``.ftpu`` model with ``model_format.load_ftpu`` and build
-        the engine (``kw`` goes to the constructor: ``optimize_graph``,
-        ``device``).  ``prefer_native`` is accepted for the reference's
-        signature and has no effect: the port has no native mmap loader
-        yet, and numpy's memmap already pages the weights in lazily."""
-        from .model_format import load_ftpu
-        return cls(load_ftpu(path), config, **kw)
+        """Load a ``.ftpu`` model and build the engine (``kw`` goes to the
+        constructor: ``optimize_graph``, ``device``).  ``prefer_native``
+        loads through the C++ mmap loader (``native.load_ftpu_native``,
+        built at first use; a failed build raises), ``False`` through
+        ``model_format.load_ftpu``."""
+        if prefer_native:
+            from .native import load_ftpu_native
+            graph = load_ftpu_native(path)
+        else:
+            from .model_format import load_ftpu
+            graph = load_ftpu(path)
+        return cls(graph, config, **kw)
 
     # ------------------------------------------------------------------
     @property

@@ -522,6 +522,40 @@ def _concat_shape(node, in_specs, graph):
     return [TensorSpec(tuple(shape), in_specs[0].dtype)]
 
 
+@register_shape_fn("LadderInit")
+def _ladder_init_shape(node, in_specs, graph):
+    """Concat-ladder buffer (passes_ladder.py): base+parts zero-padded
+    to the chain's final channel count."""
+    shape = list(in_specs[0].shape)
+    shape[-1] = node.attrs["total"]
+    return [TensorSpec(tuple(shape), in_specs[0].dtype)]
+
+
+@register_shape_fn("LadderAppend")
+def _ladder_append_shape(node, in_specs, graph):
+    return [TensorSpec(in_specs[0].shape, in_specs[0].dtype)]
+
+
+@register_shape_fn("LadderView")
+def _ladder_view_shape(node, in_specs, graph):
+    shape = list(in_specs[0].shape)
+    shape[-1] = node.attrs["channels"]
+    return [TensorSpec(tuple(shape), in_specs[0].dtype)]
+
+
+@register_shape_fn("SpaceToDepth")
+def _s2d_shape(node, in_specs, graph):
+    """The space-to-depth stem's input rewrite (passes_stem.py); here, not
+    in the pass's module, so a graph saved after the pass infers its
+    shapes on load."""
+    n, h, w, c = in_specs[0].shape
+    blk = node.attrs.get("block", 2)
+    pad = node.attrs.get("pad", 0)
+    hp, wp = h + 2 * pad, w + 2 * pad
+    return [TensorSpec((n, hp // blk, wp // blk, c * blk * blk),
+                       in_specs[0].dtype)]
+
+
 @register_shape_fn("Slice")
 def _slice_shape(node, in_specs, graph):
     axis = node.attrs.get("axis", -1) % in_specs[0].rank

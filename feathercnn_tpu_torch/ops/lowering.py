@@ -12,8 +12,7 @@ module, as there:
     plain PyTorch.
 
 An op with no lowering here raises ``NotImplementedError`` naming it
-(``lower_node``): among the reference's, SpaceToDepth and the ladder ops
-of ``concat_dus``.
+(``lower_node``); every op of the reference has one.
 """
 
 from __future__ import annotations
@@ -648,28 +647,101 @@ def _sum_terms(terms):
     return acc
 
 
+def _onto_grid(x: torch.Tensor, s, y: float) -> torch.Tensor:
+    """One operand of a requantizing concat or a ladder, on the output's
+    grid ``y``: an int8 operand at scale ``s`` rescaled by
+    ``round(x * (s / y))``, a float one quantized by ``round(x / y)``."""
+    if x.dtype == torch.int8:
+        if s is not None and s != y:
+            x = torch.clamp(torch.round(
+                x.float() * scalar(s / y, x.device)), -127, 127).to(
+                    torch.int8)
+        return x
+    return quantize(x, y)
+
+
 @register_lowering("Concat")
 def _lower_concat(node, inputs, params, ctx):
     axis = node.attrs.get("axis", -1)
     q = ctx.qinfo(node)
     if q is not None and q.get("concat_int8"):
         # requantizing concat (quant/rewrite.py): each operand arrives int8
-        # at its own calibrated scale (rescaled: round(x * (s / y))) or
-        # float (quantized: round(x / y)); the output carries one scale
+        # at its own calibrated scale or float; the output carries one scale
         y = q["y_scale"]
-        parts = []
-        for x, s in zip(inputs, q["in_scales"]):
-            if x.dtype == torch.int8:
-                if s is not None and s != y:
-                    x = torch.clamp(torch.round(
-                        x.float() * scalar(s / y, x.device)), -127, 127).to(
-                            torch.int8)
-                parts.append(x)
-            else:
-                parts.append(quantize(x, y))
-        return [torch.cat(parts, dim=axis)]
+        return [torch.cat([_onto_grid(x, s, y)
+                           for x, s in zip(inputs, q["in_scales"])],
+                          dim=axis)]
     # float, or the single-scale int8 passthrough
     return [torch.cat(inputs, dim=axis)]
+
+
+def _ladder_parts(node, parts, ctx):
+    """A ladder node's parts, on the buffer's grid under int8
+    (``ladder_int8``, passes_ladder.py), else as they come."""
+    q = ctx.qinfo(node)
+    if q is not None and q.get("ladder_int8"):
+        return [_onto_grid(x, s, q["y_scale"])
+                for x, s in zip(parts, q["in_scales"])]
+    return list(parts)
+
+
+def _write_parts(buf: torch.Tensor, parts, off: int) -> int:
+    """Copy ``parts`` into ``buf``'s channels from ``off`` on, in place;
+    returns the first channel after them."""
+    for p in parts:
+        k = p.shape[-1]
+        buf[..., off:off + k].copy_(p)
+        off += k
+    return off
+
+
+@register_lowering("LadderInit")
+def _lower_ladder_init(node, inputs, params, ctx):
+    """The concat ladder's buffer (passes_ladder.py), allocated once at the
+    chain's final width: the parts first, zeros after."""
+    parts = _ladder_parts(node, inputs, ctx)
+    buf = torch.empty(parts[0].shape[:-1] + (node.attrs["total"],),
+                      dtype=parts[0].dtype, device=parts[0].device)
+    filled = _write_parts(buf, parts, 0)
+    buf[..., filled:].zero_()
+    return [buf]
+
+
+@register_lowering("LadderAppend")
+def _lower_ladder_append(node, inputs, params, ctx):
+    """Writes its parts into the buffer in place, at channel ``offset``
+    (the reference's ``dynamic_update_slice``): the append moves k
+    channels, and the buffer it returns is the storage it was given."""
+    buf = inputs[0]
+    _write_parts(buf, _ladder_parts(node, inputs[1:], ctx),
+                 node.attrs["offset"])
+    return [buf]
+
+
+@register_lowering("LadderView")
+def _lower_ladder_view(node, inputs, params, ctx):
+    """The buffer's first ``channels`` channels, a view (no copy); its
+    rows are strided unless it is the whole buffer.  The prefix is never
+    written again, so the view keeps its values."""
+    x = inputs[0]
+    c = node.attrs["channels"]
+    return [x if c == x.shape[-1] else x[..., :c]]
+
+
+@register_lowering("SpaceToDepth")
+def _lower_s2d(node, inputs, params, ctx):
+    """2x2 space-to-depth with edge padding (passes_stem.py), in the
+    input's dtype (an int8 input pads with int8 zeros); channel order
+    (i, j, c) to match the re-packed stem weights."""
+    x = inputs[0]
+    blk = node.attrs.get("block", 2)
+    pad = node.attrs.get("pad", 0)
+    if pad:
+        x = F.pad(x, (0, 0, pad, pad, pad, pad))
+    n, h, w, c = x.shape
+    x = x.reshape(n, h // blk, blk, w // blk, blk, c)
+    return [x.permute(0, 1, 3, 2, 4, 5).reshape(
+        n, h // blk, w // blk, blk * blk * c)]
 
 
 @register_lowering("LRN")

@@ -1,6 +1,6 @@
-"""Batch queue — a copy of the Python queue of
-``feathercnn_tpu/serve/batcher.py`` (the C++ NativeBatchQueue is not
-ported yet: ``make_queue`` always returns the Python queue)."""
+"""Batch queue — a copy of ``feathercnn_tpu/serve/batcher.py``: the Python
+queue, and ``make_queue``, which returns the C++ queue
+(``native.NativeBatchQueue``) unless asked for the Python one."""
 
 from __future__ import annotations
 
@@ -94,6 +94,10 @@ class PyBatchQueue:
 
 def make_queue(item_shape, item_dtype, result_shape, result_dtype,
                prefer_native: bool = True):
-    """The Python queue.  ``prefer_native`` is accepted for the
-    reference's signature; the native queue is not ported yet."""
+    """The C++ queue (built at first use; a failed build raises), or
+    the Python queue with ``prefer_native=False``."""
+    if prefer_native:
+        from ..native import NativeBatchQueue
+        return NativeBatchQueue(item_shape, item_dtype, result_shape,
+                                result_dtype)
     return PyBatchQueue(item_shape, item_dtype, result_shape, result_dtype)

@@ -2,7 +2,8 @@
 ``feathercnn_tpu/serve/server.py`` over the port's ``Engine``.
 
 One process: ``broadcast_plan`` is the identity (multi-host serving is not
-ported), and the queue is the Python queue.  With ``pipeline_depth`` > 1
+ported), and the queue is the C++ one (``native.NativeBatchQueue``), or
+the Python one with ``prefer_native_queue=False``.  With ``pipeline_depth`` > 1
 batch k+1 is dispatched before batch k is fetched: PyTorch's CUDA calls
 return before the card finishes, so the next batch's host->device copy and
 kernels are queued while the previous result is copied back.

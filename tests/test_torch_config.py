@@ -33,17 +33,17 @@ def test_engine_checks_input_shapes():
 
 
 def test_unported_config_fields_raise_naming_them():
-    for field, value in [("s2d_stem", True), ("concat_dus", True),
-                         ("sharding", object()),
+    for field, value in [("sharding", object()),
                          ("compilation_cache_dir", "cache")]:
         with pytest.raises(NotImplementedError, match=field):
             Engine(_graph(), EngineConfig(**{field: value}), device="cpu")
 
 
 def test_unported_op_raises_naming_it():
+    """An op neither package has (every op of the reference is lowered)."""
     g = _graph()
-    g.nodes[-1].op = "SpaceToDepth"
-    with pytest.raises(NotImplementedError, match="SpaceToDepth"):
+    g.nodes[-1].op = "NoSuchOp"
+    with pytest.raises(NotImplementedError, match="NoSuchOp"):
         Engine(g, device="cpu", optimize_graph=False)
 
 

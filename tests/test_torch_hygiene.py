@@ -42,8 +42,12 @@ def test_importing_the_port_loads_no_jax():
 
 
 def test_no_source_imports_jax():
+    """Nor does it load the JAX package's native library or build it: the
+    port builds its own C++ copy (``native_csrc/``)."""
     for path in _sources():
-        tree = ast.parse(path.read_text(), str(path))
+        text = path.read_text()
+        assert "libfeatherio" not in text and '"make"' not in text, path
+        tree = ast.parse(text, str(path))
         for node in ast.walk(tree):
             if isinstance(node, ast.Import):
                 names = [a.name for a in node.names]

@@ -208,15 +208,23 @@ def test_fault_raises_inference_failed(fp_engine):
 
 
 def test_queue_batching_and_gauges(fp_engine):
-    q = make_queue((3,), np.float32, (2,), np.float32)
-    tickets = [q.submit(np.full(3, i, np.float32)) for i in range(5)]
-    assert len(tickets) == 5 and q.depth() == 5
-    batch, got = q.collect(max_batch=3, timeout_us=1000)
-    assert len(got) == 3 and batch.shape == (3, 3)
-    q.post_results(got, np.stack([batch[:, 0], -batch[:, 0]], axis=1))
-    r = q.wait_result(got[1])
-    assert r[0] == 1.0 and r[1] == -1.0
-    _, got2 = q.collect(max_batch=3, timeout_us=1000)
-    assert len(got2) == 2
+    """Both queues, the C++ one (``make_queue``'s default) and the Python
+    one, batch alike."""
+    from feathercnn_tpu_torch.native import NativeBatchQueue
+    from feathercnn_tpu_torch.serve import PyBatchQueue
+    for native, kind in ((True, NativeBatchQueue), (False, PyBatchQueue)):
+        q = make_queue((3,), np.float32, (2,), np.float32,
+                       **({} if native else {"prefer_native": False}))
+        assert type(q) is kind
+        tickets = [q.submit(np.full(3, i, np.float32)) for i in range(5)]
+        assert len(tickets) == 5 and q.depth() == 5
+        batch, got = q.collect(max_batch=3, timeout_us=1000)
+        assert len(got) == 3 and batch.shape == (3, 3)
+        q.post_results(got, np.stack([batch[:, 0], -batch[:, 0]], axis=1))
+        r = q.wait_result(got[1])
+        assert r[0] == 1.0 and r[1] == -1.0
+        _, got2 = q.collect(max_batch=3, timeout_us=1000)
+        assert len(got2) == 2
+        q.close()
     text = InferenceServer(fp_engine, batch_size=2).prometheus_text()
     assert "feathercnn_batches 0" in text and "feathercnn_healthy" in text

@@ -171,7 +171,7 @@ def _reference_edges(jeng, teng, x, fused_ops=()):
 
 
 def _hold_int8_edges(case, jeng, teng, x, lsb_ops=(), fused_ops=(),
-                     spread=False):
+                     spread=False, filled=None):
     """Every int8 edge of ``jeng``'s optimized graph against ``teng``, as
     tests/test_torch_classic_zoo.py's helper of that name holds them: node
     by node (each port node on the reference's own input edges, but the
@@ -182,8 +182,16 @@ def _hold_int8_edges(case, jeng, teng, x, lsb_ops=(), fused_ops=(),
     once one did, end to end the difference may grow downstream (printed,
     not held).  Returns the number of int8 edges, the elements of those
     outputs that differ, and both engines' values (the reference's every
-    edge, the port's int8 edges and outputs)."""
+    edge, the port's int8 edges and outputs).  ``filled`` (value ->
+    channels) holds those values on their first channels alone: a concat
+    ladder's ``__buf`` edges, whose later channels the port's in-place
+    appends fill after the node ran."""
     ref, mine = _reference_edges(jeng, teng, x, fused_ops)
+    if filled:
+        ref = {k: v[..., :filled[k]] if k in filled else v
+               for k, v in ref.items()}
+        mine = {k: v[..., :filled[k]] if k in filled else v
+                for k, v in mine.items()}
     loose = {n.outputs[0] for n in teng.graph.nodes if n.op in lsb_ops}
     int8 = [k for k, v in ref.items() if v.dtype == np.int8]
     off = 0
@@ -204,6 +212,9 @@ def _hold_int8_edges(case, jeng, teng, x, lsb_ops=(), fused_ops=(),
             assert d.max() == 0, \
                 f"{case} {o}: {int((d > 0).sum())} int8 values differ"
     got = teng.extract(x, int8)
+    if filled:
+        got = {k: v[..., :filled[k]] if k in filled else v
+               for k, v in got.items()}
     e2e_off = 0
     for k in int8:
         d = np.abs(got[k].numpy().astype(np.int32) - ref[k])
