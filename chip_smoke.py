@@ -21,6 +21,20 @@ float activations; the bf16 paths run ``quant=None`` in bf16:
   ``/metrics``; then ResNet-50 with ``s2d_stem`` (one SpaceToDepth, a 4x4
   s1 stem on 12 channels in cuDNN's float conv), its stem's device ms
   beside the 7x7 one's;
+  then the same model sharded (``parallel_paths``, ``parallel/`` on
+  ``torch.distributed``): written once by ``save_ftpu`` and loaded by each
+  rank that ``parallel.launch.spawn`` starts, in a process group of one
+  over NCCL (mesh (1, 1): bit-equal to the unsharded engine), DP x TP
+  (2, 2) on 4 ranks and spatial (1, 2) on 2 ranks that share the card
+  over gloo (every rank b128 in, the global output back; each rank's 33 +
+  16 launches counted, held to their plain versions and to their plans'
+  variants: the TP FC at N = 500 among them), DP x TP's rank 0 node by
+  node, then a 2-stage ``PipelineEngine`` on ``cuda:0`` twice with 2
+  micro-batches; each output against the unsharded engine's (top-1 equal
+  on >= 99% of the images, prob cosine >= 0.9999), ms per batch per rank
+  (the ranks time-share the card: not scaling figures), and rank 0's
+  launches (the pipeline's) each timed alone on the card beside its
+  bound, summed per kernel;
 - MobileNet-v1 at batch 256 on its default route, where its 13 depthwise
   convs take the int8 depthwise kernel, and with the 13 ``*/dw`` layers
   overridden to "depthwise" (the float depthwise kernel, int8 in);
@@ -248,7 +262,8 @@ Phases, each printing its own lines:
 The order: ResNet-50 (phases 2-4) and its node check, the multiply-add
 check, the ragged cases (5), the server (6),
 the loaded ResNet-50 (2-4) and the CLI over HTTP, ResNet-50 with
-``s2d_stem`` (2-4) and its node check, ResNet-50 with ``fuse_chains``,
+``s2d_stem`` (2-4) and its node check, the parallel paths, ResNet-50 with
+``fuse_chains``,
 the two bf16 ResNet-50 paths, the
 MobileNets, the boundary probe (7), VGG-16 (w8, w8 Winograd, w8a8),
 GoogLeNet and its server, AlexNet, SqueezeNet (fp32, w8a8), the rest of
@@ -1615,11 +1630,35 @@ def describe(kernel, a, out):
             f" {d[4]}x{d[5]} s{a['stride']} {a['activation']} out={dt}")
 
 
-def kernels_vs_plain(label, launches, groups=None):
+def other_plans_ms(name, a, out, ref, variant, split, sg):
+    """{plan or tile: median ms} of a launch on the plans and tiles it did
+    not take, each held to ``ref`` (or to ``out``, for a chain); None
+    where there are none."""
+    if name in ("depthwise_conv2d", "depthwise_conv2d_int8"):
+        return dw_tile_ms(name, a, ref)
+    if name == "fused_chain":
+        return chain_alt_ms(a, out)
+    if variant in ("wgmma_w8", "wgmma_bf16"):
+        return float_other_plans_ms(name, a, ref) or None
+    if variant not in ("wgmma", "wgmma_ragged", "wgmma_halo"):
+        return None
+    tiles = {}
+    if variant == "wgmma_ragged":
+        tiles.update(ragged_old_body_ms(name, a, ref))
+    if split > 1:
+        tiles.update(split_other_plans_ms(name, a, ref))
+    if sg:
+        tiles.update(grouped_other_plans_ms(a, ref))
+    return tiles or None
+
+
+def launch_rows(label, launches, groups=None, timed=True, detail=True):
     """Every recorded wrapper call of a path's forward, repeated on its own
-    tensors, against the plain version, and timed; one row per call.  A
-    row's ``ms`` is one whole call: for ``fused_chain`` that is its
-    ``launches`` (one per block of the chain).  A grouped int8 conv's
+    tensors, held to its plain version (``check``), bounded and, with
+    ``timed``, timed; one row per call.  A row's ``ms`` is one whole call:
+    for ``fused_chain`` that is its ``launches`` (one per block of the
+    chain).  ``detail`` adds the plain version's, the library call's and
+    the other plans' times (None without it).  A grouped int8 conv's
     launch (``groups`` > 1) must take the weight the engine kept for it
     (``groups``: data pointer -> (group, q), ``grouped_weights``); its
     bound counts the grouped conv's operations, its library call is the
@@ -1658,21 +1697,8 @@ def kernels_vs_plain(label, launches, groups=None):
                 ref = plain(**a)
             max_err, ok, over = compare(out, ref, gate)
             elements = out.numel()
-            if name in ("depthwise_conv2d", "depthwise_conv2d_int8"):
-                tiles = dw_tile_ms(name, a, ref)
-            elif name == "fused_chain":
-                tiles = chain_alt_ms(a, out)
-            elif variant in ("wgmma_w8", "wgmma_bf16"):
-                tiles = float_other_plans_ms(name, a, ref) or None
-            elif variant in ("wgmma", "wgmma_ragged", "wgmma_halo"):
-                tiles = {}
-                if variant == "wgmma_ragged":
-                    tiles.update(ragged_old_body_ms(name, a, ref))
-                if split > 1:
-                    tiles.update(split_other_plans_ms(name, a, ref))
-                if sg:
-                    tiles.update(grouped_other_plans_ms(a, ref))
-                tiles = tiles or None
+            if detail:
+                tiles = other_plans_ms(name, a, out, ref, variant, split, sg)
             del ref
         desc = describe(name, a, out) + (
             f" super-group g={group} q={sg[1]} S={sg[2]}" if sg
@@ -1692,15 +1718,17 @@ def kernels_vs_plain(label, launches, groups=None):
                      "launches": launches_of(launch),
                      "variant": variant, "split": split,
                      "max_abs_err": max_err,
-                     "ms": median_ms(lambda: kernel(**a)),
-                     "plain_ms": median_ms(lambda: plain(**a), reps=3,
-                                           warmup=1),
+                     "ms": median_ms(lambda: kernel(**a)) if timed else None,
+                     "plain_ms": (median_ms(lambda: plain(**a), reps=3,
+                                            warmup=1) if detail else None),
                      "bound_ms": b_ms, "bound_by": b_by,
                      "group": group,
-                     "library_ms": library_ms(name, a, group),
-                     "library_padded": library_padded(name, a, group),
+                     "library_ms": (library_ms(name, a, group) if detail
+                                    else None),
+                     "library_padded": (detail
+                                        and library_padded(name, a, group)),
                      "library_bf16_ms": (_library_bf16_grouped(a, group)
-                                         if group > 1 else None),
+                                         if detail and group > 1 else None),
                      # a super-group launch: its products' (zeros too)
                      # bound on the int8 peak, A's bytes from L2 in its
                      # halos, and those a gather of every tap of every row
@@ -1713,6 +1741,13 @@ def kernels_vs_plain(label, launches, groups=None):
                      "gather_bytes": (dims(name, a)[0] * dims(name, a)[1]
                                       if sg else None),
                      "tiles": tiles})
+    return rows
+
+
+def kernels_vs_plain(label, launches, groups=None):
+    """``launch_rows`` of a path's forward, timed in full, and what they
+    say per launch shape and per kind of launch."""
+    rows = launch_rows(label, launches, groups)
     for desc in dict.fromkeys(r["shape"] for r in rows):
         same = [r for r in rows if r["shape"] == desc]
         lib = same[0]["library_ms"]
@@ -1994,6 +2029,20 @@ def device_spans(prof):
     return spans
 
 
+def forward_ms(fn, runs=10, warmup=2):
+    """Median host ms of ``fn`` run to a synchronize, over ``runs`` calls
+    after ``warmup`` more."""
+    import torch
+    times = []
+    for _ in range(warmup + runs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times[warmup:])
+
+
 def speed_and_profile(label, eng, x, smi):
     """Median ms per batch over 10 synchronized forwards (input on the
     card), images/s, and one profiled forward's device time by kernel.
@@ -2001,14 +2050,7 @@ def speed_and_profile(label, eng, x, smi):
     node (the engine's per-node profiler ranges; {} where not measured)."""
     import torch
     xd = to_card(x)
-    times = []
-    for _ in range(12):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        eng(xd)
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t0) * 1e3)
-    ms = statistics.median(times[2:])
+    ms = forward_ms(lambda: eng(xd))
     ops = ops_per_batch(eng.graph)
     batch = batch_of(x)
     what, kind, peak = {
@@ -3734,7 +3776,7 @@ def ladder_filled(graph):
     return out
 
 
-def card_nodes(label, g, cfg, eng, x):
+def card_nodes(label, g, cfg, eng, x, compare=True):
     """Node by node: each node of the card's graph run by the port on the
     CPU on the card's own input values (images 0-1), and every int8 output
     held to the card's.  A node whose card compute is a library float op
@@ -3745,18 +3787,24 @@ def card_nodes(label, g, cfg, eng, x):
     the reference's); one with an ``x_scale`` takes a hand kernel on int8
     input, quantized first where its input is float.  A ladder's
     ``__buf`` edges are held on their filled channels, and a ladder node
-    runs on a copy of its buffer (it writes in place)."""
+    runs on a copy of its buffer (it writes in place).  ``eng`` may be one
+    rank of a sharded engine (its ``extract`` gives the global values):
+    every rank of its mesh takes the card's values, and only a rank with
+    ``compare`` holds them (``cfg`` then is the unsharded config the CPU
+    engine runs)."""
     import torch
     from feathercnn_tpu_torch import Engine
     from feathercnn_tpu_torch.ops.lowering import lower_node
-    cpu = Engine(g, cfg, device="cpu")
-    check([(n.name, n.op, n.inputs) for n in cpu.graph.nodes]
-          == [(n.name, n.op, n.inputs) for n in eng.graph.nodes],
-          f"{label}: the CPU engine built another graph")
     k = min(2, batch_of(x))
     names = [o for n in eng.graph.nodes for o in n.outputs]
     card = {name: v.cpu() for name, v in
             eng.run(to_card(first(x, k)), extract=names).items()}
+    if not compare:
+        return
+    cpu = Engine(g, cfg, device="cpu")
+    check([(n.name, n.op, n.inputs) for n in cpu.graph.nodes]
+          == [(n.name, n.op, n.inputs) for n in eng.graph.nodes],
+          f"{label}: the CPU engine built another graph")
     cdtype = getattr(torch, cfg.compute_dtype)
     for name, v in (first(x, k) if isinstance(x, dict)
                     else {next(iter(eng.graph.inputs)): x[:k]}).items():
@@ -4221,6 +4269,196 @@ def detection_paths(smi, rng, rows, counts, speed):
         torch.cuda.empty_cache()
 
 
+# ----------------------------------------------------------------------
+# parallel paths: parallel/ on torch.distributed
+# ----------------------------------------------------------------------
+# label -> (mesh shape, shard_spatial, ranks, backend).  The ranks that
+# share the one card join over gloo: NCCL refuses two ranks on one device.
+PARALLEL = {
+    "resnet50 b128 world 1 nccl": ((1, 1), False, 1, "nccl"),
+    "resnet50 b128 dp x tp (2, 2)": ((2, 2), False, 4, "gloo"),
+    "resnet50 b128 spatial (1, 2)": ((1, 2), True, 2, "gloo"),
+}
+PARALLEL_NODES = "resnet50 b128 dp x tp (2, 2)"     # rank 0 node by node
+PIPELINE = "resnet50 b128 pipeline 2 stages"
+PARALLEL_TOP1 = 0.99
+PARALLEL_COSINE = 0.9999
+PARALLEL_TIMEOUT = 300      # seconds for a spawn; its ranks killed after
+
+
+def sums_line(rows):
+    """Per kernel, the timed ``launch_rows`` of one forward summed:
+    launches, ms and bound ms."""
+    sums = {}
+    for r in rows:
+        n, ms, b = sums.get(r["kernel"], (0, 0.0, 0.0))
+        sums[r["kernel"]] = (n + r["launches"], ms + r["ms"],
+                             b + r["bound_ms"])
+    return "; ".join(f"{k} {n} launches {ms:.4f} ms (bound {b:.4f})"
+                     for k, (n, ms, b) in sums.items())
+
+
+def parallel_rank(rank, world, label, path, sharding, x, nodes):
+    """One rank of a parallel path (started by ``parallel.launch.spawn``):
+    ResNet-50 w8a8 loaded from ``path`` under ``sharding``, driven once at
+    the global b128 with the counts set to 0 just before and read just
+    after (33 + 16 launches, each rank running its batch slice, its
+    output-channel slices or its rows), every launch held to its plain
+    version (``launch_rows``; rank 0's timed too, alone on the card, after
+    the others') and to its plan's variant; then 5 timed forwards; with
+    ``nodes``, the node-by-node check (rank 0 compares).  Under NCCL one
+    ``all_reduce`` checks the group first."""
+    import torch
+    import torch.distributed as dist
+    from feathercnn_tpu_torch import Engine
+    from feathercnn_tpu_torch.kernels import build
+    from feathercnn_tpu_torch.model_format import load_ftpu
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    build.load_library()            # built by the parent: loaded here
+    me = f"{label} rank {rank}"
+    if dist.get_backend() == "nccl":
+        t = torch.full((4,), rank + 1.0, device="cuda")
+        dist.all_reduce(t)
+        check(bool((t == world * (world + 1) / 2).all()),
+              f"{me}: NCCL all_reduce gave {t.tolist()}")
+    eng = Engine.from_path(path, engine_config(sharding=sharding))
+    check(eng.device.type == "cuda", f"{me}: engine on {eng.device}")
+    xs = to_card(x)
+    recorder = LaunchRecorder()
+    reset_counts()
+    out = recorder.run(eng, xs)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    check(counts == EXPECTED["resnet50 b128"],
+          f"{me}: launches {counts}, expected {EXPECTED['resnet50 b128']}")
+    check(tuple(out.shape) == (len(x), 1000)
+          and bool(torch.isfinite(out.float()).all()),
+          f"{me}: output {tuple(out.shape)}, finite "
+          f"{bool(torch.isfinite(out.float()).all())}")
+    check_variants(me, recorder.launches)
+    # the GEMM launches whose N is not a multiple of 8 (the TP FC's 500)
+    odd_n = [(*dims(r["kernel"], r["args"]), r.get("variant"))
+             for r in recorder.launches
+             if r["kernel"] in GEMMS and r["args"]["w"].shape[-1] % 8]
+    kept = grouped_weights(eng)
+    if rank:
+        rows = launch_rows(me, recorder.launches, kept, timed=False,
+                           detail=False)
+    dist.barrier()
+    ms = forward_ms(lambda: eng(xs), runs=5, warmup=1)
+    dist.barrier()      # rank 0 checks and times its launches alone
+    if rank == 0:
+        rows = launch_rows(me, recorder.launches, kept, detail=False)
+    dist.barrier()
+    del recorder
+    if nodes:
+        card_nodes(me, load_ftpu(path), engine_config(), eng, x,
+                   compare=rank == 0)
+    return {"out": out, "counts": {k: v for k, v in counts.items() if v},
+            "calls": len(rows),
+            "max_err": max(r["max_abs_err"] for r in rows), "ms": ms,
+            "odd_n": odd_n, "sums": None if rank else sums_line(rows)}
+
+
+def parallel_agreement(label, got, ref, exact=False):
+    """A parallel path's global output against the unsharded engine's on
+    the card: bit-equal (``exact``), else top-1 equal on >=
+    ``PARALLEL_TOP1`` of the images and the prob cosine (all images as
+    one vector) >= ``PARALLEL_COSINE``, the least image's printed."""
+    if exact:
+        check(np.array_equal(got, ref), f"{label}: output differs from the "
+              f"unsharded engine's (max |diff| "
+              f"{float(np.abs(got - ref).max())})")
+        return "bit-equal to the unsharded engine's"
+    top1 = float((got.argmax(-1) == ref.argmax(-1)).mean())
+    g64, r64 = got.astype(np.float64), ref.astype(np.float64)
+    cos = _cosine(g64.ravel(), r64.ravel())
+    least = min(_cosine(a, b) for a, b in zip(g64, r64))
+    check(top1 >= PARALLEL_TOP1 and cos >= PARALLEL_COSINE,
+          f"{label}: top-1 equal on {top1:.4f} of the images, prob cosine "
+          f"{cos:.6f}")
+    return (f"top-1 equal on {100 * top1:.2f}% of {len(got)} images (>= "
+            f"{100 * PARALLEL_TOP1:.0f}%), prob cosine {cos:.7f} (>= "
+            f"{PARALLEL_COSINE}; least image {least:.7f}), max |prob diff| "
+            f"{float(np.abs(g64 - r64).max()):.3e}")
+
+
+def parallel_paths(g, x, smi, speed):
+    """The main path sharded (``parallel/``): ResNet-50 w8a8 b128, written
+    once by ``save_ftpu`` and loaded by every rank, in a process group of
+    one over NCCL (mesh (1, 1): bit-equal to the unsharded engine), DP x
+    TP (2, 2) on 4 ranks and spatial (1, 2) on 2 ranks that share the card
+    over gloo (``PARALLEL``), then a 2-stage ``PipelineEngine`` on
+    ["cuda:0", "cuda:0"] with 2 micro-batches in this process (twice the
+    path's launches).  The ranks share one H100 in turns: their ms are
+    not scaling figures."""
+    import tempfile
+    import torch
+    from feathercnn_tpu_torch import Engine
+    from feathercnn_tpu_torch.model_format import save_ftpu
+    from feathercnn_tpu_torch.parallel import PipelineEngine, ShardingConfig
+    from feathercnn_tpu_torch.parallel.launch import spawn
+    t_start = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "resnet50.ftpu")
+        save_ftpu(g, path)
+        eng = Engine.from_path(path, engine_config())
+        ref = eng(to_card(x)).float().cpu().numpy()
+        del eng
+        torch.cuda.empty_cache()
+        for label, (shape, spatial, n, backend) in PARALLEL.items():
+            t0 = time.perf_counter()
+            ranks = spawn(parallel_rank, n, backend=backend, threads=2,
+                          timeout=PARALLEL_TIMEOUT, args=(
+                              label, path, ShardingConfig(
+                                  mesh_shape=shape, shard_spatial=spatial),
+                              x, label == PARALLEL_NODES))
+            for r, got in enumerate(ranks):
+                held = parallel_agreement(f"{label} rank {r}", got["out"],
+                                          ref, exact=n == 1)
+                say(label, f"rank {r} of {n} ({backend}): launches "
+                    f"{got['counts']} (33 + 16 expected), {got['calls']} "
+                    f"launches each equal to plain (max err "
+                    f"{got['max_err']}), (M, K, N, variant) of those with "
+                    f"N not a multiple of 8: {got['odd_n'] or 'none'}; "
+                    f"{got['ms']:.2f} ms per batch; output {held}"
+                    + (f"; its launches timed alone on the card: "
+                       f"{got['sums']}" if got["sums"] else ""))
+            speed[label] = max(got["ms"] for got in ranks)
+            say(label, f"{n} ranks in {time.perf_counter() - t0:.1f} s")
+        pipe = PipelineEngine(g, engine_config(), num_stages=2,
+                              devices=["cuda:0", "cuda:0"])
+        xs = to_card(x)
+        recorder = LaunchRecorder()
+        reset_counts()
+        out = recorder.run(lambda v: pipe(v, micro_batches=2), xs)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        want = {k: 2 * v for k, v in EXPECTED["resnet50 b128"].items()}
+        check(counts == want, f"{PIPELINE}: launches {counts}, expected "
+              f"{want}")
+        check_variants(PIPELINE, recorder.launches)
+        rows = launch_rows(PIPELINE, recorder.launches, detail=False)
+        del recorder
+        held = parallel_agreement(PIPELINE, out.float().cpu().numpy(), ref)
+        ms = forward_ms(lambda: pipe(xs, micro_batches=2), runs=5,
+                        warmup=1)
+        speed[PIPELINE] = ms
+        say(PIPELINE, f"stages of {[len(st.nodes) for st in pipe.stages]} "
+            f"nodes, 2 micro-batches: launches "
+            f"{ {k: v for k, v in counts.items() if v} } (2 x (33 + 16)), "
+            f"{len(rows)} launches each equal to plain (max err "
+            f"{max(r['max_abs_err'] for r in rows)}); {ms:.2f} ms per batch; "
+            f"output {held}; its launches timed: {sums_line(rows)}")
+        del pipe, out, xs
+        torch.cuda.empty_cache()
+    say("parallel", f"done in {time.perf_counter() - t_start:.1f} s on "
+        f"{smi}; the ranks of a path time-share this one card (their ms "
+        f"per batch are not scaling figures) and gloo stages every "
+        f"collective through host memory")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4258,6 +4496,8 @@ def main() -> int:
     del built
     # the same model with the space-to-depth stem
     s2d_path(g, x, node_ms, smi, rows, counts, speed)
+    # the same model sharded: DP x TP, spatial, world 1, the pipeline
+    parallel_paths(g, x, smi, speed)
 
     # ResNet-50 b128 with fuse_chains: the same calibrated graph with the
     # wildcard region table that bench.py --fuse-chains sets

@@ -6,9 +6,11 @@ same thing to both engines.  What differs:
 - ``backend`` is ``"torch"`` (the plain float oracle, the role of the
   reference's ``"xla"``) or ``"cuda"`` (the hand-written kernels through
   ``kernels/dispatch.py``, the role of ``"pallas"``).
-- The fields whose pass or lowering is not ported yet (``sharding``,
-  ``compilation_cache_dir``) raise ``NotImplementedError`` when set
-  (``check_supported``).  ``fuse_blocks`` and ``fuse_chains`` run the
+- The field whose pass or lowering is not ported yet
+  (``compilation_cache_dir``) raises ``NotImplementedError`` when set
+  (``check_supported``).  ``sharding`` takes a
+  ``parallel.mesh.ShardingConfig`` (the engines of ``parallel/`` on
+  ``torch.distributed``).  ``fuse_blocks`` and ``fuse_chains`` run the
   region-fusion passes, ``concat_dus`` the concat-ladder pass and
   ``s2d_stem`` the space-to-depth stem pass, as in the reference.
 - The TPU formulation flags (``lrn_band``, ``shuffle_matmul``,
@@ -27,7 +29,6 @@ __all__ = ["EngineConfig", "apply_baked_overrides"]
 
 # Fields whose pass or lowering is not in the port yet -> what is missing.
 _NOT_PORTED = {
-    "sharding": "parallel/ (sharded engines)",
     "compilation_cache_dir": "a compiled-executable cache (the port runs "
                              "eagerly)",
 }
@@ -68,7 +69,7 @@ class EngineConfig:
     quant: Optional[str] = None
     # Per-layer conv algorithm override: ((name or "*", algo), ...).
     algo_overrides: Tuple[Tuple[str, str], ...] = ()
-    # Not ported: parallel/ (sharded engines).
+    # Parallelism: None (one process) or a ShardingConfig (parallel/mesh.py).
     sharding: Optional[Any] = None
     # Pallas interpreter mode in the reference.  In the port a CPU tensor
     # always takes a kernel's plain version, so the flag only means "on
@@ -112,11 +113,17 @@ class EngineConfig:
 
     def check_supported(self) -> None:
         """Raise ``NotImplementedError`` for a field set to a value whose
-        pass or lowering the port does not have yet, and ``ValueError``
-        for an unknown backend."""
+        pass or lowering the port does not have yet, ``ValueError`` for an
+        unknown backend and ``TypeError`` for a ``sharding`` that is not a
+        ``ShardingConfig``."""
         if self.backend not in ("torch", "cuda"):
             raise ValueError(f"unknown backend {self.backend!r}: the port "
                              "has 'torch' (oracle) and 'cuda' (kernels)")
+        from .parallel.mesh import ShardingConfig
+        if self.sharding is not None and not isinstance(self.sharding,
+                                                        ShardingConfig):
+            raise TypeError(f"EngineConfig.sharding={self.sharding!r}: "
+                            "expected a parallel.mesh.ShardingConfig")
         defaults = {f.name: f.default for f in dataclasses.fields(self)}
         for name in _NOT_PORTED:
             if getattr(self, name) != defaults[name]:
@@ -137,7 +144,8 @@ class EngineConfig:
     @classmethod
     def from_json(cls, src) -> "EngineConfig":
         """Build from a dict, JSON string, or path to a JSON file.
-        ``algo_overrides`` may be given as a mapping."""
+        ``algo_overrides`` may be given as a mapping; ``sharding`` as a
+        dict of ShardingConfig fields."""
         import json
         import os
         if isinstance(src, (str, bytes)) and os.path.exists(src):
@@ -156,9 +164,13 @@ class EngineConfig:
                 d[fld] = tuple(d[fld].items())
             elif d.get(fld):
                 d[fld] = tuple(tuple(kv) for kv in d[fld])
-        if d.get("sharding") is not None:
-            raise NotImplementedError(
-                "EngineConfig.sharding: parallel/ is not ported yet")
+        if isinstance(d.get("sharding"), dict):
+            from .parallel.mesh import ShardingConfig
+            s = dict(d["sharding"])
+            for k in ("mesh_shape", "axis_names"):
+                if k in s:
+                    s[k] = tuple(s[k])
+            d["sharding"] = ShardingConfig(**s)
         return cls(**d)
 
     def to_json(self) -> str:

@@ -16,6 +16,15 @@ is the reference's ahead-of-time step here: one forward at the declared
 shapes, which moves the weights to the device and makes each node's kept
 constants.
 
+Under ``EngineConfig(sharding=ShardingConfig(...))`` the engine is one
+rank of a ``(data, model)`` mesh of processes (``parallel/mesh.py``): every
+rank calls it with the same global input and gets the global output back,
+as ``np.asarray`` of the reference's sharded output gives it.  Each rank
+runs its slice of the batch (DP), its output-channel slice of each TP node
+on a rank-local copy of the graph made once here (``parallel/tp.py``), or
+its rows of H (spatial), through ``ops.lowering.lower_sharded``; a mesh of
+one rank runs the plain path and no collective.
+
 A model comes from a builder of ``models/``, from ``Engine.from_path`` (a
 ``.ftpu`` file, read by the C++ loader of ``native.py`` or by
 ``model_format.py``), or, already optimized and
@@ -39,7 +48,7 @@ import torch
 
 from .config import EngineConfig, apply_baked_overrides
 from .ir import Graph, infer_shapes
-from .ops.lowering import LoweringCtx, lower_node
+from .ops.lowering import LoweringCtx, lower_node, lower_sharded
 from .passes import optimize
 
 __all__ = ["Engine", "resolve_device"]
@@ -121,8 +130,23 @@ class Engine:
             space_to_depth_stem(self.graph)
         infer_shapes(self.graph)
         self.graph.validate()
+        self._init_lowering()
+
+    def _init_lowering(self) -> None:
+        """The mesh (``config.sharding``), the rank-local graph (TP slices,
+        made once) and the lowering context over it."""
         self._device_params: Optional[Dict[str, torch.Tensor]] = None
-        self._ctx = LoweringCtx(self.graph, self.config, self.device)
+        self._mesh, self._local, tp = None, self.graph, {}
+        if self.config.sharding is not None:
+            from .parallel.mesh import build_mesh
+            from .parallel.tp import shard_graph
+            mesh = build_mesh(self.config.sharding)
+            if mesh.size > 1:
+                self._mesh = mesh
+                self._local, tp = shard_graph(self.graph, mesh,
+                                              self.config.sharding)
+        self._ctx = LoweringCtx(self._local, self.config, self.device,
+                                mesh=self._mesh, tp=tp)
 
     # ------------------------------------------------------------------
     @classmethod
@@ -139,8 +163,7 @@ class Engine:
         self.graph = copy.deepcopy(graph)
         infer_shapes(self.graph)
         self.graph.validate()
-        self._device_params = None
-        self._ctx = LoweringCtx(self.graph, self.config, self.device)
+        self._init_lowering()
         return self
 
     @classmethod
@@ -189,11 +212,11 @@ class Engine:
             return self._device_params
         cdtype = getattr(torch, self.config.compute_dtype)
         weight_names = set()
-        for n in self.graph.nodes:
+        for n in self._local.nodes:
             if n.op in ("Convolution", "InnerProduct") and n.params:
                 weight_names.add(n.params[0])
         out: Dict[str, torch.Tensor] = {}
-        for k, v in self.graph.params.items():
+        for k, v in self._local.params.items():
             # a loaded model's weights are read-only memmaps: copied here
             t = torch.from_numpy(np.require(v, requirements=("C", "W")))
             if (k in weight_names and t.dtype == torch.float32
@@ -206,7 +229,8 @@ class Engine:
     # ------------------------------------------------------------------
     def _forward(self, params: Dict[str, torch.Tensor],
                  inputs: Dict[str, torch.Tensor],
-                 wanted: Sequence[str]) -> Dict[str, torch.Tensor]:
+                 wanted: Sequence[str], layout=None
+                 ) -> Dict[str, torch.Tensor]:
         cdtype = getattr(torch, self.config.compute_dtype)
         env: Dict[str, torch.Tensor] = {}
         for name in self.graph.inputs:
@@ -219,6 +243,8 @@ class Engine:
         # under a profiler, each node's ops are one range named after it
         scope = (torch.profiler.record_function
                  if torch.autograd._profiler_enabled() else _no_scope)
+        if self._mesh is not None:
+            return self._forward_sharded(params, env, wanted, scope, layout)
         for node in self.graph.nodes:
             ins = [env[i] for i in node.inputs]
             ps = [params[p] for p in node.params]
@@ -227,6 +253,52 @@ class Engine:
             for name, val in zip(node.outputs, outs):
                 env[name] = val
         return {w: env[w] for w in wanted}
+
+    def _forward_sharded(self, params, env, wanted, scope, layout):
+        """The forward of one rank: ``env`` holds this rank's pieces of the
+        inputs, split by ``layout`` (``_split_inputs``); returns the global
+        values of ``wanted``.  A TP node's channel slice is all-gathered
+        once, before its first reader that does not take it through the
+        ring (``takes_ring``); an output is gathered on channels, then on
+        H in the model group, then on the batch in the data group."""
+        from .ops.lowering import gather_channels, takes_ring
+        from .parallel.mesh import gather_shards
+        scfg, mesh, ctx = self.config.sharding, self._mesh, self._ctx
+        lay = {name: "rows" if layout[name][1:2] == (scfg.model_axis,)
+               else None for name in env}
+        for node in self._local.nodes:
+            for i, name in enumerate(node.inputs):
+                if lay[name] == "chans" and not (
+                        i == 0 and takes_ring(node, env[name], ctx)):
+                    env[name], lay[name] = gather_channels(env[name],
+                                                           ctx), None
+            ins = [env[i] for i in node.inputs]
+            ps = [params[p] for p in node.params]
+            with scope(node.name):
+                outs, lays = lower_sharded(node, ins, ps, ctx,
+                                           [lay[i] for i in node.inputs])
+            for name, val, value_layout in zip(node.outputs, outs, lays):
+                env[name], lay[name] = val, value_layout
+        batch = any(spec[:1] == (scfg.data_axis,)
+                    for spec in layout.values())
+        out = {}
+        for w in wanted:
+            v = gather_channels(env[w], ctx) if lay[w] == "chans" else env[w]
+            spec = (scfg.data_axis if batch else None,
+                    scfg.model_axis if lay[w] == "rows" else None,
+                    None, None)
+            out[w] = gather_shards(v, spec[:v.dim()], mesh)
+        return out
+
+    def _split_inputs(self, tensors: Dict[str, torch.Tensor]):
+        """(this rank's piece of each global input, the layouts they were
+        split by: ``value_pspec`` at each input's runtime shape)."""
+        from .parallel.mesh import local_shard, value_pspec
+        layout = {k: value_pspec(self.config.sharding, self._mesh,
+                                 tuple(t.shape))
+                  for k, t in tensors.items()}
+        return ({k: local_shard(t, layout[k], self._mesh)
+                 for k, t in tensors.items()}, layout)
 
     @torch.inference_mode()
     def run(self, inputs: Union[np.ndarray, torch.Tensor, Dict[str, Any]],
@@ -256,7 +328,10 @@ class Engine:
                     f"{spec.shape} (batch/spatial may vary, channels/rank "
                     f"may not)")
             tensors[name] = x.to(self.device)
-        return self._forward(self._prepare_params(), tensors, wanted)
+        layout = None
+        if self._mesh is not None:
+            tensors, layout = self._split_inputs(tensors)
+        return self._forward(self._prepare_params(), tensors, wanted, layout)
 
     def compile(self, batch: Optional[int] = None) -> None:
         """The reference's ahead-of-time step: one forward on zeros at the

@@ -13,6 +13,12 @@ module, as there:
 
 An op with no lowering here raises ``NotImplementedError`` naming it
 (``lower_node``); every op of the reference has one.
+
+A sharded engine (``EngineConfig.sharding``, ``parallel/``) lowers each
+node through ``lower_sharded``, which adds what GSPMD adds in the
+reference: the all-gather of a TP node's channel slice (``gather_channels``)
+or, under ``ring_overlap``, the ring collective matmul in its place
+(``takes_ring``), and the spatial halo exchange or H gather.
 """
 
 from __future__ import annotations
@@ -25,20 +31,28 @@ import torch.nn.functional as F
 
 from ..ir import Graph, Node, conv_out_dim
 
-__all__ = ["LoweringCtx", "lower_node", "register_lowering",
+__all__ = ["LoweringCtx", "lower_node", "lower_sharded", "takes_ring",
+           "gather_channels", "register_lowering",
            "apply_activation", "apply_act_segments", "conv_hparams"]
 
 
 class LoweringCtx:
     """Carried through lowering: config, graph, device, per-node quant
     metadata, and the device copies of per-node constants (scales, clamp
-    bounds) made once and reused every forward."""
+    bounds) made once and reused every forward.  A sharded engine sets
+    ``mesh`` (``parallel.mesh.Mesh``) and ``tp`` (``parallel.tp.
+    shard_graph``'s TP node name -> (c0, c1, the input channels a
+    depthwise conv reads); ``graph`` is then its rank-local copy)."""
 
-    def __init__(self, graph: Graph, config, device: torch.device):
+    def __init__(self, graph: Graph, config, device: torch.device,
+                 mesh=None, tp: Optional[Dict[str, tuple]] = None):
         self.graph = graph
         self.config = config
         self.device = device
+        self.mesh = mesh
+        self.tp = tp or {}
         self._consts: Dict[tuple, torch.Tensor] = {}
+        self._halo_nodes: Dict[str, Node] = {}
 
     @property
     def backend(self) -> str:
@@ -191,6 +205,13 @@ def _lower_conv(node, inputs, params, ctx):
         return [kdispatch.conv_forward(node, x, w, bias, ctx)]
 
     x, w = _dequant_for_oracle(x, w, ctx.qinfo(node), node, ctx)
+    if _ring_chunk(ctx, node, x.shape[-1], w.shape[-2]):
+        # a TP pointwise conv is the FC's product reshaped: the same ring
+        nb, hh, wb, cc = x.shape
+        y = _ring_tp_matmul(ctx, x.reshape(-1, cc),
+                            w.reshape(w.shape[-2], -1), bias)
+        y = apply_activation(y, act)
+        return [y.to(x.dtype).reshape(nb, hh, wb, -1)]
     y = nchw_conv(x.float(), w.float(), (sh, sw), (ph, pw), dil, group)
     if bias is not None:
         y = y + bias
@@ -215,6 +236,9 @@ def _lower_fc(node, inputs, params, ctx):
         return [kdispatch.fc_forward(node, x, w, bias, ctx)]
 
     x, w = _dequant_for_oracle(x, w, ctx.qinfo(node), node, ctx)
+    if w.dim() == 2 and _ring_chunk(ctx, node, x.shape[-1], w.shape[0]):
+        y = _ring_tp_matmul(ctx, x, w, bias)
+        return [apply_activation(y, act).to(x.dtype)]
     y = x.float() @ w.float()
     if bias is not None:
         y = y + bias
@@ -1646,3 +1670,174 @@ def _lower_dropout(node, inputs, params, ctx):
 @register_lowering("Split")
 def _lower_split(node, inputs, params, ctx):
     return [inputs[0] for _ in node.outputs]
+
+
+# ----------------------------------------------------------------------
+# Sharded lowering (parallel/): what GSPMD inserts in the reference
+# ----------------------------------------------------------------------
+
+# Ops whose output rows read only the same rows of their inputs: under
+# shard_spatial they run on this rank's rows.  Concat, Slice and Softmax
+# join them when their axis is the channels.
+_ROW_LOCAL = frozenset({
+    "ReLU", "ReLU6", "Eltwise", "Sigmoid", "Scale", "Axpy", "Bias",
+    "BatchNorm", "PReLU", "TanH", "ELU", "AbsVal", "Exp", "Log", "BNLL",
+    "Power", "Threshold", "Dropout", "Split", "ShuffleChannel"})
+_CHANNEL_AXIS_OPS = frozenset({"Concat", "Slice", "Softmax"})
+
+
+def _model_group(ctx):
+    return ctx.mesh.groups[ctx.config.sharding.model_axis]
+
+
+def takes_ring(node: Node, x: torch.Tensor, ctx) -> bool:
+    """True when TP node ``node`` reads ``x``, this rank's channel slice of
+    a TP node's output (its K chunk), through the ring collective matmul
+    (``ShardingConfig.ring_overlap``): an InnerProduct on a 2-D or 1x1
+    input, or a 1x1 stride-1 unpadded ungrouped conv without
+    ``act_segments``.  The ring then takes the place of ``x``'s all-gather
+    (``gather_channels``), as it takes GSPMD's in the reference.  The
+    reference takes the ring off its Pallas branch only, so on the "cuda"
+    backend ``x`` is gathered and the kernels run on column slices."""
+    if (ctx.backend == "cuda" or not ctx.config.sharding.ring_overlap
+            or node.name not in ctx.tp):
+        return False
+    if node.op == "InnerProduct":
+        return (np.ndim(ctx.graph.params[node.params[0]]) == 2
+                and (x.dim() == 2 or (x.dim() == 4
+                                      and x.shape[1] * x.shape[2] == 1)))
+    kh, kw, sh, sw, ph, pw, dil, group = conv_hparams(node)
+    return (node.op == "Convolution" and not node.attrs.get("act_segments")
+            and group == 1 and dil == 1 and kh == kw == 1 and sh == sw == 1
+            and ph == pw == 0)
+
+
+def gather_channels(x: torch.Tensor, ctx) -> torch.Tensor:
+    """A TP node's output from this rank's channel slice: all-gathered on
+    channels in the model group."""
+    from ..parallel.dist import all_gather
+    return all_gather(x.contiguous(), x.dim() - 1, _model_group(ctx))
+
+
+def _ring_chunk(ctx, node: Node, k_x: int, k_w: int) -> bool:
+    """True when ``x`` (K ``k_x``) is this rank's K chunk of the ``k_w``
+    rows ``node``'s weight contracts: the engine handed it ungathered
+    because ``takes_ring`` admitted the node."""
+    return (node.name in ctx.tp
+            and k_x * ctx.mesh.shape[ctx.config.sharding.model_axis] == k_w)
+
+
+def _ring_tp_matmul(ctx, xm, wm, bias):
+    """(M, K/n) this rank's K chunk @ (K, N/n) through
+    ``parallel.overlap.allgather_matmul`` in its ``w_sharded_out`` form:
+    the chunks go round the model group's ring while the chunks that
+    arrived are multiplied; returns f32 (the caller applies activation and
+    dtype)."""
+    from ..parallel.overlap import allgather_matmul
+    b32 = bias.float() if bias is not None else None
+    return allgather_matmul(_model_group(ctx), xm.float().contiguous(),
+                            wm.float(), bias=b32, w_sharded_out=True)
+
+
+def _row_shard(x: torch.Tensor, ctx) -> torch.Tensor:
+    n = ctx.mesh.shape[ctx.config.sharding.model_axis]
+    me = ctx.mesh.coords[ctx.config.sharding.model_axis]
+    step = x.shape[1] // n
+    return x[:, me * step:(me + 1) * step]
+
+
+def _halo_node(node: Node, ctx) -> Node:
+    """The node as each rank runs it on its halo-extended rows: no pad in
+    H (the halo and the edge ranks' zero rows are the padding)."""
+    mine = ctx._halo_nodes.get(node.name)
+    if mine is None:
+        pw = conv_hparams(node)[5]
+        mine = Node(name=node.name, op=node.op, inputs=node.inputs,
+                    outputs=node.outputs, params=node.params,
+                    attrs={**node.attrs, "pad_h": 0, "pad_w": pw})
+        ctx._halo_nodes[node.name] = mine
+    return mine
+
+
+def _spatial_conv_ok(node: Node, h_local: int) -> bool:
+    """A conv over rows split on the model axis runs as
+    ``parallel.spatial.spatial_conv2d`` when each shard is phase-aligned
+    (``h_local`` a multiple of the stride), undilated, its output H is
+    H/stride (``KH - stride <= 2 pad <= KH - 1``) and its halos come from
+    the neighbours alone.  Any other conv gathers H first (the port's form
+    of the reference's ``_spatial_small_h_fix``)."""
+    from ..parallel.spatial import halo_rows
+    kh, kw, sh, sw, ph, pw, dil, group = conv_hparams(node)
+    lo, hi = halo_rows(kh, sh, ph)
+    return (node.op == "Convolution" and dil == 1 and h_local % sh == 0
+            and kh - sh <= 2 * ph <= kh - 1 and lo <= h_local
+            and hi <= h_local)
+
+
+def _row_local(node: Node, inputs) -> bool:
+    if node.op in _ROW_LOCAL:
+        return True
+    if node.op in _CHANNEL_AXIS_OPS and inputs[0].dim() == 4:
+        return node.attrs.get("axis", -1) % 4 == 3
+    return False
+
+
+def lower_sharded(node: Node, inputs, params, ctx: LoweringCtx, layouts):
+    """Lower ``node`` on a rank of a mesh.  ``layouts[i]`` says what input i
+    holds beside this rank's batch slice under DP: ``"rows"`` its rows of
+    H (spatial mode), ``"chans"`` its K chunk of a TP node's output (only
+    as the first input of a node that ``takes_ring``: the engine gathers
+    such a value, ``gather_channels``, before any other reader), None the
+    whole value.  Returns (outputs, their layouts).
+
+    - A TP node (``ctx.tp``) computes its output-channel slice, ``"chans"``
+      (a depthwise conv on the input channels it reads).
+    - Spatial: a conv over split rows that ``_spatial_conv_ok`` admits
+      exchanges halos and runs on its rows; a row-local op runs on its
+      rows (a whole input of the same H sliced to them, an H of 1
+      broadcast); every other node gathers H first, and each rank-4
+      output whose H divides the model axis is sliced back to its rows."""
+    from ..parallel.dist import all_gather
+    if node.name in ctx.tp:
+        reads = ctx.tp[node.name][2]
+        if reads is not None:
+            inputs = ([inputs[0][..., reads[0]:reads[1]].contiguous()]
+                      + list(inputs[1:]))
+        return lower_node(node, inputs, params, ctx), ["chans"]
+    rows = [lay == "rows" for lay in layouts]
+    scfg = ctx.config.sharding
+    n = ctx.mesh.shape[scfg.model_axis]
+    if not (scfg.shard_spatial and n > 1):
+        return lower_node(node, inputs, params, ctx), [None] * len(
+            node.outputs)
+    if rows and rows[0] and _spatial_conv_ok(node, inputs[0].shape[1]):
+        from ..parallel.spatial import halo_exchange, halo_rows
+        kh, _, sh, _, ph, _, _, _ = conv_hparams(node)
+        h_local = inputs[0].shape[1]
+        xh = halo_exchange(inputs[0].contiguous(), _model_group(ctx),
+                           *halo_rows(kh, sh, ph))
+        (y,) = lower_node(_halo_node(node, ctx), [xh] + list(inputs[1:]),
+                          params, ctx)
+        return [y[:, :h_local // sh]], ["rows"]
+    if any(rows) and _row_local(node, inputs):
+        h = next(x.shape[1] for x, r in zip(inputs, rows) if r)
+        aligned = []
+        for x, r in zip(inputs, rows):
+            if r or x.dim() != 4 or x.shape[1] == 1:
+                aligned.append(x)
+            elif x.shape[1] == h * n:
+                aligned.append(_row_shard(x, ctx))
+            else:
+                break
+        if len(aligned) == len(inputs):
+            outs = lower_node(node, aligned, params, ctx)
+            return outs, ["rows" if o.dim() == 4 else None for o in outs]
+    group = _model_group(ctx)
+    whole = [all_gather(x.contiguous(), 1, group) if r else x
+             for x, r in zip(inputs, rows)]
+    outs, out_layouts = [], []
+    for y in lower_node(node, whole, params, ctx):
+        split = y.dim() == 4 and y.shape[1] % n == 0
+        outs.append(_row_shard(y, ctx) if split else y)
+        out_layouts.append("rows" if split else None)
+    return outs, out_layouts

@@ -9,9 +9,14 @@ One process owning the card, callers over HTTP (POST /infer with .npy or
 JSON; GET /healthz, /metrics).  A ``--model`` file loads through the C++
 mmap loader (``Engine.from_path``), and the server batches on the C++
 queue.  Like every entry point of the port it runs on the GPU unless
-``--device cpu`` asks for the CPU, and raises on a host without one.  The
-reference's multi-host start (``maybe_initialize_distributed``) is not
-here: the port's ``parallel/`` is not ported yet.  Float32 convolutions
+``--device cpu`` asks for the CPU, and raises on a host without one.
+Multi-process: with the FEATHERCNN_* env triple set
+(``FEATHERCNN_COORDINATOR=tcp://host:port``, ``FEATHERCNN_NUM_PROCESSES``,
+``FEATHERCNN_PROCESS_ID``) each process joins the group first
+(``parallel.maybe_initialize_distributed``) and prints ``distributed:
+process i/n`` on stderr; every batch then runs on rank 0's plan
+(``broadcast_plan``).  ``--dist-backend`` is NCCL on the GPU, gloo on the
+CPU; processes that share one GPU must ask for gloo.  Float32 convolutions
 and products on the card compute in float32 (TF32 off, as the port's
 tests and ``chip_smoke.py`` hold them), so an answer equals the engine's
 direct run.  SIGINT or SIGTERM stops the server.
@@ -54,9 +59,22 @@ def main(argv=None):
                     metavar="NAME=V1,V2,...",
                     help="fixed flat value for an extra graph input "
                     "(reshaped to its spec); repeatable")
+    ap.add_argument("--dist-backend", default=None, choices=("nccl", "gloo"),
+                    help="process group backend under the FEATHERCNN_* env "
+                    "triple (default: nccl on cuda, gloo on cpu)")
     args = ap.parse_args(argv)
 
     import torch
+
+    # Multi-process start before the first use of the device: env-gated,
+    # a no-op for one process.
+    from ..parallel import maybe_initialize_distributed
+    backend = args.dist_backend or (
+        "gloo" if args.device == "cpu" else "nccl")
+    if maybe_initialize_distributed(backend):
+        import torch.distributed as dist
+        print(f"distributed: process {dist.get_rank()}/"
+              f"{dist.get_world_size()}", file=sys.stderr, flush=True)
 
     from .. import Engine, EngineConfig
     from ..utils.timing import default_extra_inputs
@@ -103,16 +121,21 @@ def main(argv=None):
     srv.start()
     front = HttpFrontend(srv, host=args.host, port=args.port)
     signal.signal(signal.SIGTERM, _interrupt)
-    print(f"serving on {args.host}:{front.port} "
-          f"(POST /infer, GET /healthz, GET /metrics)",
-          file=sys.stderr, flush=True)
     try:
+        # inside the try: a SIGTERM right after this line still stops the
+        # server cleanly
+        print(f"serving on {args.host}:{front.port} "
+              f"(POST /infer, GET /healthz, GET /metrics)",
+              file=sys.stderr, flush=True)
         front.serve_forever()
     except KeyboardInterrupt:
         pass
     finally:
         front.stop()
         srv.stop()
+        import torch.distributed as dist
+        if dist.is_initialized():
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -151,6 +151,12 @@ class HttpFrontend:
         self._httpd.serve_forever()
 
     def stop(self) -> None:
-        self._httpd.shutdown()
+        """Stop the loop ``start`` runs in its thread, and close the
+        socket.  A ``serve_forever`` in the caller's own thread has ended
+        by the time the caller gets here (the CLI's, on SIGTERM), and
+        ``socketserver``'s ``shutdown`` would wait forever for a loop that
+        a signal kept from starting."""
         if self._thread:
+            self._httpd.shutdown()
             self._thread.join(timeout=5)
+        self._httpd.server_close()

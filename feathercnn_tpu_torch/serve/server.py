@@ -1,8 +1,9 @@
 """Continuous-batching inference server — counterpart of
 ``feathercnn_tpu/serve/server.py`` over the port's ``Engine``.
 
-One process: ``broadcast_plan`` is the identity (multi-host serving is not
-ported), and the queue is the C++ one (``native.NativeBatchQueue``), or
+Across processes (``parallel.maybe_initialize_distributed``) every
+process enters each batch with rank 0's plan (``broadcast_plan``); in one
+process that is the identity.  The queue is the C++ one (``native.NativeBatchQueue``), or
 the Python one with ``prefer_native_queue=False``.  With ``pipeline_depth`` > 1
 batch k+1 is dispatched before batch k is fetched: PyTorch's CUDA calls
 return before the card finishes, so the next batch's host->device copy and
@@ -36,8 +37,13 @@ class InferenceFailed(RuntimeError):
 
 
 def broadcast_plan(n_real: int) -> int:
-    """Agree on the batch plan across hosts.  One process: the identity
-    (multi-host serving is not ported)."""
+    """Agree on the batch plan across processes: rank 0's ``n_real`` on
+    every rank when the process group has more than one; else the
+    identity."""
+    import torch.distributed as dist
+    if dist.is_initialized() and dist.get_world_size() > 1:
+        from ..parallel.dist import broadcast
+        return int(broadcast(torch.tensor([n_real], dtype=torch.int32))[0])
     return n_real
 
 

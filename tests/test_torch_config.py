@@ -33,10 +33,13 @@ def test_engine_checks_input_shapes():
 
 
 def test_unported_config_fields_raise_naming_them():
-    for field, value in [("sharding", object()),
-                         ("compilation_cache_dir", "cache")]:
-        with pytest.raises(NotImplementedError, match=field):
-            Engine(_graph(), EngineConfig(**{field: value}), device="cpu")
+    """``compilation_cache_dir`` is not ported; ``sharding`` is, and takes
+    a ShardingConfig only."""
+    with pytest.raises(NotImplementedError, match="compilation_cache_dir"):
+        Engine(_graph(), EngineConfig(compilation_cache_dir="cache"),
+               device="cpu")
+    with pytest.raises(TypeError, match="sharding"):
+        Engine(_graph(), EngineConfig(sharding=object()), device="cpu")
 
 
 def test_unported_op_raises_naming_it():
@@ -73,5 +76,18 @@ def test_config_json_round_trip_and_backends():
                        algo_overrides=(("*", "xla"),),
                        fp_act_layers=("conv1",))
     assert EngineConfig.from_json(cfg.to_json()) == cfg
+    # a ShardingConfig goes through JSON as the reference's does: as a dict
+    # of its fields, tuples restored
+    from feathercnn_tpu.config import EngineConfig as JConfig
+    from feathercnn_tpu.parallel import ShardingConfig as JSharding
+    from feathercnn_tpu_torch.parallel import ShardingConfig
+    sharded = cfg.replace(sharding=ShardingConfig(
+        mesh_shape=(2, 4), shard_spatial=True, ring_overlap=True))
+    back = EngineConfig.from_json(sharded.to_json())
+    assert back == sharded and isinstance(back.sharding, ShardingConfig)
+    ref = JConfig.from_json(sharded.to_json())
+    assert ref.sharding == JSharding(mesh_shape=(2, 4), shard_spatial=True,
+                                     ring_overlap=True)
+    assert EngineConfig.from_json(ref.to_json()) == sharded
     with pytest.raises(ValueError, match="backend"):
         EngineConfig(backend="pallas").check_supported()
