@@ -34,7 +34,28 @@ float activations; the bf16 paths run ``quant=None`` in bf16:
   on >= 99% of the images, prob cosine >= 0.9999), ms per batch per rank
   (the ranks time-share the card: not scaling figures), and rank 0's
   launches (the pipeline's) each timed alone on the card beside its
-  bound, summed per kernel;
+  bound, summed per kernel; then the tools (``tools_path``): the ResNet-50
+  deploy of ``tools/deploys`` with its seeded synthetic caffemodel
+  converted by the port's converter at b128; ``validate`` on 256 seeded
+  ``.npy`` images (a bf16 fp leg, a w8a8 leg of 33 + 16 launches a
+  forward, every launch of both held to its plain version); ``tune`` in
+  bf16 (per conv signature: cuDNN's conv, B1/B2, Winograd) and
+  ``tune_regions`` in w8a8 (the chain kernel against the per-layer path)
+  baked into the file, which ``Engine.from_path`` reloads with both taken
+  (its launches held to plain, its output bit-equal to an engine built
+  with the same choices); ``tune_flags`` for one round; ``engine_loop`` +
+  ``slope_time`` and ``layer_timings`` beside the main path's forward,
+  ``trace``'s file, ``run_model`` on the tuned file, ``verify_gpu`` (the
+  card against the port on the CPU: ResNet-50 w8a8 b4, cosine >= 0.995 and
+  top-1 1.0; MobileNet-SSD on its pre-NMS tensors) and ``diff_blobs``
+  (quant none against w8a8); two child processes with one fresh
+  ``compilation_cache_dir``, the first building the kernels there, the
+  second loading them unbuilt; and the int8 conv forms the port used to
+  refuse (``CONV_FORM_CASES``: 3x3 at stride (1, 2) and (2, 1), a 1x1 at
+  (2, 1), a group-32 conv with two outputs a channel, depthwise at stride
+  3 and with ``act_segments``) at full width through the dispatcher, each
+  launch counted, equal to plain and timed beside its bound and bf16
+  ``F.conv2d(stride=(sh, sw), groups=g)``;
 - MobileNet-v1 at batch 256 on its default route, where its 13 depthwise
   convs take the int8 depthwise kernel, and with the 13 ``*/dw`` layers
   overridden to "depthwise" (the float depthwise kernel, int8 in);
@@ -262,8 +283,8 @@ Phases, each printing its own lines:
 The order: ResNet-50 (phases 2-4) and its node check, the multiply-add
 check, the ragged cases (5), the server (6),
 the loaded ResNet-50 (2-4) and the CLI over HTTP, ResNet-50 with
-``s2d_stem`` (2-4) and its node check, the parallel paths, ResNet-50 with
-``fuse_chains``,
+``s2d_stem`` (2-4) and its node check, the parallel paths, the tools
+phase, ResNet-50 with ``fuse_chains``,
 the two bf16 ResNet-50 paths, the
 MobileNets, the boundary probe (7), VGG-16 (w8, w8 Winograd, w8a8),
 GoogLeNet and its server, AlexNet, SqueezeNet (fp32, w8a8), the rest of
@@ -484,6 +505,11 @@ EXPECTED = {
     # buffer appends (PyTorch copies): DenseNet-121's launches
     "densenet121 b128 concat_dus": {**_ZERO, "matmul_epilogue": 62,
                                     "conv2d_implicit_gemm": 58},
+    # the int8 conv forms of the tools phase (CONV_FORM_CASES), one launch
+    # each: the 1x1 at stride (2, 1) on B1; the 3x3 ones on B2, the two
+    # depthwise-shaped ones (stride 3, act_segments) as super-groups
+    "conv forms": {**_ZERO, "matmul_epilogue": 1, "conv2d_implicit_gemm": 5,
+                   "conv2d_implicit_gemm_grouped": 2},
 }
 # The two rewrite-pass paths' graphs: SpaceToDepth nodes, and ladders,
 # appends and Concats left (tests/test_ladder.py's counts).
@@ -885,7 +911,7 @@ def supergroup_of(a):
     if group == 1:
         return None
     kh, kw, s, co = a["w"].shape
-    q = supergroup(a["x"].shape[3], co, group, (kh, kw))[0]
+    q = supergroup(a["x"].shape[3], co, group, (kh, kw), a["stride"])[0]
     return (group, q, s) if q else None
 
 
@@ -965,6 +991,13 @@ def chain_ops(a):
     return 2.0 * n * h * w * (2 * c * cm + 9 * cm * cm) * nb
 
 
+def strides(a):
+    """(sh, sw) of a recorded conv launch: its ``stride``, an int or a
+    pair."""
+    s = a["stride"]
+    return (s, s) if isinstance(s, int) else tuple(s)
+
+
 def dims(kernel, a):
     """(M, K, N) of a GEMM-shaped launch, or (N, OH, OW, C, KH, KW) of a
     depthwise one."""
@@ -976,8 +1009,9 @@ def dims(kernel, a):
     nb, h, wd, c = x.shape
     kh, kw = w.shape[0], w.shape[1]
     d = a.get("dilation", 1)
-    oh = (h + 2 * a["pad_h"] - d * (kh - 1) - 1) // a["stride"] + 1
-    ow = (wd + 2 * a["pad_w"] - d * (kw - 1) - 1) // a["stride"] + 1
+    sh, sw = strides(a)
+    oh = (h + 2 * a["pad_h"] - d * (kh - 1) - 1) // sh + 1
+    ow = (wd + 2 * a["pad_w"] - d * (kw - 1) - 1) // sw + 1
     if kernel == "conv2d_implicit_gemm":
         return nb * oh * ow, kh * kw * c, w.shape[3]
     return nb, oh, ow, c, kh, kw
@@ -1360,8 +1394,8 @@ def forced_launch(kernel, a, out, plan, what):
         else:
             nb, h, w, c = a["x"].shape
             kh, kw, _, co = a["w"].shape
-            geometry = (nb, h, w, c, kh, kw, co, a["stride"], a["stride"],
-                        a["pad_h"], a["pad_w"])
+            geometry = (nb, h, w, c, kh, kw, co, *strides(a), a["pad_h"],
+                        a["pad_w"])
             d = a.get("dilation", 1)
             if d == 1:
                 rc = lib.fcnn_conv_implicit_gemm(
@@ -3869,8 +3903,8 @@ def s2d_path(g, x, main_ms, smi, rows, counts, speed):
     counts[label] = EXPECTED[label]
     r, speed[label], node_ms = run_path(label, g, cfg, eng, x, smi)
     rows += r
-    old = next(n.name for n in eng.graph.nodes
-               if n.op == "Convolution" and n.name in main_ms)
+    # the stem keeps the main path's 7x7 conv's name
+    old = stem.name
     # the two stems' cuDNN f32 convs alone, as the float branch runs them
     # (x upcast from bf16, the weight dequantized), on the path's images
     from feathercnn_tpu_torch.ops.lowering import lower_node, nchw_conv
@@ -3888,15 +3922,22 @@ def s2d_path(g, x, main_ms, smi, rows, counts, speed):
         f"20): 7x7 s2 on {tuple(x7.shape)} {ms7:.4f} ms, 4x4 s1 on "
         f"{tuple(x4.shape)} {ms4:.4f} ms ({smi})")
     del xb, xs, x7, x4, w7, w4
-    if node_ms and main_ms:
-        say("profile", f"{label}: stem {s2d[0].name} (SpaceToDepth) "
-            f"{node_ms[s2d[0].name]:.3f} ms + {stem.name} (cuDNN 4x4 s1 on "
-            f"{shape}) {node_ms[stem.name]:.3f} ms = "
-            f"{node_ms[s2d[0].name] + node_ms[stem.name]:.3f} ms, against "
-            f"the main path's 7x7 s2 {old} {main_ms[old]:.3f} ms; ms per "
-            f"batch {speed[label]:.2f} against {speed['resnet50 b128']:.2f}, "
-            f"device busy {BUSY.get(label, 0):.3f} against "
-            f"{BUSY.get('resnet50 b128', 0):.3f} ms ({smi})")
+    # a node whose device range the profiler did not keep in this run (the
+    # set of ranges it keeps varies from run to run) is "not measured"
+    def range_ms(ms, name):
+        return f"{ms[name]:.3f} ms" if name in ms else "not measured"
+
+    both = (node_ms[s2d[0].name] + node_ms[stem.name]
+            if s2d[0].name in node_ms and stem.name in node_ms else None)
+    say("profile", f"{label}: stem {s2d[0].name} (SpaceToDepth) "
+        f"{range_ms(node_ms, s2d[0].name)} + {stem.name} (cuDNN 4x4 s1 on "
+        f"{shape}) {range_ms(node_ms, stem.name)} = "
+        + ("not measured" if both is None else f"{both:.3f} ms")
+        + f", against the main path's 7x7 s2 {old} {range_ms(main_ms, old)}"
+        f"; ms per batch {speed[label]:.2f} against "
+        f"{speed['resnet50 b128']:.2f}, device busy "
+        f"{BUSY.get(label, 0):.3f} against "
+        f"{BUSY.get('resnet50 b128', 0):.3f} ms ({smi})")
     card_nodes(label, g, cfg, eng, x)
     del eng
     torch.cuda.empty_cache()
@@ -4070,8 +4111,8 @@ def cli_http(path, eng, smi):
     direct = eng(full).float().cpu().numpy()[:n].reshape(n, -1)
     del srv
 
-    lib = build._BUILD_ROOT / build._source_hash() / build._LIB_NAME
-    before = (sorted(os.listdir(build._BUILD_ROOT)), lib.stat().st_mtime_ns)
+    lib = build.library_dir() / build._LIB_NAME
+    before = (sorted(os.listdir(lib.parent.parent)), lib.stat().st_mtime_ns)
     root = os.path.dirname(os.path.abspath(__file__))
     cmd = [sys.executable, "-m", "feathercnn_tpu_torch.serve", "--model",
            path, "--quant", "w8a8", "--batch-size", str(BATCH), "--host",
@@ -4154,7 +4195,7 @@ def cli_http(path, eng, smi):
             proc.kill()
             rc = proc.wait()
     check(rc == 0, f"{label}: the CLI exited {rc}: " + "".join(log[-20:]))
-    after = (sorted(os.listdir(build._BUILD_ROOT)), lib.stat().st_mtime_ns)
+    after = (sorted(os.listdir(lib.parent.parent)), lib.stat().st_mtime_ns)
     check(after == before, f"{label}: the CLI rebuilt the kernels: "
           f"{before} -> {after}")
     say(label, f"python -m feathercnn_tpu_torch.serve --model "
@@ -4459,6 +4500,384 @@ def parallel_paths(g, x, smi, speed):
         f"collective through host memory")
 
 
+# ----------------------------------------------------------------------
+# tools path: from a Caffe deploy to an autotuned .ftpu, the timing,
+# profiling and cache utilities, and the int8 conv forms that were refused
+# ----------------------------------------------------------------------
+TOOLS_DEPLOY = os.path.join("tools", "deploys", "resnet50_deploy.prototxt")
+TOOLS_IMAGES = 256
+TOOLS_VALIDATE = "tools validate int8 leg"
+TOOLS_RELOAD = "tools autotuned .ftpu"
+CONV_FORMS = "conv forms"
+# the new int8 conv forms at full width: (case, x (N, H, W, C), Co, kernel,
+# (sh, sw), group, pad, act_segments)
+CONV_FORM_CASES = (
+    ("3x3 stride (1, 2)", (128, 56, 56, 64), 64, 3, (1, 2), 1, 1, None),
+    ("3x3 stride (2, 1)", (128, 56, 56, 64), 64, 3, (2, 1), 1, 1, None),
+    ("1x1 stride (2, 1)", (128, 56, 56, 256), 128, 1, (2, 1), 1, 0, None),
+    ("3x3 group 32, multiplier 2", (128, 112, 112, 32), 64, 3, (1, 1), 32,
+     1, None),
+    ("3x3 depthwise stride 3", (128, 112, 112, 64), 64, 3, (3, 3), 64, 1,
+     None),
+    ("3x3 depthwise act_segments", (256, 112, 112, 32), 32, 3, (1, 1), 32,
+     1, (("relu", 16), (None, 16))),
+)
+TOOLS_CHILD = """
+import json, sys, time
+sys.path.insert(0, {root!r})
+import torch
+from feathercnn_tpu_torch import Engine, EngineConfig
+from feathercnn_tpu_torch.kernels import build
+from feathercnn_tpu_torch.models.builder import GraphBuilder
+b = GraphBuilder("cache", seed=0)
+x = b.input("data", (1, 8, 8, 16))
+g = b.finish([b.conv("c", x, 16, 3, pad=1)])
+eng = Engine(g, EngineConfig(backend="cuda", compilation_cache_dir={d!r}))
+lib = build.library_dir() / build._LIB_NAME
+found = lib.exists()
+t0 = time.perf_counter()
+build.load_library()
+secs = time.perf_counter() - t0
+print(json.dumps({{"dir": str(lib.parent), "found": found, "seconds": secs,
+                   "mtime": lib.stat().st_mtime_ns,
+                   "device": str(eng.device)}}))
+"""
+
+
+def tools_convert(tmp):
+    """The deploy's seeded synthetic caffemodel and its ``.ftpu`` at
+    BATCH, by the port's ``synth_caffemodel`` and converter CLI; returns
+    (deploy, caffemodel, ftpu)."""
+    from feathercnn_tpu_torch.tools import convert_caffe
+    from feathercnn_tpu_torch.tools.synth_caffemodel import write_synth
+    root = os.path.dirname(os.path.abspath(__file__))
+    deploy = os.path.join(root, TOOLS_DEPLOY)
+    model = os.path.join(tmp, "resnet50.caffemodel")
+    path = os.path.join(tmp, "resnet50.ftpu")
+    t0 = time.perf_counter()
+    size = write_synth(deploy, model, seed=SEED)
+    t1 = time.perf_counter()
+    check(convert_caffe.main([deploy, model, path, "--batch", str(BATCH)])
+          == 0, "convert_caffe failed")
+    t2 = time.perf_counter()
+    say("tools", f"convert: {TOOLS_DEPLOY} with its seeded synthetic "
+        f"caffemodel ({size / 1e6:.1f} MB, written in {t1 - t0:.1f} s) -> "
+        f"{os.path.getsize(path) / 1e6:.1f} MB .ftpu at b{BATCH} in "
+        f"{t2 - t1:.1f} s")
+    return deploy, model, path
+
+
+def tools_validate(deploy, model, tmp, rng):
+    """``validate`` at BATCH on TOOLS_IMAGES seeded ``.npy`` images, its
+    fp leg in bf16 and its int8 leg w8a8, labels the fp leg's answers (so
+    the int8 leg's drop is its disagreement with fp); every launch of
+    both legs recorded and held to its plain version (``launch_rows``),
+    the int8 forwards' counts beside the main path's."""
+    import torch
+    from feathercnn_tpu_torch.tools.validate_real import validate
+    paths = []
+    for i in range(TOOLS_IMAGES):
+        paths.append(os.path.join(tmp, f"img{i:03d}.npy"))
+        np.save(paths[-1], rng.normal(0, 50, size=(224, 224, 3)).astype(
+            np.float32))
+    kw = dict(batch=BATCH, calib_n=BATCH, dtype="bfloat16")
+    fp = validate(deploy, model, paths, quant=None, **kw)["fp_top1_pred"]
+    labels = {os.path.basename(p): int(v) for p, v in zip(paths, fp)}
+    recorder = LaunchRecorder()
+    reset_counts()
+    t0 = time.perf_counter()
+    res = recorder.run(lambda: validate(deploy, model, paths, labels=labels,
+                                        **kw))
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = {k: v for k, v in read_counts().items() if v}
+    forwards = TOOLS_IMAGES // BATCH
+    want = {"matmul_epilogue": forwards * 34,
+            "conv2d_implicit_gemm": forwards * 16}
+    check(counts == want, f"validate: launches {counts}, expected {want} "
+          f"({forwards} bf16 forwards' FC and {forwards} w8a8 forwards' "
+          f"33 + 16)")
+    check(res["fp_top1_pred"] == fp and len(res["int8_top1_pred"]) ==
+          TOOLS_IMAGES and all(0 <= v < 1000 for v in res["int8_top1_pred"])
+          and {"fp_top1", "int8_top1", "top1_drop", "gate",
+               "gate_pass"} <= set(res), f"validate fields {sorted(res)}")
+    rows = launch_rows(TOOLS_VALIDATE, recorder.launches, timed=False,
+                       detail=False)
+    del recorder
+    say("tools", f"validate: {TOOLS_IMAGES} images at b{BATCH} in "
+        f"{secs:.1f} s (convert, bf16 fp leg, calibration on {BATCH}, w8a8 "
+        f"leg); launches {counts}: per w8a8 forward 33 + 16 as the zoo "
+        f"main path's 33 B1 and 16 B2, and the bf16 leg's FC; all "
+        f"{len(rows)} launches equal to plain (max err "
+        f"{max(r['max_abs_err'] for r in rows)}); fields "
+        + json.dumps({k: v for k, v in res.items()
+                      if not k.endswith("_pred")})
+        + " (random weights: the gate is informational)")
+
+
+def tools_autotune(path, smi, rng):
+    """``tune`` in bf16 (``xla`` is cuDNN's conv, beside B2's float body
+    and Winograd) and ``tune_regions`` in w8a8 on the converted model,
+    calibrated, both baked into ``path``; the file reloaded by
+    ``Engine.from_path`` with ``fuse_chains`` takes both (launches counted
+    and held to plain, output bit-equal to an engine built with the same
+    choices); then ``tune_flags`` with one round.  Returns the calibrated
+    graph."""
+    import torch
+    from feathercnn_tpu_torch import Engine
+    from feathercnn_tpu_torch.model_format import load_ftpu, save_ftpu
+    from feathercnn_tpu_torch.quant import calibrate
+    from feathercnn_tpu_torch.tools import autotune
+    g = load_ftpu(path, mmap_weights=False)
+    calibrate(g, [images(g, 8, rng) for _ in range(3)], method="max")
+    t0 = time.perf_counter()
+    eng = Engine(g, engine_config(quant=None))
+    overrides, rows = autotune.tune(eng.graph, "bfloat16", None, iters=10)
+    del eng
+    t1 = time.perf_counter()
+    seen = set()
+    for r in rows:
+        if "measured_ms" not in r or r["layer"] in seen:
+            continue
+        sig = (tuple(r["in"]), tuple(r["kernel"]), tuple(r["out"]))
+        same = [q["layer"] for q in rows if "measured_ms" in q and (
+            tuple(q["in"]), tuple(q["kernel"]), tuple(q["out"])) == sig]
+        seen.update(same)
+        say("autotune", f"{r['layer']} (x{len(same)}) in {r['in']} k"
+            f"{r['kernel']} out {r['out']}: "
+            + ", ".join(f"{a} {ms:.4f} ms ({r['kernels'][a]})"
+                        for a, ms in r["measured_ms"].items())
+            + f" -> {r['best_algo']}; bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']})")
+    say("autotune", f"tune bf16 b{BATCH}: {len(overrides)} non-xla choices "
+        f"{overrides} in {t1 - t0:.1f} s ({smi})")
+    regions = autotune.tune_regions(g, "bfloat16", "w8a8", iters=10)
+    t2 = time.perf_counter()
+    say("autotune", f"tune_regions w8a8 b{BATCH}: {regions} in "
+        f"{t2 - t1:.1f} s")
+    g.meta["algo_overrides"] = overrides
+    g.meta["chain_regions"] = regions
+    save_ftpu(g, path)
+    cfg = engine_config(fuse_chains=True)
+    loaded = Engine.from_path(path, cfg)
+    check(dict(loaded.config.algo_overrides) == overrides,
+          f"baked algo_overrides not taken: {loaded.config.algo_overrides}")
+    chains = [n for n in loaded.graph.nodes
+              if n.op in ("FusedChain", "FusedBottleneck")]
+    check(len({f"{loaded.graph.specs[n.inputs[0]].shape[1]}x"
+               f"{loaded.graph.specs[n.inputs[0]].shape[2]}x"
+               f"{loaded.graph.specs[n.inputs[0]].shape[3]}"
+               for n in chains}) == sum(regions.values()),
+          f"baked chain_regions {regions} not taken: {len(chains)} chains")
+    x = images(g, BATCH, rng)
+    recorder = LaunchRecorder()
+    reset_counts()
+    out = recorder.run(loaded, to_card(x))
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in read_counts().items() if v}
+    want = sum(n.attrs.get("nb", 1) for n in chains)
+    check(counts.get("fused_chain", 0) == want,
+          f"{TOOLS_RELOAD}: {counts} launches, {want} chain blocks")
+    rows = launch_rows(TOOLS_RELOAD, recorder.launches, timed=False,
+                       detail=False)
+    del recorder
+    direct = Engine(g, cfg.replace(algo_overrides=tuple(overrides.items())))
+    check(torch.equal(out, direct(to_card(x))),
+          f"{TOOLS_RELOAD}: output differs from the directly built engine")
+    del direct, loaded
+    say("autotune", f"{TOOLS_RELOAD} (Engine.from_path, fuse_chains): "
+        f"{len(overrides)} algo_overrides and {len(chains)} chain nodes "
+        f"(nb {[n.attrs.get('nb', 1) for n in chains]}) taken; launches "
+        f"{counts}, all {len(rows)} equal to plain (max err "
+        f"{max(r['max_abs_err'] for r in rows)}); output bit-equal to the "
+        f"engine built with the same choices")
+    torch.cuda.empty_cache()
+    t3 = time.perf_counter()
+    flags = autotune.tune_flags(g, "bfloat16", "w8a8", rounds=1, iters=2)
+    say("autotune", f"tune_flags w8a8 b{BATCH}, 1 round of 2 iterations: "
+        f"{flags} in {time.perf_counter() - t3:.1f} s")
+    torch.cuda.empty_cache()
+    return g
+
+
+def tools_measure(g, x, path, smi, speed):
+    """On the main path's engine: ``engine_loop`` + ``slope_time`` beside
+    the phase's own ``forward_ms``, ``layer_timings`` summed beside it,
+    ``trace`` writing its file, and ``run_model`` on the autotuned file;
+    then ``verify_gpu`` (ResNet-50 w8a8 b4, MobileNet-SSD) and
+    ``diff_blobs`` (quant none against w8a8)."""
+    import tempfile
+    import torch
+    from feathercnn_tpu_torch import Engine
+    from feathercnn_tpu_torch.models import resnet50
+    from feathercnn_tpu_torch.tools import diff_blobs, run_model, verify_gpu
+    from feathercnn_tpu_torch.utils.profiling import layer_timings, trace
+    from feathercnn_tpu_torch.utils.timing import engine_loop, slope_time
+    eng = Engine(g, engine_config())
+    xd = to_card(x)
+    ms = forward_ms(lambda: eng(xd))
+    loop, params, xl = engine_loop(eng, x)
+    float(loop(params, xl, 1))
+    slopes = [slope_time(loop, params, xl, warm=2, iters=10) * 1e3
+              for _ in range(3)]
+    lt = layer_timings(eng, x, iters=5)
+    top = sorted(lt.items(), key=lambda kv: -kv[1])[:3]
+    say("tools", f"resnet50 b{BATCH} w8a8: engine_loop + slope_time "
+        f"{statistics.median(slopes):.2f} ms per batch (3 slopes "
+        f"{', '.join(f'{v:.2f}' for v in slopes)}), forward_ms {ms:.2f}; "
+        f"layer_timings over {len(lt)} nodes sums to "
+        f"{sum(lt.values()):.2f} ms (top: "
+        + ", ".join(f"{k} {v:.3f}" for k, v in top) + f"; {smi})")
+    speed["resnet50 b128 engine_loop"] = statistics.median(slopes)
+    with tempfile.TemporaryDirectory() as tmp:
+        with trace(os.path.join(tmp, "trace")) as logdir:
+            eng(xd)
+            torch.cuda.synchronize()
+        files = [(f, os.path.getsize(os.path.join(logdir, f)))
+                 for f in os.listdir(logdir)]
+    check(len(files) == 1 and files[0][0].endswith(".pt.trace.json")
+          and files[0][1] > 0, f"trace wrote {files}")
+    say("tools", f"trace: {files[0][0]} ({files[0][1] / 1e6:.1f} MB)")
+    del eng, xd, loop, params, xl
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    check(run_model.main([path, "--batch", str(BATCH), "--dtype",
+                          "bfloat16", "--quant", "w8a8", "--loops", "5"])
+          == 0, "run_model failed")
+    say("tools", f"run_model on the autotuned .ftpu in "
+        f"{time.perf_counter() - t0:.1f} s")
+    for model, batch in (("resnet50", 4), ("mobilenet_ssd", 4)):
+        lines = []
+        ok = verify_gpu.verify(model, batch, "w8a8", "bfloat16",
+                               log=lines.append)
+        say("verify_gpu", " | ".join(lines))
+        check(ok, f"verify_gpu {model}: {lines[-1]}")
+    rows, out_name = diff_blobs.diff(
+        lambda: resnet50(batch=2, with_softmax=False, seed=SEED),
+        {"quant": None, "compute_dtype": "bfloat16"},
+        {"quant": "w8a8", "compute_dtype": "bfloat16"}, 2, SEED)
+    first = next((r for r in rows if r[1] < 0.999), None)
+    final = next(c for v, c, _ in rows if v == out_name)
+    say("diff_blobs", f"resnet50 b2 bf16 quant none vs w8a8: {len(rows)} "
+        f"values; first under 0.999: "
+        + (f"{first[0]} (cos {first[1]:.6f}, max|d| {first[2]:.4g})"
+           if first else "none")
+        + f"; final {out_name!r} cos {final:.6f}")
+    torch.cuda.empty_cache()
+
+
+def tools_cache():
+    """Two child processes with ``compilation_cache_dir`` naming one fresh
+    directory: the first builds the kernels there, the second finds them
+    and builds nothing."""
+    import tempfile
+    root = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as d:
+        got = []
+        for _ in range(2):
+            r = subprocess.run(
+                [sys.executable, "-c", TOOLS_CHILD.format(root=root, d=d)],
+                capture_output=True, text=True, timeout=600, cwd=root)
+            check(r.returncode == 0, f"cache child failed: {r.stderr[-2000:]}")
+            got.append(json.loads(r.stdout.strip().splitlines()[-1]))
+        first, second = got
+        check(first["dir"].startswith(os.path.realpath(d))
+              and first["dir"] == second["dir"],
+              f"cache dirs {first['dir']}, {second['dir']} not under {d}")
+        check(not first["found"] and second["found"]
+              and second["mtime"] == first["mtime"],
+              f"cache: first {first}, second {second}")
+    say("tools", f"cache: compilation_cache_dir built the kernels in a fresh "
+        f"directory in {first['seconds']:.1f} s (first child, on "
+        f"{first['device']}); the second child found them and loaded them "
+        f"in {second['seconds']:.2f} s, rebuilding nothing")
+
+
+def conv_forms(smi, rows, counts):
+    """The int8 conv forms that the port used to refuse, at full width,
+    through ``kernels/dispatch.conv_forward`` (``CONV_FORM_CASES``): each
+    launch counted, held to its plain version (int8 out, 0 LSB), timed
+    beside its bound and bf16 ``F.conv2d(stride=(sh, sw), groups=g)``."""
+    import torch
+    from feathercnn_tpu_torch.ir import Graph, Node, TensorSpec
+    from feathercnn_tpu_torch.kernels import dispatch
+    from feathercnn_tpu_torch.ops.lowering import LoweringCtx
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    recorder = LaunchRecorder()
+    reset_counts()
+    kept, cases = {}, []
+    for case, shape, co, k, (sh, sw), group, pad, segs in CONV_FORM_CASES:
+        n, h, w, c = shape
+        attrs = {"num_output": co, "kernel_size": k, "stride_h": sh,
+                 "stride_w": sw, "pad": pad, "group": group,
+                 "bias_term": True}
+        if segs:
+            attrs["act_segments"] = segs
+        else:
+            attrs["activation"] = "relu"
+        node = Node(case, "Convolution", ["x"], ["y"], attrs)
+        graph = Graph(name=case, inputs={"x": TensorSpec(shape, "int8")},
+                      outputs=["y"], nodes=[node], params={}, meta={})
+        q = {"x_scale": 0.05, "w_scale": np.full(co, 0.002, np.float32),
+             "y_scale": 0.5, "emit_int8": True}
+        ctx = LoweringCtx(graph, engine_config(), torch.device("cuda"))
+        ctx.qinfo = lambda _, q=q: q
+        x = torch.randint(-127, 128, shape, dtype=torch.int8, device="cuda",
+                          generator=gen)
+        wt = torch.randint(-127, 128, (k, k, c // group, co),
+                           dtype=torch.int8, device="cuda", generator=gen)
+        bias = torch.randn(co, device="cuda", generator=gen)
+        y = recorder.run(dispatch.conv_forward, node, x, wt, bias, ctx)
+        check(y.dtype == torch.int8, f"{case}: output {y.dtype}")
+        for (_, key), t in ctx._consts.items():
+            if key.startswith("gemm_w/") and "/g" in key:
+                g_, q_ = key.rsplit("/g", 1)[1].split("q")
+                kept[t.data_ptr()] = (int(g_), int(q_))
+        cases.append((case, shape, co, k, (sh, sw), group, pad))
+    torch.cuda.synchronize()
+    got = read_counts()
+    check(got == EXPECTED[CONV_FORMS],
+          f"{CONV_FORMS}: launches {got}, expected {EXPECTED[CONV_FORMS]}")
+    counts[CONV_FORMS] = got
+    say(CONV_FORMS, f"{len(cases)} convs through the dispatcher: launches "
+        f"{ {k: v for k, v in got.items() if v} }")
+    check_variants(CONV_FORMS, recorder.launches)
+    mine = kernels_vs_plain(CONV_FORMS, recorder.launches, kept)
+    grouped_lines(CONV_FORMS, mine)
+    for (case, shape, co, k, st, group, pad), r in zip(cases, mine):
+        bf16 = _time_grouped_conv(shape, k, k, co, st, pad, pad, group,
+                                  torch.bfloat16)
+        say(CONV_FORMS, f"{case} x{shape} -> {co}: {r['kernel']} "
+            f"{r['variant']}, {r['ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']}, {100 * r['bound_ms'] / r['ms']:.1f}% of it), "
+            f"bf16 F.conv2d(stride={st}, groups={group}) {bf16:.4f} ms "
+            f"({r['ms'] / bf16:.2f}x), equal to plain (max err "
+            f"{r['max_abs_err']}; {smi})")
+    rows += mine
+
+
+def tools_path(g, x, smi, rows, counts, speed):
+    """The phase ``tools_path``: a Caffe deploy to an autotuned ``.ftpu``
+    on the card (``tools_convert``, ``tools_validate``,
+    ``tools_autotune``), the timing, profiling and comparison tools on
+    the main path's engine (``tools_measure``), the build cache
+    (``tools_cache``) and the int8 conv forms (``conv_forms``)."""
+    import tempfile
+    import torch
+    t_start = time.perf_counter()
+    rng = np.random.default_rng(SEED + 18)
+    with tempfile.TemporaryDirectory() as tmp:
+        deploy, model, path = tools_convert(tmp)
+        tools_validate(deploy, model, tmp, rng)
+        torch.cuda.empty_cache()
+        tools_autotune(path, smi, rng)
+        tools_measure(g, x, path, smi, speed)
+    tools_cache()
+    conv_forms(smi, rows, counts)
+    torch.cuda.empty_cache()
+    say("tools", f"done in {time.perf_counter() - t_start:.1f} s on {smi}")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4498,6 +4917,9 @@ def main() -> int:
     s2d_path(g, x, node_ms, smi, rows, counts, speed)
     # the same model sharded: DP x TP, spatial, world 1, the pipeline
     parallel_paths(g, x, smi, speed)
+    # the tools: a Caffe deploy to an autotuned .ftpu, the utilities, the
+    # build cache and the int8 conv forms
+    tools_path(g, x, smi, rows, counts, speed)
 
     # ResNet-50 b128 with fuse_chains: the same calibrated graph with the
     # wildcard region table that bench.py --fuse-chains sets

@@ -6,9 +6,10 @@ same thing to both engines.  What differs:
 - ``backend`` is ``"torch"`` (the plain float oracle, the role of the
   reference's ``"xla"``) or ``"cuda"`` (the hand-written kernels through
   ``kernels/dispatch.py``, the role of ``"pallas"``).
-- The field whose pass or lowering is not ported yet
-  (``compilation_cache_dir``) raises ``NotImplementedError`` when set
-  (``check_supported``).  ``sharding`` takes a
+- ``compilation_cache_dir`` names the directory the port builds its CUDA
+  kernels and native runtime into and loads them from
+  (``utils.cache.enable_persistent_cache``), the port's counterpart of
+  JAX's compilation cache.  ``sharding`` takes a
   ``parallel.mesh.ShardingConfig`` (the engines of ``parallel/`` on
   ``torch.distributed``).  ``fuse_blocks`` and ``fuse_chains`` run the
   region-fusion passes, ``concat_dus`` the concat-ladder pass and
@@ -26,13 +27,6 @@ import dataclasses
 from typing import Any, Dict, Optional, Tuple
 
 __all__ = ["EngineConfig", "apply_baked_overrides"]
-
-# Fields whose pass or lowering is not in the port yet -> what is missing.
-_NOT_PORTED = {
-    "compilation_cache_dir": "a compiled-executable cache (the port runs "
-                             "eagerly)",
-}
-
 
 def apply_baked_overrides(config: "EngineConfig",
                           meta: Dict[str, Any]) -> "EngineConfig":
@@ -103,7 +97,9 @@ class EngineConfig:
     lrn_band: bool = True
     shuffle_matmul: bool = False
     concat_dus: bool = False            # a graph pass: run as the reference
-    compilation_cache_dir: Optional[str] = None   # not ported
+    # The build directory of the kernels and the native runtime
+    # (utils/cache.py); None: FEATHERCNN_TPU_CACHE, else the package's.
+    compilation_cache_dir: Optional[str] = None
     # Region fusion (passes_fusion.py): identity bottlenecks as
     # FusedBottleneck nodes; fuse_chains also merges same-shape runs into
     # FusedChain nodes, and implies fuse_blocks.
@@ -112,10 +108,8 @@ class EngineConfig:
     fuse_chains: bool = False
 
     def check_supported(self) -> None:
-        """Raise ``NotImplementedError`` for a field set to a value whose
-        pass or lowering the port does not have yet, ``ValueError`` for an
-        unknown backend and ``TypeError`` for a ``sharding`` that is not a
-        ``ShardingConfig``."""
+        """Raise ``ValueError`` for an unknown backend and ``TypeError`` for
+        a ``sharding`` that is not a ``ShardingConfig``."""
         if self.backend not in ("torch", "cuda"):
             raise ValueError(f"unknown backend {self.backend!r}: the port "
                              "has 'torch' (oracle) and 'cuda' (kernels)")
@@ -124,12 +118,6 @@ class EngineConfig:
                                                         ShardingConfig):
             raise TypeError(f"EngineConfig.sharding={self.sharding!r}: "
                             "expected a parallel.mesh.ShardingConfig")
-        defaults = {f.name: f.default for f in dataclasses.fields(self)}
-        for name in _NOT_PORTED:
-            if getattr(self, name) != defaults[name]:
-                raise NotImplementedError(
-                    f"EngineConfig.{name}={getattr(self, name)!r}: "
-                    f"{_NOT_PORTED[name]} is not ported yet")
 
     def algo_for(self, layer_name: str) -> Optional[str]:
         d = dict(self.algo_overrides)

@@ -88,6 +88,9 @@ class Engine:
         # Per-model measured config defaults.
         self.config = apply_baked_overrides(self.config, self.graph.meta)
         self.config.check_supported()
+        if self.config.compilation_cache_dir:
+            from .utils.cache import enable_persistent_cache
+            enable_persistent_cache(self.config.compilation_cache_dir)
         if self.config.interpret and self.device.type != "cpu":
             raise ValueError("interpret=True means the CPU in the port (CPU "
                              "tensors take the kernels' plain versions): "

@@ -3,9 +3,11 @@
 The sources under ``kernels/csrc`` expose a plain C interface, so they
 compile without PyTorch's headers: one ``nvcc -c`` per source, all started
 together, then one link into a shared library.  The library lands in
-``feathercnn_tpu_torch/_build/<hash>/`` at first use; the hash covers the
-sources and the flags, so an edited source rebuilds and an unchanged one
-loads the library already there.
+``<root>/<hash>/`` at first use, the root being ``utils.cache.build_root()``
+(``feathercnn_tpu_torch/_build/`` unless ``compilation_cache_dir`` or
+``FEATHERCNN_TPU_CACHE`` names another); the hash covers the sources and
+the flags, so an edited source rebuilds and an unchanged one loads the
+library already there.
 """
 
 from __future__ import annotations
@@ -19,10 +21,11 @@ import subprocess
 import tempfile
 from pathlib import Path
 
-__all__ = ["load_library", "build_log", "nvcc_path"]
+from ..utils.cache import build_root
+
+__all__ = ["load_library", "library_dir", "build_log", "nvcc_path"]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
-_BUILD_ROOT = Path(__file__).resolve().parent.parent / "_build"
 _SOURCES = ("matmul_epilogue.cu", "conv_implicit_gemm.cu",
             "depthwise_conv.cu", "fused_chain.cu", "fused_chain_float.cu",
             "ident.cu")
@@ -171,13 +174,20 @@ def _build(out_dir: Path, defines=()) -> None:
             shutil.rmtree(tmp, ignore_errors=True)
 
 
+def library_dir(defines: tuple = ()) -> Path:
+    """The directory the library of the current sources and ``defines`` is
+    (or will be) built in, under ``utils.cache.build_root()``."""
+    return build_root() / _source_hash(defines)
+
+
 @functools.lru_cache(maxsize=None)
 def load_library(defines: tuple = ()) -> ctypes.CDLL:
-    """Build (once per source hash) and load the kernels' shared library.
-    ``defines`` (``"NAME"`` or ``"NAME=value"``) build a library of their
-    own beside it, as ``tools/float_chain_probe.py`` asks for one with
-    ``FCNN_FLOAT_PROBE``."""
-    out_dir = _BUILD_ROOT / _source_hash(defines)
+    """Build (once per source hash) and load the kernels' shared library,
+    once per process: a later change of the build root keeps the library
+    loaded.  ``defines`` (``"NAME"`` or ``"NAME=value"``) build a library
+    of their own beside it, as ``tools/float_chain_probe.py`` asks for one
+    with ``FCNN_FLOAT_PROBE``."""
+    out_dir = library_dir(defines)
     if not (out_dir / _LIB_NAME).exists():
         _build(out_dir, defines)
     lib = ctypes.CDLL(str(out_dir / _LIB_NAME))
@@ -191,5 +201,5 @@ def load_library(defines: tuple = ()) -> ctypes.CDLL:
 def build_log() -> str:
     """The compiler's output of the current build (registers, shared
     memory and spills per kernel, from ``-Xptxas -v``)."""
-    path = _BUILD_ROOT / _source_hash() / "build.log"
+    path = library_dir() / "build.log"
     return path.read_text() if path.exists() else ""

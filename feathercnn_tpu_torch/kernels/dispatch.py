@@ -16,14 +16,15 @@ order:
   xla            everything else: the fp convs (PyTorch's conv, as the
                  reference leaves them to XLA's), and the int8 convs the
                  reference runs through XLA's int8 conv — the merged
-                 sibling convs (per-channel act_segments), the grouped
-                 convs with 1 < group < C (3x3: as super-groups of q
-                 whole groups, each 32-wide column tile reading its own
-                 32 channels, on grouped_layout's compact weight; a 1x1
-                 one, or one no q fits, on a block-diagonal weight) and the dilated convs
-                 (the taps spaced by the dilation), which go through the
-                 two GEMM kernels, and the int8
-                 depthwise convs, which go to kernels/depthwise.py
+                 sibling convs (per-channel act_segments), the convs at
+                 a non-square stride, the grouped convs that are not
+                 plain depthwise (3x3: as super-groups of q whole
+                 groups, each 32-wide column tile reading its own 32
+                 channels, on grouped_layout's compact weight; a 1x1
+                 one, or one no q fits, on a block-diagonal weight) and
+                 the dilated convs (the taps spaced by the dilation),
+                 which go through the two GEMM kernels, and the plain
+                 int8 depthwise convs, which go to kernels/depthwise.py
                  (depthwise_conv2d_int8), with the scales folded as that
                  branch folds them.
 
@@ -296,35 +297,33 @@ def conv_forward(node, x, w, bias, ctx):
     if (q is not None and w.dtype == torch.int8
             and q.get("x_scale") is not None
             and (group == 1 or (ctx.config.int8_grouped and dil == 1))):
-        # The reference runs XLA's int8 conv here: acc * (w_scale*x_scale)
-        # + bias, act or act_segments, requant.  PyTorch has no int8 conv
-        # on CUDA, so the port's kernels run it: the folded scale as
-        # w_scale with x_scale 1.0 (one multiply, as the branch does), and
-        # the segments as the GEMM kernels' per-channel lo/hi clamp.  A
-        # grouped 3x3 conv that is not depthwise (1 < group < C: ResNeXt's
-        # cardinality-32 convs) runs on conv2d_implicit_gemm as
+        # The reference runs XLA's int8 conv here, at any stride and any
+        # feature_group_count: acc * (w_scale*x_scale) + bias, act or
+        # act_segments, requant.  PyTorch has no int8 conv on CUDA, so the
+        # port's kernels run it: the folded scale as w_scale with x_scale
+        # 1.0 (one multiply, as the branch does), the segments as the GEMM
+        # kernels' per-channel lo/hi clamp, a non-square stride as the
+        # kernels' (sh, sw) (a 1x1 conv's input strided per axis).  Only
+        # the plain depthwise conv (_is_depthwise) takes the depthwise
+        # kernel.  Every other grouped conv (ResNeXt's cardinality-32
+        # convs; a group = C conv at a channel multiplier above 1, a
+        # stride above 2 or with act_segments) runs on
+        # conv2d_implicit_gemm, a 3x3 one at a square stride as
         # super-groups of q whole groups (matmul.supergroup): each column
         # tile reads its own q*C/group = 32 input channels, the weight
         # compacted by grouped_layout, the zeros off each group adding
         # nothing to the int32 sums, so the result is XLA's grouped conv's.
-        # Any other grouped conv (a 1x1 one, C/g != Co/g, groups wider than
-        # 32 channels) runs on its block-diagonal dense weight (no zoo
-        # launch).  A dilated conv
+        # Any other (a 1x1 one, C/g != Co/g, groups wider than 32
+        # channels, a non-square stride) runs on its block-diagonal dense
+        # weight (no zoo launch).  A dilated conv
         # (XLA's rhs_dilation: DeepLab's conv5 and fc6, PSPNet's stages 4-5)
         # is ungrouped here (the reference sends a grouped dilated one to
         # the float conv) and runs on conv2d_implicit_gemm with its taps
         # spaced by the dilation.
         depthwise = group != 1 and segs is None and _is_depthwise(
             node, x, group, dil, sh, sw)
-        grouped = group != 1 and not depthwise and 1 < group < cin
-        if (group != 1 and not (depthwise or grouped)) or sh != sw:
-            raise NotImplementedError(
-                f"{node.name}: int8 conv with group={group} on {cin} "
-                f"channels, {node.attrs['num_output']} outputs, "
-                f"stride=({sh},{sw}) is not ported yet (the port runs a "
-                "depthwise conv, a grouped conv with 1 < group < C, and an "
-                "ungrouped one, dilated or not, at a square stride)")
-        wg = group if grouped else 1
+        wg = 1 if depthwise else group
+        stride = sh if sh == sw else (sh, sw)
         xq = _quantize_act(x, q["x_scale"])
         ws = ctx.const(node, "w_scale_x_scale",
                        lambda: np.asarray(q["w_scale"], np.float32)
@@ -347,11 +346,12 @@ def conv_forward(node, x, w, bias, ctx):
             y = matmul_epilogue(x2, _gemm_weight(node, w, torch.int8, ctx,
                                                  True, wg), bias, ws, **kw_)
             return y.reshape(n, oh, ow, -1)
-        q = supergroup(cin, w.shape[3], wg, (kh, kw))[0] if grouped else 0
+        q = supergroup(cin, w.shape[3], wg, (kh, kw), stride)[0] \
+            if wg > 1 else 0
         return conv2d_implicit_gemm(xq.contiguous(),
                                     _gemm_weight(node, w, torch.int8, ctx,
                                                  False, wg, q), bias, ws,
-                                    stride=sh, pad_h=ph, pad_w=pw,
+                                    stride=stride, pad_h=ph, pad_w=pw,
                                     dilation=dil, groups=wg, **kw_)
 
     # float conv (PyTorch's, as the reference leaves it to XLA's):

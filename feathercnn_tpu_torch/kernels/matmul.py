@@ -120,17 +120,29 @@ def gemm_layout(w: torch.Tensor) -> torch.Tensor:
     return k_rows.view(n, *w.shape[:3]).permute(1, 2, 3, 0)
 
 
-def supergroup(c: int, co: int, group: int, kernel=(3, 3)) -> tuple:
+def stride_pair(stride) -> tuple:
+    """(sh, sw) of a conv's stride given as an int or an (sh, sw) pair."""
+    return (stride, stride) if isinstance(stride, int) else (
+        int(stride[0]), int(stride[1]))
+
+
+def supergroup(c: int, co: int, group: int, kernel=(3, 3),
+               stride=1) -> tuple:
     """(q, reason) of a grouped int8 conv (``group`` groups, C input and Co
-    output channels, ``kernel`` = (KH, KW)) on the super-group route: its
-    column tiles are q whole groups, BN = q * Co/group output channels
-    reading the same S = q * C/group input channels.  The route's kernel
-    ("wgmma_halo") is built for 3x3 convs at BN = S = :data:`HALO_S` alone,
-    the one form ResNeXt-50's cardinality-32 convs take (q = 32 / (C/32)),
-    so q = 32 / (C/group) where C/group = Co/group divides 32 and q divides
+    output channels, ``kernel`` = (KH, KW), ``stride`` an int or an (sh,
+    sw) pair) on the super-group route: its column tiles are q whole
+    groups, BN = q * Co/group output channels reading the same S = q *
+    C/group input channels.  The route's kernel ("wgmma_halo") is built for
+    3x3 convs at a square stride and BN = S = :data:`HALO_S` alone, the
+    one form ResNeXt-50's cardinality-32 convs take (q = 32 / (C/32)), so
+    q = 32 / (C/group) where C/group = Co/group divides 32 and q divides
     ``group``.  (0, why) where no q fits: the conv keeps its
     block-diagonal weight (``kernels/dispatch.py::block_diagonal``)."""
     kh, kw = kernel
+    sh, sw = stride_pair(stride)
+    if sh != sw:
+        return 0, (f"stride ({sh}, {sw}) (the super-group kernel's halo "
+                   f"takes a square stride)")
     if (kh, kw) == (1, 1):
         return 0, "a grouped 1x1 conv is a B1 matrix"
     if (kh, kw) != (3, 3):
@@ -568,8 +580,9 @@ def gemm_plan(m: int, k: int, n: int, x_dtype, w_dtype, out_dtype, *,
     at GEMM shape (M, K, N), chosen before the launch from the shapes, the
     types, the pointers and the weight's row pitch (``conv_c``: the conv's
     C, None for a matrix; ``conv_out``: the conv's (images, OH, OW), and
-    ``stride``; ``w_pitch``: :func:`gemm_pitch` of the weight, None for
-    the pitch :func:`gemm_layout` gives it).
+    ``stride``, an int or an (sh, sw) pair; ``w_pitch``:
+    :func:`gemm_pitch` of the weight, None for the pitch
+    :func:`gemm_layout` gives it).
 
     int8 x int8 takes "wgmma" unless its rows are not 16-byte pieces (K, or
     the conv's C, not a multiple of 16; C < 16) or a pointer is not 16-byte
@@ -608,6 +621,8 @@ def gemm_plan(m: int, k: int, n: int, x_dtype, w_dtype, out_dtype, *,
     :func:`supergroup_plan`; where no q fits, its block-diagonal weight
     (conv_s = C) is planned as an ungrouped conv's, the reason saying why
     no super-group fits."""
+    sh, sw = stride_pair(stride)
+    stride = sh if sh == sw else (sh, sw)
     ldw = k if w_pitch is None else w_pitch
     if w_pitch is None and w_dtype == torch.int8 and k % ROW_BYTES:
         ldw = -(-k // ROW_BYTES) * ROW_BYTES
@@ -615,7 +630,7 @@ def gemm_plan(m: int, k: int, n: int, x_dtype, w_dtype, out_dtype, *,
         osize = torch.empty((), dtype=out_dtype).element_size()
         conv = conv_c is not None
         if conv and group > 1:
-            q, why = supergroup(conv_c, n, group, kernel)
+            q, why = supergroup(conv_c, n, group, kernel, stride)
             if q and conv_s == q * conv_c // group:
                 return supergroup_plan(m, conv_c, n, osize, conv_out,
                                        stride, sms, x_ptr, w_ptr, ldw)

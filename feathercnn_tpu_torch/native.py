@@ -4,7 +4,10 @@
 queue and the image preprocessing).
 
 The library is built at first use with the host's C++ compiler (``$CXX``,
-else ``g++``) into ``feathercnn_tpu_torch/_build/<hash>/``, the hash
+else ``g++``) into ``<root>/native-<hash>/`` (the root as for the CUDA
+kernels, ``utils.cache.build_root()``: ``feathercnn_tpu_torch/_build/``
+unless ``compilation_cache_dir`` or ``FEATHERCNN_TPU_CACHE`` names
+another), the hash
 covering the sources, the compiler and its flags, as ``kernels/build.py``
 builds the CUDA kernels: one compile into a temporary directory, renamed
 into place, so that processes building at once keep one library.  A failed
@@ -28,11 +31,12 @@ from typing import Dict, Optional
 
 import numpy as np
 
+from .utils.cache import build_root
+
 __all__ = ["load_library", "library_path", "available", "load_ftpu_native",
            "NativeBatchQueue"]
 
 _SRC = Path(__file__).resolve().parent / "native_csrc"
-_BUILD_ROOT = Path(__file__).resolve().parent / "_build"
 _SOURCES = ("ftpu_loader.cc", "batch_queue.cc", "preprocess.cc")
 _FLAGS = ("-O2", "-std=c++17", "-fPIC", "-Wall", "-Wextra", "-shared",
           "-pthread")
@@ -79,7 +83,7 @@ def _lib_dir() -> Path:
         h.update(name.encode())
         h.update((_SRC / name).read_bytes())
     h.update(" ".join((_compiler(),) + _FLAGS).encode())
-    return _BUILD_ROOT / ("native-" + h.hexdigest()[:16])
+    return build_root() / ("native-" + h.hexdigest()[:16])
 
 
 def _build(out_dir: Path) -> None:
@@ -111,7 +115,8 @@ def _build(out_dir: Path) -> None:
 
 
 @functools.lru_cache(maxsize=None)
-def _load(lib_dir: Path) -> ctypes.CDLL:
+def _load(dirname: str) -> ctypes.CDLL:
+    lib_dir = build_root() / dirname
     if not (lib_dir / _LIB_NAME).exists():
         _build(lib_dir)
     lib = ctypes.CDLL(str(lib_dir / _LIB_NAME))
@@ -123,8 +128,10 @@ def _load(lib_dir: Path) -> ctypes.CDLL:
 
 
 def load_library() -> ctypes.CDLL:
-    """Build (once per source hash) and load the native library."""
-    return _load(_lib_dir())
+    """Build (once per source hash) and load the native library, once per
+    hash in a process: a later change of the build root keeps the library
+    loaded."""
+    return _load(_lib_dir().name)
 
 
 def library_path() -> Path:

@@ -1,6 +1,7 @@
 """The PyTorch port's EngineConfig and Engine refuse what the port does not
-have: an unported config field or op raises ``NotImplementedError`` naming
-it, a wrong input shape raises as in the reference.  Few test items per
+have: an op neither package has raises ``NotImplementedError`` naming it, a
+wrong input shape raises as in the reference; every config field is
+ported.  Few test items per
 file (see tests/test_torch_kernels.py for why)."""
 
 import numpy as np
@@ -33,11 +34,25 @@ def test_engine_checks_input_shapes():
 
 
 def test_unported_config_fields_raise_naming_them():
-    """``compilation_cache_dir`` is not ported; ``sharding`` is, and takes
-    a ShardingConfig only."""
-    with pytest.raises(NotImplementedError, match="compilation_cache_dir"):
-        Engine(_graph(), EngineConfig(compilation_cache_dir="cache"),
-               device="cpu")
+    """Every config field is ported: ``compilation_cache_dir`` names the
+    directory the kernels and the native runtime build into (no ``nvcc``
+    here: the path, not the build); ``sharding`` takes a ShardingConfig
+    only."""
+    import tempfile
+    from pathlib import Path
+
+    from feathercnn_tpu_torch.kernels import build
+    from feathercnn_tpu_torch.utils import cache
+
+    with tempfile.TemporaryDirectory() as tmp:
+        try:
+            eng = Engine(_graph(), EngineConfig(compilation_cache_dir=tmp),
+                         device="cpu")
+            assert eng(np.zeros((1, 9, 9, 3), np.float32)).shape == (1, 4)
+            assert build.library_dir().parent == Path(tmp).resolve()
+        finally:
+            cache._root = None
+    assert build.library_dir().parent != Path(tmp).resolve()
     with pytest.raises(TypeError, match="sharding"):
         Engine(_graph(), EngineConfig(sharding=object()), device="cpu")
 

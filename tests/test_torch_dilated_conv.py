@@ -118,8 +118,11 @@ def test_plain_version_is_pytorchs_dilated_conv():
 
 
 def test_dispatcher_still_refuses_what_no_model_has():
-    """An int8 conv at a non-square stride, or with a channel multiplier
-    > 1, still raises; an ungrouped dilated one does not."""
+    """No int8 conv form that the reference's XLA int8 conv runs is
+    refused any more: an ungrouped dilated conv, a conv at a non-square
+    stride and a group = C conv with a channel multiplier > 1 all run on
+    the implicit-GEMM kernel, each equal to the float64 grouped conv of
+    the same int8 grids times the folded scale."""
     from feathercnn_tpu_torch.ir import Graph, TensorSpec
     g = Graph(name="g", inputs={"x": TensorSpec((1, 9, 9, 16))},
               outputs=[], nodes=[], params={}, meta={})
@@ -140,7 +143,25 @@ def test_dispatcher_still_refuses_what_no_model_has():
         return dispatch.conv_forward(node, x, w, None, ctx)
 
     assert run(dilation=2).shape == (1, 9, 9, 16)
-    with pytest.raises(NotImplementedError, match="stride"):
-        run(stride_h=1, stride_w=2)
-    with pytest.raises(NotImplementedError, match="outputs"):
-        run(group=16, co=32)
+
+    def held(**attrs):
+        torch.manual_seed(3)
+        group = attrs.get("group", 1)
+        co = attrs.get("co", 16)
+        w = torch.randint(-127, 128, (3, 3, 16 // group, co),
+                          dtype=torch.int8)
+        torch.manual_seed(3)
+        ctx._consts.clear()         # node "c"'s weight, laid out per run
+        q["w_scale"] = np.full(co, 0.01, np.float32)
+        got = run(**attrs)
+        sh, sw = attrs.get("stride_h", 1), attrs.get("stride_w", 1)
+        acc = torch.nn.functional.conv2d(
+            x.double().permute(0, 3, 1, 2), w.double().permute(3, 2, 0, 1),
+            stride=(sh, sw), padding=2, groups=group)
+        ws = torch.from_numpy(q["w_scale"] * np.float32(q["x_scale"]))
+        want = (acc.permute(0, 2, 3, 1).float() * ws).to(torch.bfloat16)
+        assert torch.equal(got, want), attrs
+
+    held(stride_h=1, stride_w=2)
+    held(stride_h=2, stride_w=3)
+    held(group=16, co=32)

@@ -104,7 +104,9 @@ def test_grouped_int8_conv_routes():
     PyTorch's float conv, as the reference's rewrite and dispatcher send it
     to XLA's float conv; a dilated ungrouped int8 conv runs on the
     implicit-GEMM kernel with its dilation, and a grouped conv with group
-    == C and two outputs per channel raises with the reason."""
+    == C and two outputs per channel (not plain depthwise) runs on the
+    implicit-GEMM kernel with its block-diagonal weight, as the reference
+    runs it through XLA's grouped int8 conv."""
     x = np.random.default_rng(1).normal(size=(1, 9, 9, 64)).astype(
         np.float32)
     cfg = EngineConfig(backend="cuda", compute_dtype="bfloat16",
@@ -150,8 +152,16 @@ def test_grouped_int8_conv_routes():
     assert seen == [2]
     graph = _grouped_graph(64, num_output=128)
     calibrate(graph, [x], method="max", device="cpu")
-    with pytest.raises(NotImplementedError, match="group=64"):
-        Engine(graph, cfg, device="cpu")(x)
+    seen = []
+    dispatch.conv2d_implicit_gemm = record
+    try:
+        out = Engine(graph, cfg, device="cpu")(x)
+    finally:
+        dispatch.conv2d_implicit_gemm = orig
+    assert torch.isfinite(out.float()).all()
+    assert len(seen) == 1 and seen[0][1] == 64
+    assert supergroup(64, 128, 64)[0] == 0          # C/g = 1, Co/g = 2
+    assert tuple(seen[0][0].shape) == (3, 3, 64, 128)
 
 
 def _launch_shapes(monkeypatch, build, batch):
