@@ -9,9 +9,13 @@ space-to-depth stem under ``s2d_stem`` -> ``infer_shapes``); the weights
 move to the device once; a forward walks the node list, lowering each
 node to PyTorch ops (and, on the "cuda" backend, to the hand-written
 kernels).  There is no
-trace or compile step: PyTorch runs eagerly.  Under ``torch.profiler``
-each node's ops run inside a ``record_function`` range named after the
-node, so a profile gives device time per graph node.  ``compile(batch)``
+trace or compile step: PyTorch runs eagerly.  Each ``run`` call asks
+``utils.profiling.run_scope()`` once for its spans: inside
+``profiling.record()`` the call is one ``run`` span, and each input's
+cast to the compute dtype and each node's lowering one ``node`` span in
+it; under ``torch.profiler`` that node span opens a ``record_function``
+range named after the node, so a profile gives device time per graph
+node; with neither, the nodes are lowered bare.  ``compile(batch)``
 is the reference's ahead-of-time step here: one forward at the declared
 shapes, which moves the weights to the device and makes each node's kept
 constants.
@@ -39,9 +43,8 @@ sets it (and ``torch.backends.cuda.matmul.allow_tf32``) to False.
 
 from __future__ import annotations
 
-import contextlib
 import copy
-from typing import Any, Dict, List, Optional, Sequence, Union
+from typing import Any, Dict, List, NamedTuple, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -50,12 +53,23 @@ from .config import EngineConfig, apply_baked_overrides
 from .ir import Graph, infer_shapes
 from .ops.lowering import LoweringCtx, lower_node, lower_sharded
 from .passes import optimize
+from .utils import profiling
 
 __all__ = ["Engine", "resolve_device"]
 
 
-def _no_scope(name: str):
-    return contextlib.nullcontext()
+class _Input(NamedTuple):
+    """A graph input as its span names it (Caffe's ``Input`` layer)."""
+    name: str
+    op: str = "Input"
+
+
+def _cast_input(inp: _Input, x: torch.Tensor, cdtype) -> torch.Tensor:
+    # Only rank-4 feature maps take the compute dtype; metadata inputs
+    # (im_info's [h, w, scale]) keep full precision — bf16 rounds 599 to
+    # 600 and corrupts clip bounds.
+    return x.to(cdtype) if (x.dtype.is_floating_point
+                            and x.dim() == 4) else x
 
 
 def resolve_device(device=None) -> torch.device:
@@ -232,27 +246,21 @@ class Engine:
     # ------------------------------------------------------------------
     def _forward(self, params: Dict[str, torch.Tensor],
                  inputs: Dict[str, torch.Tensor],
-                 wanted: Sequence[str], layout=None
+                 wanted: Sequence[str], layout, scope
                  ) -> Dict[str, torch.Tensor]:
+        """The node walk; ``scope`` (``profiling.run_scope()``) puts each
+        input's cast and each node's lowering in its span."""
         cdtype = getattr(torch, self.config.compute_dtype)
-        env: Dict[str, torch.Tensor] = {}
-        for name in self.graph.inputs:
-            x = inputs[name]
-            # Only rank-4 feature maps take the compute dtype; metadata
-            # inputs (im_info's [h, w, scale]) keep full precision — bf16
-            # rounds 599 to 600 and corrupts clip bounds.
-            env[name] = x.to(cdtype) if (
-                x.dtype.is_floating_point and x.dim() == 4) else x
-        # under a profiler, each node's ops are one range named after it
-        scope = (torch.profiler.record_function
-                 if torch.autograd._profiler_enabled() else _no_scope)
+        cast = scope.wrap(_cast_input)
+        env = {name: cast(_Input(name), inputs[name], cdtype)
+               for name in self.graph.inputs}
         if self._mesh is not None:
             return self._forward_sharded(params, env, wanted, scope, layout)
+        lower = scope.wrap(lower_node)
         for node in self.graph.nodes:
             ins = [env[i] for i in node.inputs]
             ps = [params[p] for p in node.params]
-            with scope(node.name):
-                outs = lower_node(node, ins, ps, self._ctx)
+            outs = lower(node, ins, ps, self._ctx)
             for name, val in zip(node.outputs, outs):
                 env[name] = val
         return {w: env[w] for w in wanted}
@@ -269,6 +277,7 @@ class Engine:
         scfg, mesh, ctx = self.config.sharding, self._mesh, self._ctx
         lay = {name: "rows" if layout[name][1:2] == (scfg.model_axis,)
                else None for name in env}
+        lower = scope.wrap(lower_sharded)
         for node in self._local.nodes:
             for i, name in enumerate(node.inputs):
                 if lay[name] == "chans" and not (
@@ -277,9 +286,8 @@ class Engine:
                                                            ctx), None
             ins = [env[i] for i in node.inputs]
             ps = [params[p] for p in node.params]
-            with scope(node.name):
-                outs, lays = lower_sharded(node, ins, ps, ctx,
-                                           [lay[i] for i in node.inputs])
+            outs, lays = lower(node, ins, ps, ctx,
+                               [lay[i] for i in node.inputs])
             for name, val, value_layout in zip(node.outputs, outs, lays):
                 env[name], lay[name] = val, value_layout
         batch = any(spec[:1] == (scfg.data_axis,)
@@ -309,6 +317,11 @@ class Engine:
         """Forward pass.  ``inputs`` is an array (single-input nets) or a
         name->array dict.  Returns name->tensor (on the engine's device)
         for every graph output plus anything in ``extract``."""
+        scope = profiling.run_scope()
+        with scope:
+            return self._run(inputs, extract, scope)
+
+    def _run(self, inputs, extract, scope):
         if not isinstance(inputs, dict):
             (name,) = self.graph.inputs
             inputs = {name: inputs}
@@ -334,7 +347,8 @@ class Engine:
         layout = None
         if self._mesh is not None:
             tensors, layout = self._split_inputs(tensors)
-        return self._forward(self._prepare_params(), tensors, wanted, layout)
+        return self._forward(self._prepare_params(), tensors, wanted, layout,
+                             scope)
 
     def compile(self, batch: Optional[int] = None) -> None:
         """The reference's ahead-of-time step: one forward on zeros at the
