@@ -140,12 +140,12 @@ float activations; the bf16 paths run ``quant=None`` in bf16:
   equal to its outputs, ``decode_detections`` equal on both).  The main
   path, the s2d path and the ladder path are checked node by node
   (``card_nodes``): each node run by the port on the CPU on the card's
-  own input values gives the card's int8 outputs, a library float conv
-  (the cuDNN stem) within 1 LSB.  After the first
-  ResNet-50 path, ``fma_check`` holds the port's multiply-add on the card
-  (``torch.addcmul``) to its CPU form (``ops.lowering.fma_exact``) on
-  ResNet-50's int8 Eltwise inputs: the int8 Eltwise (0 LSB) and an f32
-  ``coeffs`` sum (0 ulp).
+  own input values gives the card's int8 outputs (every int8 Eltwise
+  among them), a library float conv (the cuDNN stem) within 1 LSB.  After
+  the first ResNet-50 path, ``fma_check`` holds the port's multiply-add on
+  the card (``torch.addcmul``) to its CPU form (``ops.lowering.fma_exact``)
+  on ResNet-50's int8 Eltwise inputs: the int8 Eltwise's plain version and
+  its ``eltwise_int8`` kernel (0 LSB) and an f32 ``coeffs`` sum (0 ulp).
 
 Phases, each printing its own lines:
 
@@ -153,10 +153,12 @@ Phases, each printing its own lines:
    ``feathercnn_tpu_torch/kernels/csrc`` with ``nvcc``.
 2. per path: the model is built, calibrated and loaded; one forward runs
    with every kernel's launch count set to 0 just before and read just
-   after, against the path's expected counts (``EXPECTED``); the output is
-   finite.  The arguments of every launch are recorded on the way, and
-   for every kernel whose wrapper counts variants the variant (main loop)
-   it took, which must be the one its plan names: every int8 GEMM launch
+   after, against the path's expected counts (``EXPECTED``), every
+   int8-edge residual add on ``eltwise_int8`` (none fallen back to
+   PyTorch's ops); the output is finite.  The arguments of every launch
+   are recorded on the way, and for every kernel whose wrapper counts
+   variants the variant (main loop) it took, which must be the one its
+   plan names: every int8 GEMM launch
    "wgmma", or "wgmma_ragged" where its rows are not whole 16-byte pieces
    (MobileNet-v2's K = 24 convs, GoogLeNet's 5x5 convs on 24 channels,
    the ShuffleNets' K = 24, 58, 116 and 232 convs; counted as the kernels
@@ -211,7 +213,10 @@ Phases, each printing its own lines:
    (``matmul_epilogue_split_plain``) and timed unsplit, within the float
    gate.  R-FCN's three
    stage-5 dilated launches must split.
-   ``ident`` is bit-equal, its yardstick ``x.clone()``.
+   ``ident`` is bit-equal, its yardstick ``x.clone()``; ``eltwise_int8``
+   equal (0 LSB), its yardstick the PyTorch ops it replaced, on scale
+   tensors made once (no host sync timed), and each path prints its
+   launches' sums.
    A float GEMM's yardstick is ``torch.matmul`` in x's type, a float
    ``conv2d_implicit_gemm``'s ``F.conv2d`` on channels-last bf16 (the
    weight dequantized once).
@@ -256,14 +261,18 @@ Phases, each printing its own lines:
    to 25088, N 24 to 4096, split K, bf16 and int8 out, stride 2, C of 8
    and 72, batch 1; a K and a C not a multiple of 8 and a misaligned x
    refused to "simt", their reasons printed), and
-   ``ident`` on int8, bf16 and f32 at odd sizes, against the plain
-   versions; before the rest of the zoo's paths, ``conv2d_implicit_gemm``
-   on block-diagonal weights (4, 8 and 32 channels a group) and on 1x7,
-   7x1, 1x3 and 3x1 kernels with their pads, stride 1 and 2, each on
-   "wgmma", and on the super-group route ("wgmma_halo", halos of one and
-   of four column tiles, six maps a tile past the batch; the grouped
-   shapes no q fits on their block-diagonal weight), each equal to plain
-   (``ragged_zoo_rest``);
+   ``ident`` on int8, bf16 and f32 at odd sizes, ``eltwise_int8`` at odd
+   sizes, every activation, .5 quotients, saturated sums and pitched
+   channel slices (and operands it copies first), then at ResNet-50's
+   stage 2-4 shapes at b512 beside its byte bound and the PyTorch ops it
+   replaced, against the plain versions; before the rest of the zoo's
+   paths,
+   ``conv2d_implicit_gemm`` on block-diagonal weights (4, 8 and 32
+   channels a group) and on 1x7, 7x1, 1x3 and 3x1 kernels with their
+   pads, stride 1 and 2, each on "wgmma", and on the super-group route
+   ("wgmma_halo", halos of one and of four column tiles, six maps a tile
+   past the batch; the grouped shapes no q fits on their block-diagonal
+   weight), each equal to plain (``ragged_zoo_rest``);
    before the
    segmentation paths, the dilated ``conv2d_implicit_gemm`` at d = 2, 4,
    6 and 12, pad d and 0, C 16, 48 and 64, stride 1 and 2, int8 x on
@@ -344,6 +353,10 @@ KERNELS = {
     "ident": {
         "source": "feathercnn_tpu_torch/kernels/csrc/ident.cu",
         "replaces": "bench/chain_micro.py:187"},
+    "eltwise_int8": {
+        "source": "feathercnn_tpu_torch/kernels/csrc/eltwise_int8.cu",
+        "replaces": "feathercnn_tpu/ops/lowering.py:1837 (the int8-edge "
+                    "Eltwise, plain jnp that XLA fuses; no Pallas kernel)"},
     # the dilated launches of conv2d_implicit_gemm (counted on its
     # ``dilated_launches`` too): their own entry of the kernels line
     "conv2d_implicit_gemm_dilated": {
@@ -379,20 +392,23 @@ _ZERO = dict.fromkeys(KERNELS, 0)
 # path -> launches of one forward.  A kernel's entry in the kernels line
 # takes its numbers from the first path here that launches it.
 EXPECTED = {
+    # the 13 int8-edge residual adds of stages 2-4 (stage 5's are float)
     "resnet50 b128": {**_ZERO, "matmul_epilogue": 33,
-                      "conv2d_implicit_gemm": 16},
+                      "conv2d_implicit_gemm": 16, "eltwise_int8": 13},
     "mobilenet_v1 b256": {**_ZERO, "matmul_epilogue": 14,
                           "depthwise_conv2d_int8": 13},
     "mobilenet_v1 b256 dw override": {**_ZERO, "matmul_epilogue": 14,
                                       "depthwise_conv2d": 13},
-    # the two K = 24 1x1 convs ragged
+    # the two K = 24 1x1 convs ragged; the 10 residual adds (act none)
     "mobilenet_v2 b128 dw override": {**_ZERO, "matmul_epilogue": 35,
                                       "matmul_epilogue_ragged": 2,
-                                      "depthwise_conv2d": 17},
-    # one launch per block: 4 calls over 2 + 3 + 5 + 2 identity blocks
+                                      "depthwise_conv2d": 17,
+                                      "eltwise_int8": 10},
+    # one launch per block: 4 calls over 2 + 3 + 5 + 2 identity blocks;
+    # the residual adds of the projection blocks res2a, res3a and res4a
     "resnet50 b128 fuse_chains": {**_ZERO, "matmul_epilogue": 9,
                                   "conv2d_implicit_gemm": 4,
-                                  "fused_chain": 12},
+                                  "fused_chain": 12, "eltwise_int8": 3},
     # bf16: the convs in PyTorch's float conv, the FC in matmul_epilogue
     "resnet50 b128 bf16": {**_ZERO, "matmul_epilogue": 1},
     # 5 calls over 2 + 3 + 5 + 1 + 1 identity blocks
@@ -431,7 +447,8 @@ EXPECTED = {
     # grouped 3x3 convs as super-groups (q = 32 / (C/32), BN = S = 32)
     "resnext50 b128": {**_ZERO, "matmul_epilogue": 37,
                        "conv2d_implicit_gemm": 16,
-                       "conv2d_implicit_gemm_grouped": 16},
+                       "conv2d_implicit_gemm_grouped": 16,
+                       "eltwise_int8": 13},
     # ResNet-50's 37, the SE path's down and up 1x1 convs x 16; 16 3x3
     "se_resnet50 b96": {**_ZERO, "matmul_epilogue": 69,
                         "conv2d_implicit_gemm": 16},
@@ -451,7 +468,7 @@ EXPECTED = {
     # the main path's model written by save_ftpu, reloaded by
     # Engine.from_path: the main path's launches
     "resnet50 b128 loaded": {**_ZERO, "matmul_epilogue": 33,
-                             "conv2d_implicit_gemm": 16},
+                             "conv2d_implicit_gemm": 16, "eltwise_int8": 13},
     # the segmentation family (SEGMENTATION).  DeepLab: fc7 and fc8_voc12
     # (N = 21); the nine 3x3 convs of stages 1-4 but the fp stem, and
     # conv5_1-3 (d = 2) and fc6 (d = 12) dilated
@@ -469,10 +486,11 @@ EXPECTED = {
     # PSPNet: the bottlenecks' 1x1 convs (the projections merged beside
     # branch2a), the four pyramid 1x1 convs and conv6 (N = 150); the stem's
     # two 3x3 convs after the fp one, stages 2-3's seven, conv5_4, and the
-    # six (d = 2) and three (d = 4) dilated of stages 4-5
+    # six (d = 2) and three (d = 4) dilated of stages 4-5; the 16 residual
+    # adds
     "pspnet50 b4": {**_ZERO, "matmul_epilogue": 37,
                     "conv2d_implicit_gemm": 19,
-                    "conv2d_implicit_gemm_dilated": 9},
+                    "conv2d_implicit_gemm_dilated": 9, "eltwise_int8": 16},
     # the detection families (DETECTION).  MobileNet-SSD: the 13 pointwise
     # convs, conv14_1-conv17_1 and the 12 head convs (loc and conf on 6
     # sources); conv14_2-conv17_2 (3x3 s2); the 13 depthwise convs on the
@@ -492,15 +510,17 @@ EXPECTED = {
                              "conv2d_implicit_gemm": 13},
     # R-FCN: ResNet-101's 1x1 convs (the projections merged beside
     # branch2a), the RPN's two heads, conv_new_1, rfcn_cls and rfcn_bbox;
-    # its 33 3x3 convs, stage 5's three at d = 2, and the RPN's 3x3
+    # its 33 3x3 convs, stage 5's three at d = 2, and the RPN's 3x3; the 33
+    # residual adds
     "rfcn_resnet101 b1": {**_ZERO, "matmul_epilogue": 71,
                           "conv2d_implicit_gemm": 34,
-                          "conv2d_implicit_gemm_dilated": 3},
+                          "conv2d_implicit_gemm_dilated": 3,
+                          "eltwise_int8": 33},
     # the rewrite passes.  The main path with ``s2d_stem``: its stem a 4x4
     # s1 conv on 12 channels in PyTorch's (cuDNN's) float conv, as the 7x7
     # one: the main path's launches
     "resnet50 b128 s2d": {**_ZERO, "matmul_epilogue": 33,
-                          "conv2d_implicit_gemm": 16},
+                          "conv2d_implicit_gemm": 16, "eltwise_int8": 13},
     # DenseNet-121 with ``concat_dus``: its 58 Concats as 4 ladders of
     # buffer appends (PyTorch copies): DenseNet-121's launches
     "densenet121 b128 concat_dus": {**_ZERO, "matmul_epilogue": 62,
@@ -796,8 +816,8 @@ class LaunchRecorder:
 
 def _kernel_fns():
     """name -> (wrapper, plain version)."""
-    from feathercnn_tpu_torch.kernels import (conv, depthwise, fused_chain,
-                                              ident, matmul)
+    from feathercnn_tpu_torch.kernels import (conv, depthwise, eltwise,
+                                              fused_chain, ident, matmul)
     return {"matmul_epilogue": (matmul.matmul_epilogue,
                                 matmul.matmul_epilogue_plain),
             "conv2d_implicit_gemm": (conv.conv2d_implicit_gemm,
@@ -810,7 +830,9 @@ def _kernel_fns():
                             fused_chain.fused_chain_plain),
             "fused_chain_float": (fused_chain.fused_chain_float,
                                   fused_chain.fused_chain_plain),
-            "ident": (ident.ident, ident.ident_plain)}
+            "ident": (ident.ident, ident.ident_plain),
+            "eltwise_int8": (eltwise.eltwise_int8,
+                             eltwise.eltwise_int8_plain)}
 
 
 def reset_counts():
@@ -820,6 +842,7 @@ def reset_counts():
             fn.variants = dict.fromkeys(fn.variants, 0)
     _kernel_fns()["conv2d_implicit_gemm"][0].dilated_launches = 0
     _kernel_fns()["conv2d_implicit_gemm"][0].grouped_launches = 0
+    _kernel_fns()["eltwise_int8"][0].fallbacks = 0
 
 
 def gemm_plan_of(kernel, a):
@@ -894,7 +917,13 @@ def check_variants(label, launches):
 
 
 def read_counts():
+    """The launches of the counted forward by kernel.  Every int8-edge
+    Eltwise of a counted forward takes ``eltwise_int8``: none fell back
+    to PyTorch's ops."""
     fns = _kernel_fns()
+    fallbacks = fns["eltwise_int8"][0].fallbacks
+    check(fallbacks == 0, f"{fallbacks} int8-edge Eltwise nodes fell back "
+          f"to PyTorch's ops")
     counts = {name: fn.launches for name, (fn, _) in fns.items()}
     counts[DILATED] = fns["conv2d_implicit_gemm"][0].dilated_launches
     counts[GROUPED] = fns["conv2d_implicit_gemm"][0].grouped_launches
@@ -1017,12 +1046,19 @@ def dims(kernel, a):
     return nb, oh, ow, c, kh, kw
 
 
+def x_arg(a):
+    """A recorded launch's (first) input: ``x``, a depthwise int8 launch's
+    ``xq`` or ``eltwise_int8``'s ``x0``."""
+    return next(a[k] for k in ("x", "xq", "x0") if k in a)
+
+
 def bound_ms(kernel, a, out, group=1):
     """Least time on an H100 SXM: the larger of the bytes the function
     must move (each input read once, the output written once) over the
     memory rate and its operations over the peak for their type (int8 or
     bf16 on the tensor cores by x's type, float32 FMA for f32 x and for the
-    float depthwise variant, which computes in f32; ``ident`` does none).
+    float depthwise variant, which computes in f32; ``ident`` and
+    ``eltwise_int8`` do no products: bytes bound them).
     A conv on a block-diagonal or super-group weight computes a grouped
     conv: its operations are the dense product's over ``group``, and a
     super-group launch's weight bytes the grouped weight's (KH*KW*C/g*Co),
@@ -1039,7 +1075,7 @@ def bound_ms(kernel, a, out, group=1):
     if sg:
         w = a["w"]
         nbytes -= w.numel() - w.numel() * a["x"].shape[3] // sg[0] // sg[2]
-    if kernel == "ident":
+    if kernel in ("ident", "eltwise_int8"):
         ops = 0.0
     elif kernel in CHAINS:
         ops = chain_ops(a)
@@ -1047,7 +1083,7 @@ def bound_ms(kernel, a, out, group=1):
         ops = 2.0 * dilated_taps(a) * a["x"].shape[3] * a["w"].shape[3]
     else:
         ops = 2.0 * math.prod(dims(kernel, a)) / group
-    x = a["x"] if "x" in a else a["xq"]
+    x = x_arg(a)
     peak = {torch.int8: PEAK_INT8_OPS, torch.bfloat16: PEAK_BF16_OPS}.get(
         x.dtype, PEAK_F32_OPS)
     if kernel == "depthwise_conv2d":
@@ -1144,7 +1180,9 @@ def library_ms(kernel, a, group=1):
     ``torch._int_mm`` (int8 x int8 -> int32, no epilogue) at an int8
     GEMM's (M, K, N), ``torch.matmul`` in x's type at a float one;
     ``F.conv2d(groups=C)`` with its bias on channels-last bf16 at a
-    depthwise launch's shape; ``x.clone()`` for ``ident``; for a grouped
+    depthwise launch's shape; ``x.clone()`` for ``ident``; for
+    ``eltwise_int8`` the PyTorch ops it replaced (``eltwise_composition``);
+    for a grouped
     conv's launch (super-group or block-diagonal) the grouped conv, f32
     ``F.conv2d(groups=group)`` (PyTorch has no int8 conv on the card); for a
     dilated conv bf16 ``F.conv2d(dilation=d)`` on channels-last tensors,
@@ -1167,6 +1205,12 @@ def library_ms(kernel, a, group=1):
         if key not in _LIBRARY_MS:
             _LIBRARY_MS[key] = median_ms(x.clone)
         return _LIBRARY_MS[key]
+    if kernel == "eltwise_int8":
+        key = ("eltwise", tuple(a["x0"].shape), a["x0"].stride(),
+               a["x1"].stride(), a["act"])
+        if key not in _LIBRARY_MS:
+            _LIBRARY_MS[key] = median_ms(eltwise_composition(a))
+        return _LIBRARY_MS[key]
     d = dims(kernel, a)
     x = a["x"] if "x" in a else a["xq"]
     dil = a.get("dilation", 1)
@@ -1187,6 +1231,20 @@ def library_ms(kernel, a, group=1):
         else:
             _LIBRARY_MS[key] = _time_matmul(*d, x.dtype)
     return _LIBRARY_MS[key]
+
+
+def eltwise_composition(a):
+    """A callable running the PyTorch ops that ``eltwise_int8`` replaced on
+    a recorded launch's operands (``kernels.eltwise.requant_sum``: the
+    operands cast to f32, a multiply, ``addcmul``, the activation, a
+    multiply by the output scale's reciprocal, ``round``, ``clamp``, the
+    cast), its three scales made into device tensors once, so that no host
+    sync is timed; it returns what the kernel returns."""
+    import torch
+    from feathercnn_tpu_torch.kernels.eltwise import reciprocal, requant_sum
+    s0, s1, inv = (torch.tensor(v, dtype=torch.float32, device="cuda")
+                   for v in (a["s0"], a["s1"], reciprocal(a["y_scale"])))
+    return lambda: requant_sum((a["x0"], a["x1"]), (s0, s1), inv, a["act"])
 
 
 def _time_matmul(m, k, n, dtype):
@@ -1643,6 +1701,15 @@ def chain_alt_ms(a, want):
 
 def describe(kernel, a, out):
     dt = str(out.dtype).replace("torch.", "")
+    if kernel == "eltwise_int8":
+        from feathercnn_tpu_torch.kernels.eltwise import row_pitch
+        c = a["x0"].shape[-1]
+        rows = [f"x{i} " + (f"rows at pitch {p}" if p is not None
+                            else "copied")
+                for i in (0, 1) if not a[f"x{i}"].is_contiguous()
+                for p in [row_pitch(a[f"x{i}"], c)]]
+        return (f"eltwise_int8 x{tuple(a['x0'].shape)} act={a['act']}"
+                + (" (" + ", ".join(rows) + ")" if rows else ""))
     if kernel == "ident":
         return (f"ident x{tuple(a['x'].shape)} "
                 f"{str(a['x'].dtype).replace('torch.', '')} "
@@ -1743,10 +1810,8 @@ def launch_rows(label, launches, groups=None, timed=True, detail=True):
         rows.append({"path": label, "kernel": row_kernel(launch),
                      "counted": counted_as(launch),
                      "shape": desc,
-                     "x_shape": tuple(a["x"].shape if "x" in a
-                                      else a["xq"].shape),
-                     "x_bytes": (a["x"].numel() * a["x"].element_size()
-                                 if "x" in a else a["xq"].numel()),
+                     "x_shape": tuple(x_arg(a).shape),
+                     "x_bytes": x_arg(a).numel() * x_arg(a).element_size(),
                      "over_1ulp": over, "elements": elements,
                      "float_sums": float_sums,
                      "launches": launches_of(launch),
@@ -1855,6 +1920,15 @@ def kernels_vs_plain(label, launches, groups=None):
                    f"({sums['ms'] / sums['library_ms']:.2f}x")
                 + f"; {sum(r['library_padded'] for r in mine)} of them on "
                 f"zero-padded operands)")
+    mine = [r for r in rows if r["kernel"] == "eltwise_int8"]
+    if mine:
+        sums = _sums(mine)
+        say(label, f"eltwise_int8 launches of one forward: {len(mine)}, "
+            f"{sums['ms']:.4f} ms, byte bound {sums['bound_ms']:.4f} ms "
+            f"({100 * sums['bound_ms'] / sums['ms']:.1f}% of it), the PyTorch "
+            f"composition it replaced {sums['library_ms']:.4f} ms "
+            f"({sums['library_ms'] / sums['ms']:.1f}x the kernel), plain "
+            f"(with its scalar syncs) {sums['plain_ms']:.3f} ms")
     for var in ("k3s1", "k3s2"):
         mine = [r for r in rows if r["tiles"] and r["variant"] == var]
         if not mine:
@@ -1917,6 +1991,8 @@ def _library_name(desc):
         return f"f32 F.conv2d(groups={desc.split(' g=')[1].split()[0]})"
     if desc.startswith("ident"):
         return "x.clone()"
+    if desc.startswith("eltwise_int8"):
+        return "PyTorch's composition"
     if "depthwise" in desc:
         return "bf16 F.conv2d(groups=C)"
     if "dilation=" in desc:
@@ -2026,6 +2102,8 @@ def _kernel_group(key):
         return "fused_chain"
     if "ident_kernel" in key:
         return "ident"
+    if "eltwise_int8_kernel" in key:
+        return "eltwise_int8"
     if "dw_kernel" in key:      # dw_kernel<TX, S, INT_W, ...>, mangled or not
         return ("depthwise_conv2d_int8"
                 if "Lb1E" in key or ", true," in key else "depthwise_conv2d")
@@ -2512,6 +2590,7 @@ def ragged_cases():
         f"product, torch._int_mm)")
     n = ragged_float_chain(gen) + ragged_ident(gen)
     say("kernels", f"{n} float-chain and ident cases within their gates")
+    ragged_eltwise(gen)
 
 
 def ragged_int8_chain(gen):
@@ -3087,6 +3166,98 @@ def ragged_ident(gen):
     return n
 
 
+# (s0, s1, y_scale) of the eltwise_int8 cases: calibration-like scales;
+# quotients on .5 (half to even: (x0 + x1) / 2, and 0.5 x0 + 1.5 x1);
+# sums far past the grid (every value clamped to +-127 but the small); a
+# range around relu6's 6
+ELTWISE_SCALES = ((0.0123, 0.0456, 0.0789), (0.5, 0.5, 1.0),
+                  (0.25, 0.75, 0.5), (1.0, 1.0, 0.25), (0.05, 0.05, 0.05))
+# ResNet-50's stage 2-4 residual adds at the benchmark's b512
+ELTWISE_B512 = ((512, 56, 56, 256), (512, 28, 28, 512), (512, 14, 14, 1024))
+
+
+def ragged_eltwise(gen):
+    """``eltwise_int8`` off the main path, each call equal to its plain
+    version (0 LSB): sizes of 1 to 17 elements and odd NHWC shapes (a
+    masked tail after the last 16-byte vector), each activation at each of
+    ``ELTWISE_SCALES`` (quotients on .5, saturated sums), the whole int8
+    range (-128 too), channel slices at their own pitches beside a
+    contiguous operand and beside each other (the merged siblings' form);
+    the operands the kernel reads from a contiguous copy (an unaligned view,
+    a row shard that is no run of whole rows, a slice of channels not a
+    multiple of 16), each launched; then
+    ResNet-50's stage 2-4 shapes at b512 (``ELTWISE_B512``), contiguous and
+    with x0 a channel slice, timed beside their byte bound and the PyTorch
+    composition it replaced (``eltwise_composition``, equal to it)."""
+    import torch
+    kernel, plain = _kernel_fns()["eltwise_int8"]
+
+    def i8(*s):
+        return torch.randint(-128, 128, s, dtype=torch.int8, device="cuda",
+                             generator=gen)
+
+    def held(a, what):
+        _, ok, _ = compare(kernel(**a), plain(**a))
+        check(ok, f"eltwise_int8 {what}: differs from plain")
+
+    n = 0
+    pairs = [(i8(k), i8(k)) for k in (1, 7, 15, 16, 17)]
+    pairs += [(i8(*sh), i8(*sh)) for sh in ((3, 7, 7, 5), (2, 13, 13, 100),
+                                           (5, 3, 3, 1003))]
+    wide, wider = i8(4, 9, 9, 96), i8(4, 9, 9, 160)
+    pairs += [(wide[..., 16:80], i8(4, 9, 9, 64)),
+              (i8(4, 9, 9, 64), wide[..., 32:]),
+              (wide[..., :64], wider[..., 48:112]),
+              (wide[:1, 2:5, :, 16:48], i8(1, 3, 9, 32))]
+    for x0, x1 in pairs:
+        for s0, s1, y in ELTWISE_SCALES:
+            for act in (None, "relu", "relu6"):
+                held(dict(x0=x0, x1=x1, s0=s0, s1=s1, y_scale=y, act=act),
+                     f"x{tuple(x0.shape)} strides {x0.stride()} / "
+                     f"{x1.stride()} scales {(s0, s1, y)} act {act}")
+                n += 1
+    copied = 0
+    base = i8(4, 9, 9, 64)
+    for x0, x1, why in ((i8(1000)[1:17], i8(16), "unaligned"),
+                        (base[:, 2:5], i8(4, 3, 9, 64), "a row shard"),
+                        (wide[..., 16:40], i8(4, 9, 9, 24), "24 channels"),
+                        (wide[..., 16:80], i8(4 * 9 * 9 * 64 + 1)[1:].view(
+                            4, 9, 9, 64), "a slice beside an unaligned view")):
+        for act in (None, "relu", "relu6"):
+            before = kernel.launches
+            held(dict(x0=x0, x1=x1, s0=0.0123, s1=0.0456, y_scale=0.0789,
+                      act=act), f"{why} act {act}")
+            check(kernel.launches == before + 1,
+                  f"eltwise_int8 did not launch on {why}")
+            copied += 1
+    say("kernels", f"eltwise_int8: {n} cases (odd sizes, every act, "
+        f".5 quotients, saturation, pitched channel slices) equal to plain; "
+        f"{copied} cases on an operand it copies first (unaligned, a row "
+        f"shard, channels not a multiple of 16), each launched and equal")
+    for shape in ELTWISE_B512:
+        wide = i8(*shape[:3], shape[3] + 64)
+        for x0, form in ((i8(*shape), "contiguous"),
+                         (wide[..., 64:], "x0 a channel slice")):
+            a = dict(x0=x0, x1=i8(*shape), s0=0.0123, s1=0.0456,
+                     y_scale=0.0789, act="relu")
+            out = kernel(**a)
+            check(torch.equal(out, plain(**a)),
+                  f"eltwise_int8 x{shape} {form}: differs from plain")
+            comp = eltwise_composition(a)
+            check(torch.equal(comp(), out), f"eltwise_int8 x{shape}: the "
+                  f"PyTorch composition gives another answer")
+            ms = median_ms(lambda: kernel(**a))
+            b_ms, _ = bound_ms("eltwise_int8", a, out)
+            lib = median_ms(comp)
+            say("kernels", f"eltwise_int8 x{shape} {form} relu: {ms:.4f} ms,"
+                f" byte bound {b_ms:.4f} ms ({100 * b_ms / ms:.1f}% of it, "
+                f"{3 * out.numel() / ms / 1e9:.3f} TB/s), the PyTorch "
+                f"composition {lib:.4f} ms ({lib / ms:.1f}x)")
+            del a, out, comp
+        del wide, x0
+    torch.cuda.empty_cache()
+
+
 # ----------------------------------------------------------------------
 # phase 6
 # ----------------------------------------------------------------------
@@ -3265,6 +3436,10 @@ def kernel_summary(name, rows, counts):
         library = "none: no single PyTorch call computes a bottleneck"
     elif name == "ident":
         library = "x.clone()"
+    elif name == "eltwise_int8":
+        library = ("the PyTorch ops it replaced (two casts to f32, a "
+                   "multiply, addcmul, the activation, a multiply, round, "
+                   "clamp, a cast), on scale tensors made once")
     return {
         "name": name, "route": "cuda", **KERNELS[name],
         "path": main, "launches": counts[main][name],
@@ -3757,9 +3932,12 @@ def fma_check(eng, x):
     """The port's multiply-add (``ops.lowering.fma``: ``torch.addcmul`` on
     the card) against its CPU form (``fma_exact``: the f64 product and
     sum, rounded once) on ResNet-50's own tensors, on the card: each int8
-    Eltwise node on its inputs of 32 images (0 LSB), and an f32 ``coeffs``
-    sum (0.3, -1.7) of the same inputs dequantized (0 ulp)."""
+    Eltwise node's inputs of 32 images through ``eltwise_int8_plain`` (0
+    LSB), and an f32 ``coeffs`` sum (0.3, -1.7) of the same inputs
+    dequantized (0 ulp).  The node's own lowering (the ``eltwise_int8``
+    kernel) is held to the f64 form too (0 LSB)."""
     import torch
+    from feathercnn_tpu_torch.kernels.eltwise import eltwise_int8_plain
     from feathercnn_tpu_torch.ops import lowering
     q = eng.graph.meta["quant"]
     nodes = [n for n in eng.graph.nodes if n.op == "Eltwise"
@@ -3769,21 +3947,26 @@ def fma_check(eng, x):
     f32_vals = 0
     for n in nodes:
         ins = [vals[i] for i in n.inputs]
+        qn = q[n.name]
+        args = (*ins, *qn["in_scales"], qn["y_scale"],
+                n.attrs.get("activation"))
         f32 = [v.float() * lowering.scalar(s, v.device)
                if v.dtype == torch.int8 and s is not None else v.float()
-               for v, s in zip(ins, q[n.name]["in_scales"])]
+               for v, s in zip(ins, qn["in_scales"])]
         with torch.inference_mode():
-            (card,) = lowering.lower_node(n, ins, [], eng._ctx)
+            (kernel,) = lowering.lower_node(n, ins, [], eng._ctx)
+            card = eltwise_int8_plain(*args)
             coeff = lowering._coeff_sum([0.3, -1.7], f32)
             orig, lowering.fma = lowering.fma, lowering.fma_exact
             try:
-                (exact,) = lowering.lower_node(n, ins, [], eng._ctx)
+                exact = eltwise_int8_plain(*args)
                 coeff_exact = lowering._coeff_sum([0.3, -1.7], f32)
             finally:
                 lowering.fma = orig
-        check(card.dtype == torch.int8 and torch.equal(card, exact),
-              f"int8 Eltwise {n.name}: {int((card != exact).sum())} values "
-              f"off the f64 form")
+        for what, got in (("torch.addcmul", card), ("the kernel", kernel)):
+            check(got.dtype == torch.int8 and torch.equal(got, exact),
+                  f"int8 Eltwise {n.name} through {what}: "
+                  f"{int((got != exact).sum())} values off the f64 form")
         check(torch.equal(coeff.view(torch.int32),
                           coeff_exact.view(torch.int32)),
               f"coeffs sum at {n.name}: "
@@ -3791,9 +3974,10 @@ def fma_check(eng, x):
               f" values off the f64 form")
         f32_vals += coeff.numel()
     say("fma", f"{len(nodes)} int8 Eltwise nodes of ResNet-50 (32 images): "
-        f"torch.addcmul on the card equal to the f64 form rounded once "
-        f"(0 LSB); the f32 coeffs sum (0.3, -1.7) of their dequantized "
-        f"inputs, {f32_vals} values: 0 ulp")
+        f"eltwise_int8_plain's torch.addcmul on the card and the nodes' "
+        f"eltwise_int8 kernel equal to the f64 form rounded once (0 LSB); "
+        f"the f32 coeffs sum (0.3, -1.7) of their dequantized inputs, "
+        f"{f32_vals} values: 0 ulp")
 
 
 def ladder_filled(graph):
@@ -3846,7 +4030,7 @@ def card_nodes(label, g, cfg, eng, x, compare=True):
         card[name] = t.to(cdtype) if t.dim() == 4 else t
     params = cpu._prepare_params()
     filled = ladder_filled(eng.graph)
-    checked = exact = worst = 0
+    checked = exact = worst = eltwise = 0
     loose = []
     for n in eng.graph.nodes:
         ins = [card[i].clone() if n.op.startswith("Ladder") else card[i]
@@ -3866,6 +4050,7 @@ def card_nodes(label, g, cfg, eng, x, compare=True):
             m = int(d.max())
             checked += 1
             exact += m == 0
+            eltwise += n.op == "Eltwise"
             worst = max(worst, m)
             q = cpu._ctx.qinfo(n) or {}
             if n.op == "Convolution" and q.get("x_scale") is None:
@@ -3880,7 +4065,8 @@ def card_nodes(label, g, cfg, eng, x, compare=True):
                       "the port on the CPU on the card's inputs")
     say("nodes", f"{label}: {checked} nodes' int8 outputs (images 0-{k - 1})"
         f" on the card against the port on the CPU fed the card's inputs: "
-        f"{exact} exact, largest difference {worst} LSB; "
+        f"{exact} exact ({eltwise} int8 Eltwise nodes among them, each "
+        f"exact), largest difference {worst} LSB; "
         + ("; ".join(loose) if loose else "no library float conv"))
 
 
@@ -4592,11 +4778,13 @@ def tools_validate(deploy, model, tmp, rng):
     secs = time.perf_counter() - t0
     counts = {k: v for k, v in read_counts().items() if v}
     forwards = TOOLS_IMAGES // BATCH
+    # the converted deploy keeps res5's residual adds on int8 edges too
     want = {"matmul_epilogue": forwards * 34,
-            "conv2d_implicit_gemm": forwards * 16}
+            "conv2d_implicit_gemm": forwards * 16,
+            "eltwise_int8": forwards * 16}
     check(counts == want, f"validate: launches {counts}, expected {want} "
           f"({forwards} bf16 forwards' FC and {forwards} w8a8 forwards' "
-          f"33 + 16)")
+          f"33 + 16 and 16 residual adds)")
     check(res["fp_top1_pred"] == fp and len(res["int8_top1_pred"]) ==
           TOOLS_IMAGES and all(0 <= v < 1000 for v in res["int8_top1_pred"])
           and {"fp_top1", "int8_top1", "top1_drop", "gate",

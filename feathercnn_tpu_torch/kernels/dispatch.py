@@ -36,6 +36,7 @@ EngineConfig.algo_overrides forces a choice per layer name.
 
 The FusedBottleneck and FusedChain lowerings call ``fused_chain`` (the
 int8 mode) and ``fused_chain_float`` (kernels/fused_chain.py) from here,
+the int8-edge Eltwise lowering calls ``eltwise_int8`` (kernels/eltwise.py)
 and the boundary probe calls ``ident`` (kernels/ident.py), so that every
 kernel entry point of the "cuda" backend is an attribute of this module.
 """
@@ -51,13 +52,14 @@ from ..ops.lowering import (act_segment_bounds, apply_act_segments,
                             quantize, scalar)
 from .conv import conv2d_implicit_gemm
 from .depthwise import depthwise_conv2d, depthwise_conv2d_int8
+from .eltwise import eltwise_int8
 from .fused_chain import fused_chain, fused_chain_float
 from .ident import ident
 from .matmul import gemm_layout, grouped_layout, matmul_epilogue, supergroup
 from .winograd import transform_weights, winograd_conv2d_transformed
 
 __all__ = ["select_algo", "block_diagonal", "conv_forward", "fc_forward",
-           "fused_chain", "fused_chain_float", "ident"]
+           "fused_chain", "fused_chain_float", "ident", "eltwise_int8"]
 
 
 def select_algo(node, cin: int, quant: bool) -> str:

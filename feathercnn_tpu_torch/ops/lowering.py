@@ -579,14 +579,21 @@ def _lower_eltwise(node, inputs, params, ctx):
         # activation, requantize to the calibrated output scale.  Each
         # dequantizing multiply rounds once with the add that consumes it
         # (one FMA), where the reference's compiled add contracts it: the
-        # first operand's product when it is one, else the second's.
-        terms = []
-        for x, s in zip(inputs, q["in_scales"]):
-            terms.append((x.float(), scalar(s, x.device))
-                         if x.dtype == torch.int8 else (x.float(), None))
-        acc = _sum_terms(terms)
-        acc = apply_activation(acc, node.attrs.get("activation"))
-        return [quantize(acc, scalar(q["y_scale"], acc.device))]
+        # first operand's product when it is one, else the second's; the
+        # division by the output scale is, compiled, a multiply by its
+        # reciprocal.  On the "cuda" backend two int8 operands of one shape
+        # are one eltwise_int8 call, in any layout; three operands or a
+        # float one are PyTorch ops.
+        from ..kernels import dispatch as kdispatch
+        from ..kernels import eltwise
+        act = node.attrs.get("activation")
+        if ctx.backend == "cuda":
+            if eltwise.takes_kernel(inputs):
+                (s0, s1), y = q["in_scales"], q["y_scale"]
+                return [kdispatch.eltwise_int8(*inputs, s0, s1, y, act)]
+            eltwise.eltwise_int8.fallbacks += 1
+        return [eltwise.eltwise_int8_sum(inputs, q["in_scales"],
+                                         q["y_scale"], act)]
     if op == "SUM":
         coeffs = node.attrs.get("coeffs")
         if coeffs:
