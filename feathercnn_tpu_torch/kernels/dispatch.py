@@ -39,6 +39,11 @@ int8 mode) and ``fused_chain_float`` (kernels/fused_chain.py) from here,
 the int8-edge Eltwise lowering calls ``eltwise_int8`` (kernels/eltwise.py)
 and the boundary probe calls ``ident`` (kernels/ident.py), so that every
 kernel entry point of the "cuda" backend is an attribute of this module.
+
+Where ``conv_forward`` picks a grouped conv's route (the super-group
+kernel, the block-diagonal weight, a depthwise kernel or PyTorch's float
+conv) it tells ``utils.profiling.grouped_route``, which records it inside
+``profiling.record()`` and does nothing otherwise.
 """
 
 from __future__ import annotations
@@ -50,6 +55,7 @@ import torch.nn.functional as F
 from ..ops.lowering import (act_segment_bounds, apply_act_segments,
                             apply_activation, conv_hparams, nchw_conv,
                             quantize, scalar)
+from ..utils.profiling import grouped_route
 from .conv import conv2d_implicit_gemm
 from .depthwise import depthwise_conv2d, depthwise_conv2d_int8
 from .eltwise import eltwise_int8
@@ -212,6 +218,7 @@ def conv_forward(node, x, w, bias, ctx):
                 kwargs = dict(x_scale=float(q["x_scale"]),
                               out_dtype=getattr(torch,
                                                 ctx.config.compute_dtype))
+            grouped_route(node.name, "depthwise")
             return depthwise_conv2d(x.contiguous(), wd, bias, stride=sh,
                                     pad_h=ph, pad_w=pw, activation=act,
                                     **kwargs)
@@ -332,6 +339,7 @@ def conv_forward(node, x, w, bias, ctx):
                        * np.float32(q["x_scale"]))
         out_dtype, out_scale = _out_spec(x, q)
         if depthwise:
+            grouped_route(node.name, "depthwise")
             return depthwise_conv2d_int8(
                 xq.contiguous(), w.reshape(kh, kw, -1), bias, ws, stride=sh,
                 pad_h=ph, pad_w=pw, activation=act, out_dtype=out_dtype,
@@ -344,12 +352,17 @@ def conv_forward(node, x, w, bias, ctx):
         kw_ = dict(activation=act, out_dtype=out_dtype, out_scale=out_scale,
                    lo=lo, hi=hi)
         if kh == 1 and kw == 1:
+            if wg > 1:
+                grouped_route(node.name, "block_diagonal")
             x2, (n, oh, ow) = _pointwise_input(xq, sh, sw, ph, pw)
             y = matmul_epilogue(x2, _gemm_weight(node, w, torch.int8, ctx,
                                                  True, wg), bias, ws, **kw_)
             return y.reshape(n, oh, ow, -1)
         q = supergroup(cin, w.shape[3], wg, (kh, kw), stride)[0] \
             if wg > 1 else 0
+        if wg > 1:
+            grouped_route(node.name, "supergroup" if q else "block_diagonal",
+                          q)
         return conv2d_implicit_gemm(xq.contiguous(),
                                     _gemm_weight(node, w, torch.int8, ctx,
                                                  False, wg, q), bias, ws,
@@ -358,6 +371,8 @@ def conv_forward(node, x, w, bias, ctx):
 
     # float conv (PyTorch's, as the reference leaves it to XLA's):
     # f32 accumulation of compute-dtype operands, + bias, act, requant
+    if group > 1:
+        grouped_route(node.name, "float")
     x = _dequant_int8_edge(x, q, ctx)
     wd = _dequant_weight(w, q, x.dtype, node, ctx)
     y = nchw_conv(x.float(), wd.float(), (sh, sw), (ph, pw), dil, group)

@@ -38,8 +38,8 @@ import torch
 
 log = logging.getLogger("feathercnn_tpu_torch")
 
-__all__ = ["record", "Recording", "Span", "Sync", "trace", "layer_timings",
-           "log"]
+__all__ = ["record", "Recording", "Span", "Sync", "Route", "grouped_route",
+           "trace", "layer_timings", "log"]
 
 # The start of the message of PyTorch's warning under
 # ``torch.cuda.set_sync_debug_mode("warn")``.
@@ -79,6 +79,20 @@ class Sync(NamedTuple):
     site: str
 
 
+class Route(NamedTuple):
+    """The route one grouped conv's lowering took, as
+    ``kernels/dispatch.py::conv_forward`` chose it: the run's batch (None
+    outside a ``run`` span), the node's name, the route and q.  ``route``
+    is ``"supergroup"`` (the super-group kernel, q whole groups a column
+    tile), ``"block_diagonal"`` (the GEMM kernels on the block-diagonal
+    dense weight), ``"depthwise"`` (a depthwise kernel) or ``"float"``
+    (PyTorch's float grouped conv); q is 0 off the super-group route."""
+    batch: Optional[int]
+    node: str
+    route: str
+    q: int
+
+
 @dataclass
 class Recording:
     """What ``record()`` hands over.  ``anchor_ns`` holds (before, after),
@@ -91,6 +105,7 @@ class Recording:
     for the profiler's set-up)."""
     spans: List[Span] = field(default_factory=list)
     syncs: List[Sync] = field(default_factory=list)
+    routes: List[Route] = field(default_factory=list)
     anchor_ns: List[Tuple[int, int]] = field(default_factory=list)
 
 
@@ -139,21 +154,33 @@ class _Recorder:
             t, runs[-1][1], node and node[3], node and node[4],
             f"{path}:{lineno}"))
 
+    def route(self, node: str, route: str, q: int) -> None:
+        runs = [s for s in self.open if s[2] == "run"]
+        self.recording.routes.append(
+            Route(runs[-1][1] if runs else None, node, route, q))
+
 
 # The open recording; read once per ``Engine.run`` call.
 _recorder: Optional[_Recorder] = None
 
 
+def grouped_route(node: str, route: str, q: int = 0) -> None:
+    """A ``Route`` of grouped conv ``node`` into the open recording; where
+    no ``record()`` is open, one ``None`` check and nothing else."""
+    if _recorder is not None:
+        _recorder.route(node, route, q)
+
+
 @contextlib.contextmanager
 def record():
-    """Record the port's spans and syncs in the block; yields the
-    ``Recording``, whose lists are whole when the block ends.  One thread,
-    one recording at a time.  On a CUDA host the block runs under
-    ``torch.cuda.set_sync_debug_mode("warn")`` (the mode before it is set
-    again after it) and PyTorch's sync warnings become ``Sync`` entries
-    instead of being shown; under an active ``torch.profiler`` it first
-    takes the clock anchor (``Recording.anchor_ns``), so enter it on an
-    idle card inside the profiler's block."""
+    """Record the port's spans, syncs and grouped conv routes in the
+    block; yields the ``Recording``, whose lists are whole when the block
+    ends.  One thread, one recording at a time.  On a CUDA host the block
+    runs under ``torch.cuda.set_sync_debug_mode("warn")`` (the mode before
+    it is set again after it) and PyTorch's sync warnings become ``Sync``
+    entries instead of being shown; under an active ``torch.profiler`` it
+    first takes the clock anchor (``Recording.anchor_ns``), so enter it on
+    an idle card inside the profiler's block."""
     global _recorder
     if _recorder is not None:
         raise RuntimeError("record() is already open")

@@ -12,9 +12,11 @@ inside the profiler's block around the profiled batches ("on") or not
 For each run it prints the benchmark's per-layer readings; for each "on"
 run also what the recording gives on the profile's clock
 (``gpubench/spans.py``): syncs per batch, host ms in sync calls per batch,
-device us per image by node op (``Eltwise`` among them), the syncs and
-the sync calls by node, and the longest idle gaps named by the program's
-spans.  It checks, and exits 1 where a check fails:
+device us per image by node op (``Eltwise`` among them), the grouped
+convs by the route each took (the recorder's ``Route`` records: convs,
+q, device us per image of their nodes' kernels and those kernels'
+names), the syncs and the sync calls by node, and the longest idle gaps
+named by the program's spans.  It checks, and exits 1 where a check fails:
 
 - at least 99% of the kernel launches that lie inside ``run`` spans lie
   inside a ``node`` span;
@@ -130,6 +132,28 @@ def node_label(span):
     return "run" if span.kind == "run" else f"{span.name} ({span.op})"
 
 
+def grouped_by_route(routes, joined, images):
+    """Per route of the recorded grouped convs: how many convs took it,
+    their q (conv count by q), the device us per image of the kernels
+    joined to their node spans, and those kernels' names (us per image)."""
+    route_of = {r.node: r.route for r in routes}
+    out = {}
+    for route in sorted(set(route_of.values())):
+        qs = Counter(q for _, q in {(r.node, r.q) for r in routes
+                                      if r.route == route})
+        out[route] = {"convs": sum(qs.values()),
+                      "q": dict(sorted(qs.items())),
+                      "device_us_per_image": 0.0, "kernels": Counter()}
+    for name, us, node, _ in joined:
+        route = route_of.get(node.name) if node is not None else None
+        if route is not None:
+            out[route]["device_us_per_image"] += us / images
+            out[route]["kernels"][name[:80]] += us / images
+    for v in out.values():
+        v["kernels"] = dict(v["kernels"].most_common(4))
+    return out
+
+
 def recording_readings(profile, kept):
     """What the recording gives on the profile's clock, and the checks."""
     import spans
@@ -156,6 +180,7 @@ def recording_readings(profile, kept):
         sync_ms_by_node[node_label(al.innermost((a + b) / 2))] += (
             b - a) / 1e3 / batches
     lone_calls, lone_syncs = match_syncs(al, calls)
+    grouped = grouped_by_route(rec.routes, joined, profile.images)
     in_nodes, in_runs = spans.launch_share_in_nodes(profile, al)
     syncs_by_node = Counter(f"{s.node} ({s.op}) at {s.site}"
                             for s in rec.syncs)
@@ -170,6 +195,7 @@ def recording_readings(profile, kept):
         "device_us_per_image_by_node_op": {
             k: v / profile.images for k, v in sorted(
                 by_op.items(), key=lambda kv: -kv[1])},
+        "grouped_convs_by_route": grouped,
         "syncs_per_batch_by_node": {
             k: v / batches for k, v in syncs_by_node.most_common()},
         "sync_call_ms_per_batch_by_node": dict(sorted(
