@@ -141,7 +141,7 @@ float activations; the bf16 paths run ``quant=None`` in bf16:
   path, the s2d path and the ladder path are checked node by node
   (``card_nodes``): each node run by the port on the CPU on the card's
   own input values gives the card's int8 outputs (every int8 Eltwise
-  among them), a library float conv (the cuDNN stem) within 1 LSB.  After
+  among them, and the stem kernel's), cuDNN's s2d stem within 1 LSB.  After
   the first ResNet-50 path, ``fma_check`` holds the port's multiply-add on
   the card (``torch.addcmul``) to its CPU form (``ops.lowering.fma_exact``)
   on ResNet-50's int8 Eltwise inputs: the int8 Eltwise's plain version and
@@ -216,7 +216,11 @@ Phases, each printing its own lines:
    ``ident`` is bit-equal, its yardstick ``x.clone()``; ``eltwise_int8``
    equal (0 LSB), its yardstick the PyTorch ops it replaced, on scale
    tensors made once (no host sync timed), and each path prints its
-   launches' sums.
+   launches' sums; ``stem_conv_int8`` within 1 LSB of its plain version
+   on the card (it sums in the CPU's order, r, s, c; cuDNN's f32 conv
+   rounds a few values the other way), its yardstick cuDNN's f32 conv and
+   the PyTorch epilogue it replaced (``stem_composition``), and each path
+   prints its launch.
    A float GEMM's yardstick is ``torch.matmul`` in x's type, a float
    ``conv2d_implicit_gemm``'s ``F.conv2d`` on channels-last bf16 (the
    weight dequantized once).
@@ -265,8 +269,13 @@ Phases, each printing its own lines:
    sizes, every activation, .5 quotients, saturated sums and pitched
    channel slices (and operands it copies first), then at ResNet-50's
    stage 2-4 shapes at b512 beside its byte bound and the PyTorch ops it
-   replaced, against the plain versions; before the rest of the zoo's
-   paths,
+   replaced, against the plain versions, and ``stem_conv_int8`` on the
+   zoo's stem forms (every act, .5 quotients; ``STEM_FORMS``) equal to
+   the plain version on the CPU where the pad is at most (k - 1) / 2
+   (within 1 LSB at FCN's pad 100) and within 1 LSB of it on the card, then
+   at the benchmark's two stems (ResNet-50 b512, MobileNet-v1 b2048)
+   beside its bound, plain and what it replaced;
+   before the rest of the zoo's paths,
    ``conv2d_implicit_gemm`` on block-diagonal weights (4, 8 and 32
    channels a group) and on 1x7, 7x1, 1x3 and 3x1 kernels with their
    pads, stride 1 and 2, each on "wgmma", and on the super-group route
@@ -357,6 +366,11 @@ KERNELS = {
         "source": "feathercnn_tpu_torch/kernels/csrc/eltwise_int8.cu",
         "replaces": "feathercnn_tpu/ops/lowering.py:1837 (the int8-edge "
                     "Eltwise, plain jnp that XLA fuses; no Pallas kernel)"},
+    "stem_conv_int8": {
+        "source": "feathercnn_tpu_torch/kernels/csrc/stem_conv.cu",
+        "replaces": "feathercnn_tpu/kernels/dispatch.py:232-252 (the "
+                    "float conv of an int8-emitting stem, XLA's conv; no "
+                    "Pallas kernel)"},
     # the dilated launches of conv2d_implicit_gemm (counted on its
     # ``dilated_launches`` too): their own entry of the kernels line
     "conv2d_implicit_gemm_dilated": {
@@ -531,6 +545,18 @@ EXPECTED = {
     "conv forms": {**_ZERO, "matmul_epilogue": 1, "conv2d_implicit_gemm": 5,
                    "conv2d_implicit_gemm_grouped": 2},
 }
+# Every w8a8 path whose stem (C_in = 3) emits int8 launches stem_conv_int8
+# once.  The stems of AlexNet (its LRN on float edges), MobileNet-v2 and
+# the ShuffleNets (a float grouped conv reads them) emit bf16, and the s2d
+# stem runs on 12 channels: PyTorch's float conv, as in the bf16 paths.
+for _path in EXPECTED:
+    if _path not in ("mobilenet_v2 b128 dw override", "resnet50 b128 bf16",
+                     "resnet50 b128 bf16 fuse_chains", "boundary b128",
+                     "vgg16 b128 w8", "vgg16 b128 w8 winograd",
+                     "alexnet b256", "squeezenet_v11 b1 fp32",
+                     "shufflenet_v1 b128", "shufflenet_v2 b128",
+                     "resnet50 b128 s2d", "conv forms"):
+        EXPECTED[_path]["stem_conv_int8"] = 1
 # The two rewrite-pass paths' graphs: SpaceToDepth nodes, and ladders,
 # appends and Concats left (tests/test_ladder.py's counts).
 S2D_STEMS = 1
@@ -817,7 +843,8 @@ class LaunchRecorder:
 def _kernel_fns():
     """name -> (wrapper, plain version)."""
     from feathercnn_tpu_torch.kernels import (conv, depthwise, eltwise,
-                                              fused_chain, ident, matmul)
+                                              fused_chain, ident, matmul,
+                                              stem)
     return {"matmul_epilogue": (matmul.matmul_epilogue,
                                 matmul.matmul_epilogue_plain),
             "conv2d_implicit_gemm": (conv.conv2d_implicit_gemm,
@@ -832,7 +859,8 @@ def _kernel_fns():
                                   fused_chain.fused_chain_plain),
             "ident": (ident.ident, ident.ident_plain),
             "eltwise_int8": (eltwise.eltwise_int8,
-                             eltwise.eltwise_int8_plain)}
+                             eltwise.eltwise_int8_plain),
+            "stem_conv_int8": (stem.stem_conv_int8, stem.stem_conv_plain)}
 
 
 def reset_counts():
@@ -843,6 +871,7 @@ def reset_counts():
     _kernel_fns()["conv2d_implicit_gemm"][0].dilated_launches = 0
     _kernel_fns()["conv2d_implicit_gemm"][0].grouped_launches = 0
     _kernel_fns()["eltwise_int8"][0].fallbacks = 0
+    _kernel_fns()["stem_conv_int8"][0].fallbacks = 0
 
 
 def gemm_plan_of(kernel, a):
@@ -918,12 +947,16 @@ def check_variants(label, launches):
 
 def read_counts():
     """The launches of the counted forward by kernel.  Every int8-edge
-    Eltwise of a counted forward takes ``eltwise_int8``: none fell back
-    to PyTorch's ops."""
+    Eltwise of a counted forward takes ``eltwise_int8`` and every
+    int8-emitting stem ``stem_conv_int8``: none fell back to PyTorch's
+    ops."""
     fns = _kernel_fns()
     fallbacks = fns["eltwise_int8"][0].fallbacks
     check(fallbacks == 0, f"{fallbacks} int8-edge Eltwise nodes fell back "
           f"to PyTorch's ops")
+    fallbacks = fns["stem_conv_int8"][0].fallbacks
+    check(fallbacks == 0, f"{fallbacks} int8-emitting stems fell back to "
+          f"PyTorch's float conv")
     counts = {name: fn.launches for name, (fn, _) in fns.items()}
     counts[DILATED] = fns["conv2d_implicit_gemm"][0].dilated_launches
     counts[GROUPED] = fns["conv2d_implicit_gemm"][0].grouped_launches
@@ -1058,7 +1091,8 @@ def bound_ms(kernel, a, out, group=1):
     memory rate and its operations over the peak for their type (int8 or
     bf16 on the tensor cores by x's type, float32 FMA for f32 x and for the
     float depthwise variant, which computes in f32; ``ident`` and
-    ``eltwise_int8`` do no products: bytes bound them).
+    ``eltwise_int8`` do no products: bytes bound them; ``stem_conv_int8``
+    its conv's multiply-adds on the bf16 peak).
     A conv on a block-diagonal or super-group weight computes a grouped
     conv: its operations are the dense product's over ``group``, and a
     super-group launch's weight bytes the grouped weight's (KH*KW*C/g*Co),
@@ -1075,8 +1109,13 @@ def bound_ms(kernel, a, out, group=1):
     if sg:
         w = a["w"]
         nbytes -= w.numel() - w.numel() * a["x"].shape[3] // sg[0] // sg[2]
+    if kernel == "stem_conv_int8" and a["wk"] is not None:
+        # its weight counted once, as HWIO
+        nbytes -= a["wk"].numel() * a["wk"].element_size()
     if kernel in ("ident", "eltwise_int8"):
         ops = 0.0
+    elif kernel == "stem_conv_int8":
+        ops = 2.0 * out.numel() * math.prod(a["w"].shape[:3])
     elif kernel in CHAINS:
         ops = chain_ops(a)
     elif a.get("dilation", 1) > 1:
@@ -1118,7 +1157,10 @@ def compare(kernel_out, plain_out, gate="exact"):
     |plain|, and at most 0.1% of them more than 1 ulp apart; f32 out,
     within 1e-4 of the largest |plain|.  ``gate="exact"``: int8 equal, bf16
     within 1 ulp of the plain value, f32 within 1e-5 of the output's
-    magnitude."""
+    magnitude.  ``gate="lsb1"``, for the stem kernel against its plain
+    version on the card (the kernel sums in the CPU's order, cuDNN's f32
+    conv in its own): int8 within 1 LSB, the elements that differ
+    counted."""
     import torch
     check(kernel_out.dtype == plain_out.dtype
           and kernel_out.shape == plain_out.shape,
@@ -1131,6 +1173,8 @@ def compare(kernel_out, plain_out, gate="exact"):
     max_err = float(err.max()) if err.numel() else 0.0
     top = float(p.abs().max()) if p.numel() else 0.0
     if kernel_out.dtype == torch.int8:
+        if gate == "lsb1":
+            return max_err, max_err <= 1.0, int((err > 0).sum())
         return max_err, max_err == 0.0, 0
     if kernel_out.dtype == torch.bfloat16:
         ulp = torch.exp2(torch.floor(torch.log2(
@@ -1182,6 +1226,8 @@ def library_ms(kernel, a, group=1):
     ``F.conv2d(groups=C)`` with its bias on channels-last bf16 at a
     depthwise launch's shape; ``x.clone()`` for ``ident``; for
     ``eltwise_int8`` the PyTorch ops it replaced (``eltwise_composition``);
+    for ``stem_conv_int8`` cuDNN's f32 conv and the PyTorch epilogue it
+    replaced (``stem_composition``);
     for a grouped
     conv's launch (super-group or block-diagonal) the grouped conv, f32
     ``F.conv2d(groups=group)`` (PyTorch has no int8 conv on the card); for a
@@ -1210,6 +1256,12 @@ def library_ms(kernel, a, group=1):
                a["x1"].stride(), a["act"])
         if key not in _LIBRARY_MS:
             _LIBRARY_MS[key] = median_ms(eltwise_composition(a))
+        return _LIBRARY_MS[key]
+    if kernel == "stem_conv_int8":
+        key = ("stem", tuple(a["x"].shape), tuple(a["w"].shape),
+               tuple(a["stride"]), tuple(a["padding"]), a["activation"])
+        if key not in _LIBRARY_MS:
+            _LIBRARY_MS[key] = median_ms(stem_composition(a), reps=5)
         return _LIBRARY_MS[key]
     d = dims(kernel, a)
     x = a["x"] if "x" in a else a["xq"]
@@ -1245,6 +1297,27 @@ def eltwise_composition(a):
     s0, s1, inv = (torch.tensor(v, dtype=torch.float32, device="cuda")
                    for v in (a["s0"], a["s1"], reciprocal(a["y_scale"])))
     return lambda: requant_sum((a["x0"], a["x1"]), (s0, s1), inv, a["act"])
+
+
+def stem_composition(a):
+    """A callable running what ``stem_conv_int8`` replaced on a recorded
+    launch's tensors: the bf16 input cast to f32, cuDNN's f32 conv (TF32
+    off), + bias, the activation, a multiply by ``out_scale``, round,
+    clamp and the cast to int8, the scale made a device tensor once (no
+    host sync timed); it returns what the kernel returns."""
+    import torch
+    from feathercnn_tpu_torch.ops.lowering import apply_activation, nchw_conv
+    sc = torch.tensor(a["out_scale"], dtype=torch.float32, device="cuda")
+    x, w, b = a["x"], a["w"], a["bias"]
+
+    def run():
+        y = nchw_conv(x.float(), w.float(), tuple(a["stride"]),
+                      tuple(a["padding"]))
+        if b is not None:
+            y = y + b
+        y = apply_activation(y, a["activation"])
+        return torch.clamp(torch.round(y * sc), -127, 127).to(torch.int8)
+    return run
 
 
 def _time_matmul(m, k, n, dtype):
@@ -1701,6 +1774,11 @@ def chain_alt_ms(a, want):
 
 def describe(kernel, a, out):
     dt = str(out.dtype).replace("torch.", "")
+    if kernel == "stem_conv_int8":
+        kh, kw, _, co = a["w"].shape
+        return (f"stem_conv_int8 x{tuple(a['x'].shape)} {kh}x{kw} "
+                f"s{tuple(a['stride'])} p{tuple(a['padding'])} Co={co} "
+                f"{a['activation']}")
     if kernel == "eltwise_int8":
         from feathercnn_tpu_torch.kernels.eltwise import row_pitch
         c = a["x0"].shape[-1]
@@ -1781,7 +1859,7 @@ def launch_rows(label, launches, groups=None, timed=True, detail=True):
             name in ("matmul_epilogue", "conv2d_implicit_gemm")
             and a["x"].dtype != torch.int8)
         gate = ("bits" if name == "ident" else "float" if float_sums
-                else "exact")
+                else "lsb1" if name == "stem_conv_int8" else "exact")
         kernel, plain = fns[name]
         out = kernel(**a)
         tiles = None
@@ -1853,6 +1931,8 @@ def kernels_vs_plain(label, launches, groups=None):
         med = statistics.median(r["ms"] for r in same)
         over = sum(r["over_1ulp"] for r in same)
         within = ("within the float-sum gates" if same[0]["float_sums"]
+                  else "within 1 LSB of plain"
+                  if same[0]["kernel"] == "stem_conv_int8"
                   else "equal to plain")
         say("kernels", f"{desc}: {len(same)} calls, "
             f"{sum(r['launches'] for r in same)} launches, every one {within} "
@@ -1929,6 +2009,18 @@ def kernels_vs_plain(label, launches, groups=None):
             f"composition it replaced {sums['library_ms']:.4f} ms "
             f"({sums['library_ms'] / sums['ms']:.1f}x the kernel), plain "
             f"(with its scalar syncs) {sums['plain_ms']:.3f} ms")
+    mine = [r for r in rows if r["kernel"] == "stem_conv_int8"]
+    if mine:
+        sums = _sums(mine)
+        say(label, f"stem_conv_int8 launches of one forward: {len(mine)}, "
+            f"{sums['ms']:.4f} ms, bound {sums['bound_ms']:.4f} ms "
+            f"({mine[0]['bound_by']}, "
+            f"{100 * sums['bound_ms'] / sums['ms']:.1f}% of it), cuDNN's f32 "
+            f"conv + PyTorch's epilogue {sums['library_ms']:.4f} ms "
+            f"({sums['library_ms'] / sums['ms']:.1f}x the kernel), plain "
+            f"(with its scalar sync) {sums['plain_ms']:.3f} ms; "
+            f"{sum(r['over_1ulp'] for r in mine)} of "
+            f"{sum(r['elements'] for r in mine)} int8 values 1 LSB off plain")
     for var in ("k3s1", "k3s2"):
         mine = [r for r in rows if r["tiles"] and r["variant"] == var]
         if not mine:
@@ -1993,6 +2085,8 @@ def _library_name(desc):
         return "x.clone()"
     if desc.startswith("eltwise_int8"):
         return "PyTorch's composition"
+    if desc.startswith("stem_conv_int8"):
+        return "cuDNN's f32 conv + PyTorch's epilogue"
     if "depthwise" in desc:
         return "bf16 F.conv2d(groups=C)"
     if "dilation=" in desc:
@@ -2104,6 +2198,8 @@ def _kernel_group(key):
         return "ident"
     if "eltwise_int8_kernel" in key:
         return "eltwise_int8"
+    if "stem_conv_kernel" in key:
+        return "stem_conv_int8"
     if "dw_kernel" in key:      # dw_kernel<TX, S, INT_W, ...>, mangled or not
         return ("depthwise_conv2d_int8"
                 if "Lb1E" in key or ", true," in key else "depthwise_conv2d")
@@ -2591,6 +2687,7 @@ def ragged_cases():
     n = ragged_float_chain(gen) + ragged_ident(gen)
     say("kernels", f"{n} float-chain and ident cases within their gates")
     ragged_eltwise(gen)
+    ragged_stem(gen)
 
 
 def ragged_int8_chain(gen):
@@ -3258,6 +3355,110 @@ def ragged_eltwise(gen):
     torch.cuda.empty_cache()
 
 
+# The stem kernel's forms (kernel, stride, pad, Co, image side): the zoo's
+# stems (ResNet-50, MobileNet, VGG's stride 1 on its odd-parity windows,
+# AlexNet's 11x11, SqueezeNet v1.0/1.1, ShuffleNet's 24, Inception-v3's
+# 299 rows, FCN's pad 100) and an odd one; then the benchmark's two stems
+# at their batches, timed
+STEM_FORMS = ((7, 2, 3, 64, 224), (3, 2, 1, 32, 224), (3, 1, 1, 64, 224),
+              (11, 4, 0, 96, 227), (3, 2, 0, 64, 227), (7, 2, 0, 96, 224),
+              (3, 2, 1, 24, 224), (3, 2, 0, 32, 299), (3, 1, 100, 64, 224),
+              (5, 3, 2, 32, 41))
+STEM_CELLS = ((512, 7, 2, 3, 64, "resnet50_w8a8.offline"),
+              (2048, 3, 2, 1, 32, "mobilenet_v1_w8a8.offline"))
+
+
+def ragged_stem(gen):
+    """``stem_conv_int8`` off the main paths, each call launched and within
+    1 LSB of its plain version on the card (cuDNN's order), and the relu
+    call of each form equal to it on the CPU where the padding is at most
+    (k - 1) / 2 (0 LSB: PyTorch's CPU conv sums those in r, s, c order, as
+    the kernel does) and within 1 LSB where it is larger (FCN's pad 100
+    takes another CPU path): every form of
+    ``STEM_FORMS`` at batch 2 with each activation, with and without a
+    bias, at a calibration-like scale and at quotients on .5 (quarter
+    weights on small integers, at out_scale 2); then the benchmark's two
+    stems at their batches (``STEM_CELLS``) timed beside their bound, the
+    plain version and what the kernel replaced (``stem_composition``)."""
+    import torch
+    kernel, plain = _kernel_fns()["stem_conv_int8"]
+    n = off = total = cpu_off = 0
+    for k, s, p, co, side in STEM_FORMS:
+        for exact in (False, True):
+            if exact:
+                x = torch.randint(-8, 9, (2, side, side, 3), device="cuda",
+                                  generator=gen).to(torch.bfloat16)
+                w = (torch.randint(-7, 8, (k, k, 3, co), device="cuda",
+                                   generator=gen) * 0.25).to(torch.bfloat16)
+                scale = 2.0
+            else:
+                x = torch.randn(2, side, side, 3, device="cuda",
+                                generator=gen).to(torch.bfloat16)
+                w = (torch.randn(k, k, 3, co, device="cuda", generator=gen)
+                     / k).to(torch.bfloat16)
+                scale = 127 / 4.0
+            for act, bias in ((None, None), ("relu", True), ("relu6", True)):
+                b = (torch.randint(-8, 9, (co,), device="cuda",
+                                   generator=gen) * 0.25).float() \
+                    if bias else None
+                a = dict(x=x, w=w, bias=b, stride=(s, s), padding=(p, p),
+                         activation=act, out_scale=scale, wk=None)
+                before = kernel.launches
+                out = kernel(**a)
+                err, ok, over = compare(out, plain(**a), "lsb1")
+                # the sums are the activations' own: one CPU run a form
+                cpu = out.cpu() if act != "relu" else plain(
+                    **{k_: v.cpu() if torch.is_tensor(v) else v
+                       for k_, v in a.items()})
+                off_cpu = (out.cpu().int() - cpu.int()).abs()
+                check(ok and kernel.launches == before + 1
+                      and int(off_cpu.max()) <= (0 if 2 * p <= k - 1
+                                                 else 1),
+                      f"stem_conv_int8 {k}x{k} s{s} p{p} Co={co} on "
+                      f"{side}x{side} {act} exact={exact}: {err} LSB off "
+                      f"plain on the card, {int((off_cpu > 0).sum())} "
+                      f"values off it on the CPU, launched "
+                      f"{kernel.launches - before}")
+                cpu_off += int((off_cpu > 0).sum())
+                off += over
+                total += 2 * co * ((side + 2 * p - k) // s + 1) ** 2
+                n += 1
+    say("kernels", f"stem_conv_int8: {n} cases (the zoo's stem forms and "
+        f"an odd one, every act, with and without bias, .5 quotients), each "
+        f"launched; against the plain version on the CPU equal where the "
+        f"pad is at most (k - 1) / 2, {cpu_off} values 1 LSB off at FCN's "
+        f"pad 100; on the card (cuDNN) {off} of {total} values 1 LSB off")
+    for nb, k, s, p, co, cell in STEM_CELLS:
+        x = torch.randn(nb, 224, 224, 3, device="cuda", generator=gen).to(
+            torch.bfloat16)
+        w = (torch.randn(k, k, 3, co, device="cuda", generator=gen) / k).to(
+            torch.bfloat16)
+        from feathercnn_tpu_torch.kernels.stem import stem_layout
+        a = dict(x=x, w=w, bias=torch.randn(co, device="cuda",
+                                            generator=gen) * 0.1,
+                 stride=(s, s), padding=(p, p), activation="relu",
+                 out_scale=127 / 4.0, wk=stem_layout(w))
+        out = kernel(**a)
+        err, ok, over = compare(out, plain(**a), "lsb1")
+        check(ok, f"stem_conv_int8 b{nb} {k}x{k}: {err} LSB off plain")
+        comp = stem_composition(a)
+        err2, ok2, _ = compare(out, comp(), "lsb1")
+        check(ok2, f"stem_conv_int8 b{nb} {k}x{k}: {err2} LSB off what it "
+              f"replaced")
+        ms = median_ms(lambda: kernel(**a))
+        b_ms, by = bound_ms("stem_conv_int8", a, out)
+        lib = median_ms(comp, reps=5)
+        plain_ms = median_ms(lambda: plain(**a), reps=5)
+        say("kernels", f"stem_conv_int8 b{nb} {k}x{k} s{s} Co={co} ({cell}'s"
+            f" stem): {ms:.4f} ms, bound {b_ms:.4f} ms ({by}, "
+            f"{100 * b_ms / ms:.1f}% of it), plain {plain_ms:.4f} ms, "
+            f"cuDNN's f32 conv + PyTorch's epilogue {lib:.4f} ms "
+            f"({lib / ms:.1f}x the kernel); {over} of {out.numel()} values "
+            f"1 LSB off plain")
+        del a, out, comp, x
+        torch.cuda.empty_cache()
+
+
 # ----------------------------------------------------------------------
 # phase 6
 # ----------------------------------------------------------------------
@@ -3440,6 +3641,10 @@ def kernel_summary(name, rows, counts):
         library = ("the PyTorch ops it replaced (two casts to f32, a "
                    "multiply, addcmul, the activation, a multiply, round, "
                    "clamp, a cast), on scale tensors made once")
+    elif name == "stem_conv_int8":
+        library = ("what it replaced: the input cast to f32, cuDNN's f32 "
+                   "conv (TF32 off), + bias, the activation, a multiply, "
+                   "round, clamp, a cast, the scale a tensor made once")
     return {
         "name": name, "route": "cuda", **KERNELS[name],
         "path": main, "launches": counts[main][name],
@@ -3997,10 +4202,11 @@ def ladder_filled(graph):
 def card_nodes(label, g, cfg, eng, x, compare=True):
     """Node by node: each node of the card's graph run by the port on the
     CPU on the card's own input values (images 0-1), and every int8 output
-    held to the card's.  A node whose card compute is a library float op
-    (cuDNN's stem conv, 7x7 or the s2d 4x4) may
-    differ by 1 LSB (the share that differs printed); every other int8
-    output (a hand kernel or an exact integer op) equal.  A conv with no
+    held to the card's.  A library float conv (cuDNN's s2d 4x4 stem on 12
+    channels) may differ by 1 LSB (the share that differs printed); every
+    other int8 output (a hand kernel, or an exact integer op) equal: the
+    stem kernel among them, which sums in the CPU's order (these paths'
+    7x7 stems pad by 3: PyTorch's CPU conv sums them in r, s, c order).  A conv with no
     ``x_scale`` takes the float conv (the dispatcher's float branch, as
     the reference's); one with an ``x_scale`` takes a hand kernel on int8
     input, quantized first where its input is float.  A ladder's
@@ -4053,7 +4259,8 @@ def card_nodes(label, g, cfg, eng, x, compare=True):
             eltwise += n.op == "Eltwise"
             worst = max(worst, m)
             q = cpu._ctx.qinfo(n) or {}
-            if n.op == "Convolution" and q.get("x_scale") is None:
+            if (n.op == "Convolution" and q.get("x_scale") is None
+                    and card[n.inputs[0]].shape[-1] > 4):
                 share = float((d > 0).float().mean())
                 loose.append(f"{n.name} (library float conv) {m} LSB at "
                              f"{100 * share:.4f}% of {d.numel()}")
@@ -4781,10 +4988,10 @@ def tools_validate(deploy, model, tmp, rng):
     # the converted deploy keeps res5's residual adds on int8 edges too
     want = {"matmul_epilogue": forwards * 34,
             "conv2d_implicit_gemm": forwards * 16,
-            "eltwise_int8": forwards * 16}
+            "eltwise_int8": forwards * 16, "stem_conv_int8": forwards}
     check(counts == want, f"validate: launches {counts}, expected {want} "
           f"({forwards} bf16 forwards' FC and {forwards} w8a8 forwards' "
-          f"33 + 16 and 16 residual adds)")
+          f"33 + 16, 16 residual adds and the stem)")
     check(res["fp_top1_pred"] == fp and len(res["int8_top1_pred"]) ==
           TOOLS_IMAGES and all(0 <= v < 1000 for v in res["int8_top1_pred"])
           and {"fp_top1", "int8_top1", "top1_drop", "gate",

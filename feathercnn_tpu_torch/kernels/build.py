@@ -28,7 +28,7 @@ __all__ = ["load_library", "library_dir", "build_log", "nvcc_path"]
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _SOURCES = ("matmul_epilogue.cu", "conv_implicit_gemm.cu",
             "depthwise_conv.cu", "fused_chain.cu", "fused_chain_float.cu",
-            "ident.cu", "eltwise_int8.cu")
+            "ident.cu", "eltwise_int8.cu", "stem_conv.cu")
 _HEADERS = ("gemm_common.cuh", "wgmma_ops.cuh")
 # -split-compile 0: each source's kernels go through the device compiler
 # in parallel (the int8 GEMM's wgmma instantiations take ~10-25 s each).
@@ -101,6 +101,12 @@ _SIGNATURES = {
     "fcnn_eltwise_int8": [_P, _P, _P, _L, _L, _L, _L,        # x0 x1 out n c ld0 ld1
                           _F, _F, _F, _I,                    # s0 s1 y_inv act
                           _P],                               # stream
+    "fcnn_stem_conv": [_P, _P, _P, _P,                       # x wk bias out
+                       _I, _I, _I, _I, _I, _I, _I,           # N H W C KH KW Co
+                       _I, _I, _I, _I,                       # sh sw ph pw
+                       _I, _I,                               # th act
+                       _F,                                   # out_scale
+                       _P],                                  # stream
 }
 
 

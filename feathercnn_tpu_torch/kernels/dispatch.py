@@ -39,6 +39,8 @@ int8 mode) and ``fused_chain_float`` (kernels/fused_chain.py) from here,
 the int8-edge Eltwise lowering calls ``eltwise_int8`` (kernels/eltwise.py)
 and the boundary probe calls ``ident`` (kernels/ident.py), so that every
 kernel entry point of the "cuda" backend is an attribute of this module.
+The float branch sends an int8-emitting stem on C_in <= 4 channels to
+``stem_conv_int8`` (kernels/stem.py) where ``takes_stem_kernel`` holds.
 
 Where ``conv_forward`` picks a grouped conv's route (the super-group
 kernel, the block-diagonal weight, a depthwise kernel or PyTorch's float
@@ -53,19 +55,23 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.lowering import (act_segment_bounds, apply_act_segments,
-                            apply_activation, conv_hparams, nchw_conv,
-                            quantize, scalar)
+                            apply_activation, conv_hparams, quantize,
+                            scalar)
 from ..utils.profiling import grouped_route
+from . import stem
 from .conv import conv2d_implicit_gemm
 from .depthwise import depthwise_conv2d, depthwise_conv2d_int8
 from .eltwise import eltwise_int8
 from .fused_chain import fused_chain, fused_chain_float
 from .ident import ident
 from .matmul import gemm_layout, grouped_layout, matmul_epilogue, supergroup
+from .stem import (stem_conv_int8, stem_conv_plain, stem_layout,
+                   takes_stem_kernel)
 from .winograd import transform_weights, winograd_conv2d_transformed
 
 __all__ = ["select_algo", "block_diagonal", "conv_forward", "fc_forward",
-           "fused_chain", "fused_chain_float", "ident", "eltwise_int8"]
+           "fused_chain", "fused_chain_float", "ident", "eltwise_int8",
+           "stem_conv_int8"]
 
 
 def select_algo(node, cin: int, quant: bool) -> str:
@@ -369,22 +375,30 @@ def conv_forward(node, x, w, bias, ctx):
                                     stride=stride, pad_h=ph, pad_w=pw,
                                     dilation=dil, groups=wg, **kw_)
 
-    # float conv (PyTorch's, as the reference leaves it to XLA's):
-    # f32 accumulation of compute-dtype operands, + bias, act, requant
+    # float conv (as the reference leaves it to XLA's): f32 accumulation
+    # of compute-dtype operands, + bias, act, requant.  A stem on C_in <= 4
+    # channels that emits int8 takes stem_conv_int8 (its weight dequantized
+    # and laid out once per node); every other float conv PyTorch's
+    # (stem_conv_plain), counted in stem_conv_int8.fallbacks where it is
+    # such a stem that the kernel does not take.
     if group > 1:
         grouped_route(node.name, "float")
     x = _dequant_int8_edge(x, q, ctx)
-    wd = _dequant_weight(w, q, x.dtype, node, ctx)
-    y = nchw_conv(x.float(), wd.float(), (sh, sw), (ph, pw), dil, group)
-    if bias is not None:
-        y = y + bias
-    y = apply_act_segments(y, segs) if segs is not None \
-        else apply_activation(y, act)
     out_dtype, out_scale = _out_spec(x, q)
-    if out_dtype == torch.int8:
-        return torch.clamp(torch.round(y * scalar(out_scale, y.device)),
-                           -127, 127).to(torch.int8)
-    return y.to(out_dtype)
+    if out_dtype == torch.int8 and cin <= 4:
+        wd = ctx.kept(node, "stem_w", lambda: _dequant_weight(
+            w, q, x.dtype, node, ctx))
+        if takes_stem_kernel(x, wd, (sh, sw), (ph, pw), group, dil,
+                             out_dtype, segs):
+            wk = ctx.kept(node, "stem_layout", lambda: stem_layout(wd))
+            return stem_conv_int8(x, wd, bias, (sh, sw), (ph, pw), act,
+                                  out_scale, wk)
+        stem.stem_conv_int8.fallbacks += 1
+    else:
+        wd = _dequant_weight(w, q, x.dtype, node, ctx)
+    return stem_conv_plain(x, wd, bias, (sh, sw), (ph, pw), act, out_scale,
+                           dilation=dil, groups=group, segments=segs,
+                           out_dtype=out_dtype)
 
 
 def fc_forward(node, x, w, bias, ctx):

@@ -80,6 +80,6 @@ def test_cuda_tensor_wrappers_never_take_the_plain_version():
     """The wrappers pick the plain version by the tensor's device alone:
     the source holds no ``try`` around a launch."""
     for name in ("matmul.py", "conv.py", "depthwise.py", "fused_chain.py",
-                 "ident.py", "eltwise.py"):
+                 "ident.py", "eltwise.py", "stem.py"):
         tree = ast.parse((PORT / "kernels" / name).read_text())
         assert not any(isinstance(n, ast.Try) for n in ast.walk(tree)), name

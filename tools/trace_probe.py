@@ -15,8 +15,11 @@ run also what the recording gives on the profile's clock
 device us per image by node op (``Eltwise`` among them), the grouped
 convs by the route each took (the recorder's ``Route`` records: convs,
 q, device us per image of their nodes' kernels and those kernels'
-names), the syncs and the sync calls by node, and the longest idle gaps
-named by the program's spans.  It checks, and exits 1 where a check fails:
+names), the stem's own reading (the device us per image of the kernels
+joined to the first conv's node, by kernel, and ``stem_conv_int8``'s
+launches and fallbacks per batch over the profiled batches; None on a
+tree without that kernel), the syncs and the sync calls by node, and the
+longest idle gaps named by the program's spans.  It checks, and exits 1 where a check fails:
 
 - at least 99% of the kernel launches that lie inside ``run`` spans lie
   inside a ``node`` span;
@@ -60,14 +63,26 @@ class Recorded:
         self.rec_cm = profiling.record()
         self.kept["rec"] = self.rec_cm.__enter__()
         self.kept["prof"] = self.prof
+        self.kept["stem_counts"] = [stem_counts()]
         return self
 
     def __exit__(self, *exc):
+        self.kept["stem_counts"].append(stem_counts())
         self.rec_cm.__exit__(*exc)
         return self.prof.__exit__(*exc)
 
     def __getattr__(self, name):
         return getattr(self.prof, name)
+
+
+def stem_counts():
+    """``stem_conv_int8``'s (launches, fallbacks), or None where the
+    program has no stem kernel."""
+    try:
+        from feathercnn_tpu_torch.kernels.stem import stem_conv_int8
+    except ImportError:
+        return None
+    return stem_conv_int8.launches, stem_conv_int8.fallbacks
 
 
 def traced_run(bench, workload, seed, seconds, record, device="cuda:0",
@@ -90,6 +105,8 @@ def traced_run(bench, workload, seed, seconds, record, device="cuda:0",
         out = kind.run(cell)
     finally:
         harness.profiler = real
+    kept["stem_node"] = next(n.name for n in cell.engine.graph.nodes
+                             if n.op == "Convolution")
     tr = out.trace
     tr.ops_per_image = flops.ops_per_image(cell.layers, cell.cfg)
     tr.least_s_per_image = flops.least_seconds_per_image(cell.layers,
@@ -185,6 +202,11 @@ def recording_readings(profile, kept):
     syncs_by_node = Counter(f"{s.node} ({s.op}) at {s.site}"
                             for s in rec.syncs)
     runs_ms = [(b - a) / 1e3 for a, b, _ in al.runs]
+    stem_kernels = Counter()
+    for name, us, node, _ in joined:
+        if node is not None and node.name == kept["stem_node"]:
+            stem_kernels[name[:80]] += us / profile.images
+    c0, c1 = kept["stem_counts"]
     readings = {
         "batches": batches,
         "syncs_per_batch": spans.syncs_per_batch(al),
@@ -196,6 +218,13 @@ def recording_readings(profile, kept):
             k: v / profile.images for k, v in sorted(
                 by_op.items(), key=lambda kv: -kv[1])},
         "grouped_convs_by_route": grouped,
+        "stem": {"node": kept["stem_node"],
+                 "device_us_per_image": sum(stem_kernels.values()),
+                 "kernels": dict(stem_kernels.most_common(8)),
+                 "launches_per_batch": (None if c0 is None else
+                                        (c1[0] - c0[0]) / batches),
+                 "fallbacks_per_batch": (None if c0 is None else
+                                         (c1[1] - c0[1]) / batches)},
         "syncs_per_batch_by_node": {
             k: v / batches for k, v in syncs_by_node.most_common()},
         "sync_call_ms_per_batch_by_node": dict(sorted(
