@@ -143,7 +143,7 @@ float activations; the bf16 paths run ``quant=None`` in bf16:
   own input values gives the card's int8 outputs (every int8 Eltwise
   among them, and the stem kernel's), cuDNN's s2d stem within 1 LSB.  After
   the first ResNet-50 path, ``fma_check`` holds the port's multiply-add on
-  the card (``torch.addcmul``) to its CPU form (``ops.lowering.fma_exact``)
+  the card (``torch.addcmul``) to its CPU form (``numerics.fma_f32``)
   on ResNet-50's int8 Eltwise inputs: the int8 Eltwise's plain version and
   its ``eltwise_int8`` kernel (0 LSB) and an f32 ``coeffs`` sum (0 ulp).
 
@@ -1293,7 +1293,8 @@ def eltwise_composition(a):
     cast), its three scales made into device tensors once, so that no host
     sync is timed; it returns what the kernel returns."""
     import torch
-    from feathercnn_tpu_torch.kernels.eltwise import reciprocal, requant_sum
+    from feathercnn_tpu_torch.kernels.eltwise import requant_sum
+    from feathercnn_tpu_torch.numerics import reciprocal
     s0, s1, inv = (torch.tensor(v, dtype=torch.float32, device="cuda")
                    for v in (a["s0"], a["s1"], reciprocal(a["y_scale"])))
     return lambda: requant_sum((a["x0"], a["x1"]), (s0, s1), inv, a["act"])
@@ -1306,7 +1307,8 @@ def stem_composition(a):
     clamp and the cast to int8, the scale made a device tensor once (no
     host sync timed); it returns what the kernel returns."""
     import torch
-    from feathercnn_tpu_torch.ops.lowering import apply_activation, nchw_conv
+    from feathercnn_tpu_torch.numerics import (apply_activation, nchw_conv,
+                                               requantize)
     sc = torch.tensor(a["out_scale"], dtype=torch.float32, device="cuda")
     x, w, b = a["x"], a["w"], a["bias"]
 
@@ -1315,8 +1317,7 @@ def stem_composition(a):
                       tuple(a["padding"]))
         if b is not None:
             y = y + b
-        y = apply_activation(y, a["activation"])
-        return torch.clamp(torch.round(y * sc), -127, 127).to(torch.int8)
+        return requantize(apply_activation(y, a["activation"]), sc)
     return run
 
 
@@ -2497,7 +2498,7 @@ def winograd_check(label, eng, x):
     import torch
     import torch.nn.functional as F
     from feathercnn_tpu_torch.kernels import dispatch
-    from feathercnn_tpu_torch.ops.lowering import conv_hparams
+    from feathercnn_tpu_torch.numerics import conv_hparams
     orig = dispatch.conv_forward
     worst = []
 
@@ -4134,14 +4135,15 @@ def detection_agreement(label, cpu, eng, x):
 
 
 def fma_check(eng, x):
-    """The port's multiply-add (``ops.lowering.fma``: ``torch.addcmul`` on
-    the card) against its CPU form (``fma_exact``: the f64 product and
-    sum, rounded once) on ResNet-50's own tensors, on the card: each int8
-    Eltwise node's inputs of 32 images through ``eltwise_int8_plain`` (0
-    LSB), and an f32 ``coeffs`` sum (0.3, -1.7) of the same inputs
-    dequantized (0 ulp).  The node's own lowering (the ``eltwise_int8``
-    kernel) is held to the f64 form too (0 LSB)."""
+    """The port's multiply-add (``numerics.fma``: ``torch.addcmul`` on
+    the card) against its CPU form (``fma_f32``: the f64 product and sum,
+    rounded to odd, then to f32) on ResNet-50's own tensors, on the card:
+    each int8 Eltwise node's inputs of 32 images through
+    ``eltwise_int8_plain`` (0 LSB), and an f32 ``coeffs`` sum (0.3, -1.7)
+    of the same inputs dequantized (0 ulp).  The node's own lowering (the
+    ``eltwise_int8`` kernel) is held to the f64 form too (0 LSB)."""
     import torch
+    from feathercnn_tpu_torch import numerics
     from feathercnn_tpu_torch.kernels.eltwise import eltwise_int8_plain
     from feathercnn_tpu_torch.ops import lowering
     q = eng.graph.meta["quant"]
@@ -4155,19 +4157,19 @@ def fma_check(eng, x):
         qn = q[n.name]
         args = (*ins, *qn["in_scales"], qn["y_scale"],
                 n.attrs.get("activation"))
-        f32 = [v.float() * lowering.scalar(s, v.device)
+        f32 = [numerics.dequantize(v, s)
                if v.dtype == torch.int8 and s is not None else v.float()
                for v, s in zip(ins, qn["in_scales"])]
         with torch.inference_mode():
             (kernel,) = lowering.lower_node(n, ins, [], eng._ctx)
             card = eltwise_int8_plain(*args)
             coeff = lowering._coeff_sum([0.3, -1.7], f32)
-            orig, lowering.fma = lowering.fma, lowering.fma_exact
+            orig, numerics.fma = numerics.fma, numerics.fma_f32
             try:
                 exact = eltwise_int8_plain(*args)
                 coeff_exact = lowering._coeff_sum([0.3, -1.7], f32)
             finally:
-                lowering.fma = orig
+                numerics.fma = orig
         for what, got in (("torch.addcmul", card), ("the kernel", kernel)):
             check(got.dtype == torch.int8 and torch.equal(got, exact),
                   f"int8 Eltwise {n.name} through {what}: "
@@ -4300,7 +4302,8 @@ def s2d_path(g, x, main_ms, smi, rows, counts, speed):
     old = stem.name
     # the two stems' cuDNN f32 convs alone, as the float branch runs them
     # (x upcast from bf16, the weight dequantized), on the path's images
-    from feathercnn_tpu_torch.ops.lowering import lower_node, nchw_conv
+    from feathercnn_tpu_torch.numerics import nchw_conv
+    from feathercnn_tpu_torch.ops.lowering import lower_node
     q = eng.graph.meta["quant"][stem.name]
     ws = torch.as_tensor(np.asarray(q["w_scale"], np.float32)).cuda()
     xb = torch.from_numpy(x).cuda().to(torch.bfloat16)

@@ -25,9 +25,9 @@ from typing import NamedTuple, Optional
 import torch
 import torch.nn.functional as F
 
+from ..numerics import dequantize, fma_f32
 from .matmul import (_ACT_CODES, _DTYPE_CODES, SMEM_LIMIT,
-                     check_contiguous, check_epilogue, epilogue_plain,
-                     fma_f32)
+                     check_contiguous, check_epilogue, epilogue_plain)
 
 __all__ = ["depthwise_conv2d", "depthwise_conv2d_plain",
            "depthwise_conv2d_int8", "depthwise_conv2d_int8_plain",
@@ -209,8 +209,7 @@ def depthwise_conv2d_plain(x, w, bias=None, stride: int = 1, pad_h: int = 0,
     w, oh, ow = _geometry(x, w, stride, pad_h, pad_w)
     out_dtype = _float_out_dtype(x, out_dtype)
     if x.dtype == torch.int8:
-        scale = torch.tensor(x_scale, dtype=torch.float32, device=x.device)
-        xf = (x.float() * scale).to(out_dtype).float()
+        xf = dequantize(x, x_scale).to(out_dtype).float()
     else:
         xf = x.float()
     acc = torch.zeros(x.shape[0], oh, ow, x.shape[3], device=x.device)

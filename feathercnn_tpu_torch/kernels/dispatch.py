@@ -34,11 +34,12 @@ algo_overrides (ROADMAP.md, queue C).
 
 EngineConfig.algo_overrides forces a choice per layer name.
 
-The FusedBottleneck and FusedChain lowerings call ``fused_chain`` (the
-int8 mode) and ``fused_chain_float`` (kernels/fused_chain.py) from here,
-the int8-edge Eltwise lowering calls ``eltwise_int8`` (kernels/eltwise.py)
-and the boundary probe calls ``ident`` (kernels/ident.py), so that every
-kernel entry point of the "cuda" backend is an attribute of this module.
+Every "cuda" route of the lowering starts here: ``conv_forward``,
+``fc_forward``, ``eltwise_forward`` (``eltwise_int8``, kernels/eltwise.py)
+and ``chain_forward`` (``fused_chain`` and ``fused_chain_float``,
+kernels/fused_chain.py); the boundary probe calls ``ident``
+(kernels/ident.py).  Each kernel entry point is an attribute of this
+module, looked up at each call.
 The float branch sends an int8-emitting stem on C_in <= 4 channels to
 ``stem_conv_int8`` (kernels/stem.py) where ``takes_stem_kernel`` holds.
 
@@ -54,15 +55,16 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..ops.lowering import (act_segment_bounds, apply_act_segments,
-                            apply_activation, conv_hparams, quantize,
-                            scalar)
+from ..numerics import (act_segment_bounds, apply_act_segments,
+                        apply_activation, conv_hparams, dequantize,
+                        dequantize_edge, quantize, requantize)
 from ..utils.profiling import grouped_route
-from . import stem
+from . import eltwise, stem
 from .conv import conv2d_implicit_gemm
 from .depthwise import depthwise_conv2d, depthwise_conv2d_int8
-from .eltwise import eltwise_int8
-from .fused_chain import fused_chain, fused_chain_float
+from .eltwise import eltwise_int8, eltwise_int8_sum, takes_kernel
+from .fused_chain import (fused_chain, fused_chain_float, fused_chain_plain,
+                          kernel_layout)
 from .ident import ident
 from .matmul import gemm_layout, grouped_layout, matmul_epilogue, supergroup
 from .stem import (stem_conv_int8, stem_conv_plain, stem_layout,
@@ -70,8 +72,8 @@ from .stem import (stem_conv_int8, stem_conv_plain, stem_layout,
 from .winograd import transform_weights, winograd_conv2d_transformed
 
 __all__ = ["select_algo", "block_diagonal", "conv_forward", "fc_forward",
-           "fused_chain", "fused_chain_float", "ident", "eltwise_int8",
-           "stem_conv_int8"]
+           "eltwise_forward", "chain_forward", "fused_chain",
+           "fused_chain_float", "ident", "eltwise_int8", "stem_conv_int8"]
 
 
 def select_algo(node, cin: int, quant: bool) -> str:
@@ -151,17 +153,6 @@ def _quantize_act(x, x_scale: float):
     return quantize(x, x_scale)
 
 
-def _dequant_int8_edge(x, q, ctx):
-    """A float conv path handed an int8 tensor dequantizes it: either a
-    serving-transferred int8 input into an fp-act stem (input_scale) or a
-    stray int8 edge (x_scale)."""
-    if x.dtype != torch.int8:
-        return x
-    xs_scale = (q.get("x_scale") or q.get("input_scale", 1.0)) if q else 1.0
-    return (x.float() * scalar(xs_scale, x.device)).to(
-        getattr(torch, ctx.config.compute_dtype))
-
-
 def _out_spec(x, q):
     """(out_dtype, out_scale) for the epilogue: int8 when the int8-edge
     pass marked this node, else the float compute dtype."""
@@ -193,6 +184,7 @@ def conv_forward(node, x, w, bias, ctx):
     act = node.attrs.get("activation")
     segs = node.attrs.get("act_segments")
     q = ctx.qinfo(node)
+    cdt = getattr(torch, ctx.config.compute_dtype)
     cin = x.shape[-1]
     # ``cin * group`` for a grouped conv, as the reference's dispatcher
     # passes it (feathercnn_tpu/kernels/dispatch.py:99-100): it defeats
@@ -209,7 +201,7 @@ def conv_forward(node, x, w, bias, ctx):
     if x.dtype == torch.int8 and (q is None or q.get("x_scale") is None):
         # int8-transferred input into an fp-act layer (input_scale) or a
         # stray int8 edge: dequantize once so every branch sees float
-        x = _dequant_int8_edge(x, q, ctx)
+        x = dequantize_edge(x, q, cdt)
 
     if algo == "depthwise":
         if _is_depthwise(node, x, group, dil, sh, sw):
@@ -221,9 +213,7 @@ def conv_forward(node, x, w, bias, ctx):
                 w, q, torch.float32, node, ctx).reshape(kh, kw, -1).cpu())
             kwargs = {}
             if x.dtype == torch.int8:
-                kwargs = dict(x_scale=float(q["x_scale"]),
-                              out_dtype=getattr(torch,
-                                                ctx.config.compute_dtype))
+                kwargs = dict(x_scale=float(q["x_scale"]), out_dtype=cdt)
             grouped_route(node.name, "depthwise")
             return depthwise_conv2d(x.contiguous(), wd, bias, stride=sh,
                                     pad_h=ph, pad_w=pw, activation=act,
@@ -260,7 +250,7 @@ def conv_forward(node, x, w, bias, ctx):
                                 lambda: np.asarray(q["w_scale"], np.float32)
                                 * np.float32(q["x_scale"]))
         else:
-            x2 = _dequant_int8_edge(x2, q, ctx)
+            x2 = dequantize_edge(x2, q, cdt)
             wd = _dequant_weight(w, q, x2.dtype, node, ctx)
             y = x2.float() @ wd.reshape(x2.shape[1], -1).float()
         if bias is not None:
@@ -269,8 +259,7 @@ def conv_forward(node, x, w, bias, ctx):
             else apply_activation(y, act)
         out_dtype, out_scale = _out_spec(x, q)
         if out_dtype == torch.int8:
-            y = torch.clamp(torch.round(y * scalar(out_scale, y.device)),
-                            -127, 127)
+            y = requantize(y, out_scale)
         return y.to(out_dtype).reshape(n, oh, ow, -1)
 
     if algo == "winograd":
@@ -280,8 +269,7 @@ def conv_forward(node, x, w, bias, ctx):
                 out_dtype = (torch.bfloat16 if x.dtype != torch.float32
                              else torch.float32)
             if x.dtype == torch.int8:
-                x = (x.float() * scalar(q["x_scale"], x.device)).to(
-                    torch.bfloat16)
+                x = dequantize(x, q["x_scale"]).to(torch.bfloat16)
             # the weight transform of the dequantized weight, once per node
             v = ctx.kept(node, "winograd_v", lambda: transform_weights(
                 _dequant_weight(w, q, torch.float32, node, ctx)))
@@ -383,7 +371,7 @@ def conv_forward(node, x, w, bias, ctx):
     # such a stem that the kernel does not take.
     if group > 1:
         grouped_route(node.name, "float")
-    x = _dequant_int8_edge(x, q, ctx)
+    x = dequantize_edge(x, q, cdt)
     out_dtype, out_scale = _out_spec(x, q)
     if out_dtype == torch.int8 and cin <= 4:
         wd = ctx.kept(node, "stem_w", lambda: _dequant_weight(
@@ -405,7 +393,7 @@ def fc_forward(node, x, w, bias, ctx):
     act = node.attrs.get("activation")
     q = ctx.qinfo(node)
     if x.dtype == torch.int8 and (q is None or q.get("x_scale") is None):
-        x = _dequant_int8_edge(x, q, ctx)
+        x = dequantize_edge(x, q, getattr(torch, ctx.config.compute_dtype))
     kwargs = {}
     wdt = x.dtype
     if q is not None and w.dtype == torch.int8:
@@ -418,3 +406,42 @@ def fc_forward(node, x, w, bias, ctx):
     return matmul_epilogue(x.contiguous(), _gemm_weight(node, w, wdt, ctx,
                                                         True), bias,
                            activation=act, out_dtype=out_dtype, **kwargs)
+
+
+def eltwise_forward(node, inputs, ctx):
+    """The int8-edge Eltwise: on the "cuda" backend two int8 operands of
+    one shape (``takes_kernel``) are one ``eltwise_int8`` call, in any
+    layout; any other form (three operands, a float one) takes the PyTorch
+    ops, ``eltwise_int8_sum``, counted in ``eltwise_int8.fallbacks``.  The
+    "torch" backend always takes them, uncounted."""
+    q = ctx.qinfo(node)
+    act = node.attrs.get("activation")
+    if ctx.backend == "cuda":
+        if takes_kernel(inputs):
+            return eltwise_int8(*inputs, *q["in_scales"], q["y_scale"], act)
+        eltwise.eltwise_int8.fallbacks += 1
+    return eltwise_int8_sum(inputs, q["in_scales"], q["y_scale"], act)
+
+
+def chain_forward(node, x, weights, ctx, w_scales=None, scales=None):
+    """A FusedBottleneck or FusedChain node's chain, as the reference's
+    lowerings call it, on ``weights`` (w1, b1, w2, b2, w3, b3) stacked per
+    block: the int8 mode where ``scales`` are given (a float ``x``
+    quantized first, with a divide by ``sx[0]``), else the float mode with
+    the weights cast to x's type; the weights in the kernel's layout, made
+    once per node.  On the "cuda" backend ``fused_chain`` (int8) or
+    ``fused_chain_float`` (the kernel, or its plain version on CPU
+    tensors); on "torch" the plain version."""
+    if scales is not None:
+        x = _quantize_act(x, scales[0][0])
+    wdt = torch.int8 if scales is not None else x.dtype
+    w1, b1, w2, b2, w3, b3 = weights
+    w1, w2, w3 = (ctx.kept(node, f"{k}/{wdt}",
+                           lambda w=w: kernel_layout(w.to(wdt)))
+                  for k, w in (("w1", w1), ("w2", w2), ("w3", w3)))
+    args = (x.contiguous(), w1, b1, w2, b2, w3, b3)
+    if ctx.backend != "cuda":
+        return fused_chain_plain(*args, w_scales=w_scales, scales=scales)
+    if scales is None:
+        return fused_chain_float(*args)
+    return fused_chain(*args, w_scales=w_scales, scales=scales)

@@ -8,17 +8,18 @@ dequantized by its scale, the sum in f32, the fused activation, then the
 requantization to the output scale.  Compiled, the reference multiplies by
 the f32 reciprocal of the output scale where its source divides by it
 (XLA folds a division by a constant), and the port does the same
-(:func:`reciprocal`).
+(``numerics.reciprocal``).
 
 On a CUDA tensor :func:`eltwise_int8` launches the hand-written kernel in
 ``csrc/eltwise_int8.cu`` (whose header note says what bounds it on an H100
 and what its design does about that), with the three scales as kernel
 arguments; on a CPU tensor it computes the same function with
-:func:`eltwise_int8_plain`.  The lowering sends an int8-edge Eltwise there
-when :func:`takes_kernel` holds for its operands (two int8 operands of one
-shape), whatever their layout: :func:`kernel_operands` passes each as it
-is where the kernel reads it so (contiguous, or channel slices at a 16-byte
-pitch) and a contiguous copy otherwise (a misaligned view, a row shard).
+:func:`eltwise_int8_plain`.  The dispatcher (``dispatch.eltwise_forward``)
+sends an int8-edge Eltwise there when :func:`takes_kernel` holds for its
+operands (two int8 operands of one shape), whatever their layout:
+:func:`kernel_operands` passes each as it is where the kernel reads it so
+(contiguous, or channel slices at a 16-byte pitch) and a contiguous copy
+otherwise (a misaligned view, a row shard).
 The forms the kernel does not compute (three operands, a float operand)
 take :func:`eltwise_int8_sum`, counted in ``eltwise_int8.fallbacks``.
 """
@@ -27,31 +28,23 @@ from __future__ import annotations
 
 from typing import Optional, Sequence
 
-import numpy as np
 import torch
 
-from ..ops.lowering import _sum_terms, apply_activation, scalar
+from ..numerics import (apply_activation, reciprocal, requantize, scalar,
+                        sum_terms)
 from .matmul import _ACT_CODES
 
 __all__ = ["eltwise_int8", "eltwise_int8_plain", "eltwise_int8_sum",
-           "kernel_operands", "requant_sum", "reciprocal", "takes_kernel"]
-
-
-def reciprocal(y_scale: float) -> float:
-    """``1 / y_scale`` as the reference's compiled requantization takes it:
-    XLA folds a division by the constant ``y_scale`` (rounded to f32) into
-    a multiply by its reciprocal, rounded to f32."""
-    return float(np.float32(1.0) / np.float32(y_scale))
+           "kernel_operands", "requant_sum", "takes_kernel"]
 
 
 def requant_sum(xs: Sequence[torch.Tensor], scales, inv: torch.Tensor,
                 act: Optional[str] = None) -> torch.Tensor:
     """:func:`eltwise_int8_sum` on scales that are already device tensors
     (0-d f32; None for a float operand) and ``inv``, the 0-d f32
-    :func:`reciprocal` of the output scale: no host sync."""
-    acc = _sum_terms([(x.float(), s) for x, s in zip(xs, scales)])
-    return torch.clamp(torch.round(apply_activation(acc, act) * inv), -127,
-                       127).to(torch.int8)
+    ``reciprocal`` of the output scale: no host sync."""
+    acc = sum_terms([(x.float(), s) for x, s in zip(xs, scales)])
+    return requantize(apply_activation(acc, act), inv)
 
 
 def eltwise_int8_sum(xs: Sequence[torch.Tensor], scales, y_scale: float,
@@ -59,7 +52,7 @@ def eltwise_int8_sum(xs: Sequence[torch.Tensor], scales, y_scale: float,
     """The int8-edge Eltwise in PyTorch ops, over any number of operands:
     each int8 operand dequantized by its scale and a float one taken as it
     is, summed left to right in f32 with each product fused into the add
-    that consumes it (``ops.lowering._sum_terms``, as the reference's
+    that consumes it (``numerics.sum_terms``, as the reference's
     compiled add contracts it), the activation ``act``, then
     ``clip(round_half_even(acc * reciprocal(y_scale)), -127, 127)`` as
     int8."""

@@ -45,7 +45,8 @@ from typing import NamedTuple, Optional, Sequence
 import torch
 import torch.nn.functional as F
 
-from .matmul import _DTYPE_CODES, H100_SMS, check_contiguous, fma_f32
+from ..numerics import fma_f32, requantize
+from .matmul import _DTYPE_CODES, H100_SMS, check_contiguous
 
 __all__ = ["fused_chain", "fused_chain_float", "fused_chain_plain",
            "kernel_layout", "tile_plan", "chain_plan", "ChainPlan",
@@ -71,11 +72,6 @@ def _scale_args(nb, scales):
     r.append(1.0 / s_out if out_int8 else 1.0)
     return ([float(v) for v in sx], [float(v) for v in sy1],
             [float(v) for v in sy2], r, out_int8)
-
-
-def _q8(v: torch.Tensor, inv_scale: float) -> torch.Tensor:
-    q = torch.round(v * torch.tensor(_f32(inv_scale), device=v.device))
-    return torch.clamp(q, -127, 127).to(torch.int8)
 
 
 def _exact_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -117,7 +113,7 @@ def fused_chain_plain(x, w1, b1, w2, b2, w3, b3, w_scales=None,
             w1s, w2s, w3s = (s[j] for s in w_scales)
             s1 = w1s * torch.tensor(_f32(sx[j]), device=x.device)
             y1 = torch.clamp_min(fma_f32(_exact_mm(xm, w1[j]), s1, b1[j]), 0)
-            y1 = _q8(y1, 1.0 / sy1[j]).reshape(n, h, w, cm)
+            y1 = requantize(y1, 1.0 / sy1[j]).reshape(n, h, w, cm)
             if cm <= 128:
                 a2 = _exact_mm(torch.cat(list(_taps(y1)), dim=1), w2[j])
             else:
@@ -125,7 +121,8 @@ def fused_chain_plain(x, w1, b1, w2, b2, w3, b3, w_scales=None,
                 for t, ys in enumerate(_taps(y1)):
                     a2 = a2 + _exact_mm(ys, w2[j, t * cm:(t + 1) * cm])
             s2 = w2s * torch.tensor(_f32(sy1[j]), device=x.device)
-            y2 = _q8(torch.clamp_min(fma_f32(a2, s2, b2[j]), 0), 1.0 / sy2[j])
+            y2 = requantize(torch.clamp_min(fma_f32(a2, s2, b2[j]), 0),
+                            1.0 / sy2[j])
             s3 = w3s * torch.tensor(_f32(sy2[j]), device=x.device)
             t3 = fma_f32(_exact_mm(y2, w3[j]), s3, b3[j])
             if j == 0:
@@ -135,7 +132,7 @@ def fused_chain_plain(x, w1, b1, w2, b2, w3, b3, w_scales=None,
                                                      device=x.device)
             out = torch.clamp_min(out, 0)
             if not last or out_int8:
-                act = _q8(out, r[j])
+                act = requantize(out, r[j])
             else:
                 act = out.to(out_dtype)
         else:
@@ -162,8 +159,9 @@ def _out_dtype(x, out_dtype, scales):
 def kernel_layout(w: torch.Tensor) -> torch.Tensor:
     """``w`` (nb, K, N) with the same values, stored as the CUDA kernel
     reads a weight: (nb, N, K) with K contiguous, so that a 16-byte copy
-    lands where the mma's B fragment reads it.  The lowering makes it once
-    per node; on a CUDA tensor the wrapper takes no other layout."""
+    lands where the mma's B fragment reads it.  ``dispatch.chain_forward``
+    makes it once per node; on a CUDA tensor the wrapper takes no other
+    layout."""
     return w.transpose(1, 2).contiguous().transpose(1, 2)
 
 

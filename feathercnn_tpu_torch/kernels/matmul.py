@@ -54,8 +54,10 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from ..numerics import apply_activation, fma_f32, requantize, scalar
+
 __all__ = ["matmul_epilogue", "matmul_epilogue_plain", "epilogue_plain",
-           "matmul_epilogue_split_plain", "fma_f32", "gemm_layout",
+           "matmul_epilogue_split_plain", "gemm_layout",
            "is_gemm_layout", "gemm_pitch", "gemm_plan", "GemmPlan",
            "VARIANTS", "split_workspace", "supergroup", "grouped_layout"]
 
@@ -686,24 +688,6 @@ def plan_for(m, k, n, x, w, out_dtype, conv_c=None, conv_out=None,
                      sms=_sm_count(x.device.index or 0), **grouped)
 
 
-def fma_f32(a: torch.Tensor, b, c: torch.Tensor) -> torch.Tensor:
-    """f32 ``a*b + c`` rounded once, bit for bit a hardware FMA.  The
-    product of two f32 values is exact in f64.  The f64 sum is then
-    rounded to odd (TwoSum gives its exact error; an inexact sum with an
-    even last bit steps one ulp toward the error), and an f64 value
-    rounded to odd, with 29 more bits than f32, rounds to the f32 value of
-    the exact sum."""
-    b64 = b.double() if torch.is_tensor(b) else float(b)
-    c64 = c.double()
-    p = a.double() * b64
-    s = p + c64
-    bv = s - p
-    err = (p - (s - bv)) + (c64 - bv)
-    step = (err != 0) & ((s.view(torch.int64) & 1) == 0)
-    toward = torch.where(err > 0, math.inf, -math.inf).to(s.dtype)
-    return torch.where(step, torch.nextafter(s, toward), s).float()
-
-
 def epilogue_plain(acc: torch.Tensor, w_scale=None, x_scale: float = 1.0,
                    bias=None, activation: Optional[str] = None,
                    lo=None, hi=None, out_dtype=torch.float32,
@@ -720,23 +704,16 @@ def epilogue_plain(acc: torch.Tensor, w_scale=None, x_scale: float = 1.0,
     if x_scale != 1.0:
         if last is not None:
             y = y * last
-        last = torch.tensor(x_scale, dtype=torch.float32, device=acc.device)
+        last = scalar(x_scale, acc.device)
     if bias is not None:
         y = fma_f32(y, last, bias) if last is not None else y + bias
     elif last is not None:
         y = y * last
-    if activation == "relu":
-        y = torch.clamp_min(y, 0.0)
-    elif activation == "relu6":
-        y = torch.clamp(y, 0.0, 6.0)
-    elif activation is not None:
-        raise ValueError(f"unknown activation {activation!r}")
+    y = apply_activation(y, activation)
     if lo is not None:
         y = torch.minimum(torch.maximum(y, lo), hi)
     if out_dtype == torch.int8:
-        q = torch.round(y * torch.tensor(out_scale, dtype=torch.float32,
-                                         device=y.device))
-        return torch.clamp(q, -127, 127).to(torch.int8)
+        return requantize(y, out_scale)
     return y.to(out_dtype)
 
 

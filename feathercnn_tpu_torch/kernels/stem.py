@@ -37,8 +37,8 @@ from typing import Optional, Sequence
 
 import torch
 
-from ..ops.lowering import apply_act_segments, apply_activation, nchw_conv, \
-    scalar
+from ..numerics import (apply_act_segments, apply_activation, nchw_conv,
+                        requantize)
 from .matmul import _ACT_CODES
 
 __all__ = ["STEM_CO", "StemPlan", "stem_conv_int8", "stem_conv_plain",
@@ -140,8 +140,7 @@ def stem_conv_plain(x: torch.Tensor, w: torch.Tensor,
     y = apply_act_segments(y, segments) if segments is not None \
         else apply_activation(y, activation)
     if out_dtype == torch.int8:
-        return torch.clamp(torch.round(y * scalar(out_scale, y.device)),
-                           -127, 127).to(torch.int8)
+        return requantize(y, out_scale)
     return y.to(out_dtype)
 
 

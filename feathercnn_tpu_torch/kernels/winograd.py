@@ -40,6 +40,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..numerics import apply_activation
+
 __all__ = ["winograd_conv2d", "winograd_conv2d_transformed",
            "transform_weights", "BT", "G", "AT"]
 
@@ -164,10 +166,4 @@ def winograd_conv2d_transformed(x: torch.Tensor, v: torch.Tensor,
     y = _untile(m, x.shape[0], grid)
     if bias is not None:
         y = y + bias.float()
-    if activation == "relu":
-        y = torch.clamp_min(y, 0)
-    elif activation == "relu6":
-        y = torch.clamp(y, 0, 6)
-    elif activation is not None:
-        raise ValueError(f"unknown activation {activation!r}")
-    return y.to(out_dtype).contiguous()
+    return apply_activation(y, activation).to(out_dtype).contiguous()

@@ -4,12 +4,16 @@ Counterpart of ``feathercnn_tpu/ops/lowering.py``.  Two backends share this
 module, as there:
 
   - "torch": every op is plain PyTorch (the float oracle; int8 weights and
-    int8 edges are dequantized first, as the reference's "xla" does).
-  - "cuda":  Convolution, InnerProduct, FusedBottleneck and FusedChain go
-    through kernels/dispatch.py to the hand-written kernels (their plain
-    versions on CPU tensors) or, for the "winograd" and "dot1x1" algos,
-    to plain PyTorch as the reference's are plain jnp; the rest stays
-    plain PyTorch.
+    int8 edges are dequantized first, as the reference's "xla" does); the
+    int8 Eltwise and the bottleneck chains take their kernels' plain
+    versions, through kernels/dispatch.py.
+  - "cuda":  Convolution, InnerProduct, the int8 Eltwise, FusedBottleneck
+    and FusedChain go through kernels/dispatch.py to the hand-written
+    kernels (their plain versions on CPU tensors) or, for the "winograd"
+    and "dot1x1" algos, to plain PyTorch as the reference's are plain jnp;
+    the rest stays plain PyTorch.
+
+The int8 and f32 arithmetic rules the lowerings use are ``numerics.py``'s.
 
 An op with no lowering here raises ``NotImplementedError`` naming it
 (``lower_node``); every op of the reference has one.
@@ -30,10 +34,14 @@ import torch
 import torch.nn.functional as F
 
 from ..ir import Graph, Node, conv_out_dim
+from ..kernels import dispatch as kdispatch
+from ..kernels.nms import greedy_nms
+from ..numerics import (apply_act_segments, apply_activation, conv_hparams,
+                        dequantize, dequantize_edge, fma, nchw_conv, quantize,
+                        requantize, scalar, sum_terms, weak)
 
 __all__ = ["LoweringCtx", "lower_node", "lower_sharded", "takes_ring",
-           "gather_channels", "register_lowering",
-           "apply_activation", "apply_act_segments", "conv_hparams"]
+           "gather_channels", "register_lowering"]
 
 
 class LoweringCtx:
@@ -100,64 +108,6 @@ def lower_node(node: Node, inputs, params, ctx: LoweringCtx):
     return fn(node, inputs, params, ctx)
 
 
-def apply_activation(x: torch.Tensor, act: Optional[str]) -> torch.Tensor:
-    """Fused epilogue activations."""
-    if act is None:
-        return x
-    if act == "relu":
-        return torch.clamp_min(x, 0)
-    if act == "relu6":
-        return torch.clamp(x, 0, 6)
-    raise ValueError(f"unknown activation {act!r}")
-
-
-def act_segment_bounds(segments):
-    """Per-output-channel (lo, hi) clamp bounds of merged sibling convs:
-    relu -> [0, inf), relu6 -> [0, 6], none -> (-inf, inf)."""
-    lo = np.concatenate([
-        np.full(c, 0.0 if a in ("relu", "relu6") else -np.inf, np.float32)
-        for a, c in segments])
-    hi = np.concatenate([
-        np.full(c, 6.0 if a == "relu6" else np.inf, np.float32)
-        for a, c in segments])
-    return lo, hi
-
-
-def apply_act_segments(y: torch.Tensor, segments) -> torch.Tensor:
-    """Per-output-channel activation for horizontally merged convs
-    (passes.merge_sibling_convs), as one clamp.  ``y`` must be float
-    (pre-requant)."""
-    lo, hi = act_segment_bounds(segments)
-    lo = torch.as_tensor(lo, device=y.device)
-    hi = torch.as_tensor(hi, device=y.device)
-    return torch.minimum(torch.maximum(y, lo), hi)
-
-
-def scalar(v: float, device) -> torch.Tensor:
-    """A float32 0-d tensor on ``device``: arithmetic with it rounds like
-    the reference's f32 arithmetic with a Python float (CUDA replaces a
-    division by a host scalar with a multiply by its reciprocal)."""
-    return torch.tensor(v, dtype=torch.float32, device=device)
-
-
-def quantize(x: torch.Tensor, scale) -> torch.Tensor:
-    """``clip(round_half_even(x / scale), -127, 127)`` as int8."""
-    if not torch.is_tensor(scale):
-        scale = scalar(scale, x.device)
-    return torch.clamp(torch.round(x.float() / scale), -127, 127).to(
-        torch.int8)
-
-
-def nchw_conv(x: torch.Tensor, w: torch.Tensor, stride, padding,
-              dilation: int = 1, groups: int = 1) -> torch.Tensor:
-    """NHWC x (..., C) with HWIO w -> NHWC result of ``F.conv2d`` in the
-    inputs' dtype (the NHWC storage is used as channels-last memory)."""
-    y = F.conv2d(x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1),
-                 stride=stride, padding=padding, dilation=dilation,
-                 groups=groups)
-    return y.permute(0, 2, 3, 1)
-
-
 # ----------------------------------------------------------------------
 # Convolution family
 # ----------------------------------------------------------------------
@@ -165,10 +115,7 @@ def nchw_conv(x: torch.Tensor, w: torch.Tensor, stride, padding,
 def _dequant_for_oracle(x, w, q, node, ctx):
     """The "torch" backend is the float oracle: int8 weights and int8 edges
     are dequantized here, as the reference's "xla" backend does."""
-    if x.dtype == torch.int8:
-        xs = (q.get("x_scale") or q.get("input_scale", 1.0)) if q else 1.0
-        x = (x.float() * scalar(xs, x.device)).to(
-            getattr(torch, ctx.config.compute_dtype))
+    x = dequantize_edge(x, q, getattr(torch, ctx.config.compute_dtype))
     if w.dtype == torch.int8:
         ws = ctx.const(node, "w_scale", lambda: q["w_scale"]) \
             if q is not None else 1.0
@@ -176,19 +123,6 @@ def _dequant_for_oracle(x, w, q, node, ctx):
     else:
         w = w.to(x.dtype)
     return x, w
-
-
-def conv_hparams(node: Node):
-    a = node.attrs
-    kh = a.get("kernel_h", a.get("kernel_size", 1))
-    kw = a.get("kernel_w", a.get("kernel_size", 1))
-    sh = a.get("stride_h", a.get("stride", 1))
-    sw = a.get("stride_w", a.get("stride", 1))
-    ph = a.get("pad_h", a.get("pad", 0))
-    pw = a.get("pad_w", a.get("pad", 0))
-    dil = a.get("dilation", 1)
-    group = a.get("group", 1)
-    return kh, kw, sh, sw, ph, pw, dil, group
 
 
 @register_lowering("Convolution")
@@ -201,7 +135,6 @@ def _lower_conv(node, inputs, params, ctx):
     act = node.attrs.get("activation")
 
     if ctx.backend == "cuda":
-        from ..kernels import dispatch as kdispatch
         return [kdispatch.conv_forward(node, x, w, bias, ctx)]
 
     x, w = _dequant_for_oracle(x, w, ctx.qinfo(node), node, ctx)
@@ -232,7 +165,6 @@ def _lower_fc(node, inputs, params, ctx):
         x = x.reshape(x.shape[0], -1)
 
     if ctx.backend == "cuda":
-        from ..kernels import dispatch as kdispatch
         return [kdispatch.fc_forward(node, x, w, bias, ctx)]
 
     x, w = _dequant_for_oracle(x, w, ctx.qinfo(node), node, ctx)
@@ -300,13 +232,9 @@ def _lower_deconv(node, inputs, params, ctx):
     ``preferred_element_type``), + bias, activation, x's type.  Weights
     HWIO (KH, KW, Cin/g, Cout), each group's outputs contiguous.  An int8
     x (an int8 edge) is dequantized first, as the dispatcher's
-    ``_dequant_int8_edge`` does."""
-    x = inputs[0]
-    if x.dtype == torch.int8:
-        q = ctx.qinfo(node)
-        xs = (q.get("x_scale") or q.get("input_scale", 1.0)) if q else 1.0
-        x = (x.float() * scalar(xs, x.device)).to(
-            getattr(torch, ctx.config.compute_dtype))
+    does (``numerics.dequantize_edge``)."""
+    x = dequantize_edge(inputs[0], ctx.qinfo(node),
+                        getattr(torch, ctx.config.compute_dtype))
     w = params[0].to(x.dtype)
     bias = (params[1] if node.attrs.get("bias_term", True)
             and len(params) > 1 else None)
@@ -494,8 +422,7 @@ def _lower_pool(node, inputs, params, ctx):
     def _requant(avg_f32):
         # x_scale applies only when the producer really emitted int8
         s = (q["x_scale"] if x.dtype == torch.int8 else 1.0) / q["y_scale"]
-        return torch.clamp(torch.round(avg_f32 * scalar(s, x.device)),
-                           -127, 127).to(torch.int8)
+        return requantize(avg_f32, s)
 
     if node.attrs.get("global_pooling", False):
         if node.attrs.get("pool", "MAX") == "AVE":
@@ -539,8 +466,7 @@ def _lower_pool(node, inputs, params, ctx):
         xp = F.pad(x.to(torch.int32), pad)
         y = _window_reduce(xp, kh, kw, sh, sw, oh, ow, torch.add)
         s = scalar(q["x_scale"] / q["y_scale"], x.device) / denom
-        return [torch.clamp(torch.round(y.float() * s), -127, 127).to(
-            torch.int8)]
+        return [requantize(y.float(), s)]
     xp = F.pad(x.float(), pad)
     y = _window_reduce(xp, kh, kw, sh, sw, oh, ow, torch.add) / denom
     return [_requant(y) if rq else y.to(x.dtype)]
@@ -549,12 +475,6 @@ def _lower_pool(node, inputs, params, ctx):
 # ----------------------------------------------------------------------
 # Elementwise / shape ops
 # ----------------------------------------------------------------------
-
-def weak(v: float, x: torch.Tensor) -> torch.Tensor:
-    """The Python number ``v`` as the reference's arithmetic with ``x``
-    takes it (JAX's weak typing): rounded to x's type first."""
-    return torch.tensor(v, dtype=x.dtype, device=x.device)
-
 
 @register_lowering("ReLU")
 def _lower_relu(node, inputs, params, ctx):
@@ -581,19 +501,9 @@ def _lower_eltwise(node, inputs, params, ctx):
         # (one FMA), where the reference's compiled add contracts it: the
         # first operand's product when it is one, else the second's; the
         # division by the output scale is, compiled, a multiply by its
-        # reciprocal.  On the "cuda" backend two int8 operands of one shape
-        # are one eltwise_int8 call, in any layout; three operands or a
-        # float one are PyTorch ops.
-        from ..kernels import dispatch as kdispatch
-        from ..kernels import eltwise
-        act = node.attrs.get("activation")
-        if ctx.backend == "cuda":
-            if eltwise.takes_kernel(inputs):
-                (s0, s1), y = q["in_scales"], q["y_scale"]
-                return [kdispatch.eltwise_int8(*inputs, s0, s1, y, act)]
-            eltwise.eltwise_int8.fallbacks += 1
-        return [eltwise.eltwise_int8_sum(inputs, q["in_scales"],
-                                         q["y_scale"], act)]
+        # reciprocal.  ``dispatch.eltwise_forward`` picks the kernel or
+        # PyTorch's ops.
+        return [kdispatch.eltwise_forward(node, inputs, ctx)]
     if op == "SUM":
         coeffs = node.attrs.get("coeffs")
         if coeffs:
@@ -618,64 +528,16 @@ def _lower_eltwise(node, inputs, params, ctx):
 def _coeff_sum(coeffs, inputs):
     """``sum(c * x)`` as the reference's compiled Eltwise computes it, each
     coefficient rounded to x's type: in f32 each product fused into the
-    add that consumes it (``_sum_terms``); in bf16 every product and every
+    add that consumes it (``sum_terms``); in bf16 every product and every
     sum rounded to bf16, left to right."""
     x0 = inputs[0]
     if x0.dtype == torch.float32:
-        return _sum_terms([(x, weak(c, x)) for c, x in zip(coeffs, inputs)])
+        return sum_terms([(x, weak(c, x)) for c, x in zip(coeffs, inputs)])
     y = None
     for c, x in zip(coeffs, inputs):
         t = x * weak(c, x)
         y = t if y is None else y + t
     return y
-
-
-def fma_exact(a: torch.Tensor, b: torch.Tensor,
-              c: torch.Tensor) -> torch.Tensor:
-    """``a * b + c`` of f32 values rounded once to f32, on any device and
-    any ATen path: the product of two f32 values is exact in f64, the f64
-    sum rounds once, and where that sum lands exactly on an f32 rounding
-    midpoint while it is inexact (the one case in which rounding it again
-    to f32 differs from rounding the exact value once) it moves one f64
-    ulp toward the exact value, whose error the two-sum gives.  Exact for
-    results in f32's normal range."""
-    p = a.double() * b.double()
-    c = c.double()
-    s = p + c
-    z = s - p
-    err = (p - (s - z)) + (c - z)
-    tie = (s.view(torch.int64) & 0x1FFFFFFF) == 0x10000000
-    s = torch.where(tie & (err != 0), torch.nextafter(s, s + err), s)
-    return s.float()
-
-
-def fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
-    """``a * b + c`` rounded once to f32 (a fused multiply-add), whatever
-    ATen's CPU dispatch picks: on the card ``torch.addcmul``, one FMA per
-    element (``chip_smoke.py`` holds it to ``fma_exact``); on the CPU
-    ``fma_exact``, since ``torch.addcmul`` is an FMA on ATen's vectorized
-    paths only (under ``ATEN_CPU_CAPABILITY=default`` it rounds the product
-    first)."""
-    if a.is_cuda or b.is_cuda or c.is_cuda:
-        return torch.addcmul(c, a, b)
-    return fma_exact(a, b, c)
-
-
-def _sum_terms(terms):
-    """Left-to-right sum of ``x*s`` terms (s None: plain ``x``), fusing a
-    product into the add that consumes it: ``a*s + t`` and ``t + b*s`` are
-    single-rounding FMAs (``fma``), preferring the left operand."""
-    (x0, s0), rest = terms[0], terms[1:]
-    if not rest:
-        return x0 * s0 if s0 is not None else x0
-    (x1, s1), rest = rest[0], rest[1:]
-    if s0 is not None:
-        acc = fma(x0, s0, x1 * s1 if s1 is not None else x1)
-    else:
-        acc = fma(x1, s1, x0) if s1 is not None else x0 + x1
-    for x, s in rest:
-        acc = fma(x, s, acc) if s is not None else acc + x
-    return acc
 
 
 def _onto_grid(x: torch.Tensor, s, y: float) -> torch.Tensor:
@@ -684,9 +546,7 @@ def _onto_grid(x: torch.Tensor, s, y: float) -> torch.Tensor:
     ``round(x * (s / y))``, a float one quantized by ``round(x / y)``."""
     if x.dtype == torch.int8:
         if s is not None and s != y:
-            x = torch.clamp(torch.round(
-                x.float() * scalar(s / y, x.device)), -127, 127).to(
-                    torch.int8)
+            x = requantize(x.float(), s / y)
         return x
     return quantize(x, y)
 
@@ -793,10 +653,7 @@ def _lower_lrn(node, inputs, params, ctx):
     q = ctx.qinfo(node)
     rq = q is not None and q.get("requant_int8")
     x = inputs[0]
-    if rq and x.dtype == torch.int8:
-        xf = x.float() * scalar(q["x_scale"], x.device)
-    else:
-        xf = x.float()
+    xf = dequantize(x, q["x_scale"]) if rq else x.float()
     n = node.attrs.get("local_size", 5)
     alpha = node.attrs.get("alpha", 1e-4)
     beta = node.attrs.get("beta", 0.75)
@@ -863,8 +720,7 @@ def _lower_scale(node, inputs, params, ctx):
     act = a.get("activation")
     q = ctx.qinfo(node)
     if q is not None and q.get("requant_int8"):
-        xf = (x.float() * scalar(q["x_scale"], x.device)
-              if x.dtype == torch.int8 else x.float())
+        xf = dequantize(x, q["x_scale"])
         if bias and len(params) > 1:
             y = fma(xf, params[0].float(), params[1].float())
         else:
@@ -898,11 +754,7 @@ def _lower_axpy(node, inputs, params, ctx):
     act = node.attrs.get("activation")
     if q is not None and q.get("axpy_int8"):
         sx, sy = q["in_scales"]
-        xf = (x.float() * scalar(sx, x.device) if x.dtype == torch.int8
-              else x.float())
-        yf = (y.float() * scalar(sy, y.device) if y.dtype == torch.int8
-              else y.float())
-        out = fma(s, xf, yf)
+        out = fma(s, dequantize(x, sx), dequantize(y, sy))
         return [quantize(apply_activation(out, act), q["y_scale"])]
     out = fma(s, x.float(), y.float())
     return [apply_activation(out, act).to(x.dtype)]
@@ -1097,38 +949,10 @@ def _lower_threshold(node, inputs, params, ctx):
 # Region fusion (passes_fusion.py): identity bottlenecks
 # ----------------------------------------------------------------------
 
-def _run_chain(node, ctx, x, w1, b1, w2, b2, w3, b3, w_scales=None,
-               scales=None):
-    """``fused_chain`` as the reference's lowerings call it: the int8 mode
-    where ``scales`` are given (a float ``x`` quantized first, with a
-    divide by ``sx[0]``), else the float mode with the weights cast to x's
-    type.  The weights go in the kernel's layout, made once per node.
-    Through the dispatcher on the "cuda" backend (``fused_chain`` for the
-    int8 mode, ``fused_chain_float`` for the float mode: the kernel, or its
-    plain version on CPU tensors); the plain version on "torch"."""
-    from ..kernels.fused_chain import fused_chain_plain, kernel_layout
-    if scales is not None:
-        if x.dtype != torch.int8:
-            x = quantize(x, scales[0][0])
-        kwargs = dict(w_scales=w_scales, scales=scales)
-    else:
-        kwargs = {}
-    wdt = torch.int8 if scales is not None else x.dtype
-    w1, w2, w3 = (ctx.kept(node, f"{k}/{wdt}",
-                           lambda w=w: kernel_layout(w.to(wdt)))
-                  for k, w in (("w1", w1), ("w2", w2), ("w3", w3)))
-    args = (x.contiguous(), w1, b1, w2, b2, w3, b3)
-    if ctx.backend == "cuda":
-        from ..kernels import dispatch as kdispatch
-        if scales is None:
-            return kdispatch.fused_chain_float(*args)
-        return kdispatch.fused_chain(*args, **kwargs)
-    return fused_chain_plain(*args, **kwargs)
-
-
 @register_lowering("FusedBottleneck")
 def _lower_fused_block(node, inputs, params, ctx):
-    """One identity bottleneck: a 1-block chain (kernels/fused_chain)."""
+    """One identity bottleneck: a 1-block chain (kernels/fused_chain,
+    through ``dispatch.chain_forward``)."""
     w1, b1, w2, b2, w3, b3 = params
     # Graph weights are HWIO; the chain function wants stacked matrices.
     c, cm = w1.shape[-2], w1.shape[-1]
@@ -1137,14 +961,14 @@ def _lower_fused_block(node, inputs, params, ctx):
                w3.reshape(1, cm, c), b3.reshape(1, -1))
     q = ctx.qinfo(node)
     if not (node.attrs.get("quant") and q is not None):
-        return [_run_chain(node, ctx, inputs[0], *weights)]
+        return [kdispatch.chain_forward(node, inputs[0], weights, ctx)]
     ws = tuple(ctx.const(node, f"w{i + 1}s",
                          lambda s=s: np.asarray(s).reshape(1, -1))
                for i, s in enumerate(q["w_scales"]))
     a = node.attrs
     scales = ((a["s_x"],), (a["s_y1"],), (a["s_y2"],), a.get("s_out"))
-    return [_run_chain(node, ctx, inputs[0], *weights, w_scales=ws,
-                       scales=scales)]
+    return [kdispatch.chain_forward(node, inputs[0], weights, ctx, ws,
+                                    scales)]
 
 
 @register_lowering("FusedChain")
@@ -1153,13 +977,13 @@ def _lower_fused_chain(node, inputs, params, ctx):
     kernels/fused_chain)."""
     q = ctx.qinfo(node)
     if not (node.attrs.get("quant") and q is not None):
-        return [_run_chain(node, ctx, inputs[0], *params)]
+        return [kdispatch.chain_forward(node, inputs[0], params, ctx)]
     ws = tuple(ctx.const(node, k, lambda k=k: q[k])
                for k in ("w1s", "w2s", "w3s"))
     a = node.attrs
     scales = (a["sx"], a["sy1"], a["sy2"], a.get("s_out"))
-    return [_run_chain(node, ctx, inputs[0], *params, w_scales=ws,
-                       scales=scales)]
+    return [kdispatch.chain_forward(node, inputs[0], params, ctx, ws,
+                                    scales)]
 
 
 # ----------------------------------------------------------------------
@@ -1322,7 +1146,6 @@ def _lower_detection_output(node, inputs, params, ctx):
     -1, score and box 0.  ``share_location=False`` decodes each class's
     own deltas.  The reference's ``topk_radix``, ``det_thresh_first`` and
     ``det_take_gather`` forms give these same rows."""
-    from ..kernels.nms import greedy_nms
     a = node.attrs
     num_classes = int(a["num_classes"])
     bg = int(a.get("background_label_id", 0))
@@ -1437,7 +1260,6 @@ def _lower_proposal(node, inputs, params, ctx):
     rows [image, x1, y1, x2, y2], image-major; a padding row has image -1
     and a zero box.  ``proposal_sort_payload`` picks a TPU form of the
     same rows."""
-    from ..kernels.nms import greedy_nms
     a = node.attrs
     pre_n = int(a.get("pre_nms_top_n", 6000))
     post_n = int(a.get("post_nms_top_n", 300))

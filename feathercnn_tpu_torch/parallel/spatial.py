@@ -13,7 +13,7 @@ from typing import Optional
 import torch
 import torch.distributed as dist
 
-from ..ops.lowering import apply_activation, nchw_conv
+from ..numerics import apply_activation, nchw_conv
 from .dist import start_exchange
 
 __all__ = ["halo_exchange", "spatial_conv2d"]

@@ -32,7 +32,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from ..ops.lowering import nchw_conv
+from ..numerics import nchw_conv
 from .dist import all_gather, all_reduce, reduce_scatter
 
 __all__ = ["column_parallel_conv", "row_parallel_conv", "tp_conv_pair",

@@ -537,7 +537,7 @@ def merge_sibling_convs(graph: Graph, lane_align: int = 128) -> int:
 
     Mixed per-branch activations (branch1 has none, branch2a has ReLU) are
     kept exact via an ``act_segments`` attr — a per-output-channel clamp
-    applied in the epilogue (ops/lowering.apply_act_segments).
+    applied in the epilogue (numerics.apply_act_segments).
 
     Full-int8 interplay: the merged output physically carries ONE int8
     scale, so when ``graph.meta['value_scales']`` is already calibrated the

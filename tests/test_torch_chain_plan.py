@@ -34,10 +34,10 @@ import torch
 import torch.nn.functional as F
 
 from feathercnn_tpu_torch.kernels.fused_chain import (
-    FLOAT_ADD_STEPS, INT8_VARIANTS, _SMEM_LIMIT, _f32, _q8, chain_plan,
+    FLOAT_ADD_STEPS, INT8_VARIANTS, _SMEM_LIMIT, _f32, chain_plan,
     fused_chain_plain, int8_chain_smem, smem_bytes, tile_plan,
     wgmma_chain_smem)
-from feathercnn_tpu_torch.kernels.matmul import fma_f32
+from feathercnn_tpu_torch.numerics import fma_f32, requantize
 
 
 def _check(p, n, h, w, c, cm, itemsize, case):
@@ -297,8 +297,8 @@ def _int8_tiled_block(plan, j, nb, x, w1, b1, w2, b2, w3, b3, ws, sc,
                 for cs in passes(cm, 64, o):
                     a = fma_f32(_mm(halo, w1[:, cs]), w1s[cs] * _f32(sx),
                                 b1[cs])
-                    y1[:, cs] = _q8(torch.clamp_min(a, 0), 1.0 / sy1) * keep.to(
-                        torch.int8)
+                    y1[:, cs] = requantize(torch.clamp_min(a, 0),
+                                           1.0 / sy1) * keep.to(torch.int8)
             y1 = y1.reshape(th + 2, tw + 2, cm)
             taps = [y1[i:i + th, jj:jj + tw].reshape(-1, cm)
                     for i in range(3) for jj in range(3)]
@@ -311,7 +311,7 @@ def _int8_tiled_block(plan, j, nb, x, w1, b1, w2, b2, w3, b3, ws, sc,
                         a = torch.zeros(th * tw, cs.stop - cs.start)
                         for t, tp in enumerate(taps):
                             a = a + _mm(tp, w2[t * cm:(t + 1) * cm, cs])
-                    y2[:, cs] = _q8(torch.clamp_min(
+                    y2[:, cs] = requantize(torch.clamp_min(
                         fma_f32(a, w2s[cs] * _f32(sy1), b2[cs]), 0), 1.0 / sy2)
             xs = xp[img, oh0 + 1:oh0 + th + 1, ow0 + 1:ow0 + tw + 1]
             xs = xs.reshape(-1, c).float()
@@ -325,7 +325,7 @@ def _int8_tiled_block(plan, j, nb, x, w1, b1, w2, b2, w3, b3, ws, sc,
                     else:
                         v = t3 + xs[:, cs] * _f32(sx)
                     v = torch.clamp_min(v, 0)
-                    o_t[:, cs] = (_q8(v, r) if out_dtype == torch.int8
+                    o_t[:, cs] = (requantize(v, r) if out_dtype == torch.int8
                                   else v.to(out_dtype))
             o_t = o_t.reshape(th, tw, c)
             hh, ww = min(th, h - oh0), min(tw, w - ow0)

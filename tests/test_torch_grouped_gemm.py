@@ -35,7 +35,7 @@ from feathercnn_tpu_torch.kernels.matmul import (SMEM_LIMIT, epilogue_plain,
                                                  halo_group, halo_images,
                                                  is_gemm_layout, supergroup)
 from feathercnn_tpu_torch.models import resnext50
-from feathercnn_tpu_torch.ops.lowering import conv_hparams
+from feathercnn_tpu_torch.numerics import conv_hparams
 from feathercnn_tpu_torch.weights import graph_from_reference
 from test_torch_classic_zoo import _hold_int8_edges
 

@@ -83,3 +83,44 @@ def test_cuda_tensor_wrappers_never_take_the_plain_version():
                  "ident.py", "eltwise.py", "stem.py"):
         tree = ast.parse((PORT / "kernels" / name).read_text())
         assert not any(isinstance(n, ast.Try) for n in ast.walk(tree)), name
+
+
+def _imported(path: Path, inside_functions: bool = False):
+    """The absolute module names ``path`` imports (``from a import b`` as
+    both ``a`` and ``a.b``); with ``inside_functions``, only those of the
+    imports made inside a function."""
+    tree = ast.parse(path.read_text(), str(path))
+    if inside_functions:
+        tree = ast.Module(body=[n for n in ast.walk(tree) if isinstance(
+            n, (ast.FunctionDef, ast.AsyncFunctionDef))], type_ignores=[])
+    package = list(path.relative_to(ROOT).with_suffix("").parts[:-1])
+    names = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names.update(a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom):
+            base = package[:len(package) - node.level + 1] \
+                if node.level else []
+            mod = ".".join(base + ([node.module] if node.module else []))
+            names.add(mod)
+            names.update(f"{mod}.{a.name}" for a in node.names)
+    return names
+
+
+def test_imports_run_one_way():
+    """``numerics.py`` is the bottom layer (it imports nothing of the
+    package); the kernels and the sharded collectives and convs import no
+    op lowering; ``ops/lowering.py`` imports the kernels at module level,
+    so no cycle is broken inside a function."""
+    def under(names, prefix):
+        return sorted(n for n in names
+                      if n == prefix or n.startswith(prefix + "."))
+
+    ops = "feathercnn_tpu_torch.ops"
+    assert not under(_imported(PORT / "numerics.py"), "feathercnn_tpu_torch")
+    lower = [PORT / "parallel" / f"{m}.py"
+             for m in ("spatial", "tp", "dist", "overlap", "mesh")]
+    for path in sorted((PORT / "kernels").glob("*.py")) + lower:
+        assert not under(_imported(path), ops), path.relative_to(ROOT)
+    assert not under(_imported(PORT / "ops" / "lowering.py", True),
+                     "feathercnn_tpu_torch.kernels")

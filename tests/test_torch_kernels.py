@@ -30,8 +30,8 @@ from feathercnn_tpu.kernels.matmul import matmul_epilogue as jmm
 from feathercnn_tpu.ops.lowering import apply_act_segments as japply_segs
 from feathercnn_tpu_torch.kernels.conv import conv2d_implicit_gemm
 from feathercnn_tpu_torch.kernels.matmul import matmul_epilogue
-from feathercnn_tpu_torch.ops.lowering import (act_segment_bounds,
-                                               apply_act_segments)
+from feathercnn_tpu_torch.numerics import (act_segment_bounds,
+                                           apply_act_segments)
 
 _JDT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16, "int8": jnp.int8}
 _TDT = {"float32": torch.float32, "bfloat16": torch.bfloat16,

@@ -2,7 +2,7 @@
 hold that no zoo builder uses: PReLU, TanH, ELU, AbsVal, Exp, Log, BNLL,
 Power, MVN, Tile, Reduction, Threshold), fault C1 (the leaky ReLU's slope,
 the Eltwise ``coeffs`` and Power's scale and shift used unrounded) and the
-port's single-rounding multiply-add (``ops.lowering.fma``) against the JAX
+port's single-rounding multiply-add (``numerics.fma``) against the JAX
 engine, on the CPU, in f32 and bf16.
 
 The same graphs and numpy inputs, made from a seed, go through both
@@ -260,7 +260,7 @@ def test_loose_ops_match_reference():
 
 _FMA_PROBE = """
 import numpy as np, torch
-from feathercnn_tpu_torch.ops.lowering import fma
+from feathercnn_tpu_torch.numerics import fma
 rng = np.random.default_rng(3)
 a, b, c = (rng.normal(size=1 << 16).astype(np.float32) * 3 for _ in range(3))
 s = a.astype(np.float64) * b + c
