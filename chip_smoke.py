@@ -1287,17 +1287,18 @@ def library_ms(kernel, a, group=1):
 
 def eltwise_composition(a):
     """A callable running the PyTorch ops that ``eltwise_int8`` replaced on
-    a recorded launch's operands (``kernels.eltwise.requant_sum``: the
-    operands cast to f32, a multiply, ``addcmul``, the activation, a
+    a recorded launch's operands (``kernels.eltwise.eltwise_int8_sum``:
+    the operands cast to f32, a multiply, ``addcmul``, the activation, a
     multiply by the output scale's reciprocal, ``round``, ``clamp``, the
     cast), its three scales made into device tensors once, so that no host
     sync is timed; it returns what the kernel returns."""
     import torch
-    from feathercnn_tpu_torch.kernels.eltwise import requant_sum
-    from feathercnn_tpu_torch.numerics import reciprocal
-    s0, s1, inv = (torch.tensor(v, dtype=torch.float32, device="cuda")
-                   for v in (a["s0"], a["s1"], reciprocal(a["y_scale"])))
-    return lambda: requant_sum((a["x0"], a["x1"]), (s0, s1), inv, a["act"])
+    from feathercnn_tpu_torch.kernels.eltwise import eltwise_int8_sum
+    s0, s1, inv = (torch.tensor(float(v), dtype=torch.float32,
+                                device="cuda")
+                   for v in (a["s0"], a["s1"], a["inv"]))
+    return lambda: eltwise_int8_sum((a["x0"], a["x1"]), (s0, s1), inv,
+                                    a["act"])
 
 
 def stem_composition(a):
@@ -2009,7 +2010,7 @@ def kernels_vs_plain(label, launches, groups=None):
             f"({100 * sums['bound_ms'] / sums['ms']:.1f}% of it), the PyTorch "
             f"composition it replaced {sums['library_ms']:.4f} ms "
             f"({sums['library_ms'] / sums['ms']:.1f}x the kernel), plain "
-            f"(with its scalar syncs) {sums['plain_ms']:.3f} ms")
+            f"{sums['plain_ms']:.3f} ms")
     mine = [r for r in rows if r["kernel"] == "stem_conv_int8"]
     if mine:
         sums = _sums(mine)
@@ -2019,7 +2020,7 @@ def kernels_vs_plain(label, launches, groups=None):
             f"{100 * sums['bound_ms'] / sums['ms']:.1f}% of it), cuDNN's f32 "
             f"conv + PyTorch's epilogue {sums['library_ms']:.4f} ms "
             f"({sums['library_ms'] / sums['ms']:.1f}x the kernel), plain "
-            f"(with its scalar sync) {sums['plain_ms']:.3f} ms; "
+            f"{sums['plain_ms']:.3f} ms; "
             f"{sum(r['over_1ulp'] for r in mine)} of "
             f"{sum(r['elements'] for r in mine)} int8 values 1 LSB off plain")
     for var in ("k3s1", "k3s2"):
@@ -3264,7 +3265,8 @@ def ragged_ident(gen):
     return n
 
 
-# (s0, s1, y_scale) of the eltwise_int8 cases: calibration-like scales;
+# (s0, s1, y_scale) of the eltwise_int8 cases (each launched with the f32
+# reciprocal of y_scale, ``numerics.reciprocal``): calibration-like scales;
 # quotients on .5 (half to even: (x0 + x1) / 2, and 0.5 x0 + 1.5 x1);
 # sums far past the grid (every value clamped to +-127 but the small); a
 # range around relu6's 6
@@ -3288,7 +3290,9 @@ def ragged_eltwise(gen):
     with x0 a channel slice, timed beside their byte bound and the PyTorch
     composition it replaced (``eltwise_composition``, equal to it)."""
     import torch
+    from feathercnn_tpu_torch.numerics import reciprocal
     kernel, plain = _kernel_fns()["eltwise_int8"]
+    inv = reciprocal(0.0789)
 
     def i8(*s):
         return torch.randint(-128, 128, s, dtype=torch.int8, device="cuda",
@@ -3310,7 +3314,8 @@ def ragged_eltwise(gen):
     for x0, x1 in pairs:
         for s0, s1, y in ELTWISE_SCALES:
             for act in (None, "relu", "relu6"):
-                held(dict(x0=x0, x1=x1, s0=s0, s1=s1, y_scale=y, act=act),
+                held(dict(x0=x0, x1=x1, s0=s0, s1=s1, inv=reciprocal(y),
+                          act=act),
                      f"x{tuple(x0.shape)} strides {x0.stride()} / "
                      f"{x1.stride()} scales {(s0, s1, y)} act {act}")
                 n += 1
@@ -3323,7 +3328,7 @@ def ragged_eltwise(gen):
                             4, 9, 9, 64), "a slice beside an unaligned view")):
         for act in (None, "relu", "relu6"):
             before = kernel.launches
-            held(dict(x0=x0, x1=x1, s0=0.0123, s1=0.0456, y_scale=0.0789,
+            held(dict(x0=x0, x1=x1, s0=0.0123, s1=0.0456, inv=inv,
                       act=act), f"{why} act {act}")
             check(kernel.launches == before + 1,
                   f"eltwise_int8 did not launch on {why}")
@@ -3337,7 +3342,7 @@ def ragged_eltwise(gen):
         for x0, form in ((i8(*shape), "contiguous"),
                          (wide[..., 64:], "x0 a channel slice")):
             a = dict(x0=x0, x1=i8(*shape), s0=0.0123, s1=0.0456,
-                     y_scale=0.0789, act="relu")
+                     inv=inv, act="relu")
             out = kernel(**a)
             check(torch.equal(out, plain(**a)),
                   f"eltwise_int8 x{shape} {form}: differs from plain")
@@ -4145,6 +4150,7 @@ def fma_check(eng, x):
     import torch
     from feathercnn_tpu_torch import numerics
     from feathercnn_tpu_torch.kernels.eltwise import eltwise_int8_plain
+    from feathercnn_tpu_torch.numerics import reciprocal
     from feathercnn_tpu_torch.ops import lowering
     q = eng.graph.meta["quant"]
     nodes = [n for n in eng.graph.nodes if n.op == "Eltwise"
@@ -4155,7 +4161,7 @@ def fma_check(eng, x):
     for n in nodes:
         ins = [vals[i] for i in n.inputs]
         qn = q[n.name]
-        args = (*ins, *qn["in_scales"], qn["y_scale"],
+        args = (*ins, *qn["in_scales"], reciprocal(qn["y_scale"]),
                 n.attrs.get("activation"))
         f32 = [numerics.dequantize(v, s)
                if v.dtype == torch.int8 and s is not None else v.float()
@@ -4163,11 +4169,12 @@ def fma_check(eng, x):
         with torch.inference_mode():
             (kernel,) = lowering.lower_node(n, ins, [], eng._ctx)
             card = eltwise_int8_plain(*args)
-            coeff = lowering._coeff_sum([0.3, -1.7], f32)
+            coeff = lowering._coeff_sum(n, [0.3, -1.7], f32, eng._ctx)
             orig, numerics.fma = numerics.fma, numerics.fma_f32
             try:
                 exact = eltwise_int8_plain(*args)
-                coeff_exact = lowering._coeff_sum([0.3, -1.7], f32)
+                coeff_exact = lowering._coeff_sum(n, [0.3, -1.7], f32,
+                                                  eng._ctx)
             finally:
                 numerics.fma = orig
         for what, got in (("torch.addcmul", card), ("the kernel", kernel)):

@@ -57,7 +57,7 @@ import torch.nn.functional as F
 
 from ..numerics import (act_segment_bounds, apply_act_segments,
                         apply_activation, conv_hparams, dequantize,
-                        dequantize_edge, quantize, requantize)
+                        quantize, reciprocal, requantize)
 from ..utils.profiling import grouped_route
 from . import eltwise, stem
 from .conv import conv2d_implicit_gemm
@@ -69,9 +69,11 @@ from .ident import ident
 from .matmul import gemm_layout, grouped_layout, matmul_epilogue, supergroup
 from .stem import (stem_conv_int8, stem_conv_plain, stem_layout,
                    takes_stem_kernel)
-from .winograd import transform_weights, winograd_conv2d_transformed
+from .winograd import (transform_matrices, transform_weights,
+                       winograd_conv2d_transformed)
 
-__all__ = ["select_algo", "block_diagonal", "conv_forward", "fc_forward",
+__all__ = ["select_algo", "block_diagonal", "segment_bounds",
+           "conv_forward", "fc_forward",
            "eltwise_forward", "chain_forward", "fused_chain",
            "fused_chain_float", "ident", "eltwise_int8", "stem_conv_int8"]
 
@@ -147,18 +149,40 @@ def _int8_product(node, x2, w2):
     return torch._int_mm(x2, w2).float()
 
 
-def _quantize_act(x, x_scale: float):
-    if x.dtype == torch.int8:   # int8 edge: producer already requantized
+def _quantize_act(x, x_scale):
+    """A float ``x`` quantized at the node's kept ``x_scale`` (a
+    ``numerics.Scale``); an int8 edge, which its producer requantized, as
+    it is."""
+    if x.dtype == torch.int8:
         return x
     return quantize(x, x_scale)
 
 
-def _out_spec(x, q):
-    """(out_dtype, out_scale) for the epilogue: int8 when the int8-edge
-    pass marked this node, else the float compute dtype."""
+def _x_scale(node, q, ctx):
+    return ctx.scale(node, "x_scale", q["x_scale"])
+
+
+def _out_dtype(x, q):
+    """int8 when the int8-edge pass marked this node, else the float
+    compute dtype."""
     if q is not None and q.get("emit_int8"):
-        return torch.int8, 1.0 / q["y_scale"]
-    return (torch.bfloat16 if x.dtype == torch.int8 else x.dtype), 1.0
+        return torch.int8
+    return torch.bfloat16 if x.dtype == torch.int8 else x.dtype
+
+
+def _out_spec(node, x, q, ctx):
+    """(out_dtype, out_scale) for the epilogue: :func:`_out_dtype`, and
+    for int8 the node's kept ``1 / y_scale``."""
+    out_dtype = _out_dtype(x, q)
+    if out_dtype == torch.int8:
+        return out_dtype, ctx.scale(node, "out_scale", 1.0 / q["y_scale"])
+    return out_dtype, 1.0
+
+
+def segment_bounds(node, segs, ctx):
+    """The kept (lo, hi) clamp of merged sibling convs' ``segs``."""
+    return (ctx.const(node, "seg_lo", lambda: act_segment_bounds(segs)[0]),
+            ctx.const(node, "seg_hi", lambda: act_segment_bounds(segs)[1]))
 
 
 def _is_depthwise(node, x, group, dil, sh, sw) -> bool:
@@ -201,7 +225,7 @@ def conv_forward(node, x, w, bias, ctx):
     if x.dtype == torch.int8 and (q is None or q.get("x_scale") is None):
         # int8-transferred input into an fp-act layer (input_scale) or a
         # stray int8 edge: dequantize once so every branch sees float
-        x = dequantize_edge(x, q, cdt)
+        x = ctx.dequantize_edge(node, x, cdt)
 
     if algo == "depthwise":
         if _is_depthwise(node, x, group, dil, sh, sw):
@@ -213,7 +237,7 @@ def conv_forward(node, x, w, bias, ctx):
                 w, q, torch.float32, node, ctx).reshape(kh, kw, -1).cpu())
             kwargs = {}
             if x.dtype == torch.int8:
-                kwargs = dict(x_scale=float(q["x_scale"]), out_dtype=cdt)
+                kwargs = dict(x_scale=_x_scale(node, q, ctx), out_dtype=cdt)
             grouped_route(node.name, "depthwise")
             return depthwise_conv2d(x.contiguous(), wd, bias, stride=sh,
                                     pad_h=ph, pad_w=pw, activation=act,
@@ -228,10 +252,10 @@ def conv_forward(node, x, w, bias, ctx):
             kwargs["w_scale"] = ctx.const(node, "w_scale",
                                           lambda: q["w_scale"])
             if q.get("x_scale") is not None:
-                x2 = _quantize_act(x2, q["x_scale"])
-                kwargs["x_scale"] = float(q["x_scale"])
+                kwargs["x_scale"] = _x_scale(node, q, ctx)
+                x2 = _quantize_act(x2, kwargs["x_scale"])
             wdt = torch.int8
-        out_dtype, out_scale = _out_spec(x, q)
+        out_dtype, out_scale = _out_spec(node, x, q, ctx)
         y = matmul_epilogue(x2, _gemm_weight(node, w, wdt, ctx, True), bias,
                             activation=act, out_dtype=out_dtype,
                             out_scale=out_scale, **kwargs)
@@ -243,39 +267,41 @@ def conv_forward(node, x, w, bias, ctx):
         x2, (n, oh, ow) = _pointwise_input(x, sh, sw, ph, pw)
         if (q is not None and w.dtype == torch.int8
                 and q.get("x_scale") is not None):
-            x2 = _quantize_act(x2, q["x_scale"])
+            x2 = _quantize_act(x2, _x_scale(node, q, ctx))
             acc = _int8_product(node, x2, _gemm_weight(node, w, torch.int8,
                                                        ctx, True))
             y = acc * ctx.const(node, "w_scale_x_scale",
                                 lambda: np.asarray(q["w_scale"], np.float32)
                                 * np.float32(q["x_scale"]))
         else:
-            x2 = dequantize_edge(x2, q, cdt)
+            x2 = ctx.dequantize_edge(node, x2, cdt)
             wd = _dequant_weight(w, q, x2.dtype, node, ctx)
             y = x2.float() @ wd.reshape(x2.shape[1], -1).float()
         if bias is not None:
             y = y + bias
-        y = apply_act_segments(y, segs) if segs is not None \
-            else apply_activation(y, act)
-        out_dtype, out_scale = _out_spec(x, q)
+        y = apply_act_segments(y, *segment_bounds(node, segs, ctx)) \
+            if segs is not None else apply_activation(y, act)
+        out_dtype, out_scale = _out_spec(node, x, q, ctx)
         if out_dtype == torch.int8:
             y = requantize(y, out_scale)
         return y.to(out_dtype).reshape(n, oh, ow, -1)
 
     if algo == "winograd":
         if kh == 3 and kw == 3 and sh == sw == 1 and dil == 1 and group == 1:
-            out_dtype, _ = _out_spec(x, q)
+            out_dtype = _out_dtype(x, q)
             if out_dtype == torch.int8:   # the winograd path keeps float edges
                 out_dtype = (torch.bfloat16 if x.dtype != torch.float32
                              else torch.float32)
             if x.dtype == torch.int8:
-                x = dequantize(x, q["x_scale"]).to(torch.bfloat16)
+                x = dequantize(x, _x_scale(node, q, ctx)).to(torch.bfloat16)
             # the weight transform of the dequantized weight, once per node
             v = ctx.kept(node, "winograd_v", lambda: transform_weights(
                 _dequant_weight(w, q, torch.float32, node, ctx)))
+            mats = ctx.kept(node, "winograd_mats",
+                            lambda: transform_matrices(ctx.device))
             return winograd_conv2d_transformed(x, v, bias, pad_h=ph,
                                                pad_w=pw, activation=act,
-                                               out_dtype=out_dtype)
+                                               out_dtype=out_dtype, mats=mats)
         algo = "xla"
 
     if algo == "implicit":
@@ -285,12 +311,12 @@ def conv_forward(node, x, w, bias, ctx):
             kwargs["w_scale"] = ctx.const(node, "w_scale",
                                           lambda: q["w_scale"])
             if q.get("x_scale") is not None:
-                xs = _quantize_act(x, q["x_scale"])
-                kwargs["x_scale"] = float(q["x_scale"])
+                kwargs["x_scale"] = _x_scale(node, q, ctx)
+                xs = _quantize_act(x, kwargs["x_scale"])
             wk = _gemm_weight(node, w, torch.int8, ctx, False)
         else:
             wk = _gemm_weight(node, w, x.dtype, ctx, False)
-        out_dtype, out_scale = _out_spec(x, q)
+        out_dtype, out_scale = _out_spec(node, x, q, ctx)
         return conv2d_implicit_gemm(xs.contiguous(), wk, bias, stride=sh,
                                     pad_h=ph, pad_w=pw, activation=act,
                                     out_dtype=out_dtype, out_scale=out_scale,
@@ -327,11 +353,11 @@ def conv_forward(node, x, w, bias, ctx):
             node, x, group, dil, sh, sw)
         wg = 1 if depthwise else group
         stride = sh if sh == sw else (sh, sw)
-        xq = _quantize_act(x, q["x_scale"])
+        xq = _quantize_act(x, _x_scale(node, q, ctx))
         ws = ctx.const(node, "w_scale_x_scale",
                        lambda: np.asarray(q["w_scale"], np.float32)
                        * np.float32(q["x_scale"]))
-        out_dtype, out_scale = _out_spec(x, q)
+        out_dtype, out_scale = _out_spec(node, x, q, ctx)
         if depthwise:
             grouped_route(node.name, "depthwise")
             return depthwise_conv2d_int8(
@@ -340,8 +366,7 @@ def conv_forward(node, x, w, bias, ctx):
                 out_scale=out_scale)
         lo = hi = None
         if segs is not None:
-            lo = ctx.const(node, "seg_lo", lambda: act_segment_bounds(segs)[0])
-            hi = ctx.const(node, "seg_hi", lambda: act_segment_bounds(segs)[1])
+            lo, hi = segment_bounds(node, segs, ctx)
             act = None
         kw_ = dict(activation=act, out_dtype=out_dtype, out_scale=out_scale,
                    lo=lo, hi=hi)
@@ -371,8 +396,8 @@ def conv_forward(node, x, w, bias, ctx):
     # such a stem that the kernel does not take.
     if group > 1:
         grouped_route(node.name, "float")
-    x = dequantize_edge(x, q, cdt)
-    out_dtype, out_scale = _out_spec(x, q)
+    x = ctx.dequantize_edge(node, x, cdt)
+    out_dtype, out_scale = _out_spec(node, x, q, ctx)
     if out_dtype == torch.int8 and cin <= 4:
         wd = ctx.kept(node, "stem_w", lambda: _dequant_weight(
             w, q, x.dtype, node, ctx))
@@ -385,7 +410,9 @@ def conv_forward(node, x, w, bias, ctx):
     else:
         wd = _dequant_weight(w, q, x.dtype, node, ctx)
     return stem_conv_plain(x, wd, bias, (sh, sw), (ph, pw), act, out_scale,
-                           dilation=dil, groups=group, segments=segs,
+                           dilation=dil, groups=group,
+                           bounds=(None if segs is None else
+                                   segment_bounds(node, segs, ctx)),
                            out_dtype=out_dtype)
 
 
@@ -393,14 +420,15 @@ def fc_forward(node, x, w, bias, ctx):
     act = node.attrs.get("activation")
     q = ctx.qinfo(node)
     if x.dtype == torch.int8 and (q is None or q.get("x_scale") is None):
-        x = dequantize_edge(x, q, getattr(torch, ctx.config.compute_dtype))
+        x = ctx.dequantize_edge(node, x,
+                                getattr(torch, ctx.config.compute_dtype))
     kwargs = {}
     wdt = x.dtype
     if q is not None and w.dtype == torch.int8:
         kwargs["w_scale"] = ctx.const(node, "w_scale", lambda: q["w_scale"])
         if q.get("x_scale") is not None:
-            x = _quantize_act(x, q["x_scale"])
-            kwargs["x_scale"] = float(q["x_scale"])
+            kwargs["x_scale"] = _x_scale(node, q, ctx)
+            x = _quantize_act(x, kwargs["x_scale"])
         wdt = torch.int8
     out_dtype = x.dtype if x.dtype != torch.int8 else torch.bfloat16
     return matmul_epilogue(x.contiguous(), _gemm_weight(node, w, wdt, ctx,
@@ -413,14 +441,18 @@ def eltwise_forward(node, inputs, ctx):
     one shape (``takes_kernel``) are one ``eltwise_int8`` call, in any
     layout; any other form (three operands, a float one) takes the PyTorch
     ops, ``eltwise_int8_sum``, counted in ``eltwise_int8.fallbacks``.  The
-    "torch" backend always takes them, uncounted."""
+    "torch" backend always takes them, uncounted.  Either takes the node's
+    kept scales and the f32 reciprocal of its output scale."""
     q = ctx.qinfo(node)
     act = node.attrs.get("activation")
+    scales = [None if s is None else ctx.scale(node, f"in_scale{i}", s)
+              for i, s in enumerate(q["in_scales"])]
+    inv = ctx.scale(node, "y_inv", reciprocal(q["y_scale"]))
     if ctx.backend == "cuda":
         if takes_kernel(inputs):
-            return eltwise_int8(*inputs, *q["in_scales"], q["y_scale"], act)
+            return eltwise_int8(*inputs, *scales, inv, act)
         eltwise.eltwise_int8.fallbacks += 1
-    return eltwise_int8_sum(inputs, q["in_scales"], q["y_scale"], act)
+    return eltwise_int8_sum(inputs, scales, inv, act)
 
 
 def chain_forward(node, x, weights, ctx, w_scales=None, scales=None):
@@ -433,7 +465,7 @@ def chain_forward(node, x, weights, ctx, w_scales=None, scales=None):
     ``fused_chain_float`` (the kernel, or its plain version on CPU
     tensors); on "torch" the plain version."""
     if scales is not None:
-        x = _quantize_act(x, scales[0][0])
+        x = _quantize_act(x, ctx.scale(node, "x_scale", scales[0][0]))
     wdt = torch.int8 if scales is not None else x.dtype
     w1, b1, w2, b2, w3, b3 = weights
     w1, w2, w3 = (ctx.kept(node, f"{k}/{wdt}",

@@ -13,10 +13,11 @@ the f32 reciprocal of the output scale where its source divides by it
 On a CUDA tensor :func:`eltwise_int8` launches the hand-written kernel in
 ``csrc/eltwise_int8.cu`` (whose header note says what bounds it on an H100
 and what its design does about that), with the three scales as kernel
-arguments; on a CPU tensor it computes the same function with
-:func:`eltwise_int8_plain`.  The dispatcher (``dispatch.eltwise_forward``)
-sends an int8-edge Eltwise there when :func:`takes_kernel` holds for its
-operands (two int8 operands of one shape), whatever their layout:
+arguments (the output scale as its f32 reciprocal, ``inv``); on a CPU
+tensor it computes the same function with :func:`eltwise_int8_plain`.
+The dispatcher (``dispatch.eltwise_forward``) sends an int8-edge Eltwise
+there when :func:`takes_kernel` holds for its operands (two int8 operands
+of one shape), whatever their layout:
 :func:`kernel_operands` passes each as it is where the kernel reads it so
 (contiguous, or channel slices at a 16-byte pitch) and a contiguous copy
 otherwise (a misaligned view, a row shard).
@@ -30,46 +31,38 @@ from typing import Optional, Sequence
 
 import torch
 
-from ..numerics import (apply_activation, reciprocal, requantize, scalar,
-                        sum_terms)
+from ..numerics import apply_activation, requantize, scale_tensor, sum_terms
 from .matmul import _ACT_CODES
 
 __all__ = ["eltwise_int8", "eltwise_int8_plain", "eltwise_int8_sum",
-           "kernel_operands", "requant_sum", "takes_kernel"]
+           "kernel_operands", "takes_kernel"]
 
 
-def requant_sum(xs: Sequence[torch.Tensor], scales, inv: torch.Tensor,
-                act: Optional[str] = None) -> torch.Tensor:
-    """:func:`eltwise_int8_sum` on scales that are already device tensors
-    (0-d f32; None for a float operand) and ``inv``, the 0-d f32
-    ``reciprocal`` of the output scale: no host sync."""
-    acc = sum_terms([(x.float(), s) for x, s in zip(xs, scales)])
-    return requantize(apply_activation(acc, act), inv)
-
-
-def eltwise_int8_sum(xs: Sequence[torch.Tensor], scales, y_scale: float,
+def eltwise_int8_sum(xs: Sequence[torch.Tensor], scales, inv,
                      act: Optional[str] = None) -> torch.Tensor:
     """The int8-edge Eltwise in PyTorch ops, over any number of operands:
     each int8 operand dequantized by its scale and a float one taken as it
     is, summed left to right in f32 with each product fused into the add
     that consumes it (``numerics.sum_terms``, as the reference's
     compiled add contracts it), the activation ``act``, then
-    ``clip(round_half_even(acc * reciprocal(y_scale)), -127, 127)`` as
-    int8."""
+    ``clip(round_half_even(acc * inv), -127, 127)`` as int8, ``inv`` the
+    f32 reciprocal of the output scale (``numerics.reciprocal``).  The
+    scales and ``inv`` are the node's kept ``numerics.Scale`` values (or
+    device tensors): no host sync."""
     dev = xs[0].device
-    return requant_sum(
-        xs, [scalar(s, dev) if x.dtype == torch.int8 else None
-             for x, s in zip(xs, scales)],
-        scalar(reciprocal(y_scale), dev), act)
+    acc = sum_terms([(x.float(), scale_tensor(s, dev)
+                      if x.dtype == torch.int8 else None)
+                     for x, s in zip(xs, scales)])
+    return requantize(apply_activation(acc, act), inv)
 
 
 def eltwise_int8_plain(x0: torch.Tensor, x1: torch.Tensor, s0: float,
-                       s1: float, y_scale: float,
+                       s1: float, inv: float,
                        act: Optional[str] = None) -> torch.Tensor:
     """Plain PyTorch version: :func:`eltwise_int8_sum` of two operands,
     ``fma(x0, s0, x1 * s1)`` before the activation and the
     requantization."""
-    return eltwise_int8_sum((x0, x1), (s0, s1), y_scale, act)
+    return eltwise_int8_sum((x0, x1), (s0, s1), inv, act)
 
 
 # the kernel's pitched form indexes 16-byte vectors with 32-bit rows and
@@ -127,10 +120,11 @@ def kernel_operands(x0: torch.Tensor, x1: torch.Tensor):
 
 
 def eltwise_int8(x0: torch.Tensor, x1: torch.Tensor, s0: float, s1: float,
-                 y_scale: float, act: Optional[str] = None) -> torch.Tensor:
-    """``clip(round_half_even(act(x0 * s0 + x1 * s1) * reciprocal(y_scale)),
-    -127, 127)`` as int8, on two int8 tensors of one shape (``act``: None,
-    "relu" or "relu6").  A CPU pair takes :func:`eltwise_int8_plain`; a
+                 inv: float, act: Optional[str] = None) -> torch.Tensor:
+    """``clip(round_half_even(act(x0 * s0 + x1 * s1) * inv), -127, 127)``
+    as int8, on two int8 tensors of one shape (``act``: None, "relu" or
+    "relu6"), ``inv`` the f32 reciprocal of the output scale
+    (``numerics.reciprocal``).  A CPU pair takes :func:`eltwise_int8_plain`; a
     CUDA pair, in any layout, launches the kernel (:func:`kernel_operands`);
     any other raises."""
     if x0.dtype != torch.int8 or x1.dtype != torch.int8:
@@ -143,7 +137,7 @@ def eltwise_int8(x0: torch.Tensor, x1: torch.Tensor, s0: float, s1: float,
     if act not in _ACT_CODES:
         raise ValueError(f"unknown activation {act!r}")
     if x0.device.type == "cpu":
-        return eltwise_int8_plain(x0, x1, s0, s1, y_scale, act)
+        return eltwise_int8_plain(x0, x1, s0, s1, inv, act)
     if x0.device.type != "cuda":
         raise ValueError(f"no kernel for device {x0.device}")
     out = torch.empty(x0.shape, dtype=torch.int8, device=x0.device)
@@ -153,7 +147,7 @@ def eltwise_int8(x0: torch.Tensor, x1: torch.Tensor, s0: float, s1: float,
     from .build import load_library
     rc = load_library().fcnn_eltwise_int8(
         x0.data_ptr(), x1.data_ptr(), out.data_ptr(), x0.numel(), c, ld0,
-        ld1, float(s0), float(s1), reciprocal(y_scale), _ACT_CODES[act],
+        ld1, float(s0), float(s1), float(inv), _ACT_CODES[act],
         torch.cuda.current_stream(x0.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"eltwise_int8 launch failed: CUDA error {rc} "

@@ -54,7 +54,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from ..numerics import apply_activation, fma_f32, requantize, scalar
+from ..numerics import apply_activation, fma_f32, requantize, scale_tensor
 
 __all__ = ["matmul_epilogue", "matmul_epilogue_plain", "epilogue_plain",
            "matmul_epilogue_split_plain", "gemm_layout",
@@ -696,7 +696,9 @@ def epilogue_plain(acc: torch.Tensor, w_scale=None, x_scale: float = 1.0,
     channel), step for step: ``acc * w_scale * x_scale + bias`` with the
     last multiply and the bias add rounding once (as the reference's
     compiled epilogue contracts them), activation, lo/hi clamp, then the
-    store (int8: round half to even of ``y * out_scale``, saturated)."""
+    store (int8: round half to even of ``y * out_scale``, saturated).  The
+    dispatcher passes ``x_scale`` and ``out_scale`` as its nodes' kept
+    ``numerics.Scale`` values: their device tensors, made once."""
     y = acc
     last = None
     if w_scale is not None:
@@ -704,7 +706,7 @@ def epilogue_plain(acc: torch.Tensor, w_scale=None, x_scale: float = 1.0,
     if x_scale != 1.0:
         if last is not None:
             y = y * last
-        last = scalar(x_scale, acc.device)
+        last = scale_tensor(x_scale, acc.device)
     if bias is not None:
         y = fma_f32(y, last, bias) if last is not None else y + bias
     elif last is not None:

@@ -124,20 +124,21 @@ def stem_conv_plain(x: torch.Tensor, w: torch.Tensor,
                     bias: Optional[torch.Tensor], stride: Sequence[int],
                     padding: Sequence[int], activation: Optional[str] = None,
                     out_scale: float = 1.0, wk: Optional[torch.Tensor] = None,
-                    dilation: int = 1, groups: int = 1, segments=None,
+                    dilation: int = 1, groups: int = 1, bounds=None,
                     out_dtype: torch.dtype = torch.int8) -> torch.Tensor:
     """The dispatcher's float conv in PyTorch ops, the plain version of
     :func:`stem_conv_int8` (``wk`` unused): the NHWC ``x`` and HWIO ``w``
     cast to f32, PyTorch's conv (f32 sums; TF32 off on the card), + bias,
-    the activation (or the per-channel ``segments`` of merged convs), then
-    for an int8 ``out_dtype`` ``clip(round_half_even(y * out_scale), -127,
-    127)`` with ``out_scale`` as an f32 device scalar, else ``y`` cast to
-    ``out_dtype``."""
+    the activation (or, for merged convs, the per-channel clamp between
+    the kept ``bounds``, ``(lo, hi)``), then for an int8 ``out_dtype``
+    ``clip(round_half_even(y * out_scale), -127, 127)`` with ``out_scale``
+    as an f32 device tensor (the node's kept ``numerics.Scale``), else
+    ``y`` cast to ``out_dtype``."""
     y = nchw_conv(x.float(), w.float(), tuple(stride), tuple(padding),
                   dilation, groups)
     if bias is not None:
         y = y + bias
-    y = apply_act_segments(y, segments) if segments is not None \
+    y = apply_act_segments(y, *bounds) if bounds is not None \
         else apply_activation(y, activation)
     if out_dtype == torch.int8:
         return requantize(y, out_scale)

@@ -16,8 +16,9 @@ F(6,3)'s transform magnitudes force f32 transforms even for bf16
 activations.  A weight-only int8 weight is dequantized before the weight
 transform (exact: the transform is linear).  The weight transform
 ``G g G^T`` runs once per weight (``transform_weights``, in f32 as the
-reference's); the dispatcher keeps it per graph node and calls
-``winograd_conv2d_transformed``.
+reference's); the dispatcher keeps it per graph node, with the input and
+output transform matrices on the device (``transform_matrices``), and
+calls ``winograd_conv2d_transformed``.
 
 The card's and the CPU's f32 sums differ in order, so a bf16 rounding of
 a transformed tile or of an output may fall the other way on each, and
@@ -43,7 +44,7 @@ import torch.nn.functional as F
 from ..numerics import apply_activation
 
 __all__ = ["winograd_conv2d", "winograd_conv2d_transformed",
-           "transform_weights", "BT", "G", "AT"]
+           "transform_weights", "transform_matrices", "BT", "G", "AT"]
 
 # F(6x6, 3x3) transform matrices, interpolation points {0, ±1, ±2, ±1/2, ∞}
 # (Lavin & Gray convention), the reference's.
@@ -94,7 +95,13 @@ def transform_weights(w: torch.Tensor) -> torch.Tensor:
     return v.reshape(_A * _A, w.shape[2], w.shape[3])
 
 
-def _tiles(x: torch.Tensor, pad_h: int, pad_w: int):
+def transform_matrices(device) -> tuple:
+    """``(B^T, A^T)`` as f32 tensors on ``device``, for a caller that keeps
+    them (the input and output transforms of every call)."""
+    return _mat(BT, device), _mat(AT, device)
+
+
+def _tiles(x: torch.Tensor, pad_h: int, pad_w: int, bt: torch.Tensor):
     """The input transform: ``B^T d B`` of the 8x8 tiles at stride 6 of the
     padded x, in f32 (64, tiles, C), and the output grid (OH, OW, tile
     rows, tile columns)."""
@@ -104,7 +111,6 @@ def _tiles(x: torch.Tensor, pad_h: int, pad_w: int):
     hp, wp = nth * _M + 2, ntw * _M + 2
     xp = F.pad(x.float(), (0, 0, pad_w, wp - wd - pad_w, pad_h,
                            hp - h - pad_h))
-    bt = _mat(BT, x.device)
     # the 8x8 tiles at stride 6: d[n, th, tw, c, a, b] = xp[n, 6th+a, 6tw+b, c]
     d = xp.unfold(1, _A, _M).unfold(2, _A, _M)
     t = torch.einsum("ai,ntwcib->antwcb", bt, d)
@@ -113,12 +119,11 @@ def _tiles(x: torch.Tensor, pad_h: int, pad_w: int):
     return u.reshape(_A * _A, n * nth * ntw, c), (oh, ow, nth, ntw)
 
 
-def _untile(m: torch.Tensor, n: int, grid) -> torch.Tensor:
+def _untile(m: torch.Tensor, n: int, grid, at: torch.Tensor) -> torch.Tensor:
     """The output transform ``A^T m A`` of the (64, tiles, Co) products, in
     f32, reassembled as (N, OH, OW, Co)."""
     oh, ow, nth, ntw = grid
     co = m.shape[-1]
-    at = _mat(AT, m.device)
     m = m.reshape(_A, _A, n, nth, ntw, co)
     t = torch.einsum("ai,ijntwc->ajntwc", at, m)
     del m
@@ -151,19 +156,23 @@ def winograd_conv2d_transformed(x: torch.Tensor, v: torch.Tensor,
                                 bias: Optional[torch.Tensor] = None,
                                 pad_h: int = 1, pad_w: int = 1,
                                 activation: Optional[str] = None,
-                                out_dtype: Optional[torch.dtype] = None
+                                out_dtype: Optional[torch.dtype] = None,
+                                mats: Optional[tuple] = None
                                 ) -> torch.Tensor:
     """``winograd_conv2d`` on the transformed weight ``v`` (64, C, Co) that
-    ``transform_weights`` gives, for a caller that keeps it."""
+    ``transform_weights`` gives, for a caller that keeps it, and on
+    ``mats``, ``transform_matrices`` on x's device (made here where
+    None)."""
     out_dtype = out_dtype or x.dtype
-    u, grid = _tiles(x, pad_h, pad_w)
+    bt, at = mats if mats is not None else transform_matrices(x.device)
+    u, grid = _tiles(x, pad_h, pad_w, bt)
     if x.dtype == torch.bfloat16:
         # the compute dtype's operands, held in f32: their products are exact
         u = u.to(torch.bfloat16).float()
         v = v.to(torch.bfloat16).float()
     m = torch.bmm(u, v)                            # (64, tiles, Co), f32
     del u
-    y = _untile(m, x.shape[0], grid)
+    y = _untile(m, x.shape[0], grid, at)
     if bias is not None:
         y = y + bias.float()
     return apply_activation(y, activation).to(out_dtype).contiguous()

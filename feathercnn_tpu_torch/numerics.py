@@ -1,8 +1,12 @@
 """The port's int8 and f32 arithmetic, each rule written once: the
-activations, the f32 device scalar, the int8 store and the two
-requantization rules that end in it, dequantization, the single-rounding
-FMA and the NHWC conv.  The package's bottom layer: it imports nothing of
-the package, and ``ops/``, ``kernels/`` and ``parallel/`` build on it."""
+activations, the int8 store and the two requantization rules that end in
+it, dequantization, the single-rounding FMA and the NHWC conv.  The
+package's bottom layer: it imports nothing of the package, and ``ops/``,
+``kernels/`` and ``parallel/`` build on it.
+
+A rule's scale is a device tensor (or a :class:`Scale`, which carries one)
+that its node made once and keeps (``ops.lowering.LoweringCtx.const``):
+none of these functions copies a number to the card."""
 
 from __future__ import annotations
 
@@ -14,8 +18,8 @@ import torch
 import torch.nn.functional as F
 
 __all__ = ["apply_activation", "act_segment_bounds", "apply_act_segments",
-           "scalar", "weak", "to_int8", "quantize", "requantize",
-           "reciprocal", "dequantize", "dequantize_edge", "fma_f32", "fma",
+           "Scale", "scale_tensor", "to_int8", "quantize", "requantize",
+           "reciprocal", "dequantize", "edge_scale", "fma_f32", "fma",
            "sum_terms", "conv_hparams", "nchw_conv"]
 
 
@@ -42,27 +46,43 @@ def act_segment_bounds(segments):
     return lo, hi
 
 
-def apply_act_segments(y: torch.Tensor, segments) -> torch.Tensor:
+def apply_act_segments(y: torch.Tensor, lo: torch.Tensor,
+                       hi: torch.Tensor) -> torch.Tensor:
     """Per-output-channel activation for horizontally merged convs
-    (passes.merge_sibling_convs), as one clamp.  ``y`` must be float
-    (pre-requant)."""
-    lo, hi = act_segment_bounds(segments)
-    lo = torch.as_tensor(lo, device=y.device)
-    hi = torch.as_tensor(hi, device=y.device)
+    (passes.merge_sibling_convs), as one clamp between the device tensors
+    ``lo`` and ``hi`` of :func:`act_segment_bounds` (made once per node).
+    ``y`` must be float (pre-requant)."""
     return torch.minimum(torch.maximum(y, lo), hi)
 
 
-def scalar(v: float, device) -> torch.Tensor:
-    """A float32 0-d tensor on ``device``: arithmetic with it rounds like
-    the reference's f32 arithmetic with a Python float (CUDA replaces a
-    division by a host scalar with a multiply by its reciprocal)."""
+class Scale(float):
+    """A node's number as both forms it is used in: the float a CUDA
+    kernel takes as its argument, and ``t``, the same number as an f32 0-d
+    tensor on the node's device, which PyTorch's ops (a kernel's plain
+    version, a fallback) compute with.  A CUDA op rounds a host float
+    otherwise than the reference's f32 arithmetic (it divides by one as a
+    multiply by its reciprocal), and copying one to the card waits for it,
+    so the node makes both once and keeps them
+    (``ops.lowering.LoweringCtx.scale``)."""
+
+    def __new__(cls, v, t: torch.Tensor):
+        self = super().__new__(cls, v)
+        self.t = t
+        return self
+
+    def __reduce__(self):
+        return Scale, (float(self), self.t)
+
+
+def scale_tensor(v, device) -> torch.Tensor:
+    """``v`` as the f32 0-d tensor the rules compute with: a tensor as it
+    is, a :class:`Scale`'s ``t``.  A bare number, which only tests pass
+    (on the CPU), is made into one on ``device``."""
+    if torch.is_tensor(v):
+        return v
+    if isinstance(v, Scale):
+        return v.t
     return torch.tensor(v, dtype=torch.float32, device=device)
-
-
-def weak(v: float, x: torch.Tensor) -> torch.Tensor:
-    """The Python number ``v`` as the reference's arithmetic with ``x``
-    takes it (JAX's weak typing): rounded to x's type first."""
-    return torch.tensor(v, dtype=x.dtype, device=x.device)
 
 
 def to_int8(v: torch.Tensor) -> torch.Tensor:
@@ -72,21 +92,17 @@ def to_int8(v: torch.Tensor) -> torch.Tensor:
 
 def quantize(x: torch.Tensor, scale) -> torch.Tensor:
     """The divide rule: ``to_int8(x / scale)`` in f32, ``scale`` an f32
-    device scalar made from a number (a tensor as it is)."""
-    if not torch.is_tensor(scale):
-        scale = scalar(scale, x.device)
-    return to_int8(x.float() / scale)
+    device tensor (:func:`scale_tensor`)."""
+    return to_int8(x.float() / scale_tensor(scale, x.device))
 
 
 def requantize(y: torch.Tensor, mul) -> torch.Tensor:
     """The multiply rule: ``to_int8(y * mul)``, ``mul`` an f32 device
-    scalar made from a number (a tensor as it is).  With ``mul`` the f32
-    ``1 / scale`` it may round a value differently from :func:`quantize`
-    at ``scale``: each site takes the rule, and the multiplier, that the
-    reference's compiled form has there."""
-    if not torch.is_tensor(mul):
-        mul = scalar(mul, y.device)
-    return to_int8(y * mul)
+    tensor (:func:`scale_tensor`).  With ``mul`` the f32 ``1 / scale`` it
+    may round a value differently from :func:`quantize` at ``scale``: each
+    site takes the rule, and the multiplier, that the reference's compiled
+    form has there."""
+    return to_int8(y * scale_tensor(mul, y.device))
 
 
 def reciprocal(y_scale: float) -> float:
@@ -98,21 +114,19 @@ def reciprocal(y_scale: float) -> float:
 
 def dequantize(x: torch.Tensor, scale) -> torch.Tensor:
     """An edge's value in f32: an int8 ``x`` at ``scale`` is ``x * scale``,
-    the scale an f32 device scalar; a float ``x`` is taken as it is."""
+    the scale an f32 device tensor (:func:`scale_tensor`); a float ``x`` is
+    taken as it is."""
     if x.dtype != torch.int8:
         return x.float()
-    return x.float() * scalar(scale, x.device)
+    return x.float() * scale_tensor(scale, x.device)
 
 
-def dequantize_edge(x: torch.Tensor, q, dtype: torch.dtype) -> torch.Tensor:
-    """An int8 ``x`` that a float path reads, as ``dtype``: dequantized at
-    its node's ``x_scale`` (a stray int8 edge), else at ``input_scale`` (a
-    serving-transferred int8 input into a float stem), else at 1.0 (``q``,
-    the node's quant metadata, None).  A float ``x`` passes as it is."""
-    if x.dtype != torch.int8:
-        return x
-    s = (q.get("x_scale") or q.get("input_scale", 1.0)) if q else 1.0
-    return dequantize(x, s).to(dtype)
+def edge_scale(q) -> float:
+    """The scale at which a float path reads an int8 edge: its node's
+    ``x_scale`` (a stray int8 edge), else ``input_scale`` (a
+    serving-transferred int8 input into a float stem), else 1.0 (``q``,
+    the node's quant metadata, None)."""
+    return (q.get("x_scale") or q.get("input_scale", 1.0)) if q else 1.0
 
 
 def fma_f32(a: torch.Tensor, b, c: torch.Tensor) -> torch.Tensor:

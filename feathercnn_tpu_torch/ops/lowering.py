@@ -36,9 +36,11 @@ import torch.nn.functional as F
 from ..ir import Graph, Node, conv_out_dim
 from ..kernels import dispatch as kdispatch
 from ..kernels.nms import greedy_nms
-from ..numerics import (apply_act_segments, apply_activation, conv_hparams,
-                        dequantize, dequantize_edge, fma, nchw_conv, quantize,
-                        requantize, scalar, sum_terms, weak)
+from ..numerics import (Scale, act_segment_bounds, apply_act_segments,
+                        apply_activation, conv_hparams, dequantize,
+                        edge_scale, fma, nchw_conv, quantize, requantize,
+                        sum_terms)
+from ..utils.profiling import kept_const
 
 __all__ = ["LoweringCtx", "lower_node", "lower_sharded", "takes_ring",
            "gather_channels", "register_lowering"]
@@ -47,10 +49,14 @@ __all__ = ["LoweringCtx", "lower_node", "lower_sharded", "takes_ring",
 class LoweringCtx:
     """Carried through lowering: config, graph, device, per-node quant
     metadata, and the device copies of per-node constants (scales, clamp
-    bounds) made once and reused every forward.  A sharded engine sets
-    ``mesh`` (``parallel.mesh.Mesh``) and ``tp`` (``parallel.tp.
-    shard_graph``'s TP node name -> (c0, c1, the input channels a
-    depthwise conv reads); ``graph`` is then its rank-local copy)."""
+    bounds, numbers in an operand's type, laid-out weights) made once and
+    reused every forward, so that a forward copies no number to the card
+    (``kept``; ``utils.profiling.record()`` counts its misses and hits).
+    A sharded engine sets ``mesh`` (``parallel.mesh.Mesh``) and ``tp``
+    (``parallel.tp.shard_graph``'s TP node name -> (c0, c1, the input
+    channels a depthwise conv reads); ``graph`` is then its rank-local
+    copy).  Each engine, and each pipeline stage, has its own, on the
+    device its operands live on."""
 
     def __init__(self, graph: Graph, config, device: torch.device,
                  mesh=None, tp: Optional[Dict[str, tuple]] = None):
@@ -59,7 +65,7 @@ class LoweringCtx:
         self.device = device
         self.mesh = mesh
         self.tp = tp or {}
-        self._consts: Dict[tuple, torch.Tensor] = {}
+        self._consts: Dict[tuple, Any] = {}
         self._halo_nodes: Dict[str, Node] = {}
 
     @property
@@ -69,21 +75,45 @@ class LoweringCtx:
     def qinfo(self, node: Node) -> Optional[Dict[str, Any]]:
         return self.graph.meta.get("quant", {}).get(node.name)
 
-    def const(self, node: Node, key: str, make: Callable[[], Any]
-              ) -> torch.Tensor:
-        """Device float32 tensor for ``make()`` (an array or a number),
-        built on first use for (node, key)."""
+    def const(self, node: Node, key: str, make: Callable[[], Any],
+              dtype: torch.dtype = torch.float32) -> torch.Tensor:
+        """Device tensor for ``make()`` (an array or a number), built on
+        first use for (node, key): float32, or a number as the reference's
+        arithmetic with an operand of ``dtype`` takes it (JAX's weak
+        typing: rounded to that type first; key it by the type)."""
+        if dtype != torch.float32:
+            return self.kept(node, key, lambda: torch.tensor(
+                make(), dtype=dtype, device=self.device))
         return self.kept(node, key, lambda: torch.as_tensor(
             np.asarray(make(), np.float32), device=self.device))
 
+    def scale(self, node: Node, key: str, v: float) -> Scale:
+        """The number ``v`` of (node, key) as a ``numerics.Scale``: the
+        float a kernel takes and its f32 device tensor, made once."""
+        return self.kept(node, key, lambda: Scale(v, torch.tensor(
+            v, dtype=torch.float32, device=self.device)))
+
+    def dequantize_edge(self, node: Node, x: torch.Tensor,
+                        dtype: torch.dtype) -> torch.Tensor:
+        """An int8 ``x`` that ``node``'s float path reads, as ``dtype``:
+        dequantized at ``numerics.edge_scale`` of the node's quant
+        metadata, kept.  A float ``x`` passes as it is."""
+        if x.dtype != torch.int8:
+            return x
+        s = self.const(node, "edge_scale",
+                       lambda: edge_scale(self.qinfo(node)))
+        return dequantize(x, s).to(dtype)
+
     def kept(self, node: Node, key: str,
-             make: Callable[[], torch.Tensor]) -> torch.Tensor:
-        """The tensor ``make()`` returns, made on first use for (node, key)
-        and kept."""
+             make: Callable[[], Any]) -> Any:
+        """What ``make()`` returns, made on first use for (node, key) and
+        kept."""
         k = (node.name, key)
         t = self._consts.get(k)
-        if t is None:
+        made = t is None
+        if made:
             t = self._consts[k] = make()
+        kept_const(node.name, key, made)
         return t
 
 
@@ -115,7 +145,7 @@ def lower_node(node: Node, inputs, params, ctx: LoweringCtx):
 def _dequant_for_oracle(x, w, q, node, ctx):
     """The "torch" backend is the float oracle: int8 weights and int8 edges
     are dequantized here, as the reference's "xla" backend does."""
-    x = dequantize_edge(x, q, getattr(torch, ctx.config.compute_dtype))
+    x = ctx.dequantize_edge(node, x, getattr(torch, ctx.config.compute_dtype))
     if w.dtype == torch.int8:
         ws = ctx.const(node, "w_scale", lambda: q["w_scale"]) \
             if q is not None else 1.0
@@ -149,7 +179,8 @@ def _lower_conv(node, inputs, params, ctx):
     if bias is not None:
         y = y + bias
     segs = node.attrs.get("act_segments")
-    y = apply_act_segments(y, segs) if segs else apply_activation(y, act)
+    y = apply_act_segments(y, *kdispatch.segment_bounds(node, segs, ctx)) \
+        if segs else apply_activation(y, act)
     return [y.to(x.dtype)]
 
 
@@ -232,9 +263,9 @@ def _lower_deconv(node, inputs, params, ctx):
     ``preferred_element_type``), + bias, activation, x's type.  Weights
     HWIO (KH, KW, Cin/g, Cout), each group's outputs contiguous.  An int8
     x (an int8 edge) is dequantized first, as the dispatcher's
-    does (``numerics.dequantize_edge``)."""
-    x = dequantize_edge(inputs[0], ctx.qinfo(node),
-                        getattr(torch, ctx.config.compute_dtype))
+    does (``LoweringCtx.dequantize_edge``)."""
+    x = ctx.dequantize_edge(node, inputs[0],
+                            getattr(torch, ctx.config.compute_dtype))
     w = params[0].to(x.dtype)
     bias = (params[1] if node.attrs.get("bias_term", True)
             and len(params) > 1 else None)
@@ -421,7 +452,9 @@ def _lower_pool(node, inputs, params, ctx):
 
     def _requant(avg_f32):
         # x_scale applies only when the producer really emitted int8
-        s = (q["x_scale"] if x.dtype == torch.int8 else 1.0) / q["y_scale"]
+        int8 = x.dtype == torch.int8
+        s = ctx.const(node, "requant_mul" + ("/int8" if int8 else ""),
+                      lambda: (q["x_scale"] if int8 else 1.0) / q["y_scale"])
         return requantize(avg_f32, s)
 
     if node.attrs.get("global_pooling", False):
@@ -465,7 +498,8 @@ def _lower_pool(node, inputs, params, ctx):
         # into one f32 multiply, as the reference's requantizing pool
         xp = F.pad(x.to(torch.int32), pad)
         y = _window_reduce(xp, kh, kw, sh, sw, oh, ow, torch.add)
-        s = scalar(q["x_scale"] / q["y_scale"], x.device) / denom
+        s = ctx.kept(node, "ave_mul", lambda: ctx.const(
+            node, "x_over_y", lambda: q["x_scale"] / q["y_scale"]) / denom)
         return [requantize(y.float(), s)]
     xp = F.pad(x.float(), pad)
     y = _window_reduce(xp, kh, kw, sh, sw, oh, ow, torch.add) / denom
@@ -481,7 +515,8 @@ def _lower_relu(node, inputs, params, ctx):
     slope = node.attrs.get("negative_slope", 0.0)
     x = inputs[0]
     if slope:
-        return [torch.where(x > 0, x, x * weak(slope, x))]
+        return [torch.where(x > 0, x, x * ctx.const(
+            node, f"slope/{x.dtype}", lambda: slope, x.dtype))]
     return [torch.clamp_min(x, 0)]
 
 
@@ -507,7 +542,7 @@ def _lower_eltwise(node, inputs, params, ctx):
     if op == "SUM":
         coeffs = node.attrs.get("coeffs")
         if coeffs:
-            y = _coeff_sum(coeffs, inputs)
+            y = _coeff_sum(node, coeffs, inputs, ctx)
         else:
             y = inputs[0]
             for x in inputs[1:]:
@@ -525,30 +560,34 @@ def _lower_eltwise(node, inputs, params, ctx):
     return [apply_activation(y, node.attrs.get("activation"))]
 
 
-def _coeff_sum(coeffs, inputs):
+def _coeff_sum(node, coeffs, inputs, ctx):
     """``sum(c * x)`` as the reference's compiled Eltwise computes it, each
-    coefficient rounded to x's type: in f32 each product fused into the
-    add that consumes it (``sum_terms``); in bf16 every product and every
-    sum rounded to bf16, left to right."""
-    x0 = inputs[0]
-    if x0.dtype == torch.float32:
-        return sum_terms([(x, weak(c, x)) for c, x in zip(coeffs, inputs)])
+    coefficient rounded to x's type (kept per node and type): in f32 each
+    product fused into the add that consumes it (``sum_terms``); in bf16
+    every product and every sum rounded to bf16, left to right."""
+    cs = [ctx.const(node, f"coeff{i}/{x.dtype}", lambda c=c: c, x.dtype)
+          for i, (c, x) in enumerate(zip(coeffs, inputs))]
+    if inputs[0].dtype == torch.float32:
+        return sum_terms(list(zip(inputs, cs)))
     y = None
-    for c, x in zip(coeffs, inputs):
-        t = x * weak(c, x)
+    for c, x in zip(cs, inputs):
+        t = x * c
         y = t if y is None else y + t
     return y
 
 
-def _onto_grid(x: torch.Tensor, s, y: float) -> torch.Tensor:
-    """One operand of a requantizing concat or a ladder, on the output's
+def _onto_grid(node, i: int, x: torch.Tensor, s, y: float, ctx
+               ) -> torch.Tensor:
+    """Operand ``i`` of a requantizing concat or a ladder, on the output's
     grid ``y``: an int8 operand at scale ``s`` rescaled by
-    ``round(x * (s / y))``, a float one quantized by ``round(x / y)``."""
+    ``round(x * (s / y))``, a float one quantized by ``round(x / y)``;
+    the multiplier and the scale kept per node."""
     if x.dtype == torch.int8:
         if s is not None and s != y:
-            x = requantize(x.float(), s / y)
+            x = requantize(x.float(),
+                           ctx.const(node, f"onto_grid{i}", lambda: s / y))
         return x
-    return quantize(x, y)
+    return quantize(x, ctx.const(node, "y_scale", lambda: y))
 
 
 @register_lowering("Concat")
@@ -559,8 +598,8 @@ def _lower_concat(node, inputs, params, ctx):
         # requantizing concat (quant/rewrite.py): each operand arrives int8
         # at its own calibrated scale or float; the output carries one scale
         y = q["y_scale"]
-        return [torch.cat([_onto_grid(x, s, y)
-                           for x, s in zip(inputs, q["in_scales"])],
+        return [torch.cat([_onto_grid(node, i, x, s, y, ctx) for i, (x, s)
+                           in enumerate(zip(inputs, q["in_scales"]))],
                           dim=axis)]
     # float, or the single-scale int8 passthrough
     return [torch.cat(inputs, dim=axis)]
@@ -571,8 +610,8 @@ def _ladder_parts(node, parts, ctx):
     (``ladder_int8``, passes_ladder.py), else as they come."""
     q = ctx.qinfo(node)
     if q is not None and q.get("ladder_int8"):
-        return [_onto_grid(x, s, q["y_scale"])
-                for x, s in zip(parts, q["in_scales"])]
+        return [_onto_grid(node, i, x, s, q["y_scale"], ctx)
+                for i, (x, s) in enumerate(zip(parts, q["in_scales"]))]
     return list(parts)
 
 
@@ -653,7 +692,8 @@ def _lower_lrn(node, inputs, params, ctx):
     q = ctx.qinfo(node)
     rq = q is not None and q.get("requant_int8")
     x = inputs[0]
-    xf = dequantize(x, q["x_scale"]) if rq else x.float()
+    xf = _dequantize(node, "x_scale", x, q["x_scale"], ctx) if rq \
+        else x.float()
     n = node.attrs.get("local_size", 5)
     alpha = node.attrs.get("alpha", 1e-4)
     beta = node.attrs.get("beta", 0.75)
@@ -665,7 +705,8 @@ def _lower_lrn(node, inputs, params, ctx):
     for j in range(1, n):
         ssum = ssum + sq[..., j:j + c]
     del sq
-    b = fma(ssum, scalar(alpha / n, xf.device), scalar(k, xf.device))
+    b = fma(ssum, ctx.const(node, "alpha_n", lambda: alpha / n),
+            ctx.const(node, "k", lambda: k))
     if beta == 0.75:
         r = 1.0 / torch.sqrt(b)
         scl = r * torch.sqrt(r)
@@ -675,8 +716,21 @@ def _lower_lrn(node, inputs, params, ctx):
         scl = torch.pow(b, -beta)
     y = xf * scl
     if rq:
-        return [quantize(y, q["y_scale"])]
+        return [_quantize_out(node, y, q, ctx)]
     return [y.to(x.dtype)]
+
+
+def _dequantize(node, key: str, x: torch.Tensor, s, ctx) -> torch.Tensor:
+    """``numerics.dequantize`` of ``x`` at the node's scale ``s``, kept
+    under ``key`` (a float ``x``, which reads no scale, as f32)."""
+    if x.dtype != torch.int8:
+        return x.float()
+    return dequantize(x, ctx.const(node, key, lambda: s))
+
+
+def _quantize_out(node, y: torch.Tensor, q, ctx) -> torch.Tensor:
+    """``numerics.quantize`` of ``y`` at the node's kept ``y_scale``."""
+    return quantize(y, ctx.const(node, "y_scale", lambda: q["y_scale"]))
 
 
 def _channel_gate(s: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -720,12 +774,12 @@ def _lower_scale(node, inputs, params, ctx):
     act = a.get("activation")
     q = ctx.qinfo(node)
     if q is not None and q.get("requant_int8"):
-        xf = dequantize(x, q["x_scale"])
+        xf = _dequantize(node, "x_scale", x, q["x_scale"], ctx)
         if bias and len(params) > 1:
             y = fma(xf, params[0].float(), params[1].float())
         else:
             y = xf * params[0].float()
-        return [quantize(apply_activation(y, act), q["y_scale"])]
+        return [_quantize_out(node, apply_activation(y, act), q, ctx)]
     if len(inputs) > 1:
         y = x * _channel_gate(inputs[1], x).to(x.dtype)
         if bias and params:
@@ -754,8 +808,9 @@ def _lower_axpy(node, inputs, params, ctx):
     act = node.attrs.get("activation")
     if q is not None and q.get("axpy_int8"):
         sx, sy = q["in_scales"]
-        out = fma(s, dequantize(x, sx), dequantize(y, sy))
-        return [quantize(apply_activation(out, act), q["y_scale"])]
+        out = fma(s, _dequantize(node, "in_scale0", x, sx, ctx),
+                  _dequantize(node, "in_scale1", y, sy, ctx))
+        return [_quantize_out(node, apply_activation(out, act), q, ctx)]
     out = fma(s, x.float(), y.float())
     return [apply_activation(out, act).to(x.dtype)]
 
@@ -832,7 +887,8 @@ def _lower_elu(node, inputs, params, ctx):
     """``jax.nn.elu``: x where x > 0, else ``alpha * expm1(x)`` with alpha
     rounded to x's type, in f64 and rounded once."""
     x = inputs[0]
-    alpha = weak(node.attrs.get("alpha", 1.0), x).double()
+    alpha = ctx.const(node, f"alpha/{x.dtype}",
+                      lambda: node.attrs.get("alpha", 1.0), x.dtype).double()
     neg = torch.where(x > 0, torch.zeros_like(x), x)
     return [torch.where(x > 0, x, _in_f64(
         lambda v: alpha * torch.expm1(v), neg))]
@@ -873,7 +929,9 @@ def _lower_power(node, inputs, params, ctx):
     f64 and rounded once."""
     a = node.attrs
     x = inputs[0]
-    scale, shift = weak(a.get("scale", 1.0), x), weak(a.get("shift", 0.0), x)
+    scale, shift = (ctx.const(node, f"{k}/{x.dtype}",
+                              lambda k=k, v=v: a.get(k, v), x.dtype)
+                    for k, v in (("scale", 1.0), ("shift", 0.0)))
     if x.dtype == torch.float32:
         y = fma(x, scale, shift)
     else:
@@ -942,7 +1000,9 @@ def _lower_threshold(node, inputs, params, ctx):
     """Caffe ThresholdLayer: 1 where x > threshold, else 0, in x's
     type."""
     x = inputs[0]
-    return [(x > weak(node.attrs.get("threshold", 0.0), x)).to(x.dtype)]
+    return [(x > ctx.const(node, f"threshold/{x.dtype}",
+                           lambda: node.attrs.get("threshold", 0.0),
+                           x.dtype)).to(x.dtype)]
 
 
 # ----------------------------------------------------------------------
@@ -1016,7 +1076,7 @@ def _lower_normalize(node, inputs, params, ctx):
     x = inputs[0].float()
     dims = (1, 2, 3) if node.attrs.get("across_spatial") else (-1,)
     norm = torch.sqrt((x * x).sum(dim=dims, keepdim=True)
-                      + scalar(1e-10, x.device))
+                      + ctx.const(node, "eps", lambda: 1e-10))
     y = x / norm
     if params:
         y = y * params[0].float().reshape(-1)
@@ -1105,31 +1165,38 @@ def _take_rows(t: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 _EXP_CLAMP = (-88.3762626647949, 88.7228391)
 _EXP_POLY = (1.9875691500e-4, 1.3981999507e-3, 8.3334519073e-3,
              4.1665795894e-2, 1.6666665459e-1, 5.0000001201e-1)
+# the f32 steps' constants, in order: log2(e), 1/2, ln 2 in two parts
+# (negated), the polynomial's coefficients after its first, 1
+EXP_F32_CONSTS = np.asarray((1.44269504088896341, 0.5, -0.693359375,
+                             2.12194440e-4, *_EXP_POLY[1:], 1.0), np.float32)
 
 
-def exp_f32(x: torch.Tensor) -> torch.Tensor:
+def exp_f32(x: torch.Tensor, c: Optional[torch.Tensor] = None
+            ) -> torch.Tensor:
     """f32 ``exp`` as the reference's compiled detection heads compute it
     (XLA's CPU expansion, the constants above), so a decoded box is the
     reference's to the bit: equal to ``jnp.exp`` up to 88.3763, within 6
     ulp above it, where the result passes 2.4e38
     (``tests/test_torch_detection_ops.py``).  Every step is an IEEE f32
-    operation or an ``fma``: the same value on the CPU and the card."""
-    dev = x.device
+    operation or an ``fma``: the same value on the CPU and the card.
+    ``c``: ``EXP_F32_CONSTS`` on x's device, which a lowering keeps per
+    node (made here where None)."""
+    if c is None:
+        c = torch.as_tensor(EXP_F32_CONSTS, device=x.device)
     x = torch.clamp(x.float(), *_EXP_CLAMP)
-    n = torch.floor(fma(x, scalar(1.44269504088896341, dev),
-                        scalar(0.5, dev)))
-    r = fma(n, scalar(-0.693359375, dev), x)
-    r = fma(n, scalar(2.12194440e-4, dev), r)
+    n = torch.floor(fma(x, c[0], c[1]))
+    r = fma(n, c[2], x)
+    r = fma(n, c[3], r)
     y = torch.full_like(r, float(np.float32(_EXP_POLY[0])))
-    for c in _EXP_POLY[1:]:
-        y = fma(y, r, scalar(c, dev))
-    y = fma(y, r * r, r) + scalar(1.0, dev)
+    for i in range(4, 4 + len(_EXP_POLY) - 1):
+        y = fma(y, r, c[i])
+    y = fma(y, r * r, r) + c[-1]
     k = n.to(torch.int32)
     top = k > 127
     y = y * ((torch.where(top, k - 1, k) + 127) << 23).view(torch.float32)
     y = torch.where(top, y * 2, y)
     return torch.where(y < torch.finfo(torch.float32).tiny,
-                       torch.zeros((), device=dev), y)
+                       torch.zeros((), device=x.device), y)
 
 
 @register_lowering("DetectionOutput")
@@ -1166,7 +1233,9 @@ def _lower_detection_output(node, inputs, params, ctx):
     conf = conf.reshape(n, P, num_classes).float()
     K = min(nms_top_k, P)
     cls = [c for c in range(num_classes) if c != bg]
-    cls_t = torch.as_tensor(cls, device=dev)
+    cls_t = ctx.kept(node, "classes",
+                     lambda: torch.as_tensor(cls, device=ctx.device))
+    exp_c = ctx.const(node, "exp_f32", lambda: EXP_F32_CONSTS)
 
     pw = pbox[:, 2] - pbox[:, 0]
     ph = pbox[:, 3] - pbox[:, 1]
@@ -1176,8 +1245,8 @@ def _lower_detection_output(node, inputs, params, ctx):
     def decode(l):                              # (..., P, 4) -> (..., P, 4)
         cx = fma(pvar[:, 0] * l[..., 0], pw, pcx)
         cy = fma(pvar[:, 1] * l[..., 1], ph, pcy)
-        w = exp_f32(pvar[:, 2] * l[..., 2]) * pw
-        h = exp_f32(pvar[:, 3] * l[..., 3]) * ph
+        w = exp_f32(pvar[:, 2] * l[..., 2], exp_c) * pw
+        h = exp_f32(pvar[:, 3] * l[..., 3], exp_c) * ph
         return torch.stack([cx - w / 2, cy - h / 2, cx + w / 2, cy + h / 2],
                            dim=-1)
 
@@ -1189,7 +1258,8 @@ def _lower_detection_output(node, inputs, params, ctx):
     else:
         boxes = decode(loc[:, :, cls_t].transpose(1, 2))  # (N, C', P, 4)
         bx = _take_rows(boxes, idx)
-    keep = greedy_nms(bx, sc > scalar(conf_thresh, dev), nms_thresh)
+    keep = greedy_nms(bx, sc > ctx.const(node, "conf_thresh",
+                                         lambda: conf_thresh), nms_thresh)
     sc = torch.where(keep, sc, torch.full_like(sc, -1.0)).reshape(n, -1)
     bx = bx.reshape(n, -1, 4)
     lb = cls_t.float().repeat_interleave(K)               # (C' * K,)
@@ -1202,7 +1272,7 @@ def _lower_detection_output(node, inputs, params, ctx):
                     torch.zeros((), device=dev))], dim=-1)
     pad = keep_top_k - out.shape[1]
     if pad:
-        fill = torch.tensor([-1.0, 0, 0, 0, 0, 0], device=dev)
+        fill = ctx.const(node, "pad_row", lambda: [-1.0, 0, 0, 0, 0, 0])
         out = torch.cat([out, fill.expand(n, pad, 6)], dim=1)
     img_id = torch.arange(n, dtype=torch.float32, device=dev)
     return [torch.cat([img_id[:, None, None].expand(n, keep_top_k, 1), out],
@@ -1279,12 +1349,13 @@ def _lower_proposal(node, inputs, params, ctx):
     dl = deltas.float().reshape(n, -1, 4)
     cx = fma(dl[..., 0], aw, acx)
     cy = fma(dl[..., 1], ah, acy)
-    w = exp_f32(dl[..., 2]) * aw
-    h = exp_f32(dl[..., 3]) * ah
-    half = scalar(0.5, dev)
+    exp_c = ctx.const(node, "exp_f32", lambda: EXP_F32_CONSTS)
+    w = exp_f32(dl[..., 2], exp_c) * aw
+    h = exp_f32(dl[..., 3], exp_c) * ah
+    half = ctx.const(node, "half", lambda: 0.5)
     im_h, im_w, im_scale = (im_info[:, i:i + 1] for i in range(3))
     zero = torch.zeros((), device=dev)
-    one = scalar(1.0, dev)
+    one = ctx.const(node, "one", lambda: 1.0)
 
     def clip(v, hi):
         return torch.minimum(torch.maximum(v, zero), hi - one)
@@ -1292,7 +1363,7 @@ def _lower_proposal(node, inputs, params, ctx):
     boxes = torch.stack([clip(cx - half * w, im_w), clip(cy - half * h, im_h),
                          clip(cx + half * w, im_w), clip(cy + half * h, im_h)],
                         dim=-1)                          # (N, P, 4)
-    ms = scalar(min_size, dev) * im_scale
+    ms = ctx.const(node, "min_size", lambda: min_size) * im_scale
     bw = boxes[..., 2] - boxes[..., 0] + one
     bh = boxes[..., 3] - boxes[..., 1] + one
     fg = torch.where((bw >= ms) & (bh >= ms), fg,
@@ -1339,13 +1410,13 @@ def _lower_roipool(node, inputs, params, ctx):
     x, rois = inputs
     ph = int(node.attrs["pooled_h"])
     pw = int(node.attrs["pooled_w"])
-    scale = scalar(float(node.attrs.get("spatial_scale", 1.0 / 16)),
-                   x.device)
+    scale = ctx.const(node, "spatial_scale", lambda: float(
+        node.attrs.get("spatial_scale", 1.0 / 16)))
     N, H, W, C = x.shape
     r, bidx, pad_roi = _roi_batch(rois, N)
-    half = scalar(0.5, x.device)
+    half = ctx.const(node, "half", lambda: 0.5)
     x1, y1, x2, y2 = (torch.floor(r[:, i] * scale + half) for i in range(1, 5))
-    one = scalar(1.0, x.device)
+    one = ctx.const(node, "one", lambda: 1.0)
     rw = torch.maximum(x2 - x1 + one, one)
     rh = torch.maximum(y2 - y1 + one, one)
 
@@ -1360,7 +1431,7 @@ def _lower_roipool(node, inputs, params, ctx):
 
     lo_h, hi_h = bounds(y1, rh, ph, H)                    # (R, ph)
     lo_w, hi_w = bounds(x1, rw, pw, W)                    # (R, pw)
-    fill = torch.tensor(-float("inf"), dtype=x.dtype, device=x.device)
+    fill = ctx.const(node, f"fill/{x.dtype}", lambda: -float("inf"), x.dtype)
     # the rows of each bin: (R, ph, W, C)
     span_h = int((hi_h - lo_h).max())
     rows = fill.expand(lo_h.shape + (W, C)).clone()
@@ -1407,11 +1478,12 @@ def _lower_psroipool(node, inputs, params, ctx):
     N, H, W, _ = x.shape
     dev = x.device
     r, bidx, pad_roi = _roi_batch(rois, N)
-    half = scalar(0.5, dev)
+    half, one_half = (ctx.const(node, k, lambda v=v: v)
+                      for k, v in (("half", 0.5), ("one_half", 1.5)))
     sx = torch.floor(r[:, 1] + half).to(torch.int64)
     sy = torch.floor(r[:, 2] + half).to(torch.int64)
-    ex = torch.floor(r[:, 3] + scalar(1.5, dev)).to(torch.int64)
-    ey = torch.floor(r[:, 4] + scalar(1.5, dev)).to(torch.int64)
+    ex = torch.floor(r[:, 3] + one_half).to(torch.int64)
+    ey = torch.floor(r[:, 4] + one_half).to(torch.int64)
     lx = torch.clamp_min(10 * (ex - sx), q)
     ly = torch.clamp_min(10 * (ey - sy), q)
     u = 10 * k * q
@@ -1446,8 +1518,8 @@ def _lower_psroipool(node, inputs, params, ctx):
         R, k, k, cdim).transpose(1, 2)                    # (R, i, j, C)
     if fused:
         s_ = ssum.sum(dim=(1, 2)).float()
-        return [(s_ / scalar(float(k * k), dev))[:, None, None, :].to(
-            x.dtype)]
+        return [(s_ / ctx.const(node, "bins", lambda: float(k * k)))[
+            :, None, None, :].to(x.dtype)]
     s_ = ssum.float()
     count = mh.sum(-1)[:, :, None] * mw.sum(-1)[:, None, :]
     out = torch.where(count[..., None] > 0,

@@ -6,7 +6,9 @@
   each graph node one ``node`` span, nested in it, around the node's
   lowering (each graph input one too, around its cast to the compute
   dtype); every synchronizing CUDA call made inside a ``run`` span is a
-  ``Sync``, with the innermost open node.  The node span is also the
+  ``Sync``, with the innermost open node, and every lookup of a node's
+  kept constant (``ops.lowering.LoweringCtx.kept``) a ``Kept``, made or
+  reused.  The node span is also the
   engine's only node scope: while a ``torch.profiler`` is on, it opens a
   ``record_function`` range named after the node, recording or not, so a
   profile gives device time per graph node.
@@ -38,8 +40,9 @@ import torch
 
 log = logging.getLogger("feathercnn_tpu_torch")
 
-__all__ = ["record", "Recording", "Span", "Sync", "Route", "grouped_route",
-           "trace", "layer_timings", "log"]
+__all__ = ["record", "Recording", "Span", "Sync", "Route", "Kept",
+           "grouped_route", "kept_const", "consts_by_batch", "trace",
+           "layer_timings", "log"]
 
 # The start of the message of PyTorch's warning under
 # ``torch.cuda.set_sync_debug_mode("warn")``.
@@ -93,6 +96,17 @@ class Route(NamedTuple):
     q: int
 
 
+class Kept(NamedTuple):
+    """One lookup of a node's kept constant (``LoweringCtx.kept``): the
+    run's batch (None outside a ``run`` span), the node's name, the key
+    and whether the lookup made it (a miss) or reused it (a hit).  A
+    forward after the first of its shape makes none."""
+    batch: Optional[int]
+    node: str
+    key: str
+    made: bool
+
+
 @dataclass
 class Recording:
     """What ``record()`` hands over.  ``anchor_ns`` holds (before, after),
@@ -106,6 +120,7 @@ class Recording:
     spans: List[Span] = field(default_factory=list)
     syncs: List[Sync] = field(default_factory=list)
     routes: List[Route] = field(default_factory=list)
+    consts: List[Kept] = field(default_factory=list)
     anchor_ns: List[Tuple[int, int]] = field(default_factory=list)
 
 
@@ -154,10 +169,17 @@ class _Recorder:
             t, runs[-1][1], node and node[3], node and node[4],
             f"{path}:{lineno}"))
 
-    def route(self, node: str, route: str, q: int) -> None:
+    def run_batch(self) -> Optional[int]:
         runs = [s for s in self.open if s[2] == "run"]
+        return runs[-1][1] if runs else None
+
+    def route(self, node: str, route: str, q: int) -> None:
         self.recording.routes.append(
-            Route(runs[-1][1] if runs else None, node, route, q))
+            Route(self.run_batch(), node, route, q))
+
+    def const(self, node: str, key: str, made: bool) -> None:
+        self.recording.consts.append(
+            Kept(self.run_batch(), node, key, made))
 
 
 # The open recording; read once per ``Engine.run`` call.
@@ -171,14 +193,33 @@ def grouped_route(node: str, route: str, q: int = 0) -> None:
         _recorder.route(node, route, q)
 
 
+def kept_const(node: str, key: str, made: bool) -> None:
+    """A ``Kept`` lookup of (node, key) into the open recording; where no
+    ``record()`` is open, one ``None`` check and nothing else."""
+    if _recorder is not None:
+        _recorder.const(node, key, made)
+
+
+def consts_by_batch(recording: Recording) -> Dict[Optional[int],
+                                                  Tuple[int, int]]:
+    """{batch: (constants made, constants reused)} of a recording's
+    ``Kept`` lookups, by ``run`` span (None: outside one)."""
+    out: Dict[Optional[int], Tuple[int, int]] = {}
+    for k in recording.consts:
+        made, reused = out.get(k.batch, (0, 0))
+        out[k.batch] = (made + k.made, reused + (not k.made))
+    return out
+
+
 @contextlib.contextmanager
 def record():
-    """Record the port's spans, syncs and grouped conv routes in the
-    block; yields the ``Recording``, whose lists are whole when the block
-    ends.  One thread, one recording at a time.  On a CUDA host the block
-    runs under ``torch.cuda.set_sync_debug_mode("warn")`` (the mode before
-    it is set again after it) and PyTorch's sync warnings become ``Sync``
-    entries instead of being shown; under an active ``torch.profiler`` it
+    """Record the port's spans, syncs, grouped conv routes and kept
+    constants' lookups in the block; yields the ``Recording``, whose lists
+    are whole when the block ends.  One thread, one recording at a time.
+    On a CUDA host the block runs under
+    ``torch.cuda.set_sync_debug_mode("warn")`` (the mode before it is set
+    again after it) and PyTorch's sync warnings become ``Sync`` entries
+    instead of being shown; under an active ``torch.profiler`` it
     first takes the clock anchor (``Recording.anchor_ns``), so enter it on
     an idle card inside the profiler's block."""
     global _recorder

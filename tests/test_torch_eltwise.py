@@ -35,6 +35,7 @@ from feathercnn_tpu_torch.kernels.eltwise import (eltwise_int8,
                                                   eltwise_int8_sum,
                                                   kernel_operands,
                                                   takes_kernel)
+from feathercnn_tpu_torch.numerics import reciprocal
 from feathercnn_tpu_torch.ops.lowering import LoweringCtx, lower_node
 from feathercnn_tpu_torch.weights import graph_from_reference
 
@@ -74,7 +75,7 @@ def test_plain_equals_the_reference_int8_eltwise():
             for act in ACTS:
                 want = _reference(a, b, s0, s1, y, act)
                 for fn in (eltwise_int8_plain, eltwise_int8):
-                    got = fn(ta, tb, s0, s1, y, act)
+                    got = fn(ta, tb, s0, s1, reciprocal(y), act)
                     assert got.dtype == torch.int8
                     diff = int((got.numpy() != want).sum())
                     assert diff == 0, (fn.__name__, shape, (s0, s1, y), act,
@@ -150,7 +151,7 @@ def test_route_kernel_or_fallback(monkeypatch):
         q = {"eltwise_int8": True, "in_scales": scales, "y_scale": 0.03}
         node = Node("e", "Eltwise", ["x%d" % i for i in range(len(xs))],
                     ["e"], {"operation": "SUM", "activation": "relu"})
-        want = eltwise_int8_sum(xs, scales, 0.03, "relu")
+        want = eltwise_int8_sum(xs, scales, reciprocal(0.03), "relu")
         for backend in ("cuda", "torch"):
             n_calls, n_fall = len(calls), eltwise_int8.fallbacks
             (got,) = lower_node(node, list(xs), [], _ctx(backend, q))
@@ -241,7 +242,9 @@ def test_residual_block_int8_edges_unchanged(monkeypatch):
     for name, ref in want.items():
         diff = int((got[name].numpy().astype(np.int32) != ref).sum())
         assert diff == 0, f"{name}: {diff} of {ref.size} int8 values differ"
-    for n, (x0, x1, s0, s1, y, act) in zip(adds, calls):
+    for n, (x0, x1, s0, s1, inv, act) in zip(adds, calls):
         assert torch.equal(got[n.name], eltwise_int8_sum(
-            (x0, x1), q[n.name]["in_scales"], q[n.name]["y_scale"], act))
-        assert (s0, s1, y) == (*q[n.name]["in_scales"], q[n.name]["y_scale"])
+            (x0, x1), q[n.name]["in_scales"],
+            reciprocal(q[n.name]["y_scale"]), act))
+        assert (s0, s1, inv) == (*q[n.name]["in_scales"],
+                                 reciprocal(q[n.name]["y_scale"]))

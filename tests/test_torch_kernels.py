@@ -225,7 +225,8 @@ def test_lohi_clamp_matches_act_segments():
     y = (rng.normal(size=(5, 7, 48)) * 8).astype(np.float32)
     segs = [("relu", 16), (None, 8), ("relu6", 24)]
     want = np.asarray(japply_segs(jnp.asarray(y), segs))
-    got = apply_act_segments(_t(y), segs).numpy()
+    lo, hi = (torch.from_numpy(b) for b in act_segment_bounds(segs))
+    got = apply_act_segments(_t(y), lo, hi).numpy()
     np.testing.assert_array_equal(got, want)
     for shape in [(96, 64, 320), (61, 136, 40)]:
         for out_dtype in ["int8", "bfloat16"]:

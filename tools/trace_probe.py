@@ -11,7 +11,9 @@ inside the profiler's block around the profiled batches ("on") or not
 
 For each run it prints the benchmark's per-layer readings; for each "on"
 run also what the recording gives on the profile's clock
-(``gpubench/spans.py``): syncs per batch, host ms in sync calls per batch,
+(``gpubench/spans.py``): syncs per batch, the node constants made and
+reused per batch and the share reused (the recorder's ``Kept`` records;
+None on a tree without them), host ms in sync calls per batch,
 device us per image by node op (``Eltwise`` among them), the grouped
 convs by the route each took (the recorder's ``Route`` records: convs,
 q, device us per image of their nodes' kernels and those kernels'
@@ -171,6 +173,24 @@ def grouped_by_route(routes, joined, images):
     return out
 
 
+def consts_reading(rec, batches):
+    """The kept node constants (``LoweringCtx.kept``) looked up inside the
+    recorded ``run`` spans: made and reused per batch, the share reused,
+    and the first (node, key) pairs made; None where the recording has no
+    ``consts`` (a tree before the record)."""
+    from feathercnn_tpu_torch.utils import profiling
+    if getattr(rec, "consts", None) is None:
+        return None
+    counts = [v for b, v in profiling.consts_by_batch(rec).items()
+              if b is not None]
+    made, reused = (sum(c[i] for c in counts) for i in (0, 1))
+    return {"made_per_batch": made / batches,
+            "reused_per_batch": reused / batches,
+            "hit_share": reused / (made + reused) if counts else None,
+            "made": [f"{k.node}: {k.key}" for k in rec.consts
+                     if k.made and k.batch is not None][:20]}
+
+
 def recording_readings(profile, kept):
     """What the recording gives on the profile's clock, and the checks."""
     import spans
@@ -210,6 +230,7 @@ def recording_readings(profile, kept):
     readings = {
         "batches": batches,
         "syncs_per_batch": spans.syncs_per_batch(al),
+        "consts": consts_reading(rec, batches),
         "host_sync_ms": spans.host_sync_ms(profile, al),
         "eltwise_us_per_image": spans.op_us_per_image(
             joined, profile.images, "Eltwise"),
