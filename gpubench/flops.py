@@ -1,7 +1,8 @@
 """The frozen count of work: operations and bytes of every conv and FC of
 a configuration, from the benchmark's own layer list (``reference/``),
 never from the program's optimized graph, so that a fusion or a new
-kernel leaves the count as it was.
+kernel leaves the count as it was.  ``shapes`` knows every layer kind of
+``reference/_qnet.py``; pairs, pools, adds and concats are not counted.
 
 Operations are 2 x the multiply-adds.  Bytes: each input and weight
 element read once and each output element written once at the precision
@@ -22,6 +23,14 @@ PEAK_INT8_OPS = 1979e12
 PEAK_HBM_BYTES = 3.35e12
 
 
+def _pooled(n: int, L: dict) -> int:
+    """Caffe's pooled size: ceil mode, the last window starting inside the
+    (left-padded) input."""
+    k, s, p = L["k"], L["stride"], L["pad"]
+    o = math.ceil((n + 2 * p - k) / s) + 1
+    return o - 1 if (o - 1) * s >= n + p else o
+
+
 def shapes(layers: List[dict], cfg: dict) -> Dict[str, tuple]:
     """(H, W, C) of every value of one image."""
     h, w = cfg["input_hw"]
@@ -33,18 +42,18 @@ def shapes(layers: List[dict], cfg: dict) -> Dict[str, tuple]:
             k, s, p = L["k"], L["stride"], L["pad"]
             out[L["name"]] = ((h + 2 * p - k) // s + 1,
                               (w + 2 * p - k) // s + 1, L["cout"])
-        elif op == "maxpool":
+        elif op == "maxpool" or (op == "avgpool" and "k" in L):
             h, w, c = out[L["src"]]
-            k, s, p = L["k"], L["stride"], L["pad"]
-
-            def pooled(n):
-                o = math.ceil((n + 2 * p - k) / s) + 1
-                return o - 1 if (o - 1) * s >= n + p else o
-            out[L["name"]] = (pooled(h), pooled(w), c)
+            out[L["name"]] = (_pooled(h, L), _pooled(w, L), c)
         elif op == "avgpool":
             out[L["name"]] = (1, 1, out[L["src"]][2])
         elif op == "add":
             out[L["name"]] = out[L["srcs"][0]]
+        elif op == "concat":
+            h, w, _ = out[L["srcs"][0]]
+            out[L["name"]] = (h, w, sum(out[v][2] for v in L["srcs"]))
+        elif op == "bn":
+            out[L["name"]] = out[L["src"]]
         elif op == "fc":
             out[L["name"]] = (1, 1, L["cout"])
     return out

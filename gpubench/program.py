@@ -49,6 +49,11 @@ def output_name(engine) -> str:
 
 def values(engine, x, names):
     """The engine's values ``names`` (NHWC; int8 where it holds a value as
-    a grid) of one forward of ``x``, and its grid scales by value name."""
+    a grid) of one forward of ``x``, and the scale of each grid it holds,
+    by value name: its producer's output scale (``y_scale``), which is the
+    value's calibrated scale unless a reader takes it at its own (a max
+    pool, a concat that passes its operands through)."""
     out = engine.run(x, extract=list(names))
-    return out, dict(engine.graph.meta.get("value_scales") or {})
+    q = engine.graph.meta.get("quant") or {}
+    return out, {o: float(q[n.name]["y_scale"]) for n in engine.graph.nodes
+                 if "y_scale" in (q.get(n.name) or {}) for o in n.outputs}

@@ -3,15 +3,19 @@ the CPU (its look for a card skipped) at small sizes, with the engine
 under it broken where it produces its answers; ``correct`` has to come
 out false, and true for the program as it is."""
 
+import json
+
 import pytest
 import torch
 
 import run
+from conftest import ROOT, SERVE
 from faults import answer_altered, broken_program, half_left_out
 
-
-CELLS = ["resnet50_w8a8.offline", "mobilenet_v1_w8a8.offline",
-         "resnet50_w8a8.serve_poisson", "resnet50_w8a8.serve_burst"]
+# the benchmark's cells, and the serving mixes ``with_serve`` adds
+SERVING = [f"resnet50_w8a8.{mix}" for mix in SERVE]
+CELLS = [w["name"] for w in json.loads(
+    (ROOT / "BENCHMARK.json").read_text())["workloads"]] + SERVING
 
 
 def test_cells_are_the_benchmarks(bench):
@@ -37,7 +41,7 @@ def test_program_is_correct(small, with_serve, workload):
     assert r["failed"] == 0 and r["attempted"] > 0
 
 
-@pytest.mark.parametrize("workload", CELLS[2:])
+@pytest.mark.parametrize("workload", SERVING)
 def test_serving_readers(small, with_serve, workload):
     # a window long enough for a CPU batch to finish in it on a busy host
     r = run.run_cell(with_serve, workload, 5, 3.0, True, "cpu",
